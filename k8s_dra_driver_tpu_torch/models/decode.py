@@ -1,0 +1,576 @@
+"""Autoregressive decoding with a KV cache: contiguous and paged.
+
+The port of ``k8s_dra_driver_tpu/models/decode.py`` (dense models,
+model-dtype cache).  Serving runs prefill + one-token decode steps
+against a per-layer K/V cache:
+
+- **Contiguous cache**: per layer ``[B, max_seq, H_kv, D]``; writes
+  land at each row's position and attention masks ``key_pos <=
+  query_pos`` (``_cached_attention``), exactly the reference's math:
+  f32 scores, -1e30 masking, f32 softmax, GQA kept grouped (query
+  head h = kvh * G + g, the kernels' convention).
+- **Paged cache**: per layer ``[n_blocks, block_size, H_kv, D]``
+  pools read through per-row block tables.  On the card the decode
+  read goes through the paged kernel (K2, ops/paged_attention.py);
+  otherwise the blocks are gathered into the contiguous cache's exact
+  shape and fed to the SAME ``_cached_attention``, which keeps the
+  paged engine bitwise equal to the contiguous one on the CPU.
+- **Fresh prefill** (``first_chunk``) attends the chunk's own K/V
+  through the flash kernel (K1, ops/flash_attention.py) on the card.
+
+Where the JAX package donated a buffer and got a new one back, the
+port writes in place: the cache and pool tensors passed in are
+updated and returned.  Callers that must keep a tensor intact (prefix
+entries) clone it first; each such place says so.
+
+Sampling: ``jax.random`` streams cannot be reproduced, so sampled
+draws use ``torch.Generator``s (one per request in the engine): the
+same seed gives the same tokens whatever the batch or schedule.
+``_filter_logits`` is deterministic and matches the reference exactly.
+
+Parity contract (tests/test_torch_decode.py): prefill + stepwise
+decode logits equal the training forward at every position, and equal
+the JAX package's within the stated f32 tolerance.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import paged_attention
+from ..utils import dispatch
+from .quant import ein, take_rows
+from .transformer import (Params, TransformerConfig, _dense_mlp,
+                          require_dense, rms_norm, rotary)
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer K/V tensors [B, S, H_kv, D] + the tokens cached so far
+    (``pos``; meaningless for a multi-slot engine cache, where each
+    row keeps its own position host-side, and for a block pool)."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    pos: int = 0
+
+
+def _device(params: Params) -> torch.device:
+    return params["embed"].device
+
+
+def _require_model_kv(cfg: TransformerConfig) -> None:
+    require_dense(cfg)
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "the int8 KV cache comes with the weight-only int8 slice of "
+            "the port")
+
+
+def init_cache(cfg: TransformerConfig, batch: int,
+               max_seq: int | None = None, device="cuda") -> KVCache:
+    """Zero cache of ``batch`` rows by ``max_seq`` positions."""
+    _require_model_kv(cfg)
+    max_seq = max_seq or cfg.max_seq
+    shape = (batch, max_seq, cfg.kv_heads, cfg.d_head)
+    return KVCache(
+        k=[torch.zeros(shape, dtype=cfg.dtype, device=device)
+           for _ in range(cfg.n_layers)],
+        v=[torch.zeros(shape, dtype=cfg.dtype, device=device)
+           for _ in range(cfg.n_layers)],
+        pos=0)
+
+
+def _cached_attention(q, k_cache, v_cache, pos, t, cfg):
+    """q [B,T,H,D] at absolute positions pos..pos+T-1 (``pos`` an int,
+    or a [B] tensor of per-row positions) against the full cache
+    [B,S,H_kv,D]; causal trim via position mask.  GQA stays grouped:
+    q is reshaped to [B,T,H_kv,G,D] and the un-repeated cache is read
+    once."""
+    b, _, h, dh = q.shape
+    h_kv = k_cache.shape[2]
+    group = h // h_kv
+    scale = cfg.d_head ** -0.5
+    dev = q.device
+    key_pos = torch.arange(k_cache.shape[1], device=dev)
+    steps = torch.arange(t, device=dev)
+    if isinstance(pos, int):
+        q_pos = (pos + steps)[None]                     # [1, T] shared
+    else:
+        q_pos = pos[:, None] + steps[None]              # [B, T]
+    mask = key_pos[None, None, :] <= q_pos[:, :, None]  # [1|B, T, S]
+    if cfg.attention_window:
+        mask &= (q_pos[:, :, None] - key_pos[None, None, :]) < \
+            cfg.attention_window
+    if group == 1:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              k_cache.float()) * scale
+        scores = scores.masked_fill(~mask[:, None], _NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p,
+                            v_cache.float()).to(q.dtype)
+    qg = q.reshape(b, t, h_kv, group, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k_cache.float()) * scale
+    scores = scores.masked_fill(~mask[:, None, None], _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    return out.reshape(b, t, h, dh).to(q.dtype)
+
+
+def _project_and_write(layer, x, positions, cfg, k_cache, v_cache,
+                       write):
+    """Shared per-layer front half of cached decoding: q/k/v
+    projections + RoPE at ``positions`` ([T] shared or [B,T] per-row)
+    and the cache writes through ``write(dst, new)`` — the only part
+    that differs between the aligned, per-row and paged paths."""
+    h = rms_norm(x, layer["ln1"])
+    q = rotary(ein("btd,dhk->bthk", h, layer["wq"]), positions,
+               cfg.rope_theta)
+    k = rotary(ein("btd,dhk->bthk", h, layer["wk"]), positions,
+               cfg.rope_theta)
+    v = ein("btd,dhk->bthk", h, layer["wv"])
+    write(k_cache, k)
+    write(v_cache, v)
+    return q, k, v
+
+
+def _attn_mlp_tail(x, o, layer, cfg):
+    """Shared per-layer back half: attention output projection +
+    residual + dense MLP."""
+    x = x + ein("bthk,hkd->btd", o, layer["wo"])
+    return x + _dense_mlp(rms_norm(x, layer["ln2"]), layer)
+
+
+def forward_with_cache(params: Params, tokens: torch.Tensor,
+                       cfg: TransformerConfig, cache: KVCache,
+                       first_chunk: bool = False
+                       ) -> tuple[torch.Tensor, KVCache]:
+    """tokens [B, T] appended at ``cache.pos`` -> (logits [B,T,vocab],
+    cache).  The cache tensors are written in place; the returned
+    KVCache shares them, with ``pos`` advanced by T.
+
+    ``first_chunk``: the caller guarantees ``cache.pos == 0``, so
+    attention runs causally against just the chunk's own K/V — through
+    the flash kernel on the card.  Wrong results if asserted on a
+    non-empty cache (earlier keys would be ignored)."""
+    b, t = tokens.shape
+    size = cache.k[0].shape[1]
+    pos = int(cache.pos)
+    if pos + t > size:
+        raise ValueError(
+            f"{t} tokens at position {pos} cannot fit a {size}-slot "
+            f"cache")
+    positions = pos + torch.arange(t, device=tokens.device)
+    x = take_rows(params["embed"], tokens, cfg.dtype)
+
+    def write(dst, new):
+        dst[:, pos:pos + t] = new
+
+    for layer, k_cache, v_cache in zip(params["layers"], cache.k,
+                                       cache.v):
+        q, k, v = _project_and_write(layer, x, positions, cfg, k_cache,
+                                     v_cache, write)
+        if first_chunk and t > 1:
+            o = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True,
+                                window=cfg.attention_window or None)
+        else:
+            o = _cached_attention(q, k_cache, v_cache, pos, t, cfg)
+        x = _attn_mlp_tail(x, o, layer, cfg)
+    x = rms_norm(x, params["ln_f"])
+    logits = ein("btd,dv->btv", x, params["unembed"])
+    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + t)
+
+
+#: the prompt-fill launch site (the JAX package's ``_prefill_jit``)
+_prefill = dispatch.counted("prefill")(forward_with_cache)
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """Append the prompt chunk to the cache: the flash path on a fresh
+    cache, the masked full-cache path on a non-empty one (chunked or
+    multi-turn prefill), correct at any position."""
+    return _prefill(params, tokens, cfg, cache, cache.pos == 0)
+
+
+def _rows_forward(params: Params, tokens: torch.Tensor,
+                  cfg: TransformerConfig, cache: KVCache,
+                  pos_rows: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+    """tokens [B, T] appended at PER-ROW positions ``pos_rows`` [B] ->
+    (logits [B, T, vocab], cache).  ``cache.pos`` is ignored: writes
+    land at each row's own offset and attention masks per row."""
+    b, t = tokens.shape
+    dev = tokens.device
+    pos_rows = pos_rows.to(device=dev, dtype=torch.long)
+    positions = pos_rows[:, None] + torch.arange(t, device=dev)[None]
+    rows = torch.arange(b, device=dev)[:, None].expand(b, t)
+    x = take_rows(params["embed"], tokens, cfg.dtype)
+
+    def write_rows(dst, new):
+        dst[rows, positions] = new
+
+    for layer, k_cache, v_cache in zip(params["layers"], cache.k,
+                                       cache.v):
+        q, _, _ = _project_and_write(layer, x, positions, cfg, k_cache,
+                                     v_cache, write_rows)
+        o = _cached_attention(q, k_cache, v_cache, pos_rows, t, cfg)
+        x = _attn_mlp_tail(x, o, layer, cfg)
+    x = rms_norm(x, params["ln_f"])
+    logits = ein("btd,dv->btv", x, params["unembed"])
+    return logits, cache
+
+
+@dispatch.counted("decode_step_rows")
+def decode_step_rows(params: Params, token: torch.Tensor,
+                     cfg: TransformerConfig, cache: KVCache,
+                     pos_rows: torch.Tensor
+                     ) -> tuple[torch.Tensor, KVCache]:
+    """One decode step with PER-ROW positions: token [B, 1], pos_rows
+    [B] (each slot's fill depth) -> (logits [B, vocab], cache).  The
+    continuous-batching primitive (models/serving.py)."""
+    b, t = token.shape
+    if t != 1:
+        raise ValueError(f"decode_step_rows is one token per slot, "
+                         f"got T={t}")
+    logits, cache = _rows_forward(params, token, cfg, cache, pos_rows)
+    return logits[:, 0], cache
+
+
+def _filter_logits(logits, temperature, top_k: int = 0,
+                   top_p: float = 0.0):
+    """The temperature/top-k/top-p transform on raw logits (f32);
+    softmax of the result is the distribution sampling draws from.
+    ``temperature`` is a scalar or per-row over the leading dims."""
+    temp = torch.as_tensor(temperature, dtype=torch.float32,
+                           device=logits.device).clamp_min(1e-6)
+    if temp.ndim:
+        temp = temp[..., None]          # per-row over the vocab dim
+    scaled = logits.float() / temp
+    if top_k:
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled >= kth, scaled, _NEG_INF)
+    if top_p and top_p < 1.0:
+        # nucleus: drop tokens outside the smallest prefix of the
+        # sorted distribution with cumulative mass >= p (the top
+        # token always survives: its cumsum term includes itself)
+        srt = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = cum - probs < top_p
+        cutoff = torch.where(keep, srt, -torch.inf).amax(dim=-1,
+                                                         keepdim=True)
+        scaled = torch.where(scaled >= cutoff, scaled, _NEG_INF)
+    return scaled
+
+
+def sample_token(logits, generator, temperature, top_k: int = 0,
+                 top_p: float = 0.0):
+    """Temperature/top-k/top-p transform + categorical draw from
+    ``generator``: ``[..., V]`` logits -> ``[...]`` token ids."""
+    probs = torch.softmax(
+        _filter_logits(logits, temperature, top_k, top_p), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    draw = torch.multinomial(flat, 1, generator=generator)[:, 0]
+    return draw.reshape(probs.shape[:-1])
+
+
+def select_next_tokens(logits, generators, temps, top_k: int = 0,
+                       top_p: float = 0.0):
+    """Per-row greedy/sampled next-token merge: ``[B, V]`` logits,
+    per-row ``generators`` (None for greedy rows) and ``temps`` (0 =
+    greedy) -> next tokens [B] (long, on the logits' device).  Greedy
+    rows take the raw argmax; each sampled row draws from its own
+    generator, so a row's tokens never depend on its batch mates.  The
+    one definition behind the engine's step and its batched fills."""
+    nxt = logits.argmax(dim=-1)
+    for i, temp in enumerate(temps):
+        if temp > 0:
+            nxt[i] = sample_token(logits[i], generators[i], float(temp),
+                                  top_k, top_p)
+    return nxt
+
+
+def scatter_cache(cache: KVCache, one: KVCache, put) -> KVCache:
+    """Apply ``put(dst, src)`` (an in-place write) to every per-layer
+    k and v tensor pair — the single definition of the cache layout
+    for the adopt-style scatters (serving's slot adoption,
+    ``prefill_adopt_rows``, ``suffix_fill_adopt``)."""
+    for dst, src in zip(cache.k + cache.v, one.k + one.v):
+        put(dst, src)
+    return cache
+
+
+def adopt_one_slot(cache: KVCache, one: KVCache, slot: int) -> KVCache:
+    """Copy a [1, S'] cache (S' <= S) into the first S' rows of row
+    ``slot``, in place."""
+    return scatter_cache(
+        cache, one, lambda d, s: d[slot, :s.shape[1]].copy_(s[0]))
+
+
+@dispatch.counted("prefill_adopt_rows")
+def prefill_adopt_rows(params: Params, prompts: torch.Tensor,
+                       cfg: TransformerConfig, cache: KVCache,
+                       slot_ids, generators, temps, top_k: int = 0,
+                       top_p: float = 0.0
+                       ) -> tuple[torch.Tensor, KVCache]:
+    """Fresh fill of ``n`` same-length requests in one call: flash
+    prefill ``prompts`` [n, L] on a transient [n, L] cache, copy the
+    K/V rows into the engine cache at ``slot_ids`` (distinct slots),
+    and draw each request's first token (argmax for temp 0, else from
+    its generator).  Returns (first tokens [n], cache).
+
+    Only the prompt's L rows are written into each slot; rows past L
+    keep whatever an earlier occupant left there, which no query ever
+    reads (position mask) and the decode steps overwrite.  Groups are
+    not padded to a fixed size as in the JAX package (eager PyTorch
+    compiles nothing per shape), so the scatter has no duplicate
+    indices."""
+    n, length = prompts.shape
+    one = init_cache(cfg, n, length, device=prompts.device)
+    logits, one = forward_with_cache(params, prompts, cfg, one,
+                                     first_chunk=True)
+    idx = torch.as_tensor(slot_ids, dtype=torch.long,
+                          device=prompts.device)
+
+    def put(dst, src):
+        dst[idx, :length] = src
+
+    cache = scatter_cache(cache, one, put)
+    first = select_next_tokens(logits[:, -1], generators, temps, top_k,
+                               top_p)
+    return first, cache
+
+
+@dispatch.counted("suffix_fill_adopt")
+def suffix_fill_adopt(params: Params, entry: KVCache,
+                      suffix: torch.Tensor, cfg: TransformerConfig,
+                      cache: KVCache, slot: int, generator, temp: float,
+                      top_k: int = 0, top_p: float = 0.0
+                      ) -> tuple[torch.Tensor, KVCache, KVCache]:
+    """Prefix-HIT fill: append ``suffix`` [Ls] to a prefix-cache
+    ``entry`` ([1, S], ``pos`` = reused rows), copy the result into
+    row ``slot`` of the engine cache, and draw the first token.  The
+    entry is cloned first — later hits reuse it, and the suffix writes
+    would otherwise land in it.  Returns (first token [], cache,
+    suffix-filled [1, S] cache for memoization)."""
+    one = KVCache(k=[a.clone() for a in entry.k],
+                  v=[a.clone() for a in entry.v], pos=entry.pos)
+    logits, one = forward_with_cache(params, suffix[None, :], cfg, one)
+    cache = adopt_one_slot(cache, one, slot)
+    first = select_next_tokens(logits[:, -1], [generator], [temp],
+                               top_k, top_p)
+    return first[0], cache, one
+
+
+# -- paged KV cache (serving_kv/) ------------------------------------
+#
+# The block-pool twin of the contiguous cache: K/V lives in
+# [n_blocks, block_size, H_kv, D] pools and each request reads its
+# scattered blocks through a per-request block table; ownership and
+# refcounts live host-side in serving_kv/manager.py.
+
+
+def init_paged_pool(cfg: TransformerConfig, n_blocks: int,
+                    block_size: int, device="cuda") -> KVCache:
+    """Zero block pool: per-layer [n_blocks, block_size, H_kv, D]
+    (block 0 is the null block dead table rows point at)."""
+    _require_model_kv(cfg)
+    shape = (n_blocks, block_size, cfg.kv_heads, cfg.d_head)
+    return KVCache(
+        k=[torch.zeros(shape, dtype=cfg.dtype, device=device)
+           for _ in range(cfg.n_layers)],
+        v=[torch.zeros(shape, dtype=cfg.dtype, device=device)
+           for _ in range(cfg.n_layers)],
+        pos=0)
+
+
+def _paged_dense(pool_arr, tables):
+    """[n_blocks, bs, H_kv, D] pool + [B, n] tables -> the gathered
+    dense [B, n*bs, H_kv, D] view (junk in masked tail rows)."""
+    b, n = tables.shape
+    g = pool_arr[tables.long()]
+    return g.reshape(b, n * pool_arr.shape[1], *pool_arr.shape[2:])
+
+
+def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
+                        use_kernel):
+    """tokens [B, T] appended at per-row positions into the block pool
+    -> (logits [B, T, vocab], pool).  Each token's write lands at
+    (tables[b, (pos+t)//bs], (pos+t) % bs).  Dead rows (table rows of
+    null blocks) all write into block 0: those writes share indices,
+    so which one lands is unspecified on the card, and it does not
+    matter because no live row ever reads block 0.  ``use_kernel``
+    reads through the paged kernel (single-query); otherwise the
+    blocks are gathered into the contiguous cache's shape and read by
+    ``_cached_attention``."""
+    b, t = tokens.shape
+    if use_kernel and t > 1:
+        raise ValueError("the paged-attention kernel is single-query; "
+                         "T > 1 windows use the dense-gather read")
+    dev = tokens.device
+    pos_rows = pos_rows.to(device=dev, dtype=torch.long)
+    positions = pos_rows[:, None] + torch.arange(t, device=dev)[None]
+    x = take_rows(params["embed"], tokens, cfg.dtype)
+    bs = pool.k[0].shape[1]
+    tl = tables.long()
+    phys = [tl.gather(1, ((pos_rows + i) // bs)[:, None])[:, 0]
+            for i in range(t)]
+    off = [(pos_rows + i) % bs for i in range(t)]
+
+    def write_pool(dst, new):
+        for i in range(t):
+            dst[phys[i], off[i]] = new[:, i]
+
+    lengths = (pos_rows + 1).to(torch.int32) if use_kernel else None
+    for layer, k_pool, v_pool in zip(params["layers"], pool.k, pool.v):
+        q, _, _ = _project_and_write(layer, x, positions, cfg, k_pool,
+                                     v_pool, write_pool)
+        if use_kernel:
+            o = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
+                                tables, lengths)[:, None]
+        else:
+            o = _cached_attention(q, _paged_dense(k_pool, tables),
+                                  _paged_dense(v_pool, tables),
+                                  pos_rows, t, cfg)
+        x = _attn_mlp_tail(x, o, layer, cfg)
+    x = rms_norm(x, params["ln_f"])
+    logits = ein("btd,dv->btv", x, params["unembed"])
+    return logits, pool
+
+
+@dispatch.counted("paged_decode_step_rows")
+def paged_decode_step_rows(params: Params, token: torch.Tensor,
+                           cfg: TransformerConfig, pool: KVCache,
+                           tables: torch.Tensor, pos_rows: torch.Tensor,
+                           use_kernel: bool = False
+                           ) -> tuple[torch.Tensor, KVCache]:
+    """One paged decode step: token [B, 1], tables [B, n_pages] int32,
+    pos_rows [B] -> (logits [B, vocab], pool), pool written in place.
+    ``use_kernel`` selects the paged kernel read (CUDA tensors); False
+    keeps the gather + ``_cached_attention`` read that is bitwise equal
+    to the contiguous engine on the CPU."""
+    b, t = token.shape
+    if t != 1:
+        raise ValueError(f"paged_decode_step_rows is one token per "
+                         f"slot, got T={t}")
+    logits, pool = _paged_rows_forward(params, token, cfg, pool, tables,
+                                       pos_rows, use_kernel)
+    return logits[:, 0], pool
+
+
+@dispatch.counted("paged_adopt")
+def paged_adopt_blocks(pool: KVCache, one: KVCache, ids, start_block: int,
+                       n_blocks: int) -> KVCache:
+    """Copy rows [start_block*bs, (start_block+n_blocks)*bs) of a dense
+    [1, S] cache into pool blocks ``ids`` (distinct, [n_blocks]), in
+    place — how a fill's transient dense cache lands in the pool."""
+    bs = pool.k[0].shape[1]
+    idx = torch.as_tensor(ids, dtype=torch.long, device=pool.k[0].device)
+    for dst, src in zip(pool.k + pool.v, one.k + one.v):
+        rows = src[0, start_block * bs:(start_block + n_blocks) * bs]
+        dst[idx] = rows.reshape(n_blocks, bs, *rows.shape[1:])
+    return pool
+
+
+@dispatch.counted("paged_gather")
+def paged_gather_entry(pool: KVCache, ids, pos: int) -> KVCache:
+    """Gather blocks ``ids`` ([n], padded with the null block) into a
+    fresh dense [1, n*bs] cache with ``pos`` valid rows — the bridge
+    from shared blocks to the dense prefill machinery.  The entry owns
+    new tensors; the pool is untouched."""
+    idx = torch.as_tensor(ids, dtype=torch.long, device=pool.k[0].device)
+
+    def take(lst):
+        out = []
+        for a in lst:
+            g = a[idx]
+            out.append(g.reshape(1, g.shape[0] * g.shape[1],
+                                 *g.shape[2:]))
+        return out
+
+    return KVCache(k=take(pool.k), v=take(pool.v), pos=int(pos))
+
+
+@dispatch.counted("paged_cow_copy")
+def paged_copy_block(pool: KVCache, src: int, dst: int) -> KVCache:
+    """Copy-on-write: duplicate physical block ``src`` into ``dst``, in
+    place, before a writer diverges from the sharers."""
+    for a in pool.k + pool.v:
+        a[dst].copy_(a[src])
+    return pool
+
+
+def _validated_prefill(params, prompt, cfg, n_tokens, max_seq):
+    """Shared generation front half: bounds checks + flash prefill of a
+    fresh cache."""
+    b, tp = prompt.shape
+    max_seq = max_seq or cfg.max_seq
+    if n_tokens < 1:
+        raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+    if tp + n_tokens > max_seq:
+        raise ValueError(
+            f"prompt ({tp}) + n_tokens ({n_tokens}) exceeds the "
+            f"{max_seq}-slot cache")
+    cache = init_cache(cfg, b, max_seq, device=_device(params))
+    return forward_with_cache(params, prompt, cfg, cache,
+                              first_chunk=True)
+
+
+@torch.no_grad()
+def greedy_generate(params: Params, prompt: torch.Tensor,
+                    cfg: TransformerConfig, n_tokens: int,
+                    max_seq: int | None = None) -> torch.Tensor:
+    """prompt [B, Tp] -> [B, Tp + n_tokens] greedy continuation."""
+    logits, cache = _validated_prefill(params, prompt, cfg, n_tokens,
+                                       max_seq)
+    tok = logits[:, -1].argmax(dim=-1)
+    out = [tok]
+    for _ in range(n_tokens - 1):
+        logits, cache = forward_with_cache(params, tok[:, None], cfg,
+                                           cache)
+        tok = logits[:, 0].argmax(dim=-1)
+        out.append(tok)
+    generated = torch.stack(out, dim=1).to(prompt.dtype)
+    return torch.cat([prompt, generated], dim=1)
+
+
+@torch.no_grad()
+def sample_generate(params: Params, prompt: torch.Tensor,
+                    cfg: TransformerConfig, n_tokens: int,
+                    generator: torch.Generator, temperature: float = 1.0,
+                    top_k: int = 0, top_p: float = 0.0,
+                    max_seq: int | None = None) -> torch.Tensor:
+    """Temperature/top-k/top-p sampling, drawn from ``generator``;
+    same structure as ``greedy_generate``."""
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+    logits, cache = _validated_prefill(params, prompt, cfg, n_tokens,
+                                       max_seq)
+
+    def pick(lg):
+        return sample_token(lg, generator, temperature, top_k, top_p)
+
+    tok = pick(logits[:, -1])
+    out = [tok]
+    for _ in range(n_tokens - 1):
+        logits, cache = forward_with_cache(params, tok[:, None], cfg,
+                                           cache)
+        tok = pick(logits[:, 0])
+        out.append(tok)
+    generated = torch.stack(out, dim=1).to(prompt.dtype)
+    return torch.cat([prompt, generated], dim=1)
+
+
+__all__ = ["KVCache", "adopt_one_slot", "decode_step_rows",
+           "forward_with_cache", "greedy_generate", "init_cache",
+           "init_paged_pool", "paged_adopt_blocks", "paged_copy_block",
+           "paged_decode_step_rows", "paged_gather_entry", "prefill",
+           "prefill_adopt_rows", "sample_generate", "sample_token",
+           "scatter_cache", "select_next_tokens", "suffix_fill_adopt"]

@@ -1,0 +1,1053 @@
+"""Continuous-batching serving engine (slot-refill decode).
+
+The port of ``k8s_dra_driver_tpu/models/serving.py``: requests of
+different lengths share one fixed-size decode batch, and when a
+sequence finishes its SLOT is refilled from the queue instead of
+draining the whole batch.  The scheduling is the reference's, step for
+step, so token streams match the JAX engine's:
+
+- **Batched refill rounds.**  Free slots are filled in rounds; fresh
+  prompts are grouped by length and prefilled together through the
+  flash kernel (``prefill_adopt_rows``), prefix-cache hits adopt their
+  remembered rows and prefill only the suffix (``suffix_fill_adopt``),
+  and each round's first tokens come back in one readback.
+  ``prefill_chunk=C`` instead feeds each prompt in C-token chunks.
+- **One decode step for all slots**: ``decode_step_rows`` with
+  per-row positions; slot occupancy is data.
+- **Greedy or sampled decode per request** (``temperature``/``seed``
+  on the Request, engine-level ``top_k``/``top_p``), EOS + per-request
+  ``max_new`` + cache-capacity stops.  Each sampled request draws from
+  its own ``torch.Generator`` seeded with ``seed`` (per-slot
+  generators), so its tokens do not depend on the batch or the
+  schedule — preemption reruns included.  They cannot match the JAX
+  engine's ``jax.random`` streams.
+- **Automatic prefix caching** (``prefix_cache=N``): fills' and
+  finishes' K/V rows are remembered and a new request adopts its
+  longest remembered prefix.
+- **Paged KV cache** (``kv_layout="paged"``): the cache becomes a
+  block pool owned by the refcounted host ledger (serving_kv/), each
+  slot reads through a block table, prefix reuse is copy-on-write
+  block sharing, and exhaustion escalates evict-cold ->
+  preempt-and-requeue.  On the card the decode read goes through the
+  paged kernel by default (``kv_kernel``).
+
+Not ported yet (they raise ``NotImplementedError``): speculative
+decoding (``draft_params``/``draft_source``), fused generation blocks
+(``chain_steps > 1``), LoRA adapters (``adapter_pool``), KV tiers
+(``kv_host_bytes``/``kv_spill_dir``), and the disaggregation verbs
+(``prefill_export``/``adopt_block``/``export_prefix``/
+``import_prefix``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..serving_kv import (NULL_BLOCK, BlocksExhausted, KVBlockManager,
+                          PagedPrefixStore, kv_bytes_per_token)
+from ..utils import dispatch
+from ..utils.device import resolve_device
+from . import decode as _decode
+from .decode import KVCache, decode_step_rows, init_cache, sample_token
+from .transformer import TransformerConfig, require_dense
+
+
+@dataclasses.dataclass
+class Request:
+    uid: Any
+    prompt: np.ndarray              # [L] int32
+    max_new: int
+    eos_id: int | None = None
+    # temperature > 0 samples this request from a generator seeded
+    # with ``seed``; 0 = greedy.  top_k/top_p are engine-level.
+    temperature: float = 0.0
+    seed: int = 0
+    # adapter name; adapters are not ported yet, so a named adapter is
+    # refused at intake
+    adapter: str | None = None
+
+
+@dataclasses.dataclass
+class Finished:
+    uid: Any
+    tokens: np.ndarray              # prompt + generated
+    # prompt length, so consumers (stream()) can split generated
+    # tokens out of ``tokens`` without re-holding the Request
+    n_prompt: int = 0
+
+
+@dispatch.counted("sample_one")
+def _sample_one(logits, generator, temperature, top_k: int, top_p: float):
+    """Refill-path first-token draw (the paged fills)."""
+    return sample_token(logits, generator, temperature, top_k, top_p)
+
+
+@dispatch.counted("next_tokens")
+def _next_tokens(logits, generators, temps, top_k: int, top_p: float):
+    """[B,V] logits + per-slot generators + [B] temps -> next [B]: the
+    shared ``select_next_tokens`` merge."""
+    return _decode.select_next_tokens(logits, generators, temps, top_k,
+                                      top_p)
+
+
+def _overlap(a: np.ndarray, b: np.ndarray) -> int:
+    """Length of the common leading token run of two prompts."""
+    n = min(a.size, b.size)
+    neq = np.nonzero(a[:n] != b[:n])[0]
+    return int(neq[0]) if neq.size else n
+
+
+class PrefixCache:
+    """LRU store of prompt-prefix K/V (automatic prefix caching).
+
+    Entries map a prompt's token tuple to the [1, max_seq] ``KVCache``
+    its fill produced (``pos`` = prompt length); a later request adopts
+    the longest common prefix: the fill clones the entry, lowers
+    ``pos`` to the match length ``p`` and prefills only the suffix.
+    Correct because position-masked attention never reads rows >= pos
+    and the suffix rewrites [p, L).  Reuse is therefore exactly chunked
+    prefill with the first chunk memoized, so cached and uncached
+    engines generate identical tokens.
+
+    Memory: each entry retains a full cache row (~one extra slot), which
+    is why the store is small and LRU-bounded (``entries``).  The
+    reference's listener hooks (prefix index, gateway metrics) come with
+    the slices that port those consumers.
+    """
+
+    def __init__(self, entries: int):
+        if entries < 1:
+            raise ValueError("prefix cache needs >= 1 entry")
+        self.entries = entries
+        # dict insertion order IS the LRU order (oldest first)
+        self._store: dict[tuple, KVCache] = {}
+        self.hits = 0
+        self.misses = 0
+        self.tokens_reused = 0
+        # bytes of K/V adopted instead of recomputed: tokens_reused x
+        # the per-token row cost, measured once from a real entry
+        self.bytes_reused = 0
+        self.bytes_per_token = 0
+
+    def _touch(self, key: tuple) -> None:
+        self._store[key] = self._store.pop(key)
+
+    def _best_match(self, prompt: np.ndarray) -> tuple[int, tuple]:
+        """(p, key) of the longest common prefix over all entries,
+        capped at len(prompt)-1 so the last prompt token is always
+        re-prefilled (its logits seed generation)."""
+        toks = prompt.tolist()
+        cap = len(toks) - 1
+        best_p, best_key = 0, None
+        for key in self._store:
+            p = 0
+            for a, b in zip(key, toks[:cap]):
+                if a != b:
+                    break
+                p += 1
+            if p > best_p:
+                best_p, best_key = p, key
+        return best_p, best_key
+
+    def peek(self, prompt: np.ndarray) -> int:
+        """Longest match length WITHOUT hit accounting or an LRU
+        touch."""
+        return self._best_match(prompt)[0]
+
+    def longest_prefix(self, prompt: np.ndarray
+                       ) -> tuple[int, KVCache | None]:
+        """(p, entry) for the longest remembered prefix; counts the
+        hit and refreshes the entry's LRU position."""
+        best_p, best_key = self._best_match(prompt)
+        if best_key is None:
+            self.misses += 1
+            return 0, None
+        self.hits += 1
+        self.tokens_reused += best_p
+        self.bytes_reused += best_p * self.bytes_per_token
+        self._touch(best_key)
+        return best_p, self._store[best_key]
+
+    def insert(self, tokens: np.ndarray, filled: KVCache) -> None:
+        """Remember a [1, S] cache whose first ``len(tokens)`` rows are
+        the K/V of ``tokens``.  The cache must own its tensors (no
+        engine tensor may alias them)."""
+        if not self.bytes_per_token:
+            self.bytes_per_token = kv_bytes_per_token(
+                filled.k + filled.v, filled.k[0].shape[1])
+        key = tuple(tokens.tolist())
+        self._store.pop(key, None)            # re-insert = most recent
+        self._store[key] = filled
+        while len(self._store) > self.entries:
+            self._store.pop(next(iter(self._store)))
+
+    def drop(self, tokens: np.ndarray) -> None:
+        """Forget an entry (no-op if absent) — used when a finish
+        capture strictly dominates its fill-time prompt entry."""
+        self._store.pop(tuple(tokens.tolist()), None)
+
+
+@dispatch.counted("extract_slot")
+def _extract_slot(cache: KVCache, slot: int, pos: int) -> KVCache:
+    """Copy row ``slot`` of the engine cache out as a fresh [1, S]
+    cache with ``pos`` tokens valid (a prefix-cache entry); later
+    in-place decode writes cannot reach it."""
+    return KVCache(k=[a[slot:slot + 1].clone() for a in cache.k],
+                   v=[a[slot:slot + 1].clone() for a in cache.v],
+                   pos=int(pos))
+
+
+@dispatch.counted("adopt_slot")
+def _adopt_slot(cache: KVCache, one: KVCache, slot: int) -> KVCache:
+    """Copy a freshly prefilled [1, S] cache into row ``slot`` of the
+    engine cache, in place."""
+    return _decode.adopt_one_slot(cache, one, slot)
+
+
+#: the suffix continuation of a prefix-adopted fill under its own
+#: dispatch label: "prefill" counts fresh prompt compute,
+#: "prefill_suffix" suffix-only compute after prefix adoption
+_prefill_suffix = dispatch.counted("prefill_suffix")(
+    _decode.forward_with_cache)
+
+
+def _unported(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet; it comes with the "
+        f"{slice_name} slice")
+
+
+class ServingEngine:
+    """Continuous-batching engine over ``slots`` cache rows: greedy by
+    default, per-request sampling via ``Request(temperature=...,
+    seed=...)``.  ``params`` must live on ``device`` (default the
+    card)."""
+
+    def __init__(self, params, cfg: TransformerConfig, slots: int,
+                 max_seq: int | None = None,
+                 prefill_chunk: int | None = None,
+                 top_k: int = 0, top_p: float = 0.0,
+                 prefix_cache: int = 0,
+                 draft_params=None,
+                 draft_cfg: TransformerConfig | None = None,
+                 draft_len: int = 4,
+                 draft_source: str | None = None,
+                 chain_steps: int = 1,
+                 kv_layout: str = "contiguous",
+                 kv_block_size: int = 16,
+                 kv_blocks: int | None = None,
+                 kv_kernel: bool | None = None,
+                 kv_host_bytes: int | None = None,
+                 kv_spill_dir=None,
+                 adapter_pool=None,
+                 device="cuda"):
+        if draft_params is not None or draft_cfg is not None \
+                or draft_source is not None:
+            raise _unported("speculative decoding (draft_params / "
+                            "draft_source)", "speculative-decoding")
+        if chain_steps != 1:
+            raise _unported("fused generation blocks (chain_steps > 1)",
+                            "fused-decode")
+        if adapter_pool is not None:
+            raise _unported("multi-adapter LoRA serving (adapter_pool)",
+                            "LoRA")
+        if kv_host_bytes or kv_spill_dir:
+            raise _unported("KV tiering (kv_host_bytes / kv_spill_dir)",
+                            "KV-tier")
+        require_dense(cfg)
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        self._paged = kv_layout == "paged"
+        if self._paged:
+            if cfg.kv_cache_dtype == "int8":
+                raise ValueError("paged KV does not support the "
+                                 "int8 cache")
+            if cfg.attention_window:
+                raise ValueError("paged KV does not support "
+                                 "windowed attention")
+        if not 0.0 <= top_p <= 1.0:
+            raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(
+                f"params live on {params['embed'].device}, the engine "
+                f"runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self._prefix = (PrefixCache(prefix_cache)
+                        if prefix_cache and not self._paged else None)
+        self.prefill_chunk = prefill_chunk
+        self.top_k = top_k
+        self.top_p = top_p
+        # per-phase host accounting (stats())
+        self._time_prefill = 0.0
+        self._time_decode = 0.0
+        self._time_host = 0.0
+        self.max_seq = max_seq or cfg.max_seq
+        if self._paged:
+            if self.max_seq % kv_block_size:
+                # blocks_per_slot = max_seq // bs keeps the gathered
+                # dense view's shape IDENTICAL to the contiguous
+                # cache — the bitwise-equality invariant
+                raise ValueError(
+                    f"max_seq {self.max_seq} is not a multiple of "
+                    f"kv_block_size {kv_block_size}")
+            self._kv_bs = kv_block_size
+            self._kv_tw = self.max_seq // kv_block_size  # table width
+            if kv_blocks is None:
+                # memory parity with the contiguous cache (+ null block)
+                kv_blocks = slots * self._kv_tw + 1
+            if kv_blocks - 1 < self._kv_tw:
+                raise ValueError(
+                    f"kv_blocks {kv_blocks} cannot hold one full "
+                    f"{self.max_seq}-token sequence "
+                    f"({self._kv_tw} blocks + the null block)")
+            self.kv_manager = KVBlockManager(kv_blocks, kv_block_size)
+            self.pool = _decode.init_paged_pool(cfg, kv_blocks,
+                                                kv_block_size,
+                                                device=self.device)
+            self.cache = None        # no contiguous cache in paged mode
+            self._table = np.zeros((slots, self._kv_tw), np.int32)
+            # device mirror of _table, rebuilt only when a table row
+            # changes (fills, boundary appends, CoW copies, releases)
+            self._table_dev = None
+            # one-entry memo of the last store-gathered dense prefix:
+            # KV rows for a token prefix are a pure function of
+            # (params, cfg, tokens), so a snapshot can never go stale
+            self._kv_dense_memo: tuple | None = None
+            self._slot_blocks: list[list[int]] = [[] for _ in
+                                                  range(slots)]
+            self._prefix = PagedPrefixStore(
+                prefix_cache or max(2 * slots, 4), self.kv_manager)
+            self._prefix.bytes_per_token = kv_bytes_per_token(
+                self.pool.k + self.pool.v, kv_blocks * kv_block_size)
+            # the kernel read on the card by default, as the JAX engine
+            # turns its kernel on by default on the TPU
+            self._kv_use_kernel = (kv_kernel if kv_kernel is not None
+                                   else self.device.type == "cuda")
+            self._kv_preemptions = 0
+        else:
+            self.cache = init_cache(cfg, slots, self.max_seq,
+                                    device=self.device)
+        self.queue: deque[Request] = deque()
+        # host-side slot state; None = free
+        self._req: list[Request | None] = [None] * slots
+        self._pos = np.zeros(slots, np.int32)       # fill depth
+        self._generated: list[list[int]] = [[] for _ in range(slots)]
+        self._last = np.zeros(slots, np.int32)      # next input token
+        # per-slot sampling state: a generator per sampled request
+        # (None for greedy rows) and the temperatures (0 = greedy)
+        self._gens: list[torch.Generator | None] = [None] * slots
+        self._temps = np.zeros(slots, np.float32)
+        # lifetime counters (stats())
+        self._finished_total = 0
+        self._cancelled = 0
+        self._tokens_total = 0
+        self._steps_total = 0
+
+    # -- request intake --------------------------------------------------
+
+    def _check_request(self, req: Request) -> Request:
+        """Shape/capacity validation; returns the request with its
+        prompt normalized to int32."""
+        prompt = np.asarray(req.prompt, np.int32)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError("prompt must be a non-empty 1-D array")
+        if req.max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {req.max_new}")
+        if getattr(req, "adapter", None) is not None:
+            raise ValueError(
+                f"request {req.uid!r} names adapter {req.adapter!r} but "
+                f"this engine has no adapter pool")
+        if prompt.size + req.max_new > self.max_seq:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new ({req.max_new}) "
+                f"exceeds the {self.max_seq}-slot cache")
+        if self._paged:
+            # a request that can NEVER fit the pool must be refused at
+            # intake, not discovered as a livelock under preemption
+            need = -(-(prompt.size + req.max_new) // self._kv_bs)
+            if need > self.kv_manager.n_blocks - 1:
+                raise ValueError(
+                    f"request needs {need} KV blocks at its longest; "
+                    f"the pool holds {self.kv_manager.n_blocks - 1}")
+        return dataclasses.replace(req, prompt=prompt)
+
+    def submit(self, req: Request) -> None:
+        req = self._check_request(req)
+        if any(r.uid == req.uid for r in self.queue) or any(
+                r is not None and r.uid == req.uid for r in self._req):
+            # uid is the cancel/finished-stream handle
+            raise ValueError(f"uid {req.uid!r} already in flight")
+        self.queue.append(req)
+
+    @property
+    def active(self) -> int:
+        return sum(r is not None for r in self._req)
+
+    @property
+    def pending(self) -> int:
+        return len(self.queue)
+
+    # -- pool-facing API -------------------------------------------------
+
+    def enqueue(self, req: Request) -> None:
+        """Pool-facing name for :meth:`submit`."""
+        self.submit(req)
+
+    def occupancy(self) -> dict:
+        """Scheduling snapshot for a router: slot/queue depth plus
+        per-active-request generated-token counts; paged engines add
+        free/total blocks and reclaimable headroom."""
+        out = {
+            "slots": self.slots,
+            "active": self.active,
+            "pending": self.pending,
+            "free_slots": self.slots - self.active,
+            "depth": self.active + self.pending,
+            "tokens": {r.uid: len(self._generated[s])
+                       for s, r in enumerate(self._req)
+                       if r is not None},
+        }
+        if self._paged:
+            view = self.kv_manager.view()
+            out["kv_block_size"] = self._kv_bs
+            out["kv_total_blocks"] = view["total_blocks"]
+            out["kv_free_blocks"] = view["free_blocks"]
+            out["kv_cow_shared_blocks"] = view["cow_shared_blocks"]
+            out["kv_headroom_blocks"] = (
+                view["free_blocks"] + self._prefix.evictable_count())
+        return out
+
+    def prefix_peek(self, prompt) -> int:
+        """Longest prompt prefix this engine's prefix store holds,
+        WITHOUT hit accounting or an LRU touch — 0 when it is off."""
+        if self._prefix is None:
+            return 0
+        return self._prefix.peek(np.asarray(prompt, np.int32))
+
+    def prefill_export(self, req: Request):
+        raise _unported("prefill_export", "disaggregated-serving")
+
+    def adopt_block(self, block) -> int:
+        raise _unported("adopt_block", "disaggregated-serving")
+
+    def export_prefix(self, tokens):
+        raise _unported("export_prefix", "disaggregated-serving")
+
+    def import_prefix(self, tokens, entry) -> None:
+        raise _unported("import_prefix", "disaggregated-serving")
+
+    def cancel(self, uid) -> bool:
+        """Drop a request by uid — queued or active (its slot frees
+        immediately).  A cancelled request never appears in the
+        finished stream; its generated tokens still count in
+        ``generated_tokens_total``."""
+        for req in self.queue:
+            if req.uid == uid:
+                self.queue.remove(req)
+                self._cancelled += 1
+                return True
+        for slot, req in enumerate(self._req):
+            if req is not None and req.uid == uid:
+                self._tokens_total += len(self._generated[slot])
+                if self._paged:
+                    self._kv_release_slot(slot)
+                self._clear_slot(slot)
+                self._cancelled += 1
+                return True
+        return False
+
+    def stats(self) -> dict:
+        """Counters for scrapers/logs."""
+        out = {
+            "slots": self.slots,
+            "active": self.active,
+            "pending": self.pending,
+            "finished_total": self._finished_total,
+            "cancelled_total": self._cancelled,
+            "generated_tokens_total": self._tokens_total,
+            "decode_steps_total": self._steps_total,
+            "time_prefill_s": round(self._time_prefill, 4),
+            "time_decode_dispatch_s": round(self._time_decode, 4),
+            "time_host_s": round(self._time_host, 4),
+        }
+        if self._prefix is not None:
+            out["prefix_hits_total"] = self._prefix.hits
+            out["prefix_misses_total"] = self._prefix.misses
+            out["prefix_tokens_reused_total"] = self._prefix.tokens_reused
+            out["prefix_bytes_reused_total"] = self._prefix.bytes_reused
+        if self._paged:
+            view = self.kv_manager.view()
+            out["kv_blocks_total"] = view["total_blocks"]
+            out["kv_blocks_free"] = view["free_blocks"]
+            out["kv_blocks_used"] = view["used_blocks"]
+            out["kv_cow_shared_blocks"] = view["cow_shared_blocks"]
+            out["kv_block_evictions_total"] = self._prefix.evictions
+            out["kv_cow_copies_total"] = (
+                self.kv_manager.cow_copies_total)
+            out["kv_preemptions_total"] = self._kv_preemptions
+            out["kv_alloc_failures_total"] = (
+                self.kv_manager.alloc_failures)
+        return out
+
+    # -- slot lifecycle --------------------------------------------------
+
+    def _generator(self, req: Request) -> torch.Generator | None:
+        """A fresh generator seeded with the request's seed (None for
+        greedy requests): every fill, rerun included, restarts the
+        request's stream from its seed."""
+        if req.temperature <= 0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            int(req.seed))
+
+    def _occupy(self, slot: int, req: Request, gen) -> None:
+        self._req[slot] = req
+        self._pos[slot] = req.prompt.size
+        self._gens[slot] = gen
+        self._temps[slot] = max(req.temperature, 0.0)
+
+    def _clear_slot(self, slot: int) -> None:
+        self._req[slot] = None
+        self._generated[slot] = []
+        self._gens[slot] = None
+        self._temps[slot] = 0.0
+
+    def _prompt(self, req: Request, start: int = 0,
+                stop: int | None = None) -> torch.Tensor:
+        return torch.as_tensor(req.prompt[start:stop], dtype=torch.long,
+                               device=self.device)
+
+    def _fill_dispatch(self, slot: int, req: Request) -> torch.Tensor:
+        """Chunked fill of one request: prefill on a fresh [1, S] cache
+        (from the longest remembered prefix when the prefix cache is
+        on) in ``prefill_chunk``-token chunks, copy its K/V rows into
+        the slot, and return the first token as a device scalar."""
+        start = 0
+        if self._prefix is not None:
+            p, entry = self._prefix.longest_prefix(req.prompt)
+            if p > 0:
+                # the entry stays intact for later hits: clone it
+                one = KVCache(k=[a.clone() for a in entry.k],
+                              v=[a.clone() for a in entry.v], pos=p)
+                start = p
+        if start == 0:
+            one = init_cache(self.cfg, 1, self.max_seq,
+                             device=self.device)
+        c = self.prefill_chunk or req.prompt.size
+        for off in range(start, req.prompt.size, c):
+            logits, one = _decode._prefill(
+                self.params, self._prompt(req, off, off + c)[None],
+                self.cfg, one, off == 0)
+        if self._prefix is not None:
+            self._prefix.insert(req.prompt, one)
+        gen = self._generator(req)
+        first = self._first_token(logits, req, gen)
+        self.cache = _adopt_slot(self.cache, one, slot)
+        self._occupy(slot, req, gen)
+        return first
+
+    def _first_token(self, logits, req: Request, gen) -> torch.Tensor:
+        """First token of a per-request fill as a device scalar: argmax
+        for greedy requests, a draw from ``gen`` for sampled ones."""
+        if gen is None:
+            return logits[0, -1].argmax()
+        return _sample_one(logits[0, -1], gen, req.temperature,
+                           self.top_k, self.top_p)
+
+    def _fill_finalize(self, slot: int, first: int) -> None:
+        """Record the resolved first token of a filled slot."""
+        self._generated[slot] = [first]
+        self._last[slot] = first
+
+    def _finish_slot(self, slot: int, out: list[Finished]) -> None:
+        req = self._req[slot]
+        gen = self._generated[slot]               # eos token kept
+        if len(gen) > 1 and self._prefix is not None:
+            # multi-turn reuse: remember the finished conversation so a
+            # follow-up prompt adopts the whole history.  Rows written
+            # so far = prompt + gen[:-1] (the last token was sampled but
+            # never fed back), which is exactly _pos[slot].  The
+            # fill-time prompt entry is a strict prefix of it and is
+            # dropped.
+            written = np.concatenate(
+                [req.prompt, np.asarray(gen[:-1], np.int32)])
+            if len(written) != int(self._pos[slot]):
+                raise RuntimeError(
+                    f"prefix-capture invariant broken on slot {slot}: "
+                    f"{len(written)} written rows vs pos "
+                    f"{int(self._pos[slot])}")
+            self._prefix.drop(req.prompt)
+            if self._paged:
+                # free here: the store takes references on the slot's
+                # own blocks
+                self._prefix.insert(written, self._slot_blocks[slot],
+                                    len(written))
+            else:
+                self._prefix.insert(written, _extract_slot(
+                    self.cache, slot, int(self._pos[slot])))
+        if self._paged:
+            self._kv_release_slot(slot)
+        out.append(Finished(
+            uid=req.uid,
+            tokens=np.concatenate([req.prompt,
+                                   np.asarray(gen, np.int32)]),
+            n_prompt=req.prompt.size))
+        self._finished_total += 1
+        self._tokens_total += len(gen)
+        self._clear_slot(slot)
+
+    def _done(self, slot: int) -> bool:
+        req = self._req[slot]
+        gen = self._generated[slot]
+        return (len(gen) >= req.max_new
+                or (req.eos_id is not None and gen
+                    and gen[-1] == req.eos_id)
+                or int(self._pos[slot]) + 1 >= self.max_seq)
+
+    # -- the step loop ---------------------------------------------------
+
+    def step(self) -> list[Finished]:
+        """Run ONE batched decode step and refill free slots from the
+        queue, returning newly finished requests.  No-op (empty list)
+        when idle."""
+        t_step = time.perf_counter()
+        fill0, dec0 = self._time_prefill, self._time_decode
+        try:
+            with torch.no_grad():
+                return self._step_inner()
+        finally:
+            self._time_host += ((time.perf_counter() - t_step)
+                                - (self._time_prefill - fill0)
+                                - (self._time_decode - dec0))
+
+    def _step_inner(self) -> list[Finished]:
+        finished: list[Finished] = []
+        self._refill(finished)
+        active = [s for s in range(self.slots)
+                  if self._req[s] is not None]
+        if not active:
+            return finished
+        if self._paged:
+            # block upkeep BEFORE the step: boundary appends and CoW
+            # copies; under exhaustion this may preempt slots
+            self._kv_prepare_step(active)
+            active = [s for s in active if self._req[s] is not None]
+            if not active:
+                return finished
+        t_dec = time.perf_counter()
+        tokens = torch.as_tensor(self._last[:, None], dtype=torch.long,
+                                 device=self.device)
+        pos = torch.as_tensor(self._pos, device=self.device)
+        if self._paged:
+            if self._table_dev is None:
+                self._table_dev = torch.as_tensor(self._table,
+                                                  device=self.device)
+            logits, self.pool = _decode.paged_decode_step_rows(
+                self.params, tokens, self.cfg, self.pool,
+                self._table_dev, pos, self._kv_use_kernel)
+        else:
+            logits, self.cache = decode_step_rows(
+                self.params, tokens, self.cfg, self.cache, pos)
+        if self._temps.any():
+            nxt_dev = _next_tokens(logits, self._gens, self._temps,
+                                   self.top_k, self.top_p)
+        else:
+            nxt_dev = logits.argmax(dim=-1)
+        nxt = nxt_dev.cpu().numpy().astype(np.int32)
+        dispatch.record_readback("step_tokens")
+        self._time_decode += time.perf_counter() - t_dec
+        self._steps_total += 1
+        for slot in active:
+            self._pos[slot] += 1
+            self._generated[slot].append(int(nxt[slot]))
+            self._last[slot] = nxt[slot]
+            if self._done(slot):
+                self._finish_slot(slot, finished)
+        return finished
+
+    def _refill(self, finished: list[Finished]) -> None:
+        """Fill free slots from the queue in batched rounds: every free
+        slot's prefill is dispatched first, then the first tokens are
+        resolved in ONE readback.  A refilled request whose first token
+        already finishes it must complete here, so its freed slot feeds
+        the next round."""
+        if self._paged:
+            return self._kv_refill(finished)
+        for slot in range(self.slots):
+            if self._req[slot] is not None and self._done(slot):
+                self._finish_slot(slot, finished)
+        while self.queue and any(r is None for r in self._req):
+            t_fill = time.perf_counter()
+            batch = []
+            for slot in range(self.slots):
+                if self._req[slot] is None and self.queue:
+                    batch.append((slot, self.queue.popleft()))
+            if self.prefill_chunk is None:
+                firsts = self._fill_fused_round(batch)
+            else:
+                firsts = torch.stack(
+                    [self._fill_dispatch(s, r) for s, r in batch]
+                ).cpu().numpy()
+                dispatch.record_readback("fill_round")
+            self._time_prefill += time.perf_counter() - t_fill
+            for (slot, _), first in zip(batch, firsts):
+                self._fill_finalize(slot, int(first))
+                if self._done(slot):
+                    self._finish_slot(slot, finished)
+
+    def _fill_fused_round(self, batch: list) -> np.ndarray:
+        """One refill round, ONE readback: prefix-cache hits ride
+        ``suffix_fill_adopt`` (one call each) and fresh fills are
+        grouped by prompt length through ``prefill_adopt_rows`` (one
+        call per group).  ``batch`` is narrowed in place to the
+        requests kept this round."""
+        by_slot: dict[int, torch.Tensor] = {}
+        fresh = batch
+        if self._prefix is not None:
+            fresh, kept, deferred = [], [], []
+            live: list[np.ndarray] = []   # prompts filling THIS round
+            for slot, req in batch:
+                cap = req.prompt.size - 1
+                best_live = max((min(_overlap(req.prompt, pr), cap)
+                                 for pr in live), default=0)
+                if best_live > self._prefix.peek(req.prompt):
+                    # a longer match is filling right now (the shared
+                    # system-prompt pattern): defer one round and adopt
+                    # that fill instead of recomputing it; the first of
+                    # an overlapping set is never deferred
+                    deferred.append(req)
+                    continue
+                live.append(req.prompt)
+                kept.append((slot, req))
+                p, entry = self._prefix.longest_prefix(req.prompt)
+                if p > 0:
+                    by_slot[slot] = self._fill_hit(slot, req, p, entry)
+                else:
+                    fresh.append((slot, req))
+            self.queue.extendleft(reversed(deferred))
+            batch[:] = kept               # the caller zips over batch
+        if fresh:
+            self._fill_fresh_groups(fresh, by_slot)
+            if self._prefix is not None:
+                # remember each fresh prompt's K/V for later hits: the
+                # freshly adopted slot rows ARE that K/V
+                for slot, req in fresh:
+                    self._prefix.insert(req.prompt, _extract_slot(
+                        self.cache, slot, int(req.prompt.size)))
+        firsts = torch.stack([by_slot[s] for s, _ in batch])
+        out = firsts.cpu().numpy()
+        dispatch.record_readback("fill_round")
+        return out
+
+    def _fill_hit(self, slot: int, req: Request, p: int,
+                  entry: KVCache) -> torch.Tensor:
+        """Prefix-HIT fill: the remembered ``p`` rows plus a suffix
+        prefill, adopted into the slot, first token drawn — one call
+        (``suffix_fill_adopt``)."""
+        one = KVCache(k=entry.k, v=entry.v, pos=p)
+        gen = self._generator(req)
+        first, self.cache, filled = _decode.suffix_fill_adopt(
+            self.params, one, self._prompt(req, p), self.cfg,
+            self.cache, slot, gen, req.temperature, self.top_k,
+            self.top_p)
+        self._prefix.insert(req.prompt, filled)
+        self._occupy(slot, req, gen)
+        return first
+
+    def _fill_fresh_groups(self, batch: list, by_slot: dict) -> None:
+        """Fresh fills grouped by prompt length through
+        ``prefill_adopt_rows``: one call per group."""
+        groups: dict[int, list] = {}
+        for slot, req in batch:
+            groups.setdefault(req.prompt.size, []).append((slot, req))
+        for grp in groups.values():
+            gens = [self._generator(r) for _, r in grp]
+            prompts = torch.as_tensor(
+                np.stack([r.prompt for _, r in grp]), dtype=torch.long,
+                device=self.device)
+            first, self.cache = _decode.prefill_adopt_rows(
+                self.params, prompts, self.cfg, self.cache,
+                [s for s, _ in grp], gens,
+                [r.temperature for _, r in grp], self.top_k, self.top_p)
+            for i, ((slot, req), gen) in enumerate(zip(grp, gens)):
+                self._occupy(slot, req, gen)
+                by_slot[slot] = first[i]
+
+    # -- paged KV (serving_kv/): fills, block upkeep, preemption ---------
+    #
+    # The paged engine keeps the contiguous engine's scheduling (batched
+    # refill rounds, same-round shared-prefix deferral, per-request
+    # sampling) and changes only where K/V rows live: fills run the same
+    # dense [1, S] prefill on a transient cache and copy the rows into
+    # pool blocks; decode reads through per-slot block tables.  Token
+    # streams are schedule-independent, so preempt-and-rerun under
+    # memory pressure never changes tokens.
+
+    def _kv_entry_dense(self, entry, pos: int) -> KVCache:
+        """Gather a store entry's blocks into a fresh dense
+        [1, max_seq] cache with ``pos`` valid rows."""
+        ids = np.full(self._kv_tw, NULL_BLOCK, np.int32)
+        ids[:len(entry.block_ids)] = entry.block_ids
+        return _decode.paged_gather_entry(self.pool, ids, pos)
+
+    def _kv_alloc_fill(self, n: int) -> list[int]:
+        """Fill-path allocation: free supply first, then cold-entry
+        eviction.  Never preempts; BlocksExhausted propagates to the
+        caller's requeue."""
+        try:
+            return self.kv_manager.alloc(n)
+        except BlocksExhausted:
+            self._prefix.evict_until(n)
+            return self.kv_manager.alloc(n)
+
+    def _kv_alloc_decode(self, slot: int, n: int) -> list[int]:
+        """Decode-path allocation with the full escalation: free
+        supply -> cold-entry eviction -> preempt the cheapest OTHER
+        slot (fewest generated tokens, ties to the highest slot index).
+        Raises only when nothing is left to reclaim."""
+        while True:
+            try:
+                return self.kv_manager.alloc(n)
+            except BlocksExhausted:
+                pass
+            if self._prefix.evict_until(n):
+                continue
+            victims = [s for s in range(self.slots)
+                       if s != slot and self._req[s] is not None]
+            if not victims:
+                raise BlocksExhausted(
+                    f"{n} block(s) needed and nothing left to "
+                    f"reclaim")
+            victim = min(victims,
+                         key=lambda s: (len(self._generated[s]), -s))
+            self._kv_preempt(victim)
+
+    def _kv_preempt(self, slot: int) -> None:
+        """Evict a running request: free its blocks and requeue the
+        ORIGINAL request at the queue front.  The rerun prefills the
+        same prompt from the same seed, so its tokens are identical."""
+        self.queue.appendleft(self._req[slot])
+        self._kv_release_slot(slot)
+        self._clear_slot(slot)
+        self._kv_preemptions += 1
+
+    def _kv_release_slot(self, slot: int) -> None:
+        """Drop the slot's block references and point its table row
+        back at the null block."""
+        if self._slot_blocks[slot]:
+            self.kv_manager.free_blocks(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self._table[slot, :] = NULL_BLOCK
+        self._table_dev = None
+
+    def _kv_prepare_step(self, active: list) -> None:
+        """Host-side block upkeep before a paged step: append a block
+        when a row crosses a block boundary; copy-on-write the write
+        block when it is shared.  Under exhaustion: evict cold ->
+        preempt the cheapest other slot -> self-preempt."""
+        bs = self._kv_bs
+        for slot in active:
+            if self._req[slot] is None:
+                continue              # preempted earlier in this pass
+            bi = int(self._pos[slot]) // bs
+            blocks = self._slot_blocks[slot]
+            try:
+                if bi == len(blocks):
+                    nid = self._kv_alloc_decode(slot, 1)[0]
+                    blocks.append(nid)
+                    self._table[slot, bi] = nid
+                    self._table_dev = None
+                elif not self.kv_manager.writable(blocks[bi]):
+                    nid = self._kv_alloc_decode(slot, 1)[0]
+                    self.pool = _decode.paged_copy_block(
+                        self.pool, blocks[bi], nid)
+                    self.kv_manager.free_blocks([blocks[bi]])
+                    self.kv_manager.note_cow_copy()
+                    blocks[bi] = nid
+                    self._table[slot, bi] = nid
+                    self._table_dev = None
+            except BlocksExhausted:
+                self._kv_preempt(slot)
+
+    def _kv_can_admit(self, req: Request) -> bool:
+        """Admission gate for the paged refill: can the manager cover
+        this fill's fresh blocks (plus one block of first-append
+        headroom), counting cold store entries as reclaimable?"""
+        bs = self._kv_bs
+        p = self._prefix.peek(req.prompt)
+        need = -(-req.prompt.size // bs) - p // bs + 1
+        return (self.kv_manager.free
+                + self._prefix.evictable_count()) >= need
+
+    def _kv_refill(self, finished: list) -> None:
+        """Paged refill: the same batched rounds and shared-prefix
+        deferral, behind the admission gate.  A fill that still hits
+        BlocksExhausted puts its request (and the rest of the round)
+        back at the queue front."""
+        for slot in range(self.slots):
+            if self._req[slot] is not None and self._done(slot):
+                self._finish_slot(slot, finished)
+        while self.queue and any(r is None for r in self._req):
+            t_fill = time.perf_counter()
+            batch = []
+            for slot in range(self.slots):
+                if self._req[slot] is None and self.queue:
+                    if not self._kv_can_admit(self.queue[0]):
+                        break
+                    batch.append((slot, self.queue.popleft()))
+            if not batch:
+                self._time_prefill += time.perf_counter() - t_fill
+                return
+            kept, deferred = [], []
+            live: list[np.ndarray] = []   # prompts filling THIS round
+            for slot, req in batch:
+                cap = req.prompt.size - 1
+                best_live = max((min(_overlap(req.prompt, pr), cap)
+                                 for pr in live), default=0)
+                if best_live > self._prefix.peek(req.prompt):
+                    # share this round's longer fill next round
+                    deferred.append(req)
+                    continue
+                live.append(req.prompt)
+                kept.append((slot, req))
+            self.queue.extendleft(reversed(deferred))
+            batch = kept
+            by_slot, short = {}, False
+            for i, (slot, req) in enumerate(batch):
+                try:
+                    by_slot[slot] = self._kv_fill_one(slot, req)
+                except BlocksExhausted:
+                    for _, r in reversed(batch[i:]):
+                        self.queue.appendleft(r)
+                    batch = batch[:i]
+                    short = True
+                    break
+            firsts = (torch.stack([by_slot[s] for s, _ in batch])
+                      .cpu().numpy() if batch else [])
+            if batch:
+                dispatch.record_readback("fill_round")
+            self._time_prefill += time.perf_counter() - t_fill
+            for (slot, _), first in zip(batch, firsts):
+                self._fill_finalize(slot, int(first))
+                if self._done(slot):
+                    self._finish_slot(slot, finished)
+            if short:
+                return
+
+    def _kv_fill_one(self, slot: int, req: Request) -> torch.Tensor:
+        """Paged fill: the longest remembered prefix is shared
+        (refcount bumps on its fully covered blocks), the suffix rides
+        the same dense prefill the contiguous engine runs, and fresh
+        tail blocks are copied into the pool.  Returns the first token
+        as a device scalar."""
+        L = req.prompt.size
+        bs = self._kv_bs
+        p, entry = self._prefix.longest_prefix(req.prompt)
+        full = p // bs
+        nb = -(-L // bs)
+        # hold references on every entry block the gather reads (the
+        # partial boundary block included) so eviction inside the
+        # alloc fallback cannot free them mid-fill
+        guard = list(entry.block_ids[:-(-p // bs)]) if p else []
+        if guard:
+            self.kv_manager.share(guard)
+        try:
+            fresh = (self._kv_alloc_fill(nb - full)
+                     if nb > full else [])
+        except BlocksExhausted:
+            if guard:
+                self.kv_manager.free_blocks(guard)
+            raise
+        if p > 0:
+            key = req.prompt[:p].tobytes()
+            memo = self._kv_dense_memo
+            if memo is not None and memo[0] == key:
+                # the fill writes into its dense cache: work on a copy
+                one = KVCache(k=[a.clone() for a in memo[1].k],
+                              v=[a.clone() for a in memo[1].v], pos=p)
+            else:
+                one = self._kv_entry_dense(entry, p)
+                self._kv_dense_memo = (key, KVCache(
+                    k=[a.clone() for a in one.k],
+                    v=[a.clone() for a in one.v], pos=p))
+        else:
+            one = init_cache(self.cfg, 1, self.max_seq,
+                             device=self.device)
+        fill = _prefill_suffix if p > 0 else _decode._prefill
+        c = self.prefill_chunk or L
+        for off in range(p, L, c):
+            logits, one = fill(self.params,
+                               self._prompt(req, off, off + c)[None],
+                               self.cfg, one, off == 0)
+        if fresh:
+            self.pool = _decode.paged_adopt_blocks(
+                self.pool, one, fresh, full, nb - full)
+        # the fully covered guard refs BECOME the slot's references; a
+        # partial boundary block was recomputed into a fresh block, so
+        # its guard ref is dropped
+        if p % bs:
+            self.kv_manager.free_blocks([guard[-1]])
+        blocks = guard[:full] + fresh
+        self._slot_blocks[slot] = blocks
+        self._table[slot, :] = NULL_BLOCK
+        self._table[slot, :nb] = blocks
+        self._table_dev = None
+        # fill-time memo: the slot's OWN blocks, shared (the slot's
+        # first write into a shared partial block triggers CoW)
+        self._prefix.insert(req.prompt, blocks, L)
+        gen = self._generator(req)
+        first = self._first_token(logits, req, gen)
+        self._occupy(slot, req, gen)
+        return first
+
+    def run(self, max_steps: int = 10_000) -> list[Finished]:
+        """Drain queue + slots; returns every finished request."""
+        out: list[Finished] = []
+        for _ in range(max_steps):
+            out.extend(self.step())
+            if not self.queue and self.active == 0:
+                return out
+        raise RuntimeError(f"not drained after {max_steps} steps")
+
+    def stream(self, max_steps: int = 10_000):
+        """Drain like :meth:`run` but yield events incrementally:
+        ``("token", uid, token_id)`` for every newly generated token and
+        ``("finished", uid, tokens)`` when a request completes.
+        Cancelled requests simply stop producing events."""
+        yielded: dict[Any, int] = {}
+        for _ in range(max_steps):
+            # prune counters whose request left without finishing
+            # (cancel): a RESUBMITTED uid must restart at token 0
+            live = {r.uid for r in self._req if r is not None}
+            yielded = {u: n for u, n in yielded.items() if u in live}
+            finished = self.step()
+            for slot in range(self.slots):
+                req = self._req[slot]
+                if req is None:
+                    continue
+                gen = self._generated[slot]
+                for tok in gen[yielded.get(req.uid, 0):]:
+                    yield ("token", req.uid, int(tok))
+                yielded[req.uid] = len(gen)
+            for f in finished:
+                gen = f.tokens[f.n_prompt:]
+                for tok in gen[yielded.pop(f.uid, 0):]:
+                    yield ("token", f.uid, int(tok))
+                yield ("finished", f.uid, f.tokens)
+            if not self.queue and self.active == 0:
+                return
+        raise RuntimeError(f"not drained after {max_steps} steps")
+
+
+__all__ = ["Finished", "PrefixCache", "Request", "ServingEngine"]

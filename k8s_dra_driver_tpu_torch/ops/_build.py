@@ -1,0 +1,152 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, loaded with
+``ctypes``.  One ``nvcc -c`` per source, all started together, then
+one link.  The library goes to ``build/cuda/<hash>/`` at the root of
+the checkout (listed in ``.gitignore``), keyed by a hash of the
+sources and flags, and is built at first use: nothing here runs at
+import time, so the CPU tests import the kernel modules freely.
+
+A missing ``nvcc`` or a failed build raises.  There is no fallback:
+the kernel wrappers call :func:`library` only for CUDA tensors.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "cuda"
+_LIB_NAME = "libtpu_torch_kernels.so"
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+          "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+#: seconds the last build took in this process (None: loaded from the
+#: build directory, or not loaded yet)
+build_seconds: float | None = None
+#: path of the compiler log (``-Xptxas -v``: registers, shared memory
+#: and spills per kernel) of the library in use
+build_log: Path | None = None
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, seg, out, lse, B, T, H, Hkv, D, causal, window, scale,
+    # dtype, stream
+    "flash_fwd": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
+    # q, k_pool, v_pool, tables, lengths, out, B, H, Hkv, D, bs,
+    # n_pages, scale, dtype, stream
+    "paged_decode": [_VP] * 6 + [_I] * 6 + [_F, _I, _VP],
+}
+
+#: dtype codes shared with csrc/common.cuh
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for p in sorted(_CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+        "the CUDA kernels cannot be built")
+
+
+def _build(out_dir: Path) -> None:
+    """Compile every source in parallel, link, and move the result
+    into ``out_dir`` atomically."""
+    nvcc = _nvcc()
+    _BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=_BUILD_ROOT))
+    procs = []
+    for src in _sources():
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, objs, failed = [], [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+        objs.append(str(obj))
+        if proc.returncode:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *_FLAGS, "-shared", *objs, "-o", str(tmp / _LIB_NAME)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}")
+        if link.returncode:
+            failed.append("link")
+    (tmp / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(
+            f"CUDA kernel build failed ({', '.join(failed)}):\n"
+            + "\n".join(log)[-8000:])
+    try:
+        tmp.rename(out_dir)
+    except OSError:
+        # another process finished the same build first
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        out_dir = _BUILD_ROOT / _digest()
+        if not (out_dir / _LIB_NAME).exists():
+            t0 = time.perf_counter()
+            _build(out_dir)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(out_dir / _LIB_NAME))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tpu_torch_error_string.argtypes = [ctypes.c_int]
+        lib.tpu_torch_error_string.restype = ctypes.c_char_p
+        build_log = out_dir / "build.log"
+        _lib = lib
+        return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if rc:
+        text = library().tpu_torch_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch: {text}")

@@ -1,0 +1,68 @@
+"""The PyTorch port stands alone: no module of k8s_dra_driver_tpu_torch,
+nor its on-card scripts chip_smoke.py and chip_profile.py, imports JAX
+(jax, jaxlib, optax) or anything of the JAX package k8s_dra_driver_tpu
+— not even its numpy-only modules.  A static AST scan, so imports
+hidden inside functions are caught too."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "k8s_dra_driver_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu")
+
+
+def scanned_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_profile.py"]
+
+
+def imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_scan_covers_the_port():
+    files = {p.relative_to(ROOT).as_posix() for p in scanned_files()}
+    assert {"chip_smoke.py", "chip_profile.py"} <= files
+    for mod in ("models/serving.py", "models/decode.py",
+                "ops/flash_attention.py", "ops/paged_attention.py",
+                "serving_kv/manager.py", "utils/dispatch.py"):
+        assert f"k8s_dra_driver_tpu_torch/{mod}" in files
+
+
+@pytest.mark.parametrize("path", scanned_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    bad = [n for n in imported_modules(path) if forbidden(n)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scanner_catches_forbidden_forms(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\n"
+                   "def f():\n"
+                   "    import jax.numpy as jnp\n"
+                   "    from k8s_dra_driver_tpu.serving_kv import manager\n"
+                   "    importlib.import_module('optax')\n"
+                   "from k8s_dra_driver_tpu_torch.models import decode\n")
+    bad = [n for n in imported_modules(src) if forbidden(n)]
+    assert bad == ["jax.numpy", "k8s_dra_driver_tpu.serving_kv", "optax"]
