@@ -1,4 +1,4 @@
-"""Where a serving drain's time goes on the card.
+"""Where a serving drain's and a training step's time goes on the card.
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper
 card, after ``chip_smoke.py`` has shown the port is right there:
@@ -19,8 +19,16 @@ each KV layout (contiguous; paged with the paged kernel) it
 It prints, per layout, the wall time, the device's busy time (the sum
 of every device op's time in the profiled run) and the busy share
 (busy time over the unprofiled run's wall time), the device ops
-launched per decode step, and the ops with the most device time.  The
-last line is one JSON object with those numbers.  Exits non-zero
+launched per decode step, and the ops with the most device time.
+
+Then the training step of ``chip_smoke.py``'s training phase (the same
+configuration, B=8 x T=2048, AdamW): two warm-up steps, TRAIN_WINDOW
+steps on the host clock, TRAIN_WINDOW more under the profiler; per
+step its wall time, device busy time and share, and the device time of
+the flash kernels (K1, K3, K4), the matrix products, the optimizer and
+everything else.
+
+The last line is one JSON object with those numbers.  Exits non-zero
 without a card.  Imports nothing of JAX and nothing of the JAX
 package.
 """
@@ -37,7 +45,17 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as smoke
 
 WINDOW = 32      # decode steps per steady-state window
+TRAIN_WINDOW = 3  # training steps timed, then as many profiled
 TOP = 10         # device ops listed per run
+
+# device ops by kind, matched on the kernel's name in this order
+KINDS = (
+    ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K4 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("matrix products", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),
+    ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+)
 
 
 def device_summary(prof) -> dict:
@@ -119,6 +137,68 @@ def steady_profile(make_engine, request_cls, vocab: int) -> dict:
             "top": summary["top"]}
 
 
+def by_kind(prof) -> dict:
+    """Device ms of one profiled run split by KINDS ("other": the rest:
+    elementwise, reductions, copies, memsets)."""
+    out = {name: 0.0 for name, _ in KINDS}
+    out["other"] = 0.0
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        if ms <= 0:
+            continue
+        kind = next((name for name, keys in KINDS
+                     if any(k in e.key for k in keys)), "other")
+        out[kind] += ms
+    return out
+
+
+def train_profile() -> dict:
+    """Wall and device time per full-width training step."""
+    from k8s_dra_driver_tpu_torch.models.transformer import make_train_step
+    cfg = smoke.serving_config()
+    step, init_state = make_train_step(cfg, device="cuda")
+    params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
+    motif = np.random.default_rng(0).integers(0, cfg.vocab, 32)
+    batch = np.tile(motif, smoke.TRAIN_B * smoke.TRAIN_T // 32).reshape(
+        smoke.TRAIN_B, smoke.TRAIN_T).astype(np.int32)
+    state = [params, opt]
+
+    def window():
+        for _ in range(TRAIN_WINDOW):
+            state[0], state[1], loss = step(state[0], state[1], batch)
+            float(loss)                      # the step's end, as a user
+    for _ in range(2):
+        state[0], state[1], _ = step(state[0], state[1], batch)
+    wall_ms = timed(window) * 1e3 / TRAIN_WINDOW
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    summary = device_summary(prof)
+    kinds = {k: v / TRAIN_WINDOW for k, v in by_kind(prof).items()}
+    busy_ms = summary["busy_ms"] / TRAIN_WINDOW
+    return {"step_wall_ms": wall_ms, "step_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "tokens_per_s": smoke.TRAIN_B * smoke.TRAIN_T / (wall_ms / 1e3),
+            "device_ops_per_step": summary["device_ops"] / TRAIN_WINDOW,
+            "ms_by_kind": kinds, "top": summary["top"]}
+
+
+def report_train(train: dict) -> None:
+    print(f"train step (B={smoke.TRAIN_B} T={smoke.TRAIN_T}): "
+          f"{train['step_wall_ms']:.1f} ms wall, "
+          f"{train['tokens_per_s']:.0f} tokens/s, "
+          f"{train['step_busy_ms']:.1f} ms device busy "
+          f"({100 * train['busy_share']:.1f}%), "
+          f"{train['device_ops_per_step']:.0f} device ops per step",
+          flush=True)
+    for kind, ms in train["ms_by_kind"].items():
+        print(f"  {ms:10.3f} ms/step {kind}", flush=True)
+    print("train step, top device ops:", flush=True)
+    for row in train["top"]:
+        print(f"  {row['ms']:10.3f} ms {row['count']:7d}x {row['op']}",
+              flush=True)
+
+
 def report(label: str, drain: dict, steady: dict) -> None:
     print(f"{label} drain: wall {drain['wall_ms']:.1f} ms, "
           f"{drain['decode_steps']} decode steps, device busy "
@@ -153,7 +233,10 @@ def main() -> None:
         steady = steady_profile(make_engine, Request, cfg.vocab)
         report(label, drain, steady)
         out[label] = {"drain": drain, "steady": steady}
-    print(json.dumps({"device": kind, "layouts": out}), flush=True)
+    train = train_profile()
+    report_train(train)
+    print(json.dumps({"device": kind, "layouts": out, "train": train}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -14,31 +14,49 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. K1 (flash-attention forward) against its plain PyTorch version at
    the serving path's shapes, with timings and the card's bound;
 4. K2 (paged decode) likewise;
-5. the serving engine, contiguous KV, at the full width of the 154M
-   serving configuration (vocab 32000, d_model 1024, 8 layers, 16
-   heads, 4 KV heads, d_ff 4096, max_seq 2048, bf16, random weights
-   from a fixed generator) draining the s8_r24 traffic (8 slots, 24
-   requests, prompt lengths 96/48/72/24, max_new 48, four of them
-   sampled); every greedy stream is held to a teacher-forced pass of
+5. K3 (flash backward dq) and K4 (dk/dv) against their plain version
+   ``attention_block_grads`` at the training shape (B=8 T=2048 H=16
+   Hkv=4 D=64 bf16 causal), with a window, segments, D=128, f32 and
+   two ring-style blocks (offsets, Tq != Tk, a valid-key end);
+6. the serving engine, contiguous KV, at the full width of the 154M
+   configuration (vocab 32000, d_model 1024, 8 layers, 16 heads, 4 KV
+   heads, d_ff 4096, max_seq 2048, bf16, random weights from a fixed
+   generator) draining the s8_r24 traffic (8 slots, 24 requests,
+   prompt lengths 96/48/72/24, max_new 48, four of them sampled);
+   every greedy stream is held to a teacher-forced pass of
    ``forward``;
-6. the same with the paged KV layout and the paged kernel, then once
+7. the same with the paged KV layout and the paged kernel, then once
    more on a pool small enough to force preemption;
-7. each kernel's device time at its main-path shape and at a long
-   context (torch.profiler), after the drains so that profiling cannot
-   tax them;
-8. one JSON line naming every kernel with its launches on the main
-   path, its error against the plain version and its times;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. training, small: one f32 AdamW step of a 2-layer config on the card
+   (kernels) and on the CPU (plain versions), loss and parameters
+   compared;
+9. training, full width: the 154M configuration, 6 AdamW steps of
+   B=8 x T=2048 over a repeated-motif token file read by
+   ``BatchLoader``; losses finite and falling, K1, K3 and K4 each
+   launched; a checkpoint at step 3 restored into a fresh state must
+   equal the saved state bitwise and resume to losses within
+   RESUME_TOL of the uninterrupted run; one step under remat launches
+   K1 twice per layer;
+10. each kernel's device time at its main-path shape and at a long
+    context (torch.profiler), after the drains and the steps so that
+    profiling cannot tax them;
+11. one JSON line naming every kernel with its launches on the main
+    paths (serving drains and training steps), its error against the
+    plain version and its times;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -53,6 +71,25 @@ LSE_TOL = 1e-3
 # (stepwise cache reads) and the full forward round differently; with
 # random weights the top two logits are often ~0.2 apart.
 TF_MARGIN = 0.1
+
+# K3/K4 against attention_block_grads: both run f32 arithmetic on the
+# same (bf16-rounded) inputs and differ only in summation order over up
+# to 2048 terms and in expf's last bits, so the error is held relative
+# to the largest gradient entry (about 10 at the training shape).
+BWD_TOL = 1e-3
+# training, f32 card (kernels) vs CPU (plain): summation order only; a
+# missing or wrong gradient moves a weight by a whole AdamW step (lr
+# 3e-4), three times this bound
+STEP_LOSS_RTOL = 1e-4
+STEP_PARAM_ATOL = 1e-4
+# resumed vs uninterrupted losses: the embedding gather's backward sums
+# rows in an order that may change between runs (bf16 weights, one
+# rounding step is 2^-8 relative), so three bf16 steps may part by a
+# few thousandths at a loss near 10
+RESUME_TOL = 2e-2
+TRAIN_STEPS = 6
+TRAIN_SAVE_AT = 3
+TRAIN_B, TRAIN_T = 8, 2048
 
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
@@ -328,14 +365,187 @@ def phase_paged(pa) -> dict:
     return row, probes
 
 
+def block_forward(fa, q, k, v, q_off, k_off, window, k_valid_end, seg_q,
+                  seg_k):
+    """(out, lse) of one K/V block in plain f32, lse over that block:
+    what a forward over the same block hands the backward."""
+    mask = fa.block_mask(q.shape[1], k.shape[1], q_off, k_off, True,
+                         window, k_valid_end, seg_q, seg_k, q.device)
+    group = q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(group, dim=2))
+    s = (s * q.shape[-1] ** -0.5).masked_fill(~mask[:, None], -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]),
+                       v.float().repeat_interleave(group, dim=2))
+    pairs = int(mask.sum()) * (q.shape[0] if mask.shape[0] == 1 else 1)
+    return out, lse.contiguous(), pairs * q.shape[2]
+
+
+def bwd_bound(b, tq, tk, h, h_kv, d, dtype, pairs, seg,
+              products: int, n_out: int) -> tuple[float, str]:
+    """Least time for one backward kernel: q, do, k, v, lse and delta
+    (and segments) read once, its f32 outputs (``n_out`` tensors of q's
+    shape for K3, of k's for K4) written once, over the memory rate;
+    ``products`` times 2*D flops per valid (q, k, head) pair over the
+    peak rate of the inputs' type; the larger of the two."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = ((2 * b * tq * h + 2 * b * tk * h_kv) * d * es
+              + 2 * b * h * tq * 4 + (b * (tq + tk) * 4 if seg else 0))
+    out_rows = b * tq * h if n_out == 1 else 2 * b * tk * h_kv
+    nbytes += out_rows * d * 4
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_b, t_f = nbytes / H100_BYTES_PER_S, products * 2 * d * pairs / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def sdpa_bwd_fn(q, k, v, do):
+    """The backward of one PyTorch attention call through autograd,
+    the forward excluded (yardstick only, never called by the port)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    group = q.shape[2] // k.shape[2]
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=group > 1)
+    else:
+        out = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(group, dim=1),
+            vt.repeat_interleave(group, dim=1), is_causal=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
+    """K3 and K4 against ``attention_block_grads``; returns the
+    kernels-line rows of both at the training shape and, by shape,
+    callables of each kernel, the plain version and the library call
+    there."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf, f32 = torch.bfloat16, torch.float32
+    full = dict(b=8, t=2048, tk=2048, h=16, h_kv=4, d=64, dtype=bf,
+                window=None, seg=False, q_off=0, k_off=0, k_end=None)
+    cases = [
+        full,
+        dict(full, window=256),
+        dict(full, seg=True),
+        dict(full, b=2, d=128),
+        dict(full, b=2, t=1024, tk=1024, dtype=f32, seg=True),
+        # ring hops: a later q block against an earlier K/V block, and
+        # a short q block against a longer, tail-padded one
+        dict(full, b=2, t=1024, tk=1024, q_off=1024, k_off=0),
+        dict(full, b=2, t=512, tk=1024, q_off=1536, k_off=512,
+             k_end=1400, window=700),
+    ]
+    rows, probes = {}, {}
+    for c in cases:
+        b, t, tk, h, h_kv, d, dtype = (c["b"], c["t"], c["tk"], c["h"],
+                                       c["h_kv"], c["d"], c["dtype"])
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+
+        q, do = rnd(b, t, h, d), rnd(b, t, h, d)
+        k, v = rnd(b, tk, h_kv, d), rnd(b, tk, h_kv, d)
+        seg_q = seg_k = None
+        if c["seg"]:
+            cuts = torch.randint(0, 512, (b, t), generator=gen, device=dev)
+            seg_q = seg_k = (torch.cumsum((cuts == 0).to(torch.int32),
+                                          dim=1).to(torch.int32)
+                             .contiguous())
+        out, lse, pairs = block_forward(fa, q, k, v, c["q_off"],
+                                        c["k_off"], c["window"],
+                                        c["k_end"], seg_q, seg_k)
+        delta = fa.attention_delta(do, out)
+        del out
+        kw = dict(causal=True, window=c["window"], k_valid_end=c["k_end"],
+                  q_segments=seg_q, k_segments=seg_k)
+        args = (q, k, v, do, delta, lse, c["q_off"], c["k_off"])
+        dq = fa.flash_bwd_dq(*args, **kw)
+        dk, dv = fa.flash_bwd_dkv(*args, **kw)
+        kw_plain = dict(kw)
+        del kw_plain["causal"]
+        ref = fa.attention_block_grads(*args, True, d ** -0.5, **kw_plain)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                                ("dv", dv, ref[2])):
+            if not torch.isfinite(got).all():
+                fail(f"K3/K4 non-finite {name} at {c}")
+            errs[name] = ((got - want).abs().max().item(),
+                          want.abs().max().item())
+        del ref
+        ms_dq = cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw), iters=5,
+                        warmup=1)
+        ms_dkv = cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw), iters=5,
+                         warmup=1)
+        plain_ms = cuda_ms(lambda: fa.attention_block_grads(
+            *args, True, d ** -0.5, **kw_plain), iters=3, warmup=1)
+        plain = (c["window"] is None and not c["seg"] and c["q_off"] == 0
+                 and c["k_off"] == 0 and t == tk)
+        lib_ms = cuda_ms(sdpa_bwd_fn(q, k, v, do), iters=5,
+                         warmup=1) if plain else None
+        seg = c["seg"]
+        b_dq = bwd_bound(b, t, tk, h, h_kv, d, dtype, pairs, seg, 3, 1)
+        b_dkv = bwd_bound(b, t, tk, h, h_kv, d, dtype, pairs, seg, 4, 2)
+        ok = all(e <= BWD_TOL * max(1.0, m) for e, m in errs.values())
+        label = (f"B={b} Tq={t} Tk={tk} H={h} Hkv={h_kv} D={d} "
+                 f"window={c['window']} seg={seg} q_off={c['q_off']} "
+                 f"k_off={c['k_off']} k_valid_end={c['k_end']} "
+                 f"{str(dtype).removeprefix('torch.')}")
+        print(f"K3/K4 {label}: "
+              + " ".join(f"{n} max|d|={e:.3g} (max|ref| {m:.3g})"
+                         for n, (e, m) in errs.items())
+              + f" (tol {BWD_TOL} x max(1, max|ref|)) K3_ms={ms_dq:.4f} "
+              f"K4_ms={ms_dkv:.4f} plain_ms(dq,dk,dv)={plain_ms:.4f} "
+              f"library_ms(sdpa backward)={fmt(lib_ms)} "
+              f"K3_bound_us={b_dq[0] * 1e3:.2f} ({b_dq[1]}) "
+              f"K4_bound_us={b_dkv[0] * 1e3:.2f} ({b_dkv[1]}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"K3/K4 disagree with their plain version at {c}")
+        if c is full:
+            rows["K3"] = dict(max_abs_err=errs["dq"][0], ms=ms_dq,
+                              plain_ms=plain_ms, bound_ms=b_dq[0],
+                              bound_by=b_dq[1], library_ms=lib_ms)
+            rows["K4"] = dict(max_abs_err=max(errs["dk"][0],
+                                              errs["dv"][0]),
+                              ms=ms_dkv, plain_ms=plain_ms,
+                              bound_ms=b_dkv[0], bound_by=b_dkv[1],
+                              library_ms=lib_ms)
+            shape = "B=8 T=2048 (main path)"
+            plain_fn = (lambda a=args, k2=kw_plain, dd=d:
+                        fa.attention_block_grads(*a, True, dd ** -0.5,
+                                                 **k2))
+            lib_fn = sdpa_bwd_fn(q, k, v, do)
+            probes["K3"] = {shape: dict(
+                kernel=lambda a=args, k2=kw: fa.flash_bwd_dq(*a, **k2),
+                plain=plain_fn, library=lib_fn)}
+            probes["K4"] = {shape: dict(
+                kernel=lambda a=args, k2=kw: fa.flash_bwd_dkv(*a, **k2),
+                plain=plain_fn, library=lib_fn)}
+    return rows["K3"], rows["K4"], probes
+
+
+def serving_config():
+    """The 154M configuration: vocab 32000, d_model 1024, 8 layers, 16
+    heads, 4 KV heads, d_head 64, d_ff 4096, max_seq 2048, bf16."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig)
+    return TransformerConfig(vocab=32000, d_model=1024, n_layers=8,
+                             n_heads=16, n_kv_heads=4, d_head=64,
+                             d_ff=4096, max_seq=2048, dtype=torch.bfloat16)
+
+
 def serving_model():
     """(cfg, params): the 154M serving configuration at full width and
     depth in bf16, random weights from generator seed 0 on the card."""
-    from k8s_dra_driver_tpu_torch.models.transformer import (
-        TransformerConfig, init_params)
-    cfg = TransformerConfig(vocab=32000, d_model=1024, n_layers=8,
-                            n_heads=16, n_kv_heads=4, d_head=64,
-                            d_ff=4096, max_seq=2048, dtype=torch.bfloat16)
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    cfg = serving_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     n_params = sum(p.numel() for p in [params["embed"], params["unembed"],
@@ -432,6 +642,174 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     return done, counts, stats
 
 
+def zero_counts(fa) -> None:
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+
+
+def train_counts(fa) -> dict:
+    return {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+            "flash_bwd_dkv": fa.dkv_launches}
+
+
+def phase_train_small(fa) -> None:
+    """One f32 AdamW step of a small config on the card (K1/K3/K4) and
+    on the CPU (plain versions), from the same parameters and tokens,
+    with packed segments."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig, make_train_step, named_tensors)
+    cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_head=64, d_ff=512, max_seq=256,
+                            dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (2, 256)).astype(np.int32)
+    seg = np.cumsum(rng.integers(0, 64, (2, 256)) == 0, axis=1).astype(
+        np.int32)
+    results = {}
+    for device in ("cuda", "cpu"):
+        step, init_state = make_train_step(cfg, device=device)
+        params, opt = init_state(torch.Generator().manual_seed(3))
+        zero_counts(fa)
+        params, opt, loss = step(params, opt, tokens, seg)
+        leaves = named_tensors(params)
+        missing = [n for n, t in leaves if t.grad is None]
+        if missing:
+            fail(f"train step on {device}: no gradient for {missing}")
+        results[device] = (float(loss), [t.detach().cpu()
+                                         for _, t in leaves],
+                           train_counts(fa))
+    (l_c, p_c, counts), (l_h, p_h, _) = results["cuda"], results["cpu"]
+    if min(counts.values()) != cfg.n_layers:
+        fail(f"small f32 step launched {counts}: each kernel once per "
+             f"layer expected")
+    loss_rel = abs(l_c - l_h) / abs(l_h)
+    param_err = max((a - b).abs().max().item() for a, b in zip(p_c, p_h))
+    ok = loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_ATOL
+    print(f"train f32 small step, card (kernels) vs CPU (plain): loss "
+          f"{l_c:.7f} vs {l_h:.7f} (rel {loss_rel:.3g}, tol "
+          f"{STEP_LOSS_RTOL}); params max|d| {param_err:.3g} (tol "
+          f"{STEP_PARAM_ATOL}); launches {counts} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the card's f32 train step disagrees with the CPU's")
+
+
+def state_snapshot(params, opt) -> list:
+    """Every tensor of (params, optimizer state) copied, in a fixed
+    order, for a bitwise comparison."""
+    from k8s_dra_driver_tpu_torch.models.transformer import named_tensors
+    out = [t.detach().clone() for _, t in named_tensors(params)]
+    state = opt.state_dict()["state"]
+    for i in sorted(state):
+        for key in sorted(state[i]):
+            out.append(torch.as_tensor(state[i][key]).detach().clone())
+    return out
+
+
+def phase_train(fa, tmp: Path) -> dict:
+    """The 154M configuration trained at full width: TRAIN_STEPS AdamW
+    steps of B=8 x T=2048 with the K1/K3/K4 counters zeroed just before
+    and read just after, a checkpoint at TRAIN_SAVE_AT, the resume
+    check, and one step under remat.  Returns the steps' launches."""
+    from k8s_dra_driver_tpu_torch.models.checkpoint import (
+        TrainCheckpointer)
+    from k8s_dra_driver_tpu_torch.models.data import (BatchLoader,
+                                                      load_token_file,
+                                                      write_token_file)
+    from k8s_dra_driver_tpu_torch.models.transformer import make_train_step
+    cfg = serving_config()
+    # a repeated 32-token motif (as the JAX package's training probe
+    # builds its corpus), two epochs of 16 windows
+    motif = np.random.default_rng(0).integers(0, cfg.vocab, 32)
+    corpus = np.tile(motif, 2 * TRAIN_B * TRAIN_T // 32)
+    path = write_token_file(corpus, tmp / "corpus.bin", cfg.vocab)
+
+    def loader():
+        return BatchLoader(load_token_file(path, cfg.vocab), batch=TRAIN_B,
+                           seq_len=TRAIN_T, seed=0)
+
+    step, init_state = make_train_step(cfg, device="cuda")
+    params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
+    data = loader()
+    ckpt = TrainCheckpointer(tmp / "ckpt", keep=2)
+    losses, walls, saved = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    for i in range(1, TRAIN_STEPS + 1):
+        batch = next(data)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))          # waits for the step
+        walls.append(time.perf_counter() - t0)
+        if i == TRAIN_SAVE_AT:
+            ckpt.save(i, params, opt, extra=data.state_dict())
+            saved = state_snapshot(params, opt)
+    counts = train_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = walls[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    print(f"train 154M B={TRAIN_B} T={TRAIN_T} bf16: losses "
+          f"{[round(x, 5) for x in losses]}; step wall ms "
+          f"{[round(1e3 * w, 1) for w in walls]} (mean of steps 2-"
+          f"{TRAIN_STEPS}: {step_ms:.1f} ms = "
+          f"{TRAIN_B * TRAIN_T / (step_ms / 1e3):.0f} tokens/s); peak "
+          f"device memory {peak_gb:.2f} GiB; kernel launches {counts}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: {losses}")
+    if min(counts.values()) <= 0:
+        fail(f"training launched {counts}: every kernel must be > 0")
+
+    # resume: a fresh state from another seed, restored from step 3
+    params2, opt2 = init_state(torch.Generator(device="cuda").manual_seed(9))
+    params2, opt2, at = ckpt.restore(params2, opt2)
+    restored = state_snapshot(params2, opt2)
+    same = (at == TRAIN_SAVE_AT and len(restored) == len(saved)
+            and all(a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b)
+                    for a, b in zip(restored, saved)))
+    data2 = loader()
+    data2.load_state_dict(ckpt.restore_extra(at))
+    resumed = []
+    for _ in range(TRAIN_SAVE_AT, TRAIN_STEPS):
+        params2, opt2, loss = step(params2, opt2, next(data2))
+        resumed.append(float(loss))
+    ckpt.close()
+    gap = max(abs(a - b) for a, b in zip(resumed, losses[TRAIN_SAVE_AT:]))
+    ok = same and gap <= RESUME_TOL
+    print(f"train resume from step {at}: {len(saved)} tensors bitwise "
+          f"equal={same}; losses {[round(x, 5) for x in resumed]} vs "
+          f"{[round(x, 5) for x in losses[TRAIN_SAVE_AT:]]} (max|d| "
+          f"{gap:.3g}, tol {RESUME_TOL}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("the restored training state or its losses disagree")
+    del saved, restored
+
+    # remat: the layer forward runs again in the backward, so K1 twice
+    step_r, _ = make_train_step(dataclasses.replace(cfg, remat=True),
+                                device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    t0 = time.perf_counter()
+    params2, opt2, loss = step_r(params2, opt2, next(data2))
+    remat_loss = float(loss)
+    remat_ms = 1e3 * (time.perf_counter() - t0)
+    remat_counts = train_counts(fa)
+    remat_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    print(f"train remat step: loss {remat_loss:.5f}, wall {remat_ms:.1f} "
+          f"ms, peak device memory {remat_gb:.2f} GiB, launches "
+          f"{remat_counts} (expected {want})", flush=True)
+    if remat_counts != want or not np.isfinite(remat_loss):
+        fail("the remat step's launches or loss are wrong")
+    return counts
+
+
 def main() -> None:
     kind = phase_device()
     from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
@@ -442,6 +820,7 @@ def main() -> None:
     phase_build(_build)
     k1, k1_probes = phase_flash(fa)
     k2, k2_probes = phase_paged(pa)
+    k3, k4, bwd_probes = phase_flash_bwd(fa)
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
@@ -485,12 +864,23 @@ def main() -> None:
           flush=True)
     for name in launches:
         launches[name] += counts[name]
+    del params, done_c, done_p, done_x
+
+    phase_train_small(fa)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = phase_train(fa, Path(tmp))
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"kernel launches on the main paths (3 drains + "
+          f"{TRAIN_STEPS} train steps): {launches}", flush=True)
 
     # device time at the main-path shape and at a long context,
-    # profiled last: profiling before the drains would tax their every
-    # launch
+    # profiled last: profiling before the drains and the steps would
+    # tax their every launch
     for name, row, by_shape in (("K1", k1, k1_probes),
-                                ("K2", k2, k2_probes)):
+                                ("K2", k2, k2_probes),
+                                ("K3", k3, bwd_probes["K3"]),
+                                ("K4", k4, bwd_probes["K4"])):
         for shape, probes in by_shape.items():
             times = {what: device_ms(fn) for what, fn in probes.items()}
             if shape.endswith("(main path)"):
@@ -509,6 +899,14 @@ def main() -> None:
              source="k8s_dra_driver_tpu_torch/csrc/paged_decode.cu",
              replaces="k8s_dra_driver_tpu/ops/paged_attention.py:125",
              launches=launches["paged_decode"], **k2),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
+             replaces="k8s_dra_driver_tpu/ops/flash_attention.py:727",
+             launches=launches["flash_bwd_dq"], **k3),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
+             replaces="k8s_dra_driver_tpu/ops/flash_attention.py:790",
+             launches=launches["flash_bwd_dkv"], **k4),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,17 @@
-"""The model layer of the port: transformer, KV-cache decoding and
-the continuous-batching serving engine."""
+"""The model layer of the port: transformer, training step, data
+loader, checkpointer, KV-cache decoding and the continuous-batching
+serving engine."""
 
+from .checkpoint import ShardCorruption, TrainCheckpointer
+from .data import (BatchLoader, load_token_file, local_rows,
+                   write_token_file)
 from .decode import (KVCache, greedy_generate, init_cache,
                      sample_generate)
-from .transformer import TransformerConfig, forward, init_params
+from .transformer import (TransformerConfig, forward, init_params, loss_fn,
+                          make_optimizer, make_train_step)
 
-__all__ = ["KVCache", "TransformerConfig", "forward", "greedy_generate",
-           "init_cache", "init_params", "sample_generate"]
+__all__ = ["BatchLoader", "KVCache", "ShardCorruption",
+           "TrainCheckpointer", "TransformerConfig", "forward",
+           "greedy_generate", "init_cache", "init_params", "load_token_file",
+           "local_rows", "loss_fn", "make_optimizer", "make_train_step",
+           "sample_generate", "write_token_file"]

@@ -1,9 +1,10 @@
-"""Decoder-only transformer: config, parameters and the forward pass.
+"""Decoder-only transformer: config, parameters, the forward pass and
+the training step.
 
-The port of ``k8s_dra_driver_tpu/models/transformer.py``, inference
-half.  Parameters keep the JAX package's layout and key names —
-``wq [d,h,dh]``, ``wk/wv [d,h_kv,dh]``, ``wo [h,dh,d]``, ``w_in [d,f]``,
-``w_out [f,d]``, ``embed [V,d]``, ``unembed [d,V]``,
+The port of ``k8s_dra_driver_tpu/models/transformer.py`` for dense
+configs on one device.  Parameters keep the JAX package's layout and
+key names — ``wq [d,h,dh]``, ``wk/wv [d,h_kv,dh]``, ``wo [h,dh,d]``,
+``w_in [d,f]``, ``w_out [f,d]``, ``embed [V,d]``, ``unembed [d,V]``,
 ``ln1/ln2/ln_f [d]`` in a dict with a ``layers`` list — so the same
 einsum specs apply and ``models/convert.py`` moves a JAX checkpoint
 over key for key.
@@ -13,17 +14,26 @@ the tanh approximation (``jax.nn.gelu``'s default), RoPE rotates
 interleaved pairs, RMSNorm takes its variance in f32 and multiplies in
 x's dtype.
 
-Not ported yet: MoE (``n_experts > 0``), the mesh / pipeline paths,
-the training step.
+Training: ``loss_fn`` (next-token NLL, f32 logits, segment keep-mask),
+``make_optimizer`` (AdamW, optax's defaults) and ``make_train_step``.
+The step updates the parameters and the optimizer state in place
+(where JAX donates its buffers); gradients reach every weight, the
+attention projections through the flash backward kernels K3/K4 on the
+card.
+
+Not ported yet: MoE (``n_experts > 0``) and the mesh / pipeline
+paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.ring_attention import attention_reference
@@ -206,9 +216,10 @@ def rotary(x, positions, theta: float = 10000.0):
 
 
 def _attention(x, layer, cfg: TransformerConfig, segment_ids=None):
-    """Single-device attention: the flash kernel (K1) on the card, the
-    dense oracle elsewhere — the split ``transformer.py:365-374`` makes
-    between the TPU and other backends."""
+    """Single-device attention: flash attention on the card (K1
+    forward, K3/K4 backward), the dense oracle elsewhere — the split
+    ``transformer.py:365-374`` makes between the TPU and other
+    backends."""
     b, t, d = x.shape
     positions = torch.arange(t, device=x.device)
     q = rotary(ein("btd,dhk->bthk", x, layer["wq"]), positions,
@@ -248,10 +259,104 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     require_dense(cfg)
     x = take_rows(params["embed"], tokens, cfg.dtype)
     for layer in params["layers"]:
-        x = _layer_forward(x, layer, cfg, segment_ids)
+        if cfg.remat:
+            # activations of the layer are recomputed in the backward,
+            # as jax.checkpoint does for the JAX package's layer
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_forward, x, layer, cfg, segment_ids,
+                use_reentrant=False)
+        else:
+            x = _layer_forward(x, layer, cfg, segment_ids)
     x = rms_norm(x, params["ln_f"])
     return ein("btd,dv->btv", x, params["unembed"])
 
 
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            segment_ids=None) -> torch.Tensor:
+    """Next-token cross-entropy, f32 scalar.
+
+    The forward pass runs on the full sequence and the shift happens on
+    the logits (taken in f32).  With ``segment_ids``, positions whose
+    next token belongs to a different segment are excluded from the
+    mean."""
+    logits = forward(params, tokens, cfg, segment_ids).float()
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    if segment_ids is None:
+        return -ll.mean()
+    keep = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)
+    return -(ll * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# Training step
+# --------------------------------------------------------------------------
+
+def named_tensors(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """Leaves of a parameter tree (dicts and lists) as ``(dotted path,
+    tensor)`` pairs, dict keys sorted: the one order the optimizer and
+    the checkpointer share."""
+    if isinstance(tree, dict):
+        return [pair for key in sorted(tree)
+                for pair in named_tensors(tree[key], f"{prefix}{key}.")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, node in enumerate(tree)
+                for pair in named_tensors(node, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def make_optimizer(lr: float = 3e-4) -> Callable[..., torch.optim.Optimizer]:
+    """The counterpart of ``optax.adamw(lr, weight_decay=0.01)``: a
+    factory that binds ``torch.optim.AdamW`` with optax's betas and eps
+    to a list of parameters.  Decay is decoupled and applies to every
+    leaf, as in optax; the moments are kept in the parameters' dtype,
+    as optax keeps them."""
+    return functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=0.01)
+
+
+def make_train_step(cfg: TransformerConfig, device="cuda",
+                    optimizer: Callable[..., torch.optim.Optimizer]
+                    | None = None):
+    """Returns ``(train_step, init_state)`` for one device, the shape
+    of the JAX ``make_train_step`` without the mesh.
+
+    ``init_state(generator=None)`` -> ``(params, opt_state)``: params
+    from :func:`init_params` on ``device`` with gradients on, and a
+    fresh optimizer (``optimizer``, default :func:`make_optimizer`)
+    bound to them.  ``train_step(params, opt_state, tokens,
+    segment_ids=None)`` -> ``(params, opt_state, loss)``: loss and
+    gradients of :func:`loss_fn`, then one optimizer step, in place;
+    ``tokens`` [B, T] (tensor or numpy) is moved to ``device``."""
+    require_dense(cfg)
+    dev = resolve_device(device)
+    optimizer = optimizer or make_optimizer()
+
+    def init_state(generator: torch.Generator | None = None):
+        params = init_params(cfg, generator, device=dev)
+        leaves = [t.requires_grad_() for _, t in named_tensors(params)]
+        return params, optimizer(leaves)
+
+    def train_step(params, opt_state, tokens, segment_ids=None):
+        leaves = [t for _, t in named_tensors(params)]
+        bound = opt_state.param_groups[0]["params"]
+        if (len(opt_state.param_groups) != 1 or len(bound) != len(leaves)
+                or any(a is not b for a, b in zip(bound, leaves))):
+            raise ValueError("opt_state is not bound to these params "
+                             "(build both with init_state)")
+        tokens = torch.as_tensor(tokens, device=dev)
+        if segment_ids is not None:
+            segment_ids = torch.as_tensor(segment_ids, device=dev)
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, tokens, cfg, segment_ids)
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return train_step, init_state
+
+
 __all__ = ["Params", "TransformerConfig", "forward", "init_params",
-           "rms_norm", "rotary"]
+           "loss_fn", "make_optimizer", "make_train_step",
+           "named_tensors", "rms_norm", "rotary"]

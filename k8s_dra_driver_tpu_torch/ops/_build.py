@@ -51,6 +51,11 @@ _SIGNATURES = {
     # q, k_pool, v_pool, tables, lengths, out, B, H, Hkv, D, bs,
     # n_pages, scale, dtype, stream
     "paged_decode": [_VP] * 6 + [_I] * 6 + [_F, _I, _VP],
+    # q, k, v, do, lse, delta, qseg, kseg, dq, B, Tq, Tk, k_len, H, Hkv,
+    # D, q_off, k_off, causal, window, scale, dtype, stream
+    "flash_bwd_dq": [_VP] * 9 + [_I] * 11 + [_F, _I, _VP],
+    # the same with dk, dv in place of dq
+    "flash_bwd_dkv": [_VP] * 10 + [_I] * 11 + [_F, _I, _VP],
 }
 
 #: dtype codes shared with csrc/common.cuh

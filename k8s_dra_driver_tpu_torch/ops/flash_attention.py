@@ -1,20 +1,28 @@
-"""Flash-attention forward: the Hopper kernel K1 and its plain version.
+"""Flash attention, forward and backward: the Hopper kernels K1, K3, K4
+and their plain versions.
 
 ``flash_attention`` is the port of
-``k8s_dra_driver_tpu/ops/flash_attention.py:flash_attention`` (the
-normalized forward through ``_flash_forward``).  On a CUDA tensor it
-launches the hand-written kernel ``csrc/flash_fwd.cu``, which replaces
-the TPU kernel ``_flash_kernel`` (launched there by
-``_flash_block_attention``); on a CPU tensor it takes the plain
-PyTorch version ``flash_forward_reference`` in this module.  There is
-no other path: an unsupported shape or dtype on the card raises.
+``k8s_dra_driver_tpu/ops/flash_attention.py:flash_attention``: the
+normalized forward through ``_flash_forward`` and the backward of its
+``custom_vjp``, here a ``torch.autograd.Function``.
 
-The kernel is bounded by tensor-core flops at long T (it runs f32 FMA
-on the CUDA cores today, see its source note) and by launch latency at
-the serving path's short prompts.  No backward yet: the JAX custom VJP
-backward kernels come with the training slice.
+- Forward: on a CUDA tensor :func:`flash_forward` launches
+  ``csrc/flash_fwd.cu`` (K1), which replaces the TPU kernel
+  ``_flash_kernel`` (launched there by ``_flash_block_attention``); on
+  a CPU tensor it takes ``flash_forward_reference``.
+- Backward: :func:`flash_block_grads`, the port of the JAX function of
+  that name, launches ``csrc/flash_bwd.cu``: K3 (:func:`flash_bwd_dq`,
+  replacing ``_flash_bwd_dq_kernel``) and K4 (:func:`flash_bwd_dkv`,
+  replacing ``_flash_bwd_dkv_kernel``).  On CPU tensors it takes
+  ``attention_block_grads``, the plain version both kernels are held
+  against.
 
-``launches`` counts kernel launches (CPU calls never count).
+There is no other path: an unsupported shape or dtype on the card
+raises.  The kernels run f32 FMA on the CUDA cores (see their source
+notes); the tensor-core path is later work.
+
+``launches``, ``dq_launches`` and ``dkv_launches`` count kernel
+launches of K1, K3 and K4 (CPU calls never count).
 """
 
 from __future__ import annotations
@@ -24,8 +32,12 @@ import torch
 from . import _build
 from .ring_attention import _NEG_INF, attention_mask, kv_group
 
-#: kernel launches made by :func:`flash_forward` on CUDA tensors
+#: kernel launches made by :func:`flash_forward` on CUDA tensors (K1)
 launches = 0
+#: launches of K3 (dq) by :func:`flash_bwd_dq`
+dq_launches = 0
+#: launches of K4 (dk/dv) by :func:`flash_bwd_dkv`
+dkv_launches = 0
 
 _KERNEL_HEAD_DIMS = (64, 128)
 
@@ -54,6 +66,33 @@ def _validate(q, k, v, causal, window, segment_ids):
         if segment_ids.device != q.device:
             raise ValueError("segment_ids must be on q's device")
 
+
+def _kernel_dtype_code(x, what: str) -> int:
+    if x.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {what} kernel takes head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {x.shape[-1]}")
+    code = _build.DTYPE_CODES.get(str(x.dtype).removeprefix("torch."))
+    if code is None:
+        raise ValueError(f"the {what} kernel takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    return code
+
+
+def _require_contiguous(**tensors) -> None:
+    for name, x in tensors.items():
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _require_int32(**tensors) -> None:
+    for name, x in tensors.items():
+        if x is not None and x.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {x.dtype}")
+
+
+# --------------------------------------------------------------------------
+# Forward (K1)
+# --------------------------------------------------------------------------
 
 def flash_forward_reference(q, k, v, *, causal=True, scale=None,
                             window=None, segment_ids=None):
@@ -87,19 +126,9 @@ def flash_attention_reference(q, k, v, *, causal=True, scale=None,
 def _launch(q, k, v, causal, scale, window, segment_ids):
     global launches
     b, t, h, d = q.shape
-    if d not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dims "
-                         f"{_KERNEL_HEAD_DIMS}, got {d}")
-    code = _build.DTYPE_CODES.get(str(q.dtype).removeprefix("torch."))
-    if code is None:
-        raise ValueError(f"the flash kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if segment_ids is not None and (segment_ids.dtype != torch.int32
-                                    or not segment_ids.is_contiguous()):
-        raise ValueError("segment_ids must be contiguous int32")
+    code = _kernel_dtype_code(q, "flash")
+    _require_contiguous(q=q, k=k, v=v, segment_ids=segment_ids)
+    _require_int32(segment_ids=segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _build.library()
@@ -115,6 +144,15 @@ def _launch(q, k, v, causal, scale, window, segment_ids):
     return out, lse
 
 
+def _on_card(x, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return True
+
+
 def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
                   segment_ids=None):
     """``(out, lse)``: the kernel on CUDA tensors, the plain version on
@@ -124,25 +162,288 @@ def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
     _validate(q, k, v, causal, window, segment_ids)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if not _on_card(q, "flash_forward"):
         return flash_forward_reference(q, k, v, causal=causal,
                                        scale=scale, window=window,
                                        segment_ids=segment_ids)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_forward runs on cuda or cpu, not "
-                         f"{q.device}")
     return _launch(q, k, v, causal, scale, window, segment_ids)
+
+
+# --------------------------------------------------------------------------
+# Backward (K3, K4) against one K/V block
+# --------------------------------------------------------------------------
+
+def block_mask(tq: int, tk: int, q_offset: int, k_offset: int,
+               causal: bool, window=None, k_valid_end=None,
+               q_segments=None, k_segments=None, device=None):
+    """``[1|B, Tq, Tk]`` bool, True where query row may see key column
+    of one block: causal and sliding ``window`` by absolute position
+    (the blocks start at ``q_offset``/``k_offset``), keys at absolute
+    positions >= ``k_valid_end`` dropped, segment equality.  None when
+    nothing is masked."""
+    k_pos = k_offset + torch.arange(tk, device=device)
+    mask = None
+    if causal:
+        q_pos = q_offset + torch.arange(tq, device=device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    if k_valid_end is not None:
+        valid = (k_pos < k_valid_end)[None, :].expand(tq, tk)
+        mask = valid if mask is None else (mask & valid)
+    if mask is not None:
+        mask = mask[None]
+    if q_segments is not None:
+        seg = q_segments[:, :, None] == k_segments[:, None, :]
+        mask = seg if mask is None else (mask & seg)
+    return mask
+
+
+def attention_block_grads(q, k, v, do, delta, lse, q_offset, k_offset,
+                          causal: bool, scale: float,
+                          k_valid_end: int | None = None,
+                          window: int | None = None,
+                          q_segments=None, k_segments=None):
+    """Flash backward against one K/V block, plain PyTorch in f32: the
+    port of the JAX package's ``attention_block_grads`` and the plain
+    version of K3 and K4.
+
+    q/do ``[B, Tq, H, D]``; k/v ``[B, Tk, H_kv, D]``; delta ``[B, H,
+    Tq]`` = rowsum(do * o) with o the normalized output; lse ``[B, H,
+    Tq]`` = m + log(l) over the FULL key range.  Offsets are the blocks'
+    absolute positions.  Returns f32 ``(dq, dk, dv)``: dq this block's
+    partial sum, dk/dv complete for this block and summed over each K/V
+    head's query heads.  p = exp(s - lse); dv = p^T do; dp = do v^T;
+    ds = p * (dp - delta) * scale; dq = ds k; dk = ds^T q.
+    """
+    if (q_segments is None) != (k_segments is None):
+        raise ValueError("q_segments and k_segments must be given "
+                         "together")
+    h = q.shape[2]
+    h_kv = k.shape[2]
+    group = kv_group(h, h_kv)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    if group > 1:     # GQA: broadcast kv heads; dk/dv group-summed below
+        kf = kf.repeat_interleave(group, dim=2)
+        vf = vf.repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    tq, tk = q.shape[1], k.shape[1]
+    mask = block_mask(tq, tk, q_offset, k_offset, causal, window,
+                      k_valid_end, q_segments, k_segments, q.device)
+    if mask is not None:
+        p = torch.where(mask[:, None], p, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    if group > 1:     # fold each group's contributions into its kv head
+        b, d = q.shape[0], q.shape[3]
+        dk = dk.reshape(b, tk, h_kv, group, d).sum(3)
+        dv = dv.reshape(b, tk, h_kv, group, d).sum(3)
+    return dq, dk, dv
+
+
+def _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
+                  k_segments):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"q must be [B, Tq, H, D] and k/v matching [B, Tk, H_kv, D], "
+            f"got {tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}")
+    b, tq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    kv_group(h, k.shape[2])
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    for name, x in (("delta", delta), ("lse", lse)):
+        if tuple(x.shape) != (b, h, tq) or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [B, H, Tq] = "
+                             f"{(b, h, tq)}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    if len({x.dtype for x in (q, k, v, do)}) != 1:
+        raise ValueError("q, k, v and do must share one dtype")
+    if len({x.device for x in (q, k, v, do, delta, lse)}) != 1:
+        raise ValueError("q, k, v, do, delta and lse must be on one "
+                         "device")
+    if window is not None and (not causal or window < 1):
+        raise ValueError("window requires causal attention and >= 1")
+    if (q_segments is None) != (k_segments is None):
+        raise ValueError("q_segments and k_segments must be given "
+                         "together")
+    if q_segments is not None:
+        if (tuple(q_segments.shape) != (b, tq)
+                or tuple(k_segments.shape) != (b, k.shape[1])):
+            raise ValueError("q_segments must be [B, Tq] and k_segments "
+                             "[B, Tk]")
+
+
+def _bwd_launch_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                     scale, k_valid_end, window, q_segments, k_segments):
+    """Checks what the kernels take; returns the C arguments shared by
+    K3 and K4, after the output pointers."""
+    code = _kernel_dtype_code(q, "flash backward")
+    _require_contiguous(q=q, k=k, v=v, do=do, delta=delta, lse=lse,
+                        q_segments=q_segments, k_segments=k_segments)
+    _require_int32(q_segments=q_segments, k_segments=k_segments)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    # keys at absolute positions >= k_valid_end are masked: the kernels
+    # take the count of valid local keys
+    k_len = tk if k_valid_end is None else max(
+        0, min(tk, int(k_valid_end) - int(k_offset)))
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(),
+              q_segments.data_ptr() if q_segments is not None else None,
+              k_segments.data_ptr() if k_segments is not None else None)
+    sizes = (b, tq, tk, k_len, h, k.shape[2], d, int(q_offset),
+             int(k_offset), int(causal), int(window or 0), float(scale),
+             code)
+    return inputs, sizes
+
+
+def _launch_bwd(dq_pass: bool, *args):
+    """Launch K3 (``dq_pass``; returns dq) or K4 (returns ``(dk, dv)``)
+    on ``args``, the positional arguments of
+    :func:`attention_block_grads`, after checking what the kernels
+    take."""
+    global dq_launches, dkv_launches
+    q, k = args[0], args[1]
+    inputs, sizes = _bwd_launch_args(*args)
+    shapes = [q.shape] if dq_pass else [k.shape, k.shape]
+    outs = [torch.empty(shape, dtype=torch.float32, device=q.device)
+            for shape in shapes]
+    name = "flash_bwd_dq" if dq_pass else "flash_bwd_dkv"
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, name)(*inputs, *(o.data_ptr() for o in outs),
+                                *sizes, stream)
+    _build.check(rc, name)
+    if dq_pass:
+        dq_launches += 1
+        return outs[0]
+    dkv_launches += 1
+    return outs[0], outs[1]
+
+
+def _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal, scale,
+              k_valid_end, window, q_segments, k_segments):
+    """Validated positional arguments of :func:`attention_block_grads`,
+    the scale defaulted."""
+    _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
+                  k_segments)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return (q, k, v, do, delta, lse, q_offset, k_offset, causal, scale,
+            k_valid_end, window, q_segments, k_segments)
+
+
+def flash_bwd_dq(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
+                 causal=True, scale=None, k_valid_end=None, window=None,
+                 q_segments=None, k_segments=None):
+    """dq ``[B, Tq, H, D]`` f32 of :func:`attention_block_grads` (same
+    arguments): K3 on CUDA tensors, the plain version on CPU tensors."""
+    args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                     scale, k_valid_end, window, q_segments, k_segments)
+    if not _on_card(q, "flash_bwd_dq"):
+        return attention_block_grads(*args)[0]
+    return _launch_bwd(True, *args)
+
+
+def flash_bwd_dkv(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
+                  causal=True, scale=None, k_valid_end=None, window=None,
+                  q_segments=None, k_segments=None):
+    """``(dk, dv)``, each ``[B, Tk, H_kv, D]`` f32, of
+    :func:`attention_block_grads`: K4 on CUDA tensors, which sums over
+    the query heads of each K/V head inside the kernel (no atomics, no
+    per-query-head intermediate); the plain version on CPU tensors."""
+    args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                     scale, k_valid_end, window, q_segments, k_segments)
+    if not _on_card(q, "flash_bwd_dkv"):
+        return attention_block_grads(*args)[1:]
+    return _launch_bwd(False, *args)
+
+
+def flash_block_grads(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
+                      causal=True, scale=None, k_valid_end=None,
+                      window=None, q_segments=None, k_segments=None):
+    """f32 ``(dq, dk, dv)`` of one K/V block, the contract of
+    :func:`attention_block_grads`: K3 and K4 on CUDA tensors, the plain
+    version on CPU tensors."""
+    args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                     scale, k_valid_end, window, q_segments, k_segments)
+    if not _on_card(q, "flash_block_grads"):
+        return attention_block_grads(*args)
+    return (_launch_bwd(True, *args), *_launch_bwd(False, *args))
+
+
+def normalize_flash_stats(o, m, l):
+    """Flash epilogue: (o_unnorm ``[B, Tq, H, D]``, m, l ``[B, H, Tq]``)
+    -> (o normalized f32, lse), with the l-clamp of the JAX package."""
+    l = torch.clamp(l, min=1e-30)
+    out = o / l.transpose(1, 2)[..., None]
+    return out, m + torch.log(l)
+
+
+def attention_delta(do, out):
+    """delta_i = rowsum(do_i * o_i), the softmax-jacobian correction
+    term of the flash backward; [B,Tq,H,D] x2 -> [B,H,Tq] f32."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), out.float())
+
+
+def flash_backward(q, k, v, out, lse, do, *, causal=True, scale=None,
+                   window=None, segment_ids=None):
+    """f32 ``(dq, dk, dv)`` of :func:`flash_attention` from its saved
+    forward (``out``, ``lse``) and the output gradient ``do``: delta in
+    plain torch, then K3 and K4 on the card (the plain version on the
+    CPU)."""
+    delta = attention_delta(do, out)
+    return flash_block_grads(q, k, v, do.contiguous(), delta, lse, 0, 0,
+                             causal=causal, scale=scale, window=window,
+                             q_segments=segment_ids,
+                             k_segments=segment_ids)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of the JAX ``_flash_attention``: forward saves
+    q, k, v, out and lse; backward recomputes p from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, causal, scale, window):
+        out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                                 window=window, segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, do,
+                                    causal=ctx.causal, scale=ctx.scale,
+                                    window=ctx.window,
+                                    segment_ids=segment_ids)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None,
+                None, None, None)
 
 
 def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
                     segment_ids=None):
-    """Single-device flash attention, normalized (forward only):
+    """Single-device flash attention, normalized and differentiable:
     ``[B, T, H, D]`` in q's dtype.  Same masks as
     ``attention_reference``: causal, sliding ``window``,
-    ``segment_ids`` packing, GQA by K/V head index."""
-    return flash_forward(q, k, v, causal=causal, scale=scale,
-                         window=window, segment_ids=segment_ids)[0]
+    ``segment_ids`` packing, GQA by K/V head index.  Gradients flow to
+    q, k and v through K3 and K4 on the card."""
+    return _FlashAttention.apply(q, k, v, segment_ids, causal, scale,
+                                 window)
 
 
-__all__ = ["flash_attention", "flash_attention_reference",
-           "flash_forward", "flash_forward_reference"]
+__all__ = ["attention_block_grads", "attention_delta", "block_mask",
+           "flash_attention", "flash_attention_reference",
+           "flash_backward", "flash_block_grads", "flash_bwd_dkv",
+           "flash_bwd_dq", "flash_forward", "flash_forward_reference",
+           "normalize_flash_stats"]

@@ -44,8 +44,10 @@ def test_scan_covers_the_port():
     files = {p.relative_to(ROOT).as_posix() for p in scanned_files()}
     assert {"chip_smoke.py", "chip_profile.py"} <= files
     for mod in ("models/serving.py", "models/decode.py",
-                "ops/flash_attention.py", "ops/paged_attention.py",
-                "serving_kv/manager.py", "utils/dispatch.py"):
+                "models/transformer.py", "models/data.py",
+                "models/checkpoint.py", "ops/flash_attention.py",
+                "ops/paged_attention.py", "serving_kv/manager.py",
+                "utils/dispatch.py", "utils/atomicio.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 

@@ -224,7 +224,9 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_build_key_covers_every_source():
     names = {p.name for p in _build._CSRC.glob("*.cu*")}
-    assert {"flash_fwd.cu", "paged_decode.cu", "common.cuh"} <= names
+    assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
+            "common.cuh"} <= names
     assert {p.name for p in _build._sources()} >= {"flash_fwd.cu",
+                                                   "flash_bwd.cu",
                                                    "paged_decode.cu"}
     assert _build._digest() == _build._digest()
