@@ -26,7 +26,10 @@ configuration, B=8 x T=2048, AdamW): two warm-up steps, TRAIN_WINDOW
 steps on the host clock, TRAIN_WINDOW more under the profiler; per
 step its wall time, device busy time and share, and the device time of
 the flash kernels (K1, K3, K4), the matrix products, the optimizer and
-everything else.
+everything else.  Then the same for one moe_heavy training step with
+gmm dispatch (``chip_smoke.py``'s MoE phase: 16 experts, top_k 2,
+B=8 x T=1024), split further into the grouped-matmul kernels K5 and K6
+and the routing (sorts, counts, index scatters and gathers).
 
 The last line is one JSON object with those numbers.  Exits non-zero
 without a card.  Imports nothing of JAX and nothing of the JAX
@@ -53,8 +56,17 @@ KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K4 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K6 gmm_dw", ("gmm_dw_kernel",)),
+    ("K5 gmm", ("gmm_kernel",)),
     ("matrix products", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
+    # the MoE dispatch: argsort, the per-expert counts, the cumulative
+    # offsets and block search, and the row maps' index scatters and
+    # gathers with their backward (the embedding's row gather lands
+    # here too)
+    ("routing (sort, counts, scatters, gathers)",
+     ("sort", "Sort", "scatter", "index", "gather", "searchsorted",
+      "scan", "Scan")),
 )
 
 
@@ -152,15 +164,16 @@ def by_kind(prof) -> dict:
     return out
 
 
-def train_profile() -> dict:
-    """Wall and device time per full-width training step."""
+def train_profile(cfg=None, b: int = smoke.TRAIN_B,
+                  t: int = smoke.TRAIN_T) -> dict:
+    """Wall and device time per full-width training step of ``cfg``
+    (default the 154M configuration) at B=b x T=t."""
     from k8s_dra_driver_tpu_torch.models.transformer import make_train_step
-    cfg = smoke.serving_config()
+    cfg = cfg or smoke.serving_config()
     step, init_state = make_train_step(cfg, device="cuda")
     params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
     motif = np.random.default_rng(0).integers(0, cfg.vocab, 32)
-    batch = np.tile(motif, smoke.TRAIN_B * smoke.TRAIN_T // 32).reshape(
-        smoke.TRAIN_B, smoke.TRAIN_T).astype(np.int32)
+    batch = np.tile(motif, b * t // 32).reshape(b, t).astype(np.int32)
     state = [params, opt]
 
     def window():
@@ -176,15 +189,15 @@ def train_profile() -> dict:
     summary = device_summary(prof)
     kinds = {k: v / TRAIN_WINDOW for k, v in by_kind(prof).items()}
     busy_ms = summary["busy_ms"] / TRAIN_WINDOW
-    return {"step_wall_ms": wall_ms, "step_busy_ms": busy_ms,
-            "busy_share": busy_ms / wall_ms,
-            "tokens_per_s": smoke.TRAIN_B * smoke.TRAIN_T / (wall_ms / 1e3),
+    return {"batch": b, "seq": t, "step_wall_ms": wall_ms,
+            "step_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "tokens_per_s": b * t / (wall_ms / 1e3),
             "device_ops_per_step": summary["device_ops"] / TRAIN_WINDOW,
             "ms_by_kind": kinds, "top": summary["top"]}
 
 
-def report_train(train: dict) -> None:
-    print(f"train step (B={smoke.TRAIN_B} T={smoke.TRAIN_T}): "
+def report_train(train: dict, label: str = "train step") -> None:
+    print(f"{label} (B={train['batch']} T={train['seq']}): "
           f"{train['step_wall_ms']:.1f} ms wall, "
           f"{train['tokens_per_s']:.0f} tokens/s, "
           f"{train['step_busy_ms']:.1f} ms device busy "
@@ -193,7 +206,7 @@ def report_train(train: dict) -> None:
           flush=True)
     for kind, ms in train["ms_by_kind"].items():
         print(f"  {ms:10.3f} ms/step {kind}", flush=True)
-    print("train step, top device ops:", flush=True)
+    print(f"{label}, top device ops:", flush=True)
     for row in train["top"]:
         print(f"  {row['ms']:10.3f} ms {row['count']:7d}x {row['op']}",
               flush=True)
@@ -235,8 +248,11 @@ def main() -> None:
         out[label] = {"drain": drain, "steady": steady}
     train = train_profile()
     report_train(train)
-    print(json.dumps({"device": kind, "layouts": out, "train": train}),
-          flush=True)
+    moe = train_profile(smoke.moe_heavy_config(
+        aux_loss_weight=smoke.MOE_AUX_WEIGHT), smoke.MOE_B, smoke.MOE_T)
+    report_train(moe, "moe_heavy train step (gmm)")
+    print(json.dumps({"device": kind, "layouts": out, "train": train,
+                      "moe_train": moe}), flush=True)
 
 
 if __name__ == "__main__":

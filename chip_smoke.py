@@ -18,32 +18,52 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``attention_block_grads`` at the training shape (B=8 T=2048 H=16
    Hkv=4 D=64 bf16 causal), with a window, segments, D=128, f32 and
    two ring-style blocks (offsets, Tq != Tk, a valid-key end);
-6. the serving engine, contiguous KV, at the full width of the 154M
+6. K5 (grouped matmul, plain and transposed read) and K6 (its dw)
+   against ``gmm_reference`` / ``gmm_dw_reference`` at the moe_heavy
+   shapes (18,432 static rows, 16 experts, d 512, f 4096, both expert
+   matrices), in bf16 and f32, over four group layouts (the router's
+   own, one hot expert, empty experts, a long dead tail), with
+   timings, the bound from the live rows and ``torch._grouped_mm`` as
+   the library yardstick;
+7. the serving engine, contiguous KV, at the full width of the 154M
    configuration (vocab 32000, d_model 1024, 8 layers, 16 heads, 4 KV
    heads, d_ff 4096, max_seq 2048, bf16, random weights from a fixed
    generator) draining the s8_r24 traffic (8 slots, 24 requests,
    prompt lengths 96/48/72/24, max_new 48, four of them sampled);
    every greedy stream is held to a teacher-forced pass of
    ``forward``;
-7. the same with the paged KV layout and the paged kernel, then once
+8. the same with the paged KV layout and the paged kernel, then once
    more on a pool small enough to force preemption;
-8. training, small: one f32 AdamW step of a 2-layer config on the card
+9. training, small: one f32 AdamW step of a 2-layer config on the card
    (kernels) and on the CPU (plain versions), loss and parameters
    compared;
-9. training, full width: the 154M configuration, 6 AdamW steps of
-   B=8 x T=2048 over a repeated-motif token file read by
-   ``BatchLoader``; losses finite and falling, K1, K3 and K4 each
-   launched; a checkpoint at step 3 restored into a fresh state must
-   equal the saved state bitwise and resume to losses within
-   RESUME_TOL of the uninterrupted run; one step under remat launches
-   K1 twice per layer;
-10. each kernel's device time at its main-path shape and at a long
+10. training, full width: the 154M configuration, 6 AdamW steps of
+    B=8 x T=2048 over a repeated-motif token file read by
+    ``BatchLoader``; losses finite and falling, K1, K3 and K4 each
+    launched; a checkpoint at step 3 restored into a fresh state must
+    equal the saved state bitwise and resume to losses within
+    RESUME_TOL of the uninterrupted run; one step under remat launches
+    K1 twice per layer;
+11. MoE training, small: one f32 AdamW step of a 2-layer, 4-expert
+    gmm config with the router aux losses, card against CPU, every
+    parameter (router included) moved, exact K1/K3-K6 launches;
+12. MoE training, full width: moe_heavy (vocab 1024, d_model 512, 4
+    layers, 4 heads, d_ff 4096, 16 experts, top_k 2, bf16) with gmm
+    dispatch, 6 AdamW steps of B=8 x T=1024 from a token file,
+    load-balance weight 0.01; losses finite and falling, exactly 16
+    K5, 8 K6 and 4 each of K1, K3, K4 per step; three steps repeated
+    from the same seed bitwise; one forward under gmm against dense
+    dispatch;
+13. MoE serving: a contiguous drain of s8_r24 at moe_heavy (served
+    with dense dispatch), every greedy stream held to a teacher-forced
+    forward under gmm dispatch (K5);
+14. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
-11. one JSON line naming every kernel with its launches on the main
+15. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
     plain version and its times;
-12. last line: ``{"ok": true, "device": {...}}``.
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -90,6 +110,30 @@ RESUME_TOL = 2e-2
 TRAIN_STEPS = 6
 TRAIN_SAVE_AT = 3
 TRAIN_B, TRAIN_T = 8, 2048
+
+# K5 against gmm_reference, relative to max(1, max|plain|): both sum in
+# f32 and differ in order only; in bf16 the two f32 sums may round to
+# neighbouring bf16 values (2^-8 of the value, below 4e-3 of the max).
+GMM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# K6 against gmm_dw_reference: f32 output from inputs that f32 holds
+# exactly (bf16 products are exact in f32), so summation order over up
+# to 16,384 rows is the only difference
+DW_TOL = 1e-4
+# moe_heavy training (gmm dispatch) at the JAX package's MoE batch
+MOE_B, MOE_T = 8, 1024
+MOE_AUX_WEIGHT = 0.01
+# gmm against dense dispatch on one forward of the same weights in f32:
+# the same expert products summed in another order (K5 against cuBLAS),
+# held relative to max(1, max|dense|).  Not in bf16: there the router's
+# bf16 logits tie at the k-th gate for about 1% of tokens, and the two
+# dispatches of the JAX package itself part there (dense keeps every
+# expert tied with the k-th gate, gmm's top-k exactly k), by whole
+# logits; the bf16 gap and its tie count are printed, not held.
+DISPATCH_TOL = 1e-3
+# f32 MoE step card vs CPU: parameters whose gradient is nonzero but
+# below this fraction of its tensor's largest entry are rounding noise
+# for AdamW's first update (see phase_moe_train_small)
+NOISE_BAND = 1e-5
 
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
@@ -531,6 +575,184 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
     return rows["K3"], rows["K4"], probes
 
 
+def moe_heavy_config(**kw):
+    """The JAX package's MoE shape (tools/bench_moe.py ``heavy``): vocab
+    1024, d_model 512, 4 layers, 4 heads, d_head 64, d_ff 4096, 16
+    experts, top_k 2, max_seq 1024, bf16; gmm dispatch."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig)
+    fields = dict(vocab=1024, d_model=512, n_layers=4, n_heads=4,
+                  d_head=64, d_ff=4096, n_experts=16, top_k=2,
+                  max_seq=1024, dtype=torch.bfloat16, moe_dispatch="gmm")
+    fields.update(kw)
+    return TransformerConfig(**fields)
+
+
+def gmm_layouts(gen, rows: int, e: int, bm: int, d: int) -> dict:
+    """Padded group sizes (int64 on the card, as the routing layer makes
+    them) of the four layouts the grouped-matmul checks run: the
+    router's own top-2 routing of seeded activations, every row to one
+    expert, experts 4-11 empty, and half the rows (a long dead tail)."""
+    dev = torch.device("cuda")
+    xt = torch.randn((rows // 2, d), generator=gen, device=dev)
+    router = torch.randn((d, e), generator=gen, device=dev) * d ** -0.5
+    ids = torch.topk(xt @ router, 2, dim=-1).indices.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    one = torch.zeros(e, dtype=torch.long, device=dev)
+    one[3] = rows
+    holes = torch.full((e,), rows // 8, dtype=torch.long, device=dev)
+    holes[4:12] = 0
+    half = torch.full((e,), rows // (2 * e), dtype=torch.long, device=dev)
+    return {name: ((c + bm - 1) // bm) * bm for name, c in (
+        ("router", counts), ("one expert", one), ("empty 4-11", holes),
+        ("dead tail", half))}
+
+
+def gmm_bound(live: int, m: int, k: int, n: int, used: int, es: int,
+              dw: bool, e: int) -> tuple[float, str]:
+    """Least time for one grouped matmul from this run's data: the live
+    rows' 2*K*N flops over the bf16 (or f32) peak; bytes: K5 reads the
+    live rows of x and the experts that have rows and writes all M rows
+    of out; K6 reads the live rows of x and dy and writes the E f32
+    expert gradients."""
+    flops = 2 * live * k * n
+    if dw:
+        nbytes = live * (k + n) * es + e * k * n * 4
+    else:
+        nbytes = live * k * es + used * k * n * es + m * n * es
+    peak = H100_BF16_FLOPS if es == 2 else H100_F32_FLOPS
+    t_b, t_f = nbytes / H100_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def grouped_mm_fn(a, b, group_sizes, dw: bool):
+    """``(callable, None)`` of one PyTorch call computing the same
+    grouped product (``torch._grouped_mm`` with cumulative offsets;
+    yardstick only, never called by the port), or ``(None, reason)``."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm is absent from this PyTorch"
+    offs = torch.cumsum(group_sizes, 0).to(torch.int32)
+    call = ((lambda: fn(a.t(), b, offs=offs)) if dw
+            else (lambda: fn(a, b, offs=offs)))
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as exc:
+        return None, f"torch._grouped_mm refused: {str(exc)[:120]}"
+    return call, None
+
+
+def phase_gmm(gm) -> tuple[dict, dict, dict]:
+    """K5 (gmm, plain and transposed read) and K6 (gmm dw) against their
+    plain versions at the moe_heavy shapes: 18,432 static rows, E=16,
+    block_m 128, d 512, f 4096, for both expert matrices, in bf16 and
+    f32, over four group layouts.  Returns the kernels-line rows of K5
+    and K6 at the main path's case (router layout, bf16, w_in side),
+    and, by case, callables of the kernel, its plain version and the
+    library call for the device-time phase."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cfg = moe_heavy_config()
+    e, d, f, bm = cfg.n_experts, cfg.d_model, cfg.d_ff, 128
+    rows = MOE_B * MOE_T * cfg.top_k                      # 16,384 routed
+    m = rows + e * bm                                     # static bound
+    layouts = gmm_layouts(gen, rows, e, bm, d)
+    rows_out, probes = {}, {"K5": {}, "K6": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol5 = GMM_TOL[dtype]
+        es = torch.tensor([], dtype=dtype).element_size()
+        w_in = (torch.randn((e, d, f), generator=gen, device=dev)
+                * d ** -0.5).to(dtype)
+        w_out = (torch.randn((e, f, d), generator=gen, device=dev)
+                 * f ** -0.5).to(dtype)
+        for name, gs in layouts.items():
+            live = int(gs.sum())
+            used = int((gs > 0).sum())
+            mask = (torch.arange(m, device=dev) < live)[:, None]
+
+            def rnd(cols):
+                return (torch.randn((m, cols), generator=gen, device=dev)
+                        * mask).to(dtype)
+
+            x, h, dy_h, dy_x = rnd(d), rnd(f), rnd(f), rnd(d)
+            cases = (
+                ("K5 w_in", "fwd", (x, w_in, False), f),
+                ("K5 w_out", "fwd", (h, w_out, False), d),
+                ("K5 dx w_in^T", "fwd", (dy_h, w_in, True), d),
+                ("K5 dx w_out^T", "fwd", (dy_x, w_out, True), f),
+                ("K6 dw_in", "dw", (x, dy_h), None),
+                ("K6 dw_out", "dw", (h, dy_x), None),
+            )
+            timed = name == "router"
+            main_layout = timed and dtype == torch.bfloat16
+            for label, kind, args, n_out in cases:
+                if kind == "fwd":
+                    a, w, tr = args
+                    kernel = (lambda a=a, w=w, tr=tr, gs=gs:
+                              gm.gmm_forward(a, w, gs, bm, transpose_w=tr))
+                    plain = (lambda a=a, w=w, tr=tr, gs=gs:
+                             gm.gmm_reference(a, w, gs, bm, transpose_w=tr))
+                    k_dim, n_dim, tol = a.shape[1], n_out, tol5
+                    bound = gmm_bound(live, m, k_dim, n_dim, used, es,
+                                      False, e)
+                    lib_b = w.transpose(1, 2) if tr else w
+                else:
+                    a, dy = args
+                    kernel = (lambda a=a, dy=dy, gs=gs:
+                              gm.gmm_dw(a, dy, gs, bm))
+                    plain = (lambda a=a, dy=dy, gs=gs:
+                             gm.gmm_dw_reference(a, dy, gs, bm))
+                    k_dim, n_dim, tol = a.shape[1], dy.shape[1], DW_TOL
+                    bound = gmm_bound(live, m, k_dim, n_dim, used, es,
+                                      True, e)
+                    lib_b = dy
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    fail(f"{label} non-finite output at {name} {dtype}")
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                # K5: the dead tail's rows; K6: experts without rows
+                zeros = got[gs == 0] if kind == "dw" else got[live:]
+                dead_ok = int(torch.count_nonzero(zeros)) == 0
+                ok = err <= tol * scale and dead_ok
+                ms = plain_ms = lib_ms = lib = None
+                why = "not timed at this layout"
+                if timed:
+                    ms = cuda_ms(kernel, iters=5, warmup=1)
+                    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+                    lib, why = grouped_mm_fn(a, lib_b, gs, kind == "dw")
+                    lib_ms = cuda_ms(lib, iters=5, warmup=1) if lib else None
+                print(f"{label} M={m} K={k_dim} N={n_dim} E={e} bm={bm} "
+                      f"live={live} ({name}) "
+                      f"{str(dtype).removeprefix('torch.')}: max|d|="
+                      f"{err:.3g} (tol {tol} x max(1, max|plain| "
+                      f"{scale:.3g})) zeros kept={dead_ok} kernel_ms="
+                      f"{fmt(ms)} plain_ms={fmt(plain_ms)} library_ms="
+                      f"{fmt(lib_ms) if lib else 'none: ' + why} bound_us="
+                      f"{bound[0] * 1e3:.2f} ({bound[1]}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"{label} disagrees with its plain version at "
+                         f"{name} {dtype}")
+                if main_layout:
+                    main = label in ("K5 w_in", "K6 dw_in")
+                    shape = f"{label} router bf16" + (" (main path)" if main
+                                                      else "")
+                    probes[label[:2]][shape] = dict(
+                        kernel=kernel, plain=plain,
+                        **({"library": lib} if lib else {}))
+                    if main:
+                        rows_out[label[:2]] = dict(
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=lib_ms)
+                del got, want
+    return rows_out["K5"], rows_out["K6"], probes
+
+
 def serving_config():
     """The 154M configuration: vocab 32000, d_model 1024, 8 layers, 16
     heads, 4 KV heads, d_head 64, d_ff 4096, max_seq 2048, bf16."""
@@ -810,17 +1032,265 @@ def phase_train(fa, tmp: Path) -> dict:
     return counts
 
 
+def zero_moe_counts(fa, gm) -> None:
+    zero_counts(fa)
+    for name in gm.launches:
+        gm.launches[name] = 0
+
+
+def moe_counts(fa, gm) -> dict:
+    return {**train_counts(fa), **gm.launches}
+
+
+def moe_step_launches(cfg, steps: int) -> dict:
+    """Exact launches of ``steps`` gmm train steps: per layer K5 twice
+    forward and twice for dx, K6 twice (dw of w_in and w_out), K1, K3
+    and K4 once."""
+    n = cfg.n_layers * steps
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "gmm": 4 * n, "gmm_dw": 2 * n}
+
+
+def phase_moe_train_small(fa, gm) -> None:
+    """One f32 AdamW step of a 2-layer, 4-expert gmm config with both
+    router aux losses on the card (K1, K3-K6) and on the CPU (plain
+    versions), from the same parameters and tokens.  Parameters are
+    held to STEP_PARAM_ATOL except where the CPU's gradient is nonzero
+    and below NOISE_BAND of its tensor's largest entry: there the
+    gradient is f32 rounding noise around zero, which AdamW's first
+    update lr * g / (|g| + eps) turns into an arbitrary fraction of a
+    step, so those entries are held to two steps."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig, make_train_step, named_tensors)
+    cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_head=64, d_ff=512, n_experts=4,
+                            top_k=2, max_seq=256, dtype=torch.float32,
+                            moe_dispatch="gmm", aux_loss_weight=0.01,
+                            router_z_weight=0.001)
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab, (2, 256))
+    results = {}
+    for device in ("cuda", "cpu"):
+        step, init_state = make_train_step(cfg, device=device)
+        params, opt = init_state(torch.Generator().manual_seed(3))
+        before = [t.detach().cpu().clone() for _, t in named_tensors(params)]
+        zero_moe_counts(fa, gm)
+        params, opt, loss = step(params, opt, tokens.astype(np.int32))
+        leaves = named_tensors(params)
+        missing = [n for n, t in leaves if t.grad is None]
+        if missing:
+            fail(f"MoE train step on {device}: no gradient for {missing}")
+        after = [t.detach().cpu() for _, t in leaves]
+        still = [n for (n, _), a, b in zip(leaves, after, before)
+                 if torch.equal(a, b)]
+        if still:
+            fail(f"MoE train step on {device}: {still} did not move")
+        results[device] = (float(loss), after,
+                           [t.grad.detach().cpu() for _, t in leaves],
+                           moe_counts(fa, gm), [n for n, _ in leaves])
+    (l_c, p_c, _, counts, names), (l_h, p_h, g_h, _, _) = (results["cuda"],
+                                                          results["cpu"])
+    want = moe_step_launches(cfg, 1)
+    if counts != want:
+        fail(f"small MoE step launched {counts}, expected {want}")
+    loss_rel = abs(l_c - l_h) / abs(l_h)
+    strict = noisy = 0.0
+    n_noisy = 0
+    for a, b, g in zip(p_c, p_h, g_h):
+        band = (g != 0) & (g.abs() < NOISE_BAND * g.abs().max())
+        n_noisy += int(band.sum())
+        diff = (a - b).abs()
+        strict = max(strict, float(diff[~band].max()) if (~band).any()
+                     else 0.0)
+        noisy = max(noisy, float(diff[band].max()) if band.any() else 0.0)
+    ok = (loss_rel <= STEP_LOSS_RTOL and strict <= STEP_PARAM_ATOL
+          and noisy <= 2 * 3e-4)
+    print(f"train MoE f32 small step (E=4 top_k=2 gmm, aux on), card "
+          f"(kernels) vs CPU (plain): loss {l_c:.7f} vs {l_h:.7f} (rel "
+          f"{loss_rel:.3g}, tol {STEP_LOSS_RTOL}); params max|d| "
+          f"{strict:.3g} (tol {STEP_PARAM_ATOL}), {n_noisy} noise-band "
+          f"entries max|d| {noisy:.3g} (tol 6e-4); all {len(names)} "
+          f"tensors moved, router included; launches {counts} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the card's f32 MoE train step disagrees with the CPU's")
+
+
+def map_params(params, fn):
+    """The parameter tree (a dict with a ``layers`` list of dicts) with
+    ``fn`` applied to every tensor."""
+    return {k: ([{n: fn(t) for n, t in layer.items()} for layer in v]
+                if k == "layers" else fn(v)) for k, v in params.items()}
+
+
+def phase_moe_train(fa, gm, tmp: Path) -> dict:
+    """moe_heavy at full width with gmm dispatch: TRAIN_STEPS AdamW
+    steps of MOE_B x MOE_T tokens from a token file through
+    ``BatchLoader``, load-balance loss weight MOE_AUX_WEIGHT, with the
+    kernel counters zeroed just before and read just after; then three
+    steps again from the same seed (bitwise the same losses and
+    parameters: no step is order-dependent); then one bf16 forward of
+    the initial parameters under dense dispatch against gmm.  Returns
+    the steps' launches."""
+    from k8s_dra_driver_tpu_torch.models.data import (BatchLoader,
+                                                      load_token_file,
+                                                      write_token_file)
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        forward, make_train_step, named_tensors)
+    cfg = moe_heavy_config(aux_loss_weight=MOE_AUX_WEIGHT)
+    motif = np.random.default_rng(1).integers(0, cfg.vocab, 32)
+    corpus = np.tile(motif, 2 * MOE_B * MOE_T // 32)
+    path = write_token_file(corpus, tmp / "moe_corpus.bin", cfg.vocab)
+
+    def loader():
+        return BatchLoader(load_token_file(path, cfg.vocab), batch=MOE_B,
+                           seq_len=MOE_T, seed=0)
+
+    step, init_state = make_train_step(cfg, device="cuda")
+    params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for _, t in named_tensors(params))
+    initial = map_params(params, lambda t: t.detach().clone())
+    data = loader()
+    first = None
+    losses, walls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_moe_counts(fa, gm)
+    for _ in range(TRAIN_STEPS):
+        batch = next(data)
+        first = batch if first is None else first
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))          # waits for the step
+        walls.append(time.perf_counter() - t0)
+    counts = moe_counts(fa, gm)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = 1e3 * sum(walls[1:]) / (len(walls) - 1)
+    want = moe_step_launches(cfg, TRAIN_STEPS)
+    print(f"train moe_heavy ({n_params} parameters, E={cfg.n_experts} "
+          f"top_k={cfg.top_k} gmm, aux weight {MOE_AUX_WEIGHT}) "
+          f"B={MOE_B} T={MOE_T} bf16: losses "
+          f"{[round(x, 5) for x in losses]}; step wall ms "
+          f"{[round(1e3 * w, 1) for w in walls]} (mean of steps 2-"
+          f"{TRAIN_STEPS}: {step_ms:.1f} ms = "
+          f"{MOE_B * MOE_T / (step_ms / 1e3):.0f} tokens/s); peak device "
+          f"memory {peak_gb:.2f} GiB; kernel launches {counts} (expected "
+          f"{want})", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite MoE training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"MoE training loss did not fall: {losses}")
+    if counts != want:
+        fail(f"MoE training launched {counts}, expected {want}")
+
+    # the same three steps again from the same seed
+    params2, opt2 = init_state(torch.Generator(device="cuda").manual_seed(0))
+    data2 = loader()
+    again = []
+    for _ in range(3):
+        params2, opt2, loss = step(params2, opt2, next(data2))
+        again.append(float(loss))
+    ref = [t.detach().clone() for _, t in named_tensors(params2)]
+    del params2, opt2
+    params3, opt3 = init_state(torch.Generator(device="cuda").manual_seed(0))
+    data3 = loader()
+    for _ in range(3):
+        params3, opt3, _ = step(params3, opt3, next(data3))
+    same = all(torch.equal(a, t.detach())
+               for a, (_, t) in zip(ref, named_tensors(params3)))
+    same_losses = again == losses[:3]
+    print(f"train moe_heavy repeat: three steps from the same seed, losses "
+          f"{[round(x, 5) for x in again]} equal to the run's first three "
+          f"{same_losses}; parameters of two repeats bitwise equal {same}",
+          flush=True)
+    del params3, opt3, ref, params, opt
+    if not (same and same_losses):
+        fail("the MoE train step is not deterministic")
+
+    # gmm against dense dispatch on the initial parameters
+    toks = torch.as_tensor(first[:2], device="cuda")
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    as_f32 = map_params(initial, lambda t: t.float())
+    gaps = {}
+    with torch.no_grad():
+        for label, c, p in (("f32", f32, as_f32), ("bf16", cfg, initial)):
+            got = forward(p, toks, c).float()
+            dense = forward(p, toks, dataclasses.replace(
+                c, moe_dispatch="dense")).float()
+            if not torch.isfinite(got).all():
+                fail(f"non-finite gmm logits ({label})")
+            gaps[label] = ((got - dense).abs().max().item(),
+                           max(1.0, dense.abs().max().item()))
+        ties = router_ties(initial, toks, cfg)
+    torch.cuda.synchronize()
+    (err, scale), (err_bf, _) = gaps["f32"], gaps["bf16"]
+    ok = err <= DISPATCH_TOL * scale
+    print(f"moe_heavy forward B=2 T={MOE_T}, gmm (K5) vs dense dispatch "
+          f"(no kernel in the MLP), initial weights in f32: logits max|d| "
+          f"{err:.4g} (tol {DISPATCH_TOL} x max(1, max|dense| "
+          f"{scale:.3g})) {'ok' if ok else 'FAIL'}; in bf16 max|d| "
+          f"{err_bf:.4g} with {ties} of {toks.numel()} tokens tied at the "
+          f"k-th gate in layer 0 (not held: dense mixes every tied "
+          f"expert, gmm exactly top_k)", flush=True)
+    if not ok:
+        fail("gmm dispatch disagrees with dense dispatch at moe_heavy")
+    return counts
+
+
+def router_ties(params, toks, cfg) -> int:
+    """Tokens whose layer-0 router keeps more than top_k experts (a tie
+    at the k-th gate)."""
+    from k8s_dra_driver_tpu_torch.models import transformer as tt
+    layer = params["layers"][0]
+    x = tt.take_rows(params["embed"], toks, cfg.dtype)
+    x = x + tt._attention(tt.rms_norm(x, layer["ln1"]), layer, cfg)
+    gates = tt._router_gates(tt.rms_norm(x, layer["ln2"]), layer, cfg)[0]
+    return int(((gates > 0).sum(-1) > cfg.top_k).sum())
+
+
+def phase_moe_serving(fa, pa, gm) -> dict:
+    """One contiguous ServingEngine drain of the s8_r24 traffic at
+    moe_heavy's widths (vocab 1024; served with dense dispatch, K1 for
+    prefill), every greedy stream held to a teacher-forced forward
+    under gmm dispatch (K5).  In f32: in bf16 the router's logits tie
+    at the k-th gate for about 1% of tokens, where the serving dispatch
+    (dense: every tied expert) and the training one (gmm: exactly
+    top_k) of the JAX package part by whole logits, so a bf16 stream
+    cannot be held to a gmm forward.  Returns the drain's launches."""
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    cfg = moe_heavy_config(dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    reqs = s8_r24(cfg.vocab)
+    zero_moe_counts(fa, gm)
+    done, counts, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
+                            "moe_heavy f32 contiguous", top_k=50)
+    counts = {**counts, **{k: v for k, v in gm.launches.items()}}
+    if counts["flash_fwd"] <= 0:
+        fail("the MoE drain launched no flash kernel")
+    gm.launches["gmm"] = 0
+    worst = teacher_forced(params, cfg, done, reqs)
+    print(f"teacher-forced (moe_heavy f32, forward under gmm dispatch, K5 "
+          f"launched {gm.launches['gmm']} times): worst gap {worst:.4f} "
+          f"<= {TF_MARGIN}", flush=True)
+    if gm.launches["gmm"] <= 0:
+        fail("the MoE teacher-forced check launched no gmm kernel")
+    return counts
+
+
 def main() -> None:
     kind = phase_device()
     from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
     from k8s_dra_driver_tpu_torch.ops import _build
     from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+    from k8s_dra_driver_tpu_torch.ops import gmm as gm
     from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
 
     phase_build(_build)
     k1, k1_probes = phase_flash(fa)
     k2, k2_probes = phase_paged(pa)
     k3, k4, bwd_probes = phase_flash_bwd(fa)
+    k5, k6, gmm_probes = phase_gmm(gm)
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
@@ -871,8 +1341,17 @@ def main() -> None:
         counts = phase_train(fa, Path(tmp))
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths (3 drains + "
-          f"{TRAIN_STEPS} train steps): {launches}", flush=True)
+
+    phase_moe_train_small(fa, gm)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = phase_moe_train(fa, gm, Path(tmp))
+    counts_drain = phase_moe_serving(fa, pa, gm)
+    for part in (counts, counts_drain):
+        for name, n in part.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"kernel launches on the main paths (4 drains + "
+          f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy): "
+          f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,
     # profiled last: profiling before the drains and the steps would
@@ -880,7 +1359,9 @@ def main() -> None:
     for name, row, by_shape in (("K1", k1, k1_probes),
                                 ("K2", k2, k2_probes),
                                 ("K3", k3, bwd_probes["K3"]),
-                                ("K4", k4, bwd_probes["K4"])):
+                                ("K4", k4, bwd_probes["K4"]),
+                                ("K5", k5, gmm_probes["K5"]),
+                                ("K6", k6, gmm_probes["K6"])):
         for shape, probes in by_shape.items():
             times = {what: device_ms(fn) for what, fn in probes.items()}
             if shape.endswith("(main path)"):
@@ -907,7 +1388,17 @@ def main() -> None:
              source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
              replaces="k8s_dra_driver_tpu/ops/flash_attention.py:790",
              launches=launches["flash_bwd_dkv"], **k4),
+        dict(name="gmm", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
+             replaces="k8s_dra_driver_tpu/ops/gmm.py:79",
+             launches=launches["gmm"], **k5),
+        dict(name="gmm_dw", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
+             replaces="k8s_dra_driver_tpu/ops/gmm.py:126",
+             launches=launches["gmm_dw"], **k6),
     ]
+    if min(k["launches"] for k in kernels) <= 0:
+        fail(f"a kernel was never launched on the main paths: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Autoregressive decoding with a KV cache: contiguous and paged.
 
-The port of ``k8s_dra_driver_tpu/models/decode.py`` (dense models,
-model-dtype cache).  Serving runs prefill + one-token decode steps
+The port of ``k8s_dra_driver_tpu/models/decode.py`` (dense and MoE
+models, model-dtype cache).  Serving runs prefill + one-token decode steps
 against a per-layer K/V cache:
 
 - **Contiguous cache**: per layer ``[B, max_seq, H_kv, D]``; writes
@@ -36,6 +36,7 @@ the JAX package's within the stated f32 tolerance.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -43,10 +44,23 @@ from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..utils import dispatch
 from .quant import ein, take_rows
-from .transformer import (Params, TransformerConfig, _dense_mlp,
-                          require_dense, rms_norm, rotary)
+from .transformer import (Params, TransformerConfig, _dense_mlp, _moe_mlp,
+                          require_single_device, rms_norm, rotary)
 
 _NEG_INF = -1e30
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_cfg(cfg: TransformerConfig) -> TransformerConfig:
+    """Serving always runs the exact dense MoE dispatch: capacity's
+    token drops restart with every chunk's cumsum, so chunked prefill
+    and stepwise decode would drop other tokens than the training
+    forward; dense dispatch is drop-free and chunk-invariant.  (gmm is
+    dropless too, but its static row bound pads every expert to a
+    block for a one-token decode step.)"""
+    if cfg.is_moe and cfg.moe_dispatch != "dense":
+        return dataclasses.replace(cfg, moe_dispatch="dense")
+    return cfg
 
 
 @dataclasses.dataclass
@@ -65,7 +79,7 @@ def _device(params: Params) -> torch.device:
 
 
 def _require_model_kv(cfg: TransformerConfig) -> None:
-    require_dense(cfg)
+    require_single_device(cfg)
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "the int8 KV cache comes with the weight-only int8 slice of "
@@ -142,9 +156,12 @@ def _project_and_write(layer, x, positions, cfg, k_cache, v_cache,
 
 def _attn_mlp_tail(x, o, layer, cfg):
     """Shared per-layer back half: attention output projection +
-    residual + dense MLP."""
+    residual + MLP (dense, or MoE under the serving config)."""
     x = x + ein("bthk,hkd->btd", o, layer["wo"])
-    return x + _dense_mlp(rms_norm(x, layer["ln2"]), layer)
+    mlp_in = rms_norm(x, layer["ln2"])
+    if cfg.is_moe:
+        return x + _moe_mlp(mlp_in, layer, _serving_cfg(cfg))
+    return x + _dense_mlp(mlp_in, layer)
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor,

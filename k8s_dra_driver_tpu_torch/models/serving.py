@@ -55,7 +55,7 @@ from ..utils import dispatch
 from ..utils.device import resolve_device
 from . import decode as _decode
 from .decode import KVCache, decode_step_rows, init_cache, sample_token
-from .transformer import TransformerConfig, require_dense
+from .transformer import TransformerConfig, require_single_device
 
 
 @dataclasses.dataclass
@@ -260,7 +260,7 @@ class ServingEngine:
         if kv_host_bytes or kv_spill_dir:
             raise _unported("KV tiering (kv_host_bytes / kv_spill_dir)",
                             "KV-tier")
-        require_dense(cfg)
+        require_single_device(cfg)
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         if kv_layout not in ("contiguous", "paged"):

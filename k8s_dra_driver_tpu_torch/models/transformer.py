@@ -2,27 +2,36 @@
 the training step.
 
 The port of ``k8s_dra_driver_tpu/models/transformer.py`` for dense
-configs on one device.  Parameters keep the JAX package's layout and
-key names — ``wq [d,h,dh]``, ``wk/wv [d,h_kv,dh]``, ``wo [h,dh,d]``,
-``w_in [d,f]``, ``w_out [f,d]``, ``embed [V,d]``, ``unembed [d,V]``,
-``ln1/ln2/ln_f [d]`` in a dict with a ``layers`` list — so the same
-einsum specs apply and ``models/convert.py`` moves a JAX checkpoint
-over key for key.
+and MoE configs on one device.  Parameters keep the JAX package's
+layout and key names — ``wq [d,h,dh]``, ``wk/wv [d,h_kv,dh]``, ``wo
+[h,dh,d]``, ``w_in [d,f]``, ``w_out [f,d]`` (MoE: ``router [d,E]``,
+``w_in [E,d,f]``, ``w_out [E,f,d]``), ``embed [V,d]``, ``unembed
+[d,V]``, ``ln1/ln2/ln_f [d]`` in a dict with a ``layers`` list — so
+the same einsum specs apply and ``models/convert.py`` moves a JAX
+checkpoint over key for key.
 
 Numerics follow the reference where PyTorch's defaults differ: GELU is
 the tanh approximation (``jax.nn.gelu``'s default), RoPE rotates
 interleaved pairs, RMSNorm takes its variance in f32 and multiplies in
 x's dtype.
 
-Training: ``loss_fn`` (next-token NLL, f32 logits, segment keep-mask),
-``make_optimizer`` (AdamW, optax's defaults) and ``make_train_step``.
-The step updates the parameters and the optimizer state in place
-(where JAX donates its buffers); gradients reach every weight, the
-attention projections through the flash backward kernels K3/K4 on the
-card.
+Sparse MoE: a softmax router with top-k zeroing, the router aux
+losses, and the three dispatch strategies of ``moe_dispatch``:
+"dense" (every expert on every token), "capacity" (GShard one-hot
+dispatch with a per-expert budget) and "gmm" (dropless: tokens sorted
+by expert through the grouped-matmul kernels K5/K6 on the card,
+ops/gmm.py).
 
-Not ported yet: MoE (``n_experts > 0``) and the mesh / pipeline
-paths.
+Training: ``loss_fn`` (next-token NLL, f32 logits, segment keep-mask,
+router aux losses), ``make_optimizer`` (AdamW, optax's defaults) and
+``make_train_step``.  The step updates the parameters and the optimizer
+state in place (where JAX donates its buffers); gradients reach every
+weight, the attention projections through the flash backward kernels
+K3/K4 and the experts through K5/K6 on the card.
+
+Not ported yet: the mesh paths — pipeline stages and the ep-sharded
+gmm dispatch (``_moe_mlp_gmm_sharded``) — refused by
+:func:`require_single_device`.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..ops.gmm import _round_up, gmm, pick_gmm_blocks
 from ..ops.ring_attention import attention_reference
 from ..utils.device import resolve_device
 from .quant import ein, take_rows
@@ -47,8 +57,8 @@ Params = dict[str, Any]
 class TransformerConfig:
     """Same fields, defaults and validation as the JAX
     ``TransformerConfig``; ``dtype`` is a torch dtype.  Fields of
-    paths the port does not run yet (MoE dispatch, pipeline, int8 KV)
-    are validated here and refused where they would be used."""
+    paths the port does not run yet (pipeline, int8 KV) are validated
+    here and refused where they would be used."""
 
     vocab: int = 32000
     d_model: int = 512
@@ -118,12 +128,17 @@ class TransformerConfig:
         return self.n_experts > 0
 
 
-def require_dense(cfg: TransformerConfig) -> None:
-    """Refuse configs whose layers the port cannot run yet."""
-    if cfg.is_moe:
+def require_single_device(cfg: TransformerConfig) -> None:
+    """Refuse configs that name a device mesh: ``pp_stages > 1``
+    pipelines the layer stack over a pp axis.  The port has no mesh
+    yet, so neither pipelining nor the ep-sharded gmm dispatch
+    (``_moe_mlp_gmm_sharded`` in the JAX package) can be reached; both
+    come with the parallelism slice (ROADMAP Queue A item 12)."""
+    if cfg.pp_stages > 1:
         raise NotImplementedError(
-            "MoE layers (n_experts > 0) come with the sparse-MoE slice "
-            "of the port (grouped-matmul kernels)")
+            "pipeline stages (pp_stages > 1) run over a device mesh, "
+            "which comes with the parallelism slice of the port (ROADMAP "
+            "Queue A item 12)")
 
 
 # --------------------------------------------------------------------------
@@ -132,13 +147,21 @@ def require_dense(cfg: TransformerConfig) -> None:
 
 def _layer_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
     d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
-    return {
+    shapes = {
         "ln1": (d,), "ln2": (d,),
         "wq": (d, h, dh), "wk": (d, cfg.kv_heads, dh),
         "wv": (d, cfg.kv_heads, dh),
         "wo": (h, dh, d),
-        "w_in": (d, f), "w_out": (f, d),
     }
+    if cfg.is_moe:
+        shapes.update({
+            "router": (d, cfg.n_experts),
+            "w_in": (cfg.n_experts, d, f),
+            "w_out": (cfg.n_experts, f, d),
+        })
+    else:
+        shapes.update({"w_in": (d, f), "w_out": (f, d)})
+    return shapes
 
 
 def init_params(cfg: TransformerConfig,
@@ -150,7 +173,8 @@ def init_params(cfg: TransformerConfig,
     cast to ``cfg.dtype`` on ``device``; they do not match JAX's.
 
     ``fan_in`` is each matrix's contraction size (``d_model`` for
-    wq/wk/wv/w_in, ``h * d_head`` for wo, ``d_ff`` for w_out).  The JAX
+    wq/wk/wv/w_in/router, ``h * d_head`` for wo, ``d_ff`` for w_out;
+    for the MoE experts these equal JAX's ``shape[-2]``).  The JAX
     package takes the second-to-last dim instead, which for the 3-D
     attention weights is a head count: its q and k come out with
     standard deviations near 8 and 16 at the 154M shape, attention is
@@ -158,13 +182,13 @@ def init_params(cfg: TransformerConfig,
     differ by whole logits.  With the contraction size, bf16 decode and
     the full forward agree closely enough to check one against the
     other."""
-    require_dense(cfg)
+    require_single_device(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
     d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
     fan_in = {"wq": d, "wk": d, "wv": d, "wo": h * dh, "w_in": d,
-              "w_out": cfg.d_ff}
+              "w_out": cfg.d_ff, "router": d}
 
     def dense(shape, fan):
         x = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -239,36 +263,222 @@ def _attention(x, layer, cfg: TransformerConfig, segment_ids=None):
     return ein("bthk,hkd->btd", o, layer["wo"])
 
 
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def _dense_mlp(x, layer):
-    h = F.gelu(ein("btd,df->btf", x, layer["w_in"]), approximate="tanh")
+    h = _gelu(ein("btd,df->btf", x, layer["w_in"]))
     return ein("btf,fd->btd", h, layer["w_out"])
 
 
-def _layer_forward(x, layer, cfg: TransformerConfig, segment_ids=None):
+def _router_gates(x, layer, cfg: TransformerConfig):
+    """Softmax router with top-k zeroing + renormalization.
+
+    Returns ``(gates, probs, logits)``, all f32 [B, T, E]: gates are
+    zero on unselected experts (every expert tied with the k-th value
+    is kept, as ``>=`` keeps it in the JAX package); probs are the full
+    softmax, for the load-balance loss; logits feed the z-loss."""
+    logits = torch.einsum("btd,de->bte", x, layer["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates = probs
+    if cfg.top_k < cfg.n_experts:
+        top = torch.topk(gates, cfg.top_k, dim=-1).values[..., -1:]
+        gates = torch.where(gates >= top, gates, 0.0)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, probs, logits
+
+
+def _moe_aux(gates, probs, logits, cfg: TransformerConfig):
+    """Router auxiliary objectives of one layer, f32 scalars: the
+    load balance ``E * sum_e assignment_fraction_e * mean_prob_e``
+    (Switch Transformer, generalized to top-k; 1 at uniform routing)
+    and the z-loss ``mean(logsumexp(logits)^2)``."""
+    sel = (gates > 0.0).float()
+    frac = sel.mean(dim=(0, 1)) / max(cfg.top_k, 1)      # [E]
+    mean_prob = probs.mean(dim=(0, 1))                   # [E]
+    load = cfg.n_experts * torch.sum(frac * mean_prob)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return load, z
+
+
+def _moe_capacity(cfg: TransformerConfig, t: int) -> int:
+    cap = int(cfg.capacity_factor * cfg.top_k * t / cfg.n_experts)
+    return max(min(cap, t), 1)
+
+
+def _moe_mlp_capacity(x, gates, layer, cfg: TransformerConfig):
+    """GShard-style capacity dispatch: each token goes to a position
+    inside its experts' budget C (position-in-expert by a cumsum in
+    sequence order), the expert products run on [E, B, C, d], and
+    tokens past an expert's budget drop that expert's contribution
+    (their other picks still apply).
+
+    ``jax.nn.one_hot`` gives a zero row for an out-of-range index (-1
+    for an unselected expert, >= C past the budget) where
+    ``F.one_hot`` raises, so the one-hot is the same comparison with
+    ``arange(C)`` that ``jax.nn.one_hot`` makes, masked by ``keep``."""
+    b, t, d = x.shape
+    cap = _moe_capacity(cfg, t)
+    sel = gates > 0.0
+    pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1      # [b,t,e]
+    keep = sel & (pos < cap)
+    slots = torch.arange(cap, device=x.device)
+    onehot = ((pos[..., None] == slots) & keep[..., None]).to(x.dtype)
+    combine = gates[..., None].to(x.dtype) * onehot          # [b,t,e,c]
+    expert_in = torch.einsum("btec,btd->becd", onehot, x)
+    h = _gelu(ein("becd,edf->becf", expert_in, layer["w_in"]))
+    y = ein("becf,efd->becd", h, layer["w_out"])
+    return torch.einsum("btec,becd->btd", combine, y)
+
+
+def _gmm_block_m(rows: int, w_in) -> int:
+    """Row-block size for the grouped matmuls from the port's picker
+    (ops/gmm.py:pick_gmm_blocks), keyed on w_in's [e, d, f]; w_out
+    shares it because both products share the one group padding."""
+    e, d, f = w_in.shape
+    return pick_gmm_blocks(d, f, e, w_in.dtype, rows=rows)["block_m"]
+
+
+def _gmm_dispatch_combine(xf, gate_vals, expert_ids, w_in, w_out, e: int,
+                          bm: int):
+    """Sort -> grouped matmul -> unsort-combine: ``xf`` [n, d] tokens,
+    per-token ``gate_vals``/``expert_ids`` [n, k] over ``e`` experts
+    (``w_in`` [e, d, f], ``w_out`` [e, f, d]) -> [n, d].
+
+    Tokens are sorted by routed expert, each expert's rows padded to a
+    ``bm`` multiple inside the static row bound ``k*n + e*bm``, and the
+    two expert products run as grouped matmuls (K5 forward; K5 for dx
+    and K6 for dw in the backward).  Every shape is fixed by n, k, e
+    and bm, and the group sizes stay on the device: no host sync.  As
+    in the JAX package, int32 index scatters build the row maps and the
+    activations move only through row gathers.  Under autograd a
+    gather's backward accumulates into its source rows: each real row
+    of ``y`` is gathered once, each token's k rows add their k
+    gradients, and padding rows add exact zeros, so the sums do not
+    depend on the order of accumulation for top_k <= 2.
+    ``scatter_add_`` counts the rows per expert: ``torch.bincount``
+    on the card reads its maximum back to the host."""
+    n, d = xf.shape
+    k = expert_ids.shape[1]
+    dev = xf.device
+    flat_e = expert_ids.reshape(-1)                          # [n*k]
+    flat_tok = torch.arange(n, device=dev).repeat_interleave(k)
+
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    padded = _round_up(counts, bm)                           # group sizes
+    offsets = torch.cumsum(padded, 0) - padded               # group starts
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    rank = (torch.arange(n * k, device=dev)
+            - (torch.cumsum(counts, 0) - counts)[sorted_e])  # pos in group
+    dest = offsets[sorted_e] + rank                          # [n*k] rows
+    src_tok = flat_tok[order]
+
+    m_pad = _round_up(n * k, bm) + e * bm                    # static bound
+    # padding rows point at token 0 and are zero-masked; nothing reads
+    # their outputs back
+    tok_of_row = torch.zeros(m_pad, dtype=torch.long, device=dev)
+    tok_of_row[dest] = src_tok
+    row_live = torch.zeros((m_pad, 1), dtype=xf.dtype, device=dev)
+    row_live[dest] = 1
+    x_sorted = xf[tok_of_row] * row_live
+    h = _gelu(gmm(x_sorted, w_in, padded, bm))
+    y = gmm(h, w_out, padded, bm)                            # [m_pad, d]
+    # unsort-combine: each token's k expert rows, weighted by its gates
+    row_of_slot = torch.zeros(n * k, dtype=torch.long, device=dev)
+    row_of_slot[order] = dest
+    y_tok = y[row_of_slot].reshape(n, k, d)
+    out = torch.einsum("nk,nkd->nd", gate_vals.to(y.dtype), y_tok)
+    return out.to(xf.dtype)
+
+
+def _moe_mlp_gmm(x, gates, layer, cfg: TransformerConfig):
+    """Dropless sparse MoE through the grouped matmul, one device:
+    top-k routing, then ``_gmm_dispatch_combine``."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gate_vals, expert_ids = torch.topk(gates.reshape(b * t, e), k, dim=-1)
+    out = _gmm_dispatch_combine(x.reshape(b * t, d), gate_vals,
+                                expert_ids, layer["w_in"], layer["w_out"],
+                                e, _gmm_block_m(b * t * k, layer["w_in"]))
+    return out.reshape(b, t, d)
+
+
+def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False):
+    """The MoE MLP under ``cfg.moe_dispatch``: "dense" computes every
+    expert on every token and mixes by the top-k-zeroed gates;
+    "capacity" and "gmm" as above.  ``with_aux`` also returns this
+    layer's router objectives ``(load_balance, z)``.  (The JAX
+    package's guard against int8 ``QTensor`` experts under gmm comes
+    with the int8 slice, which brings ``QTensor``.)"""
+    gates, probs, logits = _router_gates(x, layer, cfg)
+    if cfg.moe_dispatch == "capacity":
+        out = _moe_mlp_capacity(x, gates, layer, cfg)
+    elif cfg.moe_dispatch == "gmm":
+        out = _moe_mlp_gmm(x, gates, layer, cfg)
+    else:
+        g = gates.to(x.dtype)
+        h = _gelu(ein("btd,edf->btef", x, layer["w_in"]))
+        y = ein("btef,efd->bted", h, layer["w_out"])
+        out = torch.einsum("bted,bte->btd", y, g)
+    if with_aux:
+        return out, _moe_aux(gates, probs, logits, cfg)
+    return out
+
+
+def _layer_forward(x, layer, cfg: TransformerConfig, segment_ids=None,
+                   with_aux: bool = False):
     x = x + _attention(rms_norm(x, layer["ln1"]), layer, cfg, segment_ids)
-    return x + _dense_mlp(rms_norm(x, layer["ln2"]), layer)
+    mlp_in = rms_norm(x, layer["ln2"])
+    if cfg.is_moe:
+        if with_aux:
+            out, aux = _moe_mlp(mlp_in, layer, cfg, with_aux=True)
+            return x + out, aux
+        return x + _moe_mlp(mlp_in, layer, cfg)
+    out = x + _dense_mlp(mlp_in, layer)
+    if with_aux:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return out, (zero, zero)
+    return out
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            segment_ids=None) -> torch.Tensor:
+            segment_ids=None, return_aux: bool = False):
     """tokens [B, T] int -> logits [B, T, vocab].
 
     ``segment_ids`` [B, T] int32 packs several documents into one row:
-    attention is masked within segments.  Runs on the device the
-    parameters live on."""
-    require_dense(cfg)
+    attention is masked within segments.  ``return_aux`` also returns
+    ``{"load_balance": mean over layers, "router_z": ...}`` (zeros for
+    dense-MLP configs), which ``loss_fn`` adds when the router aux
+    weights are set.  Runs on the device the parameters live on."""
+    require_single_device(cfg)
     x = take_rows(params["embed"], tokens, cfg.dtype)
+    load_total = z_total = torch.zeros((), dtype=torch.float32,
+                                       device=x.device)
     for layer in params["layers"]:
         if cfg.remat:
             # activations of the layer are recomputed in the backward,
             # as jax.checkpoint does for the JAX package's layer
-            x = torch.utils.checkpoint.checkpoint(
-                _layer_forward, x, layer, cfg, segment_ids,
+            out = torch.utils.checkpoint.checkpoint(
+                _layer_forward, x, layer, cfg, segment_ids, return_aux,
                 use_reentrant=False)
         else:
-            x = _layer_forward(x, layer, cfg, segment_ids)
+            out = _layer_forward(x, layer, cfg, segment_ids, return_aux)
+        if return_aux:
+            x, (load, z) = out
+            load_total = load_total + load
+            z_total = z_total + z
+        else:
+            x = out
     x = rms_norm(x, params["ln_f"])
-    return ein("btd,dv->btv", x, params["unembed"])
+    logits = ein("btd,dv->btv", x, params["unembed"])
+    if not return_aux:
+        return logits
+    n = max(len(params["layers"]), 1)
+    return logits, {"load_balance": load_total / n, "router_z": z_total / n}
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -278,15 +488,28 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     The forward pass runs on the full sequence and the shift happens on
     the logits (taken in f32).  With ``segment_ids``, positions whose
     next token belongs to a different segment are excluded from the
-    mean."""
-    logits = forward(params, tokens, cfg, segment_ids).float()
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    mean.  When an MoE config sets ``aux_loss_weight`` /
+    ``router_z_weight``, the router objectives are added with those
+    weights."""
+    want_aux = cfg.is_moe and (cfg.aux_loss_weight > 0
+                               or cfg.router_z_weight > 0)
+    if want_aux:
+        logits, aux = forward(params, tokens, cfg, segment_ids,
+                              return_aux=True)
+    else:
+        logits = forward(params, tokens, cfg, segment_ids)
+    logp = torch.log_softmax(logits.float()[:, :-1], dim=-1)
     targets = tokens[:, 1:].long()
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
     if segment_ids is None:
-        return -ll.mean()
-    keep = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)
-    return -(ll * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+        loss = -ll.mean()
+    else:
+        keep = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ll.dtype)
+        loss = -(ll * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+    if want_aux:
+        loss = (loss + cfg.aux_loss_weight * aux["load_balance"]
+                + cfg.router_z_weight * aux["router_z"])
+    return loss
 
 
 # --------------------------------------------------------------------------
@@ -329,7 +552,7 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
     segment_ids=None)`` -> ``(params, opt_state, loss)``: loss and
     gradients of :func:`loss_fn`, then one optimizer step, in place;
     ``tokens`` [B, T] (tensor or numpy) is moved to ``device``."""
-    require_dense(cfg)
+    require_single_device(cfg)
     dev = resolve_device(device)
     optimizer = optimizer or make_optimizer()
 
@@ -359,4 +582,4 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
 
 __all__ = ["Params", "TransformerConfig", "forward", "init_params",
            "loss_fn", "make_optimizer", "make_train_step",
-           "named_tensors", "rms_norm", "rotary"]
+           "named_tensors", "require_single_device", "rms_norm", "rotary"]

@@ -56,6 +56,10 @@ _SIGNATURES = {
     "flash_bwd_dq": [_VP] * 9 + [_I] * 11 + [_F, _I, _VP],
     # the same with dk, dv in place of dq
     "flash_bwd_dkv": [_VP] * 10 + [_I] * 11 + [_F, _I, _VP],
+    # x, w, eb, nu, out, M, K, N, E, block_m, trans_w, dtype, stream
+    "gmm": [_VP] * 5 + [_I] * 7 + [_VP],
+    # x, dy, group_sizes, nu, dw, M, K, N, E, block_m, dtype, stream
+    "gmm_dw": [_VP] * 5 + [_I] * 6 + [_VP],
 }
 
 #: dtype codes shared with csrc/common.cuh

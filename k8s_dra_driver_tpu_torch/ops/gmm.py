@@ -1,0 +1,293 @@
+"""Grouped matmul: the sparse-MoE expert kernels K5 (gmm) and K6 (gmm
+dw) for Hopper, and their plain versions.
+
+The port of ``k8s_dra_driver_tpu/ops/gmm.py``.  ``gmm(x, w,
+group_sizes, block_m)`` multiplies row group ``e`` of ``x`` [M, K] by
+expert matrix ``w[e]`` [E, K, N]: rows are sorted by expert and every
+group is padded to a ``block_m`` multiple by the routing layer
+(``models/transformer.py:_gmm_dispatch_combine``), so each row block
+belongs to one expert.  Blocks at or past the live count (the sum of
+the group sizes over ``block_m``) are the static row bound's dead tail:
+their output rows are zero.
+
+- Forward and dx: on CUDA tensors :func:`gmm_forward` launches
+  ``csrc/gmm.cu`` ``gmm_kernel`` (K5), which replaces both Pallas
+  bodies ``_gmm_whole_kernel`` and ``_gmm_kernel`` (launched there by
+  ``_gmm_impl``); ``transpose_w`` reads ``w`` as ``[E, N, K]`` for dx,
+  so no transposed copy of the experts is made.
+- dw: :func:`gmm_dw` launches ``gmm_dw_kernel`` (K6), which replaces
+  ``_gmm_dw_kernel`` (launched there by ``_gmm_dw``), f32 output, exact
+  zeros for experts without rows.
+- On CPU tensors both take their plain versions,
+  :func:`gmm_reference` and :func:`gmm_dw_reference`.  There is no
+  other path: an unsupported dtype or layout on the card raises.
+
+Both kernels read the per-block expert ids and the live block count
+from device memory (the CUDA form of the Pallas scalar prefetch), so
+routing never reads group sizes back to the host.
+
+``launches`` counts kernel launches by name (``"gmm"``, ``"gmm_dw"``);
+CPU calls never count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+#: kernel launches on CUDA tensors: K5 (``"gmm"``) and K6 (``"gmm_dw"``)
+launches = {"gmm": 0, "gmm_dw": 0}
+
+#: rows of K5's output tile; ``block_m`` must be a multiple of it, so
+#: that no tile straddles two experts
+TILE_M = 64
+
+
+def _round_up(n, k: int):
+    """``n`` rounded up to a multiple of ``k`` (an int, or an integer
+    tensor elementwise)."""
+    return -(-n // k) * k
+
+
+def _block_experts(group_sizes: torch.Tensor, n_blocks: int,
+                   block_m: int) -> torch.Tensor:
+    """Expert id of each row block ([n_blocks] int32).  Requires every
+    group size to be a multiple of ``block_m`` (the routing layer pads
+    groups), so no block straddles two experts; blocks beyond the last
+    group clamp to the final expert."""
+    ends = torch.cumsum(group_sizes, 0)
+    starts = torch.arange(n_blocks, dtype=ends.dtype,
+                          device=ends.device) * block_m
+    eb = torch.searchsorted(ends, starts, right=True)
+    return torch.clamp(eb, max=group_sizes.shape[0] - 1).to(torch.int32)
+
+
+def _live_blocks(group_sizes: torch.Tensor, block_m: int) -> torch.Tensor:
+    """[1] int32: the row blocks that hold routed rows (groups are
+    padded to ``block_m`` multiples, so this is exact)."""
+    return (group_sizes.sum() // block_m).to(torch.int32).reshape(1)
+
+
+def pick_gmm_blocks(k_dim: int, n_dim: int, n_experts: int,
+                    dtype=torch.bfloat16, rows: int | None = None) -> dict:
+    """Grouped-matmul row block ``{"block_m": 128}`` for every shape.
+
+    K5 computes 64-row output tiles and looks up one expert per tile,
+    so ``block_m`` must be a multiple of :data:`TILE_M`; 128 bounds
+    each expert's padding at 127 rows.  K5 re-reads an expert's weights
+    once per 64-row tile whatever ``block_m`` is, so the JAX package's
+    larger blocks for experts too big for VMEM buy nothing here.  The
+    arguments mirror the JAX picker's; its v5e autotune table is never
+    read (an H100 table is later work).  The routing layer must pad
+    group sizes to the ``block_m`` returned."""
+    del k_dim, n_dim, n_experts, dtype, rows
+    return {"block_m": 128}
+
+
+def _check(x, w, group_sizes, block_m, transpose_w):
+    if x.ndim != 2 or w.ndim != 3:
+        raise ValueError(f"x must be [M, K] and w [E, K, N], got "
+                         f"{tuple(x.shape)} / {tuple(w.shape)}")
+    k_w, n_w = ((w.shape[2], w.shape[1]) if transpose_w
+                else (w.shape[1], w.shape[2]))
+    if x.shape[1] != k_w:
+        raise ValueError(f"x {tuple(x.shape)} does not match w "
+                         f"{tuple(w.shape)} (transpose_w={transpose_w})")
+    if group_sizes.ndim != 1 or group_sizes.shape[0] != w.shape[0]:
+        raise ValueError(f"group_sizes must be [E] = [{w.shape[0]}], got "
+                         f"{tuple(group_sizes.shape)}")
+    if x.shape[0] % block_m:
+        raise ValueError(f"rows {x.shape[0]} not a multiple of block_m "
+                         f"{block_m}")
+    return n_w
+
+
+def _on_card(x, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def _kernel_args(x, others, group_sizes, block_m, what):
+    """Checks what the kernels take; returns (dtype code, int32 group
+    sizes on x's device)."""
+    code = _build.DTYPE_CODES.get(str(x.dtype).removeprefix("torch."))
+    if code is None:
+        raise ValueError(f"the {what} kernel takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    for name, t in others.items():
+        if t.dtype != x.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, x is {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    for name, t in dict(x=x, **others).items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if block_m % TILE_M:
+        raise ValueError(f"the {what} kernel takes block_m a multiple of "
+                         f"{TILE_M}, got {block_m}")
+    if group_sizes.device != x.device:
+        raise ValueError(f"{what}: group_sizes must be on x's device")
+    return code, group_sizes.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# K5: out[block i] = x[block i] @ w[eb[i]]
+# --------------------------------------------------------------------------
+
+def gmm_reference(x, w, group_sizes, block_m: int = 128,
+                  transpose_w: bool = False):
+    """Plain PyTorch version of K5: per-block products in f32 against
+    each block's expert (w cast to x's dtype first, as the JAX kernel
+    does), cast to x's dtype; dead-tail blocks zero.  No host loop over
+    the group sizes: the expert weights are gathered per block."""
+    n_dim = _check(x, w, group_sizes, block_m, transpose_w)
+    m, k_dim = x.shape
+    n_blocks = m // block_m
+    eb = _block_experts(group_sizes, n_blocks, block_m).long()
+    live = (torch.arange(n_blocks, device=x.device)
+            < _live_blocks(group_sizes, block_m))
+    wf = w.to(x.dtype).float()
+    if transpose_w:
+        wf = wf.transpose(1, 2)
+    out = torch.bmm(x.float().reshape(n_blocks, block_m, k_dim), wf[eb])
+    out = torch.where(live[:, None, None], out, 0.0)
+    return out.reshape(m, n_dim).to(x.dtype)
+
+
+def _launch_gmm(x, w, group_sizes, block_m, transpose_w, n_dim):
+    code, gs = _kernel_args(x, {"w": w}, group_sizes, block_m, "gmm")
+    m, k_dim = x.shape
+    eb = _block_experts(gs, m // block_m, block_m)
+    nu = _live_blocks(gs, block_m)
+    out = torch.empty((m, n_dim), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gmm(x.data_ptr(), w.data_ptr(), eb.data_ptr(),
+                     nu.data_ptr(), out.data_ptr(), m, k_dim, n_dim,
+                     w.shape[0], block_m, int(transpose_w), code, stream)
+    _build.check(rc, "gmm")
+    launches["gmm"] += 1
+    return out
+
+
+def gmm_forward(x, w, group_sizes, block_m: int = 128,
+                transpose_w: bool = False):
+    """``[M, N]`` in x's dtype: K5 on CUDA tensors, the plain version on
+    CPU tensors.  ``w`` is ``[E, K, N]``, or ``[E, N, K]`` read
+    transposed with ``transpose_w``; on the card x and w share one
+    dtype (float32 or bfloat16) and are contiguous."""
+    n_dim = _check(x, w, group_sizes, block_m, transpose_w)
+    if not _on_card(x, "gmm"):
+        return gmm_reference(x, w, group_sizes, block_m, transpose_w)
+    return _launch_gmm(x, w, group_sizes, block_m, transpose_w, n_dim)
+
+
+# --------------------------------------------------------------------------
+# K6: dw[e] = x_e^T @ dy_e
+# --------------------------------------------------------------------------
+
+def _check_dw(x, dy, group_sizes, block_m):
+    if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"x must be [M, K] and dy [M, N], got "
+                         f"{tuple(x.shape)} / {tuple(dy.shape)}")
+    if group_sizes.ndim != 1:
+        raise ValueError("group_sizes must be [E]")
+    if x.shape[0] % block_m:
+        raise ValueError(f"rows {x.shape[0]} not a multiple of block_m "
+                         f"{block_m}")
+
+
+def gmm_dw_reference(x, dy, group_sizes, block_m: int = 128):
+    """Plain PyTorch version of K6: ``dw[e] = x_e^T dy_e`` [E, K, N] f32
+    over expert e's live row blocks (dy cast to x's dtype first, as the
+    JAX kernel does); experts without rows are exactly 0."""
+    _check_dw(x, dy, group_sizes, block_m)
+    m, k_dim = x.shape
+    e = group_sizes.shape[0]
+    n_blocks = m // block_m
+    eb = _block_experts(group_sizes, n_blocks, block_m).long()
+    live = (torch.arange(n_blocks, device=x.device)
+            < _live_blocks(group_sizes, block_m))
+    xb = x.float().reshape(n_blocks, block_m, k_dim)
+    dyb = dy.to(x.dtype).float().reshape(n_blocks, block_m, dy.shape[1])
+    per_block = torch.bmm(xb.transpose(1, 2), dyb)       # [blocks, K, N]
+    owner = ((eb[:, None] == torch.arange(e, device=x.device))
+             & live[:, None]).float()                    # [blocks, E]
+    return torch.einsum("be,bkn->ekn", owner, per_block)
+
+
+def _launch_dw(x, dy, group_sizes, block_m):
+    code, gs = _kernel_args(x, {"dy": dy}, group_sizes, block_m, "gmm_dw")
+    m, k_dim = x.shape
+    n_dim = dy.shape[1]
+    e = gs.shape[0]
+    nu = _live_blocks(gs, block_m)
+    dw = torch.empty((e, k_dim, n_dim), dtype=torch.float32,
+                     device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gmm_dw(x.data_ptr(), dy.data_ptr(), gs.data_ptr(),
+                        nu.data_ptr(), dw.data_ptr(), m, k_dim, n_dim, e,
+                        block_m, code, stream)
+    _build.check(rc, "gmm_dw")
+    launches["gmm_dw"] += 1
+    return dw
+
+
+def gmm_dw(x, dy, group_sizes, block_m: int = 128):
+    """``dw`` [E, K, N] f32 of :func:`gmm_dw_reference`: K6 on CUDA
+    tensors (dy is cast to x's dtype first), the plain version on CPU
+    tensors.  The kernel writes every entry, zeros included."""
+    _check_dw(x, dy, group_sizes, block_m)
+    if not _on_card(x, "gmm_dw"):
+        return gmm_dw_reference(x, dy, group_sizes, block_m)
+    return _launch_dw(x, dy.to(x.dtype).contiguous(), group_sizes, block_m)
+
+
+# --------------------------------------------------------------------------
+# Differentiable entry point
+# --------------------------------------------------------------------------
+
+class _Gmm(torch.autograd.Function):
+    """The custom VJP of the JAX ``gmm``: dx = gmm(dy, w^T) through K5's
+    transposed read, cast to x's dtype; dw through K6, cast to w's
+    dtype; ``group_sizes`` is data and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, block_m):
+        out = gmm_forward(x, w, group_sizes, block_m)
+        ctx.save_for_backward(x, w, group_sizes)
+        ctx.block_m = block_m
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm_forward(dy, w, group_sizes, ctx.block_m,
+                             transpose_w=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = gmm_dw(x, dy, group_sizes, ctx.block_m).to(w.dtype)
+        return dx, dw, None, None
+
+
+def gmm(x, w, group_sizes, block_m: int = 128):
+    """Grouped matmul: rows of ``x`` [M, K] are grouped by expert
+    (group ``e`` spans ``group_sizes[:e].sum()`` onward, every group a
+    multiple of ``block_m`` rows), each multiplied by ``w[e]`` [E, K, N]
+    -> [M, N] in x's dtype.  Differentiable in x and w."""
+    return _Gmm.apply(x, w, group_sizes, block_m)
+
+
+__all__ = ["TILE_M", "gmm", "gmm_dw", "gmm_dw_reference", "gmm_forward",
+           "gmm_reference", "launches", "pick_gmm_blocks"]

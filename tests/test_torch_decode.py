@@ -8,6 +8,8 @@ cannot match (threefry vs Philox), so ``_filter_logits`` is held to
 JAX exactly and ``sample_token`` by distribution.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,6 +68,49 @@ def test_prefill_and_stepwise_decode_match_jax_and_forward(params):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         np.testing.assert_allclose(tl.numpy(), full[:, i].numpy(), **TOL)
         pos += 1
+
+
+MOE_FIELDS = dict(FIELDS, n_experts=4, top_k=2, moe_dispatch="gmm")
+
+
+@pytest.mark.parametrize("dispatch", ["gmm", "capacity"])
+def test_moe_prefill_and_decode_match_jax_and_forward(dispatch):
+    """An MoE config serves with dense dispatch (``_serving_cfg``):
+    prefill + stepwise decode logits equal JAX's decode and the port's
+    training forward under gmm dispatch (dropless, so the same
+    function); a capacity-trained config serves the same way."""
+    fields = dict(MOE_FIELDS, moe_dispatch=dispatch)
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, **fields)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, **fields)
+    assert td._serving_cfg(tcfg).moe_dispatch == "dense"
+    jp = jax.tree.map(np.asarray, jt.init_params(jcfg,
+                                                 jax.random.PRNGKey(2)))
+    tp = params_from_jax(jp, device="cpu")
+    toks = prompts(12, 2, 12)
+    split = 5
+    jcache = jd.init_cache(jcfg, 2)
+    jlog, jcache = jd.prefill(jp, jnp.asarray(toks[:, :split]), jcfg,
+                              jcache)
+    tcache = td.init_cache(tcfg, 2, device="cpu")
+    tlog, tcache = td.prefill(tp, long(toks[:, :split]), tcfg, tcache)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    full = tt.forward(tp, long(toks), dataclasses.replace(
+        tcfg, moe_dispatch="gmm"))
+    np.testing.assert_allclose(tlog.numpy(), full[:, :split].numpy(),
+                               **TOL)
+    pos = np.full(2, split, np.int32)
+    for i in range(split, toks.shape[1]):
+        jl, jcache = jd.decode_step_rows(jp, jnp.asarray(toks[:, i:i + 1]),
+                                         jcfg, jcache, jnp.asarray(pos))
+        tl, tcache = td.decode_step_rows(tp, long(toks[:, i:i + 1]), tcfg,
+                                         tcache, torch.as_tensor(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_allclose(tl.numpy(), full[:, i].numpy(), **TOL)
+        pos += 1
+    want = np.asarray(jd.greedy_generate(jp, jnp.asarray(toks[:, :6]),
+                                         jcfg, 5))
+    got = td.greedy_generate(tp, long(toks[:, :6]), tcfg, 5)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_per_row_positions_decode_independently(params):

@@ -1,0 +1,205 @@
+"""Port grouped matmul (k8s_dra_driver_tpu_torch/ops/gmm.py) against the
+JAX package's ``ops/gmm.py``.
+
+The same numpy inputs go through the JAX ``gmm`` (its Pallas kernels in
+interpret mode on the CPU) and the port's ``gmm`` (its plain versions,
+since the tensors lie on the CPU).  Outputs agree to 2e-5 and the
+gradients (against ``jax.grad``) to 2e-4, the tolerances of
+``tests/test_gmm.py``: both sides run f32 products and differ only in
+summation order.  Expert ids per block and empty experts' zero dw are
+exact.  The CUDA kernels K5/K6 cannot run here; ``chip_smoke.py`` holds
+them against these plain versions on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from k8s_dra_driver_tpu.ops import gmm as jg
+from k8s_dra_driver_tpu_torch.ops import gmm as tg
+
+BM = 128
+K_DIM, N_DIM = 96, 160
+TOL = dict(rtol=2e-5, atol=2e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# group sizes (multiples of BM) and the static row count M >= their sum
+LAYOUTS = {
+    "even": ([BM, BM, BM, BM], 4 * BM),
+    "with-empty": ([2 * BM, 0, BM, BM], 4 * BM),
+    "one-hot": ([0, 0, 4 * BM, 0], 4 * BM),
+    "dead-tail": ([BM, 0, 2 * BM, 0], 6 * BM),
+    "all-dead": ([0, 0, 0, 0], 2 * BM),
+}
+
+
+def setup(groups, m, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, K_DIM)).astype(np.float32)
+    live = int(sum(groups))
+    x[live:] = 0.0          # the routing layer's padding rows are zero
+    w = rng.standard_normal((len(groups), K_DIM, N_DIM)).astype(np.float32)
+    return x, w, np.asarray(groups, np.int32)
+
+
+def t(a, **kw):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(
+        kw.get("grad", False))
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_block_experts_equal_jax(name):
+    groups, m = LAYOUTS[name]
+    gs = np.asarray(groups, np.int32)
+    want = np.asarray(jg._block_experts(jnp.asarray(gs), m // BM, BM))
+    got = tg._block_experts(torch.from_numpy(gs), m // BM, BM)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(tg._live_blocks(torch.from_numpy(gs), BM)) == \
+        int(gs.sum()) // BM
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_gmm_equals_jax(name):
+    groups, m = LAYOUTS[name]
+    x, w, gs = setup(groups, m)
+    want = np.asarray(jg.gmm(jnp.asarray(x), jnp.asarray(w),
+                             jnp.asarray(gs), BM))
+    got = tg.gmm(t(x), t(w), t(gs), BM)
+    assert got.dtype == torch.float32 and got.shape == (m, N_DIM)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    live = int(gs.sum())
+    assert torch.count_nonzero(got[live:]) == 0
+
+
+@pytest.mark.parametrize("name", ["with-empty", "dead-tail"])
+def test_transposed_read_equals_jax_swapaxes(name):
+    """dx's form: w stored [E, N, K] and read transposed equals the JAX
+    ``gmm`` on the swapped experts, with K and N in both orders."""
+    groups, m = LAYOUTS[name]
+    x, w, gs = setup(groups, m, seed=1)
+    dy = np.random.default_rng(2).standard_normal(
+        (m, N_DIM)).astype(np.float32)
+    want = np.asarray(jg.gmm(jnp.asarray(dy),
+                             jnp.swapaxes(jnp.asarray(w), 1, 2),
+                             jnp.asarray(gs), BM))
+    got = tg.gmm_forward(t(dy), t(w), t(gs), BM, transpose_w=True)
+    assert got.shape == (m, K_DIM)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    again = tg.gmm_forward(t(dy), t(np.swapaxes(w, 1, 2)), t(gs), BM)
+    np.testing.assert_array_equal(got.numpy(), again.numpy())
+
+
+@pytest.mark.parametrize("name", ["even", "with-empty", "dead-tail"])
+def test_grads_equal_jax_grad(name):
+    groups, m = LAYOUTS[name]
+    x, w, gs = setup(groups, m, seed=3)
+    probe = np.random.default_rng(4).standard_normal(
+        (m, N_DIM)).astype(np.float32)
+
+    def loss(x, w):
+        return jnp.sum(jg.gmm(x, w, jnp.asarray(gs), BM) * probe)
+
+    jdx, jdw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x),
+                                              jnp.asarray(w))
+    tx, tw = t(x, grad=True), t(w, grad=True)
+    (tg.gmm(tx, tw, t(gs), BM) * t(probe)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx),
+                               **GRAD_TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw),
+                               **GRAD_TOL)
+
+
+def test_dw_of_an_empty_expert_is_exactly_zero():
+    groups, m = LAYOUTS["dead-tail"]
+    x, _, gs = setup(groups, m, seed=5)
+    dy = np.random.default_rng(6).standard_normal(
+        (m, N_DIM)).astype(np.float32)
+    dw = tg.gmm_dw(t(x), t(dy), t(gs), BM)
+    assert dw.dtype == torch.float32 and dw.shape == (4, K_DIM, N_DIM)
+    for e in np.flatnonzero(gs == 0):
+        assert torch.count_nonzero(dw[e]) == 0
+    # a live expert's dw is x_e^T dy_e over its own rows only
+    np.testing.assert_allclose(dw[2].numpy(), x[BM:3 * BM].T @ dy[BM:3 * BM],
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_dw_equals_jax_gmm_dw():
+    groups, m = LAYOUTS["with-empty"]
+    x, _, gs = setup(groups, m, seed=7)
+    dy = np.random.default_rng(8).standard_normal(
+        (m, N_DIM)).astype(np.float32)
+    want = np.asarray(jg._gmm_dw(jnp.asarray(x), jnp.asarray(dy),
+                                 jnp.asarray(gs), block_m=BM))
+    got = tg.gmm_dw(t(x), t(dy), t(gs), BM)
+    np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL)
+
+
+def test_bf16_rounds_like_jax():
+    """bf16 inputs: f32 sums, output rounded to bf16 — one bf16 step
+    (2^-8 relative) at most between the two packages."""
+    groups, m = LAYOUTS["with-empty"]
+    x, w, gs = setup(groups, m, seed=9)
+    want = np.asarray(jg.gmm(jnp.asarray(x, jnp.bfloat16),
+                             jnp.asarray(w, jnp.bfloat16),
+                             jnp.asarray(gs), BM), np.float32)
+    got = tg.gmm(t(x).to(torch.bfloat16), t(w).to(torch.bfloat16), t(gs),
+                 BM)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_unaligned_rows_raise_as_in_jax():
+    groups, m = LAYOUTS["even"]
+    x, w, gs = setup(groups, m)
+    with pytest.raises(ValueError, match="block_m") as jerr:
+        jg.gmm(jnp.asarray(x[:-1]), jnp.asarray(w), jnp.asarray(gs), BM)
+    with pytest.raises(ValueError, match="block_m") as terr:
+        tg.gmm(t(x[:-1]), t(w), t(gs), BM)
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="block_m"):
+        tg.gmm_dw(t(x[:-1]), t(x[:-1]), t(gs), BM)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(x_dtype=torch.float16), "float32 or bfloat16"),
+    (dict(w_dtype=torch.bfloat16), "w is torch.bfloat16"),
+    (dict(block_m=96), "multiple of 64"),
+    (dict(transposed=True), "contiguous"),
+])
+def test_kernel_arguments_are_checked(bad, match):
+    """What the kernels refuse is refused before any launch."""
+    x = torch.zeros((192, 64), dtype=bad.get("x_dtype", torch.float32))
+    w = torch.zeros((2, 64, 32), dtype=bad.get("w_dtype", x.dtype))
+    if bad.get("transposed"):
+        w = torch.zeros((2, 32, 64)).transpose(1, 2)
+    with pytest.raises(ValueError, match=match):
+        tg._kernel_args(x, {"w": w}, torch.tensor([96, 96]),
+                        bad.get("block_m", 64), "gmm")
+
+
+def test_shape_checks_and_foreign_devices():
+    x = torch.zeros((128, 8))
+    with pytest.raises(ValueError, match="does not match"):
+        tg.gmm_forward(x, torch.zeros((2, 9, 4)), torch.tensor([128, 0]))
+    with pytest.raises(ValueError, match="group_sizes"):
+        tg.gmm_forward(x, torch.zeros((2, 8, 4)), torch.tensor([128]))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tg.gmm_forward(x.to("meta"), torch.zeros((2, 8, 4), device="meta"),
+                       torch.tensor([128, 0], device="meta"))
+
+
+def test_picker_fits_the_kernel_tile_and_counters_start_at_zero():
+    for shape in ((512, 4096, 16), (4096, 512, 16), (64, 128, 4)):
+        bm = tg.pick_gmm_blocks(*shape, rows=32)["block_m"]
+        assert bm % tg.TILE_M == 0
+    assert set(tg.launches) == {"gmm", "gmm_dw"}
+    before = dict(tg.launches)
+    groups, m = LAYOUTS["even"]
+    x, w, gs = setup(groups, m)
+    tx, tw = t(x, grad=True), t(w, grad=True)
+    tg.gmm(tx, tw, t(gs), BM).sum().backward()
+    assert tg.launches == before         # CPU calls never count

@@ -46,7 +46,8 @@ def test_scan_covers_the_port():
     for mod in ("models/serving.py", "models/decode.py",
                 "models/transformer.py", "models/data.py",
                 "models/checkpoint.py", "ops/flash_attention.py",
-                "ops/paged_attention.py", "serving_kv/manager.py",
+                "ops/gmm.py", "ops/paged_attention.py",
+                "serving_kv/manager.py",
                 "utils/dispatch.py", "utils/atomicio.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 

@@ -89,6 +89,40 @@ def test_engine_equals_jax_engine(params, layout):
     assert tt_.by_label == jt_.by_label
 
 
+MOE_FIELDS = dict(FIELDS, n_experts=4, top_k=2, moe_dispatch="gmm")
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, **MOE_FIELDS)
+    jp = jax.tree.map(np.asarray,
+                      jt.init_params(jcfg, jax.random.PRNGKey(1)))
+    return jcfg, jp, params_from_jax(jp, device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_moe_engine_equals_jax_engine(moe_params, layout):
+    """An MoE config (gmm-trained, served with dense dispatch): the port
+    engine's greedy tokens equal the JAX engine's and the port's own
+    ``greedy_generate``."""
+    jcfg, jp, tp = moe_params
+    tcfg = tt.TransformerConfig(dtype=torch.float32, **MOE_FIELDS)
+    kw = {} if layout == "contiguous" else dict(kv_layout="paged",
+                                                kv_block_size=8)
+    reqs = mix()[:4]
+    want = drain(js.ServingEngine(jp, jcfg, slots=3, **kw), reqs,
+                 js.Request)
+    got = drain(ts.ServingEngine(tp, tcfg, slots=3, device="cpu", **kw),
+                reqs)
+    assert set(got) == set(want)
+    for uid, pr, m in reqs:
+        np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
+                                      err_msg=f"request {uid}")
+        ref = td.greedy_generate(
+            tp, torch.as_tensor(pr[None], dtype=torch.long), tcfg, m)[0]
+        np.testing.assert_array_equal(got[uid], ref.numpy())
+
+
 @pytest.mark.parametrize("kw", [
     dict(),
     dict(prefix_cache=4),

@@ -198,9 +198,17 @@ def test_train_step_refuses_an_optimizer_of_other_params():
 
 
 def test_make_train_step_refuses_moe_and_missing_card():
-    _, moe = configs(n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.make_train_step(moe, device="cpu")
+    """MoE configs train (tests/test_torch_moe.py holds them to JAX);
+    a pipelined config, which needs a device mesh, stays refused."""
+    jmoe, moe = configs(n_experts=4, moe_dispatch="gmm")
+    _, init_state = tt.make_train_step(moe, device="cpu")
+    params, opt = init_state(torch.Generator().manual_seed(0))
+    assert {k: tuple(v.shape) for k, v in params["layers"][0].items()} \
+        == jt._layer_shapes(jmoe)
+    assert len(opt.param_groups[0]["params"]) == 3 + 9 * moe.n_layers
+    _, piped = configs(n_experts=4, pp_stages=2)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tt.make_train_step(piped, device="cpu")
     if not torch.cuda.is_available():
         _, dense = configs()
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -196,9 +196,21 @@ def test_config_fields_match_jax():
 
 
 def test_moe_and_missing_card_are_refused():
-    _, tcfg = configs(n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_params(tcfg, device="cpu")
+    """MoE configs build (the JAX layout, key for key); what stays
+    refused is the mesh: pipeline stages, MoE or dense."""
+    jcfg, tcfg = configs(n_experts=4)
+    tp = tt.init_params(tcfg, torch.Generator().manual_seed(0),
+                        device="cpu")
+    for layer in tp["layers"]:
+        assert {k: tuple(v.shape) for k, v in layer.items()} == \
+            jt._layer_shapes(jcfg)
+    assert tp["layers"][0]["w_in"].shape == (4, 48, 96)
+    for kw in (dict(n_experts=4, pp_stages=2), dict(pp_stages=2)):
+        _, piped = configs(**kw)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tt.init_params(piped, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tt.forward(tp, torch.zeros((1, 4), dtype=torch.long), piped)
     if not torch.cuda.is_available():
         _, dense = configs()
         with pytest.raises(RuntimeError, match="CUDA is not available"):
