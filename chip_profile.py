@@ -31,6 +31,16 @@ gmm dispatch (``chip_smoke.py``'s MoE phase: 16 experts, top_k 2,
 B=8 x T=1024), split further into the grouped-matmul kernels K5 and K6
 and the routing (sorts, counts, index scatters and gathers).
 
+Then int8 serving: the 154M weights through ``quantize_params``, the
+steady decode window of each KV layout on them (device ms split into
+K7, the attention kernels and the rest, and the busy share), and the
+contiguous window once more on the einsum route K7 displaces; and the
+660M configuration of ``tools/bench_int8.py`` (12 layers, d_model 2048,
+16 heads, 4 KV heads, d_ff 8192, vocab 32000, bf16, random weights) in
+a steady decode window of 8 rows, bf16 weights against int8 weights,
+each beside the least time its weight bytes take at the card's memory
+rate.  Measurement only: no gate, no claim.
+
 The last line is one JSON object with those numbers.  Exits non-zero
 without a card.  Imports nothing of JAX and nothing of the JAX
 package.
@@ -40,6 +50,7 @@ from __future__ import annotations
 
 import json
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -54,6 +65,8 @@ TOP = 10         # device ops listed per run
 # device ops by kind, matched on the kernel's name in this order
 KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
+    ("K2 paged_decode", ("paged_decode_kernel",)),
+    ("K7 int8_matmul", ("int8_matmul_kernel",)),
     ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K4 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K6 gmm_dw", ("gmm_dw_kernel",)),
@@ -92,6 +105,7 @@ def profiled(fn) -> dict:
     summary = device_summary(prof)
     if summary["busy_ms"] <= 0:
         smoke.fail("the profiler recorded no device time")
+    summary["ms_by_kind"] = by_kind(prof)
     return summary
 
 
@@ -146,6 +160,8 @@ def steady_profile(make_engine, request_cls, vocab: int) -> dict:
     return {"step_wall_ms": wall_ms, "step_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "device_ops_per_step": summary["device_ops"] / WINDOW,
+            "ms_by_kind": {k: v / WINDOW for k, v
+                           in summary["ms_by_kind"].items() if v},
             "top": summary["top"]}
 
 
@@ -230,6 +246,76 @@ def report(label: str, drain: dict, steady: dict) -> None:
                   f"{row['op']}", flush=True)
 
 
+def config_660m():
+    """``tools/bench_int8.py``'s 660M shape on ``decode_probe``'s
+    defaults: vocab 32000, d_model 2048, 12 layers, 16 heads (d_head
+    128), 4 KV heads, d_ff 8192, max_seq 1024, bf16."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig)
+    return TransformerConfig(vocab=32000, d_model=2048, n_layers=12,
+                             n_heads=16, n_kv_heads=4, d_head=128,
+                             d_ff=8192, max_seq=1024, dtype=torch.bfloat16)
+
+
+def weight_bytes(params) -> int:
+    """Bytes a decode step streams: every weight but the embedding table
+    (gathered, a few rows a step), scales included."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantized_bytes
+    return quantized_bytes({k: v for k, v in params.items()
+                            if k != "embed"})[0]
+
+
+def report_steady(label: str, steady: dict, nbytes: int) -> None:
+    bound_ms = nbytes / smoke.H100_BYTES_PER_S * 1e3
+    print(f"{label} steady decode: {steady['step_wall_ms']:.3f} ms wall "
+          f"per step, {steady['step_busy_ms']:.3f} ms device busy "
+          f"({100 * steady['busy_share']:.1f}%), "
+          f"{steady['device_ops_per_step']:.1f} device ops per step; "
+          f"weights {nbytes} bytes, bound {bound_ms:.4f} ms", flush=True)
+    for kind, ms in steady["ms_by_kind"].items():
+        print(f"  {ms:10.4f} ms/step {kind}", flush=True)
+
+
+def int8_profile(params, cfg, engine_cls, request_cls) -> dict:
+    """Steady decode windows on int8 weights: the 154M in both KV
+    layouts, and once more contiguous with K7 displaced by the einsum
+    route (``_use_kernel`` patched to False for that window only: the
+    route the JAX package takes by default); then the 660M with bf16
+    and with int8 weights."""
+    from k8s_dra_driver_tpu_torch.models import quant as qm
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    out = {}
+    qparams = qm.quantize_params(params, cfg)
+    for key, label, kw, kernel in (
+            ("contiguous", "contiguous", {}, True),
+            ("paged", "paged", {"kv_layout": "paged"}, True),
+            ("contiguous_einsum", "contiguous, einsum route", {}, False)):
+        def make_engine(kw=kw):
+            return engine_cls(qparams, cfg, slots=8, top_k=50, **kw)
+        with mock.patch.object(qm, "_use_kernel",
+                               qm._use_kernel if kernel
+                               else lambda m: False):
+            steady = steady_profile(make_engine, request_cls, cfg.vocab)
+        nbytes = weight_bytes(qparams)
+        report_steady(f"154M int8 weights, {label}", steady, nbytes)
+        out[f"154m_int8_{key}"] = {**steady, "weight_bytes": nbytes}
+    del qparams
+    big = config_660m()
+    p660 = init_params(big, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    for label in ("bf16", "int8"):
+        p = p660 if label == "bf16" else qm.quantize_params(p660, big)
+
+        def make_engine(p=p):
+            return engine_cls(p, big, slots=8, top_k=50)
+        steady = steady_profile(make_engine, request_cls, big.vocab)
+        nbytes = weight_bytes(p)
+        report_steady(f"660M {label} weights, contiguous", steady, nbytes)
+        out[f"660m_{label}"] = {**steady, "weight_bytes": nbytes}
+        del p
+    return out
+
+
 def main() -> None:
     kind = smoke.phase_device()
     from k8s_dra_driver_tpu_torch.models.serving import (Request,
@@ -251,8 +337,9 @@ def main() -> None:
     moe = train_profile(smoke.moe_heavy_config(
         aux_loss_weight=smoke.MOE_AUX_WEIGHT), smoke.MOE_B, smoke.MOE_T)
     report_train(moe, "moe_heavy train step (gmm)")
+    int8 = int8_profile(params, cfg, ServingEngine, Request)
     print(json.dumps({"device": kind, "layouts": out, "train": train,
-                      "moe_train": moe}), flush=True)
+                      "moe_train": moe, "int8": int8}), flush=True)
 
 
 if __name__ == "__main__":

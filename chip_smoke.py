@@ -57,13 +57,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
 13. MoE serving: a contiguous drain of s8_r24 at moe_heavy (served
     with dense dispatch), every greedy stream held to a teacher-forced
     forward under gmm dispatch (K5);
-14. each kernel's device time at its main-path shape and at a long
+14. K7 (weight-only int8 matmul; K7a ``int8_matmul``, K7b ``int8_bmm``)
+    against ``int8_matmul_reference`` / ``int8_bmm_reference`` at the
+    154M decode shapes (M = 1, 8, 64), the 660M shapes, off-gate M =
+    96 and 768, a ragged shape, and moe_heavy's expert products (shared
+    x, transposed view), in bf16 and f32, with the device memory cache
+    (L2) flushed before every timed call, the bf16 cuBLAS product and
+    ``torch._weight_int8pack_mm`` as yardsticks, and the bound;
+15. int8 serving at 154M: ``quantize_params`` of the same bf16 weights,
+    held to the full-precision logits on one 8 x 96 forward; three
+    drains of s8_r24 (contiguous KV, contiguous int8 KV, paged KV), each
+    passing the teacher-forced check against a full ``forward`` on the
+    same int8 weights (M > 64 there: the einsum route) and launching K7a
+    49 times (6 per layer + the unembedding) for each forward pass it
+    serves: a whole number of passes, at least the drain's decode steps
+    and at most all its forward passes (by dispatch label);
+16. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
+    weights, dense dispatch, the teacher-forced check, K7b twice per
+    layer and K7a 4 per layer + 1 for each such pass, over the same
+    passes;
+17. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
-15. one JSON line naming every kernel with its launches on the main
+18. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
     plain version and its times;
-16. last line: ``{"ok": true, "device": {...}}``.
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -130,10 +149,19 @@ MOE_AUX_WEIGHT = 0.01
 # expert tied with the k-th gate, gmm's top-k exactly k), by whole
 # logits; the bf16 gap and its tie count are printed, not held.
 DISPATCH_TOL = 1e-3
-# f32 MoE step card vs CPU: parameters whose gradient is nonzero but
+# f32 steps card vs CPU: parameters whose gradient is nonzero but
 # below this fraction of its tensor's largest entry are rounding noise
-# for AdamW's first update (see phase_moe_train_small)
+# for AdamW's first update (see step_param_errors)
 NOISE_BAND = 1e-5
+
+# K7 against its plain version, relative to max(1, max|plain|): both sum
+# exact products of the same inputs in f32, in another order; a bf16
+# output may round to the neighbouring bf16 value (2^-8 of the value)
+INT8_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# quantize_params against the full-precision weights on one forward, as
+# the JAX package's test holds them (tests/test_quant.py)
+QUANT_MEAN_REL = 0.05
+QUANT_AGREE = 0.9
 
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
@@ -176,6 +204,46 @@ def device_ms(fn, iters: int = 10) -> float | None:
     total_us = sum(getattr(e, "self_device_time_total", 0.0)
                    for e in prof.key_averages())
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+_flush: list = []
+
+
+def flush_l2() -> None:
+    """Overwrite a 64 MiB buffer, more than the card's 50 MB L2, so the
+    next call reads its inputs from device memory."""
+    if not _flush:
+        _flush.append(torch.empty(64 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    _flush[0].zero_()
+
+
+def cold_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean time of ``fn()`` between CUDA events around each call, with
+    the L2 flushed before it: the case of a decode step, which streams
+    more weights than L2 holds.  The card spins for about 0.5 ms after
+    the flush, so the host has enqueued the call before the first event
+    fires and the events time the device, not the host's launch."""
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for _ in range(warmup):
+        fn()
+    for i in range(iters):
+        flush_l2()
+        torch.cuda._sleep(1_000_000)
+        start[i].record()
+        fn()
+        end[i].record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in zip(start, end)) / iters
+
+
+def cold_device_ms(fn, iters: int = 10) -> float | None:
+    """Device time of ``fn()`` after an L2 flush: the profiled time of
+    flush + call less that of the flush alone."""
+    both = device_ms(lambda: (flush_l2(), fn()), iters)
+    alone = device_ms(flush_l2, iters)
+    return None if both is None or alone is None else both - alone
 
 
 def fmt(ms: float | None) -> str:
@@ -753,6 +821,149 @@ def phase_gmm(gm) -> tuple[dict, dict, dict]:
     return rows_out["K5"], rows_out["K6"], probes
 
 
+def int8_bound(g: int, m: int, k: int, n: int, es: int, x_rows: int,
+               peak: float) -> tuple[float, str]:
+    """Least time for one int8 product: x (``x_rows`` rows of K: M, or
+    G * M when every expert reads its own x) in its dtype, the G int8
+    weights, their f32 scales and the output read or written once, over
+    the memory rate; 2*K flops per output element over ``peak``."""
+    nbytes = x_rows * k * es + g * k * n + g * n * 4 + g * m * n * es
+    t_b, t_f = nbytes / H100_BYTES_PER_S, 2 * g * m * k * n / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def int8pack_fn(x, q, scale):
+    """``(callable, None)`` of ``torch._weight_int8pack_mm`` (weight
+    [N, K] int8, scales [N]: the same W8A16 function; yardstick only,
+    never called by the port), or ``(None, reason)``."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None, "torch._weight_int8pack_mm is absent from this PyTorch"
+    w_nk = q.t().contiguous()
+    sc = scale.reshape(-1).to(x.dtype)
+    try:
+        fn(x, w_nk, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError, NotImplementedError) as exc:
+        return None, f"torch._weight_int8pack_mm refused: {str(exc)[:120]}"
+    return (lambda: fn(x, w_nk, sc)), None
+
+
+def int8_cases() -> list:
+    """(kind, M, K, N, label) of the K7 checks: the 154M decode step's
+    products (wq/wo 1024x1024, wk/wv 1024x256, w_in, w_out, the
+    unembedding) at 1, 8 and 64 slots; the 660M model's MLP at 8 rows
+    (tools/bench_int8.py:39); 96 and 768 rows past the M <= 64 gate; a
+    ragged shape; moe_heavy's expert products at 8 rows (E = 16)."""
+    cases = [("K7a", m, k, n, "154M")
+             for m in (1, 8, 64)
+             for k, n in ((1024, 1024), (1024, 256), (1024, 4096),
+                          (4096, 1024), (1024, 32000))]
+    cases += [("K7a", 8, 2048, 8192, "660M"), ("K7a", 8, 8192, 2048, "660M"),
+              ("K7a", 96, 1024, 4096, "off-gate"),
+              ("K7a", 768, 1024, 4096, "off-gate"),
+              ("K7a", 5, 1000, 333, "ragged"),
+              ("K7b", 8, 512, 4096, "moe_heavy w_in, x shared by 16 experts"),
+              ("K7b", 8, 4096, 512, "moe_heavy w_out, transposed view")]
+    return cases
+
+
+def phase_int8(qm) -> tuple[dict, dict, dict]:
+    """K7a and K7b against their plain versions over ``int8_cases`` in
+    bf16 and f32, timed with the L2 flushed before every call.  Returns
+    the kernels-line rows at the main paths' cases (K7a: the 154M
+    unembedding at 8 slots, bf16; K7b: the shared-x up-projection at
+    moe_heavy, f32, as the int8 MoE drain runs it) and, by case,
+    callables for the device-time phase."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    e = 16
+    rows, probes = {}, {"K7a": {}, "K7b": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.tensor([], dtype=dtype).element_size()
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        name = str(dtype).removeprefix("torch.")
+        for kind, m, k, n, label in int8_cases():
+            g = e if kind == "K7b" else 1
+            w = torch.randn((g, k, n), generator=gen, device=dev) * k ** -0.5
+            qt = qm.quantize(w, (1,))                 # scale [g, 1, n]
+            del w
+            q_bf = qt.q.to(torch.bfloat16)
+            if kind == "K7a":
+                q2, s2 = qt.q[0], qt.scale[0]
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                kernel = (lambda x=x, q2=q2, s2=s2:
+                          qm.int8_matmul(x, q2, s2))
+                plain = (lambda x=x, q2=q2, s2=s2:
+                         qm.int8_matmul_reference(x, q2, s2))
+                xb, wb = x.to(torch.bfloat16), q_bf[0]
+                cublas = lambda xb=xb, wb=wb: torch.matmul(xb, wb)
+                lib, why = int8pack_fn(x, q2, s2)
+                x_rows = m
+            else:
+                shared = k == 512
+                if shared:     # btd,edf->btef: one x, stride 0 over experts
+                    x = torch.randn((m, k), generator=gen,
+                                    device=dev).to(dtype)
+                    x3 = x[None].expand(g, m, k)
+                else:          # btef,efd->bted: [rows, experts, f] read
+                    x = torch.randn((m, g, k), generator=gen,
+                                    device=dev).to(dtype)
+                    x3 = x.permute(1, 0, 2)
+                y = torch.empty((m, g, n), dtype=dtype, device=dev)
+                kernel = (lambda x3=x3, qt=qt, y=y: qm.int8_bmm(
+                    x3, qt.q, qt.scale, out=y.permute(1, 0, 2)))
+                plain = (lambda x3=x3, qt=qt:
+                         qm.int8_bmm_reference(x3, qt.q, qt.scale))
+                xb = x3.to(torch.bfloat16).contiguous()
+                cublas = lambda xb=xb, wb=q_bf: torch.bmm(xb, wb)
+                if shared:     # one W8A16 product on the [K, E*N] weight
+                    lib, why = int8pack_fn(
+                        x, qt.q.permute(1, 0, 2).reshape(k, g * n),
+                        qt.scale.reshape(g * n))
+                else:
+                    lib, why = None, ("each expert reads its own x: no "
+                                      "single PyTorch call computes a "
+                                      "batched W8A16 product")
+                x_rows = m if shared else g * m
+            out, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(out.float()).all():
+                fail(f"{kind} non-finite output at M={m} K={k} N={n} {name}")
+            err = (out.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            tol = INT8_TOL[dtype]
+            ok = err <= tol * scale
+            ms = cold_ms(kernel)
+            plain_ms = cold_ms(plain, iters=5, warmup=1)
+            cublas_ms = cold_ms(cublas)
+            lib_ms = cold_ms(lib) if lib else None
+            bound = int8_bound(g, m, k, n, es, x_rows, peak)
+            shape = (f"M={m} K={k} N={n}" + (f" E={g}" if g > 1 else "")
+                     + f" ({label}) {name}")
+            print(f"{kind} {shape}: max|d|={err:.3g} (tol {tol} x max(1, "
+                  f"max|plain| {scale:.3g})) kernel_ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} cublas_bf16_ms={cublas_ms:.4f} "
+                  f"library_ms={fmt(lib_ms) if lib else 'none: ' + why} "
+                  f"bound_us={bound[0] * 1e3:.2f} ({bound[1]}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{kind} disagrees with its plain version at {shape}")
+            main = ((kind, m, k, n, dtype) == ("K7a", 8, 1024, 32000,
+                                                torch.bfloat16)
+                    or (kind, k, dtype) == ("K7b", 512, torch.float32))
+            probe = {"kernel": kernel}
+            if main:
+                probe.update(plain=plain, cublas_bf16=cublas,
+                             **({"library": lib} if lib else {}))
+                rows[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound[0], bound_by=bound[1],
+                                  library_ms=lib_ms)
+            probes[kind][shape + (" (main path)" if main else "")] = probe
+            del out, want
+    return rows["K7a"], rows["K7b"], probes
+
+
 def serving_config():
     """The 154M configuration: vocab 32000, d_model 1024, 8 layers, 16
     heads, 4 KV heads, d_head 64, d_ff 4096, max_seq 2048, bf16."""
@@ -831,10 +1042,35 @@ def teacher_forced(params, cfg, finished, reqs) -> float:
     return worst
 
 
+#: dispatch labels of the decode layer's forward passes: the decode
+#: steps (one row per slot, so at most 8 rows) and the prefills (any
+#: number of rows); every forward pass of a drain carries one of them
+DECODE_PASSES = ("decode_step_rows", "paged_decode_step_rows")
+PREFILL_PASSES = ("prefill", "prefill_suffix", "prefill_adopt_rows",
+                  "suffix_fill_adopt")
+
+
+def k7_passes(launched: int, per_pass: int, passes, label: str) -> int:
+    """The forward passes that went through K7: ``launched`` launches
+    of ``per_pass`` each.  Fails unless that division is exact and its
+    quotient lies between the drain's decode steps (each of at most 64
+    rows, so each must go through K7) and all its forward passes."""
+    decode, prefill = passes
+    n, rest = divmod(launched, per_pass)
+    if rest or not decode <= n <= decode + prefill:
+        fail(f"{label}: {launched} launches are not {per_pass} per pass "
+             f"over between {decode} decode steps and {decode + prefill} "
+             f"forward passes")
+    return n
+
+
 def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     """Drive one engine over ``reqs`` with the kernel counters zeroed
-    just before and read just after; returns (finished, counts,
-    stats)."""
+    just before and read just after; returns (finished, counts, stats,
+    passes): ``passes`` is (decode steps, prefills), the decode layer's
+    forward passes by dispatch label."""
+    from k8s_dra_driver_tpu_torch.models import quant as qm
+    from k8s_dra_driver_tpu_torch.utils import dispatch
     warm = engine_cls(params, cfg, slots=8, **kw)
     for r in reqs[:2]:
         warm.submit(type(r)(uid="w" + r.uid, prompt=r.prompt, max_new=2))
@@ -846,11 +1082,17 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     torch.cuda.synchronize()
     fa.launches = 0
     pa.launches = 0
+    for name in qm.launches:
+        qm.launches[name] = 0
     t0 = time.perf_counter()
-    done = eng.run()
+    with dispatch.track() as t:
+        done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"flash_fwd": fa.launches, "paged_decode": pa.launches}
+    counts = {"flash_fwd": fa.launches, "paged_decode": pa.launches,
+              **qm.launches}
+    passes = tuple(sum(t.by_label.get(k, 0) for k in labels)
+                   for labels in (DECODE_PASSES, PREFILL_PASSES))
     stats = eng.stats()
     gen_tokens = sum(len(f.tokens) - f.n_prompt for f in done)
     if len(done) != len(reqs):
@@ -861,7 +1103,94 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
           f"per decode step (wall), kernel launches {counts}",
           flush=True)
     print(f"engine {label} stats: {json.dumps(stats)}", flush=True)
-    return done, counts, stats
+    return done, counts, stats, passes
+
+
+def phase_int8_serving(params, cfg, reqs, fa, pa) -> dict:
+    """int8 serving at 154M: ``quantize_params`` of the bf16 weights held
+    to them on one 8 x 96 forward, then the three int8 drains, each with
+    its teacher-forced check against a full forward on the int8 weights
+    and 6 K7a launches per layer + 1 for each pass K7 serves (see
+    :func:`k7_passes`).  Returns the drains' summed launches."""
+    from k8s_dra_driver_tpu_torch.models.quant import (quantize_params,
+                                                       quantized_bytes)
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import forward
+    qparams = quantize_params(params, cfg)
+    stored, full = quantized_bytes(qparams)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (8, 96)), device="cuda")
+    with torch.no_grad():
+        ref = forward(params, toks, cfg).float()
+        got = forward(qparams, toks, cfg).float()
+    rel = float(((got - ref).abs() / ref.std().clamp_min(1e-6)).mean())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    ok = rel < QUANT_MEAN_REL and agree > QUANT_AGREE
+    print(f"quantize_params 154M: {stored} bytes stored against {full} in "
+          f"bf16 ({stored / full:.3f}); one B=8 T=96 forward, int8 vs bf16 "
+          f"weights: mean |d| / std {rel:.4f} (< {QUANT_MEAN_REL}), argmax "
+          f"agreement {agree:.4f} (> {QUANT_AGREE}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("quantized logits do not track the full-precision ones")
+    per_pass = 6 * cfg.n_layers + 1
+    total = {}
+    for label, c, kw in (
+            ("int8 weights, contiguous", cfg, {}),
+            ("int8 weights, contiguous int8 KV",
+             dataclasses.replace(cfg, kv_cache_dtype="int8"), {}),
+            ("int8 weights, paged", cfg, {"kv_layout": "paged"})):
+        done, counts, _, passes = drain(ServingEngine, qparams, c, reqs,
+                                        fa, pa, label, top_k=50, **kw)
+        paged = "kv_layout" in kw
+        if (counts["int8_bmm"] or counts["flash_fwd"] <= 0
+                or paged != (counts["paged_decode"] > 0)):
+            fail(f"{label}: launches {counts}, expected no K7b, K1 and "
+                 f"(paged only) K2")
+        n = k7_passes(counts["int8_matmul"], per_pass, passes, label)
+        worst = teacher_forced(qparams, cfg, done, reqs)
+        print(f"teacher-forced ({label}; the forward over the full "
+              f"sequence, at least 72 rows, takes the einsum route): worst "
+              f"gap {worst:.4f} <= {TF_MARGIN}; K7a launched "
+              f"{counts['int8_matmul']} = {per_pass} x {n} passes of at "
+              f"most 64 rows: {passes[0]} decode steps + {n - passes[0]} "
+              f"of {passes[1]} prefills", flush=True)
+        for name, k in counts.items():
+            total[name] = total.get(name, 0) + k
+    return total
+
+
+def phase_int8_moe_serving(fa, pa) -> dict:
+    """The moe_heavy drain of ``phase_moe_serving`` on ``quantize_params``
+    weights, in f32, dense dispatch (the only one int8 experts take),
+    with its teacher-forced check; for each pass K7 serves, K7b twice
+    per layer (the expert products) and K7a 4 per layer + 1, over the
+    same passes.  Returns the drain's launches."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    cfg = moe_heavy_config(dtype=torch.float32, moe_dispatch="dense")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    qparams = quantize_params(params, cfg)
+    del params
+    reqs = s8_r24(cfg.vocab)
+    label = "moe_heavy f32 int8 weights, contiguous"
+    done, counts, _, passes = drain(ServingEngine, qparams, cfg, reqs, fa,
+                                    pa, label, top_k=50)
+    n = k7_passes(counts["int8_matmul"], 4 * cfg.n_layers + 1, passes,
+                  label + " (K7a)")
+    if (k7_passes(counts["int8_bmm"], 2 * cfg.n_layers, passes,
+                  label + " (K7b)") != n or counts["flash_fwd"] <= 0):
+        fail(f"int8 MoE drain launched {counts}: K7a and K7b over "
+             f"different passes, or no K1")
+    worst = teacher_forced(qparams, cfg, done, reqs)
+    print(f"teacher-forced (moe_heavy f32 int8 weights, dense dispatch, "
+          f"einsum route): worst gap {worst:.4f} <= {TF_MARGIN}; K7a "
+          f"{counts['int8_matmul']}, K7b {counts['int8_bmm']} launches over "
+          f"{n} passes of at most 64 rows: {passes[0]} decode steps + "
+          f"{n - passes[0]} of {passes[1]} prefills", flush=True)
+    return counts
 
 
 def zero_counts(fa) -> None:
@@ -873,10 +1202,31 @@ def train_counts(fa) -> dict:
             "flash_bwd_dkv": fa.dkv_launches}
 
 
+def step_param_errors(p_c, p_h, g_h) -> tuple[float, float, int]:
+    """Card-vs-CPU parameters after one AdamW step: (largest difference
+    outside the noise band, largest inside it, entries inside it).  The
+    band holds the entries whose CPU gradient is nonzero and below
+    NOISE_BAND of its tensor's largest entry: there the gradient is f32
+    rounding noise around zero, which AdamW's first update
+    lr * g / (|g| + eps) turns into an arbitrary fraction of a step, so
+    callers hold those entries to two steps."""
+    strict = noisy = 0.0
+    n_noisy = 0
+    for a, b, g in zip(p_c, p_h, g_h):
+        band = (g != 0) & (g.abs() < NOISE_BAND * g.abs().max())
+        n_noisy += int(band.sum())
+        diff = (a - b).abs()
+        strict = max(strict, float(diff[~band].max()) if (~band).any()
+                     else 0.0)
+        noisy = max(noisy, float(diff[band].max()) if band.any() else 0.0)
+    return strict, noisy, n_noisy
+
+
 def phase_train_small(fa) -> None:
     """One f32 AdamW step of a small config on the card (K1/K3/K4) and
     on the CPU (plain versions), from the same parameters and tokens,
-    with packed segments."""
+    with packed segments; parameters compared by
+    :func:`step_param_errors`."""
     from k8s_dra_driver_tpu_torch.models.transformer import (
         TransformerConfig, make_train_step, named_tensors)
     cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
@@ -898,18 +1248,22 @@ def phase_train_small(fa) -> None:
             fail(f"train step on {device}: no gradient for {missing}")
         results[device] = (float(loss), [t.detach().cpu()
                                          for _, t in leaves],
+                           [t.grad.detach().cpu() for _, t in leaves],
                            train_counts(fa))
-    (l_c, p_c, counts), (l_h, p_h, _) = results["cuda"], results["cpu"]
+    (l_c, p_c, _, counts), (l_h, p_h, g_h, _) = (results["cuda"],
+                                                 results["cpu"])
     if min(counts.values()) != cfg.n_layers:
         fail(f"small f32 step launched {counts}: each kernel once per "
              f"layer expected")
     loss_rel = abs(l_c - l_h) / abs(l_h)
-    param_err = max((a - b).abs().max().item() for a, b in zip(p_c, p_h))
-    ok = loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_ATOL
+    strict, noisy, n_noisy = step_param_errors(p_c, p_h, g_h)
+    ok = (loss_rel <= STEP_LOSS_RTOL and strict <= STEP_PARAM_ATOL
+          and noisy <= 2 * 3e-4)
     print(f"train f32 small step, card (kernels) vs CPU (plain): loss "
           f"{l_c:.7f} vs {l_h:.7f} (rel {loss_rel:.3g}, tol "
-          f"{STEP_LOSS_RTOL}); params max|d| {param_err:.3g} (tol "
-          f"{STEP_PARAM_ATOL}); launches {counts} "
+          f"{STEP_LOSS_RTOL}); params max|d| {strict:.3g} (tol "
+          f"{STEP_PARAM_ATOL}), {n_noisy} noise-band entries max|d| "
+          f"{noisy:.3g} (tol 6e-4); launches {counts} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("the card's f32 train step disagrees with the CPU's")
@@ -1054,12 +1408,8 @@ def moe_step_launches(cfg, steps: int) -> dict:
 def phase_moe_train_small(fa, gm) -> None:
     """One f32 AdamW step of a 2-layer, 4-expert gmm config with both
     router aux losses on the card (K1, K3-K6) and on the CPU (plain
-    versions), from the same parameters and tokens.  Parameters are
-    held to STEP_PARAM_ATOL except where the CPU's gradient is nonzero
-    and below NOISE_BAND of its tensor's largest entry: there the
-    gradient is f32 rounding noise around zero, which AdamW's first
-    update lr * g / (|g| + eps) turns into an arbitrary fraction of a
-    step, so those entries are held to two steps."""
+    versions), from the same parameters and tokens; parameters
+    compared by :func:`step_param_errors`."""
     from k8s_dra_driver_tpu_torch.models.transformer import (
         TransformerConfig, make_train_step, named_tensors)
     cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
@@ -1093,15 +1443,7 @@ def phase_moe_train_small(fa, gm) -> None:
     if counts != want:
         fail(f"small MoE step launched {counts}, expected {want}")
     loss_rel = abs(l_c - l_h) / abs(l_h)
-    strict = noisy = 0.0
-    n_noisy = 0
-    for a, b, g in zip(p_c, p_h, g_h):
-        band = (g != 0) & (g.abs() < NOISE_BAND * g.abs().max())
-        n_noisy += int(band.sum())
-        diff = (a - b).abs()
-        strict = max(strict, float(diff[~band].max()) if (~band).any()
-                     else 0.0)
-        noisy = max(noisy, float(diff[band].max()) if band.any() else 0.0)
+    strict, noisy, n_noisy = step_param_errors(p_c, p_h, g_h)
     ok = (loss_rel <= STEP_LOSS_RTOL and strict <= STEP_PARAM_ATOL
           and noisy <= 2 * 3e-4)
     print(f"train MoE f32 small step (E=4 top_k=2 gmm, aux on), card "
@@ -1263,7 +1605,7 @@ def phase_moe_serving(fa, pa, gm) -> dict:
                          device="cuda")
     reqs = s8_r24(cfg.vocab)
     zero_moe_counts(fa, gm)
-    done, counts, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
+    done, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                             "moe_heavy f32 contiguous", top_k=50)
     counts = {**counts, **{k: v for k, v in gm.launches.items()}}
     if counts["flash_fwd"] <= 0:
@@ -1280,6 +1622,7 @@ def phase_moe_serving(fa, pa, gm) -> dict:
 
 def main() -> None:
     kind = phase_device()
+    from k8s_dra_driver_tpu_torch.models import quant as qm
     from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
     from k8s_dra_driver_tpu_torch.ops import _build
     from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
@@ -1291,12 +1634,13 @@ def main() -> None:
     k2, k2_probes = phase_paged(pa)
     k3, k4, bwd_probes = phase_flash_bwd(fa)
     k5, k6, gmm_probes = phase_gmm(gm)
+    k7a, k7b, int8_probes = phase_int8(qm)
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
     launches = {"flash_fwd": 0, "paged_decode": 0}
 
-    done_c, counts, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
+    done_c, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                               "contiguous", top_k=50)
     if counts["flash_fwd"] <= 0:
         fail("contiguous drain launched no flash kernel")
@@ -1306,7 +1650,7 @@ def main() -> None:
     for name in launches:
         launches[name] += counts[name]
 
-    done_p, counts, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
+    done_p, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                               "paged", top_k=50, kv_layout="paged")
     if counts["flash_fwd"] <= 0 or counts["paged_decode"] <= 0:
         fail(f"paged drain kernel launches {counts}: both must be > 0")
@@ -1321,7 +1665,7 @@ def main() -> None:
     print(f"paged vs contiguous: {same}/24 streams identical (bf16 "
           f"kernel and plain reads may part after near ties)", flush=True)
 
-    done_x, counts, stats = drain(
+    done_x, counts, stats, _ = drain(
         ServingEngine, params, cfg, reqs, fa, pa, "paged-preempt",
         top_k=50, kv_layout="paged", max_seq=256, kv_blocks=41)
     if stats["kv_preemptions_total"] < 1:
@@ -1334,7 +1678,11 @@ def main() -> None:
           flush=True)
     for name in launches:
         launches[name] += counts[name]
-    del params, done_c, done_p, done_x
+    del done_c, done_p, done_x
+    counts = phase_int8_serving(params, cfg, reqs, fa, pa)
+    for name in ("flash_fwd", "paged_decode", "int8_matmul", "int8_bmm"):
+        launches[name] = launches.get(name, 0) + counts[name]
+    del params
 
     phase_train_small(fa)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1346,10 +1694,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase_moe_train(fa, gm, Path(tmp))
     counts_drain = phase_moe_serving(fa, pa, gm)
-    for part in (counts, counts_drain):
+    counts_int8 = phase_int8_moe_serving(fa, pa)
+    for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths (4 drains + "
+    print(f"kernel launches on the main paths (8 drains + "
           f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy): "
           f"{launches}", flush=True)
 
@@ -1361,9 +1710,13 @@ def main() -> None:
                                 ("K3", k3, bwd_probes["K3"]),
                                 ("K4", k4, bwd_probes["K4"]),
                                 ("K5", k5, gmm_probes["K5"]),
-                                ("K6", k6, gmm_probes["K6"])):
+                                ("K6", k6, gmm_probes["K6"]),
+                                ("K7a", k7a, int8_probes["K7a"]),
+                                ("K7b", k7b, int8_probes["K7b"])):
+        # K7 as a decode step finds its weights: not in L2
+        timer = cold_device_ms if name.startswith("K7") else device_ms
         for shape, probes in by_shape.items():
-            times = {what: device_ms(fn) for what, fn in probes.items()}
+            times = {what: timer(fn) for what, fn in probes.items()}
             if shape.endswith("(main path)"):
                 row["device_ms"] = times["kernel"]
             print(f"{name} device_ms at {shape} (kernels only, host gaps "
@@ -1396,6 +1749,14 @@ def main() -> None:
              source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
              replaces="k8s_dra_driver_tpu/ops/gmm.py:126",
              launches=launches["gmm_dw"], **k6),
+        dict(name="int8_matmul", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/int8_matmul.cu",
+             replaces="k8s_dra_driver_tpu/models/quant.py:199",
+             launches=launches["int8_matmul"], **k7a),
+        dict(name="int8_bmm", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/int8_matmul.cu",
+             replaces="k8s_dra_driver_tpu/models/quant.py:255",
+             launches=launches["int8_bmm"], **k7b),
     ]
     if min(k["launches"] for k in kernels) <= 0:
         fail(f"a kernel was never launched on the main paths: {launches}")

@@ -9,6 +9,11 @@ imports JAX) and returns the port's tensors under the same keys:
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects; they are moved losslessly through their
 16-bit pattern (view as int16, then as ``torch.bfloat16``).
+
+A quantized tree (the JAX package's ``quantize_params``) carries
+``QTensor`` leaves: any object with ``q`` and ``scale`` attributes
+(the JAX class is never imported) becomes the port's ``QTensor``, its
+int8 values and f32 scales moved as they are, whatever ``dtype`` says.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .quant import QTensor
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -31,17 +37,22 @@ def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
 
 def params_from_jax(tree, device="cuda", dtype=None):
     """JAX-layout parameter tree (dicts, lists, numpy leaves) -> the
-    same tree of tensors on ``device``, cast to ``dtype`` if given."""
+    same tree of tensors on ``device``, cast to ``dtype`` if given
+    (``QTensor`` leaves keep their int8 values and f32 scales)."""
     dev = resolve_device(device)
+
+    def leaf(a):
+        return tensor_from_numpy(np.asarray(a)).to(dev)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
-        t = tensor_from_numpy(np.asarray(node))
-        return t.to(device=dev, dtype=dtype if dtype is not None
-                    else t.dtype)
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return QTensor(q=leaf(node.q), scale=leaf(node.scale))
+        t = leaf(node)
+        return t if dtype is None else t.to(dtype)
 
     return conv(tree)
 

@@ -1,8 +1,9 @@
 """Autoregressive decoding with a KV cache: contiguous and paged.
 
 The port of ``k8s_dra_driver_tpu/models/decode.py`` (dense and MoE
-models, model-dtype cache).  Serving runs prefill + one-token decode steps
-against a per-layer K/V cache:
+models, full-precision or int8 weights, model-dtype or int8 cache).
+Serving runs prefill + one-token decode steps against a per-layer K/V
+cache:
 
 - **Contiguous cache**: per layer ``[B, max_seq, H_kv, D]``; writes
   land at each row's position and attention masks ``key_pos <=
@@ -17,6 +18,12 @@ against a per-layer K/V cache:
   paged engine bitwise equal to the contiguous one on the CPU.
 - **Fresh prefill** (``first_chunk``) attends the chunk's own K/V
   through the flash kernel (K1, ops/flash_attention.py) on the card.
+- **int8 cache** (``kv_cache_dtype="int8"``, contiguous only): k/v are
+  stored as int8 with one symmetric f32 scale per (row, position, KV
+  head), quantized at write (``_quantize_rows``) and dequantized at
+  read in ``_cached_attention``; a fresh prefill's own K/V stay
+  unquantized for the flash kernel, only cached entries round-trip
+  through int8.  The paged pool refuses it, as the JAX package's does.
 
 Where the JAX package donated a buffer and got a new one back, the
 port writes in place: the cache and pool tensors passed in are
@@ -67,45 +74,82 @@ def _serving_cfg(cfg: TransformerConfig) -> TransformerConfig:
 class KVCache:
     """Per-layer K/V tensors [B, S, H_kv, D] + the tokens cached so far
     (``pos``; meaningless for a multi-slot engine cache, where each
-    row keeps its own position host-side, and for a block pool)."""
+    row keeps its own position host-side, and for a block pool).
+
+    With ``kv_cache_dtype="int8"`` k/v are int8 and ``k_scale`` /
+    ``v_scale`` hold one f32 scale per (row, position, KV head),
+    [B, S, H_kv, 1]; otherwise the scale lists are None."""
 
     k: list[torch.Tensor]
     v: list[torch.Tensor]
     pos: int = 0
+    k_scale: list[torch.Tensor] | None = None
+    v_scale: list[torch.Tensor] | None = None
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every per-layer tensor, in a fixed order: k, v, then the
+        scales when the cache is int8."""
+        return (self.k + self.v + (self.k_scale or [])
+                + (self.v_scale or []))
+
+
+def copy_cache(cache: KVCache, pos: int) -> KVCache:
+    """A copy of ``cache`` that owns its tensors (scales included),
+    with ``pos`` valid rows: what a prefix hit prefills into while the
+    remembered entry stays intact."""
+    def dup(lst):
+        return None if lst is None else [a.clone() for a in lst]
+
+    return KVCache(k=dup(cache.k), v=dup(cache.v), pos=int(pos),
+                   k_scale=dup(cache.k_scale), v_scale=dup(cache.v_scale))
 
 
 def _device(params: Params) -> torch.device:
     return params["embed"].device
 
 
-def _require_model_kv(cfg: TransformerConfig) -> None:
-    require_single_device(cfg)
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache comes with the weight-only int8 slice of "
-            "the port")
-
-
 def init_cache(cfg: TransformerConfig, batch: int,
                max_seq: int | None = None, device="cuda") -> KVCache:
-    """Zero cache of ``batch`` rows by ``max_seq`` positions."""
-    _require_model_kv(cfg)
+    """Zero cache of ``batch`` rows by ``max_seq`` positions (int8 k/v
+    with f32 [B, S, H_kv, 1] scales under ``kv_cache_dtype="int8"``)."""
+    require_single_device(cfg)
     max_seq = max_seq or cfg.max_seq
     shape = (batch, max_seq, cfg.kv_heads, cfg.d_head)
-    return KVCache(
-        k=[torch.zeros(shape, dtype=cfg.dtype, device=device)
-           for _ in range(cfg.n_layers)],
-        v=[torch.zeros(shape, dtype=cfg.dtype, device=device)
-           for _ in range(cfg.n_layers)],
-        pos=0)
+
+    def zeros(shp, dtype):
+        return [torch.zeros(shp, dtype=dtype, device=device)
+                for _ in range(cfg.n_layers)]
+
+    if cfg.kv_cache_dtype == "int8":
+        sshape = (batch, max_seq, cfg.kv_heads, 1)
+        return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
+                       pos=0, k_scale=zeros(sshape, torch.float32),
+                       v_scale=zeros(sshape, torch.float32))
+    return KVCache(k=zeros(shape, cfg.dtype), v=zeros(shape, cfg.dtype),
+                   pos=0)
 
 
-def _cached_attention(q, k_cache, v_cache, pos, t, cfg):
+def _quantize_rows(x):
+    """[B, T, H, D] -> (int8 values, f32 scale [B, T, H, 1]):
+    symmetric per-(token, head) quantization over the head dim."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True),
+                        min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _cached_attention(q, k_cache, v_cache, pos, t, cfg, k_scale=None,
+                      v_scale=None):
     """q [B,T,H,D] at absolute positions pos..pos+T-1 (``pos`` an int,
     or a [B] tensor of per-row positions) against the full cache
     [B,S,H_kv,D]; causal trim via position mask.  GQA stays grouped:
     q is reshaped to [B,T,H_kv,G,D] and the un-repeated cache is read
-    once."""
+    once.  With scales (int8 cache) the entries are dequantized at
+    read, ``k = k_q * k_scale`` in f32, then cast to q's dtype."""
+    if k_scale is not None:
+        k_cache = (k_cache.float() * k_scale).to(q.dtype)
+        v_cache = (v_cache.float() * v_scale).to(q.dtype)
     b, _, h, dh = q.shape
     h_kv = k_cache.shape[2]
     group = h // h_kv
@@ -138,19 +182,28 @@ def _cached_attention(q, k_cache, v_cache, pos, t, cfg):
 
 
 def _project_and_write(layer, x, positions, cfg, k_cache, v_cache,
-                       write):
+                       ks_cache, vs_cache, write):
     """Shared per-layer front half of cached decoding: q/k/v
-    projections + RoPE at ``positions`` ([T] shared or [B,T] per-row)
-    and the cache writes through ``write(dst, new)`` — the only part
-    that differs between the aligned, per-row and paged paths."""
+    projections + RoPE at ``positions`` ([T] shared or [B,T] per-row),
+    int8 quantization when the cache has scales (``ks_cache`` not
+    None), and the cache writes through ``write(dst, new)`` — the only
+    part that differs between the aligned, per-row and paged paths."""
     h = rms_norm(x, layer["ln1"])
     q = rotary(ein("btd,dhk->bthk", h, layer["wq"]), positions,
                cfg.rope_theta)
     k = rotary(ein("btd,dhk->bthk", h, layer["wk"]), positions,
                cfg.rope_theta)
     v = ein("btd,dhk->bthk", h, layer["wv"])
-    write(k_cache, k)
-    write(v_cache, v)
+    if ks_cache is not None:
+        kq, ks = _quantize_rows(k)
+        vq, vs = _quantize_rows(v)
+        write(k_cache, kq)
+        write(v_cache, vq)
+        write(ks_cache, ks)
+        write(vs_cache, vs)
+    else:
+        write(k_cache, k)
+        write(v_cache, v)
     return q, k, v
 
 
@@ -189,20 +242,31 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     def write(dst, new):
         dst[:, pos:pos + t] = new
 
-    for layer, k_cache, v_cache in zip(params["layers"], cache.k,
-                                       cache.v):
-        q, k, v = _project_and_write(layer, x, positions, cfg, k_cache,
-                                     v_cache, write)
+    for i, layer in enumerate(params["layers"]):
+        ks, vs = _layer_scales(cache, i)
+        q, k, v = _project_and_write(layer, x, positions, cfg, cache.k[i],
+                                     cache.v[i], ks, vs, write)
         if first_chunk and t > 1:
+            # the chunk's own K/V, unquantized: only cached entries
+            # round-trip through int8
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True,
                                 window=cfg.attention_window or None)
         else:
-            o = _cached_attention(q, k_cache, v_cache, pos, t, cfg)
+            o = _cached_attention(q, cache.k[i], cache.v[i], pos, t, cfg,
+                                  ks, vs)
         x = _attn_mlp_tail(x, o, layer, cfg)
     x = rms_norm(x, params["ln_f"])
     logits = ein("btd,dv->btv", x, params["unembed"])
-    return logits, KVCache(k=cache.k, v=cache.v, pos=pos + t)
+    return logits, dataclasses.replace(cache, pos=pos + t)
+
+
+def _layer_scales(cache: KVCache, i: int):
+    """Layer ``i``'s (k_scale, v_scale), or (None, None) for a
+    model-dtype cache."""
+    if cache.k_scale is None:
+        return None, None
+    return cache.k_scale[i], cache.v_scale[i]
 
 
 #: the prompt-fill launch site (the JAX package's ``_prefill_jit``)
@@ -215,6 +279,16 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     cache, the masked full-cache path on a non-empty one (chunked or
     multi-turn prefill), correct at any position."""
     return _prefill(params, tokens, cfg, cache, cache.pos == 0)
+
+
+@dispatch.counted("decode_step")
+def decode_step(params: Params, token: torch.Tensor,
+                cfg: TransformerConfig, cache: KVCache
+                ) -> tuple[torch.Tensor, KVCache]:
+    """token [B, 1] appended at ``cache.pos`` -> (logits [B, vocab],
+    cache), the cache written in place."""
+    logits, cache = forward_with_cache(params, token, cfg, cache)
+    return logits[:, 0], cache
 
 
 def _rows_forward(params: Params, tokens: torch.Tensor,
@@ -233,11 +307,12 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
     def write_rows(dst, new):
         dst[rows, positions] = new
 
-    for layer, k_cache, v_cache in zip(params["layers"], cache.k,
-                                       cache.v):
-        q, _, _ = _project_and_write(layer, x, positions, cfg, k_cache,
-                                     v_cache, write_rows)
-        o = _cached_attention(q, k_cache, v_cache, pos_rows, t, cfg)
+    for i, layer in enumerate(params["layers"]):
+        ks, vs = _layer_scales(cache, i)
+        q, _, _ = _project_and_write(layer, x, positions, cfg, cache.k[i],
+                                     cache.v[i], ks, vs, write_rows)
+        o = _cached_attention(q, cache.k[i], cache.v[i], pos_rows, t, cfg,
+                              ks, vs)
         x = _attn_mlp_tail(x, o, layer, cfg)
     x = rms_norm(x, params["ln_f"])
     logits = ein("btd,dv->btv", x, params["unembed"])
@@ -316,10 +391,11 @@ def select_next_tokens(logits, generators, temps, top_k: int = 0,
 
 def scatter_cache(cache: KVCache, one: KVCache, put) -> KVCache:
     """Apply ``put(dst, src)`` (an in-place write) to every per-layer
-    k and v tensor pair — the single definition of the cache layout
-    for the adopt-style scatters (serving's slot adoption,
-    ``prefill_adopt_rows``, ``suffix_fill_adopt``)."""
-    for dst, src in zip(cache.k + cache.v, one.k + one.v):
+    tensor pair, k/v and, in an int8 cache, their scales — the single
+    definition of the cache layout for the adopt-style scatters
+    (serving's slot adoption, ``prefill_adopt_rows``,
+    ``suffix_fill_adopt``)."""
+    for dst, src in zip(cache.tensors(), one.tensors()):
         put(dst, src)
     return cache
 
@@ -377,8 +453,7 @@ def suffix_fill_adopt(params: Params, entry: KVCache,
     entry is cloned first — later hits reuse it, and the suffix writes
     would otherwise land in it.  Returns (first token [], cache,
     suffix-filled [1, S] cache for memoization)."""
-    one = KVCache(k=[a.clone() for a in entry.k],
-                  v=[a.clone() for a in entry.v], pos=entry.pos)
+    one = copy_cache(entry, entry.pos)
     logits, one = forward_with_cache(params, suffix[None, :], cfg, one)
     cache = adopt_one_slot(cache, one, slot)
     first = select_next_tokens(logits[:, -1], [generator], [temp],
@@ -397,8 +472,11 @@ def suffix_fill_adopt(params: Params, entry: KVCache,
 def init_paged_pool(cfg: TransformerConfig, n_blocks: int,
                     block_size: int, device="cuda") -> KVCache:
     """Zero block pool: per-layer [n_blocks, block_size, H_kv, D]
-    (block 0 is the null block dead table rows point at)."""
-    _require_model_kv(cfg)
+    (block 0 is the null block dead table rows point at).  The int8
+    cache is refused, as in the JAX package."""
+    require_single_device(cfg)
+    if cfg.kv_cache_dtype == "int8":
+        raise ValueError("paged KV does not support the int8 cache")
     shape = (n_blocks, block_size, cfg.kv_heads, cfg.d_head)
     return KVCache(
         k=[torch.zeros(shape, dtype=cfg.dtype, device=device)
@@ -448,7 +526,7 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
     lengths = (pos_rows + 1).to(torch.int32) if use_kernel else None
     for layer, k_pool, v_pool in zip(params["layers"], pool.k, pool.v):
         q, _, _ = _project_and_write(layer, x, positions, cfg, k_pool,
-                                     v_pool, write_pool)
+                                     v_pool, None, None, write_pool)
         if use_kernel:
             o = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
                                 tables, lengths)[:, None]
@@ -585,7 +663,8 @@ def sample_generate(params: Params, prompt: torch.Tensor,
     return torch.cat([prompt, generated], dim=1)
 
 
-__all__ = ["KVCache", "adopt_one_slot", "decode_step_rows",
+__all__ = ["KVCache", "adopt_one_slot", "copy_cache", "decode_step",
+           "decode_step_rows",
            "forward_with_cache", "greedy_generate", "init_cache",
            "init_paged_pool", "paged_adopt_blocks", "paged_copy_block",
            "paged_decode_step_rows", "paged_gather_entry", "prefill",

@@ -180,7 +180,7 @@ class PrefixCache:
         engine tensor may alias them)."""
         if not self.bytes_per_token:
             self.bytes_per_token = kv_bytes_per_token(
-                filled.k + filled.v, filled.k[0].shape[1])
+                filled.tensors(), filled.k[0].shape[1])
         key = tuple(tokens.tolist())
         self._store.pop(key, None)            # re-insert = most recent
         self._store[key] = filled
@@ -195,12 +195,15 @@ class PrefixCache:
 
 @dispatch.counted("extract_slot")
 def _extract_slot(cache: KVCache, slot: int, pos: int) -> KVCache:
-    """Copy row ``slot`` of the engine cache out as a fresh [1, S]
-    cache with ``pos`` tokens valid (a prefix-cache entry); later
-    in-place decode writes cannot reach it."""
-    return KVCache(k=[a[slot:slot + 1].clone() for a in cache.k],
-                   v=[a[slot:slot + 1].clone() for a in cache.v],
-                   pos=int(pos))
+    """Copy row ``slot`` of the engine cache (scales included) out as a
+    fresh [1, S] cache with ``pos`` tokens valid (a prefix-cache
+    entry); later in-place decode writes cannot reach it."""
+    def take(lst):
+        return None if lst is None else [a[slot:slot + 1].clone()
+                                         for a in lst]
+
+    return KVCache(k=take(cache.k), v=take(cache.v), pos=int(pos),
+                   k_scale=take(cache.k_scale), v_scale=take(cache.v_scale))
 
 
 @dispatch.counted("adopt_slot")
@@ -329,7 +332,7 @@ class ServingEngine:
             self._prefix = PagedPrefixStore(
                 prefix_cache or max(2 * slots, 4), self.kv_manager)
             self._prefix.bytes_per_token = kv_bytes_per_token(
-                self.pool.k + self.pool.v, kv_blocks * kv_block_size)
+                self.pool.tensors(), kv_blocks * kv_block_size)
             # the kernel read on the card by default, as the JAX engine
             # turns its kernel on by default on the TPU
             self._kv_use_kernel = (kv_kernel if kv_kernel is not None
@@ -538,8 +541,7 @@ class ServingEngine:
             p, entry = self._prefix.longest_prefix(req.prompt)
             if p > 0:
                 # the entry stays intact for later hits: clone it
-                one = KVCache(k=[a.clone() for a in entry.k],
-                              v=[a.clone() for a in entry.v], pos=p)
+                one = _decode.copy_cache(entry, p)
                 start = p
         if start == 0:
             one = init_cache(self.cfg, 1, self.max_seq,
@@ -755,7 +757,7 @@ class ServingEngine:
         """Prefix-HIT fill: the remembered ``p`` rows plus a suffix
         prefill, adopted into the slot, first token drawn — one call
         (``suffix_fill_adopt``)."""
-        one = KVCache(k=entry.k, v=entry.v, pos=p)
+        one = dataclasses.replace(entry, pos=p)
         gen = self._generator(req)
         first, self.cache, filled = _decode.suffix_fill_adopt(
             self.params, one, self._prompt(req, p), self.cfg,
@@ -974,13 +976,10 @@ class ServingEngine:
             memo = self._kv_dense_memo
             if memo is not None and memo[0] == key:
                 # the fill writes into its dense cache: work on a copy
-                one = KVCache(k=[a.clone() for a in memo[1].k],
-                              v=[a.clone() for a in memo[1].v], pos=p)
+                one = _decode.copy_cache(memo[1], p)
             else:
                 one = self._kv_entry_dense(entry, p)
-                self._kv_dense_memo = (key, KVCache(
-                    k=[a.clone() for a in one.k],
-                    v=[a.clone() for a in one.v], pos=p))
+                self._kv_dense_memo = (key, _decode.copy_cache(one, p))
         else:
             one = init_cache(self.cfg, 1, self.max_seq,
                              device=self.device)

@@ -48,7 +48,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.gmm import _round_up, gmm, pick_gmm_blocks
 from ..ops.ring_attention import attention_reference
 from ..utils.device import resolve_device
-from .quant import ein, take_rows
+from .quant import QTensor, ein, take_rows
 
 Params = dict[str, Any]
 
@@ -57,7 +57,7 @@ Params = dict[str, Any]
 class TransformerConfig:
     """Same fields, defaults and validation as the JAX
     ``TransformerConfig``; ``dtype`` is a torch dtype.  Fields of
-    paths the port does not run yet (pipeline, int8 KV) are validated
+    paths the port does not run yet (pipeline stages) are validated
     here and refused where they would be used."""
 
     vocab: int = 32000
@@ -411,13 +411,18 @@ def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False):
     """The MoE MLP under ``cfg.moe_dispatch``: "dense" computes every
     expert on every token and mixes by the top-k-zeroed gates;
     "capacity" and "gmm" as above.  ``with_aux`` also returns this
-    layer's router objectives ``(load_balance, z)``.  (The JAX
-    package's guard against int8 ``QTensor`` experts under gmm comes
-    with the int8 slice, which brings ``QTensor``.)"""
+    layer's router objectives ``(load_balance, z)``.  gmm refuses
+    int8 ``QTensor`` experts, as in the JAX package: quantized serving
+    runs the dense dispatch."""
     gates, probs, logits = _router_gates(x, layer, cfg)
     if cfg.moe_dispatch == "capacity":
         out = _moe_mlp_capacity(x, gates, layer, cfg)
     elif cfg.moe_dispatch == "gmm":
+        if isinstance(layer["w_in"], QTensor):
+            raise NotImplementedError(
+                "moe_dispatch='gmm' expects full-precision expert "
+                "weights; quantized serving runs the dense dispatch "
+                "(models/decode.py:_serving_cfg)")
         out = _moe_mlp_gmm(x, gates, layer, cfg)
     else:
         g = gates.to(x.dtype)

@@ -44,6 +44,7 @@ build_seconds: float | None = None
 build_log: Path | None = None
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, seg, out, lse, B, T, H, Hkv, D, causal, window, scale,
     # dtype, stream
@@ -60,6 +61,8 @@ _SIGNATURES = {
     "gmm": [_VP] * 5 + [_I] * 7 + [_VP],
     # x, dy, group_sizes, nu, dw, M, K, N, E, block_m, dtype, stream
     "gmm_dw": [_VP] * 5 + [_I] * 6 + [_VP],
+    # x, q, scale, out, G, M, K, N, x_g, x_m, o_g, o_m, dtype, stream
+    "int8_matmul": [_VP] * 4 + [_I] * 4 + [_LL] * 4 + [_I, _VP],
 }
 
 #: dtype codes shared with csrc/common.cuh

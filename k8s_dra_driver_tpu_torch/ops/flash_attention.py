@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import on_card
 from . import _build
 from .ring_attention import _NEG_INF, attention_mask, kv_group
 
@@ -144,15 +145,6 @@ def _launch(q, k, v, causal, scale, window, segment_ids):
     return out, lse
 
 
-def _on_card(x, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    return True
-
-
 def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
                   segment_ids=None):
     """``(out, lse)``: the kernel on CUDA tensors, the plain version on
@@ -162,7 +154,7 @@ def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
     _validate(q, k, v, causal, window, segment_ids)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not _on_card(q, "flash_forward"):
+    if not on_card(q, "flash_forward"):
         return flash_forward_reference(q, k, v, causal=causal,
                                        scale=scale, window=window,
                                        segment_ids=segment_ids)
@@ -349,7 +341,7 @@ def flash_bwd_dq(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
     arguments): K3 on CUDA tensors, the plain version on CPU tensors."""
     args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments)
-    if not _on_card(q, "flash_bwd_dq"):
+    if not on_card(q, "flash_bwd_dq"):
         return attention_block_grads(*args)[0]
     return _launch_bwd(True, *args)
 
@@ -363,7 +355,7 @@ def flash_bwd_dkv(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
     per-query-head intermediate); the plain version on CPU tensors."""
     args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments)
-    if not _on_card(q, "flash_bwd_dkv"):
+    if not on_card(q, "flash_bwd_dkv"):
         return attention_block_grads(*args)[1:]
     return _launch_bwd(False, *args)
 
@@ -376,7 +368,7 @@ def flash_block_grads(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
     version on CPU tensors."""
     args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments)
-    if not _on_card(q, "flash_block_grads"):
+    if not on_card(q, "flash_block_grads"):
         return attention_block_grads(*args)
     return (_launch_bwd(True, *args), *_launch_bwd(False, *args))
 

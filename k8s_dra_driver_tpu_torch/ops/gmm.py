@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import on_card
 from . import _build
 
 #: kernel launches on CUDA tensors: K5 (``"gmm"``) and K6 (``"gmm_dw"``)
@@ -101,15 +102,6 @@ def _check(x, w, group_sizes, block_m, transpose_w):
         raise ValueError(f"rows {x.shape[0]} not a multiple of block_m "
                          f"{block_m}")
     return n_w
-
-
-def _on_card(x, name: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
-    return True
 
 
 def _kernel_args(x, others, group_sizes, block_m, what):
@@ -184,7 +176,7 @@ def gmm_forward(x, w, group_sizes, block_m: int = 128,
     transposed with ``transpose_w``; on the card x and w share one
     dtype (float32 or bfloat16) and are contiguous."""
     n_dim = _check(x, w, group_sizes, block_m, transpose_w)
-    if not _on_card(x, "gmm"):
+    if not on_card(x, "gmm"):
         return gmm_reference(x, w, group_sizes, block_m, transpose_w)
     return _launch_gmm(x, w, group_sizes, block_m, transpose_w, n_dim)
 
@@ -247,7 +239,7 @@ def gmm_dw(x, dy, group_sizes, block_m: int = 128):
     tensors (dy is cast to x's dtype first), the plain version on CPU
     tensors.  The kernel writes every entry, zeros included."""
     _check_dw(x, dy, group_sizes, block_m)
-    if not _on_card(x, "gmm_dw"):
+    if not on_card(x, "gmm_dw"):
         return gmm_dw_reference(x, dy, group_sizes, block_m)
     return _launch_dw(x, dy.to(x.dtype).contiguous(), group_sizes, block_m)
 

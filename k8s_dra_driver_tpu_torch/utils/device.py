@@ -26,3 +26,14 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_card(x: torch.Tensor, name: str) -> bool:
+    """Whether kernel wrapper ``name`` launches its kernel on ``x``:
+    True for a CUDA tensor, False for a CPU one (the plain version);
+    raises for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return True

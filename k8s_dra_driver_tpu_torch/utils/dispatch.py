@@ -8,7 +8,8 @@ be compared label by label.  In eager PyTorch a "dispatch" is one
 call of a counted host function (which itself enqueues many device
 kernels); the counter measures host-side program structure, not
 device kernel launches.  The kernels' own launch counts live on their
-wrappers (ops/flash_attention.py, ops/paged_attention.py).
+wrappers (ops/flash_attention.py, ops/paged_attention.py, ops/gmm.py,
+models/quant.py).
 
 Blocking device->host readbacks (``.cpu()``/``int()`` on device
 values) are recorded separately via :func:`record_readback`.

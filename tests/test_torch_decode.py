@@ -341,3 +341,121 @@ def test_prefill_adopt_rows_and_suffix_fill(params):
     assert filled.pos == 7
     assert all(torch.equal(a, b) for a, b in zip(entry.k, snapshot))
     assert torch.equal(cache.k[0][1, :7], cache.k[0][2, :7])
+
+
+# -- weight-only int8 and the int8 KV cache --------------------------------
+
+QFIELDS = dict(vocab=96, d_model=48, n_layers=2, n_heads=4, d_head=12,
+               d_ff=96, max_seq=32)
+QTOL = dict(atol=2e-4, rtol=2e-4)
+
+
+def quantized_pair(fields, seed=0):
+    """(jcfg, tcfg, JAX quantized tree, the same tree in the port)."""
+    from k8s_dra_driver_tpu.models.quant import quantize_params
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, **fields)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, **fields)
+    jq = quantize_params(jt.init_params(jcfg, jax.random.PRNGKey(seed)),
+                         jcfg)
+    return jcfg, tcfg, jq, params_from_jax(jax.tree.map(np.asarray, jq),
+                                           device="cpu")
+
+
+@pytest.mark.parametrize("fields", [
+    QFIELDS, dict(QFIELDS, n_kv_heads=2),
+    dict(QFIELDS, n_experts=4, top_k=2)], ids=["dense", "gqa", "moe"])
+def test_quantized_decode_matches_quantized_forward_and_jax(fields):
+    """On int8 weights, prefill + ``decode_step`` logits equal the
+    port's quantized training forward and the JAX package's quantized
+    prefill and ``decode_step`` (the einsum route there; K7's plain
+    version here, every call having at most 24 rows), within 2e-4 as
+    the JAX package's own test holds them."""
+    jcfg, tcfg, jq, tq_ = quantized_pair(fields)
+    toks = prompts(21, 2, 12)
+    want = tt.forward(tq_, long(toks), tcfg)
+    jcache = jd.init_cache(jcfg, 2, jcfg.max_seq)
+    jlog, jcache = jd.prefill(jq, jnp.asarray(toks[:, :8]), jcfg, jcache)
+    tcache = td.init_cache(tcfg, 2, device="cpu")
+    tlog, tcache = td.prefill(tq_, long(toks[:, :8]), tcfg, tcache)
+    np.testing.assert_allclose(tlog.numpy(), want[:, :8].numpy(), **QTOL)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **QTOL)
+    for i in range(8, 12):
+        jl, jcache = jd.decode_step(jq, jnp.asarray(toks[:, i:i + 1]),
+                                    jcfg, jcache)
+        with dispatch.track() as t:
+            tl, tcache = td.decode_step(tq_, long(toks[:, i:i + 1]), tcfg,
+                                        tcache)
+        assert t.by_label == {"decode_step": 1}
+        assert tcache.pos == i + 1
+        np.testing.assert_allclose(tl.numpy(), want[:, i].numpy(), **QTOL)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **QTOL)
+
+
+def test_int8_kv_cache_matches_jax_int8_cache():
+    """``kv_cache_dtype="int8"``: the same int8 rows and scales as the
+    JAX package's cache (a value may land one step apart where the two
+    f32 projections straddle a rounding boundary), logits equal within
+    the f32 tolerance through prefill and per-row decode, and greedy
+    generation equal token for token."""
+    fields = dict(FIELDS, kv_cache_dtype="int8")
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, **fields)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, **fields)
+    jp = jax.tree.map(np.asarray, jt.init_params(jcfg,
+                                                 jax.random.PRNGKey(0)))
+    tp = params_from_jax(jp, device="cpu")
+    toks = prompts(22, 2, 13)
+    jcache = jd.init_cache(jcfg, 2)
+    jlog, jcache = jd.prefill(jp, jnp.asarray(toks[:, :7]), jcfg, jcache)
+    tcache = td.init_cache(tcfg, 2, device="cpu")
+    assert tcache.k[0].dtype == torch.int8
+    assert tuple(tcache.k_scale[0].shape) == (2, FIELDS["max_seq"], 2, 1)
+    tlog, tcache = td.prefill(tp, long(toks[:, :7]), tcfg, tcache)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    for got, want in zip(tcache.tensors(), jcache.k + jcache.v
+                         + jcache.k_scale + jcache.v_scale):
+        want = np.asarray(want)
+        if want.dtype == np.int8:
+            diff = np.abs(got.numpy().astype(int) - want.astype(int))
+            assert diff.max() <= 1 and (diff == 0).mean() > 0.99
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                       atol=1e-7)
+    pos = np.full(2, 7, np.int32)
+    for i in range(7, 13):
+        jl, jcache = jd.decode_step_rows(jp, jnp.asarray(toks[:, i:i + 1]),
+                                         jcfg, jcache, jnp.asarray(pos))
+        tl, tcache = td.decode_step_rows(tp, long(toks[:, i:i + 1]), tcfg,
+                                         tcache, torch.as_tensor(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        pos += 1
+    want = np.asarray(jd.greedy_generate(jp, jnp.asarray(toks[:, :5]),
+                                         jcfg, 8))
+    got = td.greedy_generate(tp, long(toks[:, :5]), tcfg, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int8_cache_scales_travel_with_the_rows(params):
+    """Every adopt-style copy moves the scales with k/v: fused fills,
+    the suffix fill (which leaves its entry intact) and ``copy_cache``;
+    a paged pool refuses the int8 cache as the JAX package does."""
+    _, tp = params
+    cfg8 = dataclasses.replace(TCFG, kv_cache_dtype="int8")
+    toks = prompts(23, 2, 7)
+    cache = td.init_cache(cfg8, 3, device="cpu")
+    first, cache = td.prefill_adopt_rows(tp, long(toks), cfg8, cache,
+                                         [2, 0], [None, None], [0.0, 0.0])
+    one = td.init_cache(cfg8, 1, device="cpu")
+    _, one = td.prefill(tp, long(toks[:1]), cfg8, one)
+    for a, b in zip(cache.tensors(), one.tensors()):
+        assert torch.equal(a[2, :7], b[0, :7])
+    entry = td.copy_cache(one, 4)
+    assert entry.pos == 4 and entry.k_scale[0] is not one.k_scale[0]
+    snapshot = [a.clone() for a in entry.tensors()]
+    tok, cache, filled = td.suffix_fill_adopt(
+        tp, entry, long(toks[0, 4:]), cfg8, cache, 1, None, 0.0)
+    assert int(tok) == int(first[0])
+    assert all(torch.equal(a, b) for a, b in zip(entry.tensors(), snapshot))
+    for a, b in zip(cache.tensors(), filled.tensors()):
+        assert torch.equal(a[1, :7], b[0, :7])
+    with pytest.raises(ValueError, match="int8 cache"):
+        td.init_paged_pool(cfg8, 9, 8, device="cpu")

@@ -45,7 +45,8 @@ def test_scan_covers_the_port():
     assert {"chip_smoke.py", "chip_profile.py"} <= files
     for mod in ("models/serving.py", "models/decode.py",
                 "models/transformer.py", "models/data.py",
-                "models/checkpoint.py", "ops/flash_attention.py",
+                "models/checkpoint.py", "models/quant.py",
+                "models/convert.py", "ops/flash_attention.py",
                 "ops/gmm.py", "ops/paged_attention.py",
                 "serving_kv/manager.py",
                 "utils/dispatch.py", "utils/atomicio.py"):

@@ -306,3 +306,72 @@ def test_prefix_peek_and_multi_turn_capture(params):
     got = drain(eng, [("t2", follow, 4)])["t2"]
     np.testing.assert_array_equal(got, greedy_ref(tp, follow, 4))
     assert eng.stats()["prefix_tokens_reused_total"] >= len(first) - 1
+
+
+# -- weight-only int8 and the int8 KV cache --------------------------------
+
+@pytest.fixture(scope="module")
+def int8_params(params):
+    """The JAX package's quantization of the module's weights, and the
+    same int8 tree carried into the port."""
+    from k8s_dra_driver_tpu.models.quant import quantize_params
+    jp, _ = params
+    jq = quantize_params(jax.tree.map(jnp.asarray, jp), JCFG)
+    return jq, params_from_jax(jax.tree.map(np.asarray, jq), device="cpu")
+
+
+def test_int8_weights_engine_equals_jax_engine(int8_params):
+    """Weight-only int8 params in both engines: identical tokens (the
+    port's decode projections take K7's route, its plain version on the
+    CPU; the JAX engine's take the einsum) and the same dispatch
+    labels; the paged port engine (K2 and K7a on the card) gives the
+    same tokens again."""
+    jq, tq_ = int8_params
+    with jdispatch.track() as jt_:
+        want = drain(js.ServingEngine(jq, JCFG, slots=3), mix(), js.Request)
+    with tdispatch.track() as tt_:
+        got = drain(port_engine(tq_), mix())
+    paged = drain(port_engine(tq_, kv_layout="paged", kv_block_size=8),
+                  mix())
+    assert set(got) == set(want) == set(paged)
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
+                                      err_msg=f"request {uid}")
+        np.testing.assert_array_equal(paged[uid], got[uid])
+    assert tt_.by_label == jt_.by_label
+
+
+def test_int8_kv_prefix_engine_equals_jax_engine(params):
+    """The int8 KV cache with the prefix cache on: scales ride with the
+    adopted rows (hits and multi-turn captures), and the tokens equal
+    the JAX engine's and the port's own uncached engine's."""
+    jp, tp = params
+    fields = dict(FIELDS, kv_cache_dtype="int8")
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, **fields)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, **fields)
+    pre = prompt(41, 8)
+    reqs = [(uid, np.concatenate([pre, prompt(42 + i, 3 + i)]), 4)
+            for i, uid in enumerate("abcd")]
+    want = drain(js.ServingEngine(jp, jcfg, slots=2, prefix_cache=2),
+                 reqs, js.Request)
+    eng = ts.ServingEngine(tp, tcfg, slots=2, prefix_cache=2, device="cpu")
+    got = drain(eng, reqs)
+    assert eng.stats()["prefix_hits_total"] >= 1
+    assert eng._prefix.bytes_per_token == 2 * 2 * 2 * (8 + 4)
+    plain = drain(ts.ServingEngine(tp, tcfg, slots=2, device="cpu"), reqs)
+    for uid, pr, m in reqs:
+        np.testing.assert_array_equal(got[uid], np.asarray(want[uid]),
+                                      err_msg=f"request {uid}")
+        np.testing.assert_array_equal(got[uid], plain[uid])
+        ref = td.greedy_generate(
+            tp, torch.as_tensor(pr[None], dtype=torch.long), tcfg, m)[0]
+        np.testing.assert_array_equal(got[uid], ref.numpy())
+
+
+def test_paged_int8_kv_is_refused(params):
+    _, tp = params
+    cfg8 = tt.TransformerConfig(dtype=torch.float32, kv_cache_dtype="int8",
+                                **FIELDS)
+    with pytest.raises(ValueError, match="int8 cache"):
+        ts.ServingEngine(tp, cfg8, slots=1, kv_layout="paged",
+                         device="cpu")
