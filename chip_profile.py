@@ -67,8 +67,11 @@ KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 paged_decode", ("paged_decode_kernel",)),
     ("K7 int8_matmul", ("int8_matmul_kernel",)),
-    ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K4 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    # both routes: tensor cores (bf16, the *_sm90_kernel names) and
+    # CUDA cores (f32)
+    ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
+    ("K4 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                          "flash_bwd_dkv_sm90_kernel")),
     ("K6 gmm_dw", ("gmm_dw_kernel",)),
     ("K5 gmm", ("gmm_kernel",)),
     ("matrix products", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),

@@ -15,9 +15,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the serving path's shapes, with timings and the card's bound;
 4. K2 (paged decode) likewise;
 5. K3 (flash backward dq) and K4 (dk/dv) against their plain version
-   ``attention_block_grads`` at the training shape (B=8 T=2048 H=16
-   Hkv=4 D=64 bf16 causal), with a window, segments, D=128, f32 and
-   two ring-style blocks (offsets, Tq != Tk, a valid-key end);
+   at the training shape (B=8 T=2048 H=16 Hkv=4 D=64 bf16 causal), with
+   a window, segments, D=128, f32 and two ring-style blocks (offsets,
+   Tq != Tk, a valid-key end): bf16 on the tensor-core route against
+   ``flash_block_grads_reference`` and, more loosely, against the f32
+   oracle ``attention_block_grads``; f32 on the CUDA-core route against
+   the oracle;
 6. K5 (grouped matmul, plain and transposed read) and K6 (its dw)
    against ``gmm_reference`` / ``gmm_dw_reference`` at the moe_heavy
    shapes (18,432 static rows, 16 experts, d 512, f 4096, both expert
@@ -35,23 +38,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
 8. the same with the paged KV layout and the paged kernel, then once
    more on a pool small enough to force preemption;
 9. training, small: one f32 AdamW step of a 2-layer config on the card
-   (kernels) and on the CPU (plain versions), loss and parameters
-   compared;
+   (kernels; K3/K4 on their f32 route) and on the CPU (plain
+   versions), loss and parameters compared;
 10. training, full width: the 154M configuration, 6 AdamW steps of
     B=8 x T=2048 over a repeated-motif token file read by
-    ``BatchLoader``; losses finite and falling, K1, K3 and K4 each
-    launched; a checkpoint at step 3 restored into a fresh state must
+    ``BatchLoader``; losses finite and falling, K1 launched, every K3
+    and K4 launch on the tensor-core route (8 each per step); a checkpoint at step 3 restored into a fresh state must
     equal the saved state bitwise and resume to losses within
     RESUME_TOL of the uninterrupted run; one step under remat launches
     K1 twice per layer;
 11. MoE training, small: one f32 AdamW step of a 2-layer, 4-expert
     gmm config with the router aux losses, card against CPU, every
-    parameter (router included) moved, exact K1/K3-K6 launches;
+    parameter (router included) moved, exact K1/K3-K6 launches (K3/K4
+    on the f32 route);
 12. MoE training, full width: moe_heavy (vocab 1024, d_model 512, 4
     layers, 4 heads, d_ff 4096, 16 experts, top_k 2, bf16) with gmm
     dispatch, 6 AdamW steps of B=8 x T=1024 from a token file,
     load-balance weight 0.01; losses finite and falling, exactly 16
-    K5, 8 K6 and 4 each of K1, K3, K4 per step; three steps repeated
+    K5, 8 K6 and 4 each of K1, K3, K4 per step, K3 and K4 on the
+    tensor-core route; three steps repeated
     from the same seed bitwise; one forward under gmm against dense
     dispatch;
 13. MoE serving: a contiguous drain of s8_r24 at moe_heavy (served
@@ -111,11 +116,19 @@ LSE_TOL = 1e-3
 # random weights the top two logits are often ~0.2 apart.
 TF_MARGIN = 0.1
 
-# K3/K4 against attention_block_grads: both run f32 arithmetic on the
-# same (bf16-rounded) inputs and differ only in summation order over up
-# to 2048 terms and in expf's last bits, so the error is held relative
-# to the largest gradient entry (about 10 at the training shape).
+# K3/K4 against their plain version, relative to the largest gradient
+# entry (about 10 at the training shape): in f32 attention_block_grads,
+# in bf16 flash_block_grads_reference, which rounds p and ds to bf16
+# where the kernels (and the TPU kernels) do.  Both sum exact products
+# of the same operands in f32 and differ in summation order over up to
+# 2048 terms and in exp's last bits, which may round an entry of p or
+# ds to the neighbouring bf16 value.
 BWD_TOL = 1e-3
+# bf16 K3/K4 against the f32 oracle attention_block_grads, which keeps
+# p and ds in f32: JAX's own Pallas kernels, which round them, are about
+# 2e-3 of max|ref| from it on the CPU (B=1 T=128 H=4 Hkv=2 D=64 causal
+# bf16; 0.8-2.2e-3 in tests/test_torch_flash_bwd.py)
+BWD_BF16_ORACLE_TOL = 1e-2
 # training, f32 card (kernels) vs CPU (plain): summation order only; a
 # missing or wrong gradient moves a weight by a whole AdamW step (lr
 # 3e-4), three times this bound
@@ -269,13 +282,32 @@ def phase_device() -> str:
     return torch.cuda.get_device_name(0)
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """One line per compiled kernel from the ``-Xptxas -v`` log: its
+    source, its mangled name, registers, spill bytes and static shared
+    memory."""
+    out, src, name = [], "", ""
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].split(" ")[0]
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"ptxas {src} {name}: {spills}; "
+                       f"{line.split(':', 1)[1].strip()}")
+            name = ""
+    return out
+
+
 def phase_build(build) -> None:
     t0 = time.perf_counter()
     build.library()
     took = time.perf_counter() - t0
     print(f"build: {took:.2f} s (nvcc: {build.build_seconds}) log "
           f"{build.build_log}", flush=True)
-    print(build.build_log.read_text()[-3000:], flush=True)
+    print("\n".join(ptxas_lines(build.build_log.read_text())), flush=True)
 
 
 def sdpa_fn(q, k, v, causal):
@@ -531,10 +563,12 @@ def sdpa_bwd_fn(q, k, v, do):
 
 
 def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
-    """K3 and K4 against ``attention_block_grads``; returns the
-    kernels-line rows of both at the training shape and, by shape,
-    callables of each kernel, the plain version and the library call
-    there."""
+    """K3 and K4 against their plain version (bf16: the rounding
+    ``flash_block_grads_reference``, and the f32 oracle
+    ``attention_block_grads`` at BWD_BF16_ORACLE_TOL; f32: the oracle),
+    each case on the route its dtype picks; returns the kernels-line
+    rows of both at the training shape and, by shape, callables of each
+    kernel, the plain version and the library call there."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     bf, f32 = torch.bfloat16, torch.float32
@@ -577,25 +611,37 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
         kw = dict(causal=True, window=c["window"], k_valid_end=c["k_end"],
                   q_segments=seg_q, k_segments=seg_k)
         args = (q, k, v, do, delta, lse, c["q_off"], c["k_off"])
+        before = bwd_routes(fa)
         dq = fa.flash_bwd_dq(*args, **kw)
         dk, dv = fa.flash_bwd_dkv(*args, **kw)
+        route = "tc" if dtype == bf else "f32"
+        took = {n: bwd_routes(fa)[n] - before[n] for n in before}
+        if took != {n: int(n.endswith(route)) for n in took}:
+            fail(f"K3/K4 at {c} took the routes {took}")
         kw_plain = dict(kw)
         del kw_plain["causal"]
-        ref = fa.attention_block_grads(*args, True, d ** -0.5, **kw_plain)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
-                                ("dv", dv, ref[2])):
+        plain_bwd = (fa.flash_block_grads_reference if dtype == bf
+                     else fa.attention_block_grads)
+        grads = {"dq": dq, "dk": dk, "dv": dv}
+
+        def gaps(ref):
+            return {n: ((grads[n] - want).abs().max().item(),
+                        want.abs().max().item())
+                    for n, want in zip(grads, ref)}
+
+        for name, got in grads.items():
             if not torch.isfinite(got).all():
                 fail(f"K3/K4 non-finite {name} at {c}")
-            errs[name] = ((got - want).abs().max().item(),
-                          want.abs().max().item())
-        del ref
+        errs = gaps(plain_bwd(*args, True, d ** -0.5, **kw_plain))
+        oracle = (gaps(fa.attention_block_grads(*args, True, d ** -0.5,
+                                                **kw_plain))
+                  if dtype == bf else {})
+        torch.cuda.synchronize()
         ms_dq = cuda_ms(lambda: fa.flash_bwd_dq(*args, **kw), iters=5,
                         warmup=1)
         ms_dkv = cuda_ms(lambda: fa.flash_bwd_dkv(*args, **kw), iters=5,
                          warmup=1)
-        plain_ms = cuda_ms(lambda: fa.attention_block_grads(
+        plain_ms = cuda_ms(lambda: plain_bwd(
             *args, True, d ** -0.5, **kw_plain), iters=3, warmup=1)
         plain = (c["window"] is None and not c["seg"] and c["q_off"] == 0
                  and c["k_off"] == 0 and t == tk)
@@ -605,14 +651,21 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
         b_dq = bwd_bound(b, t, tk, h, h_kv, d, dtype, pairs, seg, 3, 1)
         b_dkv = bwd_bound(b, t, tk, h, h_kv, d, dtype, pairs, seg, 4, 2)
         ok = all(e <= BWD_TOL * max(1.0, m) for e, m in errs.values())
+        ok_oracle = all(e <= BWD_BF16_ORACLE_TOL * max(1.0, m)
+                        for e, m in oracle.values())
         label = (f"B={b} Tq={t} Tk={tk} H={h} Hkv={h_kv} D={d} "
                  f"window={c['window']} seg={seg} q_off={c['q_off']} "
                  f"k_off={c['k_off']} k_valid_end={c['k_end']} "
-                 f"{str(dtype).removeprefix('torch.')}")
-        print(f"K3/K4 {label}: "
+                 f"{str(dtype).removeprefix('torch.')} route={route}")
+        vs_oracle = (" vs the f32 oracle: " + " ".join(
+            f"{n} max|d|={e:.3g}" for n, (e, _) in oracle.items())
+            + f" (tol {BWD_BF16_ORACLE_TOL} x max(1, max|ref|)) "
+            f"{'ok' if ok_oracle else 'FAIL'};" if oracle else "")
+        print(f"K3/K4 {label}: vs {plain_bwd.__name__}: "
               + " ".join(f"{n} max|d|={e:.3g} (max|ref| {m:.3g})"
                          for n, (e, m) in errs.items())
-              + f" (tol {BWD_TOL} x max(1, max|ref|)) K3_ms={ms_dq:.4f} "
+              + f" (tol {BWD_TOL} x max(1, max|ref|));{vs_oracle}"
+              f" K3_ms={ms_dq:.4f} "
               f"K4_ms={ms_dkv:.4f} plain_ms(dq,dk,dv)={plain_ms:.4f} "
               f"library_ms(sdpa backward)={fmt(lib_ms)} "
               f"K3_bound_us={b_dq[0] * 1e3:.2f} ({b_dq[1]}) "
@@ -620,6 +673,8 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"K3/K4 disagree with their plain version at {c}")
+        if not ok_oracle:
+            fail(f"bf16 K3/K4 stray from the f32 oracle at {c}")
         if c is full:
             rows["K3"] = dict(max_abs_err=errs["dq"][0], ms=ms_dq,
                               plain_ms=plain_ms, bound_ms=b_dq[0],
@@ -631,8 +686,8 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
                               library_ms=lib_ms)
             shape = "B=8 T=2048 (main path)"
             plain_fn = (lambda a=args, k2=kw_plain, dd=d:
-                        fa.attention_block_grads(*a, True, dd ** -0.5,
-                                                 **k2))
+                        fa.flash_block_grads_reference(*a, True,
+                                                       dd ** -0.5, **k2))
             lib_fn = sdpa_bwd_fn(q, k, v, do)
             probes["K3"] = {shape: dict(
                 kernel=lambda a=args, k2=kw: fa.flash_bwd_dq(*a, **k2),
@@ -1195,6 +1250,29 @@ def phase_int8_moe_serving(fa, pa) -> dict:
 
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.dq_tc_launches = fa.dkv_tc_launches = 0
+
+
+def bwd_routes(fa) -> dict:
+    """K3 and K4 launches by route: tensor cores (bf16) and CUDA cores
+    (f32)."""
+    return {"flash_bwd_dq_tc": fa.dq_tc_launches,
+            "flash_bwd_dkv_tc": fa.dkv_tc_launches,
+            "flash_bwd_dq_f32": fa.dq_launches - fa.dq_tc_launches,
+            "flash_bwd_dkv_f32": fa.dkv_launches - fa.dkv_tc_launches}
+
+
+def require_routes(fa, label: str, tc: int, f32: int) -> dict:
+    """Fail unless K3 and K4 each launched ``tc`` times on the
+    tensor-core route and ``f32`` times on the f32 route since the
+    counters were zeroed; returns the routes' counts."""
+    routes = bwd_routes(fa)
+    want = {n: tc if n.endswith("_tc") else f32 for n in routes}
+    print(f"{label}: K3/K4 launches by route {routes} (expected {want})",
+          flush=True)
+    if routes != want:
+        fail(f"{label}: K3/K4 took the routes {routes}, expected {want}")
+    return routes
 
 
 def train_counts(fa) -> dict:
@@ -1222,11 +1300,12 @@ def step_param_errors(p_c, p_h, g_h) -> tuple[float, float, int]:
     return strict, noisy, n_noisy
 
 
-def phase_train_small(fa) -> None:
+def phase_train_small(fa) -> dict:
     """One f32 AdamW step of a small config on the card (K1/K3/K4) and
     on the CPU (plain versions), from the same parameters and tokens,
     with packed segments; parameters compared by
-    :func:`step_param_errors`."""
+    :func:`step_param_errors`.  Returns the card step's K3/K4 launches
+    by route (all on the f32 route)."""
     from k8s_dra_driver_tpu_torch.models.transformer import (
         TransformerConfig, make_train_step, named_tensors)
     cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
@@ -1246,6 +1325,9 @@ def phase_train_small(fa) -> None:
         missing = [n for n, t in leaves if t.grad is None]
         if missing:
             fail(f"train step on {device}: no gradient for {missing}")
+        if device == "cuda":
+            routes = require_routes(fa, "train f32 small step", 0,
+                                    cfg.n_layers)
         results[device] = (float(loss), [t.detach().cpu()
                                          for _, t in leaves],
                            [t.grad.detach().cpu() for _, t in leaves],
@@ -1267,6 +1349,7 @@ def phase_train_small(fa) -> None:
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("the card's f32 train step disagrees with the CPU's")
+    return routes
 
 
 def state_snapshot(params, opt) -> list:
@@ -1337,6 +1420,8 @@ def phase_train(fa, tmp: Path) -> dict:
         fail(f"training loss did not fall: {losses}")
     if min(counts.values()) <= 0:
         fail(f"training launched {counts}: every kernel must be > 0")
+    counts.update(require_routes(fa, "train 154M",
+                                 cfg.n_layers * TRAIN_STEPS, 0))
 
     # resume: a fresh state from another seed, restored from step 3
     params2, opt2 = init_state(torch.Generator(device="cuda").manual_seed(9))
@@ -1383,6 +1468,7 @@ def phase_train(fa, tmp: Path) -> dict:
           f"{remat_counts} (expected {want})", flush=True)
     if remat_counts != want or not np.isfinite(remat_loss):
         fail("the remat step's launches or loss are wrong")
+    require_routes(fa, "train remat step", cfg.n_layers, 0)
     return counts
 
 
@@ -1405,11 +1491,12 @@ def moe_step_launches(cfg, steps: int) -> dict:
             "gmm": 4 * n, "gmm_dw": 2 * n}
 
 
-def phase_moe_train_small(fa, gm) -> None:
+def phase_moe_train_small(fa, gm) -> dict:
     """One f32 AdamW step of a 2-layer, 4-expert gmm config with both
     router aux losses on the card (K1, K3-K6) and on the CPU (plain
     versions), from the same parameters and tokens; parameters
-    compared by :func:`step_param_errors`."""
+    compared by :func:`step_param_errors`.  Returns the card step's
+    K3/K4 launches by route (all on the f32 route)."""
     from k8s_dra_driver_tpu_torch.models.transformer import (
         TransformerConfig, make_train_step, named_tensors)
     cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
@@ -1434,6 +1521,9 @@ def phase_moe_train_small(fa, gm) -> None:
                  if torch.equal(a, b)]
         if still:
             fail(f"MoE train step on {device}: {still} did not move")
+        if device == "cuda":
+            routes = require_routes(fa, "train MoE f32 small step", 0,
+                                    cfg.n_layers)
         results[device] = (float(loss), after,
                            [t.grad.detach().cpu() for _, t in leaves],
                            moe_counts(fa, gm), [n for n, _ in leaves])
@@ -1455,6 +1545,7 @@ def phase_moe_train_small(fa, gm) -> None:
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("the card's f32 MoE train step disagrees with the CPU's")
+    return routes
 
 
 def map_params(params, fn):
@@ -1523,6 +1614,8 @@ def phase_moe_train(fa, gm, tmp: Path) -> dict:
         fail(f"MoE training loss did not fall: {losses}")
     if counts != want:
         fail(f"MoE training launched {counts}, expected {want}")
+    counts.update(require_routes(fa, "train moe_heavy",
+                                 cfg.n_layers * TRAIN_STEPS, 0))
 
     # the same three steps again from the same seed
     params2, opt2 = init_state(torch.Generator(device="cuda").manual_seed(0))
@@ -1684,13 +1777,14 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + counts[name]
     del params
 
-    phase_train_small(fa)
+    f32_routes = phase_train_small(fa)
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase_train(fa, Path(tmp))
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
 
-    phase_moe_train_small(fa, gm)
+    for name, n in phase_moe_train_small(fa, gm).items():
+        f32_routes[name] += n
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase_moe_train(fa, gm, Path(tmp))
     counts_drain = phase_moe_serving(fa, pa, gm)
@@ -1733,14 +1827,20 @@ def main() -> None:
              source="k8s_dra_driver_tpu_torch/csrc/paged_decode.cu",
              replaces="k8s_dra_driver_tpu/ops/paged_attention.py:125",
              launches=launches["paged_decode"], **k2),
+        # the tensor-core route the bf16 main paths take; the f32
+        # route's launches (the f32 card steps of phases 9 and 11) apart
         dict(name="flash_bwd_dq", route="cuda",
-             source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
+             source="k8s_dra_driver_tpu_torch/csrc/flash_bwd_sm90.cu",
              replaces="k8s_dra_driver_tpu/ops/flash_attention.py:727",
-             launches=launches["flash_bwd_dq"], **k3),
+             launches=launches["flash_bwd_dq_tc"],
+             f32_route_source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
+             f32_route_launches=f32_routes["flash_bwd_dq_f32"], **k3),
         dict(name="flash_bwd_dkv", route="cuda",
-             source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
+             source="k8s_dra_driver_tpu_torch/csrc/flash_bwd_sm90.cu",
              replaces="k8s_dra_driver_tpu/ops/flash_attention.py:790",
-             launches=launches["flash_bwd_dkv"], **k4),
+             launches=launches["flash_bwd_dkv_tc"],
+             f32_route_source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
+             f32_route_launches=f32_routes["flash_bwd_dkv_f32"], **k4),
         dict(name="gmm", route="cuda",
              source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
              replaces="k8s_dra_driver_tpu/ops/gmm.py:79",

@@ -1,13 +1,16 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++: K3 (dq) and
-// K4 (dk, dv).
+// Flash-attention backward for Hopper (sm_90a), CUDA C++, the f32
+// route: K3 (dq) and K4 (dk, dv) for float32 inputs.  bfloat16 inputs
+// take the tensor-core kernels of flash_bwd_sm90.cu; wgmma would take
+// f32 operands only as TF32, which the f32 training steps cannot
+// afford (they are held to 1e-4 of the CPU).
 //
-// Replaces the TPU kernels `_flash_bwd_dq_kernel` and
+// Replaces, for f32, the TPU kernels `_flash_bwd_dq_kernel` and
 // `_flash_bwd_dkv_kernel` of k8s_dra_driver_tpu/ops/flash_attention.py,
 // both launched there by `flash_block_grads` (two pallas_calls) with
 // the score recompute `_bwd_common`.  Same contract: gradients against
-// one K/V block, q/do [B,Tq,H,D], k/v [B,Tk,H_kv,D] (float32 or
-// bfloat16), lse/delta [B,H,Tq] f32 with lse = m + log l over the FULL
-// key range and delta = rowsum(do * o); outputs are f32.
+// one K/V block, q/do [B,Tq,H,D], k/v [B,Tk,H_kv,D] float32, lse/delta
+// [B,H,Tq] f32 with lse = m + log l over the FULL key range and delta =
+// rowsum(do * o); outputs are f32.
 //
 //   p  = exp(q k^T * scale - lse)     (masked pairs: 0)
 //   ds = p * (do v^T - delta) * scale
@@ -39,16 +42,12 @@
 //     atomics, deterministic, and no [B,H,Tk,D] per-query-head
 //     intermediate (the JAX package folds one after its kernel).
 // Tiles sit in shared memory as f32, rows padded by one word against
-// bank conflicts; every product runs in f32 FMA on the CUDA cores, and
-// p and ds stay f32 (the Pallas kernels round them to the input dtype
-// before their second products).
+// bank conflicts; every product runs in f32 FMA on the CUDA cores.
 //
-// Bound.  At the training shape (T = 2048, D = 64, causal) K3 does
-// 3 and K4 4 products of 2*D flops per valid (q, k) pair, and both are
-// bound by the tensor cores' bf16 rate, which these kernels do not use:
-// the CUDA-core f32 path is their ceiling today.  K4 also re-reads Q
-// and dO once per k tile.  The later speed work is wgmma tiles fed by
-// TMA, as for K1.
+// Bound.  K3 does 3 and K4 4 products of 2*D flops per valid (q, k)
+// pair, against the card's 67 TFLOP/s of f32 outside the tensor cores.
+// The f32 route serves the f32 card steps, which are small; it was
+// never made fast.
 #include <math.h>
 #include <stdint.h>
 
@@ -86,15 +85,16 @@ __device__ __forceinline__ bool pair_ok(int qi, int kj, const BwdArgs& a,
 
 // rows [t0, t0 + kTile) of head hh of x [B, T, nh, D] into dst
 // [kTile][D + 1] as f32; rows past T are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ x,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ x,
                                           int t0, int T_, int b, int nh,
                                           int hh) {
   constexpr int LD = D + 1;
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int rr = e / D, c = e % D, t = t0 + rr;
     dst[rr * LD + c] =
-        t < T_ ? to_f32(x[(((size_t)b * T_ + t) * nh + hh) * D + c]) : 0.f;
+        t < T_ ? x[(((size_t)b * T_ + t) * nh + hh) * D + c] : 0.f;
   }
 }
 
@@ -114,10 +114,10 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // K3: grid (ceil(Tq / 64), H, B)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const BwdArgs a, float* __restrict__ dq) {
   constexpr int LD = D + 1;
   constexpr int kAcc = D / kLanes;
@@ -137,8 +137,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + r;
   const bool row_ok = qi < a.Tq;
 
-  load_tile<T, D>(sQ, q, q0, a.Tq, b, a.H, h);
-  load_tile<T, D>(sDO, dout, q0, a.Tq, b, a.H, h);
+  load_tile<D>(sQ, q, q0, a.Tq, b, a.H, h);
+  load_tile<D>(sDO, dout, q0, a.Tq, b, a.H, h);
   const size_t stat = ((size_t)b * a.H + h) * a.Tq + qi;
   const float lse_r = row_ok ? a.lse[stat] : 0.f;
   const float delta_r = row_ok ? a.delta[stat] : 0.f;
@@ -160,8 +160,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kt = k_lo / kTile; kt <= k_hi / kTile; ++kt) {
       const int k0 = kt * kTile;
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(sK, k, k0, a.Tk, b, a.Hkv, hk);
-      load_tile<T, D>(sV, v, k0, a.Tk, b, a.Hkv, hk);
+      load_tile<D>(sK, k, k0, a.Tk, b, a.Hkv, hk);
+      load_tile<D>(sV, v, k0, a.Tk, b, a.Hkv, hk);
       if (a.kseg != nullptr && tid < kTile) {
         const int t = k0 + tid;
         sSeg[tid] = t < a.Tk ? a.kseg[(size_t)b * a.Tk + t] : 0;
@@ -211,10 +211,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // K4: grid (ceil(Tk / 64), H_kv, B)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const BwdArgs a, float* __restrict__ dk,
                      float* __restrict__ dv) {
   constexpr int LD = D + 1;
@@ -238,8 +238,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kj = k0 + c;
   const bool key_ok = kj < a.Tk;
 
-  load_tile<T, D>(sK, k, k0, a.Tk, b, a.Hkv, hk);
-  load_tile<T, D>(sV, v, k0, a.Tk, b, a.Hkv, hk);
+  load_tile<D>(sK, k, k0, a.Tk, b, a.Hkv, hk);
+  load_tile<D>(sV, v, k0, a.Tk, b, a.Hkv, hk);
   const int ks =
       (a.kseg != nullptr && key_ok) ? a.kseg[(size_t)b * a.Tk + kj] : 0;
 
@@ -261,8 +261,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int it = q_lo / kTile; it <= q_hi / kTile; ++it) {
         const int q0 = it * kTile;
         __syncthreads();  // the previous tile's readers are done
-        load_tile<T, D>(sQ, q, q0, a.Tq, b, a.H, h);
-        load_tile<T, D>(sDO, dout, q0, a.Tq, b, a.H, h);
+        load_tile<D>(sQ, q, q0, a.Tq, b, a.H, h);
+        load_tile<D>(sDO, dout, q0, a.Tq, b, a.H, h);
         if (tid < kTile) {
           const int t = q0 + tid;
           const bool ok = t < a.Tq;
@@ -333,45 +333,44 @@ struct BwdPtrs {
   float* dv;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(bool dq_pass, const BwdPtrs& p, const BwdArgs& a, int B,
                    cudaStream_t stream) {
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
   // above 48 KB of dynamic shared memory; the attribute belongs to the
   // current device, so it is set on every launch (a host-side call)
   if (dq_pass) {
     constexpr size_t smem = dq_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>,
+        flash_bwd_dq_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.Tq + kTile - 1) / kTile, a.H, B);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
         q, k, v, dout, a, p.dq);
   } else {
     constexpr size_t smem = dkv_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>,
+        flash_bwd_dkv_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     dim3 grid((a.Tk + kTile - 1) / kTile, a.Hkv, B);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+    flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
         q, k, v, dout, a, p.dk, p.dv);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_d(int D, bool dq_pass, const BwdPtrs& p,
                      const BwdArgs& a, int B, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(dq_pass, p, a, B, stream);
+      return launch<64>(dq_pass, p, a, B, stream);
     case 128:
-      return launch<T, 128>(dq_pass, p, a, B, stream);
+      return launch<128>(dq_pass, p, a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -381,8 +380,9 @@ int run(bool dq_pass, const BwdPtrs& p, const void* lse, const void* delta,
         const void* qseg, const void* kseg, int B, int Tq, int Tk, int k_len,
         int H, int Hkv, int D, int q_off, int k_off, int causal, int window,
         float scale, int dtype, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || k_len < 0 || k_len > Tk || H <= 0 ||
-      Hkv <= 0 || H % Hkv || (qseg == nullptr) != (kseg == nullptr))
+  if (dtype != kFloat32 || B <= 0 || Tq <= 0 || Tk <= 0 || k_len < 0 ||
+      k_len > Tk || H <= 0 || Hkv <= 0 || H % Hkv ||
+      (qseg == nullptr) != (kseg == nullptr))
     return cudaErrorInvalidValue;
   BwdArgs a;
   a.qseg = static_cast<const int*>(qseg);
@@ -399,21 +399,13 @@ int run(bool dq_pass, const BwdPtrs& p, const void* lse, const void* delta,
   a.causal = causal;
   a.window = window;
   a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      return launch_d<float>(D, dq_pass, p, a, B, st);
-    case kBFloat16:
-      return launch_d<__nv_bfloat16>(D, dq_pass, p, a, B, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_d(D, dq_pass, p, a, B, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 }  // namespace tpu_torch
 
-// q/do [B,Tq,H,D], k/v [B,Tk,H_kv,D] (float32 or bfloat16, contiguous),
+// q/do [B,Tq,H,D], k/v [B,Tk,H_kv,D] (float32, contiguous),
 // lse/delta [B,H,Tq] float32, qseg [B,Tq] / kseg [B,Tk] int32 or both
 // null, dq [B,Tq,H,D] float32.  Keys at local index >= k_len are
 // masked; window <= 0 means no window.  Returns cudaGetLastError().

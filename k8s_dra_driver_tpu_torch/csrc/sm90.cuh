@@ -1,0 +1,152 @@
+// Hopper (sm_90a) building blocks of the tensor-core kernels: wgmma
+// m64n64k16 with bf16 operands and f32 accumulators, the shared-memory
+// matrix descriptor of the 128-byte swizzle, cp.async copies into that
+// swizzle, and the fences between them.
+//
+// Tiles are [rows][64] bf16, one 128-byte row each, 1 KB aligned; eight
+// rows form a 1 KB swizzle atom in which 16-byte chunk c of row r lies
+// at chunk c ^ (r % 8) (the hardware's 128B swizzle on address bits
+// 4-6 by 7-9).  A 128-column tile is two such tiles back to back.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace tpu_torch {
+namespace sm90 {
+
+constexpr int kRowBytes = 128;   // one row of 64 bf16
+constexpr int kAtomBytes = 1024; // eight rows
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c (0-7) of row r in a swizzled tile
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+// Descriptor of a 128B-swizzled operand at shared address a: the tile
+// base 1 KB aligned, plus 32 B per k16 step along a K-major row, or
+// 2 KB (16 rows) per k16 step down an MN-major tile.  SBO = 1 KB
+// between 8-row groups; LBO is not read for these shapes (a K-major
+// k16 step stays inside one 128-byte row; an MN-major N of 64 is one
+// atom wide).
+__device__ __forceinline__ uint64_t desc(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(kAtomBytes >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (src must
+// still be a valid address)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zeros when !ok
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's completed shared-memory writes visible to wgmma,
+// which reads through the async proxy
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: the
+// compiler may neither read an accumulator before the wait nor reuse
+// an A fragment's registers while the product may still read them.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// two floats as one register of two bf16 (lo in the low half),
+// rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A B, A [64 x 16] and B [16 x 64] both K-major in shared memory.
+// Accumulator layout (thread t of the warpgroup, warp w = t / 32,
+// lane l = t % 32): d[4 n + 2 h + c] is row 16 w + l / 4 + 8 h, column
+// 8 n + 2 (l % 4) + c.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, A [64 x 16] in registers (the layout of four accumulator
+// entries per thread: a[j] = d[8 kk + 2 j], d[8 kk + 2 j + 1] of the
+// product that made it, for its k16 slice kk), B [16 x 64] MN-major in
+// shared memory (the transpose bit set).
+__device__ __forceinline__ void mma_rs_t(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+}  // namespace sm90
+}  // namespace tpu_torch

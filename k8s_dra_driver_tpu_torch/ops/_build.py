@@ -57,6 +57,9 @@ _SIGNATURES = {
     "flash_bwd_dq": [_VP] * 9 + [_I] * 11 + [_F, _I, _VP],
     # the same with dk, dv in place of dq
     "flash_bwd_dkv": [_VP] * 10 + [_I] * 11 + [_F, _I, _VP],
+    # the tensor-core K3 and K4 (bfloat16 only), same arguments
+    "flash_bwd_dq_tc": [_VP] * 9 + [_I] * 11 + [_F, _I, _VP],
+    "flash_bwd_dkv_tc": [_VP] * 10 + [_I] * 11 + [_F, _I, _VP],
     # x, w, eb, nu, out, M, K, N, E, block_m, trans_w, dtype, stream
     "gmm": [_VP] * 5 + [_I] * 7 + [_VP],
     # x, dy, group_sizes, nu, dw, M, K, N, E, block_m, dtype, stream
@@ -108,13 +111,14 @@ def _build(out_dir: Path) -> None:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    log, objs, failed = [], [], []
+    log, objs, failed, failed_logs = [], [], [], []
     for src, obj, proc in procs:
         out, _ = proc.communicate()
         log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
         objs.append(str(obj))
         if proc.returncode:
             failed.append(src.name)
+            failed_logs.append(log[-1])
     if not failed:
         link = subprocess.run(
             [nvcc, *_FLAGS, "-shared", *objs, "-o", str(tmp / _LIB_NAME)],
@@ -122,11 +126,12 @@ def _build(out_dir: Path) -> None:
         log.append(f"== link (rc {link.returncode})\n{link.stdout}")
         if link.returncode:
             failed.append("link")
+            failed_logs.append(log[-1])
     (tmp / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(
             f"CUDA kernel build failed ({', '.join(failed)}):\n"
-            + "\n".join(log)[-8000:])
+            + "\n".join(failed_logs)[:8000])
     try:
         tmp.rename(out_dir)
     except OSError:

@@ -11,18 +11,23 @@ normalized forward through ``_flash_forward`` and the backward of its
   ``_flash_kernel`` (launched there by ``_flash_block_attention``); on
   a CPU tensor it takes ``flash_forward_reference``.
 - Backward: :func:`flash_block_grads`, the port of the JAX function of
-  that name, launches ``csrc/flash_bwd.cu``: K3 (:func:`flash_bwd_dq`,
-  replacing ``_flash_bwd_dq_kernel``) and K4 (:func:`flash_bwd_dkv`,
-  replacing ``_flash_bwd_dkv_kernel``).  On CPU tensors it takes
-  ``attention_block_grads``, the plain version both kernels are held
-  against.
+  that name, launches K3 (:func:`flash_bwd_dq`, replacing
+  ``_flash_bwd_dq_kernel``) and K4 (:func:`flash_bwd_dkv`, replacing
+  ``_flash_bwd_dkv_kernel``) by the route :func:`bwd_route` picks from
+  the dtype: bfloat16 on the tensor cores (``csrc/flash_bwd_sm90.cu``,
+  wgmma), float32 on the CUDA cores (``csrc/flash_bwd.cu``).  On CPU
+  tensors it takes ``flash_block_grads_reference``, the plain version
+  both routes are held against: ``attention_block_grads`` (the port of
+  the JAX oracle, all f32) with p and ds rounded to the input dtype
+  before the second products, where the TPU kernels round them.
 
 There is no other path: an unsupported shape or dtype on the card
-raises.  The kernels run f32 FMA on the CUDA cores (see their source
-notes); the tensor-core path is later work.
+raises.  K1 runs f32 FMA on the CUDA cores (see its source note).
 
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel
-launches of K1, K3 and K4 (CPU calls never count).
+launches of K1, K3 and K4 (CPU calls never count);
+``dq_tc_launches`` and ``dkv_tc_launches`` count those of K3 and K4 on
+the tensor-core route.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ launches = 0
 dq_launches = 0
 #: launches of K4 (dk/dv) by :func:`flash_bwd_dkv`
 dkv_launches = 0
+#: of those, the launches on the tensor-core route (bfloat16)
+dq_tc_launches = 0
+dkv_tc_launches = 0
 
 _KERNEL_HEAD_DIMS = (64, 128)
 
@@ -197,8 +205,8 @@ def attention_block_grads(q, k, v, do, delta, lse, q_offset, k_offset,
                           window: int | None = None,
                           q_segments=None, k_segments=None):
     """Flash backward against one K/V block, plain PyTorch in f32: the
-    port of the JAX package's ``attention_block_grads`` and the plain
-    version of K3 and K4.
+    port of the JAX package's ``attention_block_grads``, the oracle of
+    K3 and K4.
 
     q/do ``[B, Tq, H, D]``; k/v ``[B, Tk, H_kv, D]``; delta ``[B, H,
     Tq]`` = rowsum(do * o) with o the normalized output; lse ``[B, H,
@@ -208,26 +216,67 @@ def attention_block_grads(q, k, v, do, delta, lse, q_offset, k_offset,
     head's query heads.  p = exp(s - lse); dv = p^T do; dp = do v^T;
     ds = p * (dp - delta) * scale; dq = ds k; dk = ds^T q.
     """
+    return _block_grads(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                        scale, k_valid_end, window, q_segments, k_segments,
+                        torch.float32)
+
+
+def flash_block_grads_reference(q, k, v, do, delta, lse, q_offset,
+                                k_offset, causal: bool, scale: float,
+                                k_valid_end: int | None = None,
+                                window: int | None = None,
+                                q_segments=None, k_segments=None):
+    """The plain version K3 and K4 are held against: the f32 sums of
+    :func:`attention_block_grads` (same arguments and result), except
+    that p and ds are rounded to q's dtype just before the second
+    products (dv = p^T do, dq = ds k, dk = ds^T q), where the TPU
+    kernels round them (``p.astype(dof.dtype)``, ``ds.astype(kf.dtype)``,
+    ``ds.astype(qf.dtype)``) and where a bf16 tensor-core product takes
+    them.  In f32 the rounding does nothing: the result equals
+    :func:`attention_block_grads` bit for bit.
+
+    On the card, bf16 scores and dp (the first products) are summed on
+    the tensor cores with f32 accumulation (``torch.bmm`` with
+    ``out_dtype=torch.float32``), in k16 steps as the kernels' wgmma
+    sums them, so that p and ds reach their bf16 rounding with the same
+    f32 values: two f32 sums of the same exact products in different
+    orders part by a few units in the last place, and one such unit can
+    move p or ds to the neighbouring bf16 value, a step of 2^-8 of it
+    in every product it enters.  On the CPU they are f32 einsums."""
+    return _block_grads(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                        scale, k_valid_end, window, q_segments, k_segments,
+                        q.dtype)
+
+
+def _block_grads(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                 scale, k_valid_end, window, q_segments, k_segments,
+                 operand_dtype):
+    """Both plain versions: p and ds enter the second products rounded
+    to ``operand_dtype`` (f32: not rounded)."""
     if (q_segments is None) != (k_segments is None):
         raise ValueError("q_segments and k_segments must be given "
                          "together")
     h = q.shape[2]
     h_kv = k.shape[2]
     group = kv_group(h, h_kv)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     if group > 1:     # GQA: broadcast kv heads; dk/dv group-summed below
-        kf = kf.repeat_interleave(group, dim=2)
-        vf = vf.repeat_interleave(group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    on_tensor_cores = q.is_cuda and operand_dtype == torch.bfloat16
+    s = _first_product(q if on_tensor_cores else qf,
+                       k if on_tensor_cores else kf) * scale
     p = torch.exp(s - lse[..., None])
     tq, tk = q.shape[1], k.shape[1]
     mask = block_mask(tq, tk, q_offset, k_offset, causal, window,
                       k_valid_end, q_segments, k_segments, q.device)
     if mask is not None:
         p = torch.where(mask[:, None], p, 0.0)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(operand_dtype).float(), dof)
+    dp = _first_product(do if on_tensor_cores else dof,
+                        v if on_tensor_cores else vf)
     ds = p * (dp - delta[..., None]) * scale
+    ds = ds.to(operand_dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     if group > 1:     # fold each group's contributions into its kv head
@@ -235,6 +284,19 @@ def attention_block_grads(q, k, v, do, delta, lse, q_offset, k_offset,
         dk = dk.reshape(b, tk, h_kv, group, d).sum(3)
         dv = dv.reshape(b, tk, h_kv, group, d).sum(3)
     return dq, dk, dv
+
+
+def _first_product(x, y):
+    """``[B, Tq, H, D]`` x ``[B, Tk, H, D]`` -> ``[B, H, Tq, Tk]`` f32,
+    summed over D: an f32 einsum for f32 operands, one tensor-core
+    product with f32 accumulation for bf16 ones (on the card only)."""
+    if x.dtype == torch.float32:
+        return torch.einsum("bqhd,bkhd->bhqk", x, y)
+    b, tq, h, d = x.shape
+    tk = y.shape[1]
+    xs = x.transpose(1, 2).reshape(b * h, tq, d)
+    ys = y.permute(0, 2, 3, 1).reshape(b * h, d, tk)
+    return torch.bmm(xs, ys, out_dtype=torch.float32).reshape(b, h, tq, tk)
 
 
 def _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
@@ -273,11 +335,32 @@ def _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
                              "[B, Tk]")
 
 
+#: K3/K4 kernel route by input dtype
+_BWD_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+
+
+def bwd_route(dtype, head_dim: int) -> str:
+    """The route K3 and K4 take on the card for inputs of ``dtype`` and
+    head dim ``head_dim``: ``"tensor_cores"`` for bfloat16
+    (``csrc/flash_bwd_sm90.cu``), ``"cuda_cores"`` for float32
+    (``csrc/flash_bwd.cu``).  Raises for any other dtype or a head dim
+    other than 64 or 128: there is no fallback."""
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash backward kernel takes head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {head_dim}")
+    route = _BWD_ROUTES.get(dtype)
+    if route is None:
+        raise ValueError(f"the flash backward kernel takes float32 or "
+                         f"bfloat16, got {dtype}")
+    return route
+
+
 def _bwd_launch_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments):
-    """Checks what the kernels take; returns the C arguments shared by
-    K3 and K4, after the output pointers."""
-    code = _kernel_dtype_code(q, "flash backward")
+    """Checks what the kernels take; returns the route and the C
+    arguments shared by K3 and K4, after the output pointers."""
+    route = bwd_route(q.dtype, q.shape[-1])
+    code = _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")]
     _require_contiguous(q=q, k=k, v=v, do=do, delta=delta, lse=lse,
                         q_segments=q_segments, k_segments=k_segments)
     _require_int32(q_segments=q_segments, k_segments=k_segments)
@@ -294,7 +377,7 @@ def _bwd_launch_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
     sizes = (b, tq, tk, k_len, h, k.shape[2], d, int(q_offset),
              int(k_offset), int(causal), int(window or 0), float(scale),
              code)
-    return inputs, sizes
+    return route, inputs, sizes
 
 
 def _launch_bwd(dq_pass: bool, *args):
@@ -302,13 +385,15 @@ def _launch_bwd(dq_pass: bool, *args):
     on ``args``, the positional arguments of
     :func:`attention_block_grads`, after checking what the kernels
     take."""
-    global dq_launches, dkv_launches
+    global dq_launches, dkv_launches, dq_tc_launches, dkv_tc_launches
     q, k = args[0], args[1]
-    inputs, sizes = _bwd_launch_args(*args)
+    route, inputs, sizes = _bwd_launch_args(*args)
+    tc = route == "tensor_cores"
     shapes = [q.shape] if dq_pass else [k.shape, k.shape]
     outs = [torch.empty(shape, dtype=torch.float32, device=q.device)
             for shape in shapes]
-    name = "flash_bwd_dq" if dq_pass else "flash_bwd_dkv"
+    name = ("flash_bwd_dq" if dq_pass else "flash_bwd_dkv") + (
+        "_tc" if tc else "")
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -317,8 +402,10 @@ def _launch_bwd(dq_pass: bool, *args):
     _build.check(rc, name)
     if dq_pass:
         dq_launches += 1
+        dq_tc_launches += tc
         return outs[0]
     dkv_launches += 1
+    dkv_tc_launches += tc
     return outs[0], outs[1]
 
 
@@ -337,12 +424,13 @@ def _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal, scale,
 def flash_bwd_dq(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
                  causal=True, scale=None, k_valid_end=None, window=None,
                  q_segments=None, k_segments=None):
-    """dq ``[B, Tq, H, D]`` f32 of :func:`attention_block_grads` (same
-    arguments): K3 on CUDA tensors, the plain version on CPU tensors."""
+    """dq ``[B, Tq, H, D]`` f32 of :func:`flash_block_grads_reference`
+    (same arguments): K3 on CUDA tensors, the plain version on CPU
+    tensors."""
     args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments)
     if not on_card(q, "flash_bwd_dq"):
-        return attention_block_grads(*args)[0]
+        return flash_block_grads_reference(*args)[0]
     return _launch_bwd(True, *args)
 
 
@@ -350,13 +438,13 @@ def flash_bwd_dkv(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
                   causal=True, scale=None, k_valid_end=None, window=None,
                   q_segments=None, k_segments=None):
     """``(dk, dv)``, each ``[B, Tk, H_kv, D]`` f32, of
-    :func:`attention_block_grads`: K4 on CUDA tensors, which sums over
-    the query heads of each K/V head inside the kernel (no atomics, no
-    per-query-head intermediate); the plain version on CPU tensors."""
+    :func:`flash_block_grads_reference`: K4 on CUDA tensors, which sums
+    over the query heads of each K/V head inside the kernel (no atomics,
+    no per-query-head intermediate); the plain version on CPU tensors."""
     args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments)
     if not on_card(q, "flash_bwd_dkv"):
-        return attention_block_grads(*args)[1:]
+        return flash_block_grads_reference(*args)[1:]
     return _launch_bwd(False, *args)
 
 
@@ -365,11 +453,11 @@ def flash_block_grads(q, k, v, do, delta, lse, q_offset=0, k_offset=0, *,
                       window=None, q_segments=None, k_segments=None):
     """f32 ``(dq, dk, dv)`` of one K/V block, the contract of
     :func:`attention_block_grads`: K3 and K4 on CUDA tensors, the plain
-    version on CPU tensors."""
+    version :func:`flash_block_grads_reference` on CPU tensors."""
     args = _bwd_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
                      scale, k_valid_end, window, q_segments, k_segments)
     if not on_card(q, "flash_block_grads"):
-        return attention_block_grads(*args)
+        return flash_block_grads_reference(*args)
     return (_launch_bwd(True, *args), *_launch_bwd(False, *args))
 
 
@@ -435,7 +523,8 @@ def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
 
 
 __all__ = ["attention_block_grads", "attention_delta", "block_mask",
-           "flash_attention", "flash_attention_reference",
-           "flash_backward", "flash_block_grads", "flash_bwd_dkv",
+           "bwd_route", "flash_attention", "flash_attention_reference",
+           "flash_backward", "flash_block_grads",
+           "flash_block_grads_reference", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_forward", "flash_forward_reference",
            "normalize_flash_stats"]

@@ -7,8 +7,12 @@ on the card), the Pallas ``flash_block_grads`` in interpret mode, and
 the gradients of ``flash_attention`` (JAX: ``jax.grad`` through its
 custom VJP, whose backward runs the interpreted Pallas kernels; port:
 its ``torch.autograd.Function``, which on CPU tensors runs the plain
-version).  f32 throughout: the tolerance (1e-5) covers summation order
-only.
+version).  f32 there: the tolerance (1e-5) covers summation order only.
+
+In bf16 the kernels' plain version is ``flash_block_grads_reference``,
+which rounds p and ds to bf16 before the second products as the TPU
+kernels do; it is held to the interpreted Pallas kernels in bf16, and
+to ``attention_block_grads`` bit for bit in f32.
 """
 
 import importlib
@@ -250,3 +254,114 @@ def test_kernel_arguments_refuse_what_the_kernels_do_not_take(d, dtype,
     with pytest.raises(ValueError, match=match):
         tfa._bwd_launch_args(q, k, k, q, stats, stats, 0, 0, True, 0.1,
                              None, None, None, None)
+
+
+# flash_block_grads_reference against the interpreted Pallas kernels in
+# bf16, relative to max(1, max|ref|): both sum exact products of the
+# same bf16 operands in f32, in another order, so an entry of p or ds
+# may round to the neighbouring bf16 value (2^-8 of it) in one and not
+# the other; 1e-3 holds a few such flips.
+BF16_TOL = 1e-3
+# the f32 oracle against the same kernels in bf16: p and ds rounded to
+# bf16 before the second products part them by about 2e-3 of the
+# largest entry; chip_smoke.py holds the card's bf16 K3/K4 to 1e-2
+# (BWD_BF16_ORACLE_TOL)
+BF16_ORACLE_TOL = 1e-2
+
+
+def bf16_block(name, seed=1):
+    c, arrays, qs, ks = block_case(name, seed=seed, d=64)
+    return c, list(arrays[:4]), list(arrays[4:]), qs, ks
+
+
+def relative_error(got, want) -> float:
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("name", ["causal_gqa", "window_mqa",
+                                  "segments_gqa", "ring_later_q"])
+def test_rounding_reference_matches_jax_pallas_in_bf16(name):
+    """The plain version the tensor-core K3/K4 are held against, on
+    bf16 inputs, against the Pallas kernels (interpret mode) on the same
+    inputs; the f32 oracle stays within the card's oracle gate of
+    both."""
+    c, operands, (delta, lse), qs, ks = bf16_block(name)
+    j_ops = [jnp.asarray(a).astype(jnp.bfloat16) for a in operands]
+    t_ops = [t_(a).to(torch.bfloat16) for a in operands]
+    scale = 64 ** -0.5
+    want = jfa.flash_block_grads(
+        *j_ops, j_(delta), j_(lse), c["q_off"], c["k_off"],
+        causal=c["causal"], window=c["window"], interpret=True,
+        q_segments=j_(qs), k_segments=j_(ks))
+    args = (*t_ops, t_(delta), t_(lse), c["q_off"], c["k_off"],
+            c["causal"], scale)
+    kw = dict(window=c["window"], q_segments=t_(qs), k_segments=t_(ks))
+    got = tfa.flash_block_grads_reference(*args, **kw)
+    oracle = tfa.attention_block_grads(*args, **kw)
+    for g, w, o in zip(got, want, oracle):
+        assert g.dtype == torch.float32
+        assert relative_error(g.numpy(), w) <= BF16_TOL
+        assert relative_error(o.numpy(), w) <= BF16_ORACLE_TOL
+
+
+@pytest.mark.parametrize("name", sorted(BLOCK_CASES))
+def test_rounding_reference_equals_oracle_in_f32(name):
+    """In f32 the rounding does nothing: bit for bit the oracle."""
+    c, arrays, qs, ks = block_case(name)
+    args = (*map(t_, arrays), c["q_off"], c["k_off"], c["causal"],
+            16 ** -0.5)
+    kw = dict(k_valid_end=c["k_end"], window=c["window"],
+              q_segments=t_(qs), k_segments=t_(ks))
+    got = tfa.flash_block_grads_reference(*args, **kw)
+    want = tfa.attention_block_grads(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_wrappers_take_the_rounding_reference(dtype):
+    """On CPU tensors the three wrappers return the plain version's
+    result and launch nothing, on either route's dtype."""
+    c, operands, (delta, lse), qs, ks = bf16_block("window_segments")
+    ops = [t_(a).to(dtype) for a in operands]
+    kw = dict(window=c["window"], q_segments=t_(qs), k_segments=t_(ks))
+    want = tfa.flash_block_grads_reference(
+        *ops, t_(delta), t_(lse), 0, 0, True, 64 ** -0.5, **kw)
+    before = (tfa.dq_launches, tfa.dkv_launches, tfa.dq_tc_launches,
+              tfa.dkv_tc_launches)
+    args = (*ops, t_(delta), t_(lse))
+    both = tfa.flash_block_grads(*args, **kw)
+    dq = tfa.flash_bwd_dq(*args, **kw)
+    dk, dv = tfa.flash_bwd_dkv(*args, **kw)
+    assert (tfa.dq_launches, tfa.dkv_launches, tfa.dq_tc_launches,
+            tfa.dkv_tc_launches) == before
+    for got in (both, (dq, dk, dv)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    if dtype == torch.bfloat16:   # the rounding is there to see
+        oracle = tfa.attention_block_grads(
+            *ops, t_(delta), t_(lse), 0, 0, True, 64 ** -0.5, **kw)
+        assert not all(torch.equal(g, w) for g, w in zip(oracle, want))
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"),
+])
+def test_route_picker_sends_each_dtype_to_its_kernels(dtype, d, route):
+    assert tfa.bwd_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 64, "float32 or bfloat16"),
+    (torch.float64, 128, "float32 or bfloat16"),
+    (torch.bfloat16, 32, "head dims"),
+    (torch.bfloat16, 256, "head dims"),
+    (torch.float32, 96, "head dims"),
+])
+def test_route_picker_refuses_what_no_route_takes(dtype, d, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.bwd_route(dtype, d)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of k8s_dra_driver_tpu_torch,
-nor its on-card scripts chip_smoke.py and chip_profile.py, imports JAX
+nor its on-card scripts (chip_smoke.py, chip_profile.py,
+chip_bwd_rounding.py), imports JAX
 (jax, jaxlib, optax) or anything of the JAX package k8s_dra_driver_tpu
 — not even its numpy-only modules.  A static AST scan, so imports
 hidden inside functions are caught too."""
@@ -15,8 +16,9 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu")
 
 
 def scanned_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_profile.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
+        ROOT / "chip_bwd_rounding.py"]
 
 
 def imported_modules(path: Path) -> list[str]:
@@ -42,7 +44,8 @@ def forbidden(name: str) -> bool:
 
 def test_scan_covers_the_port():
     files = {p.relative_to(ROOT).as_posix() for p in scanned_files()}
-    assert {"chip_smoke.py", "chip_profile.py"} <= files
+    assert {"chip_smoke.py", "chip_profile.py",
+            "chip_bwd_rounding.py"} <= files
     for mod in ("models/serving.py", "models/decode.py",
                 "models/transformer.py", "models/data.py",
                 "models/checkpoint.py", "models/quant.py",
