@@ -12,7 +12,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build the CUDA kernels from ``k8s_dra_driver_tpu_torch/csrc`` with
    nvcc (sm_90a) and print the build time;
 3. K1 (flash-attention forward) against its plain PyTorch version at
-   the serving path's shapes, with timings and the card's bound;
+   the serving path's shapes and the training shape, with timings and
+   the card's bound: bf16 on the tensor-core route, its output before
+   the final rounding held to ``flash_forward_reference`` (which rounds
+   q and p where the TPU kernel does, per key tile of the kernel) and
+   more loosely to the f32 oracle ``attention_forward``; f32 on the
+   CUDA-core route;
 4. K2 (paged decode) likewise;
 5. K3 (flash backward dq) and K4 (dk/dv) against their plain version
    at the training shape (B=8 T=2048 H=16 Hkv=4 D=64 bf16 causal), with
@@ -24,7 +29,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 6. K5 (grouped matmul, plain and transposed read) and K6 (its dw)
    against ``gmm_reference`` / ``gmm_dw_reference`` at the moe_heavy
    shapes (18,432 static rows, 16 experts, d 512, f 4096, both expert
-   matrices), in bf16 and f32, over four group layouts (the router's
+   matrices), in bf16 (K5 on the tensor-core route) and f32 (the
+   CUDA-core route), over four group layouts (the router's
    own, one hot expert, empty experts, a long dead tail), with
    timings, the bound from the live rows and ``torch._grouped_mm`` as
    the library yardstick;
@@ -38,25 +44,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
 8. the same with the paged KV layout and the paged kernel, then once
    more on a pool small enough to force preemption;
 9. training, small: one f32 AdamW step of a 2-layer config on the card
-   (kernels; K3/K4 on their f32 route) and on the CPU (plain
+   (kernels; K1/K3/K4 on their f32 route) and on the CPU (plain
    versions), loss and parameters compared;
 10. training, full width: the 154M configuration, 6 AdamW steps of
     B=8 x T=2048 over a repeated-motif token file read by
-    ``BatchLoader``; losses finite and falling, K1 launched, every K3
-    and K4 launch on the tensor-core route (8 each per step); a checkpoint at step 3 restored into a fresh state must
-    equal the saved state bitwise and resume to losses within
+    ``BatchLoader``; losses finite and falling, every K1, K3 and K4
+    launch on the tensor-core route (8 each per step); a checkpoint at
+    step 3 restored into a fresh state must equal the saved state
+    bitwise and resume to losses within
     RESUME_TOL of the uninterrupted run; one step under remat launches
     K1 twice per layer;
 11. MoE training, small: one f32 AdamW step of a 2-layer, 4-expert
     gmm config with the router aux losses, card against CPU, every
-    parameter (router included) moved, exact K1/K3-K6 launches (K3/K4
-    on the f32 route);
+    parameter (router included) moved, exact K1/K3-K6 launches (K1,
+    K3/K4 and K5 on the f32 route);
 12. MoE training, full width: moe_heavy (vocab 1024, d_model 512, 4
     layers, 4 heads, d_ff 4096, 16 experts, top_k 2, bf16) with gmm
     dispatch, 6 AdamW steps of B=8 x T=1024 from a token file,
     load-balance weight 0.01; losses finite and falling, exactly 16
-    K5, 8 K6 and 4 each of K1, K3, K4 per step, K3 and K4 on the
-    tensor-core route; three steps repeated
+    K5, 8 K6 and 4 each of K1, K3, K4 per step, K1, K3, K4 and K5 on
+    the tensor-core route; three steps repeated
     from the same seed bitwise; one forward under gmm against dense
     dispatch;
 13. MoE serving: a contiguous drain of s8_r24 at moe_heavy (served
@@ -86,8 +93,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
     profiling cannot tax them;
 18. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
-    plain version and its times;
+    plain version and its times; K1, K3, K4 and K5 name their
+    tensor-core source and launches, and their f32 route's apart;
 19. last line: ``{"ok": true, "device": {...}}``.
+
+Every drain and step holds its K1 and K5 launches to the route of its
+dtype: bf16 on the tensor cores, f32 on the CUDA cores.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -110,6 +121,19 @@ import torch
 # plain version; f32 differs only by summation order and expf.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_TOL = 1e-3
+# bf16 K1 (tensor cores) against its rounding plain version
+# flash_forward_reference, relative to max(1, max|plain|), on the output
+# before its final rounding: the kernel forms q' and p with the plain
+# version's operations, and the plain version sums its bf16 scores on
+# the tensor cores in the kernel's order, so only the sums of l and of
+# p.v part them (a few units in the last place); a bf16 step of one p
+# would show as about 4e-3 of that p's row, and the version without the
+# TPU kernel's roundings misses JAX's kernel by 6.9e-4 to 1.7e-3 of
+# max(1, max|ref|) (tests/test_torch_flash_fwd.py's cases on the CPU).
+# Held as well: the bf16 output is that f32 output rounded, bit for
+# bit, and it stays within TOL[bf16] of the f32 oracle
+# attention_forward.
+FWD_TC_TOL = 1e-4
 # teacher-forced check: each greedy token's logit in one full-sequence
 # forward pass must be within this of that position's max.  bf16 decode
 # (stepwise cache reads) and the full forward round differently; with
@@ -353,7 +377,14 @@ def phase_flash(fa) -> dict:
     """K1 against its plain version; returns the kernels-line row at
     the largest prefill call of the s8_r24 contiguous drain (B=2
     T=96), and, by shape, callables of the kernel, its plain version
-    and the library call at that shape and at B=8 T=2048."""
+    and the library call at that shape and at B=8 T=2048.
+
+    bf16 runs on the tensor-core route: its f32 output (``out_dtype``
+    float32, before the final rounding) is held to
+    ``flash_forward_reference`` at FWD_TC_TOL, its bf16 output must be
+    that output rounded, bit for bit, and the f32 oracle
+    ``attention_forward`` within TOL[bf16].  f32 runs on the CUDA-core
+    route, held to the plain version at TOL[f32]."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
@@ -371,6 +402,9 @@ def phase_flash(fa) -> dict:
              dtype=torch.bfloat16),
         dict(b=2, t=96, d=128, window=None, seg=False,
              dtype=torch.bfloat16),
+        dict(b=2, t=2048, d=128, window=None, seg=False,
+             dtype=torch.bfloat16),
+        dict(b=1, t=300, d=128, window=64, seg=True, dtype=torch.bfloat16),
         dict(b=1, t=96, d=64, window=None, seg=True, dtype=torch.float32),
         dict(b=1, t=2048, d=128, window=32, seg=False,
              dtype=torch.float32),
@@ -378,6 +412,7 @@ def phase_flash(fa) -> dict:
     row, probes = None, {}
     for c in cases:
         b, t, d, dtype = c["b"], c["t"], c["d"], c["dtype"]
+        tc = dtype == torch.bfloat16
         h, h_kv = 16, 4
         q = torch.randn((b, t, h, d), generator=gen, device=dev,
                         dtype=torch.float32).to(dtype)
@@ -391,13 +426,35 @@ def phase_flash(fa) -> dict:
             seg = (torch.cumsum((cuts == 0).to(torch.int32), dim=1)
                    .to(torch.int32).contiguous())
         kw = dict(causal=True, window=c["window"], segment_ids=seg)
+        before = fa.tc_launches
         out, lse = fa.flash_forward(q, k, v, **kw)
-        ref, ref_lse = fa.flash_forward_reference(q, k, v, **kw)
+        if fa.tc_launches != before + tc:
+            fail(f"K1 took the wrong route at {c}")
+        ref, ref_lse = fa.flash_forward_reference(
+            q, k, v, out_dtype=torch.float32, **kw)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"K1 non-finite output at {c}")
-        err = (out.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.abs().max().item())
         lerr = (lse - ref_lse).abs().max().item()
+        if tc:
+            full, full_lse = fa.flash_forward(q, k, v,
+                                              out_dtype=torch.float32, **kw)
+            err = (full - ref).abs().max().item()
+            rounded = (torch.equal(out, full.to(dtype))
+                       and torch.equal(lse, full_lse))
+            oracle = fa.attention_forward(q, k, v, **kw)[0]
+            oerr = (out.float() - oracle.float()).abs().max().item()
+            ok = (err <= FWD_TC_TOL * scale and rounded
+                  and oerr <= TOL[dtype] and lerr <= LSE_TOL)
+            held = (f"f32 output max|d|={err:.3g} (tol {FWD_TC_TOL} x "
+                    f"max(1, max|plain| {scale:.3g})), bf16 output the f32 "
+                    f"one rounded: {rounded}; oracle max|d|={oerr:.3g} "
+                    f"(tol {TOL[dtype]})")
+        else:
+            err = (out - ref).abs().max().item()
+            ok = err <= TOL[dtype] and lerr <= LSE_TOL
+            held = f"max|d|={err:.3g} (tol {TOL[dtype]})"
         ms = cuda_ms(lambda: fa.flash_forward(q, k, v, **kw))
         plain_ms = cuda_ms(lambda: fa.flash_forward_reference(q, k, v,
                                                               **kw),
@@ -407,26 +464,26 @@ def phase_flash(fa) -> dict:
             lib_ms = cuda_ms(sdpa_fn(q, k, v, True))
         bound, by = flash_bound(b, t, h, h_kv, d, c["window"], seg,
                                 dtype)
-        ok = err <= TOL[dtype] and lerr <= LSE_TOL
         print(f"K1 B={b} T={t} H={h} Hkv={h_kv} D={d} "
               f"window={c['window']} seg={seg is not None} "
-              f"{str(dtype).removeprefix('torch.')}: max|d|={err:.3g} "
-              f"(tol {TOL[dtype]}) lse max|d|={lerr:.3g} kernel_ms="
-              f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              f"{fmt(lib_ms)} bound_us={bound * 1e3:.2f} ({by}) "
+              f"{str(dtype).removeprefix('torch.')} "
+              f"({'tensor cores' if tc else 'CUDA cores'}): {held} lse "
+              f"max|d|={lerr:.3g} (tol {LSE_TOL}) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={fmt(lib_ms)} "
+              f"bound_us={bound * 1e3:.2f} ({by}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"K1 disagrees with its plain version at {c}")
-        plain_causal = (d == 64 and seg is None and c["window"] is None
-                        and dtype == torch.bfloat16)
-        if plain_causal and (b, t) in ((2, 96), (8, 2048)):
+        plain_causal = (seg is None and c["window"] is None and tc)
+        if plain_causal and (b, t, d) in ((2, 96, 64), (8, 2048, 64),
+                                          (2, 2048, 128)):
             main = " (main path)" if (b, t) == (2, 96) else ""
-            probes[f"B={b} T={t}{main}"] = dict(
+            probes[f"B={b} T={t} D={d}{main}"] = dict(
                 kernel=lambda q=q, k=k, v=v: fa.flash_forward(q, k, v),
                 plain=lambda q=q, k=k, v=v: fa.flash_forward_reference(
                     q, k, v),
                 library=sdpa_fn(q, k, v, True))
-        if plain_causal and (b, t) == (2, 96):
+        if plain_causal and (b, t, d) == (2, 96, 64):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=lib_ms)
     return row, probes
@@ -543,20 +600,24 @@ def bwd_bound(b, tq, tk, h, h_kv, d, dtype, pairs, seg,
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def sdpa_bwd_fn(q, k, v, do):
+def sdpa_bwd_fn(q, k, v, do, mask=None):
     """The backward of one PyTorch attention call through autograd,
-    the forward excluded (yardstick only, never called by the port)."""
+    the forward excluded (yardstick only, never called by the port):
+    causal, or under ``mask`` ([B, Tq, Tk] bool, True where a query
+    sees a key) passed as one boolean ``attn_mask``."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     group = q.shape[2] // k.shape[2]
+    kw = (dict(is_causal=True) if mask is None
+          else dict(attn_mask=mask[:, None]))
     if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=group > 1)
+        out = F.scaled_dot_product_attention(qt, kt, vt,
+                                             enable_gqa=group > 1, **kw)
     else:
         out = F.scaled_dot_product_attention(
             qt, kt.repeat_interleave(group, dim=1),
-            vt.repeat_interleave(group, dim=1), is_causal=True)
+            vt.repeat_interleave(group, dim=1), **kw)
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                        retain_graph=True)
@@ -586,7 +647,7 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
         dict(full, b=2, t=512, tk=1024, q_off=1536, k_off=512,
              k_end=1400, window=700),
     ]
-    rows, probes = {}, {}
+    rows, probes = {}, {"K3": {}, "K4": {}}
     for c in cases:
         b, t, tk, h, h_kv, d, dtype = (c["b"], c["t"], c["tk"], c["h"],
                                        c["h_kv"], c["d"], c["dtype"])
@@ -611,11 +672,12 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
         kw = dict(causal=True, window=c["window"], k_valid_end=c["k_end"],
                   q_segments=seg_q, k_segments=seg_k)
         args = (q, k, v, do, delta, lse, c["q_off"], c["k_off"])
-        before = bwd_routes(fa)
+        before = flash_routes(fa)
         dq = fa.flash_bwd_dq(*args, **kw)
         dk, dv = fa.flash_bwd_dkv(*args, **kw)
         route = "tc" if dtype == bf else "f32"
-        took = {n: bwd_routes(fa)[n] - before[n] for n in before}
+        took = {n: flash_routes(fa)[n] - before[n] for n in before
+                if n.startswith("flash_bwd")}
         if took != {n: int(n.endswith(route)) for n in took}:
             fail(f"K3/K4 at {c} took the routes {took}")
         kw_plain = dict(kw)
@@ -645,8 +707,16 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
             *args, True, d ** -0.5, **kw_plain), iters=3, warmup=1)
         plain = (c["window"] is None and not c["seg"] and c["q_off"] == 0
                  and c["k_off"] == 0 and t == tk)
-        lib_ms = cuda_ms(sdpa_bwd_fn(q, k, v, do), iters=5,
-                         warmup=1) if plain else None
+        lib_fn = None
+        if plain:
+            lib_fn = sdpa_bwd_fn(q, k, v, do)
+        elif dtype == f32:
+            # the f32 card steps' shape: causal and segments as one
+            # boolean mask
+            lib_fn = sdpa_bwd_fn(q, k, v, do, fa.block_mask(
+                t, tk, c["q_off"], c["k_off"], True, c["window"],
+                c["k_end"], seg_q, seg_k, q.device))
+        lib_ms = cuda_ms(lib_fn, iters=5, warmup=1) if lib_fn else None
         seg = c["seg"]
         b_dq = bwd_bound(b, t, tk, h, h_kv, d, dtype, pairs, seg, 3, 1)
         b_dkv = bwd_bound(b, t, tk, h, h_kv, d, dtype, pairs, seg, 4, 2)
@@ -675,6 +745,17 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
             fail(f"K3/K4 disagree with their plain version at {c}")
         if not ok_oracle:
             fail(f"bf16 K3/K4 stray from the f32 oracle at {c}")
+        if c is full or dtype == f32:
+            shape = ("B=8 T=2048 (main path)" if c is full else
+                     f"B={b} T={t} segments f32 (the CUDA-core route)")
+            plain_fn = (lambda a=args, k2=kw_plain, dd=d, fn=plain_bwd:
+                        fn(*a, True, dd ** -0.5, **k2))
+            probes["K3"][shape] = dict(
+                kernel=lambda a=args, k2=kw: fa.flash_bwd_dq(*a, **k2),
+                plain=plain_fn, library=lib_fn)
+            probes["K4"][shape] = dict(
+                kernel=lambda a=args, k2=kw: fa.flash_bwd_dkv(*a, **k2),
+                plain=plain_fn, library=lib_fn)
         if c is full:
             rows["K3"] = dict(max_abs_err=errs["dq"][0], ms=ms_dq,
                               plain_ms=plain_ms, bound_ms=b_dq[0],
@@ -684,17 +765,6 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
                               ms=ms_dkv, plain_ms=plain_ms,
                               bound_ms=b_dkv[0], bound_by=b_dkv[1],
                               library_ms=lib_ms)
-            shape = "B=8 T=2048 (main path)"
-            plain_fn = (lambda a=args, k2=kw_plain, dd=d:
-                        fa.flash_block_grads_reference(*a, True,
-                                                       dd ** -0.5, **k2))
-            lib_fn = sdpa_bwd_fn(q, k, v, do)
-            probes["K3"] = {shape: dict(
-                kernel=lambda a=args, k2=kw: fa.flash_bwd_dq(*a, **k2),
-                plain=plain_fn, library=lib_fn)}
-            probes["K4"] = {shape: dict(
-                kernel=lambda a=args, k2=kw: fa.flash_bwd_dkv(*a, **k2),
-                plain=plain_fn, library=lib_fn)}
     return rows["K3"], rows["K4"], probes
 
 
@@ -770,8 +840,9 @@ def grouped_mm_fn(a, b, group_sizes, dw: bool):
 def phase_gmm(gm) -> tuple[dict, dict, dict]:
     """K5 (gmm, plain and transposed read) and K6 (gmm dw) against their
     plain versions at the moe_heavy shapes: 18,432 static rows, E=16,
-    block_m 128, d 512, f 4096, for both expert matrices, in bf16 and
-    f32, over four group layouts.  Returns the kernels-line rows of K5
+    block_m 128, d 512, f 4096, for both expert matrices, in bf16 (K5 on
+    the tensor-core route) and f32 (the CUDA-core route), over four
+    group layouts.  Returns the kernels-line rows of K5
     and K6 at the main path's case (router layout, bf16, w_in side),
     and, by case, callables of the kernel, its plain version and the
     library call for the device-time phase."""
@@ -831,8 +902,12 @@ def phase_gmm(gm) -> tuple[dict, dict, dict]:
                     bound = gmm_bound(live, m, k_dim, n_dim, used, es,
                                       True, e)
                     lib_b = dy
+                before = gm.tc_launches
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
+                tc = kind == "fwd" and dtype == torch.bfloat16
+                if gm.tc_launches != before + tc:
+                    fail(f"{label} took the wrong route at {name} {dtype}")
                 if not torch.isfinite(got.float()).all():
                     fail(f"{label} non-finite output at {name} {dtype}")
                 err = (got.float() - want.float()).abs().max().item()
@@ -848,9 +923,12 @@ def phase_gmm(gm) -> tuple[dict, dict, dict]:
                     plain_ms = cuda_ms(plain, iters=3, warmup=1)
                     lib, why = grouped_mm_fn(a, lib_b, gs, kind == "dw")
                     lib_ms = cuda_ms(lib, iters=5, warmup=1) if lib else None
+                route = ("tensor cores" if tc else "CUDA cores"
+                         if kind == "fwd" else "")
                 print(f"{label} M={m} K={k_dim} N={n_dim} E={e} bm={bm} "
                       f"live={live} ({name}) "
-                      f"{str(dtype).removeprefix('torch.')}: max|d|="
+                      f"{str(dtype).removeprefix('torch.')}"
+                      f"{f' ({route})' if route else ''}: max|d|="
                       f"{err:.3g} (tol {tol} x max(1, max|plain| "
                       f"{scale:.3g})) zeros kept={dead_ok} kernel_ms="
                       f"{fmt(ms)} plain_ms={fmt(plain_ms)} library_ms="
@@ -1135,7 +1213,7 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
-    fa.launches = 0
+    fa.launches = fa.tc_launches = 0
     pa.launches = 0
     for name in qm.launches:
         qm.launches[name] = 0
@@ -1144,8 +1222,9 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
         done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"flash_fwd": fa.launches, "paged_decode": pa.launches,
-              **qm.launches}
+    require_fwd_route(fa, label, cfg.dtype == torch.bfloat16)
+    counts = {"flash_fwd": fa.launches, "flash_fwd_tc": fa.tc_launches,
+              "paged_decode": pa.launches, **qm.launches}
     passes = tuple(sum(t.by_label.get(k, 0) for k in labels)
                    for labels in (DECODE_PASSES, PREFILL_PASSES))
     stats = eng.stats()
@@ -1250,28 +1329,59 @@ def phase_int8_moe_serving(fa, pa) -> dict:
 
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    fa.dq_tc_launches = fa.dkv_tc_launches = 0
+    fa.tc_launches = fa.dq_tc_launches = fa.dkv_tc_launches = 0
 
 
-def bwd_routes(fa) -> dict:
-    """K3 and K4 launches by route: tensor cores (bf16) and CUDA cores
-    (f32)."""
-    return {"flash_bwd_dq_tc": fa.dq_tc_launches,
+def flash_routes(fa) -> dict:
+    """K1, K3 and K4 launches by route: tensor cores (bf16) and CUDA
+    cores (f32)."""
+    return {"flash_fwd_tc": fa.tc_launches,
+            "flash_fwd_f32": fa.launches - fa.tc_launches,
+            "flash_bwd_dq_tc": fa.dq_tc_launches,
             "flash_bwd_dkv_tc": fa.dkv_tc_launches,
             "flash_bwd_dq_f32": fa.dq_launches - fa.dq_tc_launches,
             "flash_bwd_dkv_f32": fa.dkv_launches - fa.dkv_tc_launches}
 
 
-def require_routes(fa, label: str, tc: int, f32: int) -> dict:
+def require_routes(fa, label: str, tc: int, f32: int,
+                   fwd: tuple | None = None) -> dict:
     """Fail unless K3 and K4 each launched ``tc`` times on the
     tensor-core route and ``f32`` times on the f32 route since the
-    counters were zeroed; returns the routes' counts."""
-    routes = bwd_routes(fa)
-    want = {n: tc if n.endswith("_tc") else f32 for n in routes}
-    print(f"{label}: K3/K4 launches by route {routes} (expected {want})",
+    counters were zeroed, and K1 ``fwd`` = (tensor-core, f32) times (by
+    default as K3); returns the routes' counts."""
+    fwd_tc, fwd_f32 = fwd if fwd is not None else (tc, f32)
+    routes = flash_routes(fa)
+    want = {"flash_fwd_tc": fwd_tc, "flash_fwd_f32": fwd_f32,
+            "flash_bwd_dq_tc": tc, "flash_bwd_dkv_tc": tc,
+            "flash_bwd_dq_f32": f32, "flash_bwd_dkv_f32": f32}
+    print(f"{label}: K1/K3/K4 launches by route {routes} (expected "
+          f"{want})", flush=True)
+    if routes != want:
+        fail(f"{label}: K1/K3/K4 took the routes {routes}, expected {want}")
+    return routes
+
+
+def require_fwd_route(fa, label: str, tc: bool) -> None:
+    """Fail unless every K1 launch since the counters were zeroed took
+    the tensor-core route (``tc``, bf16) or every one the CUDA-core
+    route (f32)."""
+    if fa.tc_launches != (fa.launches if tc else 0):
+        fail(f"{label}: {fa.tc_launches} of {fa.launches} K1 launches on "
+             f"the tensor-core route, expected "
+             f"{'all' if tc else 'none'}")
+
+
+def require_gmm_routes(gm, label: str, tc: int, f32: int) -> dict:
+    """Fail unless K5 launched ``tc`` times on the tensor-core route and
+    ``f32`` times on the CUDA-core route since the counters were
+    zeroed; returns the routes' counts."""
+    routes = {"gmm_tc": gm.tc_launches,
+              "gmm_f32": gm.launches["gmm"] - gm.tc_launches}
+    want = {"gmm_tc": tc, "gmm_f32": f32}
+    print(f"{label}: K5 launches by route {routes} (expected {want})",
           flush=True)
     if routes != want:
-        fail(f"{label}: K3/K4 took the routes {routes}, expected {want}")
+        fail(f"{label}: K5 took the routes {routes}, expected {want}")
     return routes
 
 
@@ -1468,7 +1578,8 @@ def phase_train(fa, tmp: Path) -> dict:
           f"{remat_counts} (expected {want})", flush=True)
     if remat_counts != want or not np.isfinite(remat_loss):
         fail("the remat step's launches or loss are wrong")
-    require_routes(fa, "train remat step", cfg.n_layers, 0)
+    require_routes(fa, "train remat step", cfg.n_layers, 0,
+                   fwd=(2 * cfg.n_layers, 0))
     return counts
 
 
@@ -1476,6 +1587,7 @@ def zero_moe_counts(fa, gm) -> None:
     zero_counts(fa)
     for name in gm.launches:
         gm.launches[name] = 0
+    gm.tc_launches = 0
 
 
 def moe_counts(fa, gm) -> dict:
@@ -1524,6 +1636,8 @@ def phase_moe_train_small(fa, gm) -> dict:
         if device == "cuda":
             routes = require_routes(fa, "train MoE f32 small step", 0,
                                     cfg.n_layers)
+            routes.update(require_gmm_routes(
+                gm, "train MoE f32 small step", 0, 4 * cfg.n_layers))
         results[device] = (float(loss), after,
                            [t.grad.detach().cpu() for _, t in leaves],
                            moe_counts(fa, gm), [n for n, _ in leaves])
@@ -1616,6 +1730,8 @@ def phase_moe_train(fa, gm, tmp: Path) -> dict:
         fail(f"MoE training launched {counts}, expected {want}")
     counts.update(require_routes(fa, "train moe_heavy",
                                  cfg.n_layers * TRAIN_STEPS, 0))
+    counts.update(require_gmm_routes(gm, "train moe_heavy",
+                                     want["gmm"], 0))
 
     # the same three steps again from the same seed
     params2, opt2 = init_state(torch.Generator(device="cuda").manual_seed(0))
@@ -1703,13 +1819,15 @@ def phase_moe_serving(fa, pa, gm) -> dict:
     counts = {**counts, **{k: v for k, v in gm.launches.items()}}
     if counts["flash_fwd"] <= 0:
         fail("the MoE drain launched no flash kernel")
-    gm.launches["gmm"] = 0
+    gm.launches["gmm"] = gm.tc_launches = 0
     worst = teacher_forced(params, cfg, done, reqs)
     print(f"teacher-forced (moe_heavy f32, forward under gmm dispatch, K5 "
           f"launched {gm.launches['gmm']} times): worst gap {worst:.4f} "
           f"<= {TF_MARGIN}", flush=True)
     if gm.launches["gmm"] <= 0:
         fail("the MoE teacher-forced check launched no gmm kernel")
+    require_gmm_routes(gm, "moe_heavy f32 teacher-forced check", 0,
+                       gm.launches["gmm"])
     return counts
 
 
@@ -1731,7 +1849,7 @@ def main() -> None:
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
-    launches = {"flash_fwd": 0, "paged_decode": 0}
+    launches = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
 
     done_c, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                               "contiguous", top_k=50)
@@ -1773,7 +1891,8 @@ def main() -> None:
         launches[name] += counts[name]
     del done_c, done_p, done_x
     counts = phase_int8_serving(params, cfg, reqs, fa, pa)
-    for name in ("flash_fwd", "paged_decode", "int8_matmul", "int8_bmm"):
+    for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
+                 "int8_matmul", "int8_bmm"):
         launches[name] = launches.get(name, 0) + counts[name]
     del params
 
@@ -1784,7 +1903,7 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
 
     for name, n in phase_moe_train_small(fa, gm).items():
-        f32_routes[name] += n
+        f32_routes[name] = f32_routes.get(name, 0) + n
     with tempfile.TemporaryDirectory() as tmp:
         counts = phase_moe_train(fa, gm, Path(tmp))
     counts_drain = phase_moe_serving(fa, pa, gm)
@@ -1818,11 +1937,18 @@ def main() -> None:
                   + " ".join(f"{w}={fmt(t)}" for w, t in times.items()),
                   flush=True)
 
+    # K1 and K5: the tensor-core route the bf16 main paths take; the
+    # f32 route's launches (K1: the f32 MoE drains and card steps; K5:
+    # the f32 MoE card step) apart
     kernels = [
         dict(name="flash_fwd", route="cuda",
-             source="k8s_dra_driver_tpu_torch/csrc/flash_fwd.cu",
+             source="k8s_dra_driver_tpu_torch/csrc/flash_fwd_sm90.cu",
              replaces="k8s_dra_driver_tpu/ops/flash_attention.py:122",
-             launches=launches["flash_fwd"], **k1),
+             launches=launches["flash_fwd_tc"],
+             f32_route_source="k8s_dra_driver_tpu_torch/csrc/flash_fwd.cu",
+             f32_route_launches=(launches["flash_fwd"]
+                                 - launches["flash_fwd_tc"]
+                                 + f32_routes["flash_fwd_f32"]), **k1),
         dict(name="paged_decode", route="cuda",
              source="k8s_dra_driver_tpu_torch/csrc/paged_decode.cu",
              replaces="k8s_dra_driver_tpu/ops/paged_attention.py:125",
@@ -1842,9 +1968,11 @@ def main() -> None:
              f32_route_source="k8s_dra_driver_tpu_torch/csrc/flash_bwd.cu",
              f32_route_launches=f32_routes["flash_bwd_dkv_f32"], **k4),
         dict(name="gmm", route="cuda",
-             source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
+             source="k8s_dra_driver_tpu_torch/csrc/gmm_sm90.cu",
              replaces="k8s_dra_driver_tpu/ops/gmm.py:79",
-             launches=launches["gmm"], **k5),
+             launches=launches["gmm_tc"],
+             f32_route_source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
+             f32_route_launches=f32_routes["gmm_f32"], **k5),
         dict(name="gmm_dw", route="cuda",
              source="k8s_dra_driver_tpu_torch/csrc/gmm.cu",
              replaces="k8s_dra_driver_tpu/ops/gmm.py:126",

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++: K1's f32
+// route, on the CUDA cores (bf16 takes flash_fwd_sm90.cu).
 //
 // Replaces the TPU kernel `_flash_kernel` of
 // k8s_dra_driver_tpu/ops/flash_attention.py, launched there by
@@ -34,8 +35,8 @@
 // is bound by the tensor cores' bf16 rate, which this kernel does not
 // use: the CUDA-core f32 path is its ceiling today.  At the serving
 // path's prompt lengths (24-96 tokens) the whole call is a few
-// microseconds of work and launch latency bounds it.  The later speed
-// work is wgmma tiles fed by TMA (FlashAttention-3 shape).
+// microseconds of work and launch latency bounds it.  The tensor
+// cores take bf16 only, so f32 stays here.
 #include <math.h>
 #include <stdint.h>
 
@@ -220,7 +221,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace tpu_torch
 
-// q [B,T,H,D], k/v [B,T,H_kv,D] (float32 or bfloat16, contiguous),
+// q [B,T,H,D], k/v [B,T,H_kv,D] (float32, contiguous; the dtype code
+// must be float32's, bfloat16 takes flash_fwd_tc),
 // seg [B,T] int32 or null, out like q, lse [B,H,T] float32.
 // window <= 0 means no window.  Returns cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -237,9 +239,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
     case kFloat32:
       return launch_d<float>(D, q, k, v, s, out, l, B, seq, H, Hkv, causal,
                              window, scale, st);
-    case kBFloat16:
-      return launch_d<__nv_bfloat16>(D, q, k, v, s, out, l, B, seq, H, Hkv,
-                                     causal, window, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,5 +1,7 @@
 // Grouped matmul for Hopper (sm_90a), CUDA C++: K5 (gmm) and K6 (gmm dw),
-// the expert products of the dropless sparse-MoE layer.
+// the expert products of the dropless sparse-MoE layer.  K5 here is
+// the f32 route on the CUDA cores (bf16 takes gmm_sm90.cu); K6 serves
+// both dtypes.
 //
 // Replaces the TPU kernels of k8s_dra_driver_tpu/ops/gmm.py:
 //   - `gmm_kernel` (K5) replaces both `_gmm_whole_kernel` (:79) and
@@ -14,8 +16,9 @@
 //
 // Contract.  x [M, K] rows sorted by expert, every group padded to a
 // block_m multiple (block_m a multiple of 64), w [E, K, N] (or
-// [E, N, K] with trans_w), float32 or bfloat16, one dtype.  Indices come
-// from device memory, as the Pallas scalar prefetch brought them:
+// [E, N, K] with trans_w), one dtype: float32 (K5) or either (K6).
+// Indices come from device memory, as the Pallas scalar prefetch
+// brought them:
 // eb [M / block_m] int32 is each row block's expert, nu [1] int32 the
 // number of live blocks (sum of group sizes / block_m).
 //   K5: out[rows of block i] = x[block i] w[eb[i]], f32 sums, out in
@@ -252,10 +255,7 @@ extern "C" int gmm(const void* x, const void* w, const void* eb,
     case kFloat32:
       return launch_gmm<float>(x, w, e, u, out, M, K, N, block_m, trans_w,
                                st);
-    case kBFloat16:
-      return launch_gmm<__nv_bfloat16>(x, w, e, u, out, M, K, N, block_m,
-                                       trans_w, st);
-    default:
+    default:  // bfloat16 takes gmm_tc (gmm_sm90.cu)
       return cudaErrorInvalidValue;
   }
 }

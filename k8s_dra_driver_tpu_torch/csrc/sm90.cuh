@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: wgmma
-// m64n64k16 with bf16 operands and f32 accumulators, the shared-memory
-// matrix descriptor of the 128-byte swizzle, cp.async copies into that
-// swizzle, and the fences between them.
+// m64n64k16 and m64n128k16 with bf16 operands and f32 accumulators, the
+// shared-memory matrix descriptor of the 128-byte swizzle, cp.async
+// copies into that swizzle, and the fences between them.
 //
 // Tiles are [rows][64] bf16, one 128-byte row each, 1 KB aligned; eight
 // rows form a 1 KB swizzle atom in which 16-byte chunk c of row r lies
@@ -146,6 +146,55 @@ __device__ __forceinline__ void mma_rs_t(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Descriptor of a 128B-swizzled operand with a leading-dimension byte
+// offset: an MN-major operand wider than 64 columns is stored as
+// [64-column sub-tile][rows][64], and LBO is the byte stride from one
+// sub-tile to the next (SBO stays 1 KB between 8-row groups).
+__device__ __forceinline__ uint64_t desc_lbo(uint32_t a, uint32_t lbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(kAtomBytes >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void reg_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, A [64 x 16] K-major in shared memory, B [16 x 128] in
+// shared memory, K-major (kTransB = 0: 128 rows of N, SBO 1 KB) or
+// MN-major (kTransB = 1, the transpose bit: 16 rows of K, the two
+// 64-column halves LBO apart, see desc_lbo).  Accumulator layout as
+// mma_ss's, with n in [0, 16): d[4 n + 2 h + c] is row 16 w + l / 4 +
+// 8 h, column 8 n + 2 (l % 4) + c.
+template <int kTransB>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
 }
 
 }  // namespace sm90

@@ -49,6 +49,9 @@ _SIGNATURES = {
     # q, k, v, seg, out, lse, B, T, H, Hkv, D, causal, window, scale,
     # dtype, stream
     "flash_fwd": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
+    # the tensor-core K1 (bfloat16 inputs), same arguments with the
+    # output's dtype code in place of the inputs'
+    "flash_fwd_tc": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
     # q, k_pool, v_pool, tables, lengths, out, B, H, Hkv, D, bs,
     # n_pages, scale, dtype, stream
     "paged_decode": [_VP] * 6 + [_I] * 6 + [_F, _I, _VP],
@@ -62,6 +65,8 @@ _SIGNATURES = {
     "flash_bwd_dkv_tc": [_VP] * 10 + [_I] * 11 + [_F, _I, _VP],
     # x, w, eb, nu, out, M, K, N, E, block_m, trans_w, dtype, stream
     "gmm": [_VP] * 5 + [_I] * 7 + [_VP],
+    # the tensor-core K5 (bfloat16 only), same arguments
+    "gmm_tc": [_VP] * 5 + [_I] * 7 + [_VP],
     # x, dy, group_sizes, nu, dw, M, K, N, E, block_m, dtype, stream
     "gmm_dw": [_VP] * 5 + [_I] * 6 + [_VP],
     # x, q, scale, out, G, M, K, N, x_g, x_m, o_g, o_m, dtype, stream

@@ -6,10 +6,17 @@ and their plain versions.
 normalized forward through ``_flash_forward`` and the backward of its
 ``custom_vjp``, here a ``torch.autograd.Function``.
 
-- Forward: on a CUDA tensor :func:`flash_forward` launches
-  ``csrc/flash_fwd.cu`` (K1), which replaces the TPU kernel
-  ``_flash_kernel`` (launched there by ``_flash_block_attention``); on
-  a CPU tensor it takes ``flash_forward_reference``.
+- Forward: on a CUDA tensor :func:`flash_forward` launches K1, which
+  replaces the TPU kernel ``_flash_kernel`` (launched there by
+  ``_flash_block_attention``), by the route :func:`fwd_route` picks
+  from the dtype: bfloat16 on the tensor cores
+  (``csrc/flash_fwd_sm90.cu``, wgmma), float32 on the CUDA cores
+  (``csrc/flash_fwd.cu``).  On a CPU tensor it takes
+  ``flash_forward_reference``, the plain version both routes are held
+  against: q scaled and rounded to its dtype, and p rounded to v's
+  dtype per key block of ``FWD_BLOCK_K`` (the kernel's key tile)
+  against the running max, where the TPU kernel rounds them.
+  ``attention_forward`` is its f32 oracle (nothing rounded).
 - Backward: :func:`flash_block_grads`, the port of the JAX function of
   that name, launches K3 (:func:`flash_bwd_dq`, replacing
   ``_flash_bwd_dq_kernel``) and K4 (:func:`flash_bwd_dkv`, replacing
@@ -19,15 +26,17 @@ normalized forward through ``_flash_forward`` and the backward of its
   tensors it takes ``flash_block_grads_reference``, the plain version
   both routes are held against: ``attention_block_grads`` (the port of
   the JAX oracle, all f32) with p and ds rounded to the input dtype
-  before the second products, where the TPU kernels round them.
+  before the second products, where the TPU kernels round them.  It
+  recomputes the scores from the unrounded q times the scale, as the
+  JAX package's ``_bwd_common`` does.
 
 There is no other path: an unsupported shape or dtype on the card
-raises.  K1 runs f32 FMA on the CUDA cores (see its source note).
+raises.
 
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel
-launches of K1, K3 and K4 (CPU calls never count);
-``dq_tc_launches`` and ``dkv_tc_launches`` count those of K3 and K4 on
-the tensor-core route.
+launches of K1, K3 and K4 (CPU calls never count); ``tc_launches``,
+``dq_tc_launches`` and ``dkv_tc_launches`` count those on the
+tensor-core route.
 """
 
 from __future__ import annotations
@@ -45,8 +54,14 @@ dq_launches = 0
 #: launches of K4 (dk/dv) by :func:`flash_bwd_dkv`
 dkv_launches = 0
 #: of those, the launches on the tensor-core route (bfloat16)
+tc_launches = 0
 dq_tc_launches = 0
 dkv_tc_launches = 0
+
+#: keys per tile of the tensor-core K1 (``csrc/flash_fwd_sm90.cu``); the
+#: plain version walks the keys in blocks of this width by default, so
+#: that it rounds p against the running max the kernel keeps
+FWD_BLOCK_K = 128
 
 _KERNEL_HEAD_DIMS = (64, 128)
 
@@ -76,17 +91,6 @@ def _validate(q, k, v, causal, window, segment_ids):
             raise ValueError("segment_ids must be on q's device")
 
 
-def _kernel_dtype_code(x, what: str) -> int:
-    if x.shape[-1] not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the {what} kernel takes head dims "
-                         f"{_KERNEL_HEAD_DIMS}, got {x.shape[-1]}")
-    code = _build.DTYPE_CODES.get(str(x.dtype).removeprefix("torch."))
-    if code is None:
-        raise ValueError(f"the {what} kernel takes float32 or bfloat16, "
-                         f"got {x.dtype}")
-    return code
-
-
 def _require_contiguous(**tensors) -> None:
     for name, x in tensors.items():
         if x is not None and not x.is_contiguous():
@@ -103,11 +107,12 @@ def _require_int32(**tensors) -> None:
 # Forward (K1)
 # --------------------------------------------------------------------------
 
-def flash_forward_reference(q, k, v, *, causal=True, scale=None,
-                            window=None, segment_ids=None):
-    """Plain PyTorch version of the kernel: ``(out, lse)`` with out
-    ``[B, T, H, D]`` in q's dtype and lse ``[B, H, T]`` f32.  Scores,
-    masking (-1e30) and softmax in f32; GQA by repeat."""
+def attention_forward(q, k, v, *, causal=True, scale=None, window=None,
+                      segment_ids=None):
+    """The f32 oracle of K1: ``(out, lse)`` with out ``[B, T, H, D]`` in
+    q's dtype and lse ``[B, H, T]`` f32.  Scores scaled in f32, masked
+    (-1e30), softmax and p in f32, nothing rounded before the final
+    cast; GQA by repeat."""
     _validate(q, k, v, causal, window, segment_ids)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -124,6 +129,64 @@ def flash_forward_reference(q, k, v, *, causal=True, scale=None,
     return out, lse
 
 
+def flash_forward_reference(q, k, v, *, causal=True, scale=None,
+                            window=None, segment_ids=None,
+                            block_k=FWD_BLOCK_K, out_dtype=None):
+    """The plain version K1 is held against: ``(out, lse)`` with out
+    ``[B, T, H, D]`` in ``out_dtype`` (default q's dtype) and lse
+    ``[B, H, T]`` f32, rounded where the TPU kernel rounds.
+
+    q is scaled in f32 and rounded to its dtype
+    (``_flash_block_attention`` folds the scale into q).  The keys are
+    walked in blocks of ``block_k`` from key 0, with the running max
+    ``m`` and sum ``l`` in f32 and the kernel's masks (-1e30 fill, then
+    ``where(mask, exp(s - m_new), 0)``); each block's p is rounded to
+    v's dtype before p.v, as ``_flash_kernel`` does, and ``l`` sums the
+    unrounded p.  Returns ``acc / l`` and ``lse = m + log(l)``.  The
+    rounding of p depends on the running max, so on the key partition:
+    ``block_k`` must be the kernel's key tile (the default) to hold the
+    kernel, or the JAX call's ``block_k`` to hold that.  In f32 every
+    rounding is a no-op and the result is :func:`attention_forward`'s
+    to a few units in the last place.
+
+    On the card the bf16 scores are summed on the tensor cores with f32
+    accumulation (:func:`_first_product`), as the kernel sums them, so
+    that p reaches its rounding with the same f32 values."""
+    _validate(q, k, v, causal, window, segment_ids)
+    if block_k < 1:
+        raise ValueError(f"block_k must be >= 1, got {block_k}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, t, h, _ = q.shape
+    group = kv_group(h, k.shape[2])
+    qs = (q.float() * scale).to(q.dtype)
+    k = k.repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    on_tensor_cores = q.is_cuda and q.dtype == torch.bfloat16
+    s = _first_product(qs if on_tensor_cores else qs.float(),
+                       k if on_tensor_cores else k.float())
+    mask = attention_mask(t, causal, window, segment_ids, q.device)[:, None]
+    s = s.masked_fill(~mask, _NEG_INF)
+    m = torch.full((b, h, t), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, t, q.shape[3]), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, t, block_k):
+        sb = s[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, sb.amax(-1))
+        p = torch.where(mask[..., k0:k0 + block_k],
+                        torch.exp(sb - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                          vf[:, k0:k0 + block_k])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out, lse = normalize_flash_stats(acc.transpose(1, 2), m, l)
+    return out.to(out_dtype or q.dtype), lse
+
+
 def flash_attention_reference(q, k, v, *, causal=True, scale=None,
                               window=None, segment_ids=None):
     """The normalized output of :func:`flash_forward_reference`."""
@@ -132,41 +195,78 @@ def flash_attention_reference(q, k, v, *, causal=True, scale=None,
                                    segment_ids=segment_ids)[0]
 
 
-def _launch(q, k, v, causal, scale, window, segment_ids):
-    global launches
+#: K1, K3 and K4 kernel route by input dtype
+_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+
+
+def fwd_route(dtype, head_dim: int) -> str:
+    """The route K1 takes on the card for inputs of ``dtype`` and head
+    dim ``head_dim``: ``"tensor_cores"`` for bfloat16
+    (``csrc/flash_fwd_sm90.cu``), ``"cuda_cores"`` for float32
+    (``csrc/flash_fwd.cu``).  Raises for any other dtype or a head dim
+    other than 64 or 128: there is no fallback."""
+    return _route(_ROUTES, "flash forward", dtype, head_dim)
+
+
+def _route(routes, what: str, dtype, head_dim: int) -> str:
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {what} kernel takes head dims "
+                         f"{_KERNEL_HEAD_DIMS}, got {head_dim}")
+    route = routes.get(dtype)
+    if route is None:
+        raise ValueError(f"the {what} kernel takes float32 or bfloat16, "
+                         f"got {dtype}")
+    return route
+
+
+def _launch(q, k, v, causal, scale, window, segment_ids, out_dtype):
+    global launches, tc_launches
     b, t, h, d = q.shape
-    code = _kernel_dtype_code(q, "flash")
+    tc = fwd_route(q.dtype, d) == "tensor_cores"
+    if out_dtype != q.dtype and not (tc and out_dtype == torch.float32):
+        raise ValueError(f"the flash forward kernel writes q's dtype"
+                         f"{' or float32' if tc else ''}, not {out_dtype}")
     _require_contiguous(q=q, k=k, v=v, segment_ids=segment_ids)
     _require_int32(segment_ids=segment_ids)
-    out = torch.empty_like(q)
+    # the tensor-core kernel takes the output's dtype code (its inputs
+    # are bf16), the CUDA-core one the inputs'
+    code = _build.DTYPE_CODES[str(out_dtype).removeprefix("torch.")]
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    name = "flash_fwd_tc" if tc else "flash_fwd"
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_fwd(
+        rc = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             segment_ids.data_ptr() if segment_ids is not None else None,
             out.data_ptr(), lse.data_ptr(), b, t, h, k.shape[2], d,
             int(causal), int(window or 0), float(scale), code, stream)
-    _build.check(rc, "flash_fwd")
+    _build.check(rc, name)
     launches += 1
+    tc_launches += tc
     return out, lse
 
 
 def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
-                  segment_ids=None):
-    """``(out, lse)``: the kernel on CUDA tensors, the plain version on
-    CPU tensors.  q ``[B, T, H, D]``, k/v ``[B, T, H_kv, D]``
-    (float32 or bfloat16, contiguous on the card, D in {64, 128}),
-    ``segment_ids`` [B, T] int32."""
+                  segment_ids=None, out_dtype=None):
+    """``(out, lse)``: K1 on CUDA tensors, by the route
+    :func:`fwd_route` picks, and the plain version
+    :func:`flash_forward_reference` on CPU tensors.  q ``[B, T, H, D]``,
+    k/v ``[B, T, H_kv, D]`` (float32 or bfloat16, contiguous and
+    16-byte aligned on the card, D in {64, 128}), ``segment_ids``
+    [B, T] int32.  ``out_dtype`` (default q's dtype) may be float32
+    for bfloat16 inputs: the output before its final rounding."""
     _validate(q, k, v, causal, window, segment_ids)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not on_card(q, "flash_forward"):
         return flash_forward_reference(q, k, v, causal=causal,
                                        scale=scale, window=window,
-                                       segment_ids=segment_ids)
-    return _launch(q, k, v, causal, scale, window, segment_ids)
+                                       segment_ids=segment_ids,
+                                       out_dtype=out_dtype)
+    return _launch(q, k, v, causal, scale, window, segment_ids,
+                   out_dtype or q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -335,24 +435,13 @@ def _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
                              "[B, Tk]")
 
 
-#: K3/K4 kernel route by input dtype
-_BWD_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
-
-
 def bwd_route(dtype, head_dim: int) -> str:
     """The route K3 and K4 take on the card for inputs of ``dtype`` and
     head dim ``head_dim``: ``"tensor_cores"`` for bfloat16
     (``csrc/flash_bwd_sm90.cu``), ``"cuda_cores"`` for float32
     (``csrc/flash_bwd.cu``).  Raises for any other dtype or a head dim
     other than 64 or 128: there is no fallback."""
-    if head_dim not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash backward kernel takes head dims "
-                         f"{_KERNEL_HEAD_DIMS}, got {head_dim}")
-    route = _BWD_ROUTES.get(dtype)
-    if route is None:
-        raise ValueError(f"the flash backward kernel takes float32 or "
-                         f"bfloat16, got {dtype}")
-    return route
+    return _route(_ROUTES, "flash backward", dtype, head_dim)
 
 
 def _bwd_launch_args(q, k, v, do, delta, lse, q_offset, k_offset, causal,
@@ -522,9 +611,10 @@ def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
                                  window)
 
 
-__all__ = ["attention_block_grads", "attention_delta", "block_mask",
-           "bwd_route", "flash_attention", "flash_attention_reference",
+__all__ = ["FWD_BLOCK_K", "attention_block_grads", "attention_delta",
+           "attention_forward", "block_mask", "bwd_route",
+           "flash_attention", "flash_attention_reference",
            "flash_backward", "flash_block_grads",
            "flash_block_grads_reference", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_forward", "flash_forward_reference",
-           "normalize_flash_stats"]
+           "fwd_route", "normalize_flash_stats"]

@@ -10,11 +10,17 @@ belongs to one expert.  Blocks at or past the live count (the sum of
 the group sizes over ``block_m``) are the static row bound's dead tail:
 their output rows are zero.
 
-- Forward and dx: on CUDA tensors :func:`gmm_forward` launches
-  ``csrc/gmm.cu`` ``gmm_kernel`` (K5), which replaces both Pallas
-  bodies ``_gmm_whole_kernel`` and ``_gmm_kernel`` (launched there by
-  ``_gmm_impl``); ``transpose_w`` reads ``w`` as ``[E, N, K]`` for dx,
-  so no transposed copy of the experts is made.
+- Forward and dx: on CUDA tensors :func:`gmm_forward` launches K5,
+  which replaces both Pallas bodies ``_gmm_whole_kernel`` and
+  ``_gmm_kernel`` (launched there by ``_gmm_impl``), by the route
+  :func:`gmm_route` picks from the dtype: bfloat16 on the tensor cores
+  (``csrc/gmm_sm90.cu`` ``gmm_sm90_kernel``, wgmma; ``block_m`` 128,
+  K a multiple of :data:`TC_TILE_K`, N of :data:`TC_TILE_N`), float32
+  on the CUDA cores (``csrc/gmm.cu`` ``gmm_kernel``).  ``transpose_w``
+  reads ``w`` as ``[E, N, K]`` for dx, so no transposed copy of the
+  experts is made.  The JAX kernels round nothing between the
+  products, so :func:`gmm_reference` is the plain version of both
+  routes.
 - dw: :func:`gmm_dw` launches ``gmm_dw_kernel`` (K6), which replaces
   ``_gmm_dw_kernel`` (launched there by ``_gmm_dw``), f32 output, exact
   zeros for experts without rows.
@@ -27,7 +33,8 @@ from device memory (the CUDA form of the Pallas scalar prefetch), so
 routing never reads group sizes back to the host.
 
 ``launches`` counts kernel launches by name (``"gmm"``, ``"gmm_dw"``);
-CPU calls never count.
+``tc_launches`` counts the K5 launches on the tensor-core route; CPU
+calls never count.
 """
 
 from __future__ import annotations
@@ -39,10 +46,21 @@ from . import _build
 
 #: kernel launches on CUDA tensors: K5 (``"gmm"``) and K6 (``"gmm_dw"``)
 launches = {"gmm": 0, "gmm_dw": 0}
+#: of K5's launches, those on the tensor-core route (bfloat16)
+tc_launches = 0
 
-#: rows of K5's output tile; ``block_m`` must be a multiple of it, so
-#: that no tile straddles two experts
+#: rows of the CUDA-core K5's output tile; ``block_m`` must be a
+#: multiple of it, so that no tile straddles two experts
 TILE_M = 64
+
+#: the tensor-core K5's tile: ``block_m`` rows (one expert), K in steps
+#: of TC_TILE_K, N in TC_TILE_N columns
+TC_BLOCK_M = 128
+TC_TILE_K = 64
+TC_TILE_N = 128
+
+#: K5 kernel route by input dtype
+_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 
 
 def _round_up(n, k: int):
@@ -74,16 +92,17 @@ def pick_gmm_blocks(k_dim: int, n_dim: int, n_experts: int,
                     dtype=torch.bfloat16, rows: int | None = None) -> dict:
     """Grouped-matmul row block ``{"block_m": 128}`` for every shape.
 
-    K5 computes 64-row output tiles and looks up one expert per tile,
-    so ``block_m`` must be a multiple of :data:`TILE_M`; 128 bounds
-    each expert's padding at 127 rows.  K5 re-reads an expert's weights
-    once per 64-row tile whatever ``block_m`` is, so the JAX package's
-    larger blocks for experts too big for VMEM buy nothing here.  The
-    arguments mirror the JAX picker's; its v5e autotune table is never
-    read (an H100 table is later work).  The routing layer must pad
-    group sizes to the ``block_m`` returned."""
+    K5 looks up one expert per output tile: the CUDA-core route's tiles
+    are 64 rows (``block_m`` a multiple of :data:`TILE_M`), the
+    tensor-core route's :data:`TC_BLOCK_M` = 128, which it requires;
+    128 also bounds each expert's padding at 127 rows.  K5 re-reads an
+    expert's weights once per row tile whatever ``block_m`` is, so the
+    JAX package's larger blocks for experts too big for VMEM buy nothing
+    here.  The arguments mirror the JAX picker's; its v5e autotune table
+    is never read (an H100 table is later work).  The routing layer must
+    pad group sizes to the ``block_m`` returned."""
     del k_dim, n_dim, n_experts, dtype, rows
-    return {"block_m": 128}
+    return {"block_m": TC_BLOCK_M}
 
 
 def _check(x, w, group_sizes, block_m, transpose_w):
@@ -132,6 +151,34 @@ def _kernel_args(x, others, group_sizes, block_m, what):
 # K5: out[block i] = x[block i] @ w[eb[i]]
 # --------------------------------------------------------------------------
 
+def gmm_route(dtype) -> str:
+    """The route K5 takes on the card for inputs of ``dtype``:
+    ``"tensor_cores"`` for bfloat16 (``csrc/gmm_sm90.cu``),
+    ``"cuda_cores"`` for float32 (``csrc/gmm.cu``).  Raises for any
+    other dtype: there is no fallback."""
+    route = _ROUTES.get(dtype)
+    if route is None:
+        raise ValueError(f"the gmm kernel takes float32 or bfloat16, got "
+                         f"{dtype}")
+    return route
+
+
+def _tc_args(x, w, block_m: int, n_dim: int) -> None:
+    """What the tensor-core K5 takes, beyond :func:`_kernel_args`: one
+    expert per ``TC_BLOCK_M``-row tile, K and N whole tiles (no ragged
+    edge), bfloat16 x and w."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core gmm kernel takes bfloat16 x "
+                         f"and w, got {x.dtype} / {w.dtype}")
+    if block_m != TC_BLOCK_M:
+        raise ValueError(f"the tensor-core gmm kernel takes block_m "
+                         f"{TC_BLOCK_M}, got {block_m}")
+    if x.shape[1] % TC_TILE_K or n_dim % TC_TILE_N:
+        raise ValueError(f"the tensor-core gmm kernel takes K a multiple "
+                         f"of {TC_TILE_K} and N of {TC_TILE_N}, got K="
+                         f"{x.shape[1]} N={n_dim}")
+
+
 def gmm_reference(x, w, group_sizes, block_m: int = 128,
                   transpose_w: bool = False):
     """Plain PyTorch version of K5: per-block products in f32 against
@@ -153,28 +200,36 @@ def gmm_reference(x, w, group_sizes, block_m: int = 128,
 
 
 def _launch_gmm(x, w, group_sizes, block_m, transpose_w, n_dim):
+    global tc_launches
+    tc = gmm_route(x.dtype) == "tensor_cores"
     code, gs = _kernel_args(x, {"w": w}, group_sizes, block_m, "gmm")
+    if tc:
+        _tc_args(x, w, block_m, n_dim)
     m, k_dim = x.shape
     eb = _block_experts(gs, m // block_m, block_m)
     nu = _live_blocks(gs, block_m)
     out = torch.empty((m, n_dim), dtype=x.dtype, device=x.device)
+    name = "gmm_tc" if tc else "gmm"
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gmm(x.data_ptr(), w.data_ptr(), eb.data_ptr(),
-                     nu.data_ptr(), out.data_ptr(), m, k_dim, n_dim,
-                     w.shape[0], block_m, int(transpose_w), code, stream)
-    _build.check(rc, "gmm")
+        rc = getattr(lib, name)(
+            x.data_ptr(), w.data_ptr(), eb.data_ptr(), nu.data_ptr(),
+            out.data_ptr(), m, k_dim, n_dim, w.shape[0], block_m,
+            int(transpose_w), code, stream)
+    _build.check(rc, name)
     launches["gmm"] += 1
+    tc_launches += tc
     return out
 
 
 def gmm_forward(x, w, group_sizes, block_m: int = 128,
                 transpose_w: bool = False):
-    """``[M, N]`` in x's dtype: K5 on CUDA tensors, the plain version on
-    CPU tensors.  ``w`` is ``[E, K, N]``, or ``[E, N, K]`` read
-    transposed with ``transpose_w``; on the card x and w share one
-    dtype (float32 or bfloat16) and are contiguous."""
+    """``[M, N]`` in x's dtype: K5 on CUDA tensors, by the route
+    :func:`gmm_route` picks, the plain version on CPU tensors.  ``w`` is
+    ``[E, K, N]``, or ``[E, N, K]`` read transposed with
+    ``transpose_w``; on the card x and w share one dtype (float32 or
+    bfloat16) and are contiguous."""
     n_dim = _check(x, w, group_sizes, block_m, transpose_w)
     if not on_card(x, "gmm"):
         return gmm_reference(x, w, group_sizes, block_m, transpose_w)
@@ -281,5 +336,6 @@ def gmm(x, w, group_sizes, block_m: int = 128):
     return _Gmm.apply(x, w, group_sizes, block_m)
 
 
-__all__ = ["TILE_M", "gmm", "gmm_dw", "gmm_dw_reference", "gmm_forward",
-           "gmm_reference", "launches", "pick_gmm_blocks"]
+__all__ = ["TC_BLOCK_M", "TILE_M", "gmm", "gmm_dw", "gmm_dw_reference",
+           "gmm_forward", "gmm_reference", "gmm_route", "launches",
+           "pick_gmm_blocks", "tc_launches"]

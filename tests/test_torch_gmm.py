@@ -203,3 +203,85 @@ def test_picker_fits_the_kernel_tile_and_counters_start_at_zero():
     tx, tw = t(x, grad=True), t(w, grad=True)
     tg.gmm(tx, tw, t(gs), BM).sum().backward()
     assert tg.launches == before         # CPU calls never count
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "tensor_cores"),
+    (torch.float32, "cuda_cores"),
+])
+def test_route_picker_sends_each_dtype_to_its_kernel(dtype, route):
+    assert tg.gmm_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int8])
+def test_route_picker_refuses_what_no_route_takes(dtype):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tg.gmm_route(dtype)
+
+
+# (K, N, block_m, transpose_w) the tensor-core K5 refuses: K or N not a
+# whole tile, block_m other than its 128-row tile
+TC_REFUSED = {
+    "k_not_64": (96, 256, 128, False, "K a multiple of 64"),
+    "n_not_128": (128, 192, 128, False, "N of 128"),
+    "n_not_128_transposed": (128, 64, 128, True, "N of 128"),
+    "block_m_64": (128, 256, 64, False, "block_m 128"),
+    "block_m_256": (128, 256, 256, False, "block_m 128"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TC_REFUSED))
+def test_tensor_core_arguments_are_checked(name):
+    """What the tensor-core K5 refuses is refused before any launch,
+    with no fallback to the CUDA-core route, and counts nothing."""
+    k_dim, n_dim, bm, tr, match = TC_REFUSED[name]
+    x = torch.zeros((512, k_dim), dtype=torch.bfloat16)
+    shape = (2, n_dim, k_dim) if tr else (2, k_dim, n_dim)
+    w = torch.zeros(shape, dtype=torch.bfloat16)
+    before = (dict(tg.launches), tg.tc_launches)
+    with pytest.raises(ValueError, match=match):
+        tg._launch_gmm(x, w, torch.tensor([256, 256]), bm, tr, n_dim)
+    assert (tg.launches, tg.tc_launches) == before
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16),
+])
+def test_tensor_core_checker_refuses_mixed_dtypes(x_dtype, w_dtype):
+    x = torch.zeros((256, 128), dtype=x_dtype)
+    w = torch.zeros((2, 128, 128), dtype=w_dtype)
+    with pytest.raises(ValueError, match="bfloat16 x and w"):
+        tg._tc_args(x, w, tg.TC_BLOCK_M, 128)
+    with pytest.raises(ValueError, match="w is"):
+        tg._launch_gmm(x, w, torch.tensor([128, 128]), tg.TC_BLOCK_M,
+                       False, 128)
+
+
+@pytest.mark.parametrize("transpose_w", [False, True])
+@pytest.mark.parametrize("name", ["with-empty", "dead-tail"])
+def test_bf16_at_the_tensor_core_tiles_equals_jax(name, transpose_w):
+    """bf16 at shapes the tensor-core K5 takes (K 128, N 256, block_m
+    128), both orientations: the plain version it is held against sums
+    in f32 and rounds once, as the JAX kernels do, so the two packages
+    part by at most one bf16 step."""
+    groups, m = LAYOUTS[name]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((m, 128)).astype(np.float32)
+    x[int(sum(groups)):] = 0.0
+    w = rng.standard_normal((len(groups), 128, 256)).astype(np.float32)
+    w_call = np.swapaxes(w, 1, 2) if transpose_w else w
+    gs = np.asarray(groups, np.int32)
+    want = np.asarray(jg.gmm(jnp.asarray(x, jnp.bfloat16),
+                             jnp.asarray(w, jnp.bfloat16),
+                             jnp.asarray(gs), BM), np.float32)
+    tg._tc_args(t(x).to(torch.bfloat16), t(w_call).to(torch.bfloat16),
+                BM, 256)
+    got = tg.gmm_forward(t(x).to(torch.bfloat16),
+                         t(w_call).to(torch.bfloat16), t(gs), BM,
+                         transpose_w=transpose_w)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               rtol=2 ** -7, atol=2 ** -7)
+    assert not got[int(sum(groups)):].any()
