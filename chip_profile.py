@@ -64,17 +64,19 @@ TOP = 10         # device ops listed per run
 
 # device ops by kind, matched on the kernel's name in this order
 KINDS = (
-    # both routes of K1 and K5, as of K3 and K4 below: tensor cores
+    # both routes of K1, K5 and K6, as of K3 and K4 below: tensor cores
     # (bf16, the *_sm90_kernel names) and CUDA cores (f32)
     ("K1 flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("K2 paged_decode", ("paged_decode_kernel",)),
-    ("K7 int8_matmul", ("int8_matmul_kernel",)),
+    # both routes of K7 share one kernel name; its split-K second pass
+    ("K7 int8_matmul", ("int8_matmul_sm90_kernel",
+                        "int8_splitk_sum_kernel")),
     # both routes: tensor cores (bf16, the *_sm90_kernel names) and
     # CUDA cores (f32)
     ("K3 flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("K4 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                           "flash_bwd_dkv_sm90_kernel")),
-    ("K6 gmm_dw", ("gmm_dw_kernel",)),
+    ("K6 gmm_dw", ("gmm_dw_kernel", "gmm_dw_sm90_kernel")),
     ("K5 gmm", ("gmm_kernel", "gmm_sm90_kernel")),
     ("matrix products", ("gemm", "Gemm", "xmma", "cutlass", "nvjet")),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),

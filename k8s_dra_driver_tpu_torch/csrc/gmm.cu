@@ -1,7 +1,7 @@
 // Grouped matmul for Hopper (sm_90a), CUDA C++: K5 (gmm) and K6 (gmm dw),
-// the expert products of the dropless sparse-MoE layer.  K5 here is
-// the f32 route on the CUDA cores (bf16 takes gmm_sm90.cu); K6 serves
-// both dtypes.
+// the expert products of the dropless sparse-MoE layer.  Both here are
+// the f32 route on the CUDA cores (bf16 takes gmm_sm90.cu and
+// gmm_dw_sm90.cu).
 //
 // Replaces the TPU kernels of k8s_dra_driver_tpu/ops/gmm.py:
 //   - `gmm_kernel` (K5) replaces both `_gmm_whole_kernel` (:79) and
@@ -16,7 +16,7 @@
 //
 // Contract.  x [M, K] rows sorted by expert, every group padded to a
 // block_m multiple (block_m a multiple of 64), w [E, K, N] (or
-// [E, N, K] with trans_w), one dtype: float32 (K5) or either (K6).
+// [E, N, K] with trans_w), one dtype: float32.
 // Indices come from device memory, as the Pallas scalar prefetch
 // brought them:
 // eb [M / block_m] int32 is each row block's expert, nu [1] int32 the
@@ -273,10 +273,7 @@ extern "C" int gmm_dw(const void* x, const void* dy, const void* gs,
   switch (dtype) {
     case kFloat32:
       return launch_dw<float>(x, dy, g, u, d, M, K, N, E, block_m, st);
-    case kBFloat16:
-      return launch_dw<__nv_bfloat16>(x, dy, g, u, d, M, K, N, E, block_m,
-                                      st);
-    default:
+    default:  // bfloat16 takes gmm_dw_tc (gmm_dw_sm90.cu)
       return cudaErrorInvalidValue;
   }
 }

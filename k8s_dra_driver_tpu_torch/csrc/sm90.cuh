@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: wgmma
-// m64n64k16 and m64n128k16 with bf16 operands and f32 accumulators, the
+// m64n64k16 and m64n128k16 with bf16 operands and f32 accumulators
+// (either operand of the latter K-major or MN-major), the
 // shared-memory matrix descriptor of the 128-byte swizzle, cp.async
 // copies into that swizzle, and the fences between them.
 //
@@ -163,13 +164,15 @@ __device__ __forceinline__ void reg_fence(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A B, A [64 x 16] K-major in shared memory, B [16 x 128] in
-// shared memory, K-major (kTransB = 0: 128 rows of N, SBO 1 KB) or
-// MN-major (kTransB = 1, the transpose bit: 16 rows of K, the two
+// d (+)= A B, A [64 x 16] and B [16 x 128] in shared memory.  A is
+// K-major (kTransA = 0: 64 rows of M) or MN-major (kTransA = 1, the
+// transpose bit: 16 rows of K, each 64 columns of M, one swizzle atom
+// wide, so LBO is not read).  B is K-major (kTransB = 0: 128 rows of
+// N, SBO 1 KB) or MN-major (kTransB = 1: 16 rows of K, the two
 // 64-column halves LBO apart, see desc_lbo).  Accumulator layout as
 // mma_ss's, with n in [0, 16): d[4 n + 2 h + c] is row 16 w + l / 4 +
 // 8 h, column 8 n + 2 (l % 4) + c.
-template <int kTransB>
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
                                             uint64_t b, int accumulate) {
   asm volatile(
@@ -180,7 +183,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
       "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%62, %63}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -194,7 +197,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
 }  // namespace sm90

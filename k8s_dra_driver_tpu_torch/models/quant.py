@@ -10,11 +10,13 @@ output:
   computed in f32 exactly as the JAX package does, so ``q`` and
   ``scale`` are bit for bit the same;
 - matmul:    decode-shaped calls (at most ``_KERNEL_MAX_M`` = 64 rows)
-  go through the hand-written Hopper kernel K7 (``csrc/int8_matmul.cu``
-  via :func:`int8_matmul` / :func:`int8_bmm`), which reads the int8
-  weight from device memory, converts it on chip, sums in f32 and
-  applies the per-channel scale and the cast to x's dtype in its
-  epilogue;
+  go through the hand-written Hopper kernel K7
+  (``csrc/int8_matmul_sm90.cu`` via :func:`int8_matmul` /
+  :func:`int8_bmm`), which reads the int8 weight from device memory,
+  converts it on chip, sums in f32 (bf16 x on the tensor cores, f32 x
+  on the CUDA cores, :func:`int8_route`; K split across blocks by
+  :func:`int8_plan`) and applies the per-channel scale and the cast to
+  x's dtype in its epilogue;
 - larger calls take ``einsum(spec, x, q.to(x.dtype))`` and rescale
   the output in f32, as the JAX package's default path does.
 
@@ -28,14 +30,15 @@ is the same; the kernel rounds once (after the scale) where the einsum
 path rounds the product to x's dtype and again after the scale.
 
 Embeddings quantize per *row* (the gather axis) and are rescaled after
-the gather.  ``launches`` counts K7's launches by entry point; CPU calls
-take the plain versions and never count.
+the gather.  ``launches`` counts K7's launches by entry point and
+``tc_launches`` those on the tensor-core route; CPU calls take the
+plain versions and never count.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -45,6 +48,8 @@ from ..utils.device import on_card
 #: kernel launches on CUDA tensors, by entry point: K7a
 #: (``"int8_matmul"``) and K7b (``"int8_bmm"``)
 launches = {"int8_matmul": 0, "int8_bmm": 0}
+#: of K7's launches (both entry points), those on the tensor-core route
+tc_launches = 0
 
 #: decode-shaped calls (few rows) go to K7; larger M takes the einsum
 _KERNEL_MAX_M = 64
@@ -125,6 +130,84 @@ def int8_bmm_reference(x, q, scale):
     return out.to(x.dtype)
 
 
+#: K7 route by x's dtype
+_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+#: the K7 block: k rows a step (4 warps x k16), output columns, and
+#: rows by route
+INT8_K_STEP = 64
+INT8_TILE_N = 128
+INT8_TILE_M = {"tensor_cores": 16, "cuda_cores": 4}
+#: the H100's SMs; a plan aims at two waves of blocks
+_SMS = 132
+_TARGET_BLOCKS = 2 * _SMS
+#: the grid's limit on G * splits
+_MAX_Z = 65535
+#: the deep register ring (three k16 steps a warp in flight, bf16
+#: only) costs registers down to three blocks an SM: grids of at most
+#: this many blocks take it, when each warp walks at least
+#: _DEEP_RING_STEPS steps (a shorter walk has nothing to keep in flight)
+_DEEP_RING_BLOCKS = 3 * _SMS
+_DEEP_RING_STEPS = 3
+
+
+def int8_route(dtype) -> str:
+    """The route K7 takes on the card for x of ``dtype``:
+    ``"tensor_cores"`` for bfloat16 (W8A16: the weight converted to
+    bf16 in registers, exact), ``"cuda_cores"`` for float32 (f32 FMA,
+    not TF32, which would round x).  Raises for any other dtype: there
+    is no fallback."""
+    route = _ROUTES.get(dtype)
+    if route is None:
+        raise ValueError(f"the int8 kernel takes float32 or bfloat16 x, "
+                         f"got {dtype}")
+    return route
+
+
+class Int8Plan(NamedTuple):
+    """K7's grid for one call: rows and columns of a block's tile, K cut
+    into ``splits`` chunks of ``k_chunk`` rows, the blocks, and the k16
+    steps a warp keeps in its register ring (2 or 3)."""
+
+    m_tile: int
+    n_tile: int
+    splits: int
+    k_chunk: int
+    blocks: int
+    ring: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def int8_plan(g: int, m: int, k: int, n: int,
+              dtype=torch.bfloat16) -> Int8Plan:
+    """How K7 cuts ``[G, M, K] x [G, K, N]`` for x of ``dtype``.  The
+    output tiles (G x M / m_tile x N / 128) that fill the card alone
+    (at least one block an SM, the 154M unembedding) keep K whole
+    (``splits`` = 1).  Fewer tiles split K into chunks of whole k steps
+    until there are two waves of blocks (:data:`_TARGET_BLOCKS`), or
+    every chunk is one k step where K is too short for that.  The
+    chunks cover K exactly once: the last may be ragged.  A bf16 grid
+    that fits at three blocks an SM, whose warps walk at least three
+    k16 steps each, takes the deeper register ring."""
+    route = int8_route(dtype)
+    m_tile = INT8_TILE_M[route]
+    tiles = g * _cdiv(m, m_tile) * _cdiv(n, INT8_TILE_N)
+    steps = _cdiv(k, INT8_K_STEP)
+    per = steps
+    if tiles < _SMS:
+        per = max(1, steps // _cdiv(_TARGET_BLOCKS, tiles))
+    per = max(per, _cdiv(steps, max(1, _MAX_Z // g)))
+    splits = _cdiv(steps, per)
+    blocks = tiles * splits
+    # each of the block's 4 warps walks one k16 step of every k step
+    deep = (route == "tensor_cores" and blocks <= _DEEP_RING_BLOCKS
+            and per >= _DEEP_RING_STEPS)
+    return Int8Plan(m_tile, INT8_TILE_N, splits, per * INT8_K_STEP, blocks,
+                    3 if deep else 2)
+
+
 def _check(x, q, scale, batched: bool) -> None:
     want = 3 if batched else 2
     if x.ndim != want or q.ndim != want:
@@ -145,11 +228,11 @@ def _launch(x3, q3, scale2, out3, name: str) -> None:
     """K7 on ``x3`` [G, M, K] (any strides, unit stride along K: the
     shared x of the MoE up-projection has stride 0 along G), ``q3``
     [G, K, N] int8 and ``scale2`` [G, N] f32, both contiguous, into
-    ``out3`` [G, M, N] (any strides, unit stride along N)."""
-    code = _build.DTYPE_CODES.get(str(x3.dtype).removeprefix("torch."))
-    if code is None:
-        raise ValueError(f"the {name} kernel takes float32 or bfloat16 x, "
-                         f"got {x3.dtype}")
+    ``out3`` [G, M, N] (any strides, unit stride along N), by the route
+    of x's dtype and the plan :func:`int8_plan` gives."""
+    global tc_launches
+    route = int8_route(x3.dtype)
+    code = _build.DTYPE_CODES[str(x3.dtype).removeprefix("torch.")]
     if scale2.dtype != torch.float32:
         raise ValueError(f"{name}: scale must be float32, got "
                          f"{scale2.dtype}")
@@ -164,15 +247,23 @@ def _launch(x3, q3, scale2, out3, name: str) -> None:
                          f"their last dim")
     g, m, k_dim = x3.shape
     n_dim = q3.shape[2]
+    plan = int8_plan(g, m, k_dim, n_dim, x3.dtype)
+    # the f32 partial tiles of a split K, added in slice order by the
+    # kernel's second pass
+    ws = (torch.empty((plan.splits, g, m, n_dim), dtype=torch.float32,
+                      device=x3.device) if plan.splits > 1 else None)
     lib = _build.library()
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
         rc = lib.int8_matmul(x3.data_ptr(), q3.data_ptr(),
-                             scale2.data_ptr(), out3.data_ptr(), g, m,
+                             scale2.data_ptr(), out3.data_ptr(),
+                             None if ws is None else ws.data_ptr(), g, m,
                              k_dim, n_dim, x3.stride(0), x3.stride(1),
-                             out3.stride(0), out3.stride(1), code, stream)
+                             out3.stride(0), out3.stride(1), plan.splits,
+                             plan.k_chunk, plan.ring, code, stream)
     _build.check(rc, name)
     launches[name] += 1
+    tc_launches += route == "tensor_cores"
 
 
 def int8_matmul(x, q, scale):
@@ -410,7 +501,8 @@ def quantized_bytes(params: dict[str, Any]) -> tuple[int, int]:
     return stored, full
 
 
-__all__ = ["QTensor", "ein", "int8_bmm",
+__all__ = ["Int8Plan", "QTensor", "ein", "int8_bmm",
            "int8_bmm_reference", "int8_matmul", "int8_matmul_reference",
-           "launches", "qeinsum", "quantize", "quantize_for",
-           "quantize_params", "quantized_bytes", "take_rows"]
+           "int8_plan", "int8_route", "launches", "qeinsum", "quantize",
+           "quantize_for", "quantize_params", "quantized_bytes",
+           "take_rows", "tc_launches"]

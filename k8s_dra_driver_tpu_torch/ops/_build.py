@@ -69,8 +69,12 @@ _SIGNATURES = {
     "gmm_tc": [_VP] * 5 + [_I] * 7 + [_VP],
     # x, dy, group_sizes, nu, dw, M, K, N, E, block_m, dtype, stream
     "gmm_dw": [_VP] * 5 + [_I] * 6 + [_VP],
-    # x, q, scale, out, G, M, K, N, x_g, x_m, o_g, o_m, dtype, stream
-    "int8_matmul": [_VP] * 4 + [_I] * 4 + [_LL] * 4 + [_I, _VP],
+    # the tensor-core K6 (bfloat16 only), the same with dw's dtype code
+    # after the inputs'
+    "gmm_dw_tc": [_VP] * 5 + [_I] * 7 + [_VP],
+    # x, q, scale, out, ws, G, M, K, N, x_g, x_m, o_g, o_m, splits,
+    # k_chunk, ring, dtype, stream
+    "int8_matmul": [_VP] * 5 + [_I] * 4 + [_LL] * 4 + [_I] * 4 + [_VP],
 }
 
 #: dtype codes shared with csrc/common.cuh

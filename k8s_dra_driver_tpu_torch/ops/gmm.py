@@ -21,9 +21,15 @@ their output rows are zero.
   experts is made.  The JAX kernels round nothing between the
   products, so :func:`gmm_reference` is the plain version of both
   routes.
-- dw: :func:`gmm_dw` launches ``gmm_dw_kernel`` (K6), which replaces
-  ``_gmm_dw_kernel`` (launched there by ``_gmm_dw``), f32 output, exact
-  zeros for experts without rows.
+- dw: :func:`gmm_dw` launches K6, which replaces ``_gmm_dw_kernel``
+  (launched there by ``_gmm_dw``), by the route :func:`dw_route` picks
+  from the dtype: bfloat16 on the tensor cores (``csrc/gmm_dw_sm90.cu``
+  ``gmm_dw_sm90_kernel``, wgmma with both operands through the
+  transpose bits; ``block_m`` 128, K and N multiples of
+  :data:`TC_DW_TILE`), float32 on the CUDA cores (``csrc/gmm.cu``
+  ``gmm_dw_kernel``).  f32 output, exact zeros for experts without
+  rows; the backward asks the tensor-core route for w's dtype directly
+  (``out_dtype``), the f32 sums rounded once.
 - On CPU tensors both take their plain versions,
   :func:`gmm_reference` and :func:`gmm_dw_reference`.  There is no
   other path: an unsupported dtype or layout on the card raises.
@@ -33,8 +39,8 @@ from device memory (the CUDA form of the Pallas scalar prefetch), so
 routing never reads group sizes back to the host.
 
 ``launches`` counts kernel launches by name (``"gmm"``, ``"gmm_dw"``);
-``tc_launches`` counts the K5 launches on the tensor-core route; CPU
-calls never count.
+``tc_launches`` and ``dw_tc_launches`` count the K5 and K6 launches on
+the tensor-core route; CPU calls never count.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ from . import _build
 launches = {"gmm": 0, "gmm_dw": 0}
 #: of K5's launches, those on the tensor-core route (bfloat16)
 tc_launches = 0
+#: of K6's launches, those on the tensor-core route (bfloat16)
+dw_tc_launches = 0
 
 #: rows of the CUDA-core K5's output tile; ``block_m`` must be a
 #: multiple of it, so that no tile straddles two experts
@@ -59,7 +67,11 @@ TC_BLOCK_M = 128
 TC_TILE_K = 64
 TC_TILE_N = 128
 
-#: K5 kernel route by input dtype
+#: the tensor-core K6's output tile: K and N in TC_DW_TILE columns
+#: (``block_m`` TC_BLOCK_M, so every 64-row step lies in one expert)
+TC_DW_TILE = 128
+
+#: K5 and K6 kernel route by input dtype
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 
 
@@ -270,33 +282,83 @@ def gmm_dw_reference(x, dy, group_sizes, block_m: int = 128):
     return torch.einsum("be,bkn->ekn", owner, per_block)
 
 
-def _launch_dw(x, dy, group_sizes, block_m):
+def dw_route(dtype) -> str:
+    """The route K6 takes on the card for inputs of ``dtype``:
+    ``"tensor_cores"`` for bfloat16 (``csrc/gmm_dw_sm90.cu``),
+    ``"cuda_cores"`` for float32 (``csrc/gmm.cu``).  Raises for any
+    other dtype: there is no fallback."""
+    route = _ROUTES.get(dtype)
+    if route is None:
+        raise ValueError(f"the gmm_dw kernel takes float32 or bfloat16, "
+                         f"got {dtype}")
+    return route
+
+
+def _tc_dw_args(x, dy, block_m: int) -> None:
+    """What the tensor-core K6 takes, beyond :func:`_kernel_args`: one
+    expert per ``TC_BLOCK_M``-row block, K and N whole tiles of
+    :data:`TC_DW_TILE` (no ragged edge), bfloat16 x and dy."""
+    if x.dtype != torch.bfloat16 or dy.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core gmm_dw kernel takes bfloat16 x "
+                         f"and dy, got {x.dtype} / {dy.dtype}")
+    if block_m != TC_BLOCK_M:
+        raise ValueError(f"the tensor-core gmm_dw kernel takes block_m "
+                         f"{TC_BLOCK_M}, got {block_m}")
+    if x.shape[1] % TC_DW_TILE or dy.shape[1] % TC_DW_TILE:
+        raise ValueError(f"the tensor-core gmm_dw kernel takes K and N "
+                         f"multiples of {TC_DW_TILE}, got K={x.shape[1]} "
+                         f"N={dy.shape[1]}")
+
+
+def _launch_dw(x, dy, group_sizes, block_m, out_dtype):
+    global dw_tc_launches
+    tc = dw_route(x.dtype) == "tensor_cores"
     code, gs = _kernel_args(x, {"dy": dy}, group_sizes, block_m, "gmm_dw")
+    if tc:
+        _tc_dw_args(x, dy, block_m)
+        if out_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the tensor-core gmm_dw kernel writes "
+                             f"float32 or bfloat16, got {out_dtype}")
     m, k_dim = x.shape
     n_dim = dy.shape[1]
     e = gs.shape[0]
     nu = _live_blocks(gs, block_m)
-    dw = torch.empty((e, k_dim, n_dim), dtype=torch.float32,
+    # the CUDA-core route writes f32 only; the tensor-core route writes
+    # out_dtype from its accumulators
+    kernel_dtype = out_dtype if tc else torch.float32
+    dw = torch.empty((e, k_dim, n_dim), dtype=kernel_dtype,
                      device=x.device)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gmm_dw(x.data_ptr(), dy.data_ptr(), gs.data_ptr(),
-                        nu.data_ptr(), dw.data_ptr(), m, k_dim, n_dim, e,
-                        block_m, code, stream)
-    _build.check(rc, "gmm_dw")
+        args = (x.data_ptr(), dy.data_ptr(), gs.data_ptr(), nu.data_ptr(),
+                dw.data_ptr(), m, k_dim, n_dim, e, block_m, code)
+        if tc:
+            out_code = _build.DTYPE_CODES[
+                str(kernel_dtype).removeprefix("torch.")]
+            rc = lib.gmm_dw_tc(*args, out_code, stream)
+        else:
+            rc = lib.gmm_dw(*args, stream)
+    _build.check(rc, "gmm_dw_tc" if tc else "gmm_dw")
     launches["gmm_dw"] += 1
-    return dw
+    dw_tc_launches += tc
+    return dw.to(out_dtype)
 
 
-def gmm_dw(x, dy, group_sizes, block_m: int = 128):
-    """``dw`` [E, K, N] f32 of :func:`gmm_dw_reference`: K6 on CUDA
-    tensors (dy is cast to x's dtype first), the plain version on CPU
-    tensors.  The kernel writes every entry, zeros included."""
+def gmm_dw(x, dy, group_sizes, block_m: int = 128,
+           out_dtype=torch.float32):
+    """``dw`` [E, K, N] of :func:`gmm_dw_reference`, f32 sums rounded
+    once to ``out_dtype`` (float32 by default): K6 on CUDA tensors by
+    the route :func:`dw_route` picks (dy is cast to x's dtype first),
+    the plain version on CPU tensors.  The kernel writes every entry,
+    zeros included.  The tensor-core route writes float32 or bfloat16
+    from its accumulators; the CUDA-core route writes float32, cast
+    after."""
     _check_dw(x, dy, group_sizes, block_m)
     if not on_card(x, "gmm_dw"):
-        return gmm_dw_reference(x, dy, group_sizes, block_m)
-    return _launch_dw(x, dy.to(x.dtype).contiguous(), group_sizes, block_m)
+        return gmm_dw_reference(x, dy, group_sizes, block_m).to(out_dtype)
+    return _launch_dw(x, dy.to(x.dtype).contiguous(), group_sizes, block_m,
+                      out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -305,8 +367,9 @@ def gmm_dw(x, dy, group_sizes, block_m: int = 128):
 
 class _Gmm(torch.autograd.Function):
     """The custom VJP of the JAX ``gmm``: dx = gmm(dy, w^T) through K5's
-    transposed read, cast to x's dtype; dw through K6, cast to w's
-    dtype; ``group_sizes`` is data and gets no gradient."""
+    transposed read, cast to x's dtype; dw through K6, its f32 sums
+    rounded once to w's dtype (the JAX ``_gmm_bwd``'s cast);
+    ``group_sizes`` is data and gets no gradient."""
 
     @staticmethod
     def forward(ctx, x, w, group_sizes, block_m):
@@ -324,7 +387,8 @@ class _Gmm(torch.autograd.Function):
             dx = gmm_forward(dy, w, group_sizes, ctx.block_m,
                              transpose_w=True).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = gmm_dw(x, dy, group_sizes, ctx.block_m).to(w.dtype)
+            dw = gmm_dw(x, dy, group_sizes, ctx.block_m,
+                        out_dtype=w.dtype)
         return dx, dw, None, None
 
 
@@ -336,6 +400,7 @@ def gmm(x, w, group_sizes, block_m: int = 128):
     return _Gmm.apply(x, w, group_sizes, block_m)
 
 
-__all__ = ["TC_BLOCK_M", "TILE_M", "gmm", "gmm_dw", "gmm_dw_reference",
+__all__ = ["TC_BLOCK_M", "TC_DW_TILE", "TILE_M", "dw_route",
+           "dw_tc_launches", "gmm", "gmm_dw", "gmm_dw_reference",
            "gmm_forward", "gmm_reference", "gmm_route", "launches",
            "pick_gmm_blocks", "tc_launches"]

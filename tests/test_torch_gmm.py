@@ -285,3 +285,123 @@ def test_bf16_at_the_tensor_core_tiles_equals_jax(name, transpose_w):
     np.testing.assert_allclose(got.float().numpy(), want,
                                rtol=2 ** -7, atol=2 ** -7)
     assert not got[int(sum(groups)):].any()
+
+
+# ---------------------------------------------------------------------------
+# K6 routes: bf16 on the tensor cores (csrc/gmm_dw_sm90.cu), f32 on the
+# CUDA cores (csrc/gmm.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "tensor_cores"),
+    (torch.float32, "cuda_cores"),
+])
+def test_dw_route_sends_each_dtype_to_its_kernel(dtype, route):
+    assert tg.dw_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int8])
+def test_dw_route_refuses_what_no_route_takes(dtype):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tg.dw_route(dtype)
+
+
+# (K, N, block_m) the tensor-core K6 refuses: K or N not a whole
+# 128-column tile, block_m other than 128
+TC_DW_REFUSED = {
+    "k_not_128": (192, 256, 128, "K and N multiples of 128"),
+    "n_not_128": (128, 320, 128, "K and N multiples of 128"),
+    "block_m_64": (128, 256, 64, "block_m 128"),
+    "block_m_256": (128, 256, 256, "block_m 128"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TC_DW_REFUSED))
+def test_tensor_core_dw_arguments_are_checked(name):
+    """What the tensor-core K6 refuses is refused before any launch,
+    with no fallback to the CUDA-core route, and counts nothing."""
+    k_dim, n_dim, bm, match = TC_DW_REFUSED[name]
+    x = torch.zeros((512, k_dim), dtype=torch.bfloat16)
+    dy = torch.zeros((512, n_dim), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        tg._tc_dw_args(x, dy, bm)
+    before = (dict(tg.launches), tg.dw_tc_launches)
+    with pytest.raises(ValueError, match=match):
+        tg._launch_dw(x, dy, torch.tensor([256, 256]), bm, torch.float32)
+    assert (tg.launches, tg.dw_tc_launches) == before
+
+
+@pytest.mark.parametrize("x_dtype,dy_dtype", [
+    (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16),
+])
+def test_tensor_core_dw_checker_refuses_mixed_dtypes(x_dtype, dy_dtype):
+    x = torch.zeros((256, 128), dtype=x_dtype)
+    dy = torch.zeros((256, 128), dtype=dy_dtype)
+    with pytest.raises(ValueError, match="bfloat16 x and dy"):
+        tg._tc_dw_args(x, dy, tg.TC_BLOCK_M)
+    with pytest.raises(ValueError, match="dy is"):
+        tg._launch_dw(x, dy, torch.tensor([128, 128]), tg.TC_BLOCK_M,
+                      torch.float32)
+
+
+# group sizes at the tensor-core K6's tiles (E = 4, block_m 128)
+DW_TC_LAYOUTS = {
+    "hot-expert": ([0, 6 * BM, 0, 0], 6 * BM),
+    "empty-experts": ([2 * BM, 0, 0, 2 * BM], 4 * BM),
+    "dead-tail": ([BM, BM, 0, BM], 6 * BM),
+}
+
+
+@pytest.mark.parametrize("k_dim,n_dim", [(128, 128), (128, 256),
+                                         (256, 128)])
+@pytest.mark.parametrize("name", sorted(DW_TC_LAYOUTS))
+def test_dw_reference_in_bf16_equals_jax_at_tensor_core_tiles(name, k_dim,
+                                                              n_dim):
+    """bf16 x and dy at shapes the tensor-core K6 takes: the plain
+    version it is held against on the card equals the interpreted
+    Pallas ``_gmm_dw`` (bf16 products exact in f32, f32 sums in another
+    order) within 1e-5 of max(1, max|ref|); empty experts exact zeros;
+    its bf16 output (the backward's) is its f32 output rounded."""
+    groups, m = DW_TC_LAYOUTS[name]
+    rng = np.random.default_rng(13)
+    live = int(sum(groups))
+    x = rng.standard_normal((m, k_dim)).astype(np.float32)
+    dy = rng.standard_normal((m, n_dim)).astype(np.float32)
+    x[live:] = 0.0
+    dy[live:] = rng.standard_normal((m - live, n_dim))  # dead rows unread
+    gs = np.asarray(groups, np.int32)
+    xb, dyb = t(x).to(torch.bfloat16), t(dy).to(torch.bfloat16)
+    tg._tc_dw_args(xb, dyb, BM)
+    want = np.asarray(jg._gmm_dw(jnp.asarray(x, jnp.bfloat16),
+                                 jnp.asarray(dy, jnp.bfloat16),
+                                 jnp.asarray(gs), block_m=BM,
+                                 interpret=True))
+    got = tg.gmm_dw(xb, dyb, t(gs), BM)
+    assert got.dtype == torch.float32
+    scale = max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
+    for e in np.flatnonzero(gs == 0):
+        assert torch.count_nonzero(got[e]) == 0
+    direct = tg.gmm_dw(xb, dyb, t(gs), BM, out_dtype=torch.bfloat16)
+    assert torch.equal(direct, got.to(torch.bfloat16))
+
+
+def test_backward_dw_takes_w_dtype_directly():
+    """The backward asks K6 for w's dtype: in bf16 its dw is the f32
+    plain dw rounded once."""
+    groups, m = DW_TC_LAYOUTS["dead-tail"]
+    rng = np.random.default_rng(14)
+    x = t(rng.standard_normal((m, 128)).astype(np.float32)).to(
+        torch.bfloat16).requires_grad_(True)
+    w = t(rng.standard_normal((4, 128, 128)).astype(np.float32)).to(
+        torch.bfloat16).requires_grad_(True)
+    gs = t(np.asarray(groups, np.int32))
+    probe = torch.from_numpy(rng.standard_normal((m, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    (tg.gmm(x, w, gs, BM).float() * probe.float()).sum().backward()
+    dy = probe  # d(sum(out * probe)) / d out, cast to out's dtype
+    want = tg.gmm_dw_reference(x.detach(), dy, gs, BM).to(torch.bfloat16)
+    assert w.grad.dtype == torch.bfloat16
+    assert torch.equal(w.grad, want)

@@ -225,12 +225,15 @@ def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
 def test_kernel_build_key_covers_every_source():
     names = {p.name for p in _build._CSRC.glob("*.cu*")}
     assert {"flash_fwd.cu", "flash_bwd.cu", "paged_decode.cu",
-            "flash_fwd_sm90.cu", "gmm_sm90.cu", "sm90.cuh",
-            "common.cuh"} <= names
+            "flash_fwd_sm90.cu", "gmm_sm90.cu", "gmm_dw_sm90.cu",
+            "int8_matmul_sm90.cu", "sm90.cuh", "common.cuh"} <= names
     assert {p.name for p in _build._sources()} >= {"flash_fwd.cu",
                                                    "flash_bwd.cu",
                                                    "paged_decode.cu",
                                                    "flash_fwd_sm90.cu",
-                                                   "gmm_sm90.cu"}
-    assert {"flash_fwd_tc", "gmm_tc"} <= set(_build._SIGNATURES)
+                                                   "gmm_sm90.cu",
+                                                   "gmm_dw_sm90.cu",
+                                                   "int8_matmul_sm90.cu"}
+    assert {"flash_fwd_tc", "gmm_tc", "gmm_dw_tc",
+            "int8_matmul"} <= set(_build._SIGNATURES)
     assert _build._digest() == _build._digest()
