@@ -14,7 +14,8 @@ each KV layout (contiguous; paged with the paged kernel) it
    profiler records each kernel, copy and memset the card ran, and
    the host's CUDA runtime calls);
 2. fills 8 slots with 96-token prompts and times a window of pure
-   decode steps, then profiles another window of the same length.
+   decode steps, then profiles another window of the same length,
+   split by kernel kind (K1, K2 on the paged layout, the rest).
 
 It prints, per layout, the wall time, the device's busy time (the sum
 of every device op's time in the profiled run) and the busy share
@@ -67,6 +68,8 @@ KINDS = (
     # both routes of K1, K5 and K6, as of K3 and K4 below: tensor cores
     # (bf16, the *_sm90_kernel names) and CUDA cores (f32)
     ("K1 flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
+    # K2 is one kernel since its split redesign: the merge of a row's
+    # splits runs in the same launch (its last-arriving block)
     ("K2 paged_decode", ("paged_decode_kernel",)),
     # both routes of K7 share one kernel name; its split-K second pass
     ("K7 int8_matmul", ("int8_matmul_sm90_kernel",
@@ -245,6 +248,8 @@ def report(label: str, drain: dict, steady: dict) -> None:
           f"({100 * steady['busy_share']:.1f}%), "
           f"{steady['device_ops_per_step']:.1f} device ops per step",
           flush=True)
+    for kind, ms in steady["ms_by_kind"].items():
+        print(f"  {ms:10.4f} ms/step {kind}", flush=True)
     for what, rows in (("drain", drain["top"]),
                        ("steady window", steady["top"])):
         print(f"{label} {what}, top device ops:", flush=True)

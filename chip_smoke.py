@@ -18,7 +18,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    q and p where the TPU kernel does, per key tile of the kernel) and
    more loosely to the f32 oracle ``attention_forward``; f32 on the
    CUDA-core route;
-4. K2 (paged decode) likewise;
+4. K2 (paged decode) likewise, with each case's plan (splits, blocks)
+   printed, a bitwise repeat of every case, rows over several splits
+   (the merge) required and the merge's counters back at 0;
 5. K3 (flash backward dq) and K4 (dk/dv) against their plain version
    at the training shape (B=8 T=2048 H=16 Hkv=4 D=64 bf16 causal), with
    a window, segments, D=128, f32 and two ring-style blocks (offsets,
@@ -524,25 +526,70 @@ def paged_bound(lengths, b, h, h_kv, d, es) -> tuple[float, str]:
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def phase_paged(pa) -> dict:
-    """K2 against its plain version; returns the kernels-line row at a
-    mid-drain decode step of the s8_r24 paged engine (lengths
-    120/72/96/48), and, by shape, callables of the kernel and its plain
-    version at that step and at eight 2048-token rows."""
+def paged_cases(pa) -> list:
+    """K2's cases: (label, lengths, head dim, dtype).  The first five
+    are the bring-up's; then the split kernel's own: one 2048-token row
+    (many splits), eight rows of one key, rows ending exactly on and
+    next to a span's end (the next span empty or one key long), and
+    D=128 at eight 2048-token rows."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    span = pa.paged_plan(8, 4, 4, 64, 16, 2048 // 16, bf16).pages_per_split * 16
+    return [
+        ("mixed", [1, 17, 96, 2048, 1, 17, 96, 2048], 64, bf16),
+        ("main", [120, 72, 96, 48, 120, 72, 96, 48], 64, bf16),
+        ("long", [2048] * 8, 64, bf16),
+        ("mixed D=128", [1, 17, 96, 2048, 5, 33, 300, 1000], 128, bf16),
+        ("mixed f32", [1, 17, 96, 2048, 5, 33, 300, 1000], 64, f32),
+        ("one row", [2048], 64, bf16),
+        ("one key", [1] * 8, 64, bf16),
+        ("span ends", [span, 2 * span, span - 1, span + 1, 3 * span,
+                       2048, 16, span * (2048 // span)], 64, bf16),
+        ("long D=128", [2048] * 8, 128, bf16),
+    ]
+
+
+def k2_direct(pa, args, plan) -> torch.Tensor:
+    """K2 launched through its C entry on a given plan (outside the
+    wrapper and its count): the main path's step on one split, so the
+    grid holds no dead blocks, to measure what the dead blocks cost."""
+    from k8s_dra_driver_tpu_torch.ops import _build
+    q, k_pool, v_pool, tables, lens = args
+    b, h, d = q.shape
+    _, bs, h_kv, _ = k_pool.shape
+    if plan.splits != 1:
+        raise ValueError("k2_direct takes one-split plans")
+    out = torch.empty_like(q)
+    rc = _build.library().paged_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), out.data_ptr(), None, None,
+        b, h, h_kv, d, bs, tables.shape[1], plan.heads_per_block,
+        plan.pages_per_split, 1, d ** -0.5,
+        _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "paged_decode")
+    return out
+
+
+def phase_paged(pa) -> tuple[dict, dict]:
+    """K2 against its plain version at :func:`paged_cases`, each case's
+    plan printed, on pools whose null block is NaN (the kernel must
+    never read a tail entry's page); a bitwise repeat of every case;
+    the run fails unless
+    some row spanned several splits (the merge ran) and every arrival
+    counter is back at 0.  Returns the kernels-line row at a mid-drain
+    decode step of the s8_r24 paged engine (lengths 120/72/96/48), and,
+    by shape, callables of the kernel and its plain version at that
+    step, at eight and at one 2048-token rows, of the kernel on a
+    one-split grid at the step (no dead blocks), and of one empty
+    launch (what a separate merge kernel would add at least)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
-    b, h, h_kv, d, bs = 8, 16, 4, 64, 16
+    h, h_kv, bs = 16, 4, 16
     n_pages = 2048 // bs
-    row, probes = None, {}
-    cases = [
-        ([1, 17, 96, 2048, 1, 17, 96, 2048], 64, torch.bfloat16),
-        ([120, 72, 96, 48, 120, 72, 96, 48], 64, torch.bfloat16),
-        ([2048] * 8, 64, torch.bfloat16),
-        ([1, 17, 96, 2048, 5, 33, 300, 1000], 128, torch.bfloat16),
-        ([1, 17, 96, 2048, 5, 33, 300, 1000], 64, torch.float32),
-    ]
-    for lengths, d, dtype in cases:
+    row, probes, multi = None, {}, 0
+    for label, lengths, d, dtype in paged_cases(pa):
+        b = len(lengths)
         n_blocks = b * n_pages + 1
         k_pool = torch.randn((n_blocks, bs, h_kv, d), generator=gen,
                              device=dev).to(dtype)
@@ -557,36 +604,74 @@ def phase_paged(pa) -> dict:
             tables[i, :need] = perm[i * n_pages:i * n_pages + need]
         tables = torch.as_tensor(tables, device=dev)
         lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-        out = pa.paged_attention(q, k_pool, v_pool, tables, lens)
-        ref = pa.paged_attention_reference(q, k_pool, v_pool, tables,
-                                           lens)
+        # the kernel reads pools whose null block 0 is NaN, so reading a
+        # tail entry's page would show; the plain version gathers every
+        # table slot and reads copies whose null block is 0 (its masked
+        # keys add exact zeros either way)
+        clean = [x.clone() for x in (k_pool, v_pool)]
+        for x, c in zip((k_pool, v_pool), clean):
+            x[0], c[0] = float("nan"), 0.0
+        args = (q, k_pool, v_pool, tables, lens)
+        ref_args = (q, *clean, tables, lens)
+        plan = pa.paged_plan(b, h_kv, h // h_kv, d, bs, n_pages, dtype)
+        span = plan.pages_per_split * bs
+        live = [-(-min(n, n_pages * bs) // span) for n in lengths]
+        multi += sum(n > 1 for n in live)
+        out = pa.paged_attention(*args)
+        again = pa.paged_attention(*args)
+        ref = pa.paged_attention_reference(*ref_args)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        ms = cuda_ms(lambda: pa.paged_attention(q, k_pool, v_pool,
-                                                tables, lens))
-        plain_ms = cuda_ms(lambda: pa.paged_attention_reference(
-            q, k_pool, v_pool, tables, lens), iters=5)
+        same = torch.equal(out, again)
+        ms = cuda_ms(lambda: pa.paged_attention(*args))
+        plain_ms = cuda_ms(lambda: pa.paged_attention_reference(*ref_args),
+                           iters=5)
         es = torch.tensor([], dtype=dtype).element_size()
         bound, by = paged_bound(lengths, b, h, h_kv, d, es)
-        ok = bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype]
-        print(f"K2 B={b} H={h} Hkv={h_kv} D={d} bs={bs} "
+        ok = (bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype]
+              and same)
+        print(f"K2 {label}: B={b} H={h} Hkv={h_kv} D={d} bs={bs} "
               f"lengths={lengths} {str(dtype).removeprefix('torch.')}: "
-              f"max|d|={err:.3g} (tol {TOL[dtype]}) kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms=None "
-              f"bound_us={bound * 1e3:.2f} ({by}) "
+              f"plan heads_per_block={plan.heads_per_block} "
+              f"pages_per_split={plan.pages_per_split} "
+              f"splits={plan.splits} blocks={plan.blocks} live splits "
+              f"per row={live}: max|d|={err:.3g} (tol {TOL[dtype]}) "
+              f"repeat {'bitwise equal' if same else 'DIFFERS'} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms=None bound_us={bound * 1e3:.2f} ({by}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            fail(f"K2 disagrees with its plain version at {lengths}")
-        if d == 64 and dtype == torch.bfloat16 and lengths[0] in (120,
-                                                                 2048):
-            args = (q, k_pool, v_pool, tables, lens)
-            main = " (main path)" if lengths[0] == 120 else ""
-            probes[f"lengths {lengths[:4]}x2{main}"] = dict(
+            fail(f"K2 disagrees with its plain version or its repeat at "
+                 f"{label} {lengths}")
+        if label in ("main", "long", "one row", "long D=128"):
+            main = " (main path)" if label == "main" else ""
+            probes[f"{label} {lengths[:4]}{main}"] = dict(
                 kernel=lambda a=args: pa.paged_attention(*a),
-                plain=lambda a=args: pa.paged_attention_reference(*a))
-        if lengths[0] == 120 and d == 64:
+                plain=lambda a=ref_args: pa.paged_attention_reference(*a))
+        if label == "main":
+            whole = plan._replace(pages_per_split=n_pages, splits=1,
+                                  blocks=plan.blocks // plan.splits)
+            direct = k2_direct(pa, args, whole)
+            torch.cuda.synchronize()
+            if not torch.equal(direct, out):
+                fail("K2 on a one-split grid differs from the planned "
+                     "grid at the main path's step")
+            probes[f"{label} on one split, {whole.blocks} blocks"] = dict(
+                kernel=lambda a=args, p=whole: k2_direct(pa, a, p))
+            # the least a separate merge kernel would add to every call:
+            # one launch that does nothing
+            probes["one more launch (an empty kernel)"] = dict(
+                kernel=lambda: torch.cuda._sleep(0))
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound, bound_by=by, library_ms=None)
+                       bound_ms=bound, bound_by=by, library_ms=None,
+                       plan=plan._asdict())
+    if not multi:
+        fail("no K2 case spanned several splits: the merge never ran")
+    busy = [int(c.count_nonzero()) for _, c in pa._buffers.values()]
+    if not busy or any(busy):
+        fail(f"K2's arrival counters are not all back at 0: {busy}")
+    print(f"K2: {multi} rows over several splits, merged in split order; "
+          f"every arrival counter back at 0", flush=True)
     return row, probes
 
 

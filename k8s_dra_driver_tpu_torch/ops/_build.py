@@ -52,9 +52,10 @@ _SIGNATURES = {
     # the tensor-core K1 (bfloat16 inputs), same arguments with the
     # output's dtype code in place of the inputs'
     "flash_fwd_tc": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
-    # q, k_pool, v_pool, tables, lengths, out, B, H, Hkv, D, bs,
-    # n_pages, scale, dtype, stream
-    "paged_decode": [_VP] * 6 + [_I] * 6 + [_F, _I, _VP],
+    # q, k_pool, v_pool, tables, lengths, out, ws, counters, B, H, Hkv,
+    # D, bs, n_pages, heads_per_block, pages_per_split, splits, scale,
+    # dtype, stream
+    "paged_decode": [_VP] * 8 + [_I] * 9 + [_F, _I, _VP],
     # q, k, v, do, lse, delta, qseg, kseg, dq, B, Tq, Tk, k_len, H, Hkv,
     # D, q_off, k_off, causal, window, scale, dtype, stream
     "flash_bwd_dq": [_VP] * 9 + [_I] * 11 + [_F, _I, _VP],

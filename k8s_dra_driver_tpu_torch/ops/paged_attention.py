@@ -1,4 +1,4 @@
-"""Paged-attention decode: the Hopper kernel K2 and its plain version.
+"""Paged-attention decode: the Hopper kernel K2 and its plain versions.
 
 ``paged_attention`` is the port of
 ``k8s_dra_driver_tpu/ops/paged_attention.py:paged_attention``: one
@@ -12,12 +12,20 @@ math, which keeps the paged engine bitwise equal to the contiguous one
 on the CPU.
 
 The kernel is memory-bound: its least time is the valid K/V bytes of
-the step over the card's memory rate (see its source note).
+the step over the card's memory rate (see its source note).  It splits
+each row's pages across blocks as :func:`paged_plan` says and merges
+the partial softmax states in split order; ``paged_attention_split``
+is that algorithm in plain PyTorch, and ``merge_partials`` its merge.
 
-``launches`` counts kernel launches (CPU calls never count).
+``launches`` counts kernel launches (CPU calls never count): one per
+call, the merge included.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +36,73 @@ from .ring_attention import _NEG_INF
 launches = 0
 
 _KERNEL_HEAD_DIMS = (64, 128)
+_SMS = 132
+#: blocks a call aims for: about two waves on the card's SMs
+_TARGET_BLOCKS = 2 * _SMS
+#: the kernel's warps per block and K (or V) bytes of one warp's chunk
+_WARPS = 4
+_CHUNK_BYTES = 2048
+_MAX_BLOCKS = 2**31 - 1
+
+
+class PagedPlan(NamedTuple):
+    """K2's grid for one call: query heads of one KV head a block, each
+    row's table cut into ``splits`` spans of ``pages_per_split`` whole
+    pages, and the blocks (splits x rows x head groups)."""
+
+    heads_per_block: int
+    pages_per_split: int
+    splits: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_plan(b: int, h_kv: int, group: int, d: int, bs: int,
+               n_pages: int, dtype=torch.bfloat16) -> PagedPlan:
+    """How K2 cuts a call with ``b`` rows, ``h_kv`` KV heads of
+    ``group`` query heads, head dim ``d``, pages of ``bs`` tokens and
+    tables ``n_pages`` wide, from shapes alone (the lengths stay on the
+    card).  A block takes 4, 2 or 1 query heads of one KV head (the
+    most that divides ``group``).  With at least one (row, head group)
+    block an SM the table stays whole (one split); else it is cut into
+    spans of whole pages for about two waves of blocks, no span shorter
+    than one chunk for each of the block's warps.  The spans cover the
+    table exactly once; the last may be shorter."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the paged kernel takes float32 or bfloat16, "
+                         f"got {dtype}")
+    heads = next(k for k in (4, 2, 1) if group % k == 0)
+    rows = b * h_kv * (group // heads)
+    per = n_pages
+    if rows < _SMS:
+        es = torch.tensor([], dtype=dtype).element_size()
+        chunk = _CHUNK_BYTES // (d * es)          # tokens a warp's chunk
+        per = max(_cdiv(n_pages, _cdiv(_TARGET_BLOCKS, rows)),
+                  _cdiv(_WARPS * chunk, bs))
+        per = min(per, n_pages)
+    splits = _cdiv(n_pages, per)
+    blocks = rows * splits
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"the paged kernel's grid of {blocks} blocks "
+                         f"passes CUDA's limit")
+    return PagedPlan(heads, per, splits, blocks)
+
+
+def merge_partials(o, m, l, o2, m2, l2):
+    """Fold the softmax partial ``(o2, m2, l2)`` into ``(o, m, l)``: ``o``
+    unnormalized ``[..., D]``, ``m`` the running max and ``l`` the sum
+    ``[...]``, all f32.  An empty partial (m = -inf, l = o = 0) leaves
+    the other side unchanged, and two empty ones stay empty (no NaN);
+    the kernel folds its warps and its splits the same way."""
+    m_new = torch.maximum(m, m2)
+    safe = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+    ca, cb = torch.exp(m - safe), torch.exp(m2 - safe)
+    return (o * ca[..., None] + o2 * cb[..., None], m_new,
+            l * ca + l2 * cb)
 
 
 def _validate(q, k_pool, v_pool, tables, lengths):
@@ -83,6 +158,62 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
     return o.reshape(b, 1, h, d).to(q.dtype)[:, 0]
 
 
+def paged_attention_split(q, k_pool, v_pool, tables, lengths,
+                          plan: PagedPlan, scale: float | None = None):
+    """The kernel's split-and-merge algorithm in plain PyTorch: each
+    span of ``plan.pages_per_split`` pages gives an f32 partial
+    (o unnormalized, m, l) per query head, over its valid keys only
+    (a span past the row's length is empty), and :func:`merge_partials`
+    folds them in split order.  Only the normalized output is rounded
+    to q's dtype.  Same arguments and result as
+    :func:`paged_attention_reference`."""
+    b, h, d, bs, h_kv, group = _validate(q, k_pool, v_pool, tables,
+                                         lengths)
+    if scale is None:
+        scale = d ** -0.5
+    n = tables.shape[1]
+    k_cache = k_pool[tables.long()].reshape(b, n * bs, h_kv, d).float()
+    v_cache = v_pool[tables.long()].reshape(b, n * bs, h_kv, d).float()
+    qg = q.float().reshape(b, h_kv, group, d)
+    lens = lengths.long().clamp(max=n * bs)
+    span = plan.pages_per_split * bs
+    o = torch.zeros((b, h_kv, group, d), dtype=torch.float32,
+                    device=q.device)
+    m = torch.full((b, h_kv, group), -math.inf, device=q.device)
+    l = torch.zeros((b, h_kv, group), device=q.device)
+    for s in range(plan.splits):
+        lo, hi = s * span, min((s + 1) * span, n * bs)
+        scores = torch.einsum("bhgd,bkhd->bhgk", qg,
+                              k_cache[:, lo:hi]) * scale
+        pos = torch.arange(lo, hi, device=q.device)
+        valid = pos[None, :] < lens[:, None]
+        scores = scores.masked_fill(~valid[:, None, None], -math.inf)
+        m_s = scores.amax(-1)
+        safe = torch.where(m_s == -math.inf, torch.zeros_like(m_s), m_s)
+        p = torch.exp(scores - safe[..., None])
+        o_s = torch.einsum("bhgk,bkhd->bhgd", p, v_cache[:, lo:hi])
+        o, m, l = merge_partials(o, m, l, o_s, m_s, p.sum(-1))
+    out = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None],
+                      torch.zeros_like(o))
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+#: per (device, stream): the merge's f32 workspace and the (row, head
+#: group) arrival counters, grown on demand; every launch leaves the
+#: counters 0, and launches on one stream run in order
+_buffers: dict = {}
+
+
+def _buffers_for(device, stream: int, n_ws: int, n_ctr: int):
+    ws, ctr = _buffers.get((device.index, stream), (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=device)
+    if ctr is None or ctr.numel() < n_ctr:
+        ctr = torch.zeros(n_ctr, dtype=torch.int32, device=device)
+    _buffers[(device.index, stream)] = (ws, ctr)
+    return ws, ctr
+
+
 def _launch(q, k_pool, v_pool, tables, lengths, scale):
     global launches
     b, h, d = q.shape
@@ -101,17 +232,31 @@ def _launch(q, k_pool, v_pool, tables, lengths, scale):
             raise ValueError(f"{name} must be contiguous")
         if x.device != q.device:
             raise ValueError(f"{name} must be on q's device")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("the pools must be 16-byte aligned (the kernel "
+                         "copies 16 bytes at a time)")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("tables and lengths must be int32")
+    n_pages = tables.shape[1]
+    plan = paged_plan(b, h_kv, h // h_kv, d, bs, n_pages, q.dtype)
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        ws = ctr = None
+        if plan.splits > 1:
+            # the partials (o, m, l) of every (row, head, split), and
+            # the counters that elect each (row, head group)'s merge
+            ws, ctr = _buffers_for(q.device, stream,
+                                   b * h * plan.splits * (d + 2),
+                                   b * h // plan.heads_per_block)
         rc = lib.paged_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, h_kv, d, bs, tables.shape[1], float(scale), code,
-            stream)
+            None if ws is None else ws.data_ptr(),
+            None if ctr is None else ctr.data_ptr(),
+            b, h, h_kv, d, bs, n_pages, plan.heads_per_block,
+            plan.pages_per_split, plan.splits, float(scale), code, stream)
     _build.check(rc, "paged_decode")
     launches += 1
     return out
@@ -140,4 +285,6 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     return _launch(q, k_pool, v_pool, tables, lengths, scale)
 
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["PagedPlan", "merge_partials", "paged_attention",
+           "paged_attention_reference", "paged_attention_split",
+           "paged_plan"]
