@@ -40,7 +40,12 @@ contiguous window once more on the einsum route K7 displaces; and the
 16 heads, 4 KV heads, d_ff 8192, vocab 32000, bf16, random weights) in
 a steady decode window of 8 rows, bf16 weights against int8 weights,
 each beside the least time its weight bytes take at the card's memory
-rate.  Measurement only: no gate, no claim.
+rate.  Last, the fused generation block: 8 slots decoding in blocks of
+``chip_smoke.FUSED_CHAIN`` (47) steps, each one replay of a captured
+CUDA graph, on the 154M's bf16 and int8 weights: wall and device ms
+per generated token and per step, and the busy share, beside the eager
+steady window of the same weights.  Measurement only: no gate, no
+claim.
 
 The last line is one JSON object with those numbers.  Exits non-zero
 without a card.  Imports nothing of JAX and nothing of the JAX
@@ -60,6 +65,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as smoke
 
 WINDOW = 32      # decode steps per steady-state window
+FUSED_BLOCKS = 2  # fused blocks (of smoke.FUSED_CHAIN steps) per window
 TRAIN_WINDOW = 3  # training steps timed, then as many profiled
 TOP = 10         # device ops listed per run
 
@@ -173,6 +179,62 @@ def steady_profile(make_engine, request_cls, vocab: int) -> dict:
             "ms_by_kind": {k: v / WINDOW for k, v
                            in summary["ms_by_kind"].items() if v},
             "top": summary["top"]}
+
+
+def fused_steady_profile(make_engine, request_cls, vocab: int) -> dict:
+    """Eight slots decoding in fused blocks of ``chain_steps`` steps, no
+    fills: wall per generated token over FUSED_BLOCKS blocks, then
+    device time per token over FUSED_BLOCKS more.  The first step fills
+    every slot and the second runs the first block, capturing its graph
+    before the window."""
+    eng = make_engine()
+    k = eng.chain_steps
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        prompt = rng.integers(0, vocab, 96).astype(np.int32)
+        eng.submit(request_cls(uid=f"s{i}", prompt=prompt,
+                               max_new=k * (2 * FUSED_BLOCKS + 1) + 16))
+    for _ in range(2):
+        eng.step()
+
+    def window():
+        for _ in range(FUSED_BLOCKS):
+            if eng.step():
+                raise RuntimeError("a slot finished inside the window")
+
+    tokens = 8 * k * FUSED_BLOCKS
+    wall_ms = timed(window) * 1e3
+    summary = profiled(window)
+    return {"chain_steps": k, "token_wall_ms": wall_ms / tokens,
+            "token_busy_ms": summary["busy_ms"] / tokens,
+            "step_wall_ms": wall_ms / (k * FUSED_BLOCKS),
+            "step_busy_ms": summary["busy_ms"] / (k * FUSED_BLOCKS),
+            "busy_share": summary["busy_ms"] / wall_ms,
+            "device_ops_per_step": summary["device_ops"] / (k * FUSED_BLOCKS),
+            "ms_by_kind": {kind: v / (k * FUSED_BLOCKS) for kind, v
+                           in summary["ms_by_kind"].items() if v},
+            "graphs": eng.stats()["graph_captures_total"],
+            "top": summary["top"]}
+
+
+def report_fused(label: str, fused: dict, eager: dict) -> None:
+    """A fused window beside the eager steady window of the same
+    weights (8 tokens a step)."""
+    print(f"{label} fused steady decode (chain_steps="
+          f"{fused['chain_steps']}): {fused['token_wall_ms']:.4f} ms wall "
+          f"and {fused['token_busy_ms']:.4f} ms device per token "
+          f"({fused['step_wall_ms']:.3f} / {fused['step_busy_ms']:.3f} ms "
+          f"per step, busy {100 * fused['busy_share']:.1f}%, "
+          f"{fused['device_ops_per_step']:.1f} device ops per step); eager: "
+          f"{eager['step_wall_ms'] / 8:.4f} ms wall and "
+          f"{eager['step_busy_ms'] / 8:.4f} ms device per token "
+          f"({eager['step_wall_ms']:.3f} / {eager['step_busy_ms']:.3f} ms "
+          f"per step, busy {100 * eager['busy_share']:.1f}%)", flush=True)
+    for kind, ms in fused["ms_by_kind"].items():
+        print(f"  {kind}: {ms:.4f} ms per step", flush=True)
+    for row in fused["top"]:
+        print(f"  {row['ms']:9.3f} ms {row['count']:6d}x {row['op']}",
+              flush=True)
 
 
 def by_kind(prof) -> dict:
@@ -350,8 +412,20 @@ def main() -> None:
         aux_loss_weight=smoke.MOE_AUX_WEIGHT), smoke.MOE_B, smoke.MOE_T)
     report_train(moe, "moe_heavy train step (gmm)")
     int8 = int8_profile(params, cfg, ServingEngine, Request)
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    fused = {}
+    for label, p, eager in (
+            ("bf16", params, out["contiguous"]["steady"]),
+            ("int8", quantize_params(params, cfg),
+             int8["154m_int8_contiguous"])):
+        def make_engine(p=p):
+            return ServingEngine(p, cfg, slots=8, top_k=50,
+                                 chain_steps=smoke.FUSED_CHAIN)
+        fused[label] = fused_steady_profile(make_engine, Request, cfg.vocab)
+        report_fused(f"154M {label} weights, contiguous", fused[label], eager)
     print(json.dumps({"device": kind, "layouts": out, "train": train,
-                      "moe_train": moe, "int8": int8}), flush=True)
+                      "moe_train": moe, "int8": int8, "fused": fused}),
+          flush=True)
 
 
 if __name__ == "__main__":

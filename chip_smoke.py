@@ -91,20 +91,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
     serves: a whole number of passes, at least the drain's decode steps
     and at most all its forward passes (by dispatch label), every one
     on the tensor-core route;
-16. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
+16. fused generation blocks (``phase_fused_serving``): s8_r24 drained
+    on the step engine and at ``chain_steps`` = 47 (the JAX package's
+    serving probe), where every block is one replay of a captured CUDA
+    graph, for the 154M on bf16 weights, on int8 weights (K7a inside
+    the graph) with the contiguous cache and with the int8 KV cache,
+    and for moe_heavy in f32: f32 streams byte-equal to the step
+    engine's, bf16 ones within the teacher-forced margin (the
+    byte-equal count printed), K7a exactly 49 a pass with the graphs'
+    passes counted as decode passes, no block outside a graph,
+    dispatches plus readbacks per token at least 8x fewer; tokens/s,
+    wall ms per decode step and per token beside the step engine's,
+    graphs captured and their seconds;
+17. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
     passes, every one on the CUDA-core route;
-17. each kernel's device time at its main-path shape and at a long
+18. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
-18. one JSON line naming every kernel with its launches on the main
+19. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
     plain version and its times; K1, K3-K6 name their tensor-core
     source and launches, and their f32 route's apart; K7 its launches
     by route.  A kernel or library reading below its bound is flagged
     impossible, re-timed cold and, if still below, not used;
-19. last line: ``{"ok": true, "device": {...}}``.
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Every drain and step holds its K1, K5, K6 and K7 launches to the route
 of its dtype: bf16 on the tensor cores, f32 on the CUDA cores.
@@ -313,17 +325,22 @@ def fmt(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-def phase_device() -> str:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a "
-             "CUDA card")
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a "
+             "CUDA card")
+    print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -1354,18 +1371,35 @@ def k7_passes(launched: int, per_pass: int, passes, label: str) -> int:
 def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     """Drive one engine over ``reqs`` with the kernel counters zeroed
     just before and read just after; returns (finished, counts, stats,
-    passes): ``passes`` is (decode steps, prefills), the decode layer's
-    forward passes by dispatch label."""
+    passes): ``passes`` is (decode passes, prefills), the decode
+    layer's forward passes by dispatch label, the fused block's passes
+    (its graphs' replayed steps and warm-ups) counted as decode
+    passes.  ``stats`` adds the run's wall seconds, generated tokens,
+    decode steps, and dispatches plus readbacks to the engine's.
+
+    A step engine (``chain_steps`` 1) warms up on a separate engine; a
+    fused engine drains the traffic once before the measured run on
+    the same engine, so that every graph the run replays is captured
+    before it."""
     from k8s_dra_driver_tpu_torch.models import quant as qm
     from k8s_dra_driver_tpu_torch.utils import dispatch
+    fused = kw.get("chain_steps", 1) > 1
     warm = engine_cls(params, cfg, slots=8, **kw)
-    for r in reqs[:2]:
-        warm.submit(type(r)(uid="w" + r.uid, prompt=r.prompt, max_new=2))
+    for r in reqs if fused else reqs[:2]:
+        warm.submit(r if fused else type(r)(uid="w" + r.uid,
+                                            prompt=r.prompt, max_new=2))
     warm.run()
+    eng = warm if fused else engine_cls(params, cfg, slots=8, **kw)
     del warm
-    eng = engine_cls(params, cfg, slots=8, **kw)
     for r in reqs:
         eng.submit(r)
+    graphs = eng._graphs
+
+    def graph_counts():
+        return (0, 0) if graphs is None else (graphs.passes, graphs.replays)
+
+    before = graph_counts()
+    steps0 = eng.stats()["decode_steps_total"]
     torch.cuda.synchronize()
     fa.launches = fa.tc_launches = 0
     pa.launches = 0
@@ -1389,15 +1423,22 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
               "int8_tc": qm.tc_launches}
     passes = tuple(sum(t.by_label.get(k, 0) for k in labels)
                    for labels in (DECODE_PASSES, PREFILL_PASSES))
+    after = graph_counts()
+    passes = (passes[0] + after[0] - before[0], passes[1])
     stats = eng.stats()
     gen_tokens = sum(len(f.tokens) - f.n_prompt for f in done)
+    steps = stats["decode_steps_total"] - steps0
+    stats.update(wall_s=wall, generated=gen_tokens, steps=steps,
+                 replays=after[1] - before[1],
+                 dispatches_readbacks=t.dispatches + t.readbacks,
+                 by_label=t.by_label)
     if len(done) != len(reqs):
         fail(f"{label}: {len(done)} of {len(reqs)} requests finished")
     print(f"engine {label}: {len(done)} finished, {gen_tokens} tokens in "
           f"{wall:.3f} s = {gen_tokens / wall:.1f} tokens/s, "
-          f"{1e3 * wall / max(stats['decode_steps_total'], 1):.3f} ms "
-          f"per decode step (wall), kernel launches {counts}",
-          flush=True)
+          f"{1e3 * wall / max(steps, 1):.3f} ms per decode step and "
+          f"{1e3 * wall / max(gen_tokens, 1):.4f} ms per token (wall), "
+          f"kernel launches {counts}", flush=True)
     print(f"engine {label} stats: {json.dumps(stats)}", flush=True)
     return done, counts, stats, passes
 
@@ -1487,6 +1528,115 @@ def phase_int8_moe_serving(fa, pa) -> dict:
           f"{n} passes of at most 64 rows: {passes[0]} decode steps + "
           f"{n - passes[0]} of {passes[1]} prefills", flush=True)
     return counts
+
+
+#: the fused engine's block length: the JAX package's serving probe
+#: drains s8_r24 at chain_steps=47 (bench.py:1222,
+#: tools/bench_serving.py:53)
+FUSED_CHAIN = 47
+#: a fused drain pays at least this many times fewer host dispatches
+#: plus readbacks per generated token than the step engine on the same
+#: traffic: the JAX package's gate (tests/test_decode.py:426-452)
+FUSED_AMORTIZATION = 8
+
+
+def phase_fused_serving(params, cfg, reqs, fa, pa) -> dict:
+    """Fused generation blocks on the card: each variant drains s8_r24
+    twice in this call, on the step engine and at ``chain_steps`` =
+    FUSED_CHAIN, where every block is one replay of a captured CUDA
+    graph.  Variants: the 154M on bf16 weights (K1 for the fills,
+    outside the graph), on ``quantize_params`` weights (K7a inside the
+    graph, tensor-core route) with the contiguous cache and with the
+    contiguous int8 KV cache, and the moe_heavy drain in f32 (dense
+    dispatch; no K7).  Gates: f32 streams byte-equal to the step
+    engine's; bf16 greedy streams within TF_MARGIN teacher-forced (the
+    byte-equal count printed); K7 launches exact, those inside the
+    graphs included; no block outside a graph; dispatches plus
+    readbacks per token at least FUSED_AMORTIZATION times fewer.
+    Returns the fused drains' summed launches."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    qparams = quantize_params(params, cfg)
+    moe_cfg = moe_heavy_config(dtype=torch.float32)
+    moe_params = init_params(moe_cfg, torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    per_pass = 6 * cfg.n_layers + 1
+    total: dict = {}
+    summary = []
+    for label, p, c, r in (
+            ("154M bf16 weights, contiguous", params, cfg, reqs),
+            ("154M int8 weights, contiguous", qparams, cfg, reqs),
+            ("154M int8 weights, contiguous int8 KV", qparams,
+             dataclasses.replace(cfg, kv_cache_dtype="int8"), reqs),
+            ("moe_heavy f32, contiguous", moe_params, moe_cfg,
+             s8_r24(moe_cfg.vocab))):
+        int8 = p is qparams
+        step, _, s_stats, _ = drain(ServingEngine, p, c, r, fa, pa,
+                                    f"{label}, chain_steps=1", top_k=50)
+        done, counts, stats, passes = drain(
+            ServingEngine, p, c, r, fa, pa,
+            f"{label}, chain_steps={FUSED_CHAIN}", top_k=50,
+            chain_steps=FUSED_CHAIN)
+        blocks = stats["by_label"].get("decode_fused_rows", 0)
+        stray = [k for k in DECODE_PASSES if stats["by_label"].get(k)]
+        if stray or blocks <= 0 or blocks != stats["replays"]:
+            fail(f"{label}: {blocks} blocks, {stats['replays']} graph "
+                 f"replays, decode labels {stray}: every block must be "
+                 f"one graph replay")
+        if counts["flash_fwd"] <= 0 or counts["int8_bmm"] \
+                or bool(counts["int8_matmul"]) != int8:
+            fail(f"{label}: launches {counts}, expected K1 and "
+                 f"{'K7a' if int8 else 'no K7'}")
+        if int8:
+            n = k7_passes(counts["int8_matmul"], per_pass, passes, label)
+            print(f"{label}: K7a launched {counts['int8_matmul']} = "
+                  f"{per_pass} x {n} passes: {passes[0]} decode passes "
+                  f"(in {blocks} graph replays) + "
+                  f"{n - passes[0]} of {passes[1]} prefills", flush=True)
+        by_uid = {f.uid: f.tokens for f in step}
+        same = sum(np.array_equal(f.tokens, by_uid[f.uid]) for f in done)
+        if c.dtype == torch.float32:
+            if same != len(done):
+                fail(f"{label}: {len(done) - same} f32 streams differ from "
+                     f"the step engine's")
+        else:
+            worst = teacher_forced(p, c, done, r)
+            print(f"teacher-forced ({label}, fused): worst gap "
+                  f"{worst:.4f} <= {TF_MARGIN}", flush=True)
+        per_tok = (s_stats["dispatches_readbacks"] / s_stats["generated"],
+                   stats["dispatches_readbacks"] / stats["generated"])
+        if per_tok[0] < FUSED_AMORTIZATION * per_tok[1]:
+            fail(f"{label}: {per_tok[1]:.4f} dispatches + readbacks per "
+                 f"token fused against {per_tok[0]:.4f} stepwise: not "
+                 f"{FUSED_AMORTIZATION}x fewer")
+        row = {"label": label, "streams_equal": same,
+               "streams": len(done),
+               "dispatch_readbacks_per_token": per_tok,
+               "graphs": stats["graph_captures_total"],
+               "capture_s": stats["graph_capture_s"]}
+        for key, st in (("step", s_stats), ("fused", stats)):
+            row[key] = {
+                "tokens_per_s": st["generated"] / st["wall_s"],
+                "wall_ms_per_step": 1e3 * st["wall_s"] / max(st["steps"], 1),
+                "wall_ms_per_token": 1e3 * st["wall_s"] / st["generated"],
+                "decode_steps": st["steps"]}
+        print(f"fused {label} ({card_line()}): {same}/{len(done)} streams "
+              f"byte-equal to the step engine's; tokens/s "
+              f"{row['step']['tokens_per_s']:.1f} -> "
+              f"{row['fused']['tokens_per_s']:.1f}; wall ms per decode step "
+              f"{row['step']['wall_ms_per_step']:.3f} -> "
+              f"{row['fused']['wall_ms_per_step']:.3f}, per token "
+              f"{row['step']['wall_ms_per_token']:.4f} -> "
+              f"{row['fused']['wall_ms_per_token']:.4f}; dispatches + "
+              f"readbacks per token {per_tok[0]:.4f} -> {per_tok[1]:.4f}; "
+              f"{row['graphs']} graphs captured in {row['capture_s']:.3f} s, "
+              f"{blocks} blocks each one replay", flush=True)
+        summary.append(row)
+        for name, k in counts.items():
+            total[name] = total.get(name, 0) + k
+    print(f"fused serving: {json.dumps(summary)}", flush=True)
+    return total
 
 
 def zero_counts(fa) -> None:
@@ -2062,6 +2212,10 @@ def main() -> None:
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
+    counts = phase_fused_serving(params, cfg, reqs, fa, pa)
+    for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
+                 "int8_matmul", "int8_bmm", "int8_tc"):
+        launches[name] = launches.get(name, 0) + counts[name]
     del params
 
     f32_routes = phase_train_small(fa)
@@ -2079,7 +2233,7 @@ def main() -> None:
     for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths (8 drains + "
+    print(f"kernel launches on the main paths (12 drains + "
           f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy): "
           f"{launches}", flush=True)
 

@@ -31,9 +31,16 @@ updated and returned.  Callers that must keep a tensor intact (prefix
 entries) clone it first; each such place says so.
 
 Sampling: ``jax.random`` streams cannot be reproduced, so sampled
-draws use ``torch.Generator``s (one per request in the engine): the
-same seed gives the same tokens whatever the batch or schedule.
-``_filter_logits`` is deterministic and matches the reference exactly.
+draws use ``torch.Generator``s (one per slot in the engine, reseeded
+with each request's seed at its fill): the same seed gives the same
+tokens whatever the batch or schedule.  ``_filter_logits`` is
+deterministic and matches the reference exactly.
+
+**Fused generation block** (``decode_fused_rows``): up to k per-row
+decode steps with sampling, KV writes and per-row EOS / budget stops
+on the device, one step body for both forms: a loop with an early
+exit (the CPU path) and, on the card, one captured CUDA graph per
+block length (``FusedBlockGraph``), replayed once per block.
 
 Parity contract (tests/test_torch_decode.py): prefill + stepwise
 decode logits equal the training forward at every position, and equal
@@ -44,13 +51,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 
+import numpy as np
 import torch
 
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..utils import dispatch
-from .quant import ein, take_rows
+from . import quant
+from .quant import QTensor, ein, take_rows
 from .transformer import (Params, TransformerConfig, _dense_mlp, _moe_mlp,
                           require_single_device, rms_norm, rotary)
 
@@ -376,8 +386,9 @@ def sample_token(logits, generator, temperature, top_k: int = 0,
 def select_next_tokens(logits, generators, temps, top_k: int = 0,
                        top_p: float = 0.0):
     """Per-row greedy/sampled next-token merge: ``[B, V]`` logits,
-    per-row ``generators`` (None for greedy rows) and ``temps`` (0 =
-    greedy) -> next tokens [B] (long, on the logits' device).  Greedy
+    per-row ``generators`` (a greedy row's is never drawn from, and may
+    be None) and ``temps`` (0 = greedy) -> next tokens [B] (long, on
+    the logits' device).  Greedy
     rows take the raw argmax; each sampled row draws from its own
     generator, so a row's tokens never depend on its batch mates.  The
     one definition behind the engine's step and its batched fills."""
@@ -387,6 +398,295 @@ def select_next_tokens(logits, generators, temps, top_k: int = 0,
             nxt[i] = sample_token(logits[i], generators[i], float(temp),
                                   top_k, top_p)
     return nxt
+
+
+def sample_rows(logits, generators, temps, top_k: int = 0,
+                top_p: float = 0.0):
+    """The form of :func:`select_next_tokens` that a CUDA graph can
+    hold: ``temps`` is a [B] float32 tensor on the logits' device and
+    every row has a generator.  Every row draws from its own generator
+    through :func:`sample_token` on its own [V] row (a greedy row draws
+    at temperature 1 and its draw is discarded), and greedy rows take
+    the raw argmax, merged on the device with ``torch.where``: no host
+    branch and no host value.  A sampled row runs the same ops with the
+    same temperature as in :func:`select_next_tokens` and consumes its
+    generator the same way, so it draws the same token."""
+    sampled = temps > 0
+    draw_t = torch.where(sampled, temps, 1.0)
+    draws = torch.stack([
+        sample_token(logits[i], gen, draw_t[i], top_k, top_p)
+        for i, gen in enumerate(generators)])
+    return torch.where(sampled, draws, logits.argmax(dim=-1))
+
+
+# -- the fused generation block ---------------------------------------
+#
+# Up to k per-row decode steps with sampling, KV writes, per-row EOS and
+# budget stops and a frozen-row mask all on the device.  One step body
+# (_block_step) serves both forms: decode_fused_rows loops it with the
+# JAX package's early exit (the CPU path), FusedBlockGraph captures it
+# k times into one CUDA graph (the card's form of the JAX package's
+# one-dispatch lax.while_loop).
+
+
+@dataclasses.dataclass
+class _BlockState:
+    """The block's inputs and per-row state, one tensor each, updated in
+    place by :func:`_block_step` (in a graph: its fixed-address
+    buffers).  ``last``, ``pos``, ``budget`` and ``eos`` are rows of
+    one [4, B] long tensor, so the host uploads them in one copy."""
+
+    ints: torch.Tensor       # [4, B] long: last, pos, budget, eos
+    temps: torch.Tensor      # [B] f32 (0 = greedy)
+    done: torch.Tensor       # [B] bool
+    emitted: torch.Tensor    # [B] int32
+    packed: torch.Tensor     # [B, k+1] int32: tokens, then each count
+    rows_done: torch.Tensor  # [] long
+
+    @classmethod
+    def empty(cls, b: int, k: int, device) -> "_BlockState":
+        return cls(
+            ints=torch.zeros((4, b), dtype=torch.long, device=device),
+            temps=torch.zeros(b, dtype=torch.float32, device=device),
+            done=torch.zeros(b, dtype=torch.bool, device=device),
+            emitted=torch.zeros(b, dtype=torch.int32, device=device),
+            packed=torch.zeros((b, k + 1), dtype=torch.int32,
+                               device=device),
+            rows_done=torch.zeros((), dtype=torch.long, device=device))
+
+    def begin(self) -> None:
+        """Start a block from the uploaded inputs: a row of budget 0 is
+        frozen from step 0."""
+        torch.le(self.ints[2], 0, out=self.done)
+        self.emitted.zero_()
+        self.packed.zero_()
+
+    def finish(self) -> None:
+        self.packed[:, -1] = self.emitted
+        self.rows_done.copy_(self.done.sum())
+
+
+def _block_step(params: Params, cfg: TransformerConfig, cache: KVCache,
+                s: _BlockState, j: int, generators, top_k: int,
+                top_p: float) -> None:
+    """Step ``j`` of the block, in place on ``s`` and the cache.  A
+    frozen row keeps its position, ``last`` and count; its K/V write
+    lands at its frozen position, the slot just past what it emitted
+    (in bounds: its budget stopped it at ``max_seq - 1``), which no
+    live query reads.  Its generator still draws; the draw is
+    discarded, and a frozen row never runs again before its slot is
+    refilled and its generator reseeded."""
+    last, pos, budget, eos = s.ints
+    logits, _ = _rows_forward(params, last[:, None], cfg, cache, pos)
+    nxt = sample_rows(logits[:, 0], generators, s.temps, top_k, top_p)
+    alive = ~s.done
+    s.packed[:, j] = torch.where(alive, nxt, 0)
+    s.emitted += alive
+    pos += alive
+    last.copy_(torch.where(alive, nxt, last))
+    s.done |= alive & (((eos >= 0) & (nxt == eos)) | (s.emitted >= budget))
+
+
+@dispatch.counted("decode_fused_rows")
+def decode_fused_rows(params: Params, last: torch.Tensor,
+                      cfg: TransformerConfig, cache: KVCache,
+                      pos_rows: torch.Tensor, k: int, generators,
+                      temps: torch.Tensor, budget: torch.Tensor,
+                      eos: torch.Tensor, top_k: int = 0, top_p: float = 0.0
+                      ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """The generation block, step by step: up to ``k`` per-row decode
+    steps of :func:`_block_step`, leaving as soon as every row is done
+    (the JAX package's ``lax.while_loop``; the host reads ``done``
+    between steps, which on the card costs a sync a step, so the
+    engine replays a :class:`FusedBlockGraph` there instead).
+
+    ``last``, ``pos_rows``, ``budget`` (tokens each row may still emit;
+    0 = inactive from step 0) and ``eos`` (-1 = none) are [B];
+    ``temps`` [B] (0 = greedy) and ``generators`` one per row, as
+    :func:`sample_rows` takes them.  Returns ``(packed [B, k+1] int32,
+    rows_finished [], cache)``: ``packed[:, :k]`` the tokens (0 past a
+    row's count), ``packed[:, k]`` each row's emitted count; the cache
+    is written in place."""
+    b = last.shape[0]
+    dev = cache.k[0].device
+    s = _BlockState.empty(b, k, dev)
+    for row, vals in enumerate((last, pos_rows, budget, eos)):
+        s.ints[row] = torch.as_tensor(vals, device=dev)
+    s.temps.copy_(torch.as_tensor(temps, dtype=torch.float32))
+    s.begin()
+    for j in range(k):
+        if bool(s.done.all()):
+            break
+        _block_step(params, cfg, cache, s, j, generators, top_k, top_p)
+    s.finish()
+    return s.packed, s.rows_done, cache
+
+
+def block_length(k: int, need: int) -> int:
+    """The captured length a block of at most ``k`` steps replays when
+    its active rows may emit at most ``need`` tokens: the smallest of
+    1, 2, 4, ... (below ``k``) and ``k`` that is at least
+    ``min(k, need)``.  At most about log2(k) + 1 graphs per engine;
+    steps past every row's stop run frozen (device time only, the
+    same tokens)."""
+    want = min(k, max(need, 1))
+    n = 1
+    while n < want:
+        n *= 2
+    return min(n, k)
+
+
+def _tensor_ptrs(tree) -> list[int]:
+    """Every tensor's data pointer in a parameter tree (dicts, lists,
+    ``QTensor``s), in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree.data_ptr()]
+    if isinstance(tree, QTensor):
+        return [tree.q.data_ptr(), tree.scale.data_ptr()]
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree) for p in _tensor_ptrs(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [p for item in tree for p in _tensor_ptrs(item)]
+    return []
+
+
+def _k7_counts() -> tuple[dict, int]:
+    """K7's launch counters (models/quant.py), the only kernel the
+    block's forward launches: the contiguous cache is read by plain
+    ops, and serving's MoE layers take the dense dispatch."""
+    return dict(quant.launches), quant.tc_launches
+
+
+class FusedBlockGraph:
+    """The fused block on the card: one CUDA graph per block length
+    (:func:`block_length`), captured lazily, each that many steps of
+    :func:`_block_step` between ``begin`` and ``finish``; a block is one
+    replay, one upload of the inputs and one readback of the packed
+    array and the rows-finished count.
+
+    - **Fixed-address buffers**: a :class:`_BlockState` (the inputs
+      ``last``/``pos``/``budget``/``eos``/``temps``, the packed output,
+      the rows-finished count), pinned host twins for the two uploads
+      and two readbacks, and one memory pool shared by this runner's
+      graphs (nothing a graph allocates outlives its replay, and the
+      graphs run one after another on one stream).
+    - **Generators**: ``generators`` (one persistent generator per
+      slot, reseeded by the engine at each fill) are registered with
+      every graph; a replay reads each one's seed and offset as the
+      host holds them and advances the offset by what the captured
+      steps draw, as the same steps would eagerly.
+    - **Warm-up**: before each capture, one step runs eagerly with
+      every row frozen, so lazy set-up happens outside the capture.
+      Its K/V writes land at each row's current position, which the
+      block's first step rewrites (an active row) or no live query
+      reads (a free slot); its
+      draws are undone by restoring each generator's seed and offset
+      by value (``get_state``/``set_state``: ``graphsafe_set_state``
+      would swap the state object the graphs hold).
+    - **Bindings**: the data pointers of the parameters and the cache
+      a graph captured are checked before each replay; a rebind raises
+      and nothing is recaptured behind the caller's back.
+    - **Launch counts**: K7's counters move while a graph is captured,
+      not while it replays (nothing runs at capture), so each capture's
+      change is taken back and added at every replay of that graph;
+      ``passes`` counts the forward passes run on the card (warm-ups
+      and replayed steps), the decode passes those launches serve.
+
+    No fallback: a failed capture or replay raises."""
+
+    def __init__(self, params: Params, cfg: TransformerConfig,
+                 cache: KVCache, generators, k: int, top_k: int = 0,
+                 top_p: float = 0.0):
+        dev = cache.k[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"FusedBlockGraph runs on the card, the cache "
+                             f"is on {dev}; decode_fused_rows is the "
+                             f"step-by-step form")
+        b = len(generators)
+        self.k = k
+        self._body = (params, cfg, cache, list(generators), top_k, top_p)
+        self._bound = (_tensor_ptrs(params), _tensor_ptrs(cache.tensors()))
+        self._s = _BlockState.empty(b, k, dev)
+        self._host_ints = torch.zeros((4, b), dtype=torch.long).pin_memory()
+        self._host_temps = torch.zeros(b, dtype=torch.float32).pin_memory()
+        self._host_packed = torch.zeros((b, k + 1),
+                                        dtype=torch.int32).pin_memory()
+        self._host_done = torch.zeros((), dtype=torch.long).pin_memory()
+        self._ready = torch.cuda.Event()
+        self._pool = torch.cuda.graph_pool_handle()
+        self._graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self._k7_delta: dict[int, tuple[dict, int]] = {}
+        self.captures = 0
+        self.capture_s = 0.0
+        self.replays = 0
+        self.passes = 0
+
+    def _step(self, j: int) -> None:
+        params, cfg, cache, gens, top_k, top_p = self._body
+        _block_step(params, cfg, cache, self._s, j, gens, top_k, top_p)
+
+    def _capture(self, n: int) -> None:
+        t0 = time.perf_counter()
+        gens = self._body[3]
+        saved = [g.get_state() for g in gens]
+        self._s.begin()
+        self._s.done.fill_(True)
+        self._step(0)
+        for g, state in zip(gens, saved):
+            g.set_state(state)
+        self.passes += 1
+        before = _k7_counts()
+        graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph, pool=self._pool):
+            self._s.begin()
+            for j in range(n):
+                self._step(j)
+            self._s.finish()
+        after = _k7_counts()
+        quant.launches.update(before[0])
+        quant.tc_launches = before[1]
+        self._k7_delta[n] = ({name: after[0][name] - before[0][name]
+                              for name in after[0]}, after[1] - before[1])
+        self._graphs[n] = graph
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def launch(self, params: Params, cache: KVCache, last, pos, temps,
+               budget, eos) -> None:
+        """Upload one block's inputs (host arrays of [B]), replay the
+        graph of its length, and queue the readback; the cache is
+        written in place.  Returns at once: :meth:`collect` waits."""
+        if (_tensor_ptrs(params), _tensor_ptrs(cache.tensors())) \
+                != self._bound:
+            raise RuntimeError("the parameters or the cache moved since "
+                               "the block's graphs were captured")
+        dispatch.COUNTER.record("decode_fused_rows")
+        n = block_length(self.k, int(max(budget)))
+        for row, vals in enumerate((last, pos, budget, eos)):
+            self._host_ints[row] = torch.as_tensor(vals)
+        self._host_temps.copy_(torch.as_tensor(temps))
+        self._s.ints.copy_(self._host_ints, non_blocking=True)
+        self._s.temps.copy_(self._host_temps, non_blocking=True)
+        if n not in self._graphs:
+            self._capture(n)
+        self._graphs[n].replay()
+        names, tc = self._k7_delta[n]
+        for name, count in names.items():
+            quant.launches[name] += count
+        quant.tc_launches += tc
+        self.replays += 1
+        self.passes += n
+        self._host_packed.copy_(self._s.packed, non_blocking=True)
+        self._host_done.copy_(self._s.rows_done, non_blocking=True)
+        self._ready.record()
+
+    def collect(self) -> tuple[np.ndarray, int]:
+        """Wait for the launched block: (packed [B, k+1], rows
+        finished)."""
+        self._ready.synchronize()
+        return self._host_packed.numpy().copy(), int(self._host_done)
 
 
 def scatter_cache(cache: KVCache, one: KVCache, put) -> KVCache:
@@ -663,10 +963,12 @@ def sample_generate(params: Params, prompt: torch.Tensor,
     return torch.cat([prompt, generated], dim=1)
 
 
-__all__ = ["KVCache", "adopt_one_slot", "copy_cache", "decode_step",
+__all__ = ["FusedBlockGraph", "KVCache", "adopt_one_slot", "block_length",
+           "copy_cache", "decode_fused_rows", "decode_step",
            "decode_step_rows",
            "forward_with_cache", "greedy_generate", "init_cache",
            "init_paged_pool", "paged_adopt_blocks", "paged_copy_block",
            "paged_decode_step_rows", "paged_gather_entry", "prefill",
-           "prefill_adopt_rows", "sample_generate", "sample_token",
-           "scatter_cache", "select_next_tokens", "suffix_fill_adopt"]
+           "prefill_adopt_rows", "sample_generate", "sample_rows",
+           "sample_token", "scatter_cache", "select_next_tokens",
+           "suffix_fill_adopt"]

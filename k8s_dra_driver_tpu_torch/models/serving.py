@@ -30,13 +30,20 @@ step, so token streams match the JAX engine's:
   block sharing, and exhaustion escalates evict-cold ->
   preempt-and-requeue.  On the card the decode read goes through the
   paged kernel by default (``kv_kernel``).
+- **Fused generation blocks** (``chain_steps=K > 1``, contiguous KV):
+  each engine step is one block of up to K decode steps with sampling,
+  KV writes and per-row EOS / budget stops on the device
+  (``decode_fused_rows``), the refill of freed slots overlapping it,
+  and one packed readback.  On the CPU the block is a loop with an
+  early exit; on the card it is one replay of a captured CUDA graph
+  (``FusedBlockGraph``), with no fallback.  Tokens equal the
+  step-at-a-time engine's.
 
 Not ported yet (they raise ``NotImplementedError``): speculative
-decoding (``draft_params``/``draft_source``), fused generation blocks
-(``chain_steps > 1``), LoRA adapters (``adapter_pool``), KV tiers
-(``kv_host_bytes``/``kv_spill_dir``), and the disaggregation verbs
-(``prefill_export``/``adopt_block``/``export_prefix``/
-``import_prefix``).
+decoding (``draft_params``/``draft_source``), LoRA adapters
+(``adapter_pool``), KV tiers (``kv_host_bytes``/``kv_spill_dir``), and
+the disaggregation verbs (``prefill_export``/``adopt_block``/
+``export_prefix``/``import_prefix``).
 """
 
 from __future__ import annotations
@@ -254,9 +261,6 @@ class ServingEngine:
                 or draft_source is not None:
             raise _unported("speculative decoding (draft_params / "
                             "draft_source)", "speculative-decoding")
-        if chain_steps != 1:
-            raise _unported("fused generation blocks (chain_steps > 1)",
-                            "fused-decode")
         if adapter_pool is not None:
             raise _unported("multi-adapter LoRA serving (adapter_pool)",
                             "LoRA")
@@ -270,6 +274,9 @@ class ServingEngine:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self._paged = kv_layout == "paged"
         if self._paged:
+            if chain_steps > 1:
+                raise ValueError("paged KV does not compose with "
+                                 "fused generation blocks")
             if cfg.kv_cache_dtype == "int8":
                 raise ValueError("paged KV does not support the "
                                  "int8 cache")
@@ -278,6 +285,8 @@ class ServingEngine:
                                  "windowed attention")
         if not 0.0 <= top_p <= 1.0:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if chain_steps < 1:
+            raise ValueError("chain_steps must be >= 1")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(
@@ -291,6 +300,7 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.top_k = top_k
         self.top_p = top_p
+        self.chain_steps = chain_steps
         # per-phase host accounting (stats())
         self._time_prefill = 0.0
         self._time_decode = 0.0
@@ -347,10 +357,19 @@ class ServingEngine:
         self._pos = np.zeros(slots, np.int32)       # fill depth
         self._generated: list[list[int]] = [[] for _ in range(slots)]
         self._last = np.zeros(slots, np.int32)      # next input token
-        # per-slot sampling state: a generator per sampled request
-        # (None for greedy rows) and the temperatures (0 = greedy)
-        self._gens: list[torch.Generator | None] = [None] * slots
+        # per-slot sampling state: one persistent generator per slot,
+        # reseeded with each sampled request's seed at its fill (the
+        # fused block's graphs hold them; greedy rows never draw from
+        # theirs outside the block), and the temperatures (0 = greedy)
+        self._slot_gens = [torch.Generator(device=self.device)
+                           for _ in range(slots)]
         self._temps = np.zeros(slots, np.float32)
+        # the fused block on the card: captured CUDA graphs over this
+        # engine's parameters, cache and generators
+        self._graphs = (_decode.FusedBlockGraph(
+            params, cfg, self.cache, self._slot_gens, chain_steps, top_k,
+            top_p) if chain_steps > 1 and self.device.type == "cuda"
+            else None)
         # lifetime counters (stats())
         self._finished_total = 0
         self._cancelled = 0
@@ -501,29 +520,31 @@ class ServingEngine:
             out["kv_preemptions_total"] = self._kv_preemptions
             out["kv_alloc_failures_total"] = (
                 self.kv_manager.alloc_failures)
+        if self._graphs is not None:
+            out["graph_captures_total"] = self._graphs.captures
+            out["graph_capture_s"] = round(self._graphs.capture_s, 4)
+            out["graph_replays_total"] = self._graphs.replays
         return out
 
     # -- slot lifecycle --------------------------------------------------
 
-    def _generator(self, req: Request) -> torch.Generator | None:
-        """A fresh generator seeded with the request's seed (None for
-        greedy requests): every fill, rerun included, restarts the
+    def _generator(self, slot: int, req: Request
+                   ) -> torch.Generator | None:
+        """The slot's generator reseeded with the request's seed (None
+        for greedy requests): every fill, rerun included, restarts the
         request's stream from its seed."""
         if req.temperature <= 0:
             return None
-        return torch.Generator(device=self.device).manual_seed(
-            int(req.seed))
+        return self._slot_gens[slot].manual_seed(int(req.seed))
 
-    def _occupy(self, slot: int, req: Request, gen) -> None:
+    def _occupy(self, slot: int, req: Request) -> None:
         self._req[slot] = req
         self._pos[slot] = req.prompt.size
-        self._gens[slot] = gen
         self._temps[slot] = max(req.temperature, 0.0)
 
     def _clear_slot(self, slot: int) -> None:
         self._req[slot] = None
         self._generated[slot] = []
-        self._gens[slot] = None
         self._temps[slot] = 0.0
 
     def _prompt(self, req: Request, start: int = 0,
@@ -553,10 +574,10 @@ class ServingEngine:
                 self.cfg, one, off == 0)
         if self._prefix is not None:
             self._prefix.insert(req.prompt, one)
-        gen = self._generator(req)
+        gen = self._generator(slot, req)
         first = self._first_token(logits, req, gen)
         self.cache = _adopt_slot(self.cache, one, slot)
-        self._occupy(slot, req, gen)
+        self._occupy(slot, req)
         return first
 
     def _first_token(self, logits, req: Request, gen) -> torch.Tensor:
@@ -620,9 +641,10 @@ class ServingEngine:
     # -- the step loop ---------------------------------------------------
 
     def step(self) -> list[Finished]:
-        """Run ONE batched decode step and refill free slots from the
-        queue, returning newly finished requests.  No-op (empty list)
-        when idle."""
+        """Run ONE batched decode step (with ``chain_steps`` > 1: one
+        fused block with the refill overlapped) and refill free slots
+        from the queue, returning newly finished requests.  No-op
+        (empty list) when idle."""
         t_step = time.perf_counter()
         fill0, dec0 = self._time_prefill, self._time_decode
         try:
@@ -635,6 +657,8 @@ class ServingEngine:
 
     def _step_inner(self) -> list[Finished]:
         finished: list[Finished] = []
+        if self.chain_steps > 1:
+            return self._fused_step(finished)
         self._refill(finished)
         active = [s for s in range(self.slots)
                   if self._req[s] is not None]
@@ -662,7 +686,7 @@ class ServingEngine:
             logits, self.cache = decode_step_rows(
                 self.params, tokens, self.cfg, self.cache, pos)
         if self._temps.any():
-            nxt_dev = _next_tokens(logits, self._gens, self._temps,
+            nxt_dev = _next_tokens(logits, self._slot_gens, self._temps,
                                    self.top_k, self.top_p)
         else:
             nxt_dev = logits.argmax(dim=-1)
@@ -674,6 +698,68 @@ class ServingEngine:
             self._pos[slot] += 1
             self._generated[slot].append(int(nxt[slot]))
             self._last[slot] = nxt[slot]
+            if self._done(slot):
+                self._finish_slot(slot, finished)
+        return finished
+
+    def _fused_step(self, finished: list[Finished]) -> list[Finished]:
+        """One fused generation block with the refill OVERLAPPED: the
+        block for the slots active now is launched first, then the host
+        refills the slots the previous block freed while the device
+        runs it; the fills go on the same stream, after the block, so
+        they cannot race its cache writes.  Newly filled slots join the
+        next block; each row's continuation is independent of the
+        others, so the tokens equal the step-at-a-time engine's under
+        any refill timing.
+
+        Each row's stop state goes down with the block: ``budget`` (the
+        tokens it may still emit before ``max_new`` or the cache's
+        capacity line, exactly ``_done``'s bounds; 0 for a free slot)
+        and ``eos``; rows freeze on the device when they finish, and
+        the host reads back ONE packed [slots, k+1] array of tokens and
+        per-row counts after the rows-finished count."""
+        active = [s for s in range(self.slots)
+                  if self._req[s] is not None]
+        if not active:
+            self._refill(finished)
+            return finished
+        k = self.chain_steps
+        t_dec = time.perf_counter()
+        budget = np.zeros(self.slots, np.int32)
+        eos = np.full(self.slots, -1, np.int32)
+        for slot in active:
+            req = self._req[slot]
+            budget[slot] = min(
+                req.max_new - len(self._generated[slot]),
+                self.max_seq - 1 - int(self._pos[slot]))
+            if req.eos_id is not None:
+                eos[slot] = req.eos_id
+        if self._graphs is not None:
+            self._graphs.launch(self.params, self.cache, self._last,
+                                self._pos, self._temps, budget, eos)
+        else:
+            packed, rows_done, self.cache = _decode.decode_fused_rows(
+                self.params, torch.as_tensor(self._last), self.cfg,
+                self.cache, torch.as_tensor(self._pos), k,
+                self._slot_gens, torch.as_tensor(self._temps),
+                torch.as_tensor(budget), torch.as_tensor(eos), self.top_k,
+                self.top_p)
+        self._time_decode += time.perf_counter() - t_dec
+        self._refill(finished)          # overlaps the running block
+        t_wait = time.perf_counter()
+        if self._graphs is not None:
+            arr, _ = self._graphs.collect()
+        else:
+            int(rows_done)
+            arr = packed.numpy()
+        dispatch.record_readback("fused_block")
+        self._time_decode += time.perf_counter() - t_wait
+        self._steps_total += int(max(arr[slot, k] for slot in active))
+        for slot in active:
+            for j in range(int(arr[slot, k])):
+                self._pos[slot] += 1
+                self._generated[slot].append(int(arr[slot, j]))
+                self._last[slot] = arr[slot, j]
             if self._done(slot):
                 self._finish_slot(slot, finished)
         return finished
@@ -758,13 +844,13 @@ class ServingEngine:
         prefill, adopted into the slot, first token drawn — one call
         (``suffix_fill_adopt``)."""
         one = dataclasses.replace(entry, pos=p)
-        gen = self._generator(req)
+        gen = self._generator(slot, req)
         first, self.cache, filled = _decode.suffix_fill_adopt(
             self.params, one, self._prompt(req, p), self.cfg,
             self.cache, slot, gen, req.temperature, self.top_k,
             self.top_p)
         self._prefix.insert(req.prompt, filled)
-        self._occupy(slot, req, gen)
+        self._occupy(slot, req)
         return first
 
     def _fill_fresh_groups(self, batch: list, by_slot: dict) -> None:
@@ -774,7 +860,7 @@ class ServingEngine:
         for slot, req in batch:
             groups.setdefault(req.prompt.size, []).append((slot, req))
         for grp in groups.values():
-            gens = [self._generator(r) for _, r in grp]
+            gens = [self._generator(s, r) for s, r in grp]
             prompts = torch.as_tensor(
                 np.stack([r.prompt for _, r in grp]), dtype=torch.long,
                 device=self.device)
@@ -782,8 +868,8 @@ class ServingEngine:
                 self.params, prompts, self.cfg, self.cache,
                 [s for s, _ in grp], gens,
                 [r.temperature for _, r in grp], self.top_k, self.top_p)
-            for i, ((slot, req), gen) in enumerate(zip(grp, gens)):
-                self._occupy(slot, req, gen)
+            for i, (slot, req) in enumerate(grp):
+                self._occupy(slot, req)
                 by_slot[slot] = first[i]
 
     # -- paged KV (serving_kv/): fills, block upkeep, preemption ---------
@@ -1005,9 +1091,9 @@ class ServingEngine:
         # fill-time memo: the slot's OWN blocks, shared (the slot's
         # first write into a shared partial block triggers CoW)
         self._prefix.insert(req.prompt, blocks, L)
-        gen = self._generator(req)
+        gen = self._generator(slot, req)
         first = self._first_token(logits, req, gen)
-        self._occupy(slot, req, gen)
+        self._occupy(slot, req)
         return first
 
     def run(self, max_steps: int = 10_000) -> list[Finished]:
