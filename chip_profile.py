@@ -44,8 +44,11 @@ rate.  Last, the fused generation block: 8 slots decoding in blocks of
 ``chip_smoke.FUSED_CHAIN`` (47) steps, each one replay of a captured
 CUDA graph, on the 154M's bf16 and int8 weights: wall and device ms
 per generated token and per step, and the busy share, beside the eager
-steady window of the same weights.  Measurement only: no gate, no
-claim.
+steady window of the same weights; then the same window with
+speculation inside the blocks (``draft_len`` 4, the n-gram source and
+the target as its own draft, bf16 weights, every row live): wall and
+device ms a window and a token, tokens a row a window, the busy share
+and the device time by kind.  Measurement only: no gate, no claim.
 
 The last line is one JSON object with those numbers.  Exits non-zero
 without a card.  Imports nothing of JAX and nothing of the JAX
@@ -237,6 +240,79 @@ def report_fused(label: str, fused: dict, eager: dict) -> None:
               flush=True)
 
 
+def spec_steady_profile(make_engine, request_cls, vocab: int) -> dict:
+    """Eight slots decoding in fused speculative blocks, no fills and no
+    row past its stop (so no frozen window): wall per window and per
+    generated token over FUSED_BLOCKS blocks, then device time per
+    window and per token over FUSED_BLOCKS more.  The first step fills
+    every slot and the second runs the first block, capturing its
+    graph before the window."""
+    eng = make_engine()
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        prompt = rng.integers(0, vocab, 96).astype(np.int32)
+        eng.submit(request_cls(uid=f"s{i}", prompt=prompt, max_new=1500))
+    for _ in range(2):
+        eng.step()
+
+    def counts():
+        st = eng.stats()
+        return (sum(len(g) for g in eng._generated),
+                st["speculative_windows_total"],
+                st["speculative_accepted_total"],
+                st["speculative_drafts_total"])
+
+    def window():
+        for _ in range(FUSED_BLOCKS):
+            if eng.step():
+                raise RuntimeError("a slot finished inside the window")
+
+    c0 = counts()
+    wall_ms = timed(window) * 1e3
+    c1 = counts()
+    summary = profiled(window)
+    c2 = counts()
+    tokens, windows = c1[0] - c0[0], c1[1] - c0[1]
+    p_tokens, p_windows = c2[0] - c1[0], c2[1] - c1[1]
+    return {"chain_steps": eng.chain_steps, "draft_len": eng.draft_len,
+            "windows": windows, "tokens": tokens,
+            "tokens_per_row_window": tokens / (8 * windows),
+            "accept_rate": (c1[2] - c0[2]) / max(1, c1[3] - c0[3]),
+            "window_wall_ms": wall_ms / windows,
+            "window_busy_ms": summary["busy_ms"] / p_windows,
+            "token_wall_ms": wall_ms / tokens,
+            "token_busy_ms": summary["busy_ms"] / p_tokens,
+            "busy_share": (summary["busy_ms"] / p_windows)
+            / (wall_ms / windows),
+            "device_ops_per_window": summary["device_ops"] / p_windows,
+            "ms_by_kind": {kind: v / p_windows for kind, v
+                           in summary["ms_by_kind"].items() if v},
+            "top": summary["top"]}
+
+
+def report_spec(label: str, spec: dict, fused: dict) -> None:
+    """A fused speculative window beside the plain fused window of the
+    same weights."""
+    print(f"{label} fused speculative steady decode (chain_steps="
+          f"{spec['chain_steps']}, draft_len {spec['draft_len']}): "
+          f"{spec['window_wall_ms']:.3f} ms wall and "
+          f"{spec['window_busy_ms']:.3f} ms device a window (busy "
+          f"{100 * spec['busy_share']:.1f}%, "
+          f"{spec['device_ops_per_window']:.1f} device ops a window), "
+          f"{spec['tokens_per_row_window']:.3f} tokens a row a window "
+          f"(accept rate {spec['accept_rate']:.4f}): "
+          f"{spec['token_wall_ms']:.4f} ms wall and "
+          f"{spec['token_busy_ms']:.4f} ms device per token; plain fused: "
+          f"{fused['token_wall_ms']:.4f} / {fused['token_busy_ms']:.4f} ms "
+          f"per token ({fused['step_busy_ms']:.3f} ms device a step)",
+          flush=True)
+    for kind, ms in spec["ms_by_kind"].items():
+        print(f"  {kind}: {ms:.4f} ms a window", flush=True)
+    for row in spec["top"]:
+        print(f"  {row['ms']:9.3f} ms {row['count']:6d}x {row['op']}",
+              flush=True)
+
+
 def by_kind(prof) -> dict:
     """Device ms of one profiled run split by KINDS ("other": the rest:
     elementwise, reductions, copies, memsets)."""
@@ -423,9 +499,20 @@ def main() -> None:
                                  chain_steps=smoke.FUSED_CHAIN)
         fused[label] = fused_steady_profile(make_engine, Request, cfg.vocab)
         report_fused(f"154M {label} weights, contiguous", fused[label], eager)
+    spec = {}
+    for label, kw in (("n-gram", {"draft_source": "ngram"}),
+                      ("self-draft", {"draft_params": params,
+                                      "draft_cfg": cfg})):
+        def make_engine(kw=kw):
+            return ServingEngine(params, cfg, slots=8, top_k=50,
+                                 chain_steps=smoke.FUSED_CHAIN,
+                                 draft_len=smoke.SPEC_DRAFT_LEN, **kw)
+        spec[label] = spec_steady_profile(make_engine, Request, cfg.vocab)
+        report_spec(f"154M bf16 weights, {label}", spec[label],
+                    fused["bf16"])
     print(json.dumps({"device": kind, "layouts": out, "train": train,
-                      "moe_train": moe, "int8": int8, "fused": fused}),
-          flush=True)
+                      "moe_train": moe, "int8": int8, "fused": fused,
+                      "spec": spec}), flush=True)
 
 
 if __name__ == "__main__":

@@ -103,20 +103,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
     dispatches plus readbacks per token at least 8x fewer; tokens/s,
     wall ms per decode step and per token beside the step engine's,
     graphs captured and their seconds;
-17. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
+17. speculative decoding (``phase_spec_serving``, ``draft_len`` 4):
+    s8_r24 on the 154M with the n-gram source (contiguous step by step
+    and at ``chain_steps`` = 47, paged on the full pool and on 41
+    blocks, which preempts) and with the target as its own draft (step
+    by step and fused, on bf16 and on int8 weights, K7a in the graph
+    for target and draft; f32 step by step): every fused block one
+    graph replay and its streams byte-equal to the step drain's, K7a
+    exactly 49 a target and a draft pass, no K2 and spec trims on the
+    paged drains, the f32 self-draft accept rate at least 0.8; each
+    drain's tokens/s, wall ms a window, windows, accept rate and
+    dispatches plus readbacks a token beside the non-speculative drain
+    of the same call; then ``spec_accept_rows`` alone on 16384 rows
+    against the closed-form target distribution (total variation), and
+    the ported spec-decode probe in bf16 and f32, byte-equal to its
+    closed-form ramp;
+18. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
     passes, every one on the CUDA-core route;
-18. each kernel's device time at its main-path shape and at a long
+19. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
-19. one JSON line naming every kernel with its launches on the main
+20. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
     plain version and its times; K1, K3-K6 name their tensor-core
     source and launches, and their f32 route's apart; K7 its launches
     by route.  A kernel or library reading below its bound is flagged
     impossible, re-timed cold and, if still below, not used;
-20. last line: ``{"ok": true, "device": {...}}``.
+21. last line: ``{"ok": true, "device": {...}}``.
 
 Every drain and step holds its K1, K5, K6 and K7 launches to the route
 of its dtype: bf16 on the tensor cores, f32 on the CUDA cores.
@@ -1375,7 +1390,9 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     layer's forward passes by dispatch label, the fused block's passes
     (its graphs' replayed steps and warm-ups) counted as decode
     passes.  ``stats`` adds the run's wall seconds, generated tokens,
-    decode steps, and dispatches plus readbacks to the engine's.
+    decode steps, dispatches plus readbacks, the graphs' draft-model
+    passes (``draft_passes``) and, under ``run``, the change of every
+    ``..._total`` counter over the run, to the engine's.
 
     A step engine (``chain_steps`` 1) warms up on a separate engine; a
     fused engine drains the traffic once before the measured run on
@@ -1396,10 +1413,11 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     graphs = eng._graphs
 
     def graph_counts():
-        return (0, 0) if graphs is None else (graphs.passes, graphs.replays)
+        return ((0, 0, 0) if graphs is None else
+                (graphs.passes, graphs.replays, graphs.draft_passes))
 
     before = graph_counts()
-    steps0 = eng.stats()["decode_steps_total"]
+    stats0 = eng.stats()
     torch.cuda.synchronize()
     fa.launches = fa.tc_launches = 0
     pa.launches = 0
@@ -1427,11 +1445,14 @@ def drain(engine_cls, params, cfg, reqs, fa, pa, label, **kw):
     passes = (passes[0] + after[0] - before[0], passes[1])
     stats = eng.stats()
     gen_tokens = sum(len(f.tokens) - f.n_prompt for f in done)
-    steps = stats["decode_steps_total"] - steps0
+    steps = stats["decode_steps_total"] - stats0["decode_steps_total"]
     stats.update(wall_s=wall, generated=gen_tokens, steps=steps,
                  replays=after[1] - before[1],
+                 draft_passes=after[2] - before[2],
                  dispatches_readbacks=t.dispatches + t.readbacks,
-                 by_label=t.by_label)
+                 by_label=t.by_label,
+                 run={k: v - stats0[k] for k, v in stats.items()
+                      if k.endswith("_total")})
     if len(done) != len(reqs):
         fail(f"{label}: {len(done)} of {len(reqs)} requests finished")
     print(f"engine {label}: {len(done)} finished, {gen_tokens} tokens in "
@@ -1553,11 +1574,14 @@ def phase_fused_serving(params, cfg, reqs, fa, pa) -> dict:
     byte-equal count printed); K7 launches exact, those inside the
     graphs included; no block outside a graph; dispatches plus
     readbacks per token at least FUSED_AMORTIZATION times fewer.
-    Returns the fused drains' summed launches."""
+    Returns the fused drains' summed launches, and the 154M drains'
+    (finished, stats) by "bf16 step", "bf16 fused", "int8 step" and
+    "int8 fused", which the speculative phase compares with."""
     from k8s_dra_driver_tpu_torch.models.quant import quantize_params
     from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
     from k8s_dra_driver_tpu_torch.models.transformer import init_params
     qparams = quantize_params(params, cfg)
+    refs = {}
     moe_cfg = moe_heavy_config(dtype=torch.float32)
     moe_params = init_params(moe_cfg, torch.Generator(
         device="cuda").manual_seed(2), device="cuda")
@@ -1578,6 +1602,10 @@ def phase_fused_serving(params, cfg, reqs, fa, pa) -> dict:
             ServingEngine, p, c, r, fa, pa,
             f"{label}, chain_steps={FUSED_CHAIN}", top_k=50,
             chain_steps=FUSED_CHAIN)
+        if c is cfg:
+            tag = "int8" if int8 else "bf16"
+            refs[f"{tag} step"] = (step, s_stats)
+            refs[f"{tag} fused"] = (done, stats)
         blocks = stats["by_label"].get("decode_fused_rows", 0)
         stray = [k for k in DECODE_PASSES if stats["by_label"].get(k)]
         if stray or blocks <= 0 or blocks != stats["replays"]:
@@ -1636,6 +1664,276 @@ def phase_fused_serving(params, cfg, reqs, fa, pa) -> dict:
         for name, k in counts.items():
             total[name] = total.get(name, 0) + k
     print(f"fused serving: {json.dumps(summary)}", flush=True)
+    return total, refs
+
+
+#: the speculative drains' draft length: the engines' default, and the
+#: JAX package's
+SPEC_DRAFT_LEN = 4
+#: the f32 self-draft drain's least accept rate: the target drafting
+#: for itself accepts every greedy proposal but after a near tie between
+#: a 5-row window and one-row steps, and a row's last window emits only
+#: what its max_new leaves (about 37 of a row's 40 drafts)
+SPEC_SELF_ACCEPT = 0.8
+#: total variation between the accept's emitted tokens and the
+#: closed-form filtered target distribution at 16384 rows: the bounds
+#: of tests/test_speculative.py:166 (first emitted token) and :175 (the
+#: bonus token of a full accept)
+SPEC_TV_FIRST = 0.03
+SPEC_TV_BONUS = 0.05
+#: the full-accept share of the accept math's rows, against its closed
+#: form prod_i sum_x min(p_i(x), q_i(x)) (binomial spread at 16384 rows
+#: is about 0.004)
+SPEC_SHARE_TOL = 0.01
+#: the step path's speculative launch sites; a fused speculative drain
+#: runs none of them (every window is inside a graph)
+SPEC_STEP_LABELS = ("decode_window_rows", "paged_window_rows",
+                    "draft_propose_rows", "draft_sample_rows",
+                    "draft_ngram_rows", "spec_accept_rows")
+
+
+def spec_row(stats) -> dict:
+    """A drain's end-to-end numbers: tokens/s, wall ms a decode step
+    (a window, on a speculative engine), decode steps, dispatches plus
+    readbacks a token."""
+    return {"tokens_per_s": stats["generated"] / stats["wall_s"],
+            "wall_ms_per_step": 1e3 * stats["wall_s"] / max(stats["steps"],
+                                                            1),
+            "steps": stats["steps"],
+            "dispatch_readbacks_per_token": (stats["dispatches_readbacks"]
+                                             / stats["generated"])}
+
+
+def same_streams(done, ref) -> int:
+    by_uid = {f.uid: f.tokens for f in ref}
+    return sum(np.array_equal(f.tokens, by_uid[f.uid]) for f in done)
+
+
+def phase_spec_accept(dev) -> None:
+    """The accept math alone on the card: ``spec_accept_rows`` over
+    16384 rows of one fixed window (V=8, K=2, the fixtures of
+    tests/test_speculative.py:114-176 drawn with numpy, proposals drawn
+    from q by inverse CDF), each row with its own generator, against
+    the closed-form filtered target distribution ``p``."""
+    from k8s_dra_driver_tpu_torch.models import decode as dm
+    v, k, rows, temp = 8, 2, 16384, 0.9
+    rng = np.random.default_rng(3)
+    tl = rng.normal(size=(k + 1, v)).astype(np.float32)
+    dl = rng.normal(size=(k, v)).astype(np.float32)
+
+    def probs(logits, top_k, top_p):
+        return torch.softmax(dm._filter_logits(
+            torch.as_tensor(logits, device=dev), temp, top_k, top_p), -1)
+
+    def tv(toks, want) -> float:
+        emp = np.bincount(toks, minlength=v) / len(toks)
+        return 0.5 * float(np.abs(emp - want).sum())
+
+    for name, top_k, top_p, draft in (("no filter", 0, 0.0, dl),
+                                      ("top_k 4", 4, 0.0, dl),
+                                      ("top_p 0.8", 0, 0.8, dl),
+                                      ("perfect draft", 0, 0.0, tl[:k])):
+        p, q = probs(tl, top_k, top_p), probs(draft, top_k, top_p)
+        u = np.random.default_rng(4).random((rows, k))
+        cdf = np.cumsum(q.double().cpu().numpy(), axis=-1)
+        props = np.stack([np.minimum(np.searchsorted(cdf[i], u[:, i],
+                                                     side="right"), v - 1)
+                          for i in range(k)], 1)
+        gens = [torch.Generator(device=dev).manual_seed(r)
+                for r in range(rows)]
+        t0 = time.perf_counter()
+        emit, a = dm.spec_accept_rows(
+            p.new_tensor(tl)[None].expand(rows, -1, -1),
+            torch.as_tensor(props, device=dev), q[None].expand(rows, -1, -1),
+            gens, torch.full((rows,), temp, device=dev), top_k, top_p)
+        emit, a = emit.cpu().numpy(), a.cpu().numpy()
+        wall = time.perf_counter() - t0
+        p = p.double().cpu().numpy()
+        first = tv(emit[:, 0], p[0])
+        full = a == k
+        share = float(np.prod(np.minimum(p[:k], q.double().cpu().numpy())
+                              .sum(-1)))
+        line = (f"spec accept math ({name}, {rows} rows, V={v} K={k}, on "
+                f"the card, {wall:.2f} s): first emitted token TV "
+                f"{first:.4f} < {SPEC_TV_FIRST}; full accepts "
+                f"{full.mean():.4f} against closed form {share:.4f}")
+        ok = first < SPEC_TV_FIRST and abs(full.mean() - share) < \
+            SPEC_SHARE_TOL
+        if name == "no filter":
+            bonus = tv(emit[full, k], p[k])
+            line += f"; bonus token TV {bonus:.4f} < {SPEC_TV_BONUS}"
+            ok &= bonus < SPEC_TV_BONUS
+        if name == "perfect draft":
+            line += f"; least accepts {int(a.min())} (all {k})"
+            ok &= int(a.min()) == k
+        print(line + (" ok" if ok else " FAIL"), flush=True)
+        if not ok:
+            fail(f"speculative accept math ({name}) off the target "
+                 f"distribution")
+
+
+def phase_spec_serving(params, cfg, reqs, fa, pa, refs) -> dict:
+    """Speculative decoding on the card (``draft_len`` SPEC_DRAFT_LEN,
+    engine top_k 50), each drain beside the non-speculative drain of
+    this call in ``refs`` ((finished, stats) by name): the n-gram source
+    on the contiguous cache step by step and fused (``chain_steps`` =
+    FUSED_CHAIN, every block one graph replay); the target as its own
+    draft, likewise, on bf16 and on ``quantize_params`` weights (K7a in
+    the graph for target and draft); the n-gram source on the paged
+    cache, on the full pool and on a 41-block pool with max_seq 256;
+    the f32 self-draft step by step beside an f32 plain drain; the
+    accept math alone; the ported probe in bf16 and f32.
+
+    Gates: every greedy stream within TF_MARGIN teacher-forced; fused
+    drains byte-equal to the step drains of the same source and
+    weights, all 24 streams; K1 in every drain; K7a exactly 49 a target
+    pass and 49 a draft pass (the graphs' passes counted) in the int8
+    drains; no K2 and at least one spec trim in the paged drains, a
+    preemption on the small pool; every fused block one graph replay;
+    the f32 self-draft accept rate at least SPEC_SELF_ACCEPT; the
+    accept math's TV bounds; the probe byte-equal to the closed-form
+    ramp.  The streams byte-equal to the non-speculative engine's are
+    counted, not gated (a 5-row window and five one-row steps may sum
+    in different orders).  Returns the drains' summed launches."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.specprobe import spec_decode_probe
+    t_phase = time.perf_counter()
+    kd = SPEC_DRAFT_LEN
+    qparams = quantize_params(params, cfg)
+    per_pass = 6 * cfg.n_layers + 1
+    ngram = {"draft_source": "ngram"}
+    self_bf16 = {"draft_params": params, "draft_cfg": cfg}
+    self_int8 = {"draft_params": qparams, "draft_cfg": cfg}
+    fused = {"chain_steps": FUSED_CHAIN}
+    # a request whose prompt takes at most 64 rows fills through K7: its
+    # target fill and its draft fill
+    small_fills = 2 * sum(r.prompt.size <= 64 for r in reqs)
+    f32 = map_params(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    base32, total, stats32, _ = drain(ServingEngine, f32, cfg32, reqs, fa,
+                                      pa, "f32, contiguous, chain_steps=1",
+                                      top_k=50)
+    refs = dict(refs, **{"f32 step": (base32, stats32)})
+    summary = []
+    steps: dict = {}
+    for label, p, c, kw, ref in (
+            ("n-gram, contiguous", params, cfg, ngram, "bf16 step"),
+            ("n-gram, contiguous, fused", params, cfg, dict(ngram, **fused),
+             "bf16 fused"),
+            ("self-draft, contiguous", params, cfg, self_bf16, "bf16 step"),
+            ("self-draft, contiguous, fused", params, cfg,
+             dict(self_bf16, **fused), "bf16 fused"),
+            ("self-draft int8 weights, contiguous", qparams, cfg, self_int8,
+             "int8 step"),
+            ("self-draft int8 weights, contiguous, fused", qparams, cfg,
+             dict(self_int8, **fused), "int8 fused"),
+            ("n-gram, paged", params, cfg, dict(ngram, kv_layout="paged"),
+             "bf16 paged"),
+            ("n-gram, paged, 41 blocks", params, cfg,
+             dict(ngram, kv_layout="paged", max_seq=256, kv_blocks=41),
+             "bf16 paged-preempt"),
+            ("self-draft f32, contiguous", f32, cfg32,
+             {"draft_params": f32, "draft_cfg": cfg32}, "f32 step")):
+        is_fused = "chain_steps" in kw
+        paged = "kv_layout" in kw
+        done, counts, stats, passes = drain(
+            ServingEngine, p, c, reqs, fa, pa, f"spec {label}", top_k=50,
+            draft_len=kd, **kw)
+        run, labels = stats["run"], stats["by_label"]
+        rate = (run["speculative_accepted_total"]
+                / max(1, run["speculative_drafts_total"]))
+        if counts["flash_fwd"] <= 0:
+            fail(f"spec {label}: no K1 launch")
+        if paged and (counts["paged_decode"] or
+                      run["kv_spec_trims_total"] <= 0):
+            fail(f"spec {label}: {counts['paged_decode']} K2 launches (a "
+                 f"window reads through the gather) and "
+                 f"{run['kv_spec_trims_total']} spec trims")
+        if "kv_blocks" in kw and run["kv_preemptions_total"] < 1:
+            fail(f"spec {label}: the 41-block pool forced no preemption")
+        extra = ""
+        if is_fused:
+            blocks = labels.get("decode_spec_fused_rows", 0)
+            stray = [k for k in SPEC_STEP_LABELS + DECODE_PASSES
+                     if labels.get(k)]
+            if stray or blocks <= 0 or blocks != stats["replays"]:
+                fail(f"spec {label}: {blocks} blocks, {stats['replays']} "
+                     f"graph replays, step labels {stray}: every block "
+                     f"must be one graph replay")
+            replayed = passes[0] - run["graph_captures_total"]
+            alive = run["speculative_drafts_total"] // kd
+            extra = (f"; {stats['graph_captures_total']} graphs captured "
+                     f"in {stats['graph_capture_s']:.3f} s, {blocks} blocks "
+                     f"each one replay, {replayed} windows replayed, "
+                     f"{8 * replayed - alive} of {8 * replayed} "
+                     f"slot-windows frozen")
+            pair = steps[label.removesuffix(", fused")]
+            equal = same_streams(done, pair)
+            if equal != len(done):
+                by_uid = {f.uid: f.tokens for f in pair}
+                diff = {f.uid: int(np.argmax(f.tokens != by_uid[f.uid]))
+                        - f.n_prompt for f in done
+                        if not np.array_equal(f.tokens, by_uid[f.uid])}
+                fail(f"spec {label}: {len(done) - equal} streams differ "
+                     f"from the step-by-step speculative drain's (uid: "
+                     f"first differing generated token) {diff}")
+            extra += (f"; {equal}/{len(done)} streams byte-equal to the "
+                      f"step drain's")
+        else:
+            steps[label] = done
+        if p is qparams:
+            target = labels.get("decode_window_rows", 0) + passes[0]
+            draft = stats["draft_passes"] + (kd + 1) * (
+                labels.get("draft_propose_rows", 0)
+                + labels.get("draft_sample_rows", 0))
+            want = per_pass * (target + draft + small_fills)
+            if counts["int8_matmul"] != want or counts["int8_bmm"]:
+                fail(f"spec {label}: K7a launched {counts['int8_matmul']}, "
+                     f"expected {per_pass} x ({target} target + {draft} "
+                     f"draft passes + {small_fills} fills of <= 64 rows)")
+            extra += (f"; K7a {counts['int8_matmul']} = {per_pass} x "
+                      f"({target} target + {draft} draft passes + "
+                      f"{small_fills} fills)")
+        if "f32" in label and rate < SPEC_SELF_ACCEPT:
+            fail(f"spec {label}: accept rate {rate:.4f} below "
+                 f"{SPEC_SELF_ACCEPT}")
+        worst = teacher_forced(p, c, done, reqs)
+        base_done, base_stats = refs[ref]
+        same = same_streams(done, base_done)
+        row = {"label": label, "reference": ref, "accept_rate": rate,
+               "windows": run["speculative_windows_total"],
+               "streams_equal_to_plain": same, "streams": len(done),
+               "teacher_forced_worst": worst,
+               "plain": spec_row(base_stats), "spec": spec_row(stats)}
+        summary.append(row)
+        print(f"spec {label} ({card_line()}): accept rate {rate:.4f}, "
+              f"{row['windows']} windows; tokens/s "
+              f"{row['plain']['tokens_per_s']:.1f} -> "
+              f"{row['spec']['tokens_per_s']:.1f}; wall ms per decode step "
+              f"{row['plain']['wall_ms_per_step']:.3f} "
+              f"({row['plain']['steps']} steps) -> "
+              f"{row['spec']['wall_ms_per_step']:.3f} (a window); "
+              f"dispatches + readbacks per token "
+              f"{row['plain']['dispatch_readbacks_per_token']:.4f} -> "
+              f"{row['spec']['dispatch_readbacks_per_token']:.4f}; {same}/"
+              f"{len(done)} streams byte-equal to the non-speculative "
+              f"engine's ({ref}); teacher-forced worst gap {worst:.4f} <= "
+              f"{TF_MARGIN}" + extra, flush=True)
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    del f32, base32
+    phase_spec_accept(params["embed"].device)
+    for dtype in (torch.bfloat16, torch.float32):
+        probe = spec_decode_probe(repeats=2, dtype=dtype,
+                                  device=params["embed"].device)
+        print(f"spec probe ({card_line()}): {json.dumps(probe)}", flush=True)
+        if not probe["byte_equal"]:
+            fail(f"spec probe in {probe['dtype']}: streams differ from the "
+                 f"closed-form ramp")
+    print(f"spec serving: {json.dumps(summary)}", flush=True)
+    print(f"spec phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return total
 
 
@@ -2179,8 +2477,9 @@ def main() -> None:
     for name in launches:
         launches[name] += counts[name]
 
-    done_p, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
-                              "paged", top_k=50, kv_layout="paged")
+    done_p, counts, stats_p, _ = drain(ServingEngine, params, cfg, reqs, fa,
+                                       pa, "paged", top_k=50,
+                                       kv_layout="paged")
     if counts["flash_fwd"] <= 0 or counts["paged_decode"] <= 0:
         fail(f"paged drain kernel launches {counts}: both must be > 0")
     worst = teacher_forced(params, cfg, done_p, reqs)
@@ -2207,16 +2506,23 @@ def main() -> None:
           flush=True)
     for name in launches:
         launches[name] += counts[name]
-    del done_c, done_p, done_x
+    refs = {"bf16 paged": (done_p, stats_p),
+            "bf16 paged-preempt": (done_x, stats)}
+    del done_c
     counts = phase_int8_serving(params, cfg, reqs, fa, pa)
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
-    counts = phase_fused_serving(params, cfg, reqs, fa, pa)
+    counts, fused_refs = phase_fused_serving(params, cfg, reqs, fa, pa)
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
-    del params
+    refs.update(fused_refs)
+    counts = phase_spec_serving(params, cfg, reqs, fa, pa, refs)
+    for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
+                 "int8_matmul", "int8_bmm", "int8_tc"):
+        launches[name] = launches.get(name, 0) + counts[name]
+    del params, refs, fused_refs, done_p, done_x
 
     f32_routes = phase_train_small(fa)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2233,7 +2539,7 @@ def main() -> None:
     for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths (12 drains + "
+    print(f"kernel launches on the main paths (22 drains + "
           f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy): "
           f"{launches}", flush=True)
 

@@ -42,6 +42,16 @@ on the device, one step body for both forms: a loop with an early
 exit (the CPU path) and, on the card, one captured CUDA graph per
 block length (``FusedBlockGraph``), replayed once per block.
 
+**Speculative decoding**: a draft source (the draft model's greedy or
+sampled k+1-step loop, ``draft_propose_rows`` / ``draft_sample_rows``,
+or the prompt n-gram lookup, ``draft_ngram_rows``) proposes
+``draft_len`` tokens a row, one target forward scores the window
+(``decode_window_rows``, ``paged_window_rows``) and
+``spec_accept_rows`` keeps each row's accepted prefix plus a
+correction (exact match for greedy rows, rejection sampling for
+sampled ones).  ``decode_spec_fused_rows`` runs up to k windows a
+block, on the card as a ``FusedBlockGraph`` with a ``SpecDraft``.
+
 Parity contract (tests/test_torch_decode.py): prefill + stepwise
 decode logits equal the training forward at every position, and equal
 the JAX package's within the stated f32 tolerance.
@@ -419,6 +429,208 @@ def sample_rows(logits, generators, temps, top_k: int = 0,
     return torch.where(sampled, draws, logits.argmax(dim=-1))
 
 
+# -- speculative decoding ----------------------------------------------
+#
+# A draft source proposes ``draft_len`` tokens a row (the draft model's
+# k+1-step loop, or the n-gram lookup over the row's prompt), one target
+# forward scores the whole window (``decode_window_rows``: _rows_forward
+# at T = draft_len + 1), and each row keeps its accepted prefix plus one
+# correction / bonus token (``spec_accept_rows``).  Rollback is
+# positional: rejected rows stay in the cache, masked by position, and
+# the next window rewrites the same offsets.  Every body here is plain
+# torch with no host value, so the fused speculative block can capture
+# it; each sampled row draws from its own generator, the same number of
+# draws a window whatever it accepts, so a row's stream does not depend
+# on how its windows are packaged.
+
+
+@dispatch.counted("decode_window_rows")
+def decode_window_rows(params: Params, tokens: torch.Tensor,
+                       cfg: TransformerConfig, cache: KVCache,
+                       pos_rows: torch.Tensor
+                       ) -> tuple[torch.Tensor, KVCache]:
+    """Multi-token per-row step: tokens [B, T] appended at each row's
+    own position -> (logits [B, T, vocab], cache), the target-scoring
+    half of speculative continuous batching.  Rejected rows past the
+    accepted prefix stay in the cache, position-masked, and the next
+    window overwrites them at the same offsets."""
+    return _rows_forward(params, tokens, cfg, cache, pos_rows)
+
+
+@dispatch.counted("draft_propose_rows")
+def draft_propose_rows(params: Params, last: torch.Tensor,
+                       cfg: TransformerConfig, cache: KVCache,
+                       pos_rows: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, KVCache]:
+    """``k`` greedy draft proposals a row: ``last`` [B] then each
+    proposal fed back, k+1 steps, so the LAST proposal's K/V row lands
+    too (a full accept advances past it; a missing row would degrade
+    every later draft).  Returns (proposals [B, k], cache); rows
+    pos..pos+k written."""
+    tok, pos, out = last, pos_rows, []
+    for _ in range(k + 1):
+        logits, cache = _rows_forward(params, tok[:, None], cfg, cache, pos)
+        tok = logits[:, 0].argmax(dim=-1)
+        out.append(tok)
+        pos = pos + 1
+    return torch.stack(out[:k], dim=1), cache
+
+
+def _draw_rows(probs: torch.Tensor, generators) -> torch.Tensor:
+    """One categorical draw per row of ``probs`` [B, V], each from its
+    row's generator: [B] long.  One-sample ``multinomial`` draws V
+    exponentials whatever the probabilities, so every call consumes a
+    row's generator by the same amount."""
+    return torch.stack([torch.multinomial(probs[i], 1, generator=g)[0]
+                        for i, g in enumerate(generators)])
+
+
+def _draft_scan(params: Params, last: torch.Tensor, cfg: TransformerConfig,
+                cache: KVCache, pos_rows: torch.Tensor, k: int, generators,
+                temps: torch.Tensor, top_k: int, top_p: float
+                ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """The sampled draft's k+1-step loop, shared by
+    :func:`draft_sample_rows` and the fused speculative block (plain:
+    a dispatch label inside a captured block would count its capture,
+    not its replays).  Each step filters the draft logits at the row's
+    temperature (``temps`` [B] on the device), draws every row from its
+    draft-side generator, and keeps the draw for sampled rows and the
+    raw argmax for greedy ones (``torch.where``, no host branch).
+    Returns (proposals [B, k], q_probs [B, k, V], cache)."""
+    tok, pos, props, qs = last, pos_rows, [], []
+    for _ in range(k + 1):
+        logits, cache = _rows_forward(params, tok[:, None], cfg, cache, pos)
+        q = torch.softmax(_filter_logits(logits[:, 0], temps, top_k, top_p),
+                          dim=-1)
+        tok = torch.where(temps > 0, _draw_rows(q, generators),
+                          logits[:, 0].argmax(dim=-1))
+        props.append(tok)
+        qs.append(q)
+        pos = pos + 1
+    return torch.stack(props[:k], dim=1), torch.stack(qs[:k], dim=1), cache
+
+
+@dispatch.counted("draft_sample_rows")
+def draft_sample_rows(params: Params, last: torch.Tensor,
+                      cfg: TransformerConfig, cache: KVCache,
+                      pos_rows: torch.Tensor, k: int, generators,
+                      temps: torch.Tensor, top_k: int = 0,
+                      top_p: float = 0.0
+                      ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Sampled draft proposals for rejection-sampling speculation:
+    ``k`` tokens a row, each drawn from the draft's filtered
+    distribution at the row's temperature (greedy rows take the
+    argmax), plus those distributions ``q_probs`` [B, k, V], which
+    :func:`spec_accept_rows` divides by.  Same k+1-step contract as
+    :func:`draft_propose_rows`.  Returns (proposals, q_probs, cache)."""
+    return _draft_scan(params, last, cfg, cache, pos_rows, k, generators,
+                       temps, top_k, top_p)
+
+
+def ngram_propose_rows(ctx: torch.Tensor, ctx_len: torch.Tensor,
+                       last: torch.Tensor, k: int) -> torch.Tensor:
+    """Model-free prompt-lookup draft: per row, the ``k`` tokens that
+    followed the LAST occurrence of ``last`` in the row's context.
+    ``ctx`` [B, C] (zero-padded prompts), ``ctx_len`` [B] valid lengths,
+    ``last`` [B] -> proposals [B, k] (long).  Only matches with a full
+    k-token continuation inside the context qualify (``i + k <
+    ctx_len``), so zero padding never matches; a row with no match
+    proposes ``last`` repeated.  A pure gather."""
+    c = ctx.shape[1]
+    idx = torch.arange(c, device=ctx.device)[None]
+    m = (ctx == last[:, None]) & (idx + k < ctx_len[:, None])
+    at = torch.where(m, idx, -1).amax(dim=1)
+    cols = (at[:, None] + 1
+            + torch.arange(k, device=ctx.device)[None]).clamp(0, c - 1)
+    prop = ctx.gather(1, cols).long()
+    return torch.where(m.any(dim=1)[:, None], prop, last[:, None].long())
+
+
+def _one_hot(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[...] ids -> [..., vocab] float32 point masses (a scatter, which a
+    captured graph can hold)."""
+    out = torch.zeros(*tokens.shape, vocab, dtype=torch.float32,
+                      device=tokens.device)
+    return out.scatter_(-1, tokens[..., None].long(), 1.0)
+
+
+@dispatch.counted("draft_ngram_rows")
+def draft_ngram_rows(ctx: torch.Tensor, ctx_len: torch.Tensor,
+                     last: torch.Tensor, k: int, vocab: int,
+                     want_q: bool = False):
+    """The n-gram draft's launch site on the step path: (proposals
+    [B, k], their one-hot ``q_probs`` [B, k, V] when ``want_q`` else
+    None), under its own ``draft_*`` label."""
+    prop = ngram_propose_rows(ctx, ctx_len, last, k)
+    return prop, (_one_hot(prop, vocab) if want_q else None)
+
+
+def _spec_accept_body(logits: torch.Tensor, proposals: torch.Tensor,
+                      q_probs: torch.Tensor, generators,
+                      temps: torch.Tensor, top_k: int, top_p: float
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The verify-accept body behind :func:`spec_accept_rows` and the
+    fused speculative block (plain, as :func:`_draft_scan`).  Every row
+    draws ``k`` uniforms and one residual token from its own generator,
+    whatever it accepts; greedy rows (temperature 0) discard both."""
+    b, k1, v = logits.shape
+    k = k1 - 1
+    dev = logits.device
+    props = proposals.long()
+    greedy = logits.argmax(dim=-1)                               # [B, K+1]
+    p = torch.softmax(_filter_logits(logits, temps[:, None], top_k, top_p),
+                      dim=-1)
+    u = torch.stack([torch.rand(k, generator=g, device=dev)
+                     for g in generators])
+    p_x = p[:, :k].gather(-1, props[..., None])[..., 0]
+    q_x = q_probs.gather(-1, props[..., None])[..., 0]
+    sampled = temps > 0
+    accept = torch.where(sampled[:, None],
+                         u < (p_x / q_x.clamp_min(1e-30)).clamp(max=1.0),
+                         props == greedy[:, :k])
+    a = accept.long().cumprod(dim=1).sum(dim=1)                  # [B]
+    # the correction's distribution at the first reject, or the bonus
+    # position K on a full accept, where nothing is subtracted
+    p_a = p.gather(1, a[:, None, None].expand(b, 1, v))[:, 0]
+    q_a = q_probs.gather(1, a.clamp(max=k - 1)[:, None, None]
+                         .expand(b, 1, v))[:, 0]
+    residual = torch.where((a < k)[:, None], (p_a - q_a).clamp_min(0.0), p_a)
+    mass = residual.sum(dim=-1, keepdim=True)
+    # zero mass means p <= q everywhere, which forces acceptance: only
+    # round-off reaches it, and then p_a itself is the right draw
+    safe = torch.where(mass > 0, residual / mass.clamp_min(1e-30), p_a)
+    corr = torch.where(sampled, _draw_rows(safe, generators),
+                       greedy.gather(1, a[:, None])[:, 0])
+    padded = torch.cat([props, props.new_zeros(b, 1)], dim=1)
+    emit = torch.where(torch.arange(k + 1, device=dev)[None] == a[:, None],
+                       corr[:, None], padded)
+    return emit, a
+
+
+@dispatch.counted("spec_accept_rows")
+def spec_accept_rows(logits: torch.Tensor, proposals: torch.Tensor,
+                     q_probs: torch.Tensor, generators, temps: torch.Tensor,
+                     top_k: int = 0, top_p: float = 0.0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row speculative acceptance, greedy and sampled rows in one
+    body: target ``logits`` [B, K+1, V] over the window, ``proposals``
+    [B, K] with their draft distributions ``q_probs`` [B, K, V], one
+    generator a row and ``temps`` [B] on the device -> (emit [B, K+1],
+    accepts [B]).
+
+    Greedy rows: a proposal is accepted while it equals the target's
+    raw argmax, and the correction / bonus is the argmax at the first
+    mismatch, so speculative greedy equals plain greedy.  Sampled rows:
+    rejection sampling, accepting proposal i with probability
+    ``min(1, p_i(x_i) / q_i(x_i))`` under the samplers' filter, on the
+    first reject a draw from ``norm(max(p_i - q_i, 0))``, on a full
+    accept the bonus from ``p_K``, so each emitted token is distributed
+    as plain sampling of the target (Leviathan et al., Chen et al.).
+    ``emit[b, :accepts[b] + 1]`` are the tokens to append."""
+    return _spec_accept_body(logits, proposals, q_probs, generators, temps,
+                             top_k, top_p)
+
+
 # -- the fused generation block ---------------------------------------
 #
 # Up to k per-row decode steps with sampling, KV writes, per-row EOS and
@@ -426,43 +638,69 @@ def sample_rows(logits, generators, temps, top_k: int = 0,
 # (_block_step) serves both forms: decode_fused_rows loops it with the
 # JAX package's early exit (the CPU path), FusedBlockGraph captures it
 # k times into one CUDA graph (the card's form of the JAX package's
-# one-dispatch lax.while_loop).
+# one-dispatch lax.while_loop).  The speculative block
+# (decode_spec_fused_rows) is the same machinery with another step
+# body, _spec_block_step: one whole speculative window a step.
 
 
 @dataclasses.dataclass
 class _BlockState:
     """The block's inputs and per-row state, one tensor each, updated in
-    place by :func:`_block_step` (in a graph: its fixed-address
-    buffers).  ``last``, ``pos``, ``budget`` and ``eos`` are rows of
-    one [4, B] long tensor, so the host uploads them in one copy."""
+    place by the step bodies (in a graph: its fixed-address buffers).
+    ``last``, ``pos``, ``budget`` and ``eos`` are rows of one [4, B]
+    long tensor, so the host uploads them in one copy.  A speculative
+    block also counts each row's accepted drafts and windows run."""
 
     ints: torch.Tensor       # [4, B] long: last, pos, budget, eos
     temps: torch.Tensor      # [B] f32 (0 = greedy)
     done: torch.Tensor       # [B] bool
     emitted: torch.Tensor    # [B] int32
-    packed: torch.Tensor     # [B, k+1] int32: tokens, then each count
+    packed: torch.Tensor     # [B, width + counts] int32: tokens, counts
     rows_done: torch.Tensor  # [] long
+    accepted: torch.Tensor | None = None   # [B] int32, speculative only
+    windows: torch.Tensor | None = None    # [B] int32, speculative only
 
     @classmethod
-    def empty(cls, b: int, k: int, device) -> "_BlockState":
+    def empty(cls, b: int, width: int, device,
+              spec: bool = False) -> "_BlockState":
+        """State for blocks of ``width`` token columns a row (k steps,
+        or k windows of draft_len + 1 when ``spec``)."""
+        def count():
+            return torch.zeros(b, dtype=torch.int32, device=device)
+
         return cls(
             ints=torch.zeros((4, b), dtype=torch.long, device=device),
             temps=torch.zeros(b, dtype=torch.float32, device=device),
             done=torch.zeros(b, dtype=torch.bool, device=device),
-            emitted=torch.zeros(b, dtype=torch.int32, device=device),
-            packed=torch.zeros((b, k + 1), dtype=torch.int32,
-                               device=device),
-            rows_done=torch.zeros((), dtype=torch.long, device=device))
+            emitted=count(),
+            packed=torch.zeros((b, width + (3 if spec else 1)),
+                               dtype=torch.int32, device=device),
+            rows_done=torch.zeros((), dtype=torch.long, device=device),
+            accepted=count() if spec else None,
+            windows=count() if spec else None)
+
+    def counts(self) -> list[torch.Tensor]:
+        """The per-row counts packed after the tokens, in order."""
+        return [c for c in (self.emitted, self.accepted, self.windows)
+                if c is not None]
+
+    def load(self, last, pos, budget, eos, temps) -> None:
+        """Upload one block's [B] inputs (the step-by-step form)."""
+        for row, vals in enumerate((last, pos, budget, eos)):
+            self.ints[row] = torch.as_tensor(vals, device=self.ints.device)
+        self.temps.copy_(torch.as_tensor(temps, dtype=torch.float32))
 
     def begin(self) -> None:
         """Start a block from the uploaded inputs: a row of budget 0 is
         frozen from step 0."""
         torch.le(self.ints[2], 0, out=self.done)
-        self.emitted.zero_()
+        for c in self.counts():
+            c.zero_()
         self.packed.zero_()
 
     def finish(self) -> None:
-        self.packed[:, -1] = self.emitted
+        counts = self.counts()
+        self.packed[:, -len(counts):] = torch.stack(counts, dim=1)
         self.rows_done.copy_(self.done.sum())
 
 
@@ -507,17 +745,127 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
     rows_finished [], cache)``: ``packed[:, :k]`` the tokens (0 past a
     row's count), ``packed[:, k]`` each row's emitted count; the cache
     is written in place."""
-    b = last.shape[0]
-    dev = cache.k[0].device
-    s = _BlockState.empty(b, k, dev)
-    for row, vals in enumerate((last, pos_rows, budget, eos)):
-        s.ints[row] = torch.as_tensor(vals, device=dev)
-    s.temps.copy_(torch.as_tensor(temps, dtype=torch.float32))
+    s = _BlockState.empty(last.shape[0], k, cache.k[0].device)
+    s.load(last, pos_rows, budget, eos, temps)
     s.begin()
     for j in range(k):
         if bool(s.done.all()):
             break
         _block_step(params, cfg, cache, s, j, generators, top_k, top_p)
+    s.finish()
+    return s.packed, s.rows_done, cache
+
+
+@dataclasses.dataclass
+class SpecDraft:
+    """What a speculative window drafts from: ``length`` proposals a row
+    from the draft model (``params``, ``cfg``, its [B, S] ``cache`` and
+    one draft-side generator a row), or, with ``params`` None, from the
+    n-gram lookup over ``ctx`` [B, C] with valid lengths ``ctx_len``
+    [B]."""
+
+    length: int
+    params: Params | None = None
+    cfg: TransformerConfig | None = None
+    cache: KVCache | None = None
+    generators: list | None = None
+    ctx: torch.Tensor | None = None
+    ctx_len: torch.Tensor | None = None
+
+    def propose(self, last, pos, temps, top_k: int, top_p: float,
+                vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(proposals [B, length], q_probs [B, length, vocab]); the
+        draft model writes its cache rows pos..pos+length in place."""
+        if self.params is None:
+            prop = ngram_propose_rows(self.ctx, self.ctx_len, last,
+                                      self.length)
+            return prop, _one_hot(prop, vocab)
+        prop, q, _ = _draft_scan(self.params, last, self.cfg, self.cache,
+                                 pos, self.length, self.generators, temps,
+                                 top_k, top_p)
+        return prop, q
+
+
+def _spec_block_step(params: Params, cfg: TransformerConfig,
+                     cache: KVCache, s: _BlockState, generators,
+                     top_k: int, top_p: float, draft: SpecDraft) -> None:
+    """One speculative window of the block, in place on ``s`` and the
+    caches: draft, one target window forward, verify-accept, then each
+    live row appends ``min(accepts + 1, its first EOS, its remaining
+    budget)`` tokens at its next free columns of ``s.packed``.
+
+    A frozen row appends nothing and keeps its position; its window
+    writes land at [pos, pos + draft_len] past its finish line (in
+    bounds: the engine's capacity margin is draft_len + 1 for fused
+    speculation), which no live query reads, and its draws are
+    discarded, as in :func:`_block_step`."""
+    last, pos, budget, eos = s.ints
+    kd = draft.length
+    cap = s.packed.shape[1] - 3
+    proposals, q_probs = draft.propose(last, pos, s.temps, top_k, top_p,
+                                       cfg.vocab)
+    window = torch.cat([last[:, None], proposals], dim=1)
+    logits, _ = _rows_forward(params, window, cfg, cache, pos)
+    emit, a = _spec_accept_body(logits, proposals, q_probs, generators,
+                                s.temps, top_k, top_p)
+    alive = ~s.done
+    steps = torch.arange(kd + 1, device=last.device)[None]
+    n0 = a + 1
+    hit = (eos[:, None] >= 0) & (emit == eos[:, None]) & (steps < n0[:, None])
+    has = hit.any(dim=1)
+    first = hit.long().argmax(dim=1)
+    n = torch.minimum(torch.where(has, first + 1, n0), budget - s.emitted)
+    n = torch.where(alive, n, 0)
+    # tokens past a row's count go to column ``cap``, the emitted
+    # count's, which finish() overwrites
+    cols = torch.where(steps < n[:, None], s.emitted[:, None] + steps, cap)
+    s.packed.scatter_(1, cols, emit.to(torch.int32))
+    last.copy_(torch.where(
+        alive, emit.gather(1, (n - 1).clamp(0, kd)[:, None])[:, 0], last))
+    pos += n
+    s.emitted += n
+    s.accepted += torch.minimum(n, a)
+    s.windows += alive
+    s.done |= alive & ((has & (first < n)) | (s.emitted >= budget))
+
+
+@dispatch.counted("decode_spec_fused_rows")
+def decode_spec_fused_rows(params: Params, last: torch.Tensor,
+                           cfg: TransformerConfig, cache: KVCache,
+                           pos_rows: torch.Tensor, k: int, generators,
+                           temps: torch.Tensor, budget: torch.Tensor,
+                           eos: torch.Tensor, ctx: torch.Tensor | None,
+                           ctx_len: torch.Tensor | None,
+                           draft_params: Params | None,
+                           draft_cfg: TransformerConfig | None,
+                           draft_cache: KVCache | None,
+                           draft_generators, draft_len: int,
+                           top_k: int = 0, top_p: float = 0.0
+                           ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Speculation inside the fused block, step by step: up to ``k``
+    windows of :func:`_spec_block_step` a row, leaving as soon as every
+    row is done.  Each window drafts ``draft_len`` proposals (the draft
+    model when ``draft_params`` is given, with ``draft_cache`` and one
+    draft generator a row; else the n-gram lookup over ``ctx`` /
+    ``ctx_len``), scores them in one target forward and accepts per row
+    on the device.  Inputs as :func:`decode_fused_rows`.
+
+    Returns ``(packed [B, k*(draft_len+1) + 3], rows_finished, cache)``:
+    the token block, then each row's emitted count, accepted drafts and
+    windows run.  Both caches are written in place; on the card the
+    engine replays a :class:`FusedBlockGraph` built with a
+    :class:`SpecDraft` instead."""
+    draft = SpecDraft(draft_len, draft_params, draft_cfg, draft_cache,
+                      draft_generators, ctx, ctx_len)
+    s = _BlockState.empty(last.shape[0], k * (draft_len + 1),
+                          cache.k[0].device, spec=True)
+    s.load(last, pos_rows, budget, eos, temps)
+    s.begin()
+    for _ in range(k):
+        if bool(s.done.all()):
+            break
+        _spec_block_step(params, cfg, cache, s, generators, top_k, top_p,
+                         draft)
     s.finish()
     return s.packed, s.rows_done, cache
 
@@ -552,7 +900,7 @@ def _tensor_ptrs(tree) -> list[int]:
 
 def _k7_counts() -> tuple[dict, int]:
     """K7's launch counters (models/quant.py), the only kernel the
-    block's forward launches: the contiguous cache is read by plain
+    block's forwards launch: the contiguous caches are read by plain
     ops, and serving's MoE layers take the dense dispatch."""
     return dict(quant.launches), quant.tc_launches
 
@@ -562,41 +910,51 @@ class FusedBlockGraph:
     (:func:`block_length`), captured lazily, each that many steps of
     :func:`_block_step` between ``begin`` and ``finish``; a block is one
     replay, one upload of the inputs and one readback of the packed
-    array and the rows-finished count.
+    array and the rows-finished count.  With ``draft`` (a
+    :class:`SpecDraft`) each step is one speculative window
+    (:func:`_spec_block_step`) and a block is one
+    ``decode_spec_fused_rows``.
 
     - **Fixed-address buffers**: a :class:`_BlockState` (the inputs
       ``last``/``pos``/``budget``/``eos``/``temps``, the packed output,
-      the rows-finished count), pinned host twins for the two uploads
-      and two readbacks, and one memory pool shared by this runner's
+      the rows-finished count), pinned host twins for the uploads and
+      the two readbacks, and one memory pool shared by this runner's
       graphs (nothing a graph allocates outlives its replay, and the
-      graphs run one after another on one stream).
+      graphs run one after another on one stream).  The n-gram source's
+      context and lengths are fixed buffers too, uploaded with each
+      block's inputs.
     - **Generators**: ``generators`` (one persistent generator per
-      slot, reseeded by the engine at each fill) are registered with
-      every graph; a replay reads each one's seed and offset as the
-      host holds them and advances the offset by what the captured
-      steps draw, as the same steps would eagerly.
+      slot, reseeded by the engine at each fill), and a draft model's
+      draft-side generators, are registered with every graph; a replay
+      reads each one's seed and offset as the host holds them and
+      advances the offset by what the captured steps draw, as the same
+      steps would eagerly.
     - **Warm-up**: before each capture, one step runs eagerly with
       every row frozen, so lazy set-up happens outside the capture.
-      Its K/V writes land at each row's current position, which the
-      block's first step rewrites (an active row) or no live query
-      reads (a free slot); its
-      draws are undone by restoring each generator's seed and offset
-      by value (``get_state``/``set_state``: ``graphsafe_set_state``
-      would swap the state object the graphs hold).
-    - **Bindings**: the data pointers of the parameters and the cache
-      a graph captured are checked before each replay; a rebind raises
-      and nothing is recaptured behind the caller's back.
+      Its K/V writes land at each row's current position (a window's:
+      at pos..pos+draft_len, in the target and the draft cache), which
+      the block's first step rewrites (an active row) or no live query
+      reads (a free slot); its draws are undone by restoring each
+      generator's seed and offset by value (``get_state``/
+      ``set_state``: ``graphsafe_set_state`` would swap the state
+      object the graphs hold).
+    - **Bindings**: the data pointers of the parameters and the cache a
+      graph captured, and of the draft model's, are checked before each
+      replay; a rebind raises and nothing is recaptured behind the
+      caller's back.
     - **Launch counts**: K7's counters move while a graph is captured,
       not while it replays (nothing runs at capture), so each capture's
       change is taken back and added at every replay of that graph;
-      ``passes`` counts the forward passes run on the card (warm-ups
-      and replayed steps), the decode passes those launches serve.
+      ``passes`` counts the target forward passes run on the card
+      (warm-ups and replayed steps or windows) and ``draft_passes`` the
+      draft model's (draft_len + 1 a window), the passes those launches
+      serve.
 
     No fallback: a failed capture or replay raises."""
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  cache: KVCache, generators, k: int, top_k: int = 0,
-                 top_p: float = 0.0):
+                 top_p: float = 0.0, draft: SpecDraft | None = None):
         dev = cache.k[0].device
         if dev.type != "cuda":
             raise ValueError(f"FusedBlockGraph runs on the card, the cache "
@@ -604,12 +962,28 @@ class FusedBlockGraph:
                              f"step-by-step form")
         b = len(generators)
         self.k = k
+        self._draft = draft
+        self._gens = list(generators)
+        width = k
+        self._host_ctx = None
+        if draft is not None:
+            width = k * (draft.length + 1)
+            self._gens += list(draft.generators or [])
+            if draft.params is None:
+                c = cache.k[0].shape[1]
+                draft.ctx = torch.zeros((b, c), dtype=torch.int32,
+                                        device=dev)
+                draft.ctx_len = torch.zeros(b, dtype=torch.int32, device=dev)
+                self._host_ctx = torch.zeros((b, c),
+                                             dtype=torch.int32).pin_memory()
+                self._host_ctx_len = torch.zeros(
+                    b, dtype=torch.int32).pin_memory()
         self._body = (params, cfg, cache, list(generators), top_k, top_p)
-        self._bound = (_tensor_ptrs(params), _tensor_ptrs(cache.tensors()))
-        self._s = _BlockState.empty(b, k, dev)
+        self._bound = self._pointers(params, cache)
+        self._s = _BlockState.empty(b, width, dev, spec=draft is not None)
         self._host_ints = torch.zeros((4, b), dtype=torch.long).pin_memory()
         self._host_temps = torch.zeros(b, dtype=torch.float32).pin_memory()
-        self._host_packed = torch.zeros((b, k + 1),
+        self._host_packed = torch.zeros(tuple(self._s.packed.shape),
                                         dtype=torch.int32).pin_memory()
         self._host_done = torch.zeros((), dtype=torch.long).pin_memory()
         self._ready = torch.cuda.Event()
@@ -620,24 +994,40 @@ class FusedBlockGraph:
         self.capture_s = 0.0
         self.replays = 0
         self.passes = 0
+        self.draft_passes = 0
+
+    def _pointers(self, params: Params, cache: KVCache) -> list:
+        ptrs = [_tensor_ptrs(params), _tensor_ptrs(cache.tensors())]
+        d = self._draft
+        if d is not None and d.params is not None:
+            ptrs += [_tensor_ptrs(d.params), _tensor_ptrs(d.cache.tensors())]
+        return ptrs
 
     def _step(self, j: int) -> None:
         params, cfg, cache, gens, top_k, top_p = self._body
-        _block_step(params, cfg, cache, self._s, j, gens, top_k, top_p)
+        if self._draft is None:
+            _block_step(params, cfg, cache, self._s, j, gens, top_k, top_p)
+        else:
+            _spec_block_step(params, cfg, cache, self._s, gens, top_k,
+                             top_p, self._draft)
+
+    def _count_passes(self, steps: int) -> None:
+        self.passes += steps
+        if self._draft is not None and self._draft.params is not None:
+            self.draft_passes += steps * (self._draft.length + 1)
 
     def _capture(self, n: int) -> None:
         t0 = time.perf_counter()
-        gens = self._body[3]
-        saved = [g.get_state() for g in gens]
+        saved = [g.get_state() for g in self._gens]
         self._s.begin()
         self._s.done.fill_(True)
         self._step(0)
-        for g, state in zip(gens, saved):
+        for g, state in zip(self._gens, saved):
             g.set_state(state)
-        self.passes += 1
+        self._count_passes(1)
         before = _k7_counts()
         graph = torch.cuda.CUDAGraph()
-        for g in gens:
+        for g in self._gens:
             graph.register_generator_state(g)
         with torch.cuda.graph(graph, pool=self._pool):
             self._s.begin()
@@ -654,21 +1044,37 @@ class FusedBlockGraph:
         self.capture_s += time.perf_counter() - t0
 
     def launch(self, params: Params, cache: KVCache, last, pos, temps,
-               budget, eos) -> None:
-        """Upload one block's inputs (host arrays of [B]), replay the
-        graph of its length, and queue the readback; the cache is
-        written in place.  Returns at once: :meth:`collect` waits."""
-        if (_tensor_ptrs(params), _tensor_ptrs(cache.tensors())) \
-                != self._bound:
-            raise RuntimeError("the parameters or the cache moved since "
+               budget, eos, ctx=None, ctx_len=None) -> int:
+        """Upload one block's inputs (host arrays of [B]; the n-gram
+        source's ``ctx`` [B, C] and ``ctx_len`` [B] too), replay the
+        graph of its length, and queue the readback; the caches are
+        written in place.  Returns the block's length (steps, or
+        windows) at once: :meth:`collect` waits.
+
+        A speculative block replays the fewest windows that could finish
+        every row at full acceptance (a window emits at most draft_len +
+        1 tokens a row), rounded up by :func:`block_length`; a row still
+        live after them rides the next block."""
+        if self._pointers(params, cache) != self._bound:
+            raise RuntimeError("the parameters or a cache moved since "
                                "the block's graphs were captured")
-        dispatch.COUNTER.record("decode_fused_rows")
-        n = block_length(self.k, int(max(budget)))
+        need = int(max(budget))
+        if self._draft is None:
+            dispatch.COUNTER.record("decode_fused_rows")
+        else:
+            dispatch.COUNTER.record("decode_spec_fused_rows")
+            need = -(-need // (self._draft.length + 1))
+        n = block_length(self.k, need)
         for row, vals in enumerate((last, pos, budget, eos)):
             self._host_ints[row] = torch.as_tensor(vals)
         self._host_temps.copy_(torch.as_tensor(temps))
         self._s.ints.copy_(self._host_ints, non_blocking=True)
         self._s.temps.copy_(self._host_temps, non_blocking=True)
+        if self._host_ctx is not None:
+            self._host_ctx.copy_(torch.as_tensor(ctx))
+            self._host_ctx_len.copy_(torch.as_tensor(ctx_len))
+            self._draft.ctx.copy_(self._host_ctx, non_blocking=True)
+            self._draft.ctx_len.copy_(self._host_ctx_len, non_blocking=True)
         if n not in self._graphs:
             self._capture(n)
         self._graphs[n].replay()
@@ -677,14 +1083,15 @@ class FusedBlockGraph:
             quant.launches[name] += count
         quant.tc_launches += tc
         self.replays += 1
-        self.passes += n
+        self._count_passes(n)
         self._host_packed.copy_(self._s.packed, non_blocking=True)
         self._host_done.copy_(self._s.rows_done, non_blocking=True)
         self._ready.record()
+        return n
 
     def collect(self) -> tuple[np.ndarray, int]:
-        """Wait for the launched block: (packed [B, k+1], rows
-        finished)."""
+        """Wait for the launched block: (packed [B, width + counts],
+        rows finished)."""
         self._ready.synchronize()
         return self._host_packed.numpy().copy(), int(self._host_done)
 
@@ -713,30 +1120,36 @@ def prefill_adopt_rows(params: Params, prompts: torch.Tensor,
                        slot_ids, generators, temps, top_k: int = 0,
                        top_p: float = 0.0
                        ) -> tuple[torch.Tensor, KVCache]:
-    """Fresh fill of ``n`` same-length requests in one call: flash
-    prefill ``prompts`` [n, L] on a transient [n, L] cache, copy the
-    K/V rows into the engine cache at ``slot_ids`` (distinct slots),
-    and draw each request's first token (argmax for temp 0, else from
-    its generator).  Returns (first tokens [n], cache).
+    """Fresh fill of ``n = len(slot_ids)`` same-length requests in one
+    call: flash prefill ``prompts`` [m, L] (m >= n) on a transient
+    cache, copy the first n rows' K/V into the engine cache at
+    ``slot_ids`` (distinct slots), and draw each request's first token
+    (argmax for temp 0, else from its generator).  Returns (first
+    tokens [n], cache).
+
+    Rows past n are padding, computed and dropped: the engine pads each
+    group to its slot count, as the JAX engine does, so that a group's
+    shapes, and with them the matrix products' algorithms and rounding,
+    do not depend on how many requests share its length.  A request's
+    first token and K/V are then the same whatever fills beside it,
+    which keeps two schedules of one traffic (a fused and a step
+    engine) token-equal on the card.
 
     Only the prompt's L rows are written into each slot; rows past L
     keep whatever an earlier occupant left there, which no query ever
-    reads (position mask) and the decode steps overwrite.  Groups are
-    not padded to a fixed size as in the JAX package (eager PyTorch
-    compiles nothing per shape), so the scatter has no duplicate
-    indices."""
-    n, length = prompts.shape
-    one = init_cache(cfg, n, length, device=prompts.device)
+    reads (position mask) and the decode steps overwrite."""
+    n, length = len(slot_ids), prompts.shape[1]
+    one = init_cache(cfg, prompts.shape[0], length, device=prompts.device)
     logits, one = forward_with_cache(params, prompts, cfg, one,
                                      first_chunk=True)
     idx = torch.as_tensor(slot_ids, dtype=torch.long,
                           device=prompts.device)
 
     def put(dst, src):
-        dst[idx, :length] = src
+        dst[idx, :length] = src[:n]
 
     cache = scatter_cache(cache, one, put)
-    first = select_next_tokens(logits[:, -1], generators, temps, top_k,
+    first = select_next_tokens(logits[:n, -1], generators, temps, top_k,
                                top_p)
     return first, cache
 
@@ -860,6 +1273,23 @@ def paged_decode_step_rows(params: Params, token: torch.Tensor,
     return logits[:, 0], pool
 
 
+@dispatch.counted("paged_window_rows")
+def paged_window_rows(params: Params, tokens: torch.Tensor,
+                      cfg: TransformerConfig, pool: KVCache,
+                      tables: torch.Tensor, pos_rows: torch.Tensor
+                      ) -> tuple[torch.Tensor, KVCache]:
+    """Multi-token paged step: tokens [B, K+1] appended at each row's
+    own position through its block table -> (logits [B, K+1, vocab],
+    pool), the paged twin of :func:`decode_window_rows`.  The read is
+    the dense gather (the paged kernel is single-query), so a
+    speculative window launches no K2.  The caller must have reserved
+    writable blocks covering [pos, pos+K] a live row; rejected rows
+    past the accepted prefix are rolled back by trimming the table,
+    never by rewriting the pool."""
+    return _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
+                               use_kernel=False)
+
+
 @dispatch.counted("paged_adopt")
 def paged_adopt_blocks(pool: KVCache, one: KVCache, ids, start_block: int,
                        n_blocks: int) -> KVCache:
@@ -963,12 +1393,15 @@ def sample_generate(params: Params, prompt: torch.Tensor,
     return torch.cat([prompt, generated], dim=1)
 
 
-__all__ = ["FusedBlockGraph", "KVCache", "adopt_one_slot", "block_length",
-           "copy_cache", "decode_fused_rows", "decode_step",
-           "decode_step_rows",
-           "forward_with_cache", "greedy_generate", "init_cache",
-           "init_paged_pool", "paged_adopt_blocks", "paged_copy_block",
-           "paged_decode_step_rows", "paged_gather_entry", "prefill",
-           "prefill_adopt_rows", "sample_generate", "sample_rows",
-           "sample_token", "scatter_cache", "select_next_tokens",
+__all__ = ["FusedBlockGraph", "KVCache", "SpecDraft", "adopt_one_slot",
+           "block_length", "copy_cache", "decode_fused_rows",
+           "decode_spec_fused_rows", "decode_step", "decode_step_rows",
+           "decode_window_rows", "draft_ngram_rows", "draft_propose_rows",
+           "draft_sample_rows", "forward_with_cache", "greedy_generate",
+           "init_cache", "init_paged_pool", "ngram_propose_rows",
+           "paged_adopt_blocks", "paged_copy_block",
+           "paged_decode_step_rows", "paged_gather_entry",
+           "paged_window_rows", "prefill", "prefill_adopt_rows",
+           "sample_generate", "sample_rows", "sample_token",
+           "scatter_cache", "select_next_tokens", "spec_accept_rows",
            "suffix_fill_adopt"]

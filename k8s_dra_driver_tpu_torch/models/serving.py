@@ -38,9 +38,21 @@ step, so token streams match the JAX engine's:
   early exit; on the card it is one replay of a captured CUDA graph
   (``FusedBlockGraph``), with no fallback.  Tokens equal the
   step-at-a-time engine's.
+- **Speculative continuous batching** (``draft_params``/``draft_cfg``/
+  ``draft_len``, or the model-free ``draft_source="ngram"`` prompt
+  lookup): each step a draft proposes ``draft_len`` tokens a slot, the
+  target scores the whole window in one forward
+  (``decode_window_rows``; ``paged_window_rows`` on the paged layout,
+  n-gram source only) and each row emits its accepted prefix plus a
+  correction.  Greedy rows accept by exact match, so their tokens
+  equal the non-speculative engine's; sampled rows accept by rejection
+  sampling (``spec_accept_rows``), each draft drawing from its own
+  draft-side generator.  Paged rollback trims the window's scratch
+  blocks off the table (``_kv_spec_trim``).  With ``chain_steps > 1``
+  each step is one fused block of up to K windows
+  (``decode_spec_fused_rows``; on the card one graph replay).
 
-Not ported yet (they raise ``NotImplementedError``): speculative
-decoding (``draft_params``/``draft_source``), LoRA adapters
+Not ported yet (they raise ``NotImplementedError``): LoRA adapters
 (``adapter_pool``), KV tiers (``kv_host_bytes``/``kv_spill_dir``), and
 the disaggregation verbs (``prefill_export``/``adopt_block``/
 ``export_prefix``/``import_prefix``).
@@ -61,7 +73,10 @@ from ..serving_kv import (NULL_BLOCK, BlocksExhausted, KVBlockManager,
 from ..utils import dispatch
 from ..utils.device import resolve_device
 from . import decode as _decode
-from .decode import KVCache, decode_step_rows, init_cache, sample_token
+from .decode import (KVCache, decode_step_rows, decode_window_rows,
+                     draft_ngram_rows, draft_propose_rows,
+                     draft_sample_rows, init_cache, sample_token,
+                     spec_accept_rows)
 from .transformer import TransformerConfig, require_single_device
 
 
@@ -226,6 +241,19 @@ def _adopt_slot(cache: KVCache, one: KVCache, slot: int) -> KVCache:
 _prefill_suffix = dispatch.counted("prefill_suffix")(
     _decode.forward_with_cache)
 
+#: draft-model prompt fills under their own label, so draft work is
+#: attributable apart from the target's
+_draft_prefill = dispatch.counted("draft_prefill")(
+    _decode.forward_with_cache)
+
+#: a sampled request's draft-side generator is seeded with its seed
+#: XOR this constant.  Not the request's seed itself: the target
+#: generator is seeded with that, and equal streams would tie each
+#: proposal's draws to the acceptance draws that judge it, which breaks
+#: rejection sampling's guarantee (the JAX engine derives its draft key
+#: by ``fold_in(key, 7919)`` for the same reason)
+_DRAFT_SEED_SALT = 0x9E3779B97F4A7C15
+
 
 def _unported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
@@ -257,10 +285,6 @@ class ServingEngine:
                  kv_spill_dir=None,
                  adapter_pool=None,
                  device="cuda"):
-        if draft_params is not None or draft_cfg is not None \
-                or draft_source is not None:
-            raise _unported("speculative decoding (draft_params / "
-                            "draft_source)", "speculative-decoding")
         if adapter_pool is not None:
             raise _unported("multi-adapter LoRA serving (adapter_pool)",
                             "LoRA")
@@ -274,6 +298,12 @@ class ServingEngine:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self._paged = kv_layout == "paged"
         if self._paged:
+            if draft_params is not None:
+                # the n-gram source needs no draft KV; a draft model
+                # would need its own paged cache
+                raise ValueError("paged KV composes with the n-gram "
+                                 "draft source only; use "
+                                 "draft_source='ngram'")
             if chain_steps > 1:
                 raise ValueError("paged KV does not compose with "
                                  "fused generation blocks")
@@ -285,13 +315,28 @@ class ServingEngine:
                                  "windowed attention")
         if not 0.0 <= top_p <= 1.0:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg go together")
+        if draft_params is not None and draft_len < 1:
+            raise ValueError("draft_len must be >= 1")
         if chain_steps < 1:
             raise ValueError("chain_steps must be >= 1")
+        if draft_source not in (None, "model", "ngram"):
+            raise ValueError(f"unknown draft_source {draft_source!r}")
+        if draft_source == "model" and draft_params is None:
+            raise ValueError("draft_source='model' needs draft_params")
+        if draft_source == "ngram" and draft_params is not None:
+            raise ValueError("draft_source='ngram' is model-free; "
+                             "drop draft_params")
+        if draft_source == "ngram" and draft_len < 1:
+            raise ValueError("draft_len must be >= 1")
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(
-                f"params live on {params['embed'].device}, the engine "
-                f"runs on {self.device}")
+        for name, tree in (("params", params), ("draft_params",
+                                                 draft_params)):
+            if tree is not None and tree["embed"].device != self.device:
+                raise ValueError(
+                    f"{name} live on {tree['embed'].device}, the engine "
+                    f"runs on {self.device}")
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -301,11 +346,38 @@ class ServingEngine:
         self.top_k = top_k
         self.top_p = top_p
         self.chain_steps = chain_steps
+        # speculative continuous batching: a draft proposes draft_len
+        # tokens a slot (the draft model's loop or the prompt n-gram
+        # gather), the target scores the whole window in one forward;
+        # greedy rows accept by exact match, sampled rows by rejection
+        # sampling, both in one batch
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.draft_len = draft_len
+        self._draft_source = draft_source or (
+            "model" if draft_params is not None else None)
+        self._ngram = self._draft_source == "ngram"
+        self._spec_on = self._draft_source is not None
+        self._spec_windows = 0
+        self._spec_accepted = 0
+        # proposals made for LIVE rows (draft_len a row a window), the
+        # accept rate's denominator; _spec_accepted counts only drafts
+        # actually emitted, so the rate is conservative
+        self._spec_drafts = 0
         # per-phase host accounting (stats())
         self._time_prefill = 0.0
         self._time_decode = 0.0
         self._time_host = 0.0
         self.max_seq = max_seq or cfg.max_seq
+        if self._ngram:
+            # each slot's prompt context for the n-gram lookup: a host
+            # array and its device twin, rebuilt when a fill changes it
+            # (the fused block's graphs upload it into a fixed buffer
+            # instead).  Zeros with length 0 never match, so a freed
+            # slot's stale context is inert.
+            self._ngram_ctx = np.zeros((slots, self.max_seq), np.int32)
+            self._ngram_len = np.zeros(slots, np.int32)
+            self._ngram_dev = None
         if self._paged:
             if self.max_seq % kv_block_size:
                 # blocks_per_slot = max_seq // bs keeps the gathered
@@ -364,12 +436,24 @@ class ServingEngine:
         self._slot_gens = [torch.Generator(device=self.device)
                            for _ in range(slots)]
         self._temps = np.zeros(slots, np.float32)
+        # a draft model's cache and its draft-side generators, one a
+        # slot, apart from the target's (reseeded at each sampled fill)
+        self._draft_cache = (init_cache(draft_cfg, slots, self.max_seq,
+                                        device=self.device)
+                             if draft_params is not None else None)
+        self._draft_gens = ([torch.Generator(device=self.device)
+                             for _ in range(slots)]
+                            if draft_params is not None else None)
         # the fused block on the card: captured CUDA graphs over this
-        # engine's parameters, cache and generators
-        self._graphs = (_decode.FusedBlockGraph(
-            params, cfg, self.cache, self._slot_gens, chain_steps, top_k,
-            top_p) if chain_steps > 1 and self.device.type == "cuda"
-            else None)
+        # engine's parameters, caches and generators
+        self._graphs = None
+        if chain_steps > 1 and self.device.type == "cuda":
+            draft = (_decode.SpecDraft(draft_len, draft_params, draft_cfg,
+                                       self._draft_cache, self._draft_gens)
+                     if self._spec_on else None)
+            self._graphs = _decode.FusedBlockGraph(
+                params, cfg, self.cache, self._slot_gens, chain_steps,
+                top_k, top_p, draft)
         # lifetime counters (stats())
         self._finished_total = 0
         self._cancelled = 0
@@ -390,14 +474,27 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.uid!r} names adapter {req.adapter!r} but "
                 f"this engine has no adapter pool")
-        if prompt.size + req.max_new > self.max_seq:
+        # a speculative window's first write is the last emitted token's
+        # own row; only the draft_len proposal rows lie past it, so that
+        # is the scratch margin.  The fused speculative block needs one
+        # row more: frozen rows ride along inside the block and their
+        # windows write [pos, pos + draft_len] past the finish line,
+        # where the step path releases a finished slot first.  The plain
+        # fused block needs none: frozen rows never write past it.
+        margin = ((self.draft_len + (1 if self.chain_steps > 1 else 0))
+                  if self._spec_on else 0)
+        if prompt.size + req.max_new + margin > self.max_seq:
             raise ValueError(
-                f"prompt ({prompt.size}) + max_new ({req.max_new}) "
-                f"exceeds the {self.max_seq}-slot cache")
+                f"prompt ({prompt.size}) + max_new ({req.max_new})"
+                + (f" + scratch margin ({margin})" if margin else "")
+                + f" exceeds the {self.max_seq}-slot cache")
         if self._paged:
             # a request that can NEVER fit the pool must be refused at
-            # intake, not discovered as a livelock under preemption
-            need = -(-(prompt.size + req.max_new) // self._kv_bs)
+            # intake, not discovered as a livelock under preemption (the
+            # window's scratch blocks count: they are held until the
+            # trim after the accept)
+            worst = min(prompt.size + req.max_new + margin, self.max_seq)
+            need = -(-worst // self._kv_bs)
             if need > self.kv_manager.n_blocks - 1:
                 raise ValueError(
                     f"request needs {need} KV blocks at its longest; "
@@ -520,6 +617,13 @@ class ServingEngine:
             out["kv_preemptions_total"] = self._kv_preemptions
             out["kv_alloc_failures_total"] = (
                 self.kv_manager.alloc_failures)
+            out["kv_spec_trims_total"] = self.kv_manager.spec_trims_total
+        if self._spec_on:
+            out["speculative_windows_total"] = self._spec_windows
+            out["speculative_accepted_total"] = self._spec_accepted
+            out["speculative_drafts_total"] = self._spec_drafts
+            out["spec_accept_rate"] = round(
+                self._spec_accepted / max(1, self._spec_drafts), 4)
         if self._graphs is not None:
             out["graph_captures_total"] = self._graphs.captures
             out["graph_capture_s"] = round(self._graphs.capture_s, 4)
@@ -574,6 +678,19 @@ class ServingEngine:
                 self.cfg, one, off == 0)
         if self._prefix is not None:
             self._prefix.insert(req.prompt, one)
+        if self.draft_params is not None:
+            # the draft needs its own K/V of the prompt (prefix entries
+            # hold the target's only), in the same chunks
+            one_d = init_cache(self.draft_cfg, 1, self.max_seq,
+                               device=self.device)
+            for off in range(0, req.prompt.size, c):
+                _, one_d = _draft_prefill(
+                    self.draft_params, self._prompt(req, off, off + c)[None],
+                    self.draft_cfg, one_d, off == 0)
+            self._draft_cache = _adopt_slot(self._draft_cache, one_d, slot)
+            if req.temperature > 0:
+                self._draft_gens[slot].manual_seed(
+                    (int(req.seed) ^ _DRAFT_SEED_SALT) % 2 ** 64)
         gen = self._generator(slot, req)
         first = self._first_token(logits, req, gen)
         self.cache = _adopt_slot(self.cache, one, slot)
@@ -589,9 +706,17 @@ class ServingEngine:
                            self.top_k, self.top_p)
 
     def _fill_finalize(self, slot: int, first: int) -> None:
-        """Record the resolved first token of a filled slot."""
+        """Record the resolved first token of a filled slot; the n-gram
+        source snapshots the slot's prompt here (the lookup matches
+        against the prompt only, static for the whole request)."""
         self._generated[slot] = [first]
         self._last[slot] = first
+        if self._ngram:
+            prompt = self._req[slot].prompt
+            self._ngram_ctx[slot, :] = 0
+            self._ngram_ctx[slot, :prompt.size] = prompt
+            self._ngram_len[slot] = prompt.size
+            self._ngram_dev = None
 
     def _finish_slot(self, slot: int, out: list[Finished]) -> None:
         req = self._req[slot]
@@ -630,13 +755,16 @@ class ServingEngine:
         self._tokens_total += len(gen)
         self._clear_slot(slot)
 
-    def _done(self, slot: int) -> bool:
+    def _done(self, slot: int, pos_offset: int = 0) -> bool:
+        """``pos_offset``: tokens appended this step but not yet folded
+        into ``_pos`` (the speculative emit loop advances ``_pos`` after
+        it), so the capacity clause tests the row's actual position."""
         req = self._req[slot]
         gen = self._generated[slot]
         return (len(gen) >= req.max_new
                 or (req.eos_id is not None and gen
                     and gen[-1] == req.eos_id)
-                or int(self._pos[slot]) + 1 >= self.max_seq)
+                or int(self._pos[slot]) + pos_offset + 1 >= self.max_seq)
 
     # -- the step loop ---------------------------------------------------
 
@@ -664,6 +792,8 @@ class ServingEngine:
                   if self._req[s] is not None]
         if not active:
             return finished
+        if self._spec_on:
+            return self._spec_step(active, finished)
         if self._paged:
             # block upkeep BEFORE the step: boundary appends and CoW
             # copies; under exhaustion this may preempt slots
@@ -714,16 +844,26 @@ class ServingEngine:
 
         Each row's stop state goes down with the block: ``budget`` (the
         tokens it may still emit before ``max_new`` or the cache's
-        capacity line, exactly ``_done``'s bounds; 0 for a free slot)
-        and ``eos``; rows freeze on the device when they finish, and
-        the host reads back ONE packed [slots, k+1] array of tokens and
-        per-row counts after the rows-finished count."""
+        capacity line, exactly ``_done``'s bounds, less the window's
+        scratch rows when speculating; 0 for a free slot) and ``eos``;
+        rows freeze on the device when they finish, and the host reads
+        back ONE packed array of tokens and per-row counts after the
+        rows-finished count.
+
+        A speculative engine's block runs up to ``chain_steps`` windows
+        a row (draft, one target window forward, accept, all on the
+        device), up to ``chain_steps * (draft_len + 1)`` tokens a row,
+        rows at different accept depths sharing the block; the packed
+        tail adds each row's accepted drafts and windows run, so the
+        accept rate costs no extra readback."""
         active = [s for s in range(self.slots)
                   if self._req[s] is not None]
         if not active:
             self._refill(finished)
             return finished
         k = self.chain_steps
+        kd = self.draft_len if self._spec_on else 0
+        width = k * (kd + 1)
         t_dec = time.perf_counter()
         budget = np.zeros(self.slots, np.int32)
         eos = np.full(self.slots, -1, np.int32)
@@ -731,19 +871,30 @@ class ServingEngine:
             req = self._req[slot]
             budget[slot] = min(
                 req.max_new - len(self._generated[slot]),
-                self.max_seq - 1 - int(self._pos[slot]))
+                self.max_seq - 1 - kd - int(self._pos[slot]))
             if req.eos_id is not None:
                 eos[slot] = req.eos_id
+        ctx = ((self._ngram_ctx, self._ngram_len) if self._ngram
+               else (None, None))
         if self._graphs is not None:
             self._graphs.launch(self.params, self.cache, self._last,
-                                self._pos, self._temps, budget, eos)
+                                self._pos, self._temps, budget, eos, *ctx)
         else:
-            packed, rows_done, self.cache = _decode.decode_fused_rows(
-                self.params, torch.as_tensor(self._last), self.cfg,
-                self.cache, torch.as_tensor(self._pos), k,
-                self._slot_gens, torch.as_tensor(self._temps),
-                torch.as_tensor(budget), torch.as_tensor(eos), self.top_k,
-                self.top_p)
+            args = (self.params, torch.as_tensor(self._last), self.cfg,
+                    self.cache, torch.as_tensor(self._pos), k,
+                    self._slot_gens, torch.as_tensor(self._temps),
+                    torch.as_tensor(budget), torch.as_tensor(eos))
+            if self._spec_on:
+                ctx = [None if c is None else torch.as_tensor(c)
+                       for c in ctx]
+                packed, rows_done, self.cache = \
+                    _decode.decode_spec_fused_rows(
+                        *args, *ctx, self.draft_params, self.draft_cfg,
+                        self._draft_cache, self._draft_gens, kd,
+                        self.top_k, self.top_p)
+            else:
+                packed, rows_done, self.cache = _decode.decode_fused_rows(
+                    *args, self.top_k, self.top_p)
         self._time_decode += time.perf_counter() - t_dec
         self._refill(finished)          # overlaps the running block
         t_wait = time.perf_counter()
@@ -752,14 +903,131 @@ class ServingEngine:
         else:
             int(rows_done)
             arr = packed.numpy()
-        dispatch.record_readback("fused_block")
+        dispatch.record_readback("fused_spec_block" if self._spec_on
+                                 else "fused_block")
         self._time_decode += time.perf_counter() - t_wait
-        self._steps_total += int(max(arr[slot, k] for slot in active))
+        if self._spec_on:
+            windows = [int(arr[s, width + 2]) for s in active]
+            self._steps_total += max(windows)
+            self._spec_windows += max(windows)
+            self._spec_drafts += sum(windows) * kd
+            self._spec_accepted += sum(int(arr[s, width + 1])
+                                       for s in active)
+        else:
+            self._steps_total += int(max(arr[s, width] for s in active))
         for slot in active:
-            for j in range(int(arr[slot, k])):
+            for j in range(int(arr[slot, width])):
                 self._pos[slot] += 1
                 self._generated[slot].append(int(arr[slot, j]))
                 self._last[slot] = arr[slot, j]
+            if self._done(slot):
+                self._finish_slot(slot, finished)
+        return finished
+
+    def _ngram_context(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The n-gram contexts and lengths on the device, the contexts
+        uploaded again only after a fill changed them."""
+        if self._ngram_dev is None:
+            self._ngram_dev = torch.as_tensor(self._ngram_ctx,
+                                              device=self.device)
+        return self._ngram_dev, torch.as_tensor(self._ngram_len,
+                                                device=self.device)
+
+    def _spec_step(self, active: list[int],
+                   finished: list[Finished]) -> list[Finished]:
+        """One speculative window: the draft proposes ``draft_len``
+        tokens a slot, the target scores the whole window in one
+        ``decode_window_rows`` pass, and each row emits its accepted
+        prefix plus a correction / bonus token.
+
+        Greedy-only batches take the lean path: the target's argmax and
+        the proposals come back in one packed readback and the prefix
+        match runs on the host.  With any sampled row, the draft samples
+        (``draft_sample_rows``; the n-gram's one-hot q) and
+        ``spec_accept_rows`` accepts every row on the device, one packed
+        readback of the emitted tokens and counts.
+
+        Inactive rows ride along at stale positions (in bounds: the
+        intake margin); rejected rows stay in the caches, masked by
+        position, and the next window rewrites them.  On the paged
+        layout, writable blocks covering the whole window are reserved
+        first (``_kv_prepare_step(span=draft_len + 1)``) and blocks past
+        the accepted prefix are trimmed after (``_kv_spec_trim``)."""
+        k = self.draft_len
+        if self._paged:
+            self._kv_prepare_step(active, span=k + 1)
+            active = [s for s in active if self._req[s] is not None]
+            if not active:
+                return finished
+        t_dec = time.perf_counter()
+        last = torch.as_tensor(self._last, dtype=torch.long,
+                               device=self.device)
+        pos = torch.as_tensor(self._pos, device=self.device)
+        sampled_mode = bool(self._temps.any())
+        temps = torch.as_tensor(self._temps, device=self.device)
+        if self._ngram:
+            proposals, q_probs = draft_ngram_rows(
+                *self._ngram_context(), last, k, self.cfg.vocab,
+                sampled_mode)
+        elif sampled_mode:
+            proposals, q_probs, self._draft_cache = draft_sample_rows(
+                self.draft_params, last, self.draft_cfg, self._draft_cache,
+                pos, k, self._draft_gens, temps, self.top_k, self.top_p)
+        else:
+            proposals, self._draft_cache = draft_propose_rows(
+                self.draft_params, last, self.draft_cfg, self._draft_cache,
+                pos, k)
+        window = torch.cat([last[:, None], proposals], dim=1)
+        if self._paged:
+            if self._table_dev is None:
+                self._table_dev = torch.as_tensor(self._table,
+                                                  device=self.device)
+            logits, self.pool = _decode.paged_window_rows(
+                self.params, window, self.cfg, self.pool, self._table_dev,
+                pos)
+        else:
+            logits, self.cache = decode_window_rows(
+                self.params, window, self.cfg, self.cache, pos)
+        if sampled_mode:
+            emit, a = spec_accept_rows(logits, proposals, q_probs,
+                                       self._slot_gens, temps, self.top_k,
+                                       self.top_p)
+            packed = torch.cat([emit, a[:, None]], dim=1).cpu().numpy()
+            emit_all, a_all = packed[:, :-1], packed[:, -1]
+        else:
+            packed = torch.cat([logits.argmax(dim=-1), proposals],
+                               dim=1).cpu().numpy()
+            greedy, props = packed[:, :k + 1], packed[:, k + 1:]
+        dispatch.record_readback("spec_window")
+        self._time_decode += time.perf_counter() - t_dec
+        self._steps_total += 1
+        self._spec_windows += 1
+        self._spec_drafts += k * len(active)
+        for slot in active:
+            if sampled_mode:
+                a = int(a_all[slot])
+                emit = list(emit_all[slot, :a + 1])
+            else:
+                a = 0
+                while a < k and props[slot, a] == greedy[slot, a]:
+                    a += 1
+                emit = list(props[slot, :a]) + [greedy[slot, a]]
+            appended = 0
+            for tok in emit:
+                self._generated[slot].append(int(tok))
+                self._last[slot] = tok
+                appended += 1
+                if self._done(slot, pos_offset=appended):
+                    break
+            # only drafts actually emitted count (an EOS or max_new cut
+            # discards the rest)
+            self._spec_accepted += min(appended, a)
+            # the window wrote last and every accepted draft; the final
+            # appended token's own row stays unwritten either way, the
+            # plain step's gen[-1]-unwritten invariant
+            self._pos[slot] += appended
+            if self._paged:
+                self._kv_spec_trim(slot)
             if self._done(slot):
                 self._finish_slot(slot, finished)
         return finished
@@ -781,7 +1049,7 @@ class ServingEngine:
             for slot in range(self.slots):
                 if self._req[slot] is None and self.queue:
                     batch.append((slot, self.queue.popleft()))
-            if self.prefill_chunk is None:
+            if self.prefill_chunk is None and self.draft_params is None:
                 firsts = self._fill_fused_round(batch)
             else:
                 firsts = torch.stack(
@@ -855,15 +1123,18 @@ class ServingEngine:
 
     def _fill_fresh_groups(self, batch: list, by_slot: dict) -> None:
         """Fresh fills grouped by prompt length through
-        ``prefill_adopt_rows``: one call per group."""
+        ``prefill_adopt_rows``: one call per group, padded to ``slots``
+        rows by repeating its first prompt (the JAX engine's padding),
+        so a request's fill does not depend on its group's size."""
         groups: dict[int, list] = {}
         for slot, req in batch:
             groups.setdefault(req.prompt.size, []).append((slot, req))
         for grp in groups.values():
             gens = [self._generator(s, r) for s, r in grp]
+            pad = [grp[0][1].prompt] * (self.slots - len(grp))
             prompts = torch.as_tensor(
-                np.stack([r.prompt for _, r in grp]), dtype=torch.long,
-                device=self.device)
+                np.stack([r.prompt for _, r in grp] + pad),
+                dtype=torch.long, device=self.device)
             first, self.cache = _decode.prefill_adopt_rows(
                 self.params, prompts, self.cfg, self.cache,
                 [s for s, _ in grp], gens,
@@ -939,34 +1210,50 @@ class ServingEngine:
         self._table[slot, :] = NULL_BLOCK
         self._table_dev = None
 
-    def _kv_prepare_step(self, active: list) -> None:
+    def _kv_prepare_step(self, active: list, span: int = 1) -> None:
         """Host-side block upkeep before a paged step: append a block
         when a row crosses a block boundary; copy-on-write the write
-        block when it is shared.  Under exhaustion: evict cold ->
-        preempt the cheapest other slot -> self-preempt."""
+        block when it is shared.  ``span`` widens the write window: the
+        speculative path reserves ``draft_len + 1`` rows [pos,
+        pos + draft_len] so the whole window lands in writable blocks
+        (the scratch blocks are trimmed after the accept,
+        ``_kv_spec_trim``).  Under exhaustion: evict cold -> preempt the
+        cheapest other slot -> self-preempt."""
         bs = self._kv_bs
         for slot in active:
             if self._req[slot] is None:
                 continue              # preempted earlier in this pass
-            bi = int(self._pos[slot]) // bs
+            pos = int(self._pos[slot])
             blocks = self._slot_blocks[slot]
             try:
-                if bi == len(blocks):
-                    nid = self._kv_alloc_decode(slot, 1)[0]
-                    blocks.append(nid)
-                    self._table[slot, bi] = nid
-                    self._table_dev = None
-                elif not self.kv_manager.writable(blocks[bi]):
-                    nid = self._kv_alloc_decode(slot, 1)[0]
-                    self.pool = _decode.paged_copy_block(
-                        self.pool, blocks[bi], nid)
-                    self.kv_manager.free_blocks([blocks[bi]])
-                    self.kv_manager.note_cow_copy()
-                    blocks[bi] = nid
-                    self._table[slot, bi] = nid
-                    self._table_dev = None
+                for bi in range(pos // bs, (pos + span - 1) // bs + 1):
+                    if bi == len(blocks):
+                        nid = self._kv_alloc_decode(slot, 1)[0]
+                        blocks.append(nid)
+                        self._table[slot, bi] = nid
+                        self._table_dev = None
+                    elif not self.kv_manager.writable(blocks[bi]):
+                        nid = self._kv_alloc_decode(slot, 1)[0]
+                        self.pool = _decode.paged_copy_block(
+                            self.pool, blocks[bi], nid)
+                        self.kv_manager.free_blocks([blocks[bi]])
+                        self.kv_manager.note_cow_copy()
+                        blocks[bi] = nid
+                        self._table[slot, bi] = nid
+                        self._table_dev = None
             except BlocksExhausted:
                 self._kv_preempt(slot)
+
+    def _kv_spec_trim(self, slot: int) -> None:
+        """Rejected-draft rollback, the paged way: keep the blocks
+        covering the accepted prefix [0, _pos) and release every
+        window-scratch block past them (``KVBlockManager.trim_tail``), a
+        table edit and a refcount release; no pool byte moves.  The next
+        window reserves and rewrites the same offsets."""
+        keep = -(-int(self._pos[slot]) // self._kv_bs)
+        if self.kv_manager.trim_tail(self._slot_blocks[slot], keep):
+            self._table[slot, keep:] = NULL_BLOCK
+            self._table_dev = None
 
     def _kv_can_admit(self, req: Request) -> bool:
         """Admission gate for the paged refill: can the manager cover

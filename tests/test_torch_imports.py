@@ -49,7 +49,8 @@ def test_scan_covers_the_port():
     for mod in ("models/serving.py", "models/decode.py",
                 "models/transformer.py", "models/data.py",
                 "models/checkpoint.py", "models/quant.py",
-                "models/convert.py", "ops/flash_attention.py",
+                "models/convert.py", "models/speculative.py",
+                "models/specprobe.py", "ops/flash_attention.py",
                 "ops/gmm.py", "ops/paged_attention.py",
                 "serving_kv/manager.py",
                 "utils/dispatch.py", "utils/atomicio.py"):

@@ -205,8 +205,6 @@ def test_sampled_rows_agree_across_layouts(params):
 
 
 UNPORTED = {
-    "draft_params": dict(draft_params={}, draft_cfg=TCFG),
-    "draft_source": dict(draft_source="ngram"),
     "adapter_pool": dict(adapter_pool=object()),
     "kv_host_bytes": dict(kv_layout="paged", kv_host_bytes=1 << 20),
     "kv_spill_dir": dict(kv_layout="paged", kv_spill_dir="/nonexistent"),
@@ -218,6 +216,40 @@ def test_unported_arguments_raise(params, name):
     _, tp = params
     with pytest.raises(NotImplementedError, match="not ported"):
         port_engine(tp, **UNPORTED[name])
+
+
+#: the JAX engine's speculative composition gates, one case each; "P"
+#: stands for the package's own params and "C" for its config
+DRAFT_GATES = {
+    "paged_draft_model": dict(kv_layout="paged", kv_block_size=8,
+                              draft_params="P", draft_cfg="C"),
+    "params_without_cfg": dict(draft_params="P"),
+    "cfg_without_params": dict(draft_cfg="C"),
+    "draft_len_model": dict(draft_params="P", draft_cfg="C", draft_len=0),
+    "unknown_source": dict(draft_source="eagle"),
+    "model_without_params": dict(draft_source="model"),
+    "ngram_with_params": dict(draft_source="ngram", draft_params="P",
+                              draft_cfg="C"),
+    "draft_len_ngram": dict(draft_source="ngram", draft_len=0),
+}
+
+
+@pytest.mark.parametrize("gate", sorted(DRAFT_GATES))
+def test_draft_gates_raise_as_jax(params, gate):
+    """Each speculative composition gate raises ValueError in the port
+    with the JAX engine's message."""
+    jp, tp = params
+
+    def kwargs(p, cfg):
+        return {k: {"P": p, "C": cfg}[v] if k in ("draft_params",
+                                                  "draft_cfg") else v
+                for k, v in DRAFT_GATES[gate].items()}
+
+    with pytest.raises(ValueError) as jerr:
+        js.ServingEngine(jp, JCFG, slots=3, **kwargs(jp, JCFG))
+    with pytest.raises(ValueError) as terr:
+        port_engine(tp, **kwargs(tp, TCFG))
+    assert str(terr.value) == str(jerr.value)
 
 
 @pytest.mark.parametrize("verb,args", [
