@@ -48,7 +48,12 @@ steady window of the same weights; then the same window with
 speculation inside the blocks (``draft_len`` 4, the n-gram source and
 the target as its own draft, bf16 weights, every row live): wall and
 device ms a window and a token, tokens a row a window, the busy share
-and the device time by kind.  Measurement only: no gate, no claim.
+and the device time by kind.  Last, multi-adapter LoRA: the steady
+window once more with the 8 rows on 8 distinct rank-16 adapters (an
+8-slot pool, all resident), eager and in fused blocks, beside the
+adapter-less window of the same form: the device ms a step the
+adapters' gathers and low-rank products add, by kind.  Measurement
+only: no gate, no claim.
 
 The last line is one JSON object with those numbers.  Exits non-zero
 without a card.  Imports nothing of JAX and nothing of the JAX
@@ -156,15 +161,18 @@ def drain_profile(make_engine, reqs) -> dict:
             "busy_share": summary["busy_ms"] / wall_ms, **summary}
 
 
-def steady_profile(make_engine, request_cls, vocab: int) -> dict:
+def steady_profile(make_engine, request_cls, vocab: int,
+                   adapters=(None,) * 8) -> dict:
     """Eight slots decoding, no fills: per-step wall time over WINDOW
-    steps, then per-step device time and ops over WINDOW more."""
+    steps, then per-step device time and ops over WINDOW more.  Row i
+    decodes with ``adapters[i]`` (None: the base model)."""
     eng = make_engine()
     rng = np.random.default_rng(1)
     for i in range(8):
         prompt = rng.integers(0, vocab, 96).astype(np.int32)
         eng.submit(request_cls(uid=f"s{i}", prompt=prompt,
-                               max_new=2 * WINDOW + 16))
+                               max_new=2 * WINDOW + 16,
+                               adapter=adapters[i]))
     for _ in range(5):       # the first step fills every slot
         eng.step()
 
@@ -184,19 +192,21 @@ def steady_profile(make_engine, request_cls, vocab: int) -> dict:
             "top": summary["top"]}
 
 
-def fused_steady_profile(make_engine, request_cls, vocab: int) -> dict:
+def fused_steady_profile(make_engine, request_cls, vocab: int,
+                         adapters=(None,) * 8) -> dict:
     """Eight slots decoding in fused blocks of ``chain_steps`` steps, no
     fills: wall per generated token over FUSED_BLOCKS blocks, then
     device time per token over FUSED_BLOCKS more.  The first step fills
     every slot and the second runs the first block, capturing its graph
-    before the window."""
+    before the window.  Row i decodes with ``adapters[i]``."""
     eng = make_engine()
     k = eng.chain_steps
     rng = np.random.default_rng(1)
     for i in range(8):
         prompt = rng.integers(0, vocab, 96).astype(np.int32)
         eng.submit(request_cls(uid=f"s{i}", prompt=prompt,
-                               max_new=k * (2 * FUSED_BLOCKS + 1) + 16))
+                               max_new=k * (2 * FUSED_BLOCKS + 1) + 16,
+                               adapter=adapters[i]))
     for _ in range(2):
         eng.step()
 
@@ -311,6 +321,28 @@ def report_spec(label: str, spec: dict, fused: dict) -> None:
     for row in spec["top"]:
         print(f"  {row['ms']:9.3f} ms {row['count']:6d}x {row['op']}",
               flush=True)
+
+
+def report_lora(label: str, lora: dict, plain: dict) -> None:
+    """A steady window of 8 rows on 8 distinct adapters beside the
+    adapter-less window of the same weights and form: the device ms a
+    step the adapters' gathers and low-rank products add."""
+    add = lora["step_busy_ms"] - plain["step_busy_ms"]
+    print(f"{label} steady decode, 8 rows on 8 adapters (rank "
+          f"{smoke.LORA_RANK}): {lora['step_wall_ms']:.3f} ms wall and "
+          f"{lora['step_busy_ms']:.4f} ms device a step (busy "
+          f"{100 * lora['busy_share']:.1f}%, "
+          f"{lora['device_ops_per_step']:.1f} device ops a step); without "
+          f"adapters {plain['step_wall_ms']:.3f} / "
+          f"{plain['step_busy_ms']:.4f} ms "
+          f"({plain['device_ops_per_step']:.1f} ops): the adapters add "
+          f"{add:.4f} ms device a step "
+          f"({100 * add / plain['step_busy_ms']:.1f}%) and "
+          f"{lora['device_ops_per_step'] - plain['device_ops_per_step']:.1f}"
+          f" device ops", flush=True)
+    for kind, ms in lora["ms_by_kind"].items():
+        print(f"  {kind}: {ms:.4f} ms per step (without adapters "
+              f"{plain['ms_by_kind'].get(kind, 0.0):.4f})", flush=True)
 
 
 def by_kind(prof) -> dict:
@@ -510,9 +542,22 @@ def main() -> None:
         spec[label] = spec_steady_profile(make_engine, Request, cfg.vocab)
         report_spec(f"154M bf16 weights, {label}", spec[label],
                     fused["bf16"])
+    lora = {}
+    names = [f"l{i}" for i in range(8)]
+    for label, chain, plain in (
+            ("eager", 1, out["contiguous"]["steady"]),
+            ("fused", smoke.FUSED_CHAIN, fused["bf16"])):
+        def make_engine(chain=chain):
+            return ServingEngine(params, cfg, slots=8, top_k=50,
+                                 chain_steps=chain,
+                                 adapter_pool=smoke.lora_pool(cfg, names, 8))
+        profile = steady_profile if chain == 1 else fused_steady_profile
+        lora[label] = profile(make_engine, Request, cfg.vocab, names)
+        report_lora(f"154M bf16 weights, contiguous, {label}", lora[label],
+                    plain)
     print(json.dumps({"device": kind, "layouts": out, "train": train,
                       "moe_train": moe, "int8": int8, "fused": fused,
-                      "spec": spec}), flush=True)
+                      "spec": spec, "lora": lora}), flush=True)
 
 
 if __name__ == "__main__":

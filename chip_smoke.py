@@ -118,20 +118,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
     against the closed-form target distribution (total variation), and
     the ported spec-decode probe in bf16 and f32, byte-equal to its
     closed-form ramp;
-18. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
+18. multi-adapter LoRA serving (``phase_lora_serving``): s8_r24 on the
+    154M with six rank-16 adapters from ``make_adapter`` over a pool of
+    four resident slots (base rows and adapter rows in every batch, so
+    the drains evict and cold-load), drained contiguous step by step
+    and fused, paged (K2), on int8 weights step by step and fused (K7a
+    in the graph), with the n-gram source step by step and fused, and in
+    f32: every pool buffer at its address after each drain; base rows
+    byte-equal to the adapter-less drain of the call; adapter rows
+    apart from it; fused byte-equal to step, 24/24; K2 exactly n_layers
+    a paged step call, K7a exactly 49 a pass; no capture in a fused
+    drain's measured run while it cold-loads; every greedy stream
+    within TF_MARGIN teacher-forced (adapter rows through the base
+    prefill and an adapter window); in f32 every stream byte-equal to
+    one-adapter oracle engines of the same slot count (in bf16
+    counted); then the pool's probe at the 154M in bf16 and f32 (switch
+    and cold-load times, the churn's hit share);
+19. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
     passes, every one on the CUDA-core route;
-19. each kernel's device time at its main-path shape and at a long
+20. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
-20. one JSON line naming every kernel with its launches on the main
+21. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
     plain version and its times; K1, K3-K6 name their tensor-core
     source and launches, and their f32 route's apart; K7 its launches
     by route.  A kernel or library reading below its bound is flagged
     impossible, re-timed cold and, if still below, not used;
-21. last line: ``{"ok": true, "device": {...}}``.
+22. last line: ``{"ok": true, "device": {...}}``.
 
 Every drain and step holds its K1, K5, K6 and K7 launches to the route
 of its dtype: bf16 on the tensor cores, f32 on the CUDA cores.
@@ -1794,7 +1810,9 @@ def phase_spec_serving(params, cfg, reqs, fa, pa, refs) -> dict:
     accept math's TV bounds; the probe byte-equal to the closed-form
     ramp.  The streams byte-equal to the non-speculative engine's are
     counted, not gated (a 5-row window and five one-row steps may sum
-    in different orders).  Returns the drains' summed launches."""
+    in different orders).  Returns the drains' summed launches and
+    their (finished, stats) by "spec <label>", which the LoRA phase
+    compares with."""
     from k8s_dra_driver_tpu_torch.models.quant import quantize_params
     from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
     from k8s_dra_driver_tpu_torch.models.specprobe import spec_decode_probe
@@ -1817,6 +1835,7 @@ def phase_spec_serving(params, cfg, reqs, fa, pa, refs) -> dict:
     refs = dict(refs, **{"f32 step": (base32, stats32)})
     summary = []
     steps: dict = {}
+    streams: dict = {}
     for label, p, c, kw, ref in (
             ("n-gram, contiguous", params, cfg, ngram, "bf16 step"),
             ("n-gram, contiguous, fused", params, cfg, dict(ngram, **fused),
@@ -1840,6 +1859,7 @@ def phase_spec_serving(params, cfg, reqs, fa, pa, refs) -> dict:
         done, counts, stats, passes = drain(
             ServingEngine, p, c, reqs, fa, pa, f"spec {label}", top_k=50,
             draft_len=kd, **kw)
+        streams[f"spec {label}"] = (done, stats)
         run, labels = stats["run"], stats["by_label"]
         rate = (run["speculative_accepted_total"]
                 / max(1, run["speculative_drafts_total"]))
@@ -1933,6 +1953,259 @@ def phase_spec_serving(params, cfg, reqs, fa, pa, refs) -> dict:
                  f"closed-form ramp")
     print(f"spec serving: {json.dumps(summary)}", flush=True)
     print(f"spec phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total, streams
+
+
+#: the LoRA phase (``phase_lora_serving``): adapters of rank 16 from
+#: ``make_adapter`` at its default scale, six of them over four resident
+#: pool slots, so the drains evict and cold-load
+LORA_RANK = 16
+LORA_ADAPTERS = 6
+LORA_RESIDENT = 4
+#: each s8_r24 request's adapter: the JAX test's roster
+#: (tests/test_serving_lora.py:216-217) over six adapters, twice: six
+#: base rows, and the sampled requests (r3, r9, r15, r21) on adapters
+LORA_ROSTER = (None, "l0", "l1", "l0", "l2", None, "l3", "l4", "l5", "l2",
+               "l1", None) * 2
+
+
+def lora_pool(cfg, names, n_resident: int):
+    """A pool on the card holding ``names``, each adapter regenerated
+    from its seed, so every pool of the phase agrees on what a name
+    means."""
+    from k8s_dra_driver_tpu_torch.serving_lora import (AdapterManifest,
+                                                       AdapterPool,
+                                                       make_adapter)
+    pool = AdapterPool(cfg, LORA_RANK, n_resident)
+    for name in names:
+        pool.register(AdapterManifest(name, LORA_RANK, source=make_adapter(
+            cfg, LORA_RANK, seed=40 + int(name[1:]))))
+    return pool
+
+
+def buffer_ptrs(pool) -> list:
+    return [b.data_ptr() for layer in pool.buffers for b in layer]
+
+
+def lora_teacher_forced(params, cfg, finished, reqs, pool) -> float:
+    """Every greedy adapter stream, teacher-forced the way the engine
+    decodes it: the prompt through the base model (prefill stays
+    base-model; its last logits choose the first token), then one
+    ``decode_window_rows`` pass over the generated tokens with the
+    row's adapter.  Each generated token's logit must be within
+    TF_MARGIN of its position's max.  Returns the worst gap."""
+    from k8s_dra_driver_tpu_torch.models import decode as dm
+    by_uid = {r.uid: r for r in reqs}
+    dev = params["embed"].device
+    worst = 0.0
+    with torch.no_grad():
+        for f in finished:
+            req = by_uid[f.uid]
+            if len(f.tokens) != len(req.prompt) + req.max_new:
+                fail(f"{f.uid}: {len(f.tokens)} tokens, expected "
+                     f"{len(req.prompt) + req.max_new}")
+            if req.temperature > 0 or req.adapter is None:
+                continue
+            toks = torch.as_tensor(f.tokens, dtype=torch.long, device=dev)
+            n = f.n_prompt
+            slot = pool.acquire(req.adapter)
+            cache = dm.init_cache(cfg, 1, len(f.tokens), device=dev)
+            first, cache = dm.forward_with_cache(params, toks[None, :n], cfg,
+                                                 cache, first_chunk=True)
+            rest, _ = dm.decode_window_rows(
+                params, toks[None, n:-1], cfg, cache,
+                torch.tensor([n], device=dev),
+                (torch.tensor([slot], device=dev), pool.buffers))
+            pool.release(slot)
+            pred = torch.cat([first[0, -1:], rest[0]]).float()
+            if not torch.isfinite(pred).all():
+                fail(f"{f.uid}: non-finite logits")
+            gen = toks[n:]
+            gap = pred.max(dim=-1).values - pred.gather(1, gen[:, None])[:, 0]
+            worst = max(worst, float(gap.max()))
+    if worst > TF_MARGIN:
+        fail(f"teacher-forced check with adapters: a greedy token's logit "
+             f"is {worst:.3f} below its position's max (margin "
+             f"{TF_MARGIN})")
+    return worst
+
+
+def lora_oracles(params, cfg, reqs, names, **kw) -> dict:
+    """Each adapter's requests, and the base requests, alone on an engine
+    of the drains' 8 slots whose pool holds only that adapter (so every
+    product has the drain's shapes): {uid: tokens}."""
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    out = {}
+    for name in [None] + names:
+        pool = None if name is None else lora_pool(cfg, [name], 1)
+        eng = ServingEngine(params, cfg, slots=8, top_k=50,
+                            adapter_pool=pool, **kw)
+        for r in reqs:
+            if r.adapter == name:
+                eng.submit(r)
+        out.update({f.uid: f.tokens for f in eng.run()})
+    return out
+
+
+def phase_lora_serving(params, cfg, reqs, fa, pa, refs) -> dict:
+    """Multi-adapter LoRA serving on the card: s8_r24 with LORA_ROSTER's
+    adapters (rank LORA_RANK, LORA_ADAPTERS adapters over LORA_RESIDENT
+    pool slots, engine top_k 50), each drain on a fresh pool beside the
+    adapter-less drain of this call in ``refs`` ((finished, stats) by
+    name): contiguous step by step and fused (``chain_steps`` =
+    FUSED_CHAIN, the graphs reading the pool in place), paged (K2),
+    ``quantize_params`` weights step by step and fused (K7a), the
+    n-gram source step by step and fused, and f32 step by step.
+
+    Gates: every pool buffer at its address after the drain (cold loads
+    and evictions write in place); every base row byte-equal to the
+    adapter-less drain (the null slot adds an exact zero); at least one
+    adapter row apart from it; each fused drain byte-equal to its step
+    drain, 24/24; K1 in every drain, K2 exactly n_layers a paged step
+    call, K7a exactly 49 a pass; every fused block one graph replay and
+    no capture in the measured run while it cold-loads adapters (the
+    adapter-less fused drain captures none there either); greedy streams
+    within TF_MARGIN teacher-forced, adapter rows through
+    :func:`lora_teacher_forced`; in f32 every stream byte-equal to one-
+    adapter oracle engines of the same slot count (in bf16 counted).
+    Then the pool's probe at the 154M in bf16 and f32 (f32 byte-equal
+    gated).  Returns the drains' summed launches."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.serving_lora.probe import (
+        lora_serving_probe)
+    t_phase = time.perf_counter()
+    names = [f"l{i}" for i in range(LORA_ADAPTERS)]
+    lreqs = [dataclasses.replace(r, adapter=a)
+             for r, a in zip(reqs, LORA_ROSTER)]
+    base = {r.uid for r in lreqs if r.adapter is None}
+    qparams = quantize_params(params, cfg)
+    f32 = map_params(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    per_pass = 6 * cfg.n_layers + 1
+    ngram = {"draft_source": "ngram", "draft_len": SPEC_DRAFT_LEN}
+    fused = {"chain_steps": FUSED_CHAIN}
+    total: dict = {}
+    summary = []
+    steps: dict = {}
+    for label, p, c, kw, ref, pair in (
+            ("contiguous", params, cfg, {}, "bf16 step", None),
+            ("contiguous, fused", params, cfg, fused, "bf16 fused",
+             "contiguous"),
+            ("paged", params, cfg, {"kv_layout": "paged"}, "bf16 paged",
+             None),
+            ("int8 weights, contiguous", qparams, cfg, {}, "int8 step",
+             None),
+            ("int8 weights, contiguous, fused", qparams, cfg, fused,
+             "int8 fused", "int8 weights, contiguous"),
+            ("n-gram, contiguous", params, cfg, ngram,
+             "spec n-gram, contiguous", None),
+            ("n-gram, contiguous, fused", params, cfg, dict(ngram, **fused),
+             "spec n-gram, contiguous, fused", "n-gram, contiguous"),
+            ("f32, contiguous", f32, cfg32, {}, None, None)):
+        pool = lora_pool(c, names, LORA_RESIDENT)
+        ptrs = buffer_ptrs(pool)
+        done, counts, stats, passes = drain(
+            ServingEngine, p, c, lreqs, fa, pa, f"lora {label}", top_k=50,
+            adapter_pool=pool, **kw)
+        run, labels = stats["run"], stats["by_label"]
+        if buffer_ptrs(pool) != ptrs:
+            fail(f"lora {label}: an adapter buffer moved")
+        if counts["flash_fwd"] <= 0:
+            fail(f"lora {label}: no K1 launch")
+        if "kv_layout" in kw:
+            calls = labels.get("paged_decode_step_rows", 0)
+            if calls <= 0 or counts["paged_decode"] != cfg.n_layers * calls:
+                fail(f"lora {label}: {counts['paged_decode']} K2 launches "
+                     f"over {calls} paged steps, expected {cfg.n_layers} "
+                     f"a step")
+        if p is qparams:
+            k7_passes(counts["int8_matmul"], per_pass, passes,
+                      f"lora {label}")
+            if counts["int8_bmm"]:
+                fail(f"lora {label}: K7b launched")
+        note = ""
+        if c is cfg32 or label == "contiguous":
+            oracle = lora_oracles(p, c, lreqs, names)
+            equal = sum(np.array_equal(f.tokens, oracle[f.uid])
+                        for f in done)
+            if c is cfg32 and equal != len(done):
+                fail(f"lora {label}: {len(done) - equal} streams differ "
+                     f"from the one-adapter oracle engines'")
+            note = (f"; {equal}/{len(done)} streams = one-adapter oracles "
+                    f"({'gated' if c is cfg32 else 'counted'})")
+        if ref is not None:
+            ref_done = {f.uid: f.tokens for f in refs[ref][0]}
+            same_base = sum(np.array_equal(f.tokens, ref_done[f.uid])
+                            for f in done if f.uid in base)
+            moved = sum(not np.array_equal(f.tokens, ref_done[f.uid])
+                        for f in done if f.uid not in base)
+            if same_base != len(base) or moved < 1:
+                fail(f"lora {label}: {same_base}/{len(base)} base rows "
+                     f"equal the adapter-less drain's ({ref}), {moved} "
+                     f"adapter rows apart from it")
+            note += (f"; base rows {same_base}/{len(base)} = adapter-less "
+                     f"({ref}), {moved}/{len(done) - len(base)} adapter rows "
+                     f"apart")
+        if "chain_steps" in kw:
+            tag = ("decode_spec_fused_rows" if "draft_source" in kw
+                   else "decode_fused_rows")
+            blocks = labels.get(tag, 0)
+            stray = [k for k in SPEC_STEP_LABELS + DECODE_PASSES
+                     if labels.get(k)]
+            # a drain without graphs fails the replay gate just below
+            ref_run = refs[ref][1]["run"].get("graph_captures_total", 0)
+            if stray or blocks <= 0 or blocks != stats["replays"]:
+                fail(f"lora {label}: {blocks} blocks, {stats['replays']} "
+                     f"graph replays, step labels {stray}: every block "
+                     f"must be one graph replay")
+            captured = run.get("graph_captures_total", 0)
+            if captured != ref_run or run["adapter_cold_loads_total"] <= 0:
+                fail(f"lora {label}: {captured} captures in the measured "
+                     f"run (adapter-less: {ref_run}) over "
+                     f"{run['adapter_cold_loads_total']} cold loads")
+            equal = same_streams(done, steps[pair])
+            if equal != len(done):
+                fail(f"lora {label}: {len(done) - equal} streams differ "
+                     f"from the step drain's")
+            note += (f"; {equal}/{len(done)} streams = step drain; "
+                     f"{stats.get('graph_captures_total', 0)} graphs "
+                     f"captured (adapter-less: "
+                     f"{refs[ref][1].get('graph_captures_total', 0)}), "
+                     f"{captured} in the measured run, {blocks} blocks each "
+                     f"one replay")
+        else:
+            steps[label] = done
+        tf_pool = lora_pool(c, names, LORA_ADAPTERS)
+        worst = max(teacher_forced(p, c, [f for f in done if f.uid in base],
+                                   lreqs),
+                    lora_teacher_forced(p, c, done, lreqs, tf_pool))
+        del tf_pool
+        row = {"label": label, "hits": run["adapter_hits_total"],
+               "cold_loads": run["adapter_cold_loads_total"],
+               "evictions": run["adapter_evictions_total"],
+               "tokens_per_s": stats["generated"] / stats["wall_s"],
+               "wall_ms_per_step": 1e3 * stats["wall_s"]
+               / max(stats["steps"], 1),
+               "teacher_forced_worst": worst}
+        summary.append(row)
+        print(f"lora {label} ({card_line()}): pool hits {row['hits']}, cold "
+              f"loads {row['cold_loads']}, evictions {row['evictions']} in "
+              f"the measured run, buffers at their addresses; tokens/s "
+              f"{row['tokens_per_s']:.1f}, wall ms per decode step "
+              f"{row['wall_ms_per_step']:.3f}; teacher-forced worst gap "
+              f"{worst:.4f} <= {TF_MARGIN}" + note, flush=True)
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    for p, c in ((params, cfg), (f32, cfg32)):
+        probe = lora_serving_probe(rank=LORA_RANK, cfg=c, params=p)
+        print(f"lora probe ({card_line()}): {json.dumps(probe)}", flush=True)
+        if c is cfg32 and not probe["byte_equal"]:
+            fail("lora probe in f32: churn streams differ from the oracle "
+                 "engines'")
+    print(f"lora serving: {json.dumps(summary)}", flush=True)
+    print(f"lora phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return total
 
@@ -2518,11 +2791,16 @@ def main() -> None:
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
     refs.update(fused_refs)
-    counts = phase_spec_serving(params, cfg, reqs, fa, pa, refs)
+    counts, spec_refs = phase_spec_serving(params, cfg, reqs, fa, pa, refs)
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
-    del params, refs, fused_refs, done_p, done_x
+    refs.update(spec_refs)
+    counts = phase_lora_serving(params, cfg, reqs, fa, pa, refs)
+    for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
+                 "int8_matmul", "int8_bmm", "int8_tc"):
+        launches[name] = launches.get(name, 0) + counts[name]
+    del params, refs, fused_refs, spec_refs, done_p, done_x
 
     f32_routes = phase_train_small(fa)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2539,7 +2817,7 @@ def main() -> None:
     for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths (22 drains + "
+    print(f"kernel launches on the main paths (30 drains + "
           f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy): "
           f"{launches}", flush=True)
 

@@ -202,15 +202,28 @@ def _cached_attention(q, k_cache, v_cache, pos, t, cfg, k_scale=None,
 
 
 def _project_and_write(layer, x, positions, cfg, k_cache, v_cache,
-                       ks_cache, vs_cache, write):
+                       ks_cache, vs_cache, write, lora=None):
     """Shared per-layer front half of cached decoding: q/k/v
     projections + RoPE at ``positions`` ([T] shared or [B,T] per-row),
     int8 quantization when the cache has scales (``ks_cache`` not
     None), and the cache writes through ``write(dst, new)`` — the only
-    part that differs between the aligned, per-row and paged paths."""
+    part that differs between the aligned, per-row and paged paths.
+
+    ``lora`` is one layer's slice of the per-row adapter gather
+    (serving_lora/): ``(slots [B] long, aq [S,d,r], bq [S,r,H,K], ao,
+    bo)``.  Each row adds its adapter's low-rank wq delta ``(h@A)@B``
+    before RoPE, the factors gathered from the pooled buffers by slot
+    id; slot 0 is the null adapter (zero factors), so a base row adds
+    an exact zero.  K/V carry no adapter: prompt K/V and prefix sharing
+    stay adapter-independent."""
     h = rms_norm(x, layer["ln1"])
-    q = rotary(ein("btd,dhk->bthk", h, layer["wq"]), positions,
-               cfg.rope_theta)
+    q_raw = ein("btd,dhk->bthk", h, layer["wq"])
+    if lora is not None:
+        slots, aq, bq = lora[0], lora[1], lora[2]
+        q_raw = q_raw + torch.einsum(
+            "btr,brhk->bthk", torch.einsum("btd,bdr->btr", h, aq[slots]),
+            bq[slots])
+    q = rotary(q_raw, positions, cfg.rope_theta)
     k = rotary(ein("btd,dhk->bthk", h, layer["wk"]), positions,
                cfg.rope_theta)
     v = ein("btd,dhk->bthk", h, layer["wv"])
@@ -227,10 +240,18 @@ def _project_and_write(layer, x, positions, cfg, k_cache, v_cache,
     return q, k, v
 
 
-def _attn_mlp_tail(x, o, layer, cfg):
+def _attn_mlp_tail(x, o, layer, cfg, lora=None):
     """Shared per-layer back half: attention output projection +
-    residual + MLP (dense, or MoE under the serving config)."""
-    x = x + ein("bthk,hkd->btd", o, layer["wo"])
+    residual + MLP (dense, or MoE under the serving config).  ``lora``
+    adds each row's wo delta ``(o@A)@B`` to the projection (the gather
+    of :func:`_project_and_write`)."""
+    proj = ein("bthk,hkd->btd", o, layer["wo"])
+    if lora is not None:
+        slots, ao, bo = lora[0], lora[3], lora[4]
+        proj = proj + torch.einsum(
+            "btr,brd->btd", torch.einsum("bthk,bhkr->btr", o, ao[slots]),
+            bo[slots])
+    x = x + proj
     mlp_in = rms_norm(x, layer["ln2"])
     if cfg.is_moe:
         return x + _moe_mlp(mlp_in, layer, _serving_cfg(cfg))
@@ -311,12 +332,27 @@ def decode_step(params: Params, token: torch.Tensor,
     return logits[:, 0], cache
 
 
+def _layer_lora(lora, i: int):
+    """Layer ``i``'s slice of a ``lora`` argument ``(slots [B], layers)``
+    (``layers[i] = (aq, bq, ao, bo)``, the pool's buffers): ``(slots,
+    aq, bq, ao, bo)``, or None without adapters."""
+    if lora is None:
+        return None
+    return (lora[0].long(),) + tuple(lora[1][i])
+
+
 def _rows_forward(params: Params, tokens: torch.Tensor,
                   cfg: TransformerConfig, cache: KVCache,
-                  pos_rows: torch.Tensor) -> tuple[torch.Tensor, KVCache]:
+                  pos_rows: torch.Tensor, lora=None
+                  ) -> tuple[torch.Tensor, KVCache]:
     """tokens [B, T] appended at PER-ROW positions ``pos_rows`` [B] ->
     (logits [B, T, vocab], cache).  ``cache.pos`` is ignored: writes
-    land at each row's own offset and attention masks per row."""
+    land at each row's own offset and attention masks per row.
+
+    ``lora`` is ``(slots [B], layers)`` with ``layers[i] = (aq, bq, ao,
+    bo)``, the pooled adapter buffers (serving_lora/): each row gathers
+    its adapter's factors by slot id, so a batch of mixed adapters is
+    one pass of fixed shapes."""
     b, t = tokens.shape
     dev = tokens.device
     pos_rows = pos_rows.to(device=dev, dtype=torch.long)
@@ -329,11 +365,12 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
 
     for i, layer in enumerate(params["layers"]):
         ks, vs = _layer_scales(cache, i)
+        lr = _layer_lora(lora, i)
         q, _, _ = _project_and_write(layer, x, positions, cfg, cache.k[i],
-                                     cache.v[i], ks, vs, write_rows)
+                                     cache.v[i], ks, vs, write_rows, lr)
         o = _cached_attention(q, cache.k[i], cache.v[i], pos_rows, t, cfg,
                               ks, vs)
-        x = _attn_mlp_tail(x, o, layer, cfg)
+        x = _attn_mlp_tail(x, o, layer, cfg, lr)
     x = rms_norm(x, params["ln_f"])
     logits = ein("btd,dv->btv", x, params["unembed"])
     return logits, cache
@@ -342,16 +379,17 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
 @dispatch.counted("decode_step_rows")
 def decode_step_rows(params: Params, token: torch.Tensor,
                      cfg: TransformerConfig, cache: KVCache,
-                     pos_rows: torch.Tensor
+                     pos_rows: torch.Tensor, lora=None
                      ) -> tuple[torch.Tensor, KVCache]:
     """One decode step with PER-ROW positions: token [B, 1], pos_rows
     [B] (each slot's fill depth) -> (logits [B, vocab], cache).  The
-    continuous-batching primitive (models/serving.py)."""
+    continuous-batching primitive (models/serving.py); ``lora`` as
+    :func:`_rows_forward` takes it."""
     b, t = token.shape
     if t != 1:
         raise ValueError(f"decode_step_rows is one token per slot, "
                          f"got T={t}")
-    logits, cache = _rows_forward(params, token, cfg, cache, pos_rows)
+    logits, cache = _rows_forward(params, token, cfg, cache, pos_rows, lora)
     return logits[:, 0], cache
 
 
@@ -447,14 +485,16 @@ def sample_rows(logits, generators, temps, top_k: int = 0,
 @dispatch.counted("decode_window_rows")
 def decode_window_rows(params: Params, tokens: torch.Tensor,
                        cfg: TransformerConfig, cache: KVCache,
-                       pos_rows: torch.Tensor
+                       pos_rows: torch.Tensor, lora=None
                        ) -> tuple[torch.Tensor, KVCache]:
     """Multi-token per-row step: tokens [B, T] appended at each row's
     own position -> (logits [B, T, vocab], cache), the target-scoring
     half of speculative continuous batching.  Rejected rows past the
     accepted prefix stay in the cache, position-masked, and the next
-    window overwrites them at the same offsets."""
-    return _rows_forward(params, tokens, cfg, cache, pos_rows)
+    window overwrites them at the same offsets.  ``lora`` as
+    :func:`_rows_forward` takes it: drafts stay base-model, the target
+    judges with each row's adapter."""
+    return _rows_forward(params, tokens, cfg, cache, pos_rows, lora)
 
 
 @dispatch.counted("draft_propose_rows")
@@ -706,16 +746,18 @@ class _BlockState:
 
 def _block_step(params: Params, cfg: TransformerConfig, cache: KVCache,
                 s: _BlockState, j: int, generators, top_k: int,
-                top_p: float) -> None:
+                top_p: float, lora=None) -> None:
     """Step ``j`` of the block, in place on ``s`` and the cache.  A
     frozen row keeps its position, ``last`` and count; its K/V write
     lands at its frozen position, the slot just past what it emitted
     (in bounds: its budget stopped it at ``max_seq - 1``), which no
     live query reads.  Its generator still draws; the draw is
     discarded, and a frozen row never runs again before its slot is
-    refilled and its generator reseeded."""
+    refilled and its generator reseeded.  ``lora`` as
+    :func:`_rows_forward` takes it; a frozen or free row reads the slot
+    id it was given, the null adapter once its slot was released."""
     last, pos, budget, eos = s.ints
-    logits, _ = _rows_forward(params, last[:, None], cfg, cache, pos)
+    logits, _ = _rows_forward(params, last[:, None], cfg, cache, pos, lora)
     nxt = sample_rows(logits[:, 0], generators, s.temps, top_k, top_p)
     alive = ~s.done
     s.packed[:, j] = torch.where(alive, nxt, 0)
@@ -730,7 +772,8 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
                       cfg: TransformerConfig, cache: KVCache,
                       pos_rows: torch.Tensor, k: int, generators,
                       temps: torch.Tensor, budget: torch.Tensor,
-                      eos: torch.Tensor, top_k: int = 0, top_p: float = 0.0
+                      eos: torch.Tensor, top_k: int = 0, top_p: float = 0.0,
+                      lora=None
                       ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """The generation block, step by step: up to ``k`` per-row decode
     steps of :func:`_block_step`, leaving as soon as every row is done
@@ -744,14 +787,15 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
     :func:`sample_rows` takes them.  Returns ``(packed [B, k+1] int32,
     rows_finished [], cache)``: ``packed[:, :k]`` the tokens (0 past a
     row's count), ``packed[:, k]`` each row's emitted count; the cache
-    is written in place."""
+    is written in place.  ``lora`` as :func:`_rows_forward` takes it."""
     s = _BlockState.empty(last.shape[0], k, cache.k[0].device)
     s.load(last, pos_rows, budget, eos, temps)
     s.begin()
     for j in range(k):
         if bool(s.done.all()):
             break
-        _block_step(params, cfg, cache, s, j, generators, top_k, top_p)
+        _block_step(params, cfg, cache, s, j, generators, top_k, top_p,
+                    lora)
     s.finish()
     return s.packed, s.rows_done, cache
 
@@ -788,7 +832,8 @@ class SpecDraft:
 
 def _spec_block_step(params: Params, cfg: TransformerConfig,
                      cache: KVCache, s: _BlockState, generators,
-                     top_k: int, top_p: float, draft: SpecDraft) -> None:
+                     top_k: int, top_p: float, draft: SpecDraft,
+                     lora=None) -> None:
     """One speculative window of the block, in place on ``s`` and the
     caches: draft, one target window forward, verify-accept, then each
     live row appends ``min(accepts + 1, its first EOS, its remaining
@@ -798,14 +843,16 @@ def _spec_block_step(params: Params, cfg: TransformerConfig,
     writes land at [pos, pos + draft_len] past its finish line (in
     bounds: the engine's capacity margin is draft_len + 1 for fused
     speculation), which no live query reads, and its draws are
-    discarded, as in :func:`_block_step`."""
+    discarded, as in :func:`_block_step`.  The draft stays base-model;
+    ``lora`` (as :func:`_rows_forward` takes it) reaches the target
+    window only, so each row is judged by its adapter's model."""
     last, pos, budget, eos = s.ints
     kd = draft.length
     cap = s.packed.shape[1] - 3
     proposals, q_probs = draft.propose(last, pos, s.temps, top_k, top_p,
                                        cfg.vocab)
     window = torch.cat([last[:, None], proposals], dim=1)
-    logits, _ = _rows_forward(params, window, cfg, cache, pos)
+    logits, _ = _rows_forward(params, window, cfg, cache, pos, lora)
     emit, a = _spec_accept_body(logits, proposals, q_probs, generators,
                                 s.temps, top_k, top_p)
     alive = ~s.done
@@ -840,7 +887,7 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
                            draft_cfg: TransformerConfig | None,
                            draft_cache: KVCache | None,
                            draft_generators, draft_len: int,
-                           top_k: int = 0, top_p: float = 0.0
+                           top_k: int = 0, top_p: float = 0.0, lora=None
                            ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Speculation inside the fused block, step by step: up to ``k``
     windows of :func:`_spec_block_step` a row, leaving as soon as every
@@ -848,7 +895,8 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
     model when ``draft_params`` is given, with ``draft_cache`` and one
     draft generator a row; else the n-gram lookup over ``ctx`` /
     ``ctx_len``), scores them in one target forward and accepts per row
-    on the device.  Inputs as :func:`decode_fused_rows`.
+    on the device.  Inputs as :func:`decode_fused_rows`; ``lora`` reaches
+    the target window only.
 
     Returns ``(packed [B, k*(draft_len+1) + 3], rows_finished, cache)``:
     the token block, then each row's emitted count, accepted drafts and
@@ -865,7 +913,7 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
         if bool(s.done.all()):
             break
         _spec_block_step(params, cfg, cache, s, generators, top_k, top_p,
-                         draft)
+                         draft, lora)
     s.finish()
     return s.packed, s.rows_done, cache
 
@@ -923,6 +971,13 @@ class FusedBlockGraph:
       graphs run one after another on one stream).  The n-gram source's
       context and lengths are fixed buffers too, uploaded with each
       block's inputs.
+    - **Adapters**: with ``lora_buffers`` (an ``AdapterPool``'s
+      ``buffers``, serving_lora/) every step adds each row's LoRA
+      deltas, gathered by the row's slot id from a fixed [B] long
+      buffer that ``launch`` uploads with the block's inputs.  The
+      pool's loads write its buffers in place, and the slot ids are
+      data, so binds, releases, cold loads and evictions between
+      blocks change contents only and capture nothing.
     - **Generators**: ``generators`` (one persistent generator per
       slot, reseeded by the engine at each fill), and a draft model's
       draft-side generators, are registered with every graph; a replay
@@ -939,9 +994,9 @@ class FusedBlockGraph:
       ``set_state``: ``graphsafe_set_state`` would swap the state
       object the graphs hold).
     - **Bindings**: the data pointers of the parameters and the cache a
-      graph captured, and of the draft model's, are checked before each
-      replay; a rebind raises and nothing is recaptured behind the
-      caller's back.
+      graph captured, of the draft model's, and of the adapter buffers
+      and slot ids, are checked before each replay; a rebind raises and
+      nothing is recaptured behind the caller's back.
     - **Launch counts**: K7's counters move while a graph is captured,
       not while it replays (nothing runs at capture), so each capture's
       change is taken back and added at every replay of that graph;
@@ -954,7 +1009,8 @@ class FusedBlockGraph:
 
     def __init__(self, params: Params, cfg: TransformerConfig,
                  cache: KVCache, generators, k: int, top_k: int = 0,
-                 top_p: float = 0.0, draft: SpecDraft | None = None):
+                 top_p: float = 0.0, draft: SpecDraft | None = None,
+                 lora_buffers=None):
         dev = cache.k[0].device
         if dev.type != "cuda":
             raise ValueError(f"FusedBlockGraph runs on the card, the cache "
@@ -978,8 +1034,13 @@ class FusedBlockGraph:
                                              dtype=torch.int32).pin_memory()
                 self._host_ctx_len = torch.zeros(
                     b, dtype=torch.int32).pin_memory()
+        self._lora = None
+        if lora_buffers is not None:
+            self._lora = (torch.zeros(b, dtype=torch.long, device=dev),
+                          lora_buffers)
+            self._host_slots = torch.zeros(b, dtype=torch.long).pin_memory()
         self._body = (params, cfg, cache, list(generators), top_k, top_p)
-        self._bound = self._pointers(params, cache)
+        self._bound = self._pointers(params, cache, lora_buffers)
         self._s = _BlockState.empty(b, width, dev, spec=draft is not None)
         self._host_ints = torch.zeros((4, b), dtype=torch.long).pin_memory()
         self._host_temps = torch.zeros(b, dtype=torch.float32).pin_memory()
@@ -996,20 +1057,23 @@ class FusedBlockGraph:
         self.passes = 0
         self.draft_passes = 0
 
-    def _pointers(self, params: Params, cache: KVCache) -> list:
+    def _pointers(self, params: Params, cache: KVCache, lora_buffers) -> list:
         ptrs = [_tensor_ptrs(params), _tensor_ptrs(cache.tensors())]
         d = self._draft
         if d is not None and d.params is not None:
             ptrs += [_tensor_ptrs(d.params), _tensor_ptrs(d.cache.tensors())]
+        if self._lora is not None:
+            ptrs += [_tensor_ptrs(lora_buffers), [self._lora[0].data_ptr()]]
         return ptrs
 
     def _step(self, j: int) -> None:
         params, cfg, cache, gens, top_k, top_p = self._body
         if self._draft is None:
-            _block_step(params, cfg, cache, self._s, j, gens, top_k, top_p)
+            _block_step(params, cfg, cache, self._s, j, gens, top_k, top_p,
+                        self._lora)
         else:
             _spec_block_step(params, cfg, cache, self._s, gens, top_k,
-                             top_p, self._draft)
+                             top_p, self._draft, self._lora)
 
     def _count_passes(self, steps: int) -> None:
         self.passes += steps
@@ -1044,20 +1108,27 @@ class FusedBlockGraph:
         self.capture_s += time.perf_counter() - t0
 
     def launch(self, params: Params, cache: KVCache, last, pos, temps,
-               budget, eos, ctx=None, ctx_len=None) -> int:
+               budget, eos, ctx=None, ctx_len=None, lora=None) -> int:
         """Upload one block's inputs (host arrays of [B]; the n-gram
-        source's ``ctx`` [B, C] and ``ctx_len`` [B] too), replay the
-        graph of its length, and queue the readback; the caches are
-        written in place.  Returns the block's length (steps, or
-        windows) at once: :meth:`collect` waits.
+        source's ``ctx`` [B, C] and ``ctx_len`` [B] too; with adapters,
+        ``lora`` = (each row's pool slot id [B], the pool's buffers)),
+        replay the graph of its length, and queue the readback; the
+        caches are written in place.  Returns the block's length (steps,
+        or windows) at once: :meth:`collect` waits.
 
         A speculative block replays the fewest windows that could finish
         every row at full acceptance (a window emits at most draft_len +
         1 tokens a row), rounded up by :func:`block_length`; a row still
         live after them rides the next block."""
-        if self._pointers(params, cache) != self._bound:
-            raise RuntimeError("the parameters or a cache moved since "
-                               "the block's graphs were captured")
+        if (lora is None) != (self._lora is None):
+            raise ValueError("the block's graphs were built "
+                             + ("without" if lora is not None else "with")
+                             + " adapter buffers")
+        if self._pointers(params, cache, None if lora is None
+                          else lora[1]) != self._bound:
+            raise RuntimeError("the parameters, a cache or the adapter "
+                               "buffers moved since the block's graphs "
+                               "were captured")
         need = int(max(budget))
         if self._draft is None:
             dispatch.COUNTER.record("decode_fused_rows")
@@ -1075,6 +1146,9 @@ class FusedBlockGraph:
             self._host_ctx_len.copy_(torch.as_tensor(ctx_len))
             self._draft.ctx.copy_(self._host_ctx, non_blocking=True)
             self._draft.ctx_len.copy_(self._host_ctx_len, non_blocking=True)
+        if self._lora is not None:
+            self._host_slots.copy_(torch.as_tensor(lora[0]))
+            self._lora[0].copy_(self._host_slots, non_blocking=True)
         if n not in self._graphs:
             self._capture(n)
         self._graphs[n].replay()
@@ -1208,7 +1282,7 @@ def _paged_dense(pool_arr, tables):
 
 
 def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
-                        use_kernel):
+                        use_kernel, lora=None):
     """tokens [B, T] appended at per-row positions into the block pool
     -> (logits [B, T, vocab], pool).  Each token's write lands at
     (tables[b, (pos+t)//bs], (pos+t) % bs).  Dead rows (table rows of
@@ -1217,7 +1291,8 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
     matter because no live row ever reads block 0.  ``use_kernel``
     reads through the paged kernel (single-query); otherwise the
     blocks are gathered into the contiguous cache's shape and read by
-    ``_cached_attention``."""
+    ``_cached_attention``.  ``lora`` as :func:`_rows_forward` takes
+    it."""
     b, t = tokens.shape
     if use_kernel and t > 1:
         raise ValueError("the paged-attention kernel is single-query; "
@@ -1237,9 +1312,11 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
             dst[phys[i], off[i]] = new[:, i]
 
     lengths = (pos_rows + 1).to(torch.int32) if use_kernel else None
-    for layer, k_pool, v_pool in zip(params["layers"], pool.k, pool.v):
+    for i, (layer, k_pool, v_pool) in enumerate(zip(params["layers"],
+                                                    pool.k, pool.v)):
+        lr = _layer_lora(lora, i)
         q, _, _ = _project_and_write(layer, x, positions, cfg, k_pool,
-                                     v_pool, None, None, write_pool)
+                                     v_pool, None, None, write_pool, lr)
         if use_kernel:
             o = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
                                 tables, lengths)[:, None]
@@ -1247,7 +1324,7 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
             o = _cached_attention(q, _paged_dense(k_pool, tables),
                                   _paged_dense(v_pool, tables),
                                   pos_rows, t, cfg)
-        x = _attn_mlp_tail(x, o, layer, cfg)
+        x = _attn_mlp_tail(x, o, layer, cfg, lr)
     x = rms_norm(x, params["ln_f"])
     logits = ein("btd,dv->btv", x, params["unembed"])
     return logits, pool
@@ -1257,27 +1334,28 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
 def paged_decode_step_rows(params: Params, token: torch.Tensor,
                            cfg: TransformerConfig, pool: KVCache,
                            tables: torch.Tensor, pos_rows: torch.Tensor,
-                           use_kernel: bool = False
+                           use_kernel: bool = False, lora=None
                            ) -> tuple[torch.Tensor, KVCache]:
     """One paged decode step: token [B, 1], tables [B, n_pages] int32,
     pos_rows [B] -> (logits [B, vocab], pool), pool written in place.
     ``use_kernel`` selects the paged kernel read (CUDA tensors); False
     keeps the gather + ``_cached_attention`` read that is bitwise equal
-    to the contiguous engine on the CPU."""
+    to the contiguous engine on the CPU.  ``lora`` as
+    :func:`_rows_forward` takes it."""
     b, t = token.shape
     if t != 1:
         raise ValueError(f"paged_decode_step_rows is one token per "
                          f"slot, got T={t}")
     logits, pool = _paged_rows_forward(params, token, cfg, pool, tables,
-                                       pos_rows, use_kernel)
+                                       pos_rows, use_kernel, lora)
     return logits[:, 0], pool
 
 
 @dispatch.counted("paged_window_rows")
 def paged_window_rows(params: Params, tokens: torch.Tensor,
                       cfg: TransformerConfig, pool: KVCache,
-                      tables: torch.Tensor, pos_rows: torch.Tensor
-                      ) -> tuple[torch.Tensor, KVCache]:
+                      tables: torch.Tensor, pos_rows: torch.Tensor,
+                      lora=None) -> tuple[torch.Tensor, KVCache]:
     """Multi-token paged step: tokens [B, K+1] appended at each row's
     own position through its block table -> (logits [B, K+1, vocab],
     pool), the paged twin of :func:`decode_window_rows`.  The read is
@@ -1285,9 +1363,10 @@ def paged_window_rows(params: Params, tokens: torch.Tensor,
     speculative window launches no K2.  The caller must have reserved
     writable blocks covering [pos, pos+K] a live row; rejected rows
     past the accepted prefix are rolled back by trimming the table,
-    never by rewriting the pool."""
+    never by rewriting the pool.  ``lora`` as :func:`_rows_forward`
+    takes it."""
     return _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
-                               use_kernel=False)
+                               use_kernel=False, lora=lora)
 
 
 @dispatch.counted("paged_adopt")

@@ -51,11 +51,21 @@ step, so token streams match the JAX engine's:
   blocks off the table (``_kv_spec_trim``).  With ``chain_steps > 1``
   each step is one fused block of up to K windows
   (``decode_spec_fused_rows``; on the card one graph replay).
+- **Multi-adapter LoRA** (``adapter_pool=AdapterPool(...)``,
+  serving_lora/, ``Request(adapter=name)``): rows of different adapters
+  share every decode batch, each adding its adapter's wq/wo deltas by
+  pool slot id (slot 0, the null adapter, for base rows).  A slot pins
+  its adapter from its fill to its finish, cancel or preemption; each
+  refill round admits only the distinct adapters the pool can seat.
+  Prefill stays base-model, so fills, prompt K/V and prefix entries are
+  adapter-independent; only base requests seed the prefix store at
+  finish.  In fused blocks the graphs read the pool's buffers and the
+  slot ids at fixed addresses, so binds never recapture.
 
-Not ported yet (they raise ``NotImplementedError``): LoRA adapters
-(``adapter_pool``), KV tiers (``kv_host_bytes``/``kv_spill_dir``), and
-the disaggregation verbs (``prefill_export``/``adopt_block``/
-``export_prefix``/``import_prefix``).
+Not ported yet (they raise ``NotImplementedError``): KV tiers
+(``kv_host_bytes``/``kv_spill_dir``) and the disaggregation verbs
+(``prefill_export``/``adopt_block``/``export_prefix``/
+``import_prefix``).
 """
 
 from __future__ import annotations
@@ -90,8 +100,10 @@ class Request:
     # with ``seed``; 0 = greedy.  top_k/top_p are engine-level.
     temperature: float = 0.0
     seed: int = 0
-    # adapter name; adapters are not ported yet, so a named adapter is
-    # refused at intake
+    # adapter name (a manifest of the engine's AdapterPool), None = base
+    # model.  Prefill stays base-model (prompt K/V and prefix shares stay
+    # adapter-independent); the adapter engages from the first decode
+    # step on.
     adapter: str | None = None
 
 
@@ -285,9 +297,6 @@ class ServingEngine:
                  kv_spill_dir=None,
                  adapter_pool=None,
                  device="cuda"):
-        if adapter_pool is not None:
-            raise _unported("multi-adapter LoRA serving (adapter_pool)",
-                            "LoRA")
         if kv_host_bytes or kv_spill_dir:
             raise _unported("KV tiering (kv_host_bytes / kv_spill_dir)",
                             "KV-tier")
@@ -330,7 +339,18 @@ class ServingEngine:
                              "drop draft_params")
         if draft_source == "ngram" and draft_len < 1:
             raise ValueError("draft_len must be >= 1")
+        if adapter_pool is not None:
+            pc = adapter_pool.cfg
+            if ((pc.n_layers, pc.d_model, pc.n_heads, pc.d_head)
+                    != (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head)):
+                raise ValueError("adapter pool is laid out for a "
+                                 "different model shape")
         self.device = resolve_device(device)
+        if (adapter_pool is not None
+                and adapter_pool.device != self.device):
+            raise ValueError(f"the adapter pool lives on "
+                             f"{adapter_pool.device}, the engine runs on "
+                             f"{self.device}")
         for name, tree in (("params", params), ("draft_params",
                                                  draft_params)):
             if tree is not None and tree["embed"].device != self.device:
@@ -444,6 +464,17 @@ class ServingEngine:
         self._draft_gens = ([torch.Generator(device=self.device)
                              for _ in range(slots)]
                             if draft_params is not None else None)
+        # multi-adapter serving (serving_lora/): per-slot pins into the
+        # shared AdapterPool.  _adapter_slot is the host mirror of the
+        # per-row pool slot ids the decode functions gather with (0 =
+        # the null adapter); _lora_dev is its device twin for the step
+        # path, rebuilt after a bind or release changed it.  The fused
+        # block's graphs upload the mirror into their own fixed buffer
+        # with every block instead.
+        self.adapter_pool = adapter_pool
+        self._adapter: list[str | None] = [None] * slots
+        self._adapter_slot = np.zeros(slots, np.int64)
+        self._lora_dev = None
         # the fused block on the card: captured CUDA graphs over this
         # engine's parameters, caches and generators
         self._graphs = None
@@ -453,7 +484,8 @@ class ServingEngine:
                      if self._spec_on else None)
             self._graphs = _decode.FusedBlockGraph(
                 params, cfg, self.cache, self._slot_gens, chain_steps,
-                top_k, top_p, draft)
+                top_k, top_p, draft,
+                None if adapter_pool is None else adapter_pool.buffers)
         # lifetime counters (stats())
         self._finished_total = 0
         self._cancelled = 0
@@ -471,9 +503,16 @@ class ServingEngine:
         if req.max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {req.max_new}")
         if getattr(req, "adapter", None) is not None:
-            raise ValueError(
-                f"request {req.uid!r} names adapter {req.adapter!r} but "
-                f"this engine has no adapter pool")
+            # adapters are registered before traffic names them: an
+            # unknown name would otherwise fail at its cold load, mid-batch
+            if self.adapter_pool is None:
+                raise ValueError(
+                    f"request {req.uid!r} names adapter {req.adapter!r} "
+                    f"but this engine has no adapter pool")
+            if not self.adapter_pool.known(req.adapter):
+                raise ValueError(
+                    f"unknown adapter {req.adapter!r} (register its "
+                    f"manifest with the pool first)")
         # a speculative window's first write is the last emitted token's
         # own row; only the draft_len proposal rows lie past it, so that
         # is the scratch margin.  The fused speculative block needs one
@@ -545,6 +584,15 @@ class ServingEngine:
             out["kv_cow_shared_blocks"] = view["cow_shared_blocks"]
             out["kv_headroom_blocks"] = (
                 view["free_blocks"] + self._prefix.evictable_count())
+        if self.adapter_pool is not None:
+            # the residency signal a router reads: which adapters are warm
+            # here, and how many pool slots a new one could claim without
+            # blocking (free + evictable)
+            pool = self.adapter_pool
+            out["adapter_resident"] = list(pool.resident())
+            out["adapter_pool_slots"] = pool.n_resident
+            out["adapter_free_slots"] = pool.ledger.free
+            out["adapter_headroom_slots"] = pool.headroom_slots()
         return out
 
     def prefix_peek(self, prompt) -> int:
@@ -624,6 +672,13 @@ class ServingEngine:
             out["speculative_drafts_total"] = self._spec_drafts
             out["spec_accept_rate"] = round(
                 self._spec_accepted / max(1, self._spec_drafts), 4)
+        if self.adapter_pool is not None:
+            pool = self.adapter_pool
+            out["adapter_residents"] = len(pool.resident())
+            out["adapter_pool_slots"] = pool.n_resident
+            out["adapter_hits_total"] = pool.hits_total
+            out["adapter_cold_loads_total"] = pool.cold_loads_total
+            out["adapter_evictions_total"] = pool.evictions_total
         if self._graphs is not None:
             out["graph_captures_total"] = self._graphs.captures
             out["graph_capture_s"] = round(self._graphs.capture_s, 4)
@@ -647,6 +702,9 @@ class ServingEngine:
         self._temps[slot] = max(req.temperature, 0.0)
 
     def _clear_slot(self, slot: int) -> None:
+        """Free the slot (finish, cancel, preemption), dropping its
+        adapter pin."""
+        self._adapter_release(slot)
         self._req[slot] = None
         self._generated[slot] = []
         self._temps[slot] = 0.0
@@ -706,9 +764,14 @@ class ServingEngine:
                            self.top_k, self.top_p)
 
     def _fill_finalize(self, slot: int, first: int) -> None:
-        """Record the resolved first token of a filled slot; the n-gram
-        source snapshots the slot's prompt here (the lookup matches
-        against the prompt only, static for the whole request)."""
+        """Record the resolved first token of a filled slot.  Every fill
+        funnels through here, so it is also where the slot's adapter is
+        pinned in the pool (the refill's admission gate made that
+        acquire infallible) and where the n-gram source snapshots the
+        slot's prompt (the lookup matches against the prompt only,
+        static for the whole request)."""
+        if self.adapter_pool is not None:
+            self._adapter_bind(slot)
         self._generated[slot] = [first]
         self._last[slot] = first
         if self._ngram:
@@ -718,16 +781,74 @@ class ServingEngine:
             self._ngram_len[slot] = prompt.size
             self._ngram_dev = None
 
+    # -- adapter lifecycle (serving_lora/) -------------------------------
+    #
+    # A slot pins its adapter for its whole decode (acquire at
+    # _fill_finalize, release at finish / cancel / preemption), so
+    # eviction pressure only ever claims cold adapters.
+
+    def _adapter_bind(self, slot: int) -> None:
+        """Pin the slot's adapter and point its slot id at the pinned
+        pool slot (the null adapter for a base request).  A cold adapter
+        is loaded here, into its pool slot in place."""
+        aid = self._req[slot].adapter
+        sid = self.adapter_pool.acquire(aid)
+        self._adapter[slot] = aid
+        if sid != int(self._adapter_slot[slot]):
+            self._adapter_slot[slot] = sid
+            self._lora_dev = None
+
+    def _adapter_release(self, slot: int) -> None:
+        """Drop the slot's pin (the weights stay resident until eviction
+        pressure claims them) and point its slot id back at the null
+        adapter."""
+        if self.adapter_pool is None or self._adapter[slot] is None:
+            return
+        self.adapter_pool.release(int(self._adapter_slot[slot]))
+        self._adapter[slot] = None
+        self._adapter_slot[slot] = 0
+        self._lora_dev = None
+
+    def _adapter_admit(self, req: Request, pend: set) -> bool:
+        """The refill round's admission gate.  Every distinct adapter a
+        round pins costs at most one pool slot at finalize time, so a
+        request is admitted only while free + evictable slots cover the
+        round's distinct adapters: conservative, which makes
+        ``_fill_finalize``'s acquire infallible in any order.  False
+        keeps the request queued at the head (FIFO kept)."""
+        if (self.adapter_pool is None or req.adapter is None
+                or req.adapter in pend):
+            return True
+        if self.adapter_pool.headroom_slots() <= len(pend):
+            return False
+        pend.add(req.adapter)
+        return True
+
+    def _lora_args(self):
+        """The decode functions' ``lora`` argument: (per-row pool slot
+        ids on the device, the pool's buffers), or None without a pool,
+        which leaves the base path and its dispatch counts as they
+        were."""
+        if self.adapter_pool is None:
+            return None
+        if self._lora_dev is None:
+            self._lora_dev = torch.as_tensor(self._adapter_slot,
+                                             device=self.device)
+        return (self._lora_dev, self.adapter_pool.buffers)
+
     def _finish_slot(self, slot: int, out: list[Finished]) -> None:
         req = self._req[slot]
         gen = self._generated[slot]               # eos token kept
-        if len(gen) > 1 and self._prefix is not None:
+        if len(gen) > 1 and self._prefix is not None and req.adapter is None:
             # multi-turn reuse: remember the finished conversation so a
             # follow-up prompt adopts the whole history.  Rows written
             # so far = prompt + gen[:-1] (the last token was sampled but
             # never fed back), which is exactly _pos[slot].  The
             # fill-time prompt entry is a strict prefix of it and is
-            # dropped.
+            # dropped.  Base requests only: decode-written K/V depends on
+            # the adapter through the residual stream, and the store is
+            # shared by every adapter (fill-time prompt entries stay:
+            # prefill is base-model).
             written = np.concatenate(
                 [req.prompt, np.asarray(gen[:-1], np.int32)])
             if len(written) != int(self._pos[slot]):
@@ -811,10 +932,12 @@ class ServingEngine:
                                                   device=self.device)
             logits, self.pool = _decode.paged_decode_step_rows(
                 self.params, tokens, self.cfg, self.pool,
-                self._table_dev, pos, self._kv_use_kernel)
+                self._table_dev, pos, self._kv_use_kernel,
+                self._lora_args())
         else:
             logits, self.cache = decode_step_rows(
-                self.params, tokens, self.cfg, self.cache, pos)
+                self.params, tokens, self.cfg, self.cache, pos,
+                self._lora_args())
         if self._temps.any():
             nxt_dev = _next_tokens(logits, self._slot_gens, self._temps,
                                    self.top_k, self.top_p)
@@ -877,8 +1000,11 @@ class ServingEngine:
         ctx = ((self._ngram_ctx, self._ngram_len) if self._ngram
                else (None, None))
         if self._graphs is not None:
+            lora = (None if self.adapter_pool is None else
+                    (self._adapter_slot, self.adapter_pool.buffers))
             self._graphs.launch(self.params, self.cache, self._last,
-                                self._pos, self._temps, budget, eos, *ctx)
+                                self._pos, self._temps, budget, eos, *ctx,
+                                lora)
         else:
             args = (self.params, torch.as_tensor(self._last), self.cfg,
                     self.cache, torch.as_tensor(self._pos), k,
@@ -891,10 +1017,10 @@ class ServingEngine:
                     _decode.decode_spec_fused_rows(
                         *args, *ctx, self.draft_params, self.draft_cfg,
                         self._draft_cache, self._draft_gens, kd,
-                        self.top_k, self.top_p)
+                        self.top_k, self.top_p, self._lora_args())
             else:
                 packed, rows_done, self.cache = _decode.decode_fused_rows(
-                    *args, self.top_k, self.top_p)
+                    *args, self.top_k, self.top_p, self._lora_args())
         self._time_decode += time.perf_counter() - t_dec
         self._refill(finished)          # overlaps the running block
         t_wait = time.perf_counter()
@@ -984,10 +1110,11 @@ class ServingEngine:
                                                   device=self.device)
             logits, self.pool = _decode.paged_window_rows(
                 self.params, window, self.cfg, self.pool, self._table_dev,
-                pos)
+                pos, self._lora_args())
         else:
             logits, self.cache = decode_window_rows(
-                self.params, window, self.cfg, self.cache, pos)
+                self.params, window, self.cfg, self.cache, pos,
+                self._lora_args())
         if sampled_mode:
             emit, a = spec_accept_rows(logits, proposals, q_probs,
                                        self._slot_gens, temps, self.top_k,
@@ -1046,9 +1173,17 @@ class ServingEngine:
         while self.queue and any(r is None for r in self._req):
             t_fill = time.perf_counter()
             batch = []
+            pend: set = set()      # adapters this round will pin
             for slot in range(self.slots):
                 if self._req[slot] is None and self.queue:
+                    if not self._adapter_admit(self.queue[0], pend):
+                        break
                     batch.append((slot, self.queue.popleft()))
+            if not batch:
+                # the head's adapter needs a pool slot and none is
+                # claimable: requests stay queued until a pin drops
+                self._time_prefill += time.perf_counter() - t_fill
+                return
             if self.prefill_chunk is None and self.draft_params is None:
                 firsts = self._fill_fused_round(batch)
             else:
@@ -1276,9 +1411,12 @@ class ServingEngine:
         while self.queue and any(r is None for r in self._req):
             t_fill = time.perf_counter()
             batch = []
+            pend: set = set()      # adapters this round will pin
             for slot in range(self.slots):
                 if self._req[slot] is None and self.queue:
                     if not self._kv_can_admit(self.queue[0]):
+                        break
+                    if not self._adapter_admit(self.queue[0], pend):
                         break
                     batch.append((slot, self.queue.popleft()))
             if not batch:

@@ -133,12 +133,12 @@ def require_single_device(cfg: TransformerConfig) -> None:
     pipelines the layer stack over a pp axis.  The port has no mesh
     yet, so neither pipelining nor the ep-sharded gmm dispatch
     (``_moe_mlp_gmm_sharded`` in the JAX package) can be reached; both
-    come with the parallelism slice (ROADMAP Queue A item 12)."""
+    come with the parallelism slice (ROADMAP Queue A item 6)."""
     if cfg.pp_stages > 1:
         raise NotImplementedError(
             "pipeline stages (pp_stages > 1) run over a device mesh, "
             "which comes with the parallelism slice of the port (ROADMAP "
-            "Queue A item 12)")
+            "Queue A item 6)")
 
 
 # --------------------------------------------------------------------------

@@ -52,7 +52,8 @@ def test_scan_covers_the_port():
                 "models/convert.py", "models/speculative.py",
                 "models/specprobe.py", "ops/flash_attention.py",
                 "ops/gmm.py", "ops/paged_attention.py",
-                "serving_kv/manager.py",
+                "serving_kv/manager.py", "serving_lora/pool.py",
+                "serving_lora/probe.py",
                 "utils/dispatch.py", "utils/atomicio.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 

@@ -205,7 +205,6 @@ def test_sampled_rows_agree_across_layouts(params):
 
 
 UNPORTED = {
-    "adapter_pool": dict(adapter_pool=object()),
     "kv_host_bytes": dict(kv_layout="paged", kv_host_bytes=1 << 20),
     "kv_spill_dir": dict(kv_layout="paged", kv_spill_dir="/nonexistent"),
 }

@@ -207,7 +207,7 @@ def test_make_train_step_refuses_moe_and_missing_card():
         == jt._layer_shapes(jmoe)
     assert len(opt.param_groups[0]["params"]) == 3 + 9 * moe.n_layers
     _, piped = configs(n_experts=4, pp_stages=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tt.make_train_step(piped, device="cpu")
     if not torch.cuda.is_available():
         _, dense = configs()

@@ -207,9 +207,9 @@ def test_moe_and_missing_card_are_refused():
     assert tp["layers"][0]["w_in"].shape == (4, 48, 96)
     for kw in (dict(n_experts=4, pp_stages=2), dict(pp_stages=2)):
         _, piped = configs(**kw)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             tt.init_params(piped, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             tt.forward(tp, torch.zeros((1, 4), dtype=torch.long), piped)
     if not torch.cuda.is_available():
         _, dense = configs()
