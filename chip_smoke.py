@@ -18,6 +18,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    q and p where the TPU kernel does, per key tile of the kernel) and
    more loosely to the f32 oracle ``attention_forward``; f32 on the
    CUDA-core route;
+3b. K1's block entry (``flash_block_attention``: q against one K/V
+   block at absolute offsets, Tq != Tk, q/k segments, the unnormalized
+   statistics o, m, l) on both routes, D = 64 and 128, against
+   ``flash_block_attention_reference`` at a ring's offset pairs (full
+   block, diagonal, a block wholly above the diagonal whose rows must
+   come out m = -1e30, l = 0, o = 0 exactly, a window crossing the
+   block, 192 x 320, distinct q/k segments); S = 4 hops merged with
+   ``merge_flash_stats`` against the normalized K1; times at the ring's
+   hop shape (B=8 Tq=Tk=1024 H=16 Hkv=4 D=64 bf16, diagonal and full)
+   beside the bound, the plain version and SDPA (a yardstick);
 4. K2 (paged decode) likewise, with each case's plan (splits, blocks)
    printed, a bitwise repeat of every case, rows over several splits
    (the merge) required and the merge's counters back at 0;
@@ -560,6 +570,193 @@ def phase_flash(fa) -> dict:
         if plain_causal and (b, t, d) == (2, 96, 64):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    return row, probes
+
+
+#: K1's block entry against its plain version, relative to max(1,
+#: max|plain|) on o and l (m absolute): bf16 as the normalized entry
+#: (FWD_TC_TOL: the plain version sums its scores on the tensor cores in
+#: the kernel's order), f32 as TOL[f32]; rows the plain version leaves
+#: empty must be m = -1e30, l = 0, o = 0 exactly
+BLOCK_TOL = {torch.bfloat16: FWD_TC_TOL, torch.float32: TOL[torch.float32]}
+#: the ring's hop shape at the 154M over sp=2 (B=8, T/2 = 1024 rows)
+HOP_B, HOP_T = 8, 1024
+
+
+def block_bound(b, tq, tk, h, h_kv, d, pairs, dtype) -> tuple[float, str]:
+    """Least time of one block-entry call: q, k, v read once and o, m, l
+    (f32) written once over the memory rate; 4*D flops per valid pair
+    over the peak rate of the inputs' type."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (b * (tq * h + 2 * tk * h_kv) * d * es
+              + b * tq * h * (d + 2) * 4)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_b, t_f = nbytes / H100_BYTES_PER_S, 4 * d * pairs / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def block_pairs(b, tq, tk, h, q_off, k_off, causal, window, qs, ks) -> int:
+    """Valid (query, key) pairs of one block call on these inputs."""
+    qpos = q_off + np.arange(tq)[:, None]
+    kpos = k_off + np.arange(tk)[None]
+    valid = np.ones((tq, tk), bool)
+    if causal:
+        valid &= kpos <= qpos
+        if window:
+            valid &= qpos - kpos < window
+    if qs is None:
+        return b * h * int(valid.sum())
+    return h * sum(int((valid & (a[:, None] == c[None])).sum())
+                   for a, c in zip(qs.cpu().numpy(), ks.cpu().numpy()))
+
+
+def check_block(fa, q, k, v, q_off, k_off, label, causal=True, window=None,
+                qs=None, ks=None) -> float:
+    """One block-entry call against its plain version; fails the run on
+    a disagreement or a wrong route.  Returns max|d| of o."""
+    tc = q.dtype == torch.bfloat16
+    kw = dict(causal=causal, window=window, q_segments=qs, k_segments=ks)
+    before = (fa.block_launches, fa.block_tc_launches, fa.launches)
+    o, m, l = fa.flash_block_attention(q, k, v, q_off, k_off, **kw)
+    after = (fa.block_launches, fa.block_tc_launches, fa.launches)
+    if after != (before[0] + 1, before[1] + tc, before[2]):
+        fail(f"K1 block {label}: launch counts {before} -> {after}")
+    ro, rm, rl = fa.flash_block_attention_reference(q, k, v, q_off, k_off,
+                                                    **kw)
+    torch.cuda.synchronize()
+    dead = rl == 0
+    dead_ok = (torch.equal(l == 0, dead) and bool((m[dead] == -1e30).all())
+               and bool((o.transpose(1, 2)[dead] == 0).all()))
+    scale = max(1.0, ro.abs().max().item())
+    err = (o - ro).abs().max().item()
+    lerr = (l - rl).abs().max().item() / max(1.0, rl.abs().max().item())
+    merr = (m - rm)[~dead].abs().max().item() if (~dead).any() else 0.0
+    tol = BLOCK_TOL[q.dtype]
+    finite = all(bool(torch.isfinite(x).all()) for x in (o, m, l))
+    ok = (finite and dead_ok and err <= tol * scale and lerr <= tol
+          and merr <= tol)
+    b, tq, h, d = q.shape
+    print(f"K1 block {label}: B={b} Tq={tq} Tk={k.shape[1]} H={h} "
+          f"Hkv={k.shape[2]} D={d} offsets ({q_off}, {k_off}) "
+          f"window={window} seg={qs is not None} "
+          f"{str(q.dtype).removeprefix('torch.')} "
+          f"({'tensor cores' if tc else 'CUDA cores'}): o max|d|={err:.3g} "
+          f"(tol {tol} x max(1, max|plain| {scale:.3g})), l rel "
+          f"{lerr:.3g}, m max|d|={merr:.3g}; empty rows "
+          f"{int(dead.sum())} exactly (m=-1e30, l=0, o=0): {dead_ok} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"K1 block entry disagrees with its plain version at {label}")
+    return err
+
+
+def phase_flash_block(fa) -> tuple[dict, dict]:
+    """K1's block entry (``flash_block_attention``) on both routes,
+    D = 64 and 128, GQA 16/4, against ``flash_block_attention_reference``
+    at the offset pairs of a ring: the full block, the diagonal, a block
+    wholly above it (every row empty), a window crossing the block,
+    Tq != Tk (192 x 320), distinct q/k segments.  Then S = 4 hops of one
+    sequence merged with ``merge_flash_stats`` and normalized, against
+    the normalized K1 (f32 output) within TOL[dtype].  Then times at the
+    ring's hop shape (B=8 Tq=Tk=1024 H=16 Hkv=4 D=64 bf16), diagonal and
+    full, beside their bounds, the plain version and SDPA (timed only).
+    Returns the kernels-line row (the diagonal hop) and the probes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h, h_kv = 16, 4
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    def segs(b, n):
+        cuts = torch.randint(0, 40, (b, n), generator=gen, device=dev)
+        return torch.cumsum((cuts == 0).to(torch.int32), dim=1).to(
+            torch.int32)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (64, 128):
+            t = 256
+            q = rand(2, t, h, d, dtype=dtype)
+            k, v = rand(2, t, h_kv, d, dtype=dtype), rand(2, t, h_kv, d,
+                                                           dtype=dtype)
+            for label, qo, ko, window in (("full", t, 0, None),
+                                          ("diagonal", 0, 0, None),
+                                          ("above the diagonal", 0, t, None),
+                                          ("window crossing", t // 2, 0,
+                                           100)):
+                check_block(fa, q, k, v, qo, ko, label, window=window)
+            q2 = rand(2, 192, h, d, dtype=dtype)
+            k2, v2 = rand(2, 320, h_kv, d, dtype=dtype), rand(
+                2, 320, h_kv, d, dtype=dtype)
+            check_block(fa, q2, k2, v2, 300, 100, "Tq != Tk")
+            ids = segs(2, 420)
+            check_block(fa, q2, k2, v2, 228, 100, "q/k segments",
+                        qs=ids[:, 228:].contiguous(),
+                        ks=ids[:, 100:420].contiguous())
+            check_block(fa, q2, k2, v2, 0, 0, "non-causal segments",
+                        causal=False, qs=ids[:, :192].contiguous(),
+                        ks=ids[:, 100:420].contiguous())
+
+        # S hops of one sequence, merged, against the normalized K1
+        t, s = 1024, 4
+        q = rand(2, t, h, 64, dtype=dtype)
+        k, v = rand(2, t, h_kv, 64, dtype=dtype), rand(2, t, h_kv, 64,
+                                                       dtype=dtype)
+        want = fa.flash_forward(q, k, v, out_dtype=torch.float32)[0]
+        tl = t // s
+        got = []
+        for qi in range(s):
+            acc = None
+            for ki in range(s):
+                stats = fa.flash_block_attention(
+                    q[:, qi * tl:(qi + 1) * tl].contiguous(),
+                    k[:, ki * tl:(ki + 1) * tl].contiguous(),
+                    v[:, ki * tl:(ki + 1) * tl].contiguous(), qi * tl,
+                    ki * tl)
+                acc = stats if acc is None else fa.merge_flash_stats(*acc,
+                                                                     *stats)
+            got.append(fa.normalize_flash_stats(*acc)[0])
+        merr = (torch.cat(got, dim=1) - want).abs().max().item()
+        print(f"K1 block: {s} hops of B=2 T={t} merged and normalized vs "
+              f"the normalized K1 ({str(dtype).removeprefix('torch.')}, "
+              f"f32 output): max|d|={merr:.3g} (tol {TOL[dtype]}) "
+              f"{'ok' if merr <= TOL[dtype] else 'FAIL'}", flush=True)
+        if merr > TOL[dtype]:
+            fail("merged block-entry hops disagree with the normalized K1")
+
+    # the ring's hop shape at the 154M, sp=2
+    q = rand(HOP_B, HOP_T, h, 64, dtype=torch.bfloat16)
+    k = rand(HOP_B, HOP_T, h_kv, 64, dtype=torch.bfloat16)
+    v = rand(HOP_B, HOP_T, h_kv, 64, dtype=torch.bfloat16)
+    row, probes = None, {}
+    for label, qo, causal in (("diagonal", 0, True), ("full", HOP_T, True)):
+        err = check_block(fa, q, k, v, qo, 0, f"hop {label}")
+        pairs = block_pairs(HOP_B, HOP_T, HOP_T, h, qo, 0, causal, None,
+                            None, None)
+        bound, by = block_bound(HOP_B, HOP_T, HOP_T, h, h_kv, 64, pairs,
+                                torch.bfloat16)
+        kernel = (lambda qo=qo: fa.flash_block_attention(q, k, v, qo, 0))
+        plain = (lambda qo=qo: fa.flash_block_attention_reference(
+            q, k, v, qo, 0))
+        # SDPA of the same pairs: the diagonal is a causal square, the
+        # full hop an unmasked one (yardstick only)
+        library = sdpa_fn(q, k, v, label == "diagonal")
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=3)
+        lib_ms = cuda_ms(library)
+        print(f"K1 block hop {label} B={HOP_B} Tq=Tk={HOP_T} H={h} "
+              f"Hkv={h_kv} D=64 bf16: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+              f"bound_us={bound * 1e3:.2f} ({by}; {pairs} pairs, "
+              f"{4 * 64 * pairs / 1e9:.1f} GFLOP)", flush=True)
+        main = " (main path)" if label == "diagonal" else ""
+        probes[f"hop {label} B={HOP_B} Tq=Tk={HOP_T}{main}"] = dict(
+            kernel=kernel, plain=plain, library=library)
+        if label == "diagonal":
+            row = dict(max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       library_ms=lib_ms)
     return row, probes
 
 
@@ -2213,6 +2410,7 @@ def phase_lora_serving(params, cfg, reqs, fa, pa, refs) -> dict:
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.tc_launches = fa.dq_tc_launches = fa.dkv_tc_launches = 0
+    fa.block_launches = fa.block_tc_launches = 0
 
 
 def flash_routes(fa) -> dict:
@@ -2298,38 +2496,58 @@ def step_param_errors(p_c, p_h, g_h) -> tuple[float, float, int]:
     return strict, noisy, n_noisy
 
 
+def small_train_config():
+    """The f32 2-layer config of the card-vs-CPU steps."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig)
+    return TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                             n_kv_heads=2, d_head=64, d_ff=512, max_seq=256,
+                             dtype=torch.float32)
+
+
+def small_batch(cfg):
+    """The small steps' global batch: tokens and packed segments [2,
+    256] from numpy seed 5."""
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (2, 256)).astype(np.int32)
+    seg = np.cumsum(rng.integers(0, 64, (2, 256)) == 0, axis=1).astype(
+        np.int32)
+    return tokens, seg
+
+
+def small_step(cfg, device, tokens, seg, mesh=None):
+    """One AdamW step of ``cfg`` from generator seed 3 on ``device``
+    (over ``mesh`` when given): (loss, parameters after the step,
+    gradients), the tensors on the host."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        make_train_step, named_tensors)
+    step, init_state = make_train_step(cfg, device=device, mesh=mesh)
+    params, opt = init_state(torch.Generator().manual_seed(3))
+    params, opt, loss = step(params, opt, tokens, seg)
+    leaves = named_tensors(params)
+    missing = [n for n, t in leaves if t.grad is None]
+    if missing:
+        fail(f"train step on {device}: no gradient for {missing}")
+    return (float(loss), [t.detach().cpu() for _, t in leaves],
+            [t.grad.detach().cpu() for _, t in leaves])
+
+
 def phase_train_small(fa) -> dict:
     """One f32 AdamW step of a small config on the card (K1/K3/K4) and
     on the CPU (plain versions), from the same parameters and tokens,
     with packed segments; parameters compared by
     :func:`step_param_errors`.  Returns the card step's K3/K4 launches
     by route (all on the f32 route)."""
-    from k8s_dra_driver_tpu_torch.models.transformer import (
-        TransformerConfig, make_train_step, named_tensors)
-    cfg = TransformerConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
-                            n_kv_heads=2, d_head=64, d_ff=512, max_seq=256,
-                            dtype=torch.float32)
-    rng = np.random.default_rng(5)
-    tokens = rng.integers(0, cfg.vocab, (2, 256)).astype(np.int32)
-    seg = np.cumsum(rng.integers(0, 64, (2, 256)) == 0, axis=1).astype(
-        np.int32)
+    cfg = small_train_config()
+    tokens, seg = small_batch(cfg)
     results = {}
     for device in ("cuda", "cpu"):
-        step, init_state = make_train_step(cfg, device=device)
-        params, opt = init_state(torch.Generator().manual_seed(3))
         zero_counts(fa)
-        params, opt, loss = step(params, opt, tokens, seg)
-        leaves = named_tensors(params)
-        missing = [n for n, t in leaves if t.grad is None]
-        if missing:
-            fail(f"train step on {device}: no gradient for {missing}")
+        loss, params, grads = small_step(cfg, device, tokens, seg)
         if device == "cuda":
             routes = require_routes(fa, "train f32 small step", 0,
                                     cfg.n_layers)
-        results[device] = (float(loss), [t.detach().cpu()
-                                         for _, t in leaves],
-                           [t.grad.detach().cpu() for _, t in leaves],
-                           train_counts(fa))
+        results[device] = (loss, params, grads, train_counts(fa))
     (l_c, p_c, _, counts), (l_h, p_h, g_h, _) = (results["cuda"],
                                                  results["cpu"])
     if min(counts.values()) != cfg.n_layers:
@@ -2362,11 +2580,13 @@ def state_snapshot(params, opt) -> list:
     return out
 
 
-def phase_train(fa, tmp: Path) -> dict:
+def phase_train(fa, tmp: Path, record: dict) -> dict:
     """The 154M configuration trained at full width: TRAIN_STEPS AdamW
     steps of B=8 x T=2048 with the K1/K3/K4 counters zeroed just before
     and read just after, a checkpoint at TRAIN_SAVE_AT, the resume
-    check, and one step under remat.  Returns the steps' launches."""
+    check, and one step under remat.  Returns the steps' launches;
+    ``record`` gets the losses and the first SP_STEPS batches, which
+    the sp phase trains again."""
     from k8s_dra_driver_tpu_torch.models.checkpoint import (
         TrainCheckpointer)
     from k8s_dra_driver_tpu_torch.models.data import (BatchLoader,
@@ -2392,8 +2612,11 @@ def phase_train(fa, tmp: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(fa)
+    record["batches"] = []
     for i in range(1, TRAIN_STEPS + 1):
         batch = next(data)
+        if i <= SP_STEPS:
+            record["batches"].append(batch)
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, batch)
         losses.append(float(loss))          # waits for the step
@@ -2402,6 +2625,7 @@ def phase_train(fa, tmp: Path) -> dict:
             ckpt.save(i, params, opt, extra=data.state_dict())
             saved = state_snapshot(params, opt)
     counts = train_counts(fa)
+    record["losses"] = losses
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = walls[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
@@ -2469,6 +2693,276 @@ def phase_train(fa, tmp: Path) -> dict:
     require_routes(fa, "train remat step", cfg.n_layers, 0,
                    fwd=(2 * cfg.n_layers, 0))
     return counts
+
+
+#: the sp phase: two worker processes on the one card, a gloo group
+#: (NCCL refuses two ranks on one device), SP_STEPS steps of the 154M
+SP_WORLD = 2
+SP_STEPS = 3
+#: seconds the sp workers may take, start to join; each collective's
+#: own timeout (the rendezvous contract's barrier timeout) is shorter
+SP_TIMEOUT_S = 420
+SP_BARRIER_S = 180
+#: sp losses against phase_train's single-device losses of the same
+#: weights and batches, bf16: the ring merges its hops in f32 and rounds
+#: p per hop against another running max, and the gradients are summed
+#: over the two ranks in f32 before their bf16 rounding; AdamW's early
+#: steps are near lr * sign(g), so a gradient entry near zero may take
+#: the other sign.  Same-path reruns part by a few thousandths
+#: (RESUME_TOL); held at under 1% of losses 5 to 11
+SP_LOSS_TOL = 5e-2
+#: the f32 card steps over the mesh against one CPU process, gradients
+#: relative to each tensor's largest entry (summation order only)
+SP_GRAD_TOL = 1e-4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def kernel_counts(fa) -> dict:
+    """K1 (normalized and block entry), K3 and K4 launches by route."""
+    return {"fwd_tc": fa.tc_launches, "fwd_f32": fa.launches - fa.tc_launches,
+            "block_tc": fa.block_tc_launches,
+            "block_f32": fa.block_launches - fa.block_tc_launches,
+            "dq_tc": fa.dq_tc_launches,
+            "dq_f32": fa.dq_launches - fa.dq_tc_launches,
+            "dkv_tc": fa.dkv_tc_launches,
+            "dkv_f32": fa.dkv_launches - fa.dkv_tc_launches}
+
+
+def profiled_step(step, params, opt, batch):
+    """One train step under torch.profiler: (params, opt, loss, wall ms,
+    device ms: the summed time of every kernel and copy it ran)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        loss = float(loss)
+        wall = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages())
+    return params, opt, loss, wall, (dev_us / 1e3 if dev_us > 0 else None)
+
+
+def sp_worker(rank: int, world: int, port: int, job_path: str,
+              out_dir: str) -> None:
+    """One rank of the sp phase, on the card: the group from the
+    rendezvous contract (gloo), then (a) the f32 small ring step, (d)
+    the f32 small dp step, (b) SP_STEPS steps of the 154M over sp=2 by
+    ring, (c) one 154M Ulysses step.  Writes its results, or its
+    traceback, under ``out_dir``."""
+    import traceback
+
+    import torch.distributed as dist
+    out = Path(out_dir)
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from k8s_dra_driver_tpu_torch.models.transformer import (
+            make_train_step)
+        from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+        from k8s_dra_driver_tpu_torch.parallel import rendezvous
+        from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "TPU_WORKER_ID": str(rank), "TPU_NUM_WORKERS": str(world),
+               "TPU_RENDEZVOUS_BARRIER_TIMEOUT_S": str(SP_BARRIER_S)}
+        rendezvous.initialize(rendezvous.spec_from_env(env), backend="gloo")
+        res = {"psum": rendezvous.gang_psum(float(rank + 1))}
+        job = torch.load(job_path, weights_only=False)
+        sp_mesh = make_mesh(MeshSpec(sp=world), device="cuda")
+        dp_mesh = make_mesh(MeshSpec(dp=world), device="cuda")
+        res["coords"] = sp_mesh.coords
+        small = small_train_config()
+        for key, mesh in (("a", sp_mesh), ("d", dp_mesh)):
+            zero_counts(fa)
+            loss, params, grads = small_step(small, "cuda", job["tokens"],
+                                             job["seg"], mesh=mesh)
+            res[key] = dict(loss=loss, params=params, grads=grads,
+                            counts=kernel_counts(fa))
+
+        cfg = serving_config()
+        step, init_state = make_train_step(cfg, device="cuda", mesh=sp_mesh)
+        params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.reset_peak_memory_stats()
+        res["b"] = []
+        for batch in job["batches"]:
+            zero_counts(fa)
+            params, opt, loss, wall, dev = profiled_step(step, params, opt,
+                                                         batch)
+            res["b"].append(dict(loss=loss, wall_ms=wall, device_ms=dev,
+                                 counts=kernel_counts(fa)))
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, opt, step, init_state
+        torch.cuda.empty_cache()
+
+        step, init_state = make_train_step(
+            dataclasses.replace(cfg, seq_parallel="ulysses"), device="cuda",
+            mesh=sp_mesh)
+        params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
+        zero_counts(fa)
+        params, opt, loss, wall, dev = profiled_step(step, params, opt,
+                                                     job["batches"][0])
+        res["c"] = dict(loss=loss, wall_ms=wall, device_ms=dev,
+                        counts=kernel_counts(fa))
+        torch.save(res, out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def grad_errors(grads, want) -> float:
+    """Largest gradient difference relative to each tensor's largest
+    entry."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(grads, want))
+
+
+def phase_sp_train(fa, record: dict) -> dict:
+    """Context-parallel training on the card: SP_WORLD worker processes
+    share the one card, stand their group up through the port's
+    ``rendezvous.initialize`` (gloo: NCCL refuses two ranks on one
+    device, so every exchange is staged through host memory), check
+    ``gang_psum``, then run (a) an f32 2-layer ring step against one CPU
+    process's step (plain versions) of the same weights and batch, (b)
+    SP_STEPS steps of the 154M at full width over MeshSpec(sp=2) by ring
+    on phase_train's weights and first batches, losses against
+    phase_train's, K1-block/K3/K4 launches 8 a step on rank 0 and 16 on
+    rank 1 on the tensor cores and no normalized K1, (c) one Ulysses
+    step likewise (the normalized K1, K3, K4 8 a step on each rank), (d)
+    the f32 small step over MeshSpec(dp=2) as (a).  Any failure, hang
+    past SP_TIMEOUT_S or disagreement fails the run.  Returns the main
+    path's launches summed over ranks (the ring steps of (b); the f32
+    block route from (a))."""
+    import multiprocessing as mp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    small = small_train_config()
+    tokens, seg = small_batch(small)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = Path(tmp) / "job.pt"
+        torch.save(dict(tokens=tokens, seg=seg,
+                        batches=record["batches"][:SP_STEPS]), job)
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=sp_worker,
+                             args=(r, SP_WORLD, port, str(job), tmp))
+                 for r in range(SP_WORLD)]
+        for proc in procs:
+            proc.start()
+        # meanwhile, the one-process CPU step (a) and (d) are held to
+        cpu_loss, cpu_params, cpu_grads = small_step(small, "cpu", tokens,
+                                                     seg)
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+        took = time.perf_counter() - t0
+        errs = {r: (Path(tmp) / f"rank{r}.err").read_text()
+                for r in range(SP_WORLD)
+                if (Path(tmp) / f"rank{r}.err").exists()}
+        codes = [proc.exitcode for proc in procs]
+        if hung or errs or any(codes):
+            fail(f"sp workers failed: hung {hung} (timeout {SP_TIMEOUT_S} "
+                 f"s), exit codes {codes}\n"
+                 + "\n".join(f"rank {r}:\n{e}" for r, e in errs.items()))
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(SP_WORLD)]
+    psums = [r["psum"] for r in ranks]
+    want_psum = SP_WORLD * (SP_WORLD + 1) / 2
+    print(f"sp gang: {SP_WORLD} worker processes on the one card, group "
+          f"from rendezvous.initialize (backend gloo: NCCL refuses two "
+          f"ranks on one device), gang_psum {psums} (expected "
+          f"{want_psum}); workers took {took:.1f} s start to join",
+          flush=True)
+    if psums != [want_psum] * SP_WORLD:
+        fail(f"gang_psum disagrees: {psums}")
+
+    layers = small.n_layers
+    small_want = {
+        # ring: rank 0 runs its diagonal hop, rank 1 both hops
+        "a": [dict(block_f32=layers * (r + 1), dq_f32=layers * (r + 1),
+                   dkv_f32=layers * (r + 1)) for r in range(SP_WORLD)],
+        # dp: the single-device path, one normalized K1 a layer
+        "d": [dict(fwd_f32=layers, dq_f32=layers, dkv_f32=layers)
+              for _ in range(SP_WORLD)]}
+    for key, label in (("a", "MeshSpec(sp=2) ring"),
+                       ("d", "MeshSpec(dp=2, sp=1)")):
+        for r, res in enumerate(ranks):
+            got = res[key]
+            loss_rel = abs(got["loss"] - cpu_loss) / abs(cpu_loss)
+            gerr = grad_errors(got["grads"], cpu_grads)
+            strict, noisy, n_noisy = step_param_errors(got["params"],
+                                                       cpu_params, cpu_grads)
+            counts = {k: v for k, v in got["counts"].items() if v}
+            ok = (loss_rel <= STEP_LOSS_RTOL and gerr <= SP_GRAD_TOL
+                  and strict <= STEP_PARAM_ATOL and noisy <= 2 * 3e-4
+                  and counts == small_want[key][r])
+            print(f"sp ({key}) f32 small step {label}, rank {r} on the card "
+                  f"(kernels) vs one CPU process (plain): loss "
+                  f"{got['loss']:.7f} vs {cpu_loss:.7f} (rel {loss_rel:.3g}, "
+                  f"tol {STEP_LOSS_RTOL}); grads max rel {gerr:.3g} (tol "
+                  f"{SP_GRAD_TOL}); params max|d| {strict:.3g} (tol "
+                  f"{STEP_PARAM_ATOL}), {n_noisy} noise-band entries max|d| "
+                  f"{noisy:.3g}; launches {counts} (expected "
+                  f"{small_want[key][r]}) {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"sp ({key}) small step disagrees on rank {r}")
+
+    ref = record["losses"]
+    layers = serving_config().n_layers
+    for r, res in enumerate(ranks):
+        hops = r + 1
+        want = dict(block_tc=layers * hops, dq_tc=layers * hops,
+                    dkv_tc=layers * hops)
+        for i, st in enumerate(res["b"]):
+            counts = {k: v for k, v in st["counts"].items() if v}
+            gap = abs(st["loss"] - ref[i])
+            ok = gap <= SP_LOSS_TOL and counts == want
+            print(f"sp (b) 154M B={TRAIN_B} T={TRAIN_T} bf16 MeshSpec(sp=2) "
+                  f"ring, step {i + 1} rank {r}: loss {st['loss']:.5f} vs "
+                  f"single-device {ref[i]:.5f} (|d| {gap:.3g}, tol "
+                  f"{SP_LOSS_TOL}); wall {st['wall_ms']:.1f} ms, device "
+                  f"{fmt(st['device_ms'])} ms (kernels and copies; two "
+                  f"processes sharing one card, host-staged gloo exchange, "
+                  f"under the profiler); launches {counts} (expected "
+                  f"{want}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"sp (b) step {i + 1} disagrees on rank {r}")
+        print(f"sp (b) rank {r}: peak device memory {res['peak_gb']:.2f} "
+              f"GiB", flush=True)
+        st = res["c"]
+        counts = {k: v for k, v in st["counts"].items() if v}
+        want = dict(fwd_tc=layers, dq_tc=layers, dkv_tc=layers)
+        gap = abs(st["loss"] - ref[0])
+        ok = gap <= SP_LOSS_TOL and counts == want
+        print(f"sp (c) 154M Ulysses step 1 rank {r}: loss {st['loss']:.5f} vs "
+              f"single-device {ref[0]:.5f} (|d| {gap:.3g}, tol "
+              f"{SP_LOSS_TOL}); wall {st['wall_ms']:.1f} ms, device "
+              f"{fmt(st['device_ms'])} ms (same setup); launches {counts} "
+              f"(expected {want}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"sp (c) Ulysses step disagrees on rank {r}")
+    total = {k: sum(st["counts"][k] for res in ranks for st in res["b"])
+             for k in ranks[0]["b"][0]["counts"]}
+    total["block_f32"] = sum(res["a"]["counts"]["block_f32"]
+                             for res in ranks)
+    return total
 
 
 def zero_moe_counts(fa, gm) -> None:
@@ -2731,6 +3225,7 @@ def main() -> None:
 
     phase_build(_build)
     k1, k1_probes = phase_flash(fa)
+    k1b, k1b_probes = phase_flash_block(fa)
     k2, k2_probes = phase_paged(pa)
     k3, k4, bwd_probes = phase_flash_bwd(fa)
     k5, k6, gmm_probes = phase_gmm(gm)
@@ -2803,10 +3298,18 @@ def main() -> None:
     del params, refs, fused_refs, spec_refs, done_p, done_x
 
     f32_routes = phase_train_small(fa)
+    record = {}
     with tempfile.TemporaryDirectory() as tmp:
-        counts = phase_train(fa, Path(tmp))
+        counts = phase_train(fa, Path(tmp), record)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    # the sp path's kernels (summed over ranks): K1's block entry, and
+    # K3/K4 beside the single-device steps'
+    sp = phase_sp_train(fa, record)
+    launches["flash_fwd_block_tc"] = sp["block_tc"]
+    f32_routes["flash_fwd_block_f32"] = sp["block_f32"]
+    launches["flash_bwd_dq_tc"] += sp["dq_tc"]
+    launches["flash_bwd_dkv_tc"] += sp["dkv_tc"]
 
     for name, n in phase_moe_train_small(fa, gm).items():
         f32_routes[name] = f32_routes.get(name, 0) + n
@@ -2818,13 +3321,15 @@ def main() -> None:
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     print(f"kernel launches on the main paths (30 drains + "
-          f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy): "
+          f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy + "
+          f"{SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,
     # profiled last: profiling before the drains and the steps would
     # tax their every launch
     for name, row, by_shape in (("K1", k1, k1_probes),
+                                ("K1 block", k1b, k1b_probes),
                                 ("K2", k2, k2_probes),
                                 ("K3", k3, bwd_probes["K3"]),
                                 ("K4", k4, bwd_probes["K4"]),
@@ -2875,6 +3380,14 @@ def main() -> None:
              f32_route_launches=(launches["flash_fwd"]
                                  - launches["flash_fwd_tc"]
                                  + f32_routes["flash_fwd_f32"]), **k1),
+        # K1's block entry, the ring hops of the sp steps (bf16 on the
+        # tensor cores); the f32 small ring step's launches apart
+        dict(name="flash_fwd_block", route="cuda",
+             source="k8s_dra_driver_tpu_torch/csrc/flash_fwd_sm90.cu",
+             replaces="k8s_dra_driver_tpu/ops/flash_attention.py:397",
+             launches=launches["flash_fwd_block_tc"],
+             f32_route_source="k8s_dra_driver_tpu_torch/csrc/flash_fwd.cu",
+             f32_route_launches=f32_routes["flash_fwd_block_f32"], **k1b),
         dict(name="paged_decode", route="cuda",
              source="k8s_dra_driver_tpu_torch/csrc/paged_decode.cu",
              replaces="k8s_dra_driver_tpu/ops/paged_attention.py:125",

@@ -37,6 +37,17 @@
 // path's prompt lengths (24-96 tokens) the whole call is a few
 // microseconds of work and launch latency bounds it.  The tensor
 // cores take bf16 only, so f32 stays here.
+//
+// The block entry (`flash_fwd_block`) is the same kernel in a second
+// mode, the port of `flash_block_attention` for f32: q [B,Tq,H,D]
+// against one K/V block [B,Tk,Hkv,D] at absolute positions q_off /
+// k_off, masks by absolute position, separate q and k segment ids, and
+// the unnormalized accumulator o [B,Tq,H,D] with the running max m and
+// sum l [B,H,Tq] as its result (f32).  Rows that see no key of the block
+// are written as m = -1e30, l = 0, o = 0, the TPU kernel's values, which
+// `merge_flash_stats` relies on.  The mode is a template parameter
+// (kBlock): the normalized entry's instantiation keeps q's length and
+// segment ids for the keys, a zero offset shift and its own epilogue.
 #include <math.h>
 #include <stdint.h>
 
@@ -58,12 +69,31 @@ constexpr size_t flash_smem_bytes() {
          + sizeof(int) * kBlockN;                            // k segments
 }
 
-template <typename T, int D>
+template <typename T>
+struct FwdArgs {
+  const T* q;        // [B, Tq, H, D]
+  const T* k;        // [B, Tk, Hkv, D]
+  const T* v;
+  const int* qseg;   // [B, Tq] or null
+  const int* kseg;   // [B, Tk], null exactly when qseg is
+  T* out;            // normalized: out [B, Tq, H, D]; block mode: o (f32)
+  float* lse;        // normalized: lse [B, H, Tq]; block mode: m
+  float* l;          // block mode: l [B, H, Tq]; null when normalized
+  int B, Tq, Tk, H, Hkv, q_off, k_off, causal, window;
+  float scale;
+};
+
+// kBlock: the block entry (offsets, unnormalized statistics); else the
+// normalized entry (offsets 0, Tq = Tk)
+template <typename T, int D, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ seg,
-                 T* __restrict__ out, float* __restrict__ lse, int seq,
-                 int H, int Hkv, int causal, int window, float scale) {
+flash_fwd_kernel(const FwdArgs<T> a) {
+  // the key block's length and ids: in the normalized entry (Tq = Tk,
+  // one segment array) q's fields, as the kernel read them before the
+  // block mode existed
+  const int H = a.H, Hkv = a.Hkv, Tq = a.Tq, Tk = kBlock ? a.Tk : a.Tq;
+  const int* kseg = kBlock ? a.kseg : a.qseg;
+  const int causal = a.causal, window = a.window;
   constexpr int LD = D + 1;
   constexpr int LDP = kBlockN + 1;
   constexpr int kAcc = D / kLanes;
@@ -80,19 +110,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int r = tid / kLanes, lane = tid % kLanes;
   const int qi = q0 + r;
-  const bool row_ok = qi < seq;
+  const bool row_ok = qi < Tq;
+  // qi's position relative to the key block's start (absolute offsets)
+  const int shift = kBlock ? a.q_off - a.k_off : 0;
+  const int qk = qi + shift;
 
   for (int e = tid; e < kBlockM * D; e += kThreads) {
     const int rr = e / D, c = e % D, t = q0 + rr;
     sQ[rr * LD + c] =
-        t < seq ? to_f32(q[(((size_t)b * seq + t) * H + h) * D + c]) : 0.f;
+        t < Tq ? to_f32(a.q[(((size_t)b * Tq + t) * H + h) * D + c]) : 0.f;
   }
-  const int qseg = (seg != nullptr && row_ok) ? seg[(size_t)b * seq + qi] : 0;
+  const int qseg =
+      (a.qseg != nullptr && row_ok) ? a.qseg[(size_t)b * Tq + qi] : 0;
 
-  // k tiles the masks can reach for any row of this q tile
-  const int q_last = min(q0 + kBlockM, seq) - 1;
-  const int kt_hi = (causal ? q_last : seq - 1) / kBlockN;
-  const int kt_lo = window > 0 ? max(q0 - (window - 1), 0) / kBlockN : 0;
+  // k tiles the masks can reach for any row of this q tile, by absolute
+  // position; none when the whole tile is above the diagonal or behind
+  // the window (block mode)
+  const int q_last = min(q0 + kBlockM, Tq) - 1;
+  const int k_hi =
+      causal ? (kBlock ? min(q_last + shift, Tk - 1) : q_last) : Tk - 1;
+  const int k_lo = window > 0 ? max(q0 + shift - (window - 1), 0) : 0;
+  const int kt_lo = k_lo / kBlockN;
+  const int kt_hi = (kBlock && k_hi < k_lo) ? kt_lo - 1 : k_hi / kBlockN;
 
   float m = -INFINITY, l = 0.f;
   float acc[kAcc];
@@ -105,17 +144,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBlockN * D; e += kThreads) {
       const int rr = e / D, c = e % D, t = k0 + rr;
       float kx = 0.f, vx = 0.f;
-      if (t < seq) {
-        const size_t off = (((size_t)b * seq + t) * Hkv + hk) * D + c;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+      if (t < Tk) {
+        const size_t off = (((size_t)b * Tk + t) * Hkv + hk) * D + c;
+        kx = to_f32(a.k[off]);
+        vx = to_f32(a.v[off]);
       }
       sK[rr * LD + c] = kx;
       sV[rr * LD + c] = vx;
     }
-    if (seg != nullptr && tid < kBlockN) {
+    if (kseg != nullptr && tid < kBlockN) {
       const int t = k0 + tid;
-      sSeg[tid] = t < seq ? seg[(size_t)b * seq + t] : 0;
+      sSeg[tid] = t < Tk ? kseg[(size_t)b * Tk + t] : 0;
     }
     __syncthreads();
 
@@ -133,12 +172,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = j * kLanes + lane, kj = k0 + c;
-      bool valid = row_ok && kj < seq;
-      if (causal) valid = valid && kj <= qi;
-      if (window > 0) valid = valid && qi - kj < window;
-      if (seg != nullptr) valid = valid && sSeg[c] == qseg;
+      bool valid = row_ok && kj < Tk;
+      if (causal) valid = valid && kj <= qk;
+      if (window > 0) valid = valid && qk - kj < window;
+      if (kseg != nullptr) valid = valid && sSeg[c] == qseg;
       ok[j] = valid;
-      s[j] *= scale;
+      s[j] *= a.scale;
       if (valid) tile_max = fmaxf(tile_max, s[j]);
     }
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
@@ -172,47 +211,54 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (row_ok) {
+    T* orow = a.out + (((size_t)b * Tq + qi) * H + h) * D;
+    const size_t stat = ((size_t)b * H + h) * Tq + qi;
+    if constexpr (kBlock) {  // the statistics as they are
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i)
+        store_from_f32(orow + i * kLanes + lane, acc[i]);
+      if (lane == 0) {
+        a.lse[stat] = m == -INFINITY ? -1e30f : m;
+        a.l[stat] = l;
+      }
+      return;
+    }
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* orow = out + (((size_t)b * seq + qi) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < kAcc; ++i)
       store_from_f32(orow + i * kLanes + lane, acc[i] * inv);
-    if (lane == 0) lse[((size_t)b * H + h) * seq + qi] = m + logf(l);
+    if (lane == 0) a.lse[stat] = m + logf(l);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* seg, void* out, float* lse, int B, int seq,
-                   int H, int Hkv, int causal, int window, float scale,
-                   cudaStream_t stream) {
+template <typename T, int D, bool kBlock>
+cudaError_t launch(const FwdArgs<T>& a, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<D>();
   // above 48 KB of dynamic shared memory; the attribute belongs to the
   // current device, so it is set on every launch (a host-side call)
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, D, kBlock>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((seq + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<T*>(out), lse, seq, H, Hkv,
-      causal, window, scale);
+  dim3 grid((a.Tq + kBlockM - 1) / kBlockM, a.H, a.B);
+  flash_fwd_kernel<T, D, kBlock><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     const int* seg, void* out, float* lse, int B, int seq,
-                     int H, int Hkv, int causal, int window, float scale,
-                     cudaStream_t stream) {
+cudaError_t launch_d(int D, const FwdArgs<T>& a, cudaStream_t stream) {
+  if (a.B <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
+      a.H % a.Hkv)
+    return cudaErrorInvalidValue;
+  const bool block = a.l != nullptr;
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, seg, out, lse, B, seq, H, Hkv, causal,
-                           window, scale, stream);
+      return block ? launch<T, 64, true>(a, stream)
+                   : launch<T, 64, false>(a, stream);
     case 128:
-      return launch<T, 128>(q, k, v, seg, out, lse, B, seq, H, Hkv, causal,
-                            window, scale, stream);
+      return block ? launch<T, 128, true>(a, stream)
+                   : launch<T, 128, false>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -230,16 +276,59 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int seq, int H, int Hkv, int D, int causal,
                          int window, float scale, int dtype, void* stream) {
   using namespace tpu_torch;
-  const int* s = static_cast<const int*>(seg);
-  float* l = static_cast<float*>(lse);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || seq <= 0 || H <= 0 || Hkv <= 0 || H % Hkv)
+  if (dtype != kFloat32) return cudaErrorInvalidValue;
+  FwdArgs<float> a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.qseg = a.kseg = static_cast<const int*>(seg);
+  a.out = static_cast<float*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.l = nullptr;
+  a.B = B;
+  a.Tq = a.Tk = seq;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.q_off = a.k_off = 0;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  return launch_d<float>(D, a, static_cast<cudaStream_t>(stream));
+}
+
+// The block entry: q [B,Tq,H,D] against k/v [B,Tk,Hkv,D] (float32,
+// contiguous; bfloat16 takes flash_fwd_block_tc) at absolute offsets
+// q_off / k_off; qseg [B,Tq] and kseg [B,Tk] int32, both or neither;
+// writes o [B,Tq,H,D] unnormalized, m and l [B,H,Tq], all float32.
+// window <= 0 means no window.  Returns cudaGetLastError().
+extern "C" int flash_fwd_block(const void* q, const void* k, const void* v,
+                               const void* qseg, const void* kseg, void* o,
+                               void* m, void* l, int B, int Tq, int Tk, int H,
+                               int Hkv, int D, int q_off, int k_off,
+                               int causal, int window, float scale, int dtype,
+                               void* stream) {
+  using namespace tpu_torch;
+  if (dtype != kFloat32 || (qseg == nullptr) != (kseg == nullptr) ||
+      m == nullptr || l == nullptr)
     return cudaErrorInvalidValue;
-  switch (dtype) {
-    case kFloat32:
-      return launch_d<float>(D, q, k, v, s, out, l, B, seq, H, Hkv, causal,
-                             window, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  FwdArgs<float> a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.qseg = static_cast<const int*>(qseg);
+  a.kseg = static_cast<const int*>(kseg);
+  a.out = static_cast<float*>(o);
+  a.lse = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.B = B;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.q_off = q_off;
+  a.k_off = k_off;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  return launch_d<float>(D, a, static_cast<cudaStream_t>(stream));
 }

@@ -57,6 +57,26 @@
 //     T and segments only where the tile needs it.
 // Shared memory 74 KB at D = 64 (three blocks an SM), 146 KB at
 // D = 128 (one).
+//
+// The block entry (`flash_fwd_block_tc`) is the same kernel in a second
+// mode: the port of `flash_block_attention`, q [B,Tq,H,D] against one
+// K/V block [B,Tk,Hkv,D] at absolute positions q_off / k_off (a ring
+// hop), with separate q and k segment ids.  Masks and the key-tile range
+// compare absolute positions (q_off + i against k_off + j); the result is
+// the unnormalized accumulator o [B,Tq,H,D] f32 with the running max m
+// and sum l [B,H,Tq] f32, which `merge_flash_stats` folds across hops.
+// A q tile whose rows see no key of the block loads no key tile and
+// still writes its rows: m = -1e30, l = 0, o = 0, as the TPU kernel
+// leaves them.  The mode is a template parameter (kBlock): the
+// normalized entry's instantiation reads q's length and segment ids for
+// the keys, a zero offset shift and its own epilogue, the code it was
+// before the block mode existed (same registers, same time, PERF.md).
+// Bound at the ring's hop shape (B=8 Tq=Tk=1024 H=16 Hkv=4 D=64): a full
+// hop (every pair valid) is 4*B*H*Tq*Tk*D = 34.4 GFLOP, 34.7 us of the
+// tensor cores' bf16 rate, against 17.8 us for its bytes (q, k, v read
+// in bf16, o, m, l written in f32): the tensor cores bound it.  The
+// diagonal hop does half the pairs, 17.4 us of operations, so its 17.8 us
+// of bytes bound it, barely.
 #include <math.h>
 #include <stdint.h>
 
@@ -78,13 +98,16 @@ constexpr int kQSub = kTileQ * kRowBytes;  // a [64][64] bf16 sub-tile
 constexpr int kKSub = kTileK * kRowBytes;  // a [128][64] bf16 sub-tile
 
 struct FwdArgs {
-  const bf16* q;
-  const bf16* k;
+  const bf16* q;     // [B, Tq, H, D]
+  const bf16* k;     // [B, Tk, Hkv, D]
   const bf16* v;
-  const int* seg;  // [B, T] or null
-  void* out;       // [B, T, H, D], bf16 or f32 (out_f32)
-  float* lse;      // [B, H, T]
-  int B, T, H, Hkv, causal, window, out_f32;
+  const int* qseg;   // [B, Tq] or null
+  const int* kseg;   // [B, Tk], null exactly when qseg is
+  void* out;         // normalized: [B, Tq, H, D], bf16 or f32 (out_f32);
+                     // block mode: o [B, Tq, H, D] f32, unnormalized
+  float* lse;        // normalized: lse [B, H, Tq]; block mode: m
+  float* l;          // block mode: l [B, H, Tq]; null when normalized
+  int B, Tq, Tk, H, Hkv, q_off, k_off, causal, window, out_f32;
   float scale;
 };
 
@@ -105,28 +128,50 @@ constexpr size_t smem_bytes() {
          kStages * kTileK * 4 + 1024;
 }
 
-// query qi sees key kj (segments compared by the caller's ids)
+// The key block's length and segment ids: the block entry's own, or in
+// the normalized entry (Tq = Tk, one segment array) q's, read from q's
+// fields so that this instantiation reads what the kernel read before
+// the block mode existed.
+template <bool kBlock>
+__device__ __forceinline__ int key_len(const FwdArgs& a) {
+  return kBlock ? a.Tk : a.Tq;
+}
+
+template <bool kBlock>
+__device__ __forceinline__ const int* key_seg(const FwdArgs& a) {
+  return kBlock ? a.kseg : a.qseg;
+}
+
+// local query qi sees local key kj: causal and window by absolute
+// position (shift = q_off - k_off: qi + shift is qi's position in the
+// key block), keys past the block dropped, segments compared by the
+// caller's ids
+template <bool kBlock>
 __device__ __forceinline__ bool pair_ok(int qi, int kj, const FwdArgs& a,
-                                        int qs, int ks) {
-  if (kj >= a.T) return false;
-  if (a.causal && kj > qi) return false;
-  if (a.window > 0 && qi - kj >= a.window) return false;
-  if (a.seg != nullptr && qs != ks) return false;
+                                        int shift, int qs, int ks) {
+  if (kj >= key_len<kBlock>(a)) return false;
+  const int qk = qi + shift;
+  if (a.causal && kj > qk) return false;
+  if (a.window > 0 && qk - kj >= a.window) return false;
+  if (key_seg<kBlock>(a) != nullptr && qs != ks) return false;
   return true;
 }
 
-// whether some pair of the q tile at q0 and the key tile at k0 needs a
-// mask
+// whether some pair of the q tile at q0 and the key tile at k0 (local
+// starts) needs a mask
+template <bool kBlock>
 __device__ __forceinline__ bool tile_masked(int q0, int k0,
-                                            const FwdArgs& a) {
-  if (a.seg != nullptr || k0 + kTileK > a.T) return true;
-  if (a.causal && k0 + kTileK - 1 > q0) return true;
-  if (a.window > 0 && q0 + kTileQ - 1 - k0 >= a.window) return true;
+                                            const FwdArgs& a, int shift) {
+  if (key_seg<kBlock>(a) != nullptr || k0 + kTileK > key_len<kBlock>(a))
+    return true;
+  const int qk0 = q0 + shift;
+  if (a.causal && k0 + kTileK - 1 > qk0) return true;
+  if (a.window > 0 && qk0 + kTileQ - 1 - k0 >= a.window) return true;
   return false;
 }
 
 // rows [q0, q0 + 64) of head h of q, scaled in f32 and rounded to bf16,
-// into the swizzled tile at dst (D / 64 sub-tiles); rows past T are 0
+// into the swizzled tile at dst (D / 64 sub-tiles); rows past Tq are 0
 template <int D>
 __device__ __forceinline__ void load_q_scaled(uint8_t* dst, const FwdArgs& a,
                                               int q0, int b, int h) {
@@ -136,9 +181,9 @@ __device__ __forceinline__ void load_q_scaled(uint8_t* dst, const FwdArgs& a,
     const int e = threadIdx.x + j * kThreads;
     const int r = e / kChunks, c = e % kChunks, t = q0 + r;
     uint4 x = make_uint4(0, 0, 0, 0);
-    if (t < a.T)
+    if (t < a.Tq)
       x = *reinterpret_cast<const uint4*>(
-          a.q + (((size_t)b * a.T + t) * a.H + h) * D + c * 8);
+          a.q + (((size_t)b * a.Tq + t) * a.H + h) * D + c * 8);
     uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -152,25 +197,28 @@ __device__ __forceinline__ void load_q_scaled(uint8_t* dst, const FwdArgs& a,
 }
 
 // keys [t0, t0 + 128) of KV head hk of x into the swizzled tile at
-// shared address dst (D / 64 sub-tiles of 128 rows); zeros past T
-template <int D>
+// shared address dst (D / 64 sub-tiles of 128 rows); zeros past Tk
+template <int D, bool kBlock>
 __device__ __forceinline__ void load_kv_tile(uint32_t dst,
                                              const bf16* __restrict__ x,
                                              int t0, const FwdArgs& a, int b,
                                              int hk) {
   constexpr int kChunks = D / 8;
+  const int tk = key_len<kBlock>(a);
 #pragma unroll
   for (int j = 0; j < kTileK * kChunks / kThreads; ++j) {
     const int e = threadIdx.x + j * kThreads;
     const int r = e / kChunks, c = e % kChunks, t = t0 + r;
-    const bool ok = t < a.T;
+    const bool ok = t < tk;
     const bf16* src =
-        x + (((size_t)b * a.T + (ok ? t : 0)) * a.Hkv + hk) * D + c * 8;
+        x + (((size_t)b * tk + (ok ? t : 0)) * a.Hkv + hk) * D + c * 8;
     sm90::cp16(dst + (c / 8) * kKSub + sm90::swz(r, c % 8), src, ok);
   }
 }
 
-template <int D>
+// kBlock: the block entry (offsets, unnormalized statistics); else the
+// normalized entry (offsets 0, Tq = Tk)
+template <int D, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_sm90_kernel(const FwdArgs a) {
   constexpr int kSub = D / 64;  // 64-column sub-tiles
@@ -184,7 +232,7 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
   const uint32_t sSeg = sKV + kStages * 2 * kv_bytes<D>();
   const int* segs = reinterpret_cast<const int*>(gbase + (sSeg - base));
 
-  const int n_qt = (a.T + kTileQ - 1) / kTileQ;
+  const int n_qt = (a.Tq + kTileQ - 1) / kTileQ;
   int bid = blockIdx.x;
   const int h = bid % a.H;
   bid /= a.H;
@@ -195,34 +243,44 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
   const int r0 = warp * 16 + lane / 4;  // rows r0, r0 + 8 of the tile
   const int c0 = 2 * (lane % 4);        // columns 8 n + c0 + {0, 1}
 
-  // key tiles any row of this q tile can see (at least one: each row
-  // sees itself, or every key without a causal mask)
-  const int q_last = min(q0 + kTileQ, a.T) - 1;
-  const int k_hi = a.causal ? q_last : a.T - 1;
-  const int k_lo = a.window > 0 ? max(0, q0 - (a.window - 1)) : 0;
+  // local key tiles any row of this q tile can see, by absolute
+  // position: [k_lo, k_hi] clipped to the block.  In the normalized mode
+  // there is at least one (each row sees itself); in block mode a hop
+  // above the diagonal or behind the window has none, and the rows are
+  // written with nothing accumulated.
+  const int shift = kBlock ? a.q_off - a.k_off : 0;
+  const int tk = key_len<kBlock>(a);
+  const int* kseg_ids = key_seg<kBlock>(a);
+  const int q_last = min(q0 + kTileQ, a.Tq) - 1;
+  const int k_hi =
+      a.causal ? (kBlock ? min(q_last + shift, tk - 1) : q_last) : tk - 1;
+  const int k_lo = a.window > 0 ? max(0, q0 + shift - (a.window - 1)) : 0;
   const int kt0 = k_lo / kTileK;
-  const int n_it = k_hi / kTileK - kt0 + 1;
+  const int n_it = (kBlock && k_hi < k_lo) ? 0 : k_hi / kTileK - kt0 + 1;
 
   auto load_kv = [&](int stage, int kt) {
     const uint32_t dst = sKV + stage * 2 * kv_bytes<D>();
-    load_kv_tile<D>(dst, a.k, kt * kTileK, a, b, hk);
-    load_kv_tile<D>(dst + kv_bytes<D>(), a.v, kt * kTileK, a, b, hk);
-    if (a.seg != nullptr) {
+    load_kv_tile<D, kBlock>(dst, a.k, kt * kTileK, a, b, hk);
+    load_kv_tile<D, kBlock>(dst + kv_bytes<D>(), a.v, kt * kTileK, a, b, hk);
+    if (kseg_ids != nullptr) {
       const int t = kt * kTileK + tid;
-      const bool ok = t < a.T;
+      const bool ok = t < tk;
       sm90::cp4(sSeg + stage * kTileK * 4 + 4 * tid,
-                a.seg + (size_t)b * a.T + (ok ? t : 0), ok);
+                kseg_ids + (size_t)b * tk + (ok ? t : 0), ok);
     }
   };
-  load_kv(0, kt0);
-  sm90::cp_commit();
+  if (!kBlock || n_it > 0) {
+    load_kv(0, kt0);
+    sm90::cp_commit();
+  }
   load_q_scaled<D>(gbase, a, q0, b, h);
 
   int qs[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int qi = q0 + r0 + 8 * rr;
-    qs[rr] = (a.seg != nullptr && qi < a.T) ? a.seg[(size_t)b * a.T + qi] : 0;
+    qs[rr] =
+        (a.qseg != nullptr && qi < a.Tq) ? a.qseg[(size_t)b * a.Tq + qi] : 0;
   }
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float o[kSub][32];
@@ -259,7 +317,7 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
     sm90::reg_fence(s);
 
     // s[4 n + 2 rr + c]: row r0 + 8 rr, key k0 + 8 n + c0 + c
-    const bool masked = tile_masked(q0, k0, a);
+    const bool masked = tile_masked<kBlock>(q0, k0, a, shift);
     if (masked) {
       const int* kseg = segs + st * kTileK;
 #pragma unroll
@@ -267,10 +325,11 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int col = 8 * n + c0 + c;
-          const int ks = a.seg != nullptr ? kseg[col] : 0;
+          const int ks = kseg_ids != nullptr ? kseg[col] : 0;
 #pragma unroll
           for (int rr = 0; rr < 2; ++rr)
-            if (!pair_ok(q0 + r0 + 8 * rr, k0 + col, a, qs[rr], ks))
+            if (!pair_ok<kBlock>(q0 + r0 + 8 * rr, k0 + col, a, shift, qs[rr],
+                                 ks))
               s[4 * n + 2 * rr + c] = kNegInf;
         }
     }
@@ -334,9 +393,24 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int qi = q0 + r0 + 8 * rr;
-    if (qi >= a.T) continue;
+    if (qi >= a.Tq) continue;
+    const size_t row = (((size_t)b * a.Tq + qi) * a.H + h) * D;
+    const size_t stat = ((size_t)b * a.H + h) * a.Tq + qi;
+    if constexpr (kBlock) {  // the running statistics as they are
+#pragma unroll
+      for (int sub = 0; sub < kSub; ++sub)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + row +
+                                     sub * 64 + 8 * n + c0) =
+              make_float2(o[sub][4 * n + 2 * rr], o[sub][4 * n + 2 * rr + 1]);
+      if (lane % 4 == 0) {
+        a.lse[stat] = m[rr];
+        a.l[stat] = l[rr];
+      }
+      continue;
+    }
     const float lc = fmaxf(l[rr], 1e-30f);
-    const size_t row = (((size_t)b * a.T + qi) * a.H + h) * D;
 #pragma unroll
     for (int sub = 0; sub < kSub; ++sub)
 #pragma unroll
@@ -351,23 +425,44 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
           *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.out) + row +
                                        col) = sm90::pack_bf16(x0, x1);
       }
-    if (lane % 4 == 0)
-      a.lse[((size_t)b * a.H + h) * a.T + qi] = __fadd_rn(m[rr], logf(lc));
+    if (lane % 4 == 0) a.lse[stat] = __fadd_rn(m[rr], logf(lc));
   }
 }
 
-template <int D>
+template <int D, bool kBlock>
 cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
   // above 48 KB of dynamic shared memory; the attribute belongs to the
   // current device, so it is set on every launch (a host-side call)
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_sm90_kernel<D, kBlock>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (a.T + kTileQ - 1) / kTileQ * a.H * a.B;
-  flash_fwd_sm90_kernel<D><<<blocks, kThreads, smem, stream>>>(a);
+  const int blocks = (a.Tq + kTileQ - 1) / kTileQ * a.H * a.B;
+  flash_fwd_sm90_kernel<D, kBlock><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const FwdArgs& a, int D, cudaStream_t stream) {
+  if (a.B <= 0 || a.Tq <= 0 || a.Tk <= 0 || a.H <= 0 || a.Hkv <= 0 ||
+      a.H % a.Hkv)
+    return cudaErrorInvalidValue;
+  // q is read and K/V copied in 16-byte chunks
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v)) &
+      15)
+    return cudaErrorMisalignedAddress;
+  const bool block = a.l != nullptr;
+  switch (D) {
+    case 64:
+      return block ? launch<64, true>(a, stream) : launch<64, false>(a, stream);
+    case 128:
+      return block ? launch<128, true>(a, stream)
+                   : launch<128, false>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -382,36 +477,62 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
                             int window, float scale, int out_dtype,
                             void* stream) {
   using namespace tpu_torch;
-  if (B <= 0 || seq <= 0 || H <= 0 || Hkv <= 0 || H % Hkv ||
-      (out_dtype != kFloat32 && out_dtype != kBFloat16))
+  if (out_dtype != kFloat32 && out_dtype != kBFloat16)
     return cudaErrorInvalidValue;
-  // q is read and K/V copied in 16-byte chunks
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v)) &
-      15)
-    return cudaErrorMisalignedAddress;
   FwdArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
-  a.seg = static_cast<const int*>(seg);
+  a.qseg = a.kseg = static_cast<const int*>(seg);
   a.out = out;
   a.lse = static_cast<float*>(lse);
+  a.l = nullptr;
   a.B = B;
-  a.T = seq;
+  a.Tq = a.Tk = seq;
   a.H = H;
   a.Hkv = Hkv;
+  a.q_off = a.k_off = 0;
   a.causal = causal;
   a.window = window;
   a.out_f32 = out_dtype == kFloat32;
   a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(a, st);
-    case 128:
-      return launch<128>(a, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch(a, D, static_cast<cudaStream_t>(stream));
+}
+
+// The block entry (flash_fwd_block's contract, flash_fwd.cu) for
+// bfloat16 inputs: q [B,Tq,H,D] against k/v [B,Tk,Hkv,D] at absolute
+// offsets q_off / k_off; qseg [B,Tq] and kseg [B,Tk] int32, both or
+// neither; writes o [B,Tq,H,D], m and l [B,H,Tq], all float32.  dtype is
+// the inputs' code and must be bfloat16's.  Returns cudaGetLastError().
+extern "C" int flash_fwd_block_tc(const void* q, const void* k, const void* v,
+                                  const void* qseg, const void* kseg, void* o,
+                                  void* m, void* l, int B, int Tq, int Tk,
+                                  int H, int Hkv, int D, int q_off, int k_off,
+                                  int causal, int window, float scale,
+                                  int dtype, void* stream) {
+  using namespace tpu_torch;
+  if (dtype != kBFloat16 || (qseg == nullptr) != (kseg == nullptr) ||
+      m == nullptr || l == nullptr)
+    return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.qseg = static_cast<const int*>(qseg);
+  a.kseg = static_cast<const int*>(kseg);
+  a.out = o;
+  a.lse = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.B = B;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.q_off = q_off;
+  a.k_off = k_off;
+  a.causal = causal;
+  a.window = window;
+  a.out_f32 = 1;
+  a.scale = scale;
+  return dispatch(a, D, static_cast<cudaStream_t>(stream));
 }

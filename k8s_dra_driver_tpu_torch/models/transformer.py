@@ -2,7 +2,8 @@
 the training step.
 
 The port of ``k8s_dra_driver_tpu/models/transformer.py`` for dense
-and MoE configs on one device.  Parameters keep the JAX package's
+and MoE configs on one device, and for dense configs over a dp x sp
+process mesh (``parallel/mesh.py``).  Parameters keep the JAX package's
 layout and key names — ``wq [d,h,dh]``, ``wk/wv [d,h_kv,dh]``, ``wo
 [h,dh,d]``, ``w_in [d,f]``, ``w_out [f,d]`` (MoE: ``router [d,E]``,
 ``w_in [E,d,f]``, ``w_out [E,f,d]``), ``embed [V,d]``, ``unembed
@@ -29,9 +30,18 @@ state in place (where JAX donates its buffers); gradients reach every
 weight, the attention projections through the flash backward kernels
 K3/K4 and the experts through K5/K6 on the card.
 
-Not ported yet: the mesh paths — pipeline stages and the ep-sharded
-gmm dispatch (``_moe_mlp_gmm_sharded``) — refused by
-:func:`require_single_device`.
+The mesh path (``mesh=`` on :func:`forward`, :func:`loss_fn` and
+:func:`make_train_step`): each rank holds its ``B/dp x T/sp`` shard of
+the batch and replicated weights; attention crosses the sp axis by ring
+(K1's block entry forward, K3/K4 backward) or Ulysses (the normalized
+K1, K3/K4) by ``cfg.seq_parallel``, with rotary positions from the
+shard's absolute start; the loss is the JAX package's global mean, and
+the step sums the gradients over the world before identical AdamW
+steps on every rank.
+
+Not ported yet: tp, ep and pp — pipeline stages (refused by
+:func:`require_single_device`) and the ep-sharded gmm dispatch
+(``_moe_mlp_gmm_sharded``; an MoE config with a mesh raises).
 """
 
 from __future__ import annotations
@@ -46,7 +56,8 @@ import torch.utils.checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.gmm import _round_up, gmm, pick_gmm_blocks
-from ..ops.ring_attention import attention_reference
+from ..ops.ring_attention import attention_reference, ring_attention
+from ..ops.ulysses_attention import ulysses_attention
 from ..utils.device import resolve_device
 from .quant import QTensor, ein, take_rows
 
@@ -129,16 +140,26 @@ class TransformerConfig:
 
 
 def require_single_device(cfg: TransformerConfig) -> None:
-    """Refuse configs that name a device mesh: ``pp_stages > 1``
-    pipelines the layer stack over a pp axis.  The port has no mesh
-    yet, so neither pipelining nor the ep-sharded gmm dispatch
-    (``_moe_mlp_gmm_sharded`` in the JAX package) can be reached; both
-    come with the parallelism slice (ROADMAP Queue A item 6)."""
+    """Refuse configs that pipeline the layer stack: ``pp_stages > 1``
+    runs over a pp mesh axis, and the port's mesh (``parallel/mesh.py``)
+    has dp and sp only; pipelining comes with the rest of the
+    parallelism slice (ROADMAP Queue A item 6)."""
     if cfg.pp_stages > 1:
         raise NotImplementedError(
-            "pipeline stages (pp_stages > 1) run over a device mesh, "
-            "which comes with the parallelism slice of the port (ROADMAP "
-            "Queue A item 6)")
+            "pipeline stages (pp_stages > 1) run over a pp mesh axis; the "
+            "port's mesh has dp and sp only, pp comes with the rest of "
+            "the parallelism slice (ROADMAP Queue A item 6)")
+
+
+def _require_mesh_support(cfg: TransformerConfig, mesh) -> None:
+    """Refuse what the mesh path does not run yet: an MoE config (its
+    ep-sharded gmm dispatch, ``_moe_mlp_gmm_sharded`` in the JAX
+    package, comes with ROADMAP Queue A item 6)."""
+    if mesh is not None and cfg.is_moe:
+        raise NotImplementedError(
+            "MoE configs over a mesh need the ep-sharded gmm dispatch, "
+            "which comes with the rest of the parallelism slice (ROADMAP "
+            "Queue A item 6); the mesh path runs dense configs")
 
 
 # --------------------------------------------------------------------------
@@ -239,22 +260,34 @@ def rotary(x, positions, theta: float = 10000.0):
     return out.reshape(x.shape)
 
 
-def _attention(x, layer, cfg: TransformerConfig, segment_ids=None):
-    """Single-device attention: flash attention on the card (K1
-    forward, K3/K4 backward), the dense oracle elsewhere — the split
+def _attention(x, layer, cfg: TransformerConfig, segment_ids=None,
+               mesh=None):
+    """Attention of one layer.  With a mesh whose sp axis is > 1 (the
+    JAX ``transformer.py:354-364`` branch): ring or Ulysses attention by
+    ``cfg.seq_parallel`` over this rank's sequence shard, rotary
+    positions from the shard's absolute start.  Otherwise
+    single-device: flash attention on the card (K1 forward, K3/K4
+    backward), the dense oracle elsewhere — the split
     ``transformer.py:365-374`` makes between the TPU and other
     backends."""
     b, t, d = x.shape
-    positions = torch.arange(t, device=x.device)
+    sp = mesh.size("sp") if mesh is not None else 1
+    start = mesh.index("sp") * t if sp > 1 else 0
+    positions = torch.arange(start, start + t, device=x.device)
     q = rotary(ein("btd,dhk->bthk", x, layer["wq"]), positions,
                cfg.rope_theta)
     k = rotary(ein("btd,dhk->bthk", x, layer["wk"]), positions,
                cfg.rope_theta)
     v = ein("btd,dhk->bthk", x, layer["wv"])
     window = cfg.attention_window or None
-    if x.device.type == "cuda":
-        seg = (segment_ids.to(torch.int32).contiguous()
-               if segment_ids is not None else None)
+    seg = (segment_ids.to(torch.int32).contiguous()
+           if segment_ids is not None else None)
+    if sp > 1:
+        attend = (ulysses_attention if cfg.seq_parallel == "ulysses"
+                  else ring_attention)
+        o = attend(q, k, v, mesh, causal=True, window=window,
+                   segment_ids=seg)
+    elif x.device.type == "cuda":
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=True, window=window, segment_ids=seg)
     else:
@@ -435,8 +468,9 @@ def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False):
 
 
 def _layer_forward(x, layer, cfg: TransformerConfig, segment_ids=None,
-                   with_aux: bool = False):
-    x = x + _attention(rms_norm(x, layer["ln1"]), layer, cfg, segment_ids)
+                   with_aux: bool = False, mesh=None):
+    x = x + _attention(rms_norm(x, layer["ln1"]), layer, cfg, segment_ids,
+                       mesh)
     mlp_in = rms_norm(x, layer["ln2"])
     if cfg.is_moe:
         if with_aux:
@@ -451,15 +485,22 @@ def _layer_forward(x, layer, cfg: TransformerConfig, segment_ids=None,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            segment_ids=None, return_aux: bool = False):
+            segment_ids=None, return_aux: bool = False, mesh=None):
     """tokens [B, T] int -> logits [B, T, vocab].
 
     ``segment_ids`` [B, T] int32 packs several documents into one row:
     attention is masked within segments.  ``return_aux`` also returns
     ``{"load_balance": mean over layers, "router_z": ...}`` (zeros for
     dense-MLP configs), which ``loss_fn`` adds when the router aux
-    weights are set.  Runs on the device the parameters live on."""
+    weights are set.  Runs on the device the parameters live on.
+
+    ``mesh`` (a ``parallel.mesh.ProcessMesh``, dense configs): tokens
+    and segment ids are this rank's ``[B/dp, T/sp]`` shard (the shard
+    at sp coordinate i holds positions ``[i T/sp, (i+1) T/sp)``), and
+    the logits are that shard's: the JAX ``forward`` on the same mesh,
+    cut to this rank's rows and positions."""
     require_single_device(cfg)
+    _require_mesh_support(cfg, mesh)
     x = take_rows(params["embed"], tokens, cfg.dtype)
     load_total = z_total = torch.zeros((), dtype=torch.float32,
                                        device=x.device)
@@ -469,9 +510,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             # as jax.checkpoint does for the JAX package's layer
             out = torch.utils.checkpoint.checkpoint(
                 _layer_forward, x, layer, cfg, segment_ids, return_aux,
-                use_reentrant=False)
+                mesh, use_reentrant=False)
         else:
-            out = _layer_forward(x, layer, cfg, segment_ids, return_aux)
+            out = _layer_forward(x, layer, cfg, segment_ids, return_aux,
+                                 mesh)
         if return_aux:
             x, (load, z) = out
             load_total = load_total + load
@@ -487,7 +529,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            segment_ids=None) -> torch.Tensor:
+            segment_ids=None, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy, f32 scalar.
 
     The forward pass runs on the full sequence and the shift happens on
@@ -495,7 +537,13 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     next token belongs to a different segment are excluded from the
     mean.  When an MoE config sets ``aux_loss_weight`` /
     ``router_z_weight``, the router objectives are added with those
-    weights."""
+    weights.
+
+    With ``mesh`` (tokens and ids this rank's shard, as in
+    :func:`forward`), see :func:`_mesh_loss`: the value is the JAX
+    package's global loss on every rank."""
+    if mesh is not None:
+        return _mesh_loss(params, tokens, cfg, segment_ids, mesh)
     want_aux = cfg.is_moe and (cfg.aux_loss_weight > 0
                                or cfg.router_z_weight > 0)
     if want_aux:
@@ -515,6 +563,46 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         loss = (loss + cfg.aux_loss_weight * aux["load_balance"]
                 + cfg.router_z_weight * aux["router_z"])
     return loss
+
+
+def _mesh_loss(params, tokens, cfg, segment_ids, mesh):
+    """The global next-token loss from this rank's shard.
+
+    The shift crosses shard boundaries: a shard's last position
+    predicts the next sp shard's first token (gathered along sp), and
+    the globally last position is dropped; with segment ids the keep
+    mask crosses the same way.  The mean is over every rank's kept
+    positions: an all-reduce over the world of the sum and the count.
+
+    The returned tensor's value is that global loss on every rank; its
+    gradient is this rank's share (its own sum over the global count),
+    so the sum of the ranks' gradients, which the train step takes, is
+    the gradient of the global loss."""
+    logits = forward(params, tokens, cfg, segment_ids, mesh=mesh)
+    sp, idx = mesh.size("sp"), mesh.index("sp")
+    last = idx == sp - 1
+
+    def shifted(x):
+        """x's next position: x[:, 1:] and the next shard's first
+        column (nothing after the globally last position)."""
+        firsts = mesh.all_gather(x[:, :1], "sp", dim=1)
+        return x[:, 1:] if last else torch.cat(
+            [x[:, 1:], firsts[:, idx + 1:idx + 2]], dim=1)
+
+    targets = shifted(tokens).long()
+    n = targets.shape[1]
+    logp = torch.log_softmax(logits.float()[:, :n], dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    if segment_ids is None:
+        keep = torch.ones_like(ll)
+    else:
+        keep = (shifted(segment_ids) == segment_ids[:, :n]).to(ll.dtype)
+    local = -(ll * keep).sum()
+    totals = torch.stack([local.detach(), keep.sum()])
+    mesh.all_reduce_(totals)
+    count = torch.clamp(totals[1], min=1.0)
+    share = local / count
+    return share + (totals[0] / count - share).detach()
 
 
 # --------------------------------------------------------------------------
@@ -546,9 +634,9 @@ def make_optimizer(lr: float = 3e-4) -> Callable[..., torch.optim.Optimizer]:
 
 def make_train_step(cfg: TransformerConfig, device="cuda",
                     optimizer: Callable[..., torch.optim.Optimizer]
-                    | None = None):
-    """Returns ``(train_step, init_state)`` for one device, the shape
-    of the JAX ``make_train_step`` without the mesh.
+                    | None = None, mesh=None):
+    """Returns ``(train_step, init_state)``, the shape of the JAX
+    ``make_train_step``.
 
     ``init_state(generator=None)`` -> ``(params, opt_state)``: params
     from :func:`init_params` on ``device`` with gradients on, and a
@@ -556,9 +644,21 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
     bound to them.  ``train_step(params, opt_state, tokens,
     segment_ids=None)`` -> ``(params, opt_state, loss)``: loss and
     gradients of :func:`loss_fn`, then one optimizer step, in place;
-    ``tokens`` [B, T] (tensor or numpy) is moved to ``device``."""
+    ``tokens`` [B, T] (tensor or numpy) is moved to ``device``.
+
+    With ``mesh`` (a ``parallel.mesh.ProcessMesh`` on ``device``, dense
+    configs), every rank calls ``train_step`` with the same **global**
+    ``[B, T]`` batch, as the JAX step takes it, and works on its own
+    ``B/dp x T/sp`` shard of it; after the backward the gradients are
+    summed over the world (in f32, one all-reduce) and every rank takes
+    the same AdamW step on its replica of the weights.  The loss
+    returned is the global one.  ``init_state`` must give every rank the
+    same weights (the same generator seed)."""
     require_single_device(cfg)
+    _require_mesh_support(cfg, mesh)
     dev = resolve_device(device)
+    if mesh is not None and mesh.device != dev:
+        raise ValueError(f"mesh computes on {mesh.device}, not {dev}")
     optimizer = optimizer or make_optimizer()
 
     def init_state(generator: torch.Generator | None = None):
@@ -573,16 +673,39 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
                 or any(a is not b for a, b in zip(bound, leaves))):
             raise ValueError("opt_state is not bound to these params "
                              "(build both with init_state)")
-        tokens = torch.as_tensor(tokens, device=dev)
+        tokens = torch.as_tensor(tokens)
         if segment_ids is not None:
-            segment_ids = torch.as_tensor(segment_ids, device=dev)
+            segment_ids = torch.as_tensor(segment_ids)
+        if mesh is not None:
+            tokens = mesh.local_batch(tokens)
+            if segment_ids is not None:
+                segment_ids = mesh.local_batch(segment_ids)
+        tokens = tokens.to(dev)
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(dev)
         opt_state.zero_grad(set_to_none=True)
-        loss = loss_fn(params, tokens, cfg, segment_ids)
+        loss = loss_fn(params, tokens, cfg, segment_ids, mesh)
         loss.backward()
+        if mesh is not None and mesh.world_size > 1:
+            _sum_grads(leaves, mesh)
         opt_state.step()
         return params, opt_state, loss.detach()
 
     return train_step, init_state
+
+
+def _sum_grads(leaves, mesh) -> None:
+    """Sum every leaf's gradient over the world, in one f32 all-reduce,
+    and write the sums back in the gradients' dtype."""
+    grads = [t.grad for t in leaves]
+    if any(g is None for g in grads):
+        raise RuntimeError("a parameter got no gradient on this rank")
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    mesh.all_reduce_(flat)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
 
 
 __all__ = ["Params", "TransformerConfig", "forward", "init_params",

@@ -52,6 +52,11 @@ _SIGNATURES = {
     # the tensor-core K1 (bfloat16 inputs), same arguments with the
     # output's dtype code in place of the inputs'
     "flash_fwd_tc": [_VP] * 6 + [_I] * 7 + [_F, _I, _VP],
+    # K1's block entry: q, k, v, qseg, kseg, o, m, l, B, Tq, Tk, H, Hkv,
+    # D, q_off, k_off, causal, window, scale, dtype, stream
+    "flash_fwd_block": [_VP] * 8 + [_I] * 10 + [_F, _I, _VP],
+    # the same on the tensor cores (bfloat16 inputs)
+    "flash_fwd_block_tc": [_VP] * 8 + [_I] * 10 + [_F, _I, _VP],
     # q, k_pool, v_pool, tables, lengths, out, ws, counters, B, H, Hkv,
     # D, bs, n_pages, heads_per_block, pages_per_split, splits, scale,
     # dtype, stream

@@ -17,6 +17,15 @@ normalized forward through ``_flash_forward`` and the backward of its
   dtype per key block of ``FWD_BLOCK_K`` (the kernel's key tile)
   against the running max, where the TPU kernel rounds them.
   ``attention_forward`` is its f32 oracle (nothing rounded).
+- Block entry: :func:`flash_block_attention`, the port of the JAX
+  ``flash_block_attention`` (``_flash_block_attention``): q
+  ``[B, Tq, H, D]`` against one K/V block ``[B, Tk, H_kv, D]`` at
+  absolute offsets, masks by absolute position, separate q and k
+  segments, and the unnormalized statistics ``(o, m, l)`` in f32 that
+  :func:`merge_flash_stats` folds across blocks (a ring hop).  The same
+  two kernels run it in a second mode, the same routes; on CPU tensors
+  it takes ``flash_block_attention_reference``, the plain version that
+  rounds where ``_flash_kernel`` rounds.
 - Backward: :func:`flash_block_grads`, the port of the JAX function of
   that name, launches K3 (:func:`flash_bwd_dq`, replacing
   ``_flash_bwd_dq_kernel``) and K4 (:func:`flash_bwd_dkv`, replacing
@@ -36,7 +45,9 @@ raises.
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel
 launches of K1, K3 and K4 (CPU calls never count); ``tc_launches``,
 ``dq_tc_launches`` and ``dkv_tc_launches`` count those on the
-tensor-core route.
+tensor-core route.  ``block_launches`` and ``block_tc_launches`` count
+K1's block-entry launches apart: ``launches`` counts only the
+normalized entry.
 """
 
 from __future__ import annotations
@@ -57,6 +68,10 @@ dkv_launches = 0
 tc_launches = 0
 dq_tc_launches = 0
 dkv_tc_launches = 0
+#: launches of K1's block entry by :func:`flash_block_attention`, and
+#: of those the ones on the tensor-core route
+block_launches = 0
+block_tc_launches = 0
 
 #: keys per tile of the tensor-core K1 (``csrc/flash_fwd_sm90.cu``); the
 #: plain version walks the keys in blocks of this width by default, so
@@ -153,11 +168,25 @@ def flash_forward_reference(q, k, v, *, causal=True, scale=None,
     accumulation (:func:`_first_product`), as the kernel sums them, so
     that p reaches its rounding with the same f32 values."""
     _validate(q, k, v, causal, window, segment_ids)
-    if block_k < 1:
-        raise ValueError(f"block_k must be >= 1, got {block_k}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    b, t, h, _ = q.shape
+    o, m, l = _flash_stats(q, k, v, 0, 0, causal, scale, window,
+                           segment_ids, segment_ids, block_k)
+    out, lse = normalize_flash_stats(o, m, l)
+    return out.to(out_dtype or q.dtype), lse
+
+
+def _flash_stats(q, k, v, q_offset, k_offset, causal, scale, window,
+                 q_segments, k_segments, block_k):
+    """The online softmax both plain versions share, rounded where
+    ``_flash_kernel`` rounds: ``(o [B, Tq, H, D], m, l [B, H, Tq])`` f32,
+    o unnormalized.  The keys are walked in blocks of ``block_k`` from
+    the block's key 0; masks by absolute position (:func:`block_mask`).
+    A row that sees no key keeps m = -1e30, l = 0, o = 0."""
+    if block_k < 1:
+        raise ValueError(f"block_k must be >= 1, got {block_k}")
+    b, tq, h, _ = q.shape
+    tk = k.shape[1]
     group = kv_group(h, k.shape[2])
     qs = (q.float() * scale).to(q.dtype)
     k = k.repeat_interleave(group, dim=2)
@@ -165,26 +194,29 @@ def flash_forward_reference(q, k, v, *, causal=True, scale=None,
     on_tensor_cores = q.is_cuda and q.dtype == torch.bfloat16
     s = _first_product(qs if on_tensor_cores else qs.float(),
                        k if on_tensor_cores else k.float())
-    mask = attention_mask(t, causal, window, segment_ids, q.device)[:, None]
-    s = s.masked_fill(~mask, _NEG_INF)
-    m = torch.full((b, h, t), _NEG_INF, dtype=torch.float32,
+    mask = block_mask(tq, tk, q_offset, k_offset, causal, window, None,
+                      q_segments, k_segments, q.device)
+    if mask is not None:
+        mask = mask[:, None]
+        s = s.masked_fill(~mask, _NEG_INF)
+    m = torch.full((b, h, tq), _NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, h, t, q.shape[3]), dtype=torch.float32,
+    acc = torch.zeros((b, h, tq, q.shape[3]), dtype=torch.float32,
                       device=q.device)
-    for k0 in range(0, t, block_k):
+    for k0 in range(0, tk, block_k):
         sb = s[..., k0:k0 + block_k]
         m_new = torch.maximum(m, sb.amax(-1))
-        p = torch.where(mask[..., k0:k0 + block_k],
-                        torch.exp(sb - m_new[..., None]), 0.0)
+        p = torch.exp(sb - m_new[..., None])
+        if mask is not None:
+            p = torch.where(mask[..., k0:k0 + block_k], p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
                           vf[:, k0:k0 + block_k])
         acc = acc * corr[..., None] + pv
         m = m_new
-    out, lse = normalize_flash_stats(acc.transpose(1, 2), m, l)
-    return out.to(out_dtype or q.dtype), lse
+    return acc.transpose(1, 2), m, l
 
 
 def flash_attention_reference(q, k, v, *, causal=True, scale=None,
@@ -267,6 +299,138 @@ def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
                                        out_dtype=out_dtype)
     return _launch(q, k, v, causal, scale, window, segment_ids,
                    out_dtype or q.dtype)
+
+
+# --------------------------------------------------------------------------
+# K1's block entry: q against one K/V block at absolute offsets
+# --------------------------------------------------------------------------
+
+def _validate_block(q, k, v, causal, window, q_segments, k_segments):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"q must be [B, Tq, H, D] and k/v matching [B, Tk, H_kv, D], "
+            f"got {tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}")
+    b, tq, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    kv_group(h, k.shape[2])
+    if window is not None and (not causal or window < 1):
+        raise ValueError("window requires causal attention and >= 1")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if (q_segments is None) != (k_segments is None):
+        raise ValueError("q_segments and k_segments must be given "
+                         "together")
+    if q_segments is not None:
+        if (tuple(q_segments.shape) != (b, tq)
+                or tuple(k_segments.shape) != (b, k.shape[1])):
+            raise ValueError("q_segments must be [B, Tq] and k_segments "
+                             "[B, Tk]")
+        if (q_segments.device != q.device
+                or k_segments.device != q.device):
+            raise ValueError("segments must be on q's device")
+
+
+def flash_block_attention_reference(q, k, v, q_offset, k_offset, *,
+                                    causal=True, scale=None, window=None,
+                                    q_segments=None, k_segments=None,
+                                    block_k=FWD_BLOCK_K):
+    """The plain version of K1's block entry: ``(o, m, l)`` as
+    :func:`flash_block_attention` returns them, rounded where
+    ``_flash_kernel`` rounds (q scaled in f32 and rounded to its dtype;
+    each key block's p rounded to v's dtype against the running max),
+    the keys walked from the block's key 0 in blocks of ``block_k``
+    (the kernel's key tile by default; the JAX call's ``block_k`` to
+    hold that).  Rows that see no key of the block come out as
+    m = -1e30, l = 0, o = 0.  ``flash_forward_reference`` is its
+    normalized special case (offsets 0, Tq = Tk, one segment array)."""
+    _validate_block(q, k, v, causal, window, q_segments, k_segments)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    o, m, l = _flash_stats(q, k, v, int(q_offset), int(k_offset), causal,
+                           scale, window, q_segments, k_segments, block_k)
+    return o.contiguous(), m, l
+
+
+def _launch_block(q, k, v, q_offset, k_offset, causal, scale, window,
+                  q_segments, k_segments):
+    global block_launches, block_tc_launches
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    tc = fwd_route(q.dtype, d) == "tensor_cores"
+    _require_contiguous(q=q, k=k, v=v, q_segments=q_segments,
+                        k_segments=k_segments)
+    _require_int32(q_segments=q_segments, k_segments=k_segments)
+    code = _build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")]
+    o = torch.empty((b, tq, h, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    name = "flash_fwd_block_tc" if tc else "flash_fwd_block"
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q_segments.data_ptr() if q_segments is not None else None,
+            k_segments.data_ptr() if k_segments is not None else None,
+            o.data_ptr(), m.data_ptr(), l.data_ptr(), b, tq, tk, h,
+            k.shape[2], d, int(q_offset), int(k_offset), int(causal),
+            int(window or 0), float(scale), code, stream)
+    _build.check(rc, name)
+    block_launches += 1
+    block_tc_launches += tc
+    return o, m, l
+
+
+def flash_block_attention(q, k, v, q_offset, k_offset, *, causal=True,
+                          scale=None, window=None, q_segments=None,
+                          k_segments=None):
+    """Unnormalized flash attention of q against one K/V block: the
+    port of the JAX ``flash_block_attention``.
+
+    q ``[B, Tq, H, D]``; k/v ``[B, Tk, H_kv, D]`` with H a multiple of
+    H_kv (GQA by head index); ``q_offset``/``k_offset`` the blocks'
+    absolute positions, against which the causal and ``window`` masks
+    compare; ``q_segments``/``k_segments`` ([B, Tq] / [B, Tk] int32,
+    both or neither) mask packed sequences.  Returns f32 ``(o [B, Tq,
+    H, D] unnormalized, m [B, H, Tq], l [B, H, Tq])``, the flash
+    statistics :func:`merge_flash_stats` folds with other blocks'; a row
+    that sees no key of the block has m = -1e30, l = 0, o = 0.
+
+    On CUDA tensors K1 runs in its block mode by the route
+    :func:`fwd_route` picks (bf16 on the tensor cores, f32 on the CUDA
+    cores; contiguous, 16-byte aligned, D in {64, 128}); on CPU tensors
+    the plain version :func:`flash_block_attention_reference`.  The TPU
+    call's grid knobs (``block_q``, ``block_k``, ``narrow_window``,
+    ``kv_reuse``, ``interpret``) have no counterpart: the CUDA kernels
+    fix their own tiles and skip key tiles by position."""
+    _validate_block(q, k, v, causal, window, q_segments, k_segments)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not on_card(q, "flash_block_attention"):
+        return flash_block_attention_reference(
+            q, k, v, q_offset, k_offset, causal=causal, scale=scale,
+            window=window, q_segments=q_segments, k_segments=k_segments)
+    return _launch_block(q, k, v, q_offset, k_offset, causal, scale,
+                         window, q_segments, k_segments)
+
+
+def merge_flash_stats(o, m, l, o_blk, m_blk, l_blk):
+    """Merge a block's ``(o_unnorm, m, l)`` into the running statistics:
+    the cross-block half of the online softmax (a ring hop's merge), as
+    the JAX ``merge_flash_stats``.  o/o_blk ``[B, Tq, H, D]`` f32; m/l
+    ``[B, H, Tq]`` f32."""
+    m_new = torch.maximum(m, m_blk)
+    corr = torch.exp(m - m_new)
+    corr_blk = torch.exp(m_blk - m_new)
+    l_new = l * corr + l_blk * corr_blk
+    o_new = (o * corr.transpose(1, 2)[..., None]
+             + o_blk * corr_blk.transpose(1, 2)[..., None])
+    return o_new, m_new, l_new
 
 
 # --------------------------------------------------------------------------
@@ -401,15 +565,10 @@ def _first_product(x, y):
 
 def _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
                   k_segments):
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(
-            f"q must be [B, Tq, H, D] and k/v matching [B, Tk, H_kv, D], "
-            f"got {tuple(q.shape)} / {tuple(k.shape)} / {tuple(v.shape)}")
-    b, tq, h, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    kv_group(h, k.shape[2])
+    """The block entry's contract (:func:`_validate_block`), and do,
+    delta and lse matching q."""
+    _validate_block(q, k, v, causal, window, q_segments, k_segments)
+    b, tq, h, _ = q.shape
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must match q "
                          f"{tuple(q.shape)}")
@@ -418,21 +577,11 @@ def _validate_bwd(q, k, v, do, delta, lse, window, causal, q_segments,
             raise ValueError(f"{name} must be float32 [B, H, Tq] = "
                              f"{(b, h, tq)}, got {x.dtype} "
                              f"{tuple(x.shape)}")
-    if len({x.dtype for x in (q, k, v, do)}) != 1:
+    if do.dtype != q.dtype:
         raise ValueError("q, k, v and do must share one dtype")
-    if len({x.device for x in (q, k, v, do, delta, lse)}) != 1:
+    if len({x.device for x in (q, do, delta, lse)}) != 1:
         raise ValueError("q, k, v, do, delta and lse must be on one "
                          "device")
-    if window is not None and (not causal or window < 1):
-        raise ValueError("window requires causal attention and >= 1")
-    if (q_segments is None) != (k_segments is None):
-        raise ValueError("q_segments and k_segments must be given "
-                         "together")
-    if q_segments is not None:
-        if (tuple(q_segments.shape) != (b, tq)
-                or tuple(k_segments.shape) != (b, k.shape[1])):
-            raise ValueError("q_segments must be [B, Tq] and k_segments "
-                             "[B, Tk]")
 
 
 def bwd_route(dtype, head_dim: int) -> str:
@@ -614,7 +763,8 @@ def flash_attention(q, k, v, *, causal=True, scale=None, window=None,
 __all__ = ["FWD_BLOCK_K", "attention_block_grads", "attention_delta",
            "attention_forward", "block_mask", "bwd_route",
            "flash_attention", "flash_attention_reference",
-           "flash_backward", "flash_block_grads",
+           "flash_backward", "flash_block_attention",
+           "flash_block_attention_reference", "flash_block_grads",
            "flash_block_grads_reference", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_forward", "flash_forward_reference",
-           "fwd_route", "normalize_flash_stats"]
+           "fwd_route", "merge_flash_stats", "normalize_flash_stats"]

@@ -52,6 +52,8 @@ def test_scan_covers_the_port():
                 "models/convert.py", "models/speculative.py",
                 "models/specprobe.py", "ops/flash_attention.py",
                 "ops/gmm.py", "ops/paged_attention.py",
+                "ops/ring_attention.py", "ops/ulysses_attention.py",
+                "parallel/mesh.py", "parallel/rendezvous.py",
                 "serving_kv/manager.py", "serving_lora/pool.py",
                 "serving_lora/probe.py",
                 "utils/dispatch.py", "utils/atomicio.py"):
