@@ -144,6 +144,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     one-adapter oracle engines of the same slot count (in bf16
     counted); then the pool's probe at the 154M in bf16 and f32 (switch
     and cold-load times, the churn's hit share);
+18b. disaggregated prefill/decode and the KV tiers
+    (``phase_disagg_tiers``): s8_r24 exported by a prefill engine
+    (``prefill_export``) and adopted in request order by a decode
+    engine (``adopt_block``) for the four layout pairs in bf16 (no K1
+    on a decode side, K2 exactly n_layers a paged decode step, greedy
+    streams within TF_MARGIN, the count equal to phase 8's unified
+    paged drain printed) and paged into paged in f32 (every stream
+    byte-equal to a unified f32 paged drain); the tier acceptance arc:
+    a 1024-token prefix warmed on a tiered (256 MiB host arena), an
+    all-HBM and a recompute paged engine, flushed, then ridden back by
+    a wave of 8 requests (32-token suffixes, max_new 32, two sampled):
+    tiered streams byte-equal to the all-HBM engine's with no
+    ``prefill`` launch and one ``paged_slab_adopt``, the recompute
+    twin's within TF_MARGIN; the prefix spilled to a temporary
+    directory and promoted by a fresh engine (residency (1024, "disk"),
+    streams byte-equal to the all-HBM engine's); the promotion's pieces
+    (gather, crc32, adopt, suffix fill) against a full prefill; the
+    ported tier probe at the 154M in bf16 and f32 (promote and
+    recompute ms; byte-equal gated in f32, the churn's hit share above
+    0);
 19. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
@@ -2407,6 +2427,320 @@ def phase_lora_serving(params, cfg, reqs, fa, pa, refs) -> dict:
     return total
 
 
+#: the tier acceptance arc at the 154M: a shared prefix of this many
+#: tokens is warmed, flushed, and ridden back by a wave of TIER_WAVE
+#: requests (prefix + a TIER_SUFFIX-token suffix, max_new TIER_MAX_NEW,
+#: two of them sampled); the tiered engine's host arena holds
+#: TIER_HOST_BYTES (a 1024-token prefix is an 8 MiB slab in bf16)
+TIER_PREFIX = 1024
+TIER_SUFFIX = 32
+TIER_WAVE = 8
+TIER_MAX_NEW = 32
+TIER_HOST_BYTES = 256 << 20
+#: the tier probe at the 154M: prefix, suffix and churn wave
+TIER_PROBE = dict(prefix_len=1024, suffix_len=16, churn_wave=12)
+#: the disaggregated and tiered drains of phase_disagg_tiers: four bf16
+#: layout pairs, the f32 unified and split drains, four tier waves
+DISAGG_DRAINS = 10
+
+
+def kernel_snapshot(fa, pa) -> dict:
+    return {"flash_fwd": fa.launches, "flash_fwd_tc": fa.tc_launches,
+            "paged_decode": pa.launches}
+
+
+def zero_serving_counts(fa, pa) -> None:
+    fa.launches = fa.tc_launches = 0
+    pa.launches = 0
+
+
+def disagg_drain(params, cfg, reqs, fa, pa, label, src_kw, dst_kw):
+    """Export every request on a prefill engine, then adopt the blocks in
+    request order, as slots free, on a decode engine and drain it (8
+    slots each, engine top_k 50); the kernel counters are zeroed before
+    each side and read after it.  Fails if the decode side launched K1,
+    or, on a paged decode engine, K2 other than n_layers times a decode
+    step.  Returns (finished, launches of both sides)."""
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    src = ServingEngine(params, cfg, slots=8, top_k=50, **src_kw)
+    dst = ServingEngine(params, cfg, slots=8, top_k=50, **dst_kw)
+    torch.cuda.synchronize()
+    zero_serving_counts(fa, pa)
+    t0 = time.perf_counter()
+    blocks = [src.prefill_export(r) for r in reqs]
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    require_fwd_route(fa, f"{label} export", cfg.dtype == torch.bfloat16)
+    exported = kernel_snapshot(fa, pa)
+    zero_serving_counts(fa, pa)
+    done, pending = [], list(blocks)
+    t0 = time.perf_counter()
+    with dispatch.track() as t:
+        while pending or dst.active:
+            while pending and dst.active < dst.slots:
+                dst.adopt_block(pending.pop(0))
+            done += dst.step()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    decoded = kernel_snapshot(fa, pa)
+    steps = t.by_label.get("paged_decode_step_rows", 0)
+    if decoded["flash_fwd"]:
+        fail(f"{label}: the decode side launched K1 {decoded['flash_fwd']} "
+             f"times")
+    if dst_kw.get("kv_layout") == "paged" and (
+            steps <= 0 or decoded["paged_decode"] != cfg.n_layers * steps):
+        fail(f"{label}: {decoded['paged_decode']} K2 launches over {steps} "
+             f"paged steps, expected {cfg.n_layers} a step")
+    if len(done) != len(reqs):
+        fail(f"{label}: {len(done)} of {len(reqs)} requests finished")
+    gen = sum(len(f.tokens) - f.n_prompt for f in done)
+    st = dst.stats()
+    print(f"disagg {label} ({card_line()}): {len(blocks)} exports in "
+          f"{1e3 * t_export:.1f} ms ({exported['flash_fwd']} K1 launches), "
+          f"{st['kv_adoptions_total']} adoptions and {gen} tokens in "
+          f"{1e3 * t_decode:.1f} ms = {gen / t_decode:.1f} tokens/s over "
+          f"{st['decode_steps_total']} decode steps, {decoded['paged_decode']} "
+          f"K2 launches ({steps} paged steps), no K1 on the decode side",
+          flush=True)
+    return done, {k: exported[k] + decoded[k] for k in exported}
+
+
+def tier_wave(eng, wave, label):
+    """Submit the wave to ``eng`` and drain it, dispatch labels tracked;
+    returns (finished by uid, labels, wall seconds)."""
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    for r in wave:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with dispatch.track() as t:
+        done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(done) != len(wave):
+        fail(f"tier {label}: {len(done)} of {len(wave)} requests finished")
+    return {f.uid: f for f in done}, dict(t.by_label), wall
+
+
+def best_ms(fn, reps: int = 5) -> float:
+    """Best host wall of ``reps`` calls of ``fn``, each ended by a device
+    synchronize, in ms."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def tier_costs(eng, prompt: np.ndarray, n_prefix: int) -> dict:
+    """The pieces of a promotion against a recompute on a paged engine
+    that holds ``prompt[:n_prefix]`` as a device entry: the demotion
+    gather to the host, the slab's crc32, the promotion adopt (host to
+    device into fresh blocks), the suffix fill over the promoted rows
+    (dense gather + ``prefill_suffix``), and the full-prompt prefill
+    that a recompute runs (K1)."""
+    from k8s_dra_driver_tpu_torch.models import decode as dec
+    from k8s_dra_driver_tpu_torch.models import serving as srv
+    from k8s_dra_driver_tpu_torch.serving_kv import slab_checksum
+    entry = eng._prefix.entry(prompt[:n_prefix])
+    k, v = eng._tier_gather(entry)
+
+    def adopt():
+        eng.kv_manager.free_blocks(eng._tier_adopt(k, v))
+
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=eng.device)[None]
+
+    def suffix():
+        one = eng._kv_entry_dense(entry, n_prefix)
+        srv._prefill_suffix(eng.params, toks[:, n_prefix:], eng.cfg, one)
+
+    def prefill():
+        one = dec.init_cache(eng.cfg, 1, eng.max_seq, device=eng.device)
+        dec._prefill(eng.params, toks, eng.cfg, one, True)
+
+    with torch.no_grad():
+        return {"gather_ms": best_ms(lambda: eng._tier_gather(entry)),
+                "crc_ms": best_ms(lambda: slab_checksum(k, v)),
+                "adopt_ms": best_ms(adopt), "suffix_fill_ms": best_ms(suffix),
+                "prefill_ms": best_ms(prefill),
+                "slab_bytes": sum(t.numel() * t.element_size()
+                                  for t in k + v)}
+
+
+def phase_disagg_tiers(params, cfg, reqs, fa, pa, refs) -> dict:
+    """Disaggregated prefill/decode and the KV tiers on the 154M.
+
+    (a) s8_r24 in bf16 exported by a paged prefill engine and adopted in
+    request order by a paged decode engine, then the three other layout
+    pairs: no K1 on any decode side, K2 exactly n_layers a paged decode
+    step, every greedy stream within TF_MARGIN teacher-forced; the
+    byte-equal count against the unified paged drain of phase 8 printed.
+    (b) The same split in f32 (paged into paged): every stream, sampled
+    ones included, byte-equal to a unified f32 paged drain of this call.
+    (c) The tier acceptance arc: a TIER_PREFIX-token prefix warmed on a
+    tiered (host arena TIER_HOST_BYTES), an all-HBM and a recompute
+    paged engine, flushed, then a wave of TIER_WAVE requests: the tiered
+    streams byte-equal to the all-HBM engine's, with no ``prefill``
+    launch and exactly one ``paged_slab_adopt``; the recompute twin's
+    greedy streams within TF_MARGIN (equal count printed).  Then the
+    prefix spilled to a temporary directory: a fresh engine over it
+    reports it on disk and its wave is byte-equal to the all-HBM
+    engine's.  The pieces of a promotion and of a recompute are timed
+    alone (``tier_costs``).  (d) The tier probe at the 154M in bf16 and f32: promote
+    and recompute ms printed; byte-equal gated in f32 (bf16 printed:
+    its twin computes the prompt another way), the churn's hit share
+    above 0 in both.  Returns the phase's K1 and K2 launches."""
+    from k8s_dra_driver_tpu_torch.models.serving import (Request,
+                                                         ServingEngine)
+    from k8s_dra_driver_tpu_torch.serving_kv.tierprobe import (
+        serving_tier_probe)
+    t_phase = time.perf_counter()
+    total = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    paged, contiguous = {"kv_layout": "paged"}, {}
+    ref_p = refs["bf16 paged"][0]
+    for src, dst in (("paged", "paged"), ("paged", "contiguous"),
+                     ("contiguous", "paged"),
+                     ("contiguous", "contiguous")):
+        label = f"bf16 {src} -> {dst}"
+        kws = [paged if x == "paged" else contiguous for x in (src, dst)]
+        done, counts = disagg_drain(params, cfg, reqs, fa, pa, label, *kws)
+        add(counts)
+        worst = teacher_forced(params, cfg, done, reqs)
+        print(f"disagg {label}: teacher-forced worst gap {worst:.4f} <= "
+              f"{TF_MARGIN}; {same_streams(done, ref_p)}/{len(done)} "
+              f"streams = the unified paged drain (counted)", flush=True)
+
+    f32 = map_params(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    unified, counts, _, _ = drain(ServingEngine, f32, cfg32, reqs, fa, pa,
+                                  "disagg f32 unified paged", top_k=50,
+                                  kv_layout="paged")
+    add(counts)
+    done, counts = disagg_drain(f32, cfg32, reqs, fa, pa,
+                                "f32 paged -> paged", paged, paged)
+    add(counts)
+    equal = same_streams(done, unified)
+    if equal != len(done):
+        fail(f"disagg f32: {len(done) - equal} split streams differ from "
+             f"the unified drain's")
+    print(f"disagg f32 paged -> paged: {equal}/{len(done)} streams = the "
+          f"unified f32 paged drain (gated; sampled included)", flush=True)
+    del unified
+
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, cfg.vocab, TIER_PREFIX).astype(np.int32)
+    wave = [Request(uid=f"w{i}", prompt=np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab, TIER_SUFFIX).astype(
+                    np.int32)]),
+                max_new=TIER_MAX_NEW, temperature=0.8 if i in (2, 5) else 0.0,
+                seed=200 + i) for i in range(TIER_WAVE)]
+
+    def engine(**kw):
+        eng = ServingEngine(params, cfg, slots=8, top_k=50, kv_layout="paged",
+                            **kw)
+        eng.submit(Request(uid="warm", prompt=prefix, max_new=1))
+        eng.run()
+        return eng
+
+    tiered = engine(kv_host_bytes=TIER_HOST_BYTES)
+    allhbm, recompute = engine(), engine()
+    t0 = time.perf_counter()
+    tiered._prefix.flush()
+    t_demote = time.perf_counter() - t0
+    arena = tiered._prefix.host_arena_bytes()
+    recompute._prefix.flush()
+    if tiered._prefix.demotions < 1 or arena <= 0:
+        fail("tier: the flush demoted nothing to the host arena")
+    zero_serving_counts(fa, pa)
+    got, labels, t_tier = tier_wave(tiered, wave, "tiered")
+    add(kernel_snapshot(fa, pa))
+    zero_serving_counts(fa, pa)
+    hbm, _, t_hbm = tier_wave(allhbm, wave, "all-HBM")
+    add(kernel_snapshot(fa, pa))
+    zero_serving_counts(fa, pa)
+    rec, rec_labels, t_rec = tier_wave(recompute, wave, "recompute")
+    add(kernel_snapshot(fa, pa))
+    differ = [u for u in got if not np.array_equal(got[u].tokens,
+                                                   hbm[u].tokens)]
+    if differ:
+        fail(f"tier: tiered streams {differ} differ from the all-HBM "
+             f"engine's")
+    if labels.get("prefill", 0) or labels.get("paged_slab_adopt", 0) != 1:
+        fail(f"tier: the tiered wave launched {labels.get('prefill', 0)} "
+             f"prefills and {labels.get('paged_slab_adopt', 0)} slab "
+             f"adopts, expected 0 and 1")
+    worst = teacher_forced(params, cfg, list(rec.values()), wave)
+    rec_equal = sum(np.array_equal(rec[u].tokens, hbm[u].tokens)
+                    for u in rec)
+    st = tiered.stats()
+    print(f"tier wave ({card_line()}): demotion flush {1e3 * t_demote:.2f} "
+          f"ms ({TIER_PREFIX}-token slab, {arena} bytes in the host "
+          f"arena); tiered wave {1e3 * t_tier:.1f} ms, all-HBM "
+          f"{1e3 * t_hbm:.1f} ms, recompute {1e3 * t_rec:.1f} ms; tiered = "
+          f"all-HBM {len(got)}/{len(got)} (gated); recompute twin = all-HBM "
+          f"{rec_equal}/{len(rec)} (counted), its teacher-forced worst gap "
+          f"{worst:.4f} <= {TF_MARGIN}; tiered labels prefill "
+          f"{labels.get('prefill', 0)}, prefill_suffix "
+          f"{labels.get('prefill_suffix', 0)}, paged_slab_adopt "
+          f"{labels.get('paged_slab_adopt', 0)}; recompute prefill "
+          f"{rec_labels.get('prefill', 0)}; tier stats "
+          f"{json.dumps({k: v for k, v in st.items() if 'tier' in k})}",
+          flush=True)
+    costs = tier_costs(allhbm, wave[0].prompt, TIER_PREFIX)
+    print(f"tier costs ({card_line()}, best of 5, host wall to a device "
+          f"synchronize): {json.dumps(costs)}", flush=True)
+    del tiered, recompute, rec
+
+    with tempfile.TemporaryDirectory() as spill:
+        eng = engine(kv_spill_dir=spill)
+        t0 = time.perf_counter()
+        eng._prefix.flush()
+        t_spill = time.perf_counter() - t0
+        disk_bytes = eng._prefix.disk_tier_bytes()
+        del eng
+        fresh = ServingEngine(params, cfg, slots=8, top_k=50,
+                              kv_layout="paged", kv_spill_dir=spill)
+        residency = fresh.prefix_residency(wave[0].prompt)
+        if residency != (TIER_PREFIX, "disk"):
+            fail(f"tier: a fresh engine over the spill directory reports "
+                 f"{residency}, expected ({TIER_PREFIX}, 'disk')")
+        zero_serving_counts(fa, pa)
+        disk, labels, t_disk = tier_wave(fresh, wave, "from disk")
+        add(kernel_snapshot(fa, pa))
+        differ = [u for u in disk if not np.array_equal(disk[u].tokens,
+                                                        hbm[u].tokens)]
+        if differ or fresh._prefix.promotions != 1:
+            fail(f"tier from disk: streams {differ} differ from the all-HBM "
+                 f"engine's ({fresh._prefix.promotions} promotions)")
+        print(f"tier from disk ({card_line()}): spill flush "
+              f"{1e3 * t_spill:.2f} ms, {disk_bytes} bytes on disk; a fresh "
+              f"engine reports {residency}, its wave {1e3 * t_disk:.1f} ms, "
+              f"{len(disk)}/{len(disk)} streams = all-HBM (gated), "
+              f"prefill launches {labels.get('prefill', 0)}", flush=True)
+        del fresh
+
+    for p, c in ((params, cfg), (f32, cfg32)):
+        probe = serving_tier_probe(cfg=c, params=p, **TIER_PROBE)
+        print(f"tier probe ({card_line()}): {json.dumps(probe)}", flush=True)
+        if probe["tier_hit_frac"] <= 0:
+            fail(f"tier probe {c.dtype}: no tier hit in the churn wave")
+        if c is cfg32 and not probe["byte_equal"]:
+            fail("tier probe in f32: the promoted streams differ from the "
+                 "recompute twin's")
+    print(f"disagg/tier phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.tc_launches = fa.dq_tc_launches = fa.dkv_tc_launches = 0
@@ -3295,6 +3629,9 @@ def main() -> None:
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
+    for name, n in phase_disagg_tiers(params, cfg, reqs, fa, pa,
+                                      refs).items():
+        launches[name] += n
     del params, refs, fused_refs, spec_refs, done_p, done_x
 
     f32_routes = phase_train_small(fa)
@@ -3320,8 +3657,8 @@ def main() -> None:
     for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths (30 drains + "
-          f"{TRAIN_STEPS} train steps of each of the 154M and moe_heavy + "
+    print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
+          f"drains + {TRAIN_STEPS} train steps of each of the 154M and moe_heavy + "
           f"{SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 

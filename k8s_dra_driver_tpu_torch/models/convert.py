@@ -14,6 +14,11 @@ A quantized tree (the JAX package's ``quantize_params``) carries
 ``QTensor`` leaves: any object with ``q`` and ``scale`` attributes
 (the JAX class is never imported) becomes the port's ``QTensor``, its
 int8 values and f32 scales moved as they are, whatever ``dtype`` says.
+
+``kv_from_jax`` carries K/V state across the same way: a JAX
+``KVCache`` or ``PagedKVSlab`` (a prefill export's payload) with numpy
+leaves becomes the port's ``KVCache`` or ``PagedKVSlab``, which a port
+engine's ``adopt_block`` or ``import_prefix`` takes.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from .decode import KVCache
 from .quant import QTensor
+from .serving import PagedKVSlab
 
 
 def tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
@@ -57,4 +64,24 @@ def params_from_jax(tree, device="cuda", dtype=None):
     return conv(tree)
 
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+def kv_from_jax(kv, device="cuda"):
+    """A JAX ``KVCache`` (k, v, pos and the int8 cache's scales) or
+    ``PagedKVSlab`` (k, v, pos, block_size) whose leaves are numpy
+    arrays -> the port's ``KVCache`` / ``PagedKVSlab`` with its tensors
+    on ``device``.  Told apart by ``block_size``; the JAX classes are
+    never imported."""
+    dev = resolve_device(device)
+
+    def leaves(lst):
+        return (None if lst is None else
+                [tensor_from_numpy(np.asarray(a)).to(dev) for a in lst])
+
+    if hasattr(kv, "block_size"):
+        return PagedKVSlab(k=leaves(kv.k), v=leaves(kv.v), pos=int(kv.pos),
+                           block_size=int(kv.block_size))
+    return KVCache(k=leaves(kv.k), v=leaves(kv.v), pos=int(kv.pos),
+                   k_scale=leaves(getattr(kv, "k_scale", None)),
+                   v_scale=leaves(getattr(kv, "v_scale", None)))
+
+
+__all__ = ["kv_from_jax", "params_from_jax", "tensor_from_numpy"]

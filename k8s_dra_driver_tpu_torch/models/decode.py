@@ -1411,6 +1411,49 @@ def paged_copy_block(pool: KVCache, src: int, dst: int) -> KVCache:
     return pool
 
 
+@dispatch.counted("paged_slab_export")
+def paged_slab_from_dense(one: KVCache, n_blocks: int, block_size: int
+                          ) -> tuple[list, list]:
+    """Pack the first ``n_blocks * block_size`` rows of a dense [1, S]
+    cache as block-shaped slabs ([n_blocks, bs, H_kv, D] a layer), the
+    payload of a paged prefill export: ceil(L/bs) blocks instead of the
+    [1, max_seq] cache.  The slabs own their rows."""
+    def take(lst):
+        return [a[0, :n_blocks * block_size].reshape(
+            n_blocks, block_size, *a.shape[2:]).clone() for a in lst]
+
+    return take(one.k), take(one.v)
+
+
+@dispatch.counted("paged_slab_adopt")
+def paged_adopt_slab(pool: KVCache, slab_k: list, slab_v: list, ids
+                     ) -> KVCache:
+    """Land a block slab in pool blocks ``ids`` (distinct, [n]), in
+    place; the slab may sit on another device (a host tier's CPU
+    tensors)."""
+    idx = torch.as_tensor(ids, dtype=torch.long, device=pool.k[0].device)
+    for dst, src in zip(pool.k + pool.v, list(slab_k) + list(slab_v)):
+        dst[idx] = src.to(dst.device)
+    return pool
+
+
+def paged_dense_from_slab(slab_k: list, slab_v: list, pos: int,
+                          max_seq: int) -> KVCache:
+    """Unpack a block slab into a dense [1, max_seq] cache, zero past
+    the slab's rows: the bridge from a paged export into a contiguous
+    engine."""
+    def take(lst):
+        out = []
+        for a in lst:
+            rows = a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
+            dense = rows.new_zeros((1, max_seq, *a.shape[2:]))
+            dense[0, :rows.shape[0]] = rows
+            out.append(dense)
+        return out
+
+    return KVCache(k=take(slab_k), v=take(slab_v), pos=int(pos))
+
+
 def _validated_prefill(params, prompt, cfg, n_tokens, max_seq):
     """Shared generation front half: bounds checks + flash prefill of a
     fresh cache."""
@@ -1478,8 +1521,9 @@ __all__ = ["FusedBlockGraph", "KVCache", "SpecDraft", "adopt_one_slot",
            "decode_window_rows", "draft_ngram_rows", "draft_propose_rows",
            "draft_sample_rows", "forward_with_cache", "greedy_generate",
            "init_cache", "init_paged_pool", "ngram_propose_rows",
-           "paged_adopt_blocks", "paged_copy_block",
-           "paged_decode_step_rows", "paged_gather_entry",
+           "paged_adopt_blocks", "paged_adopt_slab", "paged_copy_block",
+           "paged_decode_step_rows", "paged_dense_from_slab",
+           "paged_gather_entry", "paged_slab_from_dense",
            "paged_window_rows", "prefill", "prefill_adopt_rows",
            "sample_generate", "sample_rows", "sample_token",
            "scatter_cache", "select_next_tokens", "spec_accept_rows",

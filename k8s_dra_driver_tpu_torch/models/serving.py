@@ -62,10 +62,20 @@ step, so token streams match the JAX engine's:
   finish.  In fused blocks the graphs read the pool's buffers and the
   slot ids at fixed addresses, so binds never recapture.
 
-Not ported yet (they raise ``NotImplementedError``): KV tiers
-(``kv_host_bytes``/``kv_spill_dir``) and the disaggregation verbs
-(``prefill_export``/``adopt_block``/``export_prefix``/
-``import_prefix``).
+- **Disaggregated prefill/decode**: ``prefill_export`` prefills a
+  request without taking a slot and returns a :class:`KVBlock` (the
+  prompt's K/V, the first token and, for a sampled request, its
+  generator's state after the first draw); ``adopt_block`` lands the
+  block in a free slot of another engine, which continues exactly as a
+  local fill would have.  A paged engine exports a block-shaped
+  :class:`PagedKVSlab` (ceil(L/bs) blocks); every layout pair adopts.
+  ``export_prefix`` / ``import_prefix`` move one prefix-store entry
+  between engines as a dense [1, S] cache.
+- **KV tiers** (``kv_host_bytes`` / ``kv_spill_dir``, paged layout):
+  the prefix store's eviction demotes entries to a host-memory arena
+  and a crc-checked spill directory, and a hit on a demoted entry
+  promotes it back into fresh blocks (serving_kv/tiers.py); a fresh
+  engine over the same directory re-adopts what an earlier one spilled.
 """
 
 from __future__ import annotations
@@ -79,7 +89,8 @@ import numpy as np
 import torch
 
 from ..serving_kv import (NULL_BLOCK, BlocksExhausted, KVBlockManager,
-                          PagedPrefixStore, kv_bytes_per_token)
+                          PagedPrefixStore, TieredKVStore,
+                          kv_bytes_per_token)
 from ..utils import dispatch
 from ..utils.device import resolve_device
 from . import decode as _decode
@@ -114,6 +125,43 @@ class Finished:
     # prompt length, so consumers (stream()) can split generated
     # tokens out of ``tokens`` without re-holding the Request
     n_prompt: int = 0
+
+
+@dataclasses.dataclass
+class KVBlock:
+    """One prefilled prompt's exportable K/V state: the unit of the
+    prefill -> decode handoff.
+
+    ``kv`` holds the prompt's K/V: a [1, S] :class:`KVCache` (``pos`` =
+    prompt length) from a contiguous engine, a :class:`PagedKVSlab`
+    from a paged one.  ``first`` is the first generated token (the
+    fill's output).  ``carry`` is, for a sampled request, the state of
+    its generator after the first draw (``torch.Generator.get_state()``
+    of a generator on the exporter's device, seeded with the request's
+    seed as a local fill seeds it), None for a greedy one: the adopter
+    sets it on its slot generator, so the request continues the stream a
+    local fill would have drawn.  ``reused_tokens`` counts prompt tokens
+    taken from the exporter's prefix store instead of computed."""
+
+    request: Request
+    kv: Any
+    first: int
+    carry: torch.Tensor | None = None
+    reused_tokens: int = 0
+
+
+@dataclasses.dataclass
+class PagedKVSlab:
+    """Block-shaped K/V payload of a paged export: per-layer
+    [ceil(L/bs), bs, H_kv, D] slabs holding exactly the prompt's blocks,
+    ``pos`` = prompt length.  A paged adopter lands the blocks in its
+    pool and inserts them into its prefix store, so the prefix arrives
+    already shared (slot and store refcount the same blocks)."""
+
+    k: list
+    v: list
+    pos: int
+    block_size: int
 
 
 @dispatch.counted("sample_one")
@@ -208,6 +256,16 @@ class PrefixCache:
         self._touch(best_key)
         return best_p, self._store[best_key]
 
+    def entry(self, tokens: np.ndarray) -> KVCache | None:
+        """The entry for EXACTLY ``tokens``, or None.  Refreshes its LRU
+        position (a remote fetch is a use) but counts no hit: reuse is
+        counted where the tokens are adopted."""
+        key = tuple(np.asarray(tokens).tolist())
+        if key not in self._store:
+            return None
+        self._touch(key)
+        return self._store[key]
+
     def insert(self, tokens: np.ndarray, filled: KVCache) -> None:
         """Remember a [1, S] cache whose first ``len(tokens)`` rows are
         the K/V of ``tokens``.  The cache must own its tensors (no
@@ -267,10 +325,17 @@ _draft_prefill = dispatch.counted("draft_prefill")(
 _DRAFT_SEED_SALT = 0x9E3779B97F4A7C15
 
 
-def _unported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it comes with the "
-        f"{slice_name} slice")
+def _kv_to(kv, device: torch.device):
+    """A block's K/V (``KVCache`` or ``PagedKVSlab``) with every tensor
+    on ``device``; tensors already there are kept as they are."""
+    def move(lst):
+        return None if lst is None else [t.to(device) for t in lst]
+
+    if isinstance(kv, PagedKVSlab):
+        return dataclasses.replace(kv, k=move(kv.k), v=move(kv.v))
+    return dataclasses.replace(kv, k=move(kv.k), v=move(kv.v),
+                               k_scale=move(kv.k_scale),
+                               v_scale=move(kv.v_scale))
 
 
 class ServingEngine:
@@ -297,15 +362,17 @@ class ServingEngine:
                  kv_spill_dir=None,
                  adapter_pool=None,
                  device="cuda"):
-        if kv_host_bytes or kv_spill_dir:
-            raise _unported("KV tiering (kv_host_bytes / kv_spill_dir)",
-                            "KV-tier")
         require_single_device(cfg)
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self._paged = kv_layout == "paged"
+        if (kv_host_bytes or kv_spill_dir) and not self._paged:
+            # tiering demotes block-shaped slabs; the contiguous cache
+            # has no block ledger to demote from
+            raise ValueError("KV tiering (kv_host_bytes/kv_spill_dir) "
+                             "requires kv_layout='paged'")
         if self._paged:
             if draft_params is not None:
                 # the n-gram source needs no draft KV; a draft model
@@ -431,8 +498,17 @@ class ServingEngine:
             self._kv_dense_memo: tuple | None = None
             self._slot_blocks: list[list[int]] = [[] for _ in
                                                   range(slots)]
-            self._prefix = PagedPrefixStore(
-                prefix_cache or max(2 * slots, 4), self.kv_manager)
+            if kv_host_bytes or kv_spill_dir:
+                # eviction demotes to host memory / disk, and a hit on a
+                # demoted entry promotes it through the halves bound here
+                self._prefix = TieredKVStore(
+                    prefix_cache or max(2 * slots, 4), self.kv_manager,
+                    host_bytes=kv_host_bytes or 0, spill_dir=kv_spill_dir)
+                self._prefix.bind_engine(self._tier_gather,
+                                         self._tier_adopt)
+            else:
+                self._prefix = PagedPrefixStore(
+                    prefix_cache or max(2 * slots, 4), self.kv_manager)
             self._prefix.bytes_per_token = kv_bytes_per_token(
                 self.pool.tensors(), kv_blocks * kv_block_size)
             # the kernel read on the card by default, as the JAX engine
@@ -491,6 +567,9 @@ class ServingEngine:
         self._cancelled = 0
         self._tokens_total = 0
         self._steps_total = 0
+        # blocks exported (prefill role) and adopted (decode role)
+        self._exports = 0
+        self._adoptions = 0
 
     # -- request intake --------------------------------------------------
 
@@ -602,17 +681,183 @@ class ServingEngine:
             return 0
         return self._prefix.peek(np.asarray(prompt, np.int32))
 
-    def prefill_export(self, req: Request):
-        raise _unported("prefill_export", "disaggregated-serving")
+    def prefix_residency(self, prompt) -> tuple[int, str | None]:
+        """``(p, tier)`` of the longest held prefix across every storage
+        tier, ``tier`` in {"device", "host", "disk", None}.
+        ``prefix_peek`` stays device-only, so the admission arithmetic
+        keeps its conservative block counts; this is the router's
+        tier-preference signal."""
+        if self._prefix is None:
+            return 0, None
+        prompt = np.asarray(prompt, np.int32)
+        if isinstance(self._prefix, TieredKVStore):
+            return self._prefix.residency(prompt)
+        p = self._prefix.peek(prompt)
+        return p, ("device" if p else None)
 
-    def adopt_block(self, block) -> int:
-        raise _unported("adopt_block", "disaggregated-serving")
+    # -- disaggregated prefill/decode ------------------------------------
+    #
+    # A prefill engine computes a prompt's K/V and exports it as a
+    # KVBlock; a decode engine adopts the block into a free slot.  Both
+    # verbs use the fills' own machinery (the prefill chunks, the
+    # in-place slot and block writes, the per-request generator seeded
+    # as _generator seeds it), so a request split across two engines
+    # runs the computations one engine would have run.
 
-    def export_prefix(self, tokens):
-        raise _unported("export_prefix", "disaggregated-serving")
+    def prefill_export(self, req: Request) -> KVBlock:
+        """Prefill ``req`` on a standalone [1, S] cache and return its
+        :class:`KVBlock` without occupying a slot.  A prefix-store hit
+        adopts the remembered rows and computes only the suffix (the
+        ``prefill_suffix`` dispatch label).  The first token is drawn
+        here and read back (one readback an export)."""
+        req = self._check_request(req)
+        with torch.no_grad():
+            if self._paged:
+                return self._kv_prefill_export(req)
+            t0 = time.perf_counter()
+            start = 0
+            if self._prefix is not None:
+                p, hit = self._prefix.longest_prefix(req.prompt)
+                if p > 0:
+                    start = p
+                    one = _decode.copy_cache(hit, p)
+            if start == 0:
+                one = init_cache(self.cfg, 1, self.max_seq,
+                                 device=self.device)
+            logits, one = self._export_fill(req, one, start)
+            if self._prefix is not None:
+                self._prefix.insert(req.prompt, one)
+            return self._export_block(req, one, logits, start, t0)
 
-    def import_prefix(self, tokens, entry) -> None:
-        raise _unported("import_prefix", "disaggregated-serving")
+    def _export_fill(self, req: Request, one: KVCache, start: int):
+        """The export's prompt fill from row ``start`` of ``one``, in
+        ``prefill_chunk``-token chunks: (last chunk's logits, cache)."""
+        fill = _prefill_suffix if start > 0 else _decode._prefill
+        c = self.prefill_chunk or req.prompt.size
+        for off in range(start, req.prompt.size, c):
+            logits, one = fill(self.params,
+                               self._prompt(req, off, off + c)[None],
+                               self.cfg, one, off == 0)
+        return logits, one
+
+    def _export_block(self, req: Request, kv, logits, start: int,
+                      t0: float) -> KVBlock:
+        """Draw the first token as a local fill would (a generator on
+        this device seeded with the request's seed), read it back, and
+        wrap the block with the generator's state after the draw."""
+        gen = (torch.Generator(device=self.device).manual_seed(
+            int(req.seed)) if req.temperature > 0 else None)
+        first = int(self._first_token(logits, req, gen))
+        dispatch.record_readback("prefill_export")
+        self._exports += 1
+        self._time_prefill += time.perf_counter() - t0
+        return KVBlock(request=req, kv=kv, first=first,
+                       carry=None if gen is None else gen.get_state(),
+                       reused_tokens=start)
+
+    def adopt_block(self, block: KVBlock) -> int:
+        """Adopt an exported block into a free slot; returns the slot.
+        Raises RuntimeError when no slot (or no adapter slot) is free
+        and ValueError on a duplicate uid, a request this engine cannot
+        hold or a block it cannot read, each before any state changes.
+        The slot continues from the block's first token exactly as if
+        this engine had filled it; tensors on another device are copied
+        to this engine's."""
+        if self.draft_params is not None:
+            # the block carries target K/V only; a speculative engine
+            # would propose from an empty draft cache
+            raise ValueError("draft engines cannot adopt KV blocks")
+        req = self._check_request(block.request)
+        if any(r.uid == req.uid for r in self.queue) or any(
+                r is not None and r.uid == req.uid for r in self._req):
+            raise ValueError(f"uid {req.uid!r} already in flight")
+        slot = next((s for s in range(self.slots)
+                     if self._req[s] is None), None)
+        if slot is None:
+            raise RuntimeError("no free decode slot to adopt into")
+        if (self.adapter_pool is not None and req.adapter is not None
+                and not self.adapter_pool.can_admit(req.adapter)):
+            # _fill_finalize's acquire must be infallible: a pool that
+            # cannot seat the adapter refuses the block untouched
+            raise RuntimeError("no adapter slot to adopt into")
+        if req.temperature > 0:
+            if block.carry is None:
+                raise ValueError("sampled block without a carried key")
+            if (block.carry.numel()
+                    != self._slot_gens[slot].get_state().numel()):
+                # mt19937 (CPU) and Philox (CUDA) states do not convert
+                raise ValueError(
+                    f"the block's generator state comes from another "
+                    f"device type than this engine's ({self.device.type})")
+        kv = block.kv
+        if self._paged and isinstance(kv, PagedKVSlab):
+            nb = -(-req.prompt.size // self._kv_bs)
+            if kv.block_size != self._kv_bs:
+                raise ValueError(
+                    f"slab block size {kv.block_size} != engine "
+                    f"block size {self._kv_bs}")
+            if kv.k[0].shape[0] != nb:
+                raise ValueError(
+                    f"slab holds {kv.k[0].shape[0]} blocks, prompt "
+                    f"needs {nb}")
+        t0 = time.perf_counter()
+        kv = _kv_to(kv, self.device)
+        if isinstance(kv, PagedKVSlab) and not self._paged:
+            # cross-layout bridge: a paged exporter feeding a contiguous
+            # engine unpacks to the dense cache
+            kv = _decode.paged_dense_from_slab(kv.k, kv.v, kv.pos,
+                                               self.max_seq)
+        if self._paged:
+            self._kv_adopt_into(slot, kv, req)
+        else:
+            # in place: a fused engine's graphs hold this cache
+            self.cache = _adopt_slot(self.cache, kv, slot)
+            if self._prefix is not None:
+                # the migrated prompt K/V is a local entry now
+                self._prefix.insert(req.prompt, kv)
+        self._occupy(slot, req)
+        if req.temperature > 0:
+            # by value: the fused block's graphs hold this generator
+            self._slot_gens[slot].set_state(block.carry)
+        self._fill_finalize(slot, block.first)
+        self._adoptions += 1
+        self._time_prefill += time.perf_counter() - t0
+        return slot
+
+    def export_prefix(self, tokens) -> KVCache | None:
+        """The prefix store's entry for EXACTLY ``tokens`` as a dense
+        [1, S] cache (a paged engine gathers its blocks; a demoted entry
+        is promoted first), or None when this engine does not hold it.
+        No hit is counted: reuse is counted where the tokens are
+        adopted."""
+        if self._prefix is None:
+            return None
+        entry = self._prefix.entry(np.asarray(tokens, np.int32))
+        if entry is None or not self._paged:
+            return entry
+        return self._kv_entry_dense(entry, entry.length)
+
+    def import_prefix(self, tokens, entry: KVCache) -> None:
+        """Adopt a migrated prefix entry into the local prefix store, so
+        the next fill of a ``tokens``-prefixed prompt hits here.  A
+        paged engine copies the rows into freshly allocated blocks owned
+        by the store; when no blocks can be had the import is skipped
+        (the fill then computes locally)."""
+        if self._prefix is None:
+            raise ValueError("prefix cache is off on this engine")
+        tokens = np.asarray(tokens, np.int32)
+        entry = _kv_to(entry, self.device)
+        if not self._paged:
+            self._prefix.insert(tokens, entry)
+            return
+        nb = -(-tokens.size // self._kv_bs)
+        try:
+            ids = self._kv_alloc_fill(nb)
+        except BlocksExhausted:
+            return
+        self.pool = _decode.paged_adopt_blocks(self.pool, entry, ids, 0, nb)
+        self._prefix.insert(tokens, ids, tokens.size)
+        self.kv_manager.free_blocks(ids)     # the store's ref remains
 
     def cancel(self, uid) -> bool:
         """Drop a request by uid — queued or active (its slot frees
@@ -653,6 +898,9 @@ class ServingEngine:
             out["prefix_misses_total"] = self._prefix.misses
             out["prefix_tokens_reused_total"] = self._prefix.tokens_reused
             out["prefix_bytes_reused_total"] = self._prefix.bytes_reused
+        if self._exports or self._adoptions:
+            out["kv_exports_total"] = self._exports
+            out["kv_adoptions_total"] = self._adoptions
         if self._paged:
             view = self.kv_manager.view()
             out["kv_blocks_total"] = view["total_blocks"]
@@ -666,6 +914,15 @@ class ServingEngine:
             out["kv_alloc_failures_total"] = (
                 self.kv_manager.alloc_failures)
             out["kv_spec_trims_total"] = self.kv_manager.spec_trims_total
+            if isinstance(self._prefix, TieredKVStore):
+                tc = self._prefix.tier_counters()
+                out["kv_tier_hits_total"] = tc["hits"]
+                out["kv_tier_promotions_total"] = tc["promotions"]
+                out["kv_tier_demotions_total"] = tc["demotions"]
+                out["kv_tier_corrupt_fallbacks_total"] = (
+                    tc["corrupt_fallbacks"])
+                out["kv_host_arena_bytes"] = self._prefix.host_arena_bytes()
+                out["kv_disk_tier_bytes"] = self._prefix.disk_tier_bytes()
         if self._spec_on:
             out["speculative_windows_total"] = self._spec_windows
             out["speculative_accepted_total"] = self._spec_accepted
@@ -1305,6 +1562,44 @@ class ServingEngine:
             self._prefix.evict_until(n)
             return self.kv_manager.alloc(n)
 
+    # -- the tiered store's device halves (serving_kv/tiers.py) ----------
+    #
+    # The store decides which entry demotes and when a hit promotes;
+    # these two callbacks move the bytes, because the engine owns the
+    # pool.
+
+    def _tier_gather(self, entry) -> tuple[list, list]:
+        """Demotion gather: the entry's valid blocks as per-layer CPU
+        tensors [n_blocks, block_size, H_kv, D], read through the
+        fills' own gather (``paged_gather``).  Safe on shared blocks:
+        their content is immutable while the store holds references (a
+        writer copies first)."""
+        nb = len(entry.block_ids)
+        bs = self._kv_bs
+        one = self._kv_entry_dense(entry, entry.length)
+
+        def host(lst):
+            return [a[0, :nb * bs].reshape(nb, bs, *a.shape[2:]).to(
+                "cpu", copy=True) for a in lst]
+
+        return host(one.k), host(one.v)
+
+    def _tier_adopt(self, slab_k: list, slab_v: list) -> list[int]:
+        """Promotion adopt: copy a host slab into freshly allocated
+        blocks (fill-path allocation: eviction yes, preemption never;
+        ``BlocksExhausted`` tells the store the promotion lost the race
+        to memory pressure).  Returns the block ids, whose allocation
+        references the caller owns; they are freed again if the copy
+        raises."""
+        ids = self._kv_alloc_fill(slab_k[0].shape[0])
+        try:
+            self.pool = _decode.paged_adopt_slab(self.pool, slab_k, slab_v,
+                                                 ids)
+        except Exception:
+            self.kv_manager.free_blocks(ids)
+            raise
+        return ids
+
     def _kv_alloc_decode(self, slot: int, n: int) -> list[int]:
         """Decode-path allocation with the full escalation: free
         supply -> cold-entry eviction -> preempt the cheapest OTHER
@@ -1521,6 +1816,52 @@ class ServingEngine:
         self._occupy(slot, req)
         return first
 
+    def _kv_adopt_into(self, slot: int, kv, req: Request) -> None:
+        """Land an adopted block's K/V (a slab, or a dense [1, S] cache
+        from a contiguous exporter) in fresh pool blocks for ``slot`` and
+        insert the prompt into the prefix store: the prefix arrives
+        already shared (slot and store refcount the same blocks)."""
+        L = req.prompt.size
+        nb = -(-L // self._kv_bs)
+        ids = self._kv_alloc_fill(nb)
+        if isinstance(kv, PagedKVSlab):
+            self.pool = _decode.paged_adopt_slab(self.pool, kv.k, kv.v, ids)
+        else:
+            self.pool = _decode.paged_adopt_blocks(self.pool, kv, ids, 0, nb)
+        self._slot_blocks[slot] = list(ids)
+        self._table[slot, :] = NULL_BLOCK
+        self._table[slot, :nb] = ids
+        self._table_dev = None
+        self._prefix.insert(req.prompt, ids, L)
+
+    def _kv_prefill_export(self, req: Request) -> KVBlock:
+        """Paged export: the same fill on a transient dense [1, S] cache,
+        shipped as a :class:`PagedKVSlab` of ceil(L/bs) blocks.  The
+        prompt is also remembered locally in pool blocks (cold,
+        evictable) when blocks can be had, so a later export of the
+        same prefix pays only its suffix."""
+        t0 = time.perf_counter()
+        p, hit = self._prefix.longest_prefix(req.prompt)
+        if p > 0:
+            one = self._kv_entry_dense(hit, p)
+        else:
+            one = init_cache(self.cfg, 1, self.max_seq, device=self.device)
+        logits, one = self._export_fill(req, one, p)
+        L = req.prompt.size
+        nb = -(-L // self._kv_bs)
+        try:
+            ids = self._kv_alloc_fill(nb)
+        except BlocksExhausted:
+            ids = None            # memory pressure: skip the local entry
+        if ids is not None:
+            self.pool = _decode.paged_adopt_blocks(self.pool, one, ids, 0,
+                                                   nb)
+            self._prefix.insert(req.prompt, ids, L)
+            self.kv_manager.free_blocks(ids)  # the store's ref remains
+        slab_k, slab_v = _decode.paged_slab_from_dense(one, nb, self._kv_bs)
+        kv = PagedKVSlab(k=slab_k, v=slab_v, pos=L, block_size=self._kv_bs)
+        return self._export_block(req, kv, logits, p, t0)
+
     def run(self, max_steps: int = 10_000) -> list[Finished]:
         """Drain queue + slots; returns every finished request."""
         out: list[Finished] = []
@@ -1560,4 +1901,5 @@ class ServingEngine:
         raise RuntimeError(f"not drained after {max_steps} steps")
 
 
-__all__ = ["Finished", "PrefixCache", "Request", "ServingEngine"]
+__all__ = ["Finished", "KVBlock", "PagedKVSlab", "PrefixCache", "Request",
+           "ServingEngine"]

@@ -2,8 +2,8 @@
 
 The port's own copy of ``k8s_dra_driver_tpu/serving_kv/prefix.py``
 (numpy-only there too); only ``kv_bytes_per_token`` differs, reading
-torch tensors' byte sizes.  The host/disk tier fields and
-``tiers.py`` are not ported yet.
+torch tensors' byte sizes.  ``tiers.py`` subclasses the store so that
+eviction demotes to host memory and disk instead of dropping.
 
 The contiguous engine's ``PrefixCache`` (models/serving.py) retains a
 full ``[1, max_seq]`` cache row per remembered prefix (~one slot of

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of k8s_dra_driver_tpu_torch,
 nor its on-card scripts (chip_smoke.py, chip_profile.py,
 chip_bwd_rounding.py), imports JAX
-(jax, jaxlib, optax) or anything of the JAX package k8s_dra_driver_tpu
-— not even its numpy-only modules.  A static AST scan, so imports
+(jax, jaxlib, optax), ml_dtypes (the bfloat16 numpy type JAX brings
+along) or anything of the JAX package k8s_dra_driver_tpu — not even its
+numpy-only modules.  A static AST scan, so imports
 hidden inside functions are caught too."""
 
 import ast
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "k8s_dra_driver_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu", "ml_dtypes")
 
 
 def scanned_files():
@@ -54,7 +55,8 @@ def test_scan_covers_the_port():
                 "ops/gmm.py", "ops/paged_attention.py",
                 "ops/ring_attention.py", "ops/ulysses_attention.py",
                 "parallel/mesh.py", "parallel/rendezvous.py",
-                "serving_kv/manager.py", "serving_lora/pool.py",
+                "serving_kv/manager.py", "serving_kv/tiers.py",
+                "serving_kv/tierprobe.py", "serving_lora/pool.py",
                 "serving_lora/probe.py",
                 "utils/dispatch.py", "utils/atomicio.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files

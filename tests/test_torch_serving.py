@@ -204,19 +204,6 @@ def test_sampled_rows_agree_across_layouts(params):
         np.testing.assert_array_equal(dense[uid], paged[uid])
 
 
-UNPORTED = {
-    "kv_host_bytes": dict(kv_layout="paged", kv_host_bytes=1 << 20),
-    "kv_spill_dir": dict(kv_layout="paged", kv_spill_dir="/nonexistent"),
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_arguments_raise(params, name):
-    _, tp = params
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_engine(tp, **UNPORTED[name])
-
-
 #: the JAX engine's speculative composition gates, one case each; "P"
 #: stands for the package's own params and "C" for its config
 DRAFT_GATES = {
@@ -249,16 +236,6 @@ def test_draft_gates_raise_as_jax(params, gate):
     with pytest.raises(ValueError) as terr:
         port_engine(tp, **kwargs(tp, TCFG))
     assert str(terr.value) == str(jerr.value)
-
-
-@pytest.mark.parametrize("verb,args", [
-    ("prefill_export", (None,)), ("adopt_block", (None,)),
-    ("export_prefix", ([1, 2],)), ("import_prefix", ([1, 2], None)),
-])
-def test_unported_verbs_raise(params, verb, args):
-    _, tp = params
-    with pytest.raises(NotImplementedError, match="not ported"):
-        getattr(port_engine(tp), verb)(*args)
 
 
 def test_ctor_and_intake_validation(params):
