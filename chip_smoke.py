@@ -164,6 +164,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ported tier probe at the 154M in bf16 and f32 (promote and
     recompute ms; byte-equal gated in f32, the churn's hit share above
     0);
+18c. the fleet (``phase_fleet``): s8_r24 in three bursts of 8 through
+    two-replica pools of 8-slot engines, r0 downed through the health
+    signal after its first wave: f32 paged (every uid finished exactly
+    once, 1 drain, the requeued count, the replacement up, every stream
+    byte-equal to one f32 paged engine's, K2 exactly n_layers a paged
+    decode step and K1 n_layers a fresh prefill, the gateway's metric
+    samples) and bf16 contiguous (exactly once, greedy streams within
+    TF_MARGIN teacher-forced, the byte-equal count printed); a
+    one-prefill, two-decode f32 paged pool behind ``DisaggRouter``
+    (exactly once, byte-equal, 24 migrations in the migrator and the
+    metrics, no ``prefill*`` label on a decode replica and no
+    ``decode_*`` on the prefill replica, every request finished on a
+    decode replica) and its prefill replica downed after the first
+    export wave (exactly once, decode-side prefills, byte-equal); the
+    gateway and disagg probes at the 154M in bf16 (accounting gated)
+    and the disagg probe in f32 (byte-equality gated); same-card
+    migration costs of a bf16 [1, 2048] cache and a 96-token slab;
 19. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
@@ -189,6 +206,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -2741,6 +2759,321 @@ def phase_disagg_tiers(params, cfg, reqs, fa, pa, refs) -> dict:
     return total
 
 
+#: the fleet phase (phase_fleet): s8_r24 in FLEET_BURSTS bursts through
+#: pools of 8-slot engines, each request with an SLO no run comes near
+FLEET_BURSTS = 3
+FLEET_SLO_S = 600.0
+#: the fleet drains of phase_fleet: the f32 paged and bf16 contiguous
+#: oracles, pools (a)-(d)
+FLEET_DRAINS = 6
+#: copies a migration cost is timed over (phase_fleet (f))
+FLEET_MIGRATE_REPS = 10
+
+
+def fleet_drive(gw, reqs, fa, pa, after_first=None):
+    """Submit s8_r24 to ``gw`` in FLEET_BURSTS bursts, one pump step
+    after each, ``after_first()`` after the first; then pump until idle.
+    The kernel counters are zeroed before and read after, the dispatch
+    labels tracked.  Returns (K1/K2 launches, labels, wall seconds)."""
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    n = len(reqs) // FLEET_BURSTS
+    torch.cuda.synchronize()
+    zero_serving_counts(fa, pa)
+    t0 = time.perf_counter()
+    with dispatch.track() as t:
+        for i in range(FLEET_BURSTS):
+            for r in reqs[i * n:(i + 1) * n]:
+                g = gw.submit(r, slo_s=FLEET_SLO_S)
+                if g.status != "queued":
+                    fail(f"fleet: {r.uid} refused at the door ({g.status})")
+            gw.step()
+            if i == 0 and after_first is not None:
+                after_first()
+        gw.run_until_idle()
+    torch.cuda.synchronize()
+    return kernel_snapshot(fa, pa), dict(t.by_label), time.perf_counter() - t0
+
+
+def fleet_exactly_once(gw, reqs, label) -> int:
+    """Fail unless every uid finished exactly once and none was refused;
+    returns how many outcomes survived a drain (``requeues > 0``)."""
+    uids = {r.uid for r in reqs}
+    statuses = {g.status for g in gw.outcomes.values()}
+    if (gw.refused or set(gw.outcomes) != uids or set(gw.results) != uids
+            or statuses != {"finished"}):
+        fail(f"fleet {label}: {len(gw.outcomes)} outcomes ({statuses}) and "
+             f"{len(gw.refused)} refusals for {len(uids)} requests")
+    return sum(g.requeues > 0 for g in gw.outcomes.values())
+
+
+def fleet_kernels(cfg, counts, labels, label, fills) -> int:
+    """Fail unless K2 launched n_layers times a paged decode step and K1
+    n_layers times a fresh prefill (``fills``: the labels of the fills
+    that run K1), so none inside a decode step; returns the paged
+    steps."""
+    steps = labels.get("paged_decode_step_rows", 0)
+    prefills = sum(labels.get(k, 0) for k in fills)
+    if steps <= 0 or counts["paged_decode"] != cfg.n_layers * steps:
+        fail(f"fleet {label}: {counts['paged_decode']} K2 launches over "
+             f"{steps} paged decode steps, expected {cfg.n_layers} a step")
+    if counts["flash_fwd"] != cfg.n_layers * prefills:
+        fail(f"fleet {label}: {counts['flash_fwd']} K1 launches over "
+             f"{prefills} fresh prefills, expected {cfg.n_layers} each and "
+             f"none in a decode step")
+    return steps
+
+
+def fleet_byte_equal(gw, ref, label, gate: bool) -> int:
+    """Streams of ``gw`` equal to the oracle drain ``ref``'s; fails when
+    ``gate`` and any differs.  Returns the equal count."""
+    by_uid = {f.uid: f.tokens for f in ref}
+    equal = sum(np.array_equal(f.tokens, by_uid[u])
+                for u, f in gw.results.items())
+    if gate and equal != len(by_uid):
+        fail(f"fleet {label}: {len(by_uid) - equal} streams differ from "
+             f"the single-engine oracle's")
+    return equal
+
+
+def metric_value(text: str, pattern: str) -> float:
+    m = re.search(pattern, text, re.M)
+    if m is None:
+        fail(f"fleet: no sample matches {pattern!r}")
+    return float(m.group(1))
+
+
+def migrate_cost(mig, entry) -> dict:
+    """Mean and best ms of FLEET_MIGRATE_REPS same-card migrations of
+    ``entry`` (the migrator synchronizes the card before its clock
+    reads), its bytes and the mean rate."""
+    walls = []
+    for _ in range(FLEET_MIGRATE_REPS):
+        mig.migrate_entry(entry)
+        walls.append(mig.last_event[0])
+    nbytes = mig.last_event[1]
+    mean = sum(walls) / len(walls)
+    return {"bytes": nbytes, "mean_ms": 1e3 * mean,
+            "best_ms": 1e3 * min(walls), "GB_per_s": nbytes / mean / 1e9}
+
+
+def phase_fleet(params, cfg, reqs, fa, pa) -> dict:
+    """The fleet gateway and the two-role pool over port engines on the
+    154M, s8_r24 in three bursts of 8, every replica on this card.
+
+    (a) Unified pool in f32, paged KV (each engine's prefix store on):
+    two replicas, r0 downed through the health signal after its first
+    dispatch wave.  Gated: every uid finished exactly once, 1 drain, the
+    requeued count equal to the outcomes with ``requeues > 0`` (at least
+    1), the replacement up (1 dead, 2 ready), every stream byte-equal to
+    one f32 paged engine of the same slots draining s8_r24, K2 n_layers
+    a paged decode step and K1 n_layers a fresh prefill, the metric
+    samples the gateway acceptance reads.  (b) The same in bf16 on
+    contiguous KV: exactly once, every greedy stream within TF_MARGIN
+    teacher-forced; the byte-equal count against one bf16 contiguous
+    engine printed.  (c) Two-role pool in f32: one paged prefill replica
+    and two paged decode replicas behind ``DisaggRouter``,
+    ``auto_replace=False``: exactly once, byte-equal to (a)'s oracle,
+    24 migrations and ``tpu_gateway_kv_migrations_total`` 24, no
+    ``prefill*`` label on a decode replica and no ``decode_*`` on the
+    prefill replica, every request finished on a decode replica.  (d)
+    The prefill replica downed after its first export wave: exactly
+    once, the decode replicas prefill locally, byte-equal.  (e) The
+    probes in bf16 at the 154M: ``gateway_probe`` (goodput, SLO
+    attainment, queue waits; its accounting gated) and
+    ``disagg_probe`` (TTFT unified against split, migration ms and
+    bytes; its byte-equality printed: the unified pool's padded fill
+    groups and the split pool's [1, L] exports round apart in bf16),
+    then ``disagg_probe`` in f32 with its byte-equality gated.  (f)
+    Same-card migration costs of
+    a bf16 [1, 2048] cache and a bf16 96-token paged slab.  Returns the
+    phase's K1 and K2 launches."""
+    from k8s_dra_driver_tpu_torch.gateway import (FleetGateway,
+                                                  ReplicaManager,
+                                                  gateway_probe)
+    from k8s_dra_driver_tpu_torch.gateway.replica import ROLE_DECODE
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.serving_disagg import (
+        DisaggReplicaManager, DisaggRouter, KVMigrator, disagg_probe)
+    t_phase = time.perf_counter()
+    total = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    f32 = map_params(params, lambda t: t.float())
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def f32_paged(name=None):
+        return ServingEngine(f32, cfg32, slots=8, top_k=50,
+                             kv_layout="paged")
+
+    def bf16_contiguous(name=None):
+        return ServingEngine(params, cfg, slots=8, top_k=50, prefix_cache=4)
+
+    oracle32, counts, _, _ = drain(ServingEngine, f32, cfg32, reqs, fa, pa,
+                                   "fleet oracle f32 paged", top_k=50,
+                                   kv_layout="paged")
+    add(counts)
+    oracle16, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
+                                   "fleet oracle bf16 contiguous", top_k=50,
+                                   prefix_cache=4)
+    add(counts)
+
+    # (a) and (b): unified pools, r0 downed after its first wave
+    for label, factory, dtype_cfg in (("(a) f32 paged", f32_paged, cfg32),
+                                      ("(b) bf16 contiguous",
+                                       bf16_contiguous, cfg)):
+        unhealthy: dict = {}
+        mgr = ReplicaManager(factory, replicas=2,
+                             health_source=lambda u=unhealthy: u,
+                             chip_of=lambda name: name)
+        gw = FleetGateway(mgr, queue_capacity=64)
+        counts, labels, wall = fleet_drive(
+            gw, reqs, fa, pa,
+            after_first=lambda u=unhealthy: u.update(
+                r0="downed by the health signal"))
+        add(counts)
+        require_fwd_route(fa, f"fleet {label}",
+                          dtype_cfg.dtype == torch.bfloat16)
+        requeued = fleet_exactly_once(gw, reqs, label)
+        st = gw.stats()
+        if st["replicas"]["dead"] != 1 or st["replicas"]["ready"] != 2:
+            fail(f"fleet {label}: replicas {st['replicas']}, expected 1 "
+                 f"dead and 2 ready")
+        text = gw.metrics.render().decode()
+        drains = metric_value(text, r"^tpu_gateway_drains_total (\S+)$")
+        n_requeued = metric_value(text,
+                                  r"^tpu_gateway_requeued_total (\S+)$")
+        waits = metric_value(
+            text, r"^tpu_gateway_queue_wait_seconds_count (\S+)$")
+        ttfts = metric_value(text, r"^tpu_gateway_ttft_seconds_count (\S+)$")
+        if (drains != 1 or requeued < 1 or n_requeued != requeued
+                or waits != len(reqs) + requeued or ttfts != len(reqs)):
+            fail(f"fleet {label}: drains {drains}, requeued {n_requeued} "
+                 f"(outcomes {requeued}), queue waits {waits}, TTFTs "
+                 f"{ttfts} for {len(reqs)} requests")
+        gen = sum(len(f.tokens) - f.n_prompt for f in gw.results.values())
+        if dtype_cfg is cfg32:
+            steps = fleet_kernels(cfg, counts, labels, label, ("prefill",))
+            equal = fleet_byte_equal(gw, oracle32, label, gate=True)
+            check = (f"{equal}/{len(reqs)} streams = the f32 paged oracle "
+                     f"(gated); K2 {counts['paged_decode']} = "
+                     f"{cfg.n_layers} x {steps} paged steps, K1 "
+                     f"{counts['flash_fwd']} = {cfg.n_layers} x "
+                     f"{labels.get('prefill', 0)} prefills (gated)")
+        else:
+            worst = teacher_forced(params, cfg, list(gw.results.values()),
+                                   reqs)
+            equal = fleet_byte_equal(gw, oracle16, label, gate=False)
+            check = (f"teacher-forced worst gap {worst:.4f} <= {TF_MARGIN} "
+                     f"(gated); {equal}/{len(reqs)} streams = the bf16 "
+                     f"contiguous oracle (counted); K1 {counts['flash_fwd']}")
+        print(f"fleet {label} ({card_line()}): exactly once {len(reqs)}/"
+              f"{len(reqs)}, 1 drain, {requeued} requeued, replicas "
+              f"{st['replicas']['ready']} ready + {st['replicas']['dead']} "
+              f"dead; {gen} tokens in {1e3 * wall:.1f} ms = "
+              f"{gen / wall:.1f} tokens/s over {st['steps']} pump steps; "
+              f"{check}", flush=True)
+        del gw, mgr
+
+    # (c) and (d): the two-role pool, f32 paged, then its prefill kill
+    for label, kill in (("(c) two-role f32", False),
+                        ("(d) prefill downed f32", True)):
+        unhealthy = {}
+        mgr = DisaggReplicaManager(f32_paged, prefill_replicas=1,
+                                   decode_replicas=2, depth_bound=8,
+                                   health_source=lambda u=unhealthy: u,
+                                   chip_of=lambda name: name)
+        gw = FleetGateway(mgr, router=DisaggRouter(mgr.index),
+                          queue_capacity=64, auto_replace=False)
+        counts, labels, wall = fleet_drive(
+            gw, reqs, fa, pa,
+            after_first=(lambda u=unhealthy: u.update(
+                p0="downed by the health signal")) if kill else None)
+        add(counts)
+        require_fwd_route(fa, f"fleet {label}", False)
+        requeued = fleet_exactly_once(gw, reqs, label)
+        steps = fleet_kernels(cfg, counts, labels, label, ("prefill",))
+        equal = fleet_byte_equal(gw, oracle32, label, gate=True)
+        per = gw.stats()["per_replica_dispatches"]
+        by_role = {r.name: r.role for r in mgr.replicas}
+        decode = {n for n, role in by_role.items() if role == ROLE_DECODE}
+        local = 0
+        for name, role in by_role.items():
+            lbls = per.get(name, {}).get("by_label", {})
+            bad = "prefill" if role == ROLE_DECODE else "decode_"
+            hits = [k for k in lbls if k.startswith(bad)]
+            if role == ROLE_DECODE:
+                local += sum(lbls[k] for k in hits)
+            if hits and not (kill and role == ROLE_DECODE):
+                fail(f"fleet {label}: replica {name} ({role}) launched "
+                     f"{hits}")
+        if {g.replica for g in gw.outcomes.values()} - decode:
+            fail(f"fleet {label}: a request finished off the decode "
+                 f"replicas")
+        mig = mgr.migration_stats()
+        text = gw.metrics.render().decode()
+        migrations = metric_value(
+            text, r"^tpu_gateway_kv_migrations_total (\S+)$")
+        if kill:
+            drains = metric_value(text, r"^tpu_gateway_drains_total (\S+)$")
+            if drains != 1 or requeued < 1 or local <= 0:
+                fail(f"fleet {label}: drains {drains}, requeued {requeued}, "
+                     f"decode-side prefills {local}")
+        elif mig["migrations"] != len(reqs) or migrations != len(reqs):
+            fail(f"fleet {label}: {mig['migrations']} migrations "
+                 f"({migrations} in the metrics), expected {len(reqs)}")
+        gen = sum(len(f.tokens) - f.n_prompt for f in gw.results.values())
+        mean_ms = (1e3 * mig["wall_s"] / mig["migrations"]
+                   if mig["migrations"] else 0.0)
+        print(f"fleet {label} ({card_line()}): exactly once {len(reqs)}/"
+              f"{len(reqs)}, {equal}/{len(reqs)} streams = the f32 paged "
+              f"oracle (gated), {requeued} requeued, decode-side prefills "
+              f"{local}; {mig['migrations']} migrations of "
+              f"{mig['bytes_moved']} bytes ({mean_ms:.3f} ms mean, "
+              f"{mig['tokens_moved']} tokens); K2 {counts['paged_decode']} "
+              f"= {cfg.n_layers} x {steps} paged steps, K1 "
+              f"{counts['flash_fwd']}; {gen} tokens in {1e3 * wall:.1f} ms "
+              f"= {gen / wall:.1f} tokens/s; role split held", flush=True)
+        del gw, mgr
+
+    # (e) the probes at the 154M in bf16, with their JAX traffic defaults
+    probe = gateway_probe(cfg=cfg, params=params)
+    print(f"fleet gateway probe ({card_line()}): {json.dumps(probe)}",
+          flush=True)
+    if not probe["valid"]:
+        fail("fleet gateway probe: a request went unaccounted")
+    # the unified pool fills padded groups, the split pool [1, L]
+    # exports: bf16 products of other row counts round apart, so the
+    # probe's byte-equality is printed in bf16 and gated in f32
+    for p, c in ((params, cfg), (f32, cfg32)):
+        probe = disagg_probe(cfg=c, params=p)
+        print(f"fleet disagg probe {str(c.dtype)[6:]} ({card_line()}): "
+              f"{json.dumps(probe)}", flush=True)
+        if c is cfg32 and not probe["byte_equal"]:
+            fail("fleet disagg probe in f32: split streams differ from "
+                 "the unified pool's")
+
+    # (f) same-card migration costs in bf16: a [1, 2048] cache, a slab
+    mig = KVMigrator()
+    prompt96 = reqs[0].prompt
+    costs = {}
+    for name, kw in (("[1, 2048] cache", {}),
+                     ("96-token paged slab", {"kv_layout": "paged"})):
+        eng = ServingEngine(params, cfg, slots=8, top_k=50, **kw)
+        blk = eng.prefill_export(type(reqs[0])(uid="m", prompt=prompt96,
+                                               max_new=1))
+        costs[name] = migrate_cost(mig, blk.kv)
+        del eng, blk
+    print(f"fleet migrate ({card_line()}, {FLEET_MIGRATE_REPS} same-card "
+          f"copies into fresh storage each): {json.dumps(costs)}",
+          flush=True)
+    print(f"fleet phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.tc_launches = fa.dq_tc_launches = fa.dkv_tc_launches = 0
@@ -3632,7 +3965,10 @@ def main() -> None:
     for name, n in phase_disagg_tiers(params, cfg, reqs, fa, pa,
                                       refs).items():
         launches[name] += n
-    del params, refs, fused_refs, spec_refs, done_p, done_x
+    del refs, fused_refs, spec_refs, done_p, done_x
+    for name, n in phase_fleet(params, cfg, reqs, fa, pa).items():
+        launches[name] += n
+    del params
 
     f32_routes = phase_train_small(fa)
     record = {}
@@ -3658,8 +3994,8 @@ def main() -> None:
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
-          f"drains + {TRAIN_STEPS} train steps of each of the 154M and moe_heavy + "
-          f"{SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
+          f"drains + {FLEET_DRAINS} fleet drains + {TRAIN_STEPS} train "
+          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,

@@ -89,7 +89,7 @@ import numpy as np
 import torch
 
 from ..serving_kv import (NULL_BLOCK, BlocksExhausted, KVBlockManager,
-                          PagedPrefixStore, TieredKVStore,
+                          PagedPrefixStore, PrefixListeners, TieredKVStore,
                           kv_bytes_per_token)
 from ..utils import dispatch
 from ..utils.device import resolve_device
@@ -185,7 +185,7 @@ def _overlap(a: np.ndarray, b: np.ndarray) -> int:
     return int(neq[0]) if neq.size else n
 
 
-class PrefixCache:
+class PrefixCache(PrefixListeners):
     """LRU store of prompt-prefix K/V (automatic prefix caching).
 
     Entries map a prompt's token tuple to the [1, max_seq] ``KVCache``
@@ -198,14 +198,17 @@ class PrefixCache:
     engines generate identical tokens.
 
     Memory: each entry retains a full cache row (~one extra slot), which
-    is why the store is small and LRU-bounded (``entries``).  The
-    reference's listener hooks (prefix index, gateway metrics) come with
-    the slices that port those consumers.
+    is why the store is small and LRU-bounded (``entries``).
+
+    The listener lists (:class:`~..serving_kv.prefix.PrefixListeners`)
+    fire at the reference's points: hit and miss in
+    ``longest_prefix``, insert, evict and drop.
     """
 
     def __init__(self, entries: int):
         if entries < 1:
             raise ValueError("prefix cache needs >= 1 entry")
+        super().__init__()
         self.entries = entries
         # dict insertion order IS the LRU order (oldest first)
         self._store: dict[tuple, KVCache] = {}
@@ -249,10 +252,12 @@ class PrefixCache:
         best_p, best_key = self._best_match(prompt)
         if best_key is None:
             self.misses += 1
+            self._notify_stats("miss", 0, 0)
             return 0, None
         self.hits += 1
         self.tokens_reused += best_p
         self.bytes_reused += best_p * self.bytes_per_token
+        self._notify_stats("hit", best_p, best_p * self.bytes_per_token)
         self._touch(best_key)
         return best_p, self._store[best_key]
 
@@ -276,13 +281,18 @@ class PrefixCache:
         key = tuple(tokens.tolist())
         self._store.pop(key, None)            # re-insert = most recent
         self._store[key] = filled
+        self._notify("insert", key)
         while len(self._store) > self.entries:
-            self._store.pop(next(iter(self._store)))
+            evicted = next(iter(self._store))
+            self._store.pop(evicted)
+            self._notify("evict", evicted)
 
     def drop(self, tokens: np.ndarray) -> None:
         """Forget an entry (no-op if absent) — used when a finish
         capture strictly dominates its fill-time prompt entry."""
-        self._store.pop(tuple(tokens.tolist()), None)
+        key = tuple(tokens.tolist())
+        if self._store.pop(key, None) is not None:
+            self._notify("drop", key)
 
 
 @dispatch.counted("extract_slot")
@@ -644,7 +654,8 @@ class ServingEngine:
     def occupancy(self) -> dict:
         """Scheduling snapshot for a router: slot/queue depth plus
         per-active-request generated-token counts; paged engines add
-        free/total blocks and reclaimable headroom."""
+        free/total blocks and reclaimable headroom, speculative engines
+        their draft accept rate, adapter engines their residency."""
         out = {
             "slots": self.slots,
             "active": self.active,
@@ -663,6 +674,10 @@ class ServingEngine:
             out["kv_cow_shared_blocks"] = view["cow_shared_blocks"]
             out["kv_headroom_blocks"] = (
                 view["free_blocks"] + self._prefix.evictable_count())
+        if self._spec_on:
+            # the router's accept-aware signal: EWMA'd by the gateway
+            # (gateway/frontend.py), decile-bucketed in its spill key
+            out["spec_accept_rate"] = self._spec_accept_rate()
         if self.adapter_pool is not None:
             # the residency signal a router reads: which adapters are warm
             # here, and how many pool slots a new one could claim without
@@ -673,6 +688,11 @@ class ServingEngine:
             out["adapter_free_slots"] = pool.ledger.free
             out["adapter_headroom_slots"] = pool.headroom_slots()
         return out
+
+    def _spec_accept_rate(self) -> float:
+        """Accepted over proposed drafts so far, as the reference rounds
+        it."""
+        return round(self._spec_accepted / max(1, self._spec_drafts), 4)
 
     def prefix_peek(self, prompt) -> int:
         """Longest prompt prefix this engine's prefix store holds,
@@ -927,8 +947,7 @@ class ServingEngine:
             out["speculative_windows_total"] = self._spec_windows
             out["speculative_accepted_total"] = self._spec_accepted
             out["speculative_drafts_total"] = self._spec_drafts
-            out["spec_accept_rate"] = round(
-                self._spec_accepted / max(1, self._spec_drafts), 4)
+            out["spec_accept_rate"] = self._spec_accept_rate()
         if self.adapter_pool is not None:
             pool = self.adapter_pool
             out["adapter_residents"] = len(pool.resident())

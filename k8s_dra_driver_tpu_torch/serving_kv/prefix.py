@@ -28,7 +28,8 @@ watermark eviction reclaims under pressure (``evict_until``); an
 entry still shared with a live slot drops its reference but returns
 no memory until the slot finishes.
 
-Same listener API as ``PrefixCache`` (``listeners`` for a prefix
+Both stores, this one and the contiguous ``PrefixCache``, fire the
+listeners of :class:`PrefixListeners` (``listeners`` for a prefix
 index, ``stats_listeners`` for metrics).
 """
 
@@ -61,36 +62,18 @@ class PagedEntry:
     block_ids: tuple[int, ...]
 
 
-class PagedPrefixStore:
-    """LRU store of prompt prefixes as shared block-id tuples."""
+class PrefixListeners:
+    """The two listener lists every prefix store fires, where the
+    reference fires them: ``listeners`` (``listener(event, key)``, event
+    in {"insert", "evict", "drop"} and the tiers' {"demote",
+    "demote_disk", "promote"}) — the fleet prefix index's mirror hook —
+    and ``stats_listeners`` (``listener(event, tokens, nbytes)``, event
+    in {"hit", "miss"}) — the gateway's O(events) prefix accounting.  A
+    raising listener is isolated: observability never breaks a fill."""
 
-    def __init__(self, entries: int, manager: KVBlockManager):
-        if entries < 1:
-            raise ValueError("prefix store needs >= 1 entry")
-        self.entries = entries
-        self._mgr = manager
-        # dict insertion order IS the LRU order (oldest first)
-        self._store: dict[tuple, PagedEntry] = {}
-        self.hits = 0
-        self.misses = 0
-        self.tokens_reused = 0
-        self.bytes_reused = 0
-        self.bytes_per_token = 0
-        #: capacity-LRU + pressure evictions (the metrics counter)
-        self.evictions = 0
-        #: bytes those evictions covered (``entry_nbytes`` per entry,
-        #: the same measurement ``bytes_reused`` uses)
-        self.bytes_evicted = 0
-        #: ``listener(event, key)``, event in {"insert", "evict",
-        #: "drop"} — the prefix index mirror hook; raising listeners
-        #: are isolated.
+    def __init__(self) -> None:
         self.listeners: list = []
-        #: ``listener(event, tokens, nbytes)``, event in {"hit",
-        #: "miss"} — the O(events) prefix accounting hook.
         self.stats_listeners: list = []
-
-    def __len__(self) -> int:
-        return len(self._store)
 
     def _notify(self, event: str, key: tuple) -> None:
         for cb in self.listeners:
@@ -106,6 +89,32 @@ class PagedPrefixStore:
                 cb(event, tokens, nbytes)
             except Exception:
                 pass
+
+
+class PagedPrefixStore(PrefixListeners):
+    """LRU store of prompt prefixes as shared block-id tuples."""
+
+    def __init__(self, entries: int, manager: KVBlockManager):
+        if entries < 1:
+            raise ValueError("prefix store needs >= 1 entry")
+        super().__init__()
+        self.entries = entries
+        self._mgr = manager
+        # dict insertion order IS the LRU order (oldest first)
+        self._store: dict[tuple, PagedEntry] = {}
+        self.hits = 0
+        self.misses = 0
+        self.tokens_reused = 0
+        self.bytes_reused = 0
+        self.bytes_per_token = 0
+        #: capacity-LRU + pressure evictions (the metrics counter)
+        self.evictions = 0
+        #: bytes those evictions covered (``entry_nbytes`` per entry,
+        #: the same measurement ``bytes_reused`` uses)
+        self.bytes_evicted = 0
+
+    def __len__(self) -> int:
+        return len(self._store)
 
     def _touch(self, key: tuple) -> None:
         self._store[key] = self._store.pop(key)

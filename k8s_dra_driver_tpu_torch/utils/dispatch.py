@@ -83,6 +83,30 @@ def track():
             if v - before["by_label"].get(k, 0)}
 
 
+class Aggregator:
+    """Accumulate :func:`track` deltas under coarse keys: the fleet
+    gateway runs each replica's engine step inside its own ``track()``
+    region (its pump is single-threaded) and folds the delta in under
+    the replica's name.  ``snapshot()`` has DispatchCounter's shape per
+    key."""
+
+    def __init__(self) -> None:
+        self.by_key: dict[str, Tracked] = {}
+
+    def add(self, key: str, t: Tracked) -> None:
+        agg = self.by_key.setdefault(key, Tracked())
+        agg.dispatches += t.dispatches
+        agg.readbacks += t.readbacks
+        for label, n in t.by_label.items():
+            agg.by_label[label] = agg.by_label.get(label, 0) + n
+
+    def snapshot(self) -> dict[str, dict]:
+        return {k: {"dispatches": t.dispatches,
+                    "readbacks": t.readbacks,
+                    "by_label": dict(t.by_label)}
+                for k, t in self.by_key.items()}
+
+
 class _Counted:
     """Callable wrapper that counts calls and forwards everything
     else to the wrapped function."""
@@ -106,6 +130,10 @@ def counted(label: str):
     def wrap(fn):
         return _Counted(label, fn)
     return wrap
+
+
+def record(label: str, n: int = 1) -> None:
+    COUNTER.record(label, n)
 
 
 def record_readback(label: str) -> None:

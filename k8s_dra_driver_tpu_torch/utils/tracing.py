@@ -1,0 +1,137 @@
+"""Causal span layer: one trace per request.
+
+The port's copy of ``k8s_dra_driver_tpu/utils/tracing.py``: the span
+recorder and its pool wiring (``Tracer``, ``wire_pool``); the
+supervisor hook, the critical-path analysis and the Chrome-trace
+exporter wait for their consumers.  A **span** is a plain dict
+``{trace, span, parent, name, t0, t1, track, tenant?, attrs?}``
+recording one arc of a request's life (admission, dispatch, prefill,
+migrate, decode, terminal).
+
+- ``emit`` takes the times; it never reads the clock.  Callers already
+  hold ``now`` from the pump step, so tracing adds dict construction
+  and two appends.
+- Spans are not published to the bus one by one: ``flush()``, called
+  once per pump step right before ``bus.pump()``, publishes the step's
+  batch as ONE ``"spans"`` event.
+- The ring (``spans``, a bounded deque) keeps the newest spans;
+  ``sinks`` are synchronous taps.
+
+Span identity: ``trace`` is ``t-<request uid>`` (or ``gw-<name>`` for
+the gateway's own track); ``span`` ids are tracer-global and monotone;
+``parent`` is the previous span emitted on the same
+:class:`TraceContext`, so each trace is a causal chain.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from dataclasses import dataclass
+
+
+@dataclass(slots=True)
+class TraceContext:
+    """The per-request (or per-component) causal cursor, carried on
+    ``GatewayRequest.trace`` and across drain → requeue → re-dispatch
+    so a victim CONTINUES its trace instead of starting a new one.
+    ``drained_s`` timestamps the last drain-requeue, giving the
+    re-dispatch span its honest t0 (the drain gap is real latency the
+    queue-wait histogram alone cannot attribute)."""
+
+    trace_id: str
+    tenant: str | None = None
+    last_span: int = 0
+    drained_s: float | None = None
+    #: queue depth observed at admission — carried here instead of an
+    #: admission span (admission is the control plane's hottest path);
+    #: the dispatch span (t0 = arrival) reports it as its ``depth`` attr
+    admit_depth: int = 0
+
+
+class Tracer:
+    """Bounded span recorder with batched bus emission.
+
+    ``bus`` is an optional :class:`~..cluster.bus.EventBus`; when set,
+    ``flush()`` publishes each step's spans as one ``"spans"`` event.
+    ``clock`` is injected (a fake clock in tests, monotonic live); the
+    disaggregated pool reads it around prefill and migration, the
+    gateway's hot path never does.
+    """
+
+    def __init__(self, bus=None, clock=time.monotonic,
+                 capacity: int = 4096):
+        self.bus = bus
+        self.clock = clock
+        #: bounded ring of span dicts, the newest ``capacity`` spans
+        self.spans: deque = deque(maxlen=capacity)
+        #: synchronous taps called per span
+        self.sinks: list = []
+        self.emitted_total = 0
+        self._pending: list = []
+        self._ids = itertools.count(1)
+        # bound method cached: emit runs about 3x per request
+        self._ring_append = self.spans.append
+
+    def begin(self, key, tenant: str | None = None) -> TraceContext:
+        """New trace rooted at ``key`` (a request uid or a component
+        name).  Cheap enough to call per admission."""
+        return TraceContext(trace_id=f"t-{key}", tenant=tenant)
+
+    def emit(self, ctx: TraceContext, name: str, t0: float,
+             t1: float | None = None, track: str = "",
+             **attrs) -> dict:
+        """Record one span on ``ctx``.  ``t1=None`` marks an instant
+        event (zero duration).  ``track`` groups spans into exporter
+        rows (replica name, "gateway"); attrs must
+        be JSON-safe scalars — they go straight into dumps."""
+        sid = next(self._ids)
+        rec = {"trace": ctx.trace_id, "span": sid,
+               "parent": ctx.last_span, "name": name,
+               "t0": t0, "t1": t0 if t1 is None else t1,
+               "track": track}
+        if ctx.tenant is not None:
+            rec["tenant"] = ctx.tenant
+        if attrs:
+            rec["attrs"] = attrs
+        ctx.last_span = sid
+        self._ring_append(rec)
+        self.emitted_total += 1
+        if self.bus is not None:
+            self._pending.append(rec)
+        if self.sinks:
+            for sink in self.sinks:
+                try:
+                    sink(rec)
+                except Exception:
+                    pass    # a broken tap must not fail the pump
+        return rec
+
+    def flush(self) -> int:
+        """Publish the step's span batch as ONE bus event (topic
+        ``"spans"``).  Returns the batch size.  Called once per pump
+        step so bus seq numbers — and therefore replay — stay
+        deterministic under the bus's seeded shuffle."""
+        if self.bus is None or not self._pending:
+            return 0
+        batch, self._pending = self._pending, []
+        self.bus.publish("spans", n=len(batch), spans=batch)
+        return len(batch)
+
+
+# -- wiring helpers ------------------------------------------------------
+
+def wire_pool(tracer: Tracer, manager) -> None:
+    """Hand the tracer to a ReplicaManager and every replica it will
+    ever spawn (initial pool, replacements, scale-ups) — how
+    serving_disagg/pool.py emits prefill/migrate spans without the
+    gateway walking the pool each step."""
+    manager.tracer = tracer
+    for r in manager.replicas:
+        r.tracer = tracer
+    manager.spawn_listeners.append(
+        lambda replica: setattr(replica, "tracer", tracer))
+
+
+__all__ = ["TraceContext", "Tracer", "wire_pool"]

@@ -2,9 +2,10 @@
 nor its on-card scripts (chip_smoke.py, chip_profile.py,
 chip_bwd_rounding.py), imports JAX
 (jax, jaxlib, optax), ml_dtypes (the bfloat16 numpy type JAX brings
-along) or anything of the JAX package k8s_dra_driver_tpu — not even its
-numpy-only modules.  A static AST scan, so imports
-hidden inside functions are caught too."""
+along), prometheus_client (absent on the card's machine; the port's
+utils/metrics.py carries its own registry) or anything of the JAX
+package k8s_dra_driver_tpu — not even its numpy-only modules.  A static
+AST scan, so imports hidden inside functions are caught too."""
 
 import ast
 from pathlib import Path
@@ -13,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "k8s_dra_driver_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu", "ml_dtypes",
+             "prometheus_client")
 
 
 def scanned_files():
@@ -58,7 +60,14 @@ def test_scan_covers_the_port():
                 "serving_kv/manager.py", "serving_kv/tiers.py",
                 "serving_kv/tierprobe.py", "serving_lora/pool.py",
                 "serving_lora/probe.py",
-                "utils/dispatch.py", "utils/atomicio.py"):
+                "utils/dispatch.py", "utils/atomicio.py",
+                "cluster/bus.py", "utils/tracing.py", "utils/digest.py",
+                "utils/metrics.py", "gateway/admission.py",
+                "gateway/router.py", "gateway/replica.py",
+                "gateway/frontend.py", "gateway/calibrate.py",
+                "gateway/probe.py", "serving_disagg/index.py",
+                "serving_disagg/migrate.py", "serving_disagg/pool.py",
+                "serving_disagg/router.py", "serving_disagg/probe.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 
@@ -76,6 +85,8 @@ def test_scanner_catches_forbidden_forms(tmp_path):
                    "    import jax.numpy as jnp\n"
                    "    from k8s_dra_driver_tpu.serving_kv import manager\n"
                    "    importlib.import_module('optax')\n"
+                   "    from prometheus_client import Counter\n"
                    "from k8s_dra_driver_tpu_torch.models import decode\n")
     bad = [n for n in imported_modules(src) if forbidden(n)]
-    assert bad == ["jax.numpy", "k8s_dra_driver_tpu.serving_kv", "optax"]
+    assert sorted(bad) == ["jax.numpy", "k8s_dra_driver_tpu.serving_kv",
+                           "optax", "prometheus_client"]
