@@ -181,6 +181,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
     gateway and disagg probes at the 154M in bf16 (accounting gated)
     and the disagg probe in f32 (byte-equality gated); same-card
     migration costs of a bf16 [1, 2048] cache and a 96-token slab;
+18d. the multi-process gateway (``phase_procfleet``): three pump
+    processes, each with its own CUDA context and one 8-slot f32
+    contiguous replica of the 154M (``procpump.tiny_model``), behind
+    ``ProcessGateway``; s8_r24 in three bursts, the pump holding r0
+    SIGKILLed at the cycle after the first burst's dispatch: every uid
+    finished exactly once, the outcome journal's replay clean, one pump
+    death and requeued outcomes, every stream byte-equal to one f32
+    contiguous engine in this process on the same ``tiny_model``
+    weights, each survivor's K1 (read over the wire) a positive multiple
+    of n_layers on the f32 route; four s8_r24 KV blocks (one sampled)
+    exported by one surviving pump and adopted by the other over the
+    wire, equal to the oracle (frame bytes and export, encode, pipe,
+    decode, adopt, generation ms printed); a bf16 [1, 1024] block of
+    the 154M through the wire codec and JSON in this process, every leaf
+    bit-equal and its stream equal (encode, JSON and decode ms beside a
+    same-card copy); the multi-process scaling probe with null engines
+    at 1, 2 and 4 pumps (printed, not gated);
 19. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
@@ -3074,6 +3091,254 @@ def phase_fleet(params, cfg, reqs, fa, pa) -> dict:
     return total
 
 
+#: the process fleet (phase_procfleet): pump processes of the 154M in f32
+PROC_WORKERS = 3
+#: s8_r24 requests whose KV blocks cross between two pump processes
+#: (r3 is sampled)
+PROC_HANDOFFS = 4
+#: the bf16 block the conductor round-trips through the codec: a
+#: [1, PROC_CODEC_SEQ] cache
+PROC_CODEC_SEQ = 1024
+#: pump widths of the multi-process scaling probe
+PROC_PROBE_WIDTHS = (1, 2, 4)
+
+
+def proc_engine_cfg(cfg) -> dict:
+    """The pumps' ``--engine-cfg``: the 154M's fields, in float32."""
+    return {f: getattr(cfg, f) for f in (
+        "vocab", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_head",
+        "d_ff", "max_seq")} | {"dtype": "float32"}
+
+
+def proc_kernel_counts(gw, cfg, label: str, gate: bool) -> dict:
+    """Every live pump's K1/K2 counters (``op_stats``); with ``gate``,
+    fail unless each pump launched K1 a positive multiple of n_layers
+    times, none on the tensor-core route (f32) and no K2 (contiguous).
+    Returns the counters summed."""
+    total = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+    for h in gw.handles:
+        if not h.live:
+            continue
+        k = gw._rpc(h, "stats")["kernel_launches"]
+        if gate and (k["flash_fwd"] <= 0 or k["flash_fwd"] % cfg.n_layers
+                     or k["flash_fwd_tc"] or k["paged_decode"]):
+            fail(f"procfleet {label}: pump {h.name} reported {k}, expected "
+                 f"K1 a positive multiple of {cfg.n_layers}, all on the "
+                 f"f32 route, and no K2")
+        for n in total:
+            total[n] += k[n]
+    return total
+
+
+def phase_procfleet(params, cfg, reqs, fa, pa) -> dict:
+    """The multi-process gateway on the card: pump processes, each with
+    its own CUDA context and its own 154M replica, behind the conductor
+    ``ProcessGateway``; s8_r24 in FLEET_BURSTS bursts.
+
+    (a) f32 pool through a kill: PROC_WORKERS pumps of one 8-slot f32
+    contiguous replica each (``tiny_model`` of the 154M's fields in
+    float32), the pump holding r0 SIGKILLed by the fault plan at the
+    cycle after the first burst's dispatch.  Gated: every uid finished
+    exactly once and none refused; the journal's replay without
+    conflicts or corrupt records; one pump death and at least one
+    outcome requeued; every stream byte-equal to one f32 contiguous
+    engine of 8 slots in this process, built by the same ``tiny_model``
+    and draining s8_r24; each survivor's K1 launches a positive multiple
+    of n_layers, on the f32 route.  (b) The KV handoff across two
+    surviving pumps: PROC_HANDOFFS requests (one sampled) exported on one
+    (``kv_export``: prefill, then the wire codec) and adopted on the
+    other (``kv_adopt``); gated: the adopted streams equal (a)'s oracle;
+    printed: frame bytes and the export, encode, pipe, decode, adopt and
+    generation ms.  (c) The bf16 codec in this process: a bf16 [1,
+    PROC_CODEC_SEQ] block of the 154M (``prefill_export``) through
+    ``encode_kv_block``, ``json.dumps`` / ``loads`` and
+    ``decode_kv_block``; gated: every leaf bit-equal, the adopted copy's
+    tokens equal to the exported block's own; printed: frame MB, the
+    encode, dumps, loads and decode ms beside a same-card copy of the
+    same block (``KVMigrator``).  (d) ``multiproc_probe`` with null
+    engines at PROC_PROBE_WIDTHS pumps (each pump opens the card):
+    ``scaling_x``, the host's CPUs, wall admissions/s; not gated.
+    Returns the K1/K2 launches: this process's (the oracle drain and
+    (c)) plus the surviving pumps' (a SIGKILLed pump's are lost)."""
+    from k8s_dra_driver_tpu_torch.cluster.faults import (PUMP_KIND,
+                                                         PUMP_VERB,
+                                                         FaultPlan,
+                                                         FaultRule)
+    from k8s_dra_driver_tpu_torch.gateway.procprobe import multiproc_probe
+    from k8s_dra_driver_tpu_torch.gateway.procpump import (ProcessGateway,
+                                                           tiny_model)
+    from k8s_dra_driver_tpu_torch.gateway.wire import encode_request
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.serving_disagg import KVMigrator
+    from k8s_dra_driver_tpu_torch.serving_disagg.wirekv import (
+        decode_kv_block, encode_kv_block, frame_bytes)
+    t_phase = time.perf_counter()
+    total = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    engine_cfg = proc_engine_cfg(cfg)
+    cfg32, params32 = tiny_model(engine_cfg, "cuda")
+    oracle, counts, _, _ = drain(ServingEngine, params32, cfg32, reqs, fa,
+                                 pa, "procfleet oracle f32 contiguous")
+    add(counts)
+    by_uid = {f.uid: f.tokens for f in oracle}
+    del oracle, params32
+
+    # (a) the pool, one pump SIGKILLed after the first burst's dispatch
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        gw = ProcessGateway(td, workers=PROC_WORKERS, engine="tiny",
+                            engine_cfg=engine_cfg, replicas=1, slots=8,
+                            pump_plan=FaultPlan(), device="cuda")
+        t_up = time.perf_counter() - t0
+        try:
+            victim = f"pump{gw._shard(reqs[0].prompt)}"
+            # membership is checked at the start of each cycle: the
+            # first passes (the burst dispatches), the second kills
+            gw.pump_plan.arm(FaultRule(verb=PUMP_VERB, kind=PUMP_KIND,
+                                       name=victim, skip=1, times=1,
+                                       error="crash"))
+            n = len(reqs) // FLEET_BURSTS
+            t0 = time.perf_counter()
+            for i in range(FLEET_BURSTS):
+                for r in reqs[i * n:(i + 1) * n]:
+                    g = gw.submit(r, slo_s=FLEET_SLO_S)
+                    if g.status != "queued":
+                        fail(f"procfleet (a): {r.uid} refused at the door "
+                             f"({g.status})")
+                gw.step()
+            gw.run_until_idle()
+            wall = time.perf_counter() - t0
+            uids = {r.uid for r in reqs}
+            statuses = {g.status for g in gw.outcomes.values()}
+            if (gw.refused or set(gw.outcomes) != uids
+                    or set(gw.results) != uids or statuses != {"finished"}):
+                fail(f"procfleet (a): {len(gw.outcomes)} outcomes "
+                     f"({statuses}), {len(gw.refused)} refusals for "
+                     f"{len(uids)} requests")
+            view = gw.store.replay()
+            st = gw.stats()
+            requeued = sum(g.requeues > 0 for g in gw.outcomes.values())
+            if view.conflicts or view.corrupt or set(view.terminals) != uids:
+                fail(f"procfleet (a): journal replay holds "
+                     f"{len(view.terminals)} terminals, conflicts "
+                     f"{view.conflicts}, corrupt {view.corrupt}")
+            if st["pump_deaths"] != 1 or requeued < 1:
+                fail(f"procfleet (a): {st['pump_deaths']} pump deaths, "
+                     f"{requeued} requeued outcomes")
+            equal = sum(np.array_equal(f.tokens, by_uid[u])
+                        for u, f in gw.results.items())
+            if equal != len(reqs):
+                fail(f"procfleet (a): {len(reqs) - equal} streams differ "
+                     f"from the single-engine oracle's")
+            k_a = proc_kernel_counts(gw, cfg, "(a)", gate=True)
+            gen = sum(len(f.tokens) - f.n_prompt
+                      for f in gw.results.values())
+            print(f"procfleet (a) f32 ({card_line()}): {PROC_WORKERS} pumps "
+                  f"up in {t_up:.1f} s; {victim} SIGKILLed after the first "
+                  f"burst; exactly once {len(reqs)}/{len(reqs)}, journal "
+                  f"{len(view.terminals)} terminals (conflicts 0, corrupt "
+                  f"0, torn {view.torn}, duplicates {view.duplicates}), "
+                  f"{requeued} requeued, adopted from the journal "
+                  f"{st['adopted_from_journal']}, steals {st['steals']}; "
+                  f"{equal}/{len(reqs)} streams = the f32 oracle (gated); "
+                  f"{gen} tokens in {1e3 * wall:.1f} ms = "
+                  f"{gen / wall:.1f} tokens/s over {st['steps']} conductor "
+                  f"cycles; survivors' K1 {k_a['flash_fwd']} (each a "
+                  f"multiple of {cfg.n_layers}, f32 route)", flush=True)
+
+            # (b) the handoff: export on one survivor, adopt on the other
+            src, dst = [h for h in gw.handles if h.live]
+            for r in reqs[:PROC_HANDOFFS]:
+                t0 = time.perf_counter()
+                exp = gw._rpc(src, "kv_export", req=encode_request(r))
+                t1 = time.perf_counter()
+                got = gw._rpc(dst, "kv_adopt", block=exp["block"])
+                t2 = time.perf_counter()
+                if not np.array_equal(np.asarray(got["tokens"], np.int32),
+                                      by_uid[r.uid]):
+                    fail(f"procfleet (b): {r.uid} adopted across pumps "
+                         f"differs from the oracle's stream")
+                ms_e, ms_a = exp["ms"], got["ms"]
+                pipe_out = 1e3 * (t1 - t0) - ms_e["export"] - ms_e["encode"]
+                pipe_in = (1e3 * (t2 - t1) - ms_a["decode"] - ms_a["adopt"]
+                           - ms_a["generate"])
+                print(f"procfleet (b) {r.uid} "
+                      f"({'sampled' if r.temperature > 0 else 'greedy'}, "
+                      f"{card_line()}): {src.name} -> {dst.name}, frame "
+                      f"{frame_bytes(exp['block'])} bytes; export "
+                      f"{ms_e['export']:.2f} ms, encode {ms_e['encode']:.2f}, "
+                      f"pipe out {pipe_out:.2f}, pipe in {pipe_in:.2f}, "
+                      f"decode onto the card {ms_a['decode']:.2f}, adopt "
+                      f"{ms_a['adopt']:.2f}, generate {ms_a['generate']:.2f}; "
+                      f"stream = the oracle's (gated)", flush=True)
+            add(proc_kernel_counts(gw, cfg, "(b)", gate=False))
+        finally:
+            gw.close()
+
+    # (c) the bf16 codec in this process: encode, JSON, decode
+    eng = ServingEngine(params, cfg, slots=8, max_seq=PROC_CODEC_SEQ)
+    req = type(reqs[0])(uid="codec", prompt=reqs[0].prompt, max_new=48)
+    torch.cuda.synchronize()
+    zero_serving_counts(fa, pa)
+    blk = eng.prefill_export(req)
+    torch.cuda.synchronize()
+    add(kernel_snapshot(fa, pa))
+    require_fwd_route(fa, "procfleet (c) export", True)
+    t0 = time.perf_counter()
+    enc = encode_kv_block(blk)
+    t1 = time.perf_counter()
+    text = json.dumps(enc)
+    t2 = time.perf_counter()
+    back = json.loads(text)
+    t3 = time.perf_counter()
+    got = decode_kv_block(back, dest="cuda")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    leaves = list(zip(got.kv.tensors(), blk.kv.tensors()))
+    if not all(a.dtype == b.dtype == torch.bfloat16
+               and a.device == b.device and a.data_ptr() != b.data_ptr()
+               and torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in leaves):
+        fail("procfleet (c): a decoded bf16 leaf differs from the "
+             "exported one (or shares its storage)")
+    toks = []
+    for b in (blk, got):
+        eng.adopt_block(b)
+        toks.append(eng.run()[0].tokens)
+    if not np.array_equal(toks[0], toks[1]):
+        fail("procfleet (c): the decoded block's stream differs from the "
+             "exported block's")
+    copy = migrate_cost(KVMigrator(), blk.kv)
+    print(f"procfleet (c) bf16 codec ({card_line()}): [1, "
+          f"{PROC_CODEC_SEQ}] block, {len(leaves)} leaves bit-equal, "
+          f"stream equal (gated); frame {len(text) / 1e6:.3f} MB "
+          f"({frame_bytes(enc)} payload bytes, {copy['bytes']} raw); "
+          f"encode {1e3 * (t1 - t0):.2f} ms, json.dumps "
+          f"{1e3 * (t2 - t1):.2f}, json.loads {1e3 * (t3 - t2):.2f}, "
+          f"decode onto the card {1e3 * (t4 - t3):.2f}; a same-card copy "
+          f"of the same block {copy['mean_ms']:.3f} ms (best "
+          f"{copy['best_ms']:.3f})", flush=True)
+    del eng, blk, got, enc, back, text
+
+    # (d) the scaling probe, null engines, every pump on the card
+    probe = multiproc_probe(pump_counts=PROC_PROBE_WIDTHS, device="cuda")
+    walls = {lv["pumps"]: lv["admissions_per_wall_s"]
+             for lv in probe["levels"]}
+    print(f"procfleet (d) multiproc probe ({card_line()}): scaling_x "
+          f"{probe['scaling_x']} (CPU-time-normalized, widths "
+          f"{probe['pump_counts']}), host_cpus {probe['host_cpus']}, "
+          f"wall admissions/s by width {walls}, outcome counts equal "
+          f"{probe['outcome_counts_equal']}, fsync p50 "
+          f"{probe['outcome_fsync_ms']} ms (not gated)", flush=True)
+    print(f"procfleet phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.tc_launches = fa.dq_tc_launches = fa.dkv_tc_launches = 0
@@ -3968,6 +4233,9 @@ def main() -> None:
     del refs, fused_refs, spec_refs, done_p, done_x
     for name, n in phase_fleet(params, cfg, reqs, fa, pa).items():
         launches[name] += n
+    # the pumps' K1 (f32) joins the flash_fwd entry's f32 route
+    for name, n in phase_procfleet(params, cfg, reqs, fa, pa).items():
+        launches[name] += n
     del params
 
     f32_routes = phase_train_small(fa)
@@ -3994,7 +4262,8 @@ def main() -> None:
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
-          f"drains + {FLEET_DRAINS} fleet drains + {TRAIN_STEPS} train "
+          f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
+          f"oracle, surviving pumps and codec block + {TRAIN_STEPS} train "
           f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 

@@ -1,7 +1,8 @@
 """Deterministic in-process event bus for the serving control plane.
 
-The port's copy of ``k8s_dra_driver_tpu/cluster/bus.py``
-(``EventBus``; the multi-process ``BusTap`` waits for its consumer).
+The port's copy of ``k8s_dra_driver_tpu/cluster/bus.py``: ``EventBus``
+and ``BusTap``, the bridge a pump process of the multi-process gateway
+(gateway/procpump.py) ships its local events across.
 Producers PUBLISH (prefix hit, drain, demand update) and consumers fold
 events at O(events) cost, so the step cost of a quiet control plane
 does not grow with pool size.
@@ -131,6 +132,28 @@ class EventBus:
                  "payload": _safe(ev.payload)} for ev in events]
 
 
+class BusTap:
+    """Collect events from chosen topics for replay on ANOTHER bus —
+    the bridge half of the multi-process gateway (gateway/procpump.py):
+    a pump subprocess taps its local bus, ships :meth:`drain`'s JSON-
+    safe ``(topic, payload)`` pairs in its step reply, and the
+    conductor republishes them fleet-wide tagged with the pump name.
+    Payloads are summarized (:func:`_safe`) at capture, because they
+    are about to cross a process boundary as JSON."""
+
+    def __init__(self, bus: EventBus, topics):
+        self._pending: list = []
+        for topic in topics:
+            bus.subscribe(topic, self._on_event)
+
+    def _on_event(self, ev: Event) -> None:
+        self._pending.append((ev.topic, _safe(ev.payload)))
+
+    def drain(self) -> list:
+        out, self._pending = self._pending, []
+        return out
+
+
 #: journal_dump summarization bounds — wide enough that every payload
 #: the control plane publishes today survives intact; tight enough
 #: that a pathological payload cannot balloon a flight-recorder dump
@@ -163,4 +186,4 @@ def _safe(value, depth: int = _SAFE_DEPTH):
     return repr(value)[:_SAFE_REPR]
 
 
-__all__ = ["Event", "EventBus"]
+__all__ = ["BusTap", "Event", "EventBus"]

@@ -1,29 +1,37 @@
 """Fleet gateway over port engines: SLO-aware admission, prefix-affinity
 routing, and health-driven drain over a pool of ``ServingEngine``\\ s.
 
-The port of ``k8s_dra_driver_tpu/gateway/`` (admission, routers,
+The port of ``k8s_dra_driver_tpu/gateway/``: admission, routers,
 replica lifecycle, ``FleetGateway``, capacity calibration and the
-offered-load probe).  The sharded and multi-process gateways, the wire
-codec, the outcome store, the load generator, the burn-rate engine and
-the other probes wait for later slices (ROADMAP Queue A item 5).
+offered-load probe; the in-process sharded tier (sharded.py), the
+open-loop load generator (loadgen.py) and the control-plane ceiling
+probe over no-op engines (ctlprobe.py); and the multi-process gateway:
+pump processes and their conductor (procpump.py, imported on its own:
+it is also the worker's ``-m`` module), the wire codec (wire.py), the
+durable outcome journal (outcome_store.py) and the scaling probe
+(procprobe.py).  The burn-rate engine and the observability probe are
+not ported yet.
 """
 
 from .admission import (AdmissionError, AdmissionQueue, GatewayRequest,
                         FINISHED, REJECTED_DUPLICATE, REJECTED_FULL,
                         REJECTED_INVALID, SHED_EXPIRED)
 from .calibrate import Capacity, calibrate_capacity
+from .ctlprobe import NullEngine, control_plane_probe
 from .frontend import FleetGateway
 from .probe import gateway_probe
 from .replica import (EngineReplica, ReplicaManager, ROLE_DECODE,
                       ROLE_PREFILL, ROLE_UNIFIED)
 from .router import (LeastLoadedRouter, PrefixAffinityRouter,
                      RoundRobinRouter, Router)
+from .sharded import ShardedGateway
 
 __all__ = [
     "AdmissionError", "AdmissionQueue", "Capacity", "EngineReplica",
     "FINISHED", "FleetGateway", "GatewayRequest", "LeastLoadedRouter",
-    "PrefixAffinityRouter", "REJECTED_DUPLICATE", "REJECTED_FULL",
+    "NullEngine", "PrefixAffinityRouter", "REJECTED_DUPLICATE", "REJECTED_FULL",
     "REJECTED_INVALID", "ROLE_DECODE", "ROLE_PREFILL", "ROLE_UNIFIED",
     "ReplicaManager", "RoundRobinRouter", "Router", "SHED_EXPIRED",
-    "calibrate_capacity", "gateway_probe",
+    "ShardedGateway", "calibrate_capacity", "control_plane_probe",
+    "gateway_probe",
 ]

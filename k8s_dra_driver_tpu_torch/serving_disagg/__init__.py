@@ -1,8 +1,9 @@
 """Disaggregated prefill/decode serving with a fleet-wide KV/prefix
 index, over port engines.
 
-The port of ``k8s_dra_driver_tpu/serving_disagg/`` (the wire codec,
-``wirekv.py``, waits for the multi-process gateway).  Dedicated prefill
+The port of ``k8s_dra_driver_tpu/serving_disagg/``, with the wire
+codec ``wirekv.py`` the multi-process gateway ships blocks through
+(gateway/procpump.py).  Dedicated prefill
 replicas turn arrivals into exported KV blocks (models/serving.py
 ``prefill_export``), decode replicas adopt them after a copy into fresh
 storage (migrate.py) and generate, and the fleet prefix index

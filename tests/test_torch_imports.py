@@ -5,9 +5,13 @@ chip_bwd_rounding.py), imports JAX
 along), prometheus_client (absent on the card's machine; the port's
 utils/metrics.py carries its own registry) or anything of the JAX
 package k8s_dra_driver_tpu — not even its numpy-only modules.  A static
-AST scan, so imports hidden inside functions are caught too."""
+AST scan, so imports hidden inside functions are caught too.  The
+multi-process gateway starts its pumps with ``python -m <module>`` and
+reads trace fixtures from disk: no string in the port names a module of
+the JAX package, and the fixtures it reads are its own."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -67,7 +71,13 @@ def test_scan_covers_the_port():
                 "gateway/frontend.py", "gateway/calibrate.py",
                 "gateway/probe.py", "serving_disagg/index.py",
                 "serving_disagg/migrate.py", "serving_disagg/pool.py",
-                "serving_disagg/router.py", "serving_disagg/probe.py"):
+                "serving_disagg/router.py", "serving_disagg/probe.py",
+                "serving_disagg/wirekv.py", "gateway/wire.py",
+                "gateway/outcome_store.py", "gateway/sharded.py",
+                "gateway/ctlprobe.py", "gateway/loadgen.py",
+                "gateway/procpump.py", "gateway/procprobe.py",
+                "cluster/faults.py", "coordclient/client.py",
+                "utils/backoff.py", "sim/clock.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 
@@ -90,3 +100,29 @@ def test_scanner_catches_forbidden_forms(tmp_path):
     bad = [n for n in imported_modules(src) if forbidden(n)]
     assert sorted(bad) == ["jax.numpy", "k8s_dra_driver_tpu.serving_kv",
                            "optax", "prometheus_client"]
+
+
+def module_strings(path: Path) -> list[str]:
+    """String constants that are whole dotted module names of the JAX
+    package (what ``python -m`` or ``import_module`` would load)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and re.fullmatch(r"k8s_dra_driver_tpu(\.\w+)+", n.value)]
+
+
+def test_no_jax_module_strings():
+    """The pump workers are the port's own module, and no other string
+    names a JAX package module to spawn."""
+    bad = {p.relative_to(ROOT).as_posix(): module_strings(p)
+           for p in scanned_files() if module_strings(p)}
+    assert not bad, bad
+    src = (PORT / "gateway" / "procpump.py").read_text()
+    assert '"k8s_dra_driver_tpu_torch.gateway.procpump"' in src
+
+
+def test_port_reads_its_own_fixtures():
+    from k8s_dra_driver_tpu_torch.gateway import loadgen
+    assert PORT in loadgen.TRACE_DIR.parents
+    for name in loadgen.TRACE_NAMES:
+        assert (loadgen.TRACE_DIR / f"{name}.json").is_file()
