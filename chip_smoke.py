@@ -198,6 +198,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bit-equal and its stream equal (encode, JSON and decode ms beside a
     same-card copy); the multi-process scaling probe with null engines
     at 1, 2 and 4 pumps (printed, not gated);
+18e. serving observability (``phase_observability``, params made in
+    the phase): a 154M bf16 paged engine's ``MemWatch`` ledger against
+    the card allocator's rise over its build (``model_params`` +
+    ``paged_kv_pool`` equal to the tensors' ``numel x element_size``
+    exactly, the rise within LEDGER_TOL of the ledger, source
+    ``"device"``), s8_r24 drained through it (teacher-forced, exact K1
+    and K2 launches, the ledger unchanged, the allocator's residue
+    printed); ``observatory_probe`` at bench.py's tiny request counts
+    with the 154M as its engine (``valid``, source ``"device"``, the
+    merged digest count = the per-pump sum; ``digest_overhead_x``
+    printed); ``paged_kv_probe`` at the 154M in f32 (``byte_equal``, CoW
+    share > 0, no allocation failure, concurrency above contiguous,
+    exact K1 and K2 launches) and in bf16 (printed);
+18f. the fleet control loop (``phase_fleet_control``): (a)
+    ``FleetReconciler`` over f32 paged 154M replicas on allocation
+    labels 0-3 of this card, with the burn-rate engine, ``MemWatch`` and
+    a tracer: a burst under a tight deadline, calm, a label marked
+    unhealthy and healed (exactly once, 24/24 byte-equal to one f32
+    paged engine, scale-up, drain-then-retire, the ledger's owners = the
+    live replicas' labels every tick, one reap and one heal, MemWatch's
+    units = the live replicas every step, a burn-rate alert and none in
+    a calm control run, exact K1 and K2 launches; the critical path's
+    parts = its wall, ``export_chrome`` deterministic, ``/metrics`` with
+    the fleet, gateway and MemWatch families); (b)
+    ``MultiTenantReconciler`` over two bf16 tenants (adapter evictions
+    before any chip action, reclaims only from the low tenant and never
+    below its floor, a grant and a calm release, exactly once in both,
+    exact K1 and K2 launches; ``fairshare_error`` printed);
 19. int8 MoE serving: the moe_heavy drain in f32 on ``quantize_params``
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
@@ -222,6 +250,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -1568,10 +1597,7 @@ def serving_model():
     cfg = serving_config()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-    n_params = sum(p.numel() for p in [params["embed"], params["unembed"],
-                                       params["ln_f"]]
-                   + [t for layer in params["layers"]
-                      for t in layer.values()])
+    n_params = sum(p.numel() for p in param_tensors(params))
     print(f"model: 154M serving config, {n_params} parameters, bf16",
           flush=True)
     return cfg, params
@@ -3339,6 +3365,646 @@ def phase_procfleet(params, cfg, reqs, fa, pa) -> dict:
     return total
 
 
+#: the observatory probe's request counts (bench.py TINY_OBS_KWARGS)
+OBS_PROBE_KWARGS = dict(n_requests=96, reps=2, pumps=2, replicas=2, slots=4,
+                        queue_capacity=48)
+#: allowed gap between the allocator's rise over an engine build and the
+#: MemWatch ledger of that engine (phase_observability (a))
+LEDGER_TOL = 0.05
+#: the control loop's pump-step clock: fake seconds a cycle
+CTL_DT = 0.5
+#: the burst's deadline in fake seconds: every request is dispatched
+#: within it (three replicas of 8 slots take s8_r24 in three cycles),
+#: none can finish within it (48 tokens take 48 cycles)
+CTL_TIGHT_SLO_S = 10.0
+#: the cycles one control-loop scenario may take before it fails
+CTL_MAX_CYCLES = 400
+#: rank and resident slots of the low tenant's adapter pools
+#: (phase_fleet_control (b))
+MT_RANK = 16
+MT_ADAPTERS = 3
+
+
+def allocated() -> int:
+    """Live tensor bytes of the card's caching allocator, after a
+    synchronize."""
+    torch.cuda.synchronize()
+    return int(torch.cuda.memory_stats()["allocated_bytes.all.current"])
+
+
+def param_tensors(params) -> list:
+    return [params["embed"], params["unembed"], params["ln_f"]] + [
+        t for layer in params["layers"] for t in layer.values()]
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+#: the dispatch labels of the fills that run K1: a fresh paged fill
+#: (``prefill``) and a contiguous engine's padded fresh group
+#: (``prefill_adopt_rows``); suffix fills over cached rows read the
+#: cache without K1
+K1_FILLS = ("prefill", "prefill_adopt_rows")
+
+
+def kv_kernel_counts(cfg, counts, labels, label) -> str:
+    """``fleet_kernels`` over K1_FILLS; returns the line that says what
+    it held."""
+    steps = fleet_kernels(cfg, counts, labels, label, K1_FILLS)
+    fills = sum(labels.get(k, 0) for k in K1_FILLS)
+    return (f"K2 {counts['paged_decode']} = {cfg.n_layers} x {steps} paged "
+            f"steps, K1 {counts['flash_fwd']} = {cfg.n_layers} x {fills} "
+            f"fresh fills (gated)")
+
+
+def phase_observability(cfg, reqs, fa, pa) -> dict:
+    """Serving observability on the card at the 154M, params made here
+    from generator seed 0.
+
+    (a) Memory ledger: the allocator's live bytes
+    (``allocated_bytes.all.current``) read before and after building a
+    bf16 paged engine of 8 slots, then ``MemWatch().account_engine``.
+    Gated: ``model_params`` + ``paged_kv_pool`` equal a ``numel x
+    element_size`` sum over the engine's parameter and pool tensors,
+    exactly; the allocator's rise within LEDGER_TOL of the ledger total
+    (both printed, and the ratio); the source ``"device"``.  Then s8_r24
+    drained through that engine: every stream within TF_MARGIN
+    teacher-forced, K2 n_layers a paged step and K1 n_layers a fresh
+    prefill, the ledger unchanged; what the allocator holds beyond the
+    ledger after the drain printed, with the engine's device mirrors
+    named.  (b) ``observatory_probe`` at bench.py's TINY_OBS_KWARGS
+    request counts with the 154M in bf16 as its accounted engine: gated
+    ``valid``, source ``"device"``, the merged digest count equal to the
+    per-pump counts' sum; printed ``digest_overhead_x``.  (c)
+    ``paged_kv_probe`` at the 154M in f32 (gated: ``byte_equal``, CoW
+    share above 0, no allocation failure, paged concurrency above
+    contiguous; K2 n_layers a paged step and K1 n_layers a fresh prefill)
+    and in bf16 (printed).  Returns the phase's K1 and K2 launches."""
+    from k8s_dra_driver_tpu_torch.gateway.obsprobe import observatory_probe
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    from k8s_dra_driver_tpu_torch.serving_kv import probe as kv_probe
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    from k8s_dra_driver_tpu_torch.utils.memwatch import MemWatch, tree_nbytes
+    t_phase = time.perf_counter()
+    total = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # (a) the ledger against the allocator: freed blocks cached by
+    # earlier phases are returned first, so the build's tensors get
+    # blocks of their own (512-byte rounding) instead of reusing larger
+    # cached ones whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K2's split-merge workspace and arrival counters, kept per stream
+    # and grown on demand: what the drain adds there is no engine's
+    k2_before = sum(nbytes(pair) for pair in pa._buffers.values())
+    before = allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    eng = ServingEngine(params, cfg, slots=8, top_k=50, kv_layout="paged")
+    after = allocated()
+    mw = MemWatch()
+    mw.account_engine(eng, "r0")
+    snap = mw.snapshot()
+    comps = dict(snap["components"])
+    want = {"model_params/r0": nbytes(param_tensors(params)),
+            "paged_kv_pool/r0": nbytes(eng.pool.tensors())}
+    if comps != want:
+        fail(f"obs (a): ledger {comps} != the tensors' bytes {want}")
+    if snap["device_source"] != "device":
+        fail(f"obs (a): MemWatch read its {snap['device_source']!r}, not "
+             f"the card's allocator")
+    ledger = snap["accounted_bytes"]
+    rise = after - before
+    ratio = rise / ledger
+    if abs(ratio - 1.0) > LEDGER_TOL:
+        fail(f"obs (a): the allocator rose {rise} bytes over the engine "
+             f"build, the ledger holds {ledger} (ratio {ratio:.6f}, "
+             f"allowed 1 +- {LEDGER_TOL})")
+    print(f"obs (a) memory ledger ({card_line()}): 154M bf16 paged engine, "
+          f"model_params {want['model_params/r0']} + paged_kv_pool "
+          f"{want['paged_kv_pool/r0']} = {ledger} bytes (= numel x "
+          f"element_size, gated); allocator rise {rise} bytes, ratio "
+          f"{ratio:.6f} (uncapped; within {LEDGER_TOL}, gated); "
+          f"accounted_frac of the whole allocator "
+          f"{snap['accounted_frac']:.4f} over "
+          f"{snap['device_bytes_in_use']} bytes (source "
+          f"{snap['device_source']})", flush=True)
+    for r in reqs:
+        eng.submit(r)
+    zero_serving_counts(fa, pa)
+    t0 = time.perf_counter()
+    with dispatch.track() as t:
+        done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_snapshot(fa, pa)
+    add(counts)
+    require_fwd_route(fa, "obs (a)", True)
+    if len(done) != len(reqs):
+        fail(f"obs (a): {len(done)} of {len(reqs)} requests finished")
+    worst = teacher_forced(params, cfg, done, reqs)
+    check = kv_kernel_counts(cfg, counts, t.by_label, "obs (a)")
+    again = MemWatch()
+    again.account_engine(eng, "r0")
+    if again.snapshot()["components"] != comps:
+        fail(f"obs (a): the ledger moved over the drain: "
+             f"{again.snapshot()['components']} != {comps}")
+    held = allocated() - before
+    mirrors = {name: tree_nbytes(getattr(eng, name, None))
+               for name in ("_table_dev", "_kv_dense_memo", "_lora_dev")}
+    k2_grown = sum(nbytes(pair) for pair in pa._buffers.values()) - k2_before
+    print(f"obs (a) after draining s8_r24 ({wall:.3f} s): ledger unchanged "
+          f"(gated); teacher-forced worst gap {worst:.4f} <= {TF_MARGIN} "
+          f"(gated); {check}; the allocator holds {held} bytes over the "
+          f"pre-build reading, {held - ledger} beyond the ledger: K2's "
+          f"workspace and counters grew {k2_grown}, the engine's device "
+          f"mirrors {mirrors}, the rest "
+          f"{held - ledger - k2_grown - sum(mirrors.values())} (no engine "
+          f"tensor: a matrix library's workspace made at this process's "
+          f"first product and the like)", flush=True)
+    del eng, params, done, mw, again
+
+    # (b) the observatory probe
+    probe = observatory_probe(**OBS_PROBE_KWARGS, cfg=cfg, device="cuda")
+    if not probe["valid"]:
+        fail(f"obs (b): observatory_probe not valid: {probe}")
+    if probe["hbm_device_source"] != "device":
+        fail(f"obs (b): the probe's ledger read {probe['hbm_device_source']}")
+    if probe["merged_digest_count"] != sum(probe["per_pump_counts"]):
+        fail(f"obs (b): merged count {probe['merged_digest_count']} != the "
+             f"per-pump counts {probe['per_pump_counts']}")
+    print(f"obs (b) observatory probe ({card_line()}): valid (gated), "
+          f"digest_overhead_x {probe['digest_overhead_x']} (ratios "
+          f"{probe['digest_ratios']}), merged count "
+          f"{probe['merged_digest_count']} = sum of per-pump "
+          f"{probe['per_pump_counts']} (gated), merged quantiles "
+          f"{probe['merged_quantiles']}; the 154M engine's ledger "
+          f"{probe['hbm_accounted_bytes']} bytes, accounted_frac "
+          f"{probe['hbm_accounted_frac']} of {probe['hbm_device_bytes']} "
+          f"allocated (source {probe['hbm_device_source']}, gated), "
+          f"components {probe['hbm_components']}", flush=True)
+
+    # (c) the paged-KV probe, f32 (gated) then bf16 (printed)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        pcfg = dataclasses.replace(cfg, dtype=dtype)
+        zero_serving_counts(fa, pa)
+        # the concurrency wave's two drains (paged, then contiguous) are
+        # the probe's first two pumps: keep them to count equal streams
+        waves, pump = [], kv_probe._pump
+        kv_probe._pump = lambda eng: waves.append(pump(eng)) or waves[-1]
+        try:
+            with dispatch.track() as t:
+                out = kv_probe.paged_kv_probe(cfg=pcfg, device="cuda")
+        finally:
+            kv_probe._pump = pump
+        torch.cuda.synchronize()
+        paged_done, contig_done = waves[0][0], waves[1][0]
+        equal = sum(np.array_equal(f.tokens, contig_done[u].tokens)
+                    for u, f in paged_done.items())
+        counts = kernel_snapshot(fa, pa)
+        add(counts)
+        require_fwd_route(fa, f"obs (c) {name}", dtype == torch.bfloat16)
+        line = (f"obs (c) paged-KV probe {name} ({card_line()}): "
+                f"pg_max_concurrent_x {out['pg_max_concurrent_x']} (paged "
+                f"{out['paged_peak_active']} / contiguous "
+                f"{out['contig_peak_active']} over {out['budget_rows']} "
+                f"rows), pg_cow_shared_frac {out['pg_cow_shared_frac']}, "
+                f"alloc_failures {out['alloc_failures']}, byte_equal "
+                f"{out['byte_equal']} ({equal}/{len(paged_done)} wave "
+                f"streams equal), pg_decode_tok_s_ratio "
+                f"{out['pg_decode_tok_s_ratio']} (paged "
+                f"{out['paged_tok_s']} / contiguous {out['contig_tok_s']} "
+                f"tokens/s), wall {out['wall_s']} s")
+        if dtype == torch.float32:
+            if not (out["byte_equal"] and out["pg_cow_shared_frac"] > 0
+                    and out["alloc_failures"] == 0
+                    and out["pg_max_concurrent_x"] > 1):
+                fail(f"obs (c): f32 probe gates failed: {out}")
+            line += "; gates held; " + kv_kernel_counts(
+                cfg, counts, t.by_label, "obs (c) f32")
+        else:
+            line += f" (not gated); K1 {counts['flash_fwd']}, K2 " \
+                    f"{counts['paged_decode']}"
+        print(line, flush=True)
+    print(f"obs phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def control_loop(make_engine, waves, slo_s, fault=True):
+    """The 1x1 fleet loop: ``FleetReconciler`` over a ``FleetGateway``
+    of one replica at start (``auto_replace=False``), ``ChipLedger([0, 1,
+    2, 3])`` as allocation labels (every replica lives on this card),
+    ``health_source = ledger.current_unhealthy``, the injected clock
+    driven as ``gw.step(); rec.tick()``, ``SloBurnEngine`` and
+    ``MemWatch`` on the gateway, a ``Tracer`` wired through the pool.
+    ``waves[0]`` is submitted at once under ``slo_s`` and pumped until
+    the pool is back at one replica; then (``fault``) the last live
+    replica's label is marked unhealthy, ``waves[1]`` submitted, and the
+    label healed once the wave is dispatched elsewhere; then pumped
+    until idle.  Returns (gateway, reconciler, tracer, record): per
+    tick the ledger's owned labels against the live replicas' labels,
+    per pump step MemWatch's units against the live replicas, the heals
+    taken, the alerts and the burn engine."""
+    from k8s_dra_driver_tpu_torch.cluster.bus import EventBus
+    from k8s_dra_driver_tpu_torch.fleet import (ChipLedger, FleetPolicy,
+                                                FleetReconciler, PolicyConfig)
+    from k8s_dra_driver_tpu_torch.gateway import (FleetGateway, ReplicaManager,
+                                                  SloBurnEngine)
+    from k8s_dra_driver_tpu_torch.sim.clock import VirtualClock
+    from k8s_dra_driver_tpu_torch.utils.memwatch import MemWatch
+    from k8s_dra_driver_tpu_torch.utils.tracing import Tracer
+    clock = VirtualClock()
+    health: dict = {}
+    ledger = ChipLedger([0, 1, 2, 3], health_source=lambda: dict(health))
+    healed = []
+    take = ledger.take_healed
+
+    def take_healed():
+        out = take()
+        if out:
+            healed.append(sorted(out))
+        return out
+
+    ledger.take_healed = take_healed
+    mgr = ReplicaManager(make_engine, replicas=1,
+                         health_source=ledger.current_unhealthy,
+                         chip_of=lambda name: 3, depth_bound=8)
+    bus = EventBus(seed=0)
+    tracer = Tracer(bus=bus, clock=clock)
+    mw = MemWatch()
+    burn = SloBurnEngine()
+    gw = FleetGateway(mgr, queue_capacity=64, clock=clock,
+                      auto_replace=False, bus=bus, tracer=tracer, burn=burn,
+                      memwatch=mw, tenant="serve")
+    rec = FleetReconciler(gw, ledger=ledger, clock=clock, tracer=tracer,
+                          policy=FleetPolicy(PolicyConfig(
+                              queue_high=4, up_after=1, down_after=3,
+                              min_replicas=1, max_replicas=3)))
+    alerts = []
+    bus.subscribe("alert", lambda ev: alerts.append(dict(ev.payload)))
+    owners, units = [], []
+
+    def live():
+        return [r for r in mgr.replicas if r.state != "dead"]
+
+    def cycle():
+        gw.step()
+        units.append((sorted({k.split("/")[1] for k in
+                              mw.snapshot()["components"]}),
+                      sorted(r.name for r in live())))
+        rec.tick()
+        owners.append((sorted(c for c, o in ledger.owners.items() if o),
+                       sorted(r.chip for r in live())))
+        clock.t += CTL_DT
+
+    def pump_until(done):
+        for _ in range(CTL_MAX_CYCLES):
+            if done():
+                return
+            cycle()
+        fail(f"control loop: not settled in {CTL_MAX_CYCLES} cycles "
+             f"(events {rec.events})")
+
+    def idle():
+        return not gw.pending() and not any(r.in_flight for r in live())
+
+    for r in waves[0]:
+        g = gw.submit(r, slo_s=slo_s)
+        if g.status != "queued":
+            fail(f"control loop: {r.uid} refused at the door ({g.status})")
+    pump_until(lambda: idle() and len(live()) == 1)
+    if fault:
+        sick = live()[-1]
+        health[sick.chip] = "uncorrectable ECC (scripted)"
+        for r in waves[1]:
+            gw.submit(r, slo_s=600.0)
+        # heal once the sick replica is reaped and the wave is placed
+        # on the replica that took its place
+        pump_until(lambda: sick not in mgr.replicas and not gw.pending()
+                   and all(r.uid in gw.outcomes or any(
+                       r.uid in x.in_flight for x in live())
+                       for r in waves[1]))
+        health.clear()
+    pump_until(idle)
+    for _ in range(2):
+        cycle()             # the heal is taken on the next tick
+    return gw, rec, tracer, dict(owners=owners, units=units, healed=healed,
+                                 alerts=alerts, burn=burn, mw=mw)
+
+
+def check_control_loop(gw, rec, record, reqs, label, n_replicas_max=3):
+    """The 1x1 loop's gates (phase_fleet_control (a)); returns the
+    events' kinds."""
+    kinds = [k for _, k, _ in rec.events]
+    if "scale_up" not in kinds or "scale_down" not in kinds:
+        fail(f"{label}: no scale-up or no scale-down in {rec.events}")
+    downs = [i["replica"] for _, k, i in rec.events if k == "scale_down"]
+    retired = [i["replica"] for _, k, i in rec.events if k == "retired"]
+    if sorted(downs) != sorted(retired):
+        fail(f"{label}: drained {downs} but retired {retired}")
+    reaped = [i for _, k, i in rec.events if k == "reap_dead"]
+    if len(reaped) != 1:
+        fail(f"{label}: {len(reaped)} replicas reaped, expected the sick "
+             f"one once: {rec.events}")
+    if record["healed"] != [[reaped[0]["chip"]]]:
+        fail(f"{label}: heals taken {record['healed']}, expected "
+             f"[[{reaped[0]['chip']}]] once")
+    bad = [(t, o) for t, o in enumerate(record["owners"]) if o[0] != o[1]]
+    if bad:
+        fail(f"{label}: ledger owners != live replicas' labels at ticks "
+             f"{bad[:3]}")
+    bad = [(t, u) for t, u in enumerate(record["units"]) if u[0] != u[1]]
+    if bad:
+        fail(f"{label}: MemWatch units != live replicas at steps {bad[:3]}")
+    return kinds
+
+
+def phase_fleet_control(cfg, reqs, fa, pa) -> dict:
+    """The fleet control loop on the card at the 154M, params made here
+    from generator seed 0.
+
+    (a) ``FleetReconciler`` over a ``FleetGateway`` of 8-slot f32 paged
+    engines (``control_loop``): the first 16 requests of s8_r24 as a
+    burst under a CTL_TIGHT_SLO_S deadline, calm, then the last live
+    replica's label marked unhealthy with the last 8 submitted, and
+    healed.  Gated: every uid finished exactly once; every stream
+    byte-equal to one f32 paged engine draining s8_r24; at least one
+    scale-up and every scale-down drained then retired; the ledger's
+    owned labels equal the live replicas' after every tick; the sick
+    replica reaped once and the heal taken once; MemWatch's units equal
+    the live replicas after every pump step; at least one burn-rate
+    alert, and none in a control run of the same burst under a 600 s
+    deadline; K2 n_layers a paged step and K1 n_layers a fresh prefill.
+    Then: ``critical_path`` of every uid that was never requeued sums
+    its parts to its wall within 1e-6 s; ``export_chrome`` twice is
+    byte-equal; ``rec.serve_metrics`` serves ``tpu_fleet_ticks_total``,
+    ``tpu_gateway_queue_depth`` and ``tpu_mem_accounted_frac`` on one GET
+    of ``/metrics``.  The action timeline is printed.  (b)
+    ``MultiTenantReconciler`` over two serving tenants of 8-slot bf16
+    paged engines (``two_tenant_loop``): hi (priority 2, floor 1) bursts
+    s8_r24 against lo (priority 1, floor 1, two
+    replicas whose engines each carry an ``AdapterPool`` of MT_ADAPTERS
+    cold rank-MT_RANK adapters, quota one slot).  Gated: every adapter
+    eviction before any chip action; every reclaim taken from lo for hi,
+    lo never below its floor; a grant to hi; a release in calm; every
+    uid of both tenants finished exactly once; K2 n_layers a paged step
+    and K1 n_layers a fresh prefill.  ``fairshare_error()`` printed.
+    Returns the phase's K1 and K2 launches."""
+    import urllib.request
+
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    from k8s_dra_driver_tpu_torch.utils.tracing import (critical_path,
+                                                        export_chrome)
+    t_phase = time.perf_counter()
+    total = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = init_params(cfg32, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+
+    def f32_paged(name=None):
+        return ServingEngine(params32, cfg32, slots=8, top_k=50,
+                             kv_layout="paged")
+
+    oracle, counts, _, _ = drain(ServingEngine, params32, cfg32, reqs, fa, pa,
+                                 "control oracle f32 paged", top_k=50,
+                                 kv_layout="paged")
+    add(counts)
+    waves = (reqs[:16], reqs[16:])
+
+    # (a) the 1x1 loop, then its calm control run
+    zero_serving_counts(fa, pa)
+    t0 = time.perf_counter()
+    with dispatch.track() as t:
+        gw, rec, tracer, record = control_loop(f32_paged, waves,
+                                               CTL_TIGHT_SLO_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_snapshot(fa, pa)
+    add(counts)
+    require_fwd_route(fa, "control (a)", False)
+    fleet_exactly_once(gw, reqs, "control (a)")
+    equal = fleet_byte_equal(gw, oracle, "control (a)", gate=True)
+    kinds = check_control_loop(gw, rec, record, reqs, "control (a)")
+    check = kv_kernel_counts(cfg, counts, t.by_label, "control (a)")
+    if not record["alerts"]:
+        fail("control (a): the burst under a tight deadline fired no "
+             "burn-rate alert")
+    timeline = [(t_, k, i.get("replica"), i.get("chip"))
+                for t_, k, i in rec.events]
+    print(f"control (a) 1x1 loop ({card_line()}): f32 paged, exactly once "
+          f"{len(reqs)}/{len(reqs)}, {equal}/{len(reqs)} streams = the f32 "
+          f"paged oracle (gated); {check}; {len(record['owners'])} ticks in "
+          f"{wall:.3f} s wall; ledger owners = live replicas' labels every "
+          f"tick, MemWatch units = live replicas every step, reaped once, "
+          f"healed once {record['healed']} (gated); burn-rate alerts "
+          f"{len(record['alerts'])} (first {record['alerts'][0]})",
+          flush=True)
+    print(f"control (a) action timeline (fake s, kind, replica, label): "
+          f"{timeline}", flush=True)
+    parts = ("queue_wait", "prefill", "migrate", "decode", "drain_gap")
+    worst, longest = 0.0, None
+    for uid, g in gw.outcomes.items():
+        if g.requeues:
+            continue
+        cp = critical_path(tracer.spans, f"t-{uid}")
+        if cp["spans"] < 2:
+            fail(f"control (a): {uid} has {cp['spans']} spans")
+        worst = max(worst, abs(sum(cp[p] for p in parts) - cp["total"]))
+        if longest is None or cp["total"] > longest[1]["total"]:
+            longest = (uid, cp)
+    if worst > 1e-6:
+        fail(f"control (a): a critical path's parts miss its wall by "
+             f"{worst} s")
+    first, second = export_chrome(tracer.spans), export_chrome(tracer.spans)
+    if first != second:
+        fail("control (a): two Chrome-trace exports differ")
+    endpoint = rec.serve_metrics("127.0.0.1:0")
+    try:
+        with urllib.request.urlopen(f"http://{endpoint.address}/metrics",
+                                    timeout=10) as resp:
+            body = resp.read().decode()
+    finally:
+        endpoint.stop()
+    for family in ("tpu_fleet_ticks_total", "tpu_gateway_queue_depth",
+                   "tpu_mem_accounted_frac"):
+        if f"# TYPE {family}" not in body:
+            fail(f"control (a): /metrics lacks {family}")
+    frac = metric_value(body, r"^tpu_mem_accounted_frac (\S+)$")
+    print(f"control (a) spans: {len(tracer.spans)} (kept), critical path "
+          f"parts = wall within {worst:.2e} s over every unrequeued uid "
+          f"(gated), longest {longest[0]} {longest[1]}; export_chrome "
+          f"{len(first)} bytes, twice equal (gated); /metrics {len(body)} "
+          f"bytes with the fleet, gateway and MemWatch families (gated), "
+          f"tpu_mem_accounted_frac {frac}", flush=True)
+    del gw, rec, tracer, record, first, second, body
+
+    zero_serving_counts(fa, pa)
+    gw, rec, _, record = control_loop(f32_paged, waves, 600.0, fault=False)
+    torch.cuda.synchronize()
+    add(kernel_snapshot(fa, pa))
+    if record["alerts"]:
+        fail(f"control (a): the calm control run fired {record['alerts']}")
+    print(f"control (a) calm control run: 600 s deadline, no burn-rate "
+          f"alert (gated), {len(gw.outcomes)} outcomes, actions "
+          f"{[k for _, k, _ in rec.events]}", flush=True)
+    del gw, rec, record, params32, oracle
+
+    # (b) two tenants
+    zero_serving_counts(fa, pa)
+    t0 = time.perf_counter()
+    with dispatch.track() as t:
+        out = two_tenant_loop(cfg, reqs)
+    torch.cuda.synchronize()
+    counts = kernel_snapshot(fa, pa)
+    add(counts)
+    require_fwd_route(fa, "control (b)", True)
+    check = kv_kernel_counts(cfg, counts, t.by_label, "control (b)")
+    print(f"control (b) two tenants ({card_line()}): bf16 paged, "
+          f"{out['line']}; {check}; {time.perf_counter() - t0:.3f} s wall",
+          flush=True)
+    print(f"control (b) action timeline (fake s, kind, tenant, replica): "
+          f"{out['timeline']}", flush=True)
+    print(f"control phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
+
+
+def two_tenant_loop(cfg, reqs):
+    """``MultiTenantReconciler`` over two serving tenants on labels 0-3
+    (``TopologyBinPacker`` of one-label domains): hi (priority 2, quota
+    3, floor 1) with one replica on label 3, lo (priority 1, quota 3,
+    floor 1, adapter quota one slot) with two on labels 0 and 1, each of
+    lo's engines carrying its own ``AdapterPool`` of MT_ADAPTERS cold
+    adapters of tenant lo.  hi takes ``reqs`` as a burst under
+    ``burst_slo_s``, lo a third of them; pumped until both are idle and
+    hi is back at its floor.  Fails on a broken gate; returns the
+    printed line and the timeline."""
+    from k8s_dra_driver_tpu_torch.fleet import (ChipLedger, MtConfig,
+                                                MultiTenantReconciler,
+                                                ServingTenant, TenantRegistry,
+                                                TenantSpec, TopologyBinPacker)
+    from k8s_dra_driver_tpu_torch.gateway import FleetGateway, ReplicaManager
+    from k8s_dra_driver_tpu_torch.models.serving import Request, ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    from k8s_dra_driver_tpu_torch.serving_lora import (AdapterManifest,
+                                                       AdapterPool,
+                                                       make_adapter)
+    from k8s_dra_driver_tpu_torch.sim.clock import VirtualClock
+    clock = VirtualClock()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+
+    def lo_pool():
+        pool = AdapterPool(cfg, MT_RANK, n_resident=MT_ADAPTERS)
+        for i in range(MT_ADAPTERS):
+            name = f"lo{i}"
+            pool.register(AdapterManifest(
+                name, MT_RANK, tenant="lo",
+                source=make_adapter(cfg, MT_RANK, seed=500 + i)))
+            pool.release(pool.acquire(name))
+        return pool
+
+    chips = {"hi": {"r0": 3}, "lo": {"r0": 0, "r1": 1}}
+
+    def gateway(tenant, n, pools):
+        mgr = ReplicaManager(
+            lambda name: ServingEngine(
+                params, cfg, slots=8, top_k=50, kv_layout="paged",
+                adapter_pool=lo_pool() if pools else None),
+            replicas=n, chip_of=chips[tenant].get, depth_bound=8)
+        return FleetGateway(mgr, queue_capacity=64, clock=clock,
+                            auto_replace=False, tenant=tenant)
+
+    gws = {"hi": gateway("hi", 1, False), "lo": gateway("lo", 2, True)}
+    bytes_per_slot = gws["lo"].manager.replicas[0].engine \
+        .adapter_pool.bytes_per_slot
+    registry = TenantRegistry(capacity=4)
+    registry.add(TenantSpec("hi", priority=2, quota=3, floor=1),
+                 ServingTenant(gws["hi"]))
+    registry.add(TenantSpec("lo", priority=1, quota=3, floor=1,
+                            adapter_quota_bytes=bytes_per_slot),
+                 ServingTenant(gws["lo"]))
+    ledger = ChipLedger([0, 1, 2, 3])
+    rec = MultiTenantReconciler(
+        registry, ledger=ledger,
+        packer=TopologyBinPacker(ledger, domain_size=1),
+        config=MtConfig(queue_high=4, up_after=1, down_after=3),
+        clock=clock)
+    lo_reqs = [Request(uid=f"lo-{r.uid}", prompt=r.prompt, max_new=r.max_new,
+                       temperature=r.temperature, seed=r.seed)
+               for r in reqs[::3]]
+    held, errs = [], []
+
+    def idle(gw):
+        return not gw.pending() and not any(
+            r.in_flight for r in gw.manager.replicas)
+
+    def pump_until(done):
+        for _ in range(CTL_MAX_CYCLES):
+            if done():
+                return
+            for gw in gws.values():
+                gw.step()
+            rec.tick()
+            held.append({t: sorted(registry.workload(t).chips())
+                         for t in gws})
+            errs.append(rec.fairshare_error())
+            clock.t += CTL_DT
+        fail(f"control (b): not settled in {CTL_MAX_CYCLES} cycles "
+             f"(events {rec.events})")
+
+    for r in lo_reqs:
+        gws["lo"].submit(r, slo_s=600.0)
+    for r in reqs:
+        gws["hi"].submit(r, slo_s=600.0)
+    pump_until(lambda: all(idle(gw) for gw in gws.values())
+               and len(held[-1]["hi"]) == 1)
+    kinds = [(k, i.get("tenant"), i.get("beneficiary"))
+             for _, k, i in rec.events]
+    evicts = [n for n, (k, _, _) in enumerate(kinds) if k == "adapter_evict"]
+    chip_acts = [n for n, (k, _, _) in enumerate(kinds)
+                 if k in ("grant", "reclaim_drain", "reclaim_shrink",
+                          "reclaim_park", "release")]
+    if not evicts or not chip_acts or max(evicts) > min(chip_acts):
+        fail(f"control (b): adapter evictions {evicts} must all come "
+             f"before the first chip action {chip_acts[:1]}: {kinds}")
+    reclaims = [x for x in kinds if x[0].startswith("reclaim")]
+    if not reclaims or any(x[1:] != ("lo", "hi") for x in reclaims):
+        fail(f"control (b): reclaims {reclaims}, expected from lo for hi")
+    if ("grant", "hi", None) not in kinds or not any(
+            k == "release" for k, _, _ in kinds):
+        fail(f"control (b): no grant to hi or no calm release: {kinds}")
+    if min(len(h["lo"]) for h in held) < 1:
+        fail("control (b): lo fell below its floor of 1 label")
+    for tenant, want in (("hi", reqs), ("lo", lo_reqs)):
+        fleet_exactly_once(gws[tenant], want, f"control (b) {tenant}")
+    evicted = sum(len(i.get("adapters", [])) for _, k, i in rec.events
+                  if k == "adapter_evict")
+    timeline = [(t_, k, i.get("tenant"), i.get("replica"))
+                for t_, k, i in rec.events]
+    line = (f"{evicted} adapters evicted before any chip action, reclaims "
+            f"{len(reclaims)} all from lo for hi, lo held >= 1 label, a "
+            f"grant and a release, exactly once hi {len(reqs)}/{len(reqs)} "
+            f"and lo {len(lo_reqs)}/{len(lo_reqs)} (gated); peak hi labels "
+            f"{max(len(h['hi']) for h in held)}; fairshare_error max "
+            f"{max(errs):.4f}, last {errs[-1]:.4f} over {len(errs)} ticks")
+    return {"line": line, "timeline": timeline}
+
+
 def zero_counts(fa) -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.tc_launches = fa.dq_tc_launches = fa.dkv_tc_launches = 0
@@ -4237,6 +4903,10 @@ def main() -> None:
     for name, n in phase_procfleet(params, cfg, reqs, fa, pa).items():
         launches[name] += n
     del params
+    # observability and the fleet control loop: their own 154M weights
+    for phase in (phase_observability, phase_fleet_control):
+        for name, n in phase(cfg, reqs, fa, pa).items():
+            launches[name] += n
 
     f32_routes = phase_train_small(fa)
     record = {}
@@ -4263,7 +4933,9 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
     print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
-          f"oracle, surviving pumps and codec block + {TRAIN_STEPS} train "
+          f"oracle, surviving pumps and codec block + the observability "
+          f"drain and paged-KV probes + the control loops and their "
+          f"oracle + {TRAIN_STEPS} train "
           f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 

@@ -9,13 +9,14 @@ probe over no-op engines (ctlprobe.py); and the multi-process gateway:
 pump processes and their conductor (procpump.py, imported on its own:
 it is also the worker's ``-m`` module), the wire codec (wire.py), the
 durable outcome journal (outcome_store.py) and the scaling probe
-(procprobe.py).  The burn-rate engine and the observability probe are
-not ported yet.
+(procprobe.py); the per-tenant SLO burn-rate engine (burnrate.py) and
+the observatory probe (obsprobe.py, imported on its own).
 """
 
 from .admission import (AdmissionError, AdmissionQueue, GatewayRequest,
                         FINISHED, REJECTED_DUPLICATE, REJECTED_FULL,
                         REJECTED_INVALID, SHED_EXPIRED)
+from .burnrate import SloBurnEngine
 from .calibrate import Capacity, calibrate_capacity
 from .ctlprobe import NullEngine, control_plane_probe
 from .frontend import FleetGateway
@@ -32,6 +33,6 @@ __all__ = [
     "NullEngine", "PrefixAffinityRouter", "REJECTED_DUPLICATE", "REJECTED_FULL",
     "REJECTED_INVALID", "ROLE_DECODE", "ROLE_PREFILL", "ROLE_UNIFIED",
     "ReplicaManager", "RoundRobinRouter", "Router", "SHED_EXPIRED",
-    "ShardedGateway", "calibrate_capacity", "control_plane_probe",
-    "gateway_probe",
+    "ShardedGateway", "SloBurnEngine", "calibrate_capacity",
+    "control_plane_probe", "gateway_probe",
 ]

@@ -153,18 +153,21 @@ class FleetGateway:
         #: in the no-op bank (the observatory probe's off arm)
         self.digests = (DigestBank(_DIGEST_SERIES) if digests
                         else NullDigestBank(_DIGEST_SERIES))
-        #: optional SLO burn-rate engine, duck-typed (``attach``,
-        #: ``observe``, ``step``: the interface of the reference's
-        #: gateway/burnrate.py, not yet ported): fed per terminal
-        #: SLO-bearing outcome, stepped once per cycle
+        #: optional SLO burn-rate engine (gateway/burnrate.py
+        #: ``SloBurnEngine``, or anything with ``attach``, ``observe``
+        #: and ``step``): fed per terminal SLO-bearing outcome, stepped
+        #: once per cycle
         self.burn = burn
         if burn is not None:
             burn.attach(self)
-        #: optional per-component device-memory ledger, duck-typed
-        #: (``account_engine``, ``forget``: the interface of the
-        #: reference's utils/memwatch.py, not yet ported), fed from the
-        #: per-step KV occupancy fold
+        #: optional per-component device-memory ledger
+        #: (utils/memwatch.py ``MemWatch``, or anything with
+        #: ``account_engine`` and ``forget``), fed from the per-step KV
+        #: occupancy fold
         self.memwatch = memwatch
+        #: the MemWatch units this gateway accounted, so a replica that
+        #: left the pool stops reporting (``_forget_departed``)
+        self._mw_units: set = set()
         if tracer is not None and pool_owner:
             tracing.wire_pool(tracer, manager)
         if pool_owner:
@@ -295,6 +298,8 @@ class FleetGateway:
         self._fold_kv_occupancy()
         self._fold_spec_accept()
         self._fold_adapter_occupancy()
+        if self.memwatch is not None:
+            self._forget_departed()
         self._drain_migrations()
         if self.burn is not None:
             # close the burn-rate cycle AFTER this step's terminal
@@ -555,6 +560,7 @@ class FleetGateway:
                 # params + the paged pool's full reservation
                 # (utils/memwatch.py account_engine)
                 self.memwatch.account_engine(r.engine, unit=r.name)
+                self._mw_units.add(r.name)
             free = occ["kv_free_blocks"]
             self.metrics.kv_blocks_free.labels(replica=r.name).set(free)
             self.metrics.kv_blocks_used.labels(replica=r.name).set(
@@ -590,6 +596,17 @@ class FleetGateway:
                 self.metrics.kv_host_arena_bytes.labels(
                     replica=r.name).set(store.host_arena_bytes())
 
+    def _forget_departed(self) -> None:
+        """Drop the ``MemWatch`` cells of replicas that left the pool
+        (a graceful retire: a health drain already forgets its
+        replica), so the ledger names only live replicas.  Port-only:
+        the reference keeps a retired replica's bytes (ROADMAP Queue C
+        item 18)."""
+        live = {r.name for r in self.manager.replicas if r.state != DEAD}
+        for unit in self._mw_units - live:
+            self.memwatch.forget(unit)
+        self._mw_units &= live
+
     def _fold_adapter_occupancy(self) -> None:
         """Fold every multi-adapter replica's pool levels and churn
         counters into the registry, once per pump step — the
@@ -608,6 +625,7 @@ class FleetGateway:
                 # paged replicas were already accounted by the KV
                 # fold; this covers contiguous engines with a pool
                 self.memwatch.account_engine(r.engine, unit=r.name)
+                self._mw_units.add(r.name)
             self.metrics.adapter_residents.labels(
                 replica=r.name).set(len(occ["adapter_resident"]))
             self.metrics.adapter_pool_blocks_free.labels(

@@ -101,10 +101,13 @@ class ShardedGateway:
         self.results: dict = {}
         self.refused: list[GatewayRequest] = []
         self.per_replica = dispatch.Aggregator()
-        #: shared SLO burn-rate engine, duck-typed as in FleetGateway:
-        #: member pumps feed observe() from their terminal accounting;
-        #: the CYCLE steps it exactly once (member step() never runs)
+        #: shared SLO burn-rate engine (gateway/burnrate.py
+        #: ``SloBurnEngine``): member pumps feed observe() from their
+        #: terminal accounting; the CYCLE steps it exactly once (member
+        #: step() never runs)
         self.burn = burn
+        #: shared device-memory ledger (utils/memwatch.py ``MemWatch``),
+        #: fed by the member pumps
         self.memwatch = memwatch
         self.pumps: list[FleetGateway] = []
         for _ in range(pumps):

@@ -3,19 +3,20 @@
 The port's copy of ``GatewayMetrics`` from
 ``k8s_dra_driver_tpu/utils/metrics.py``, with the helpers it uses
 (``escape_label_value``, ``expo_line``, ``digest_exposition``,
-``_DigestSourceMixin``).  The driver's, the recovery and the fleet
-registries wait for their consumers.
+``_DigestSourceMixin``), ``FleetMetrics`` and ``render_all``.  The
+driver's and the recovery registries wait for their consumers.
 
 The reference builds on ``prometheus_client``, which the card's machine
 does not have, so this module carries a small registry of its own:
 :class:`Counter`, :class:`Gauge` and :class:`Histogram` with
-``labels(**values)``, ``inc``, ``set`` and ``observe``, and
-:meth:`Registry.render`.  The same updates render the same samples
-``prometheus_client``'s ``generate_latest`` renders (``_total`` on
-counters; ``_bucket{le=...}``, ``_count`` and ``_sum`` on histograms,
-``_sum`` left out when a bucket bound is negative; HELP/TYPE lines; the
-value and label formatting), except the ``_created`` samples, which are
-left out.  Single-threaded by design: the gateway pump is.
+``labels(**values)``, ``inc``, ``set`` and ``observe``,
+:meth:`Registry.render` and :meth:`Registry.get_sample_value`.  The
+same updates render the same samples ``prometheus_client``'s
+``generate_latest`` renders (``_total`` on counters; ``_bucket{le=...}``,
+``_count`` and ``_sum`` on histograms, ``_sum`` left out when a bucket
+bound is negative; HELP/TYPE lines; the value and label formatting),
+except the ``_created`` samples, which are left out.  Single-threaded by
+design: the gateway pump is.
 """
 
 from __future__ import annotations
@@ -90,6 +91,19 @@ class Registry:
     def render(self) -> bytes:
         return "".join(f.render() for f in self._families).encode()
 
+    def get_sample_value(self, name: str, labels: dict | None = None):
+        """The value of the sample ``name`` with exactly ``labels``
+        (``prometheus_client``'s ``CollectorRegistry.get_sample_value``):
+        a counter answers by its ``_total`` name, a histogram by
+        ``_bucket`` (with ``le``), ``_count`` and ``_sum``; None when no
+        such sample exists (``_created`` included)."""
+        want = {k: str(v) for k, v in (labels or {}).items()}
+        for family in self._families:
+            for sample, sample_labels, value in family.samples():
+                if sample == name and sample_labels == want:
+                    return value
+        return None
+
 
 class _Family:
     """One metric family: its children by label values (unlabelled
@@ -97,6 +111,8 @@ class _Family:
     ``prometheus_client`` makes it)."""
 
     TYPE = ""
+    #: appended to the family name on its HELP/TYPE lines
+    HEADER_SUFFIX = ""
 
     def __init__(self, name: str, documentation: str,
                  labelnames=(), *, registry: Registry):
@@ -137,6 +153,15 @@ class _Family:
         for key, child in self._children.items():
             yield dict(zip(self.labelnames, key)), child
 
+    def samples(self):
+        """(sample name, labels, value) in exposition order."""
+        raise NotImplementedError
+
+    def render(self) -> str:
+        return self._header(self.name + self.HEADER_SUFFIX) + "".join(
+            _sample(name, labels, value)
+            for name, labels, value in self.samples())
+
 
 class _CounterChild:
     def __init__(self) -> None:
@@ -154,6 +179,7 @@ class Counter(_Family):
     ``_total`` in ``name`` is not doubled)."""
 
     TYPE = "counter"
+    HEADER_SUFFIX = "_total"
 
     def __init__(self, name, documentation, labelnames=(), *, registry):
         if name.endswith("_total"):
@@ -167,11 +193,9 @@ class Counter(_Family):
     def inc(self, amount: float = 1) -> None:
         self._only().inc(amount)
 
-    def render(self) -> str:
-        name = self.name + "_total"
-        return self._header(name) + "".join(
-            _sample(name, labels, c.value)
-            for labels, c in self._label_dicts())
+    def samples(self):
+        for labels, c in self._label_dicts():
+            yield self.name + "_total", labels, c.value
 
 
 class _GaugeChild:
@@ -191,10 +215,9 @@ class Gauge(_Family):
     def set(self, value: float) -> None:
         self._only().set(value)
 
-    def render(self) -> str:
-        return self._header(self.name) + "".join(
-            _sample(self.name, labels, g.value)
-            for labels, g in self._label_dicts())
+    def samples(self):
+        for labels, g in self._label_dicts():
+            yield self.name, labels, g.value
 
 
 class _HistogramChild:
@@ -234,20 +257,18 @@ class Histogram(_Family):
     def observe(self, amount: float) -> None:
         self._only().observe(amount)
 
-    def render(self) -> str:
-        out = [self._header(self.name)]
+    def samples(self):
         for labels, h in self._label_dicts():
             acc = 0.0
             for bound, n in zip(self.bounds, h.counts):
                 acc += n
-                out.append(_sample(f"{self.name}_bucket",
-                                   {**labels, "le": _go_float(bound)}, acc))
-            out.append(_sample(f"{self.name}_count", labels, acc))
+                yield (f"{self.name}_bucket",
+                       {**labels, "le": _go_float(bound)}, acc)
+            yield f"{self.name}_count", labels, acc
             if self.bounds[0] >= 0:
                 # a sum over signed observations is not a histogram sum
                 # (the OpenMetrics rule prometheus_client follows)
-                out.append(_sample(f"{self.name}_sum", labels, h.sum))
-        return "".join(out)
+                yield f"{self.name}_sum", labels, h.sum
 
 
 #: quantiles every digest series exposes, as (label, q) pairs —
@@ -572,5 +593,79 @@ class GatewayMetrics(_DigestSourceMixin):
         return self.registry.render() + self._render_digests()
 
 
-__all__ = ["Counter", "Gauge", "GatewayMetrics", "Histogram", "Registry",
-           "digest_exposition", "escape_label_value", "expo_line"]
+class FleetMetrics:
+    """Fleet-reconciler observability (fleet/reconciler.py,
+    fleet/tenancy.py): the same families, names, labels and HELP texts
+    as the reference's ``FleetMetrics``.  Scale decisions are counters
+    (a scale-up or drain that does not advance
+    ``tpu_fleet_scale_events_total`` did not happen), the ledger is
+    gauges, and the hysteresis counters are exported so an operator can
+    see pressure building before the action fires."""
+
+    def __init__(self):
+        self.registry = Registry()
+        self.ticks = Counter(
+            "tpu_fleet_ticks_total", "Reconcile ticks executed",
+            registry=self.registry)
+        self.scale_events = Counter(
+            "tpu_fleet_scale_events_total",
+            "Actuated reconcile decisions by action "
+            "(up/down/preempt/regrow)", ["action"],
+            registry=self.registry)
+        self.chips = Gauge(
+            "tpu_fleet_chips",
+            "Ledger chips by ownership class "
+            "(free/serving/training/unhealthy)", ["owner"],
+            registry=self.registry)
+        self.pressure_ticks = Gauge(
+            "tpu_fleet_pressure_ticks",
+            "Consecutive pressured ticks (scale-up/preempt hysteresis "
+            "counter)", registry=self.registry)
+        self.calm_ticks = Gauge(
+            "tpu_fleet_calm_ticks",
+            "Consecutive calm ticks (scale-down/regrow hysteresis "
+            "counter)", registry=self.registry)
+        self.gang_dp_target = Gauge(
+            "tpu_fleet_gang_dp_target",
+            "dp width the reconciler most recently requested from the "
+            "gang supervisor", registry=self.registry)
+        # multi-tenant fleet (fleet/tenancy.py): the arbiter's actions
+        # are counters, and the held-vs-entitled gauge pair is the
+        # fair-share surface
+        self.mt_actions = Counter(
+            "tpu_fleet_mt_actions_total",
+            "Multi-tenant arbiter actions by tenant and kind "
+            "(grant/reclaim_park/reclaim_shrink/reclaim_drain/"
+            "release/regrow/adapter_evict)", ["tenant", "action"],
+            registry=self.registry)
+        self.tenant_chips = Gauge(
+            "tpu_fleet_tenant_chips",
+            "Chips currently held per tenant (ledger ownership)",
+            ["tenant"], registry=self.registry)
+        self.tenant_entitled = Gauge(
+            "tpu_fleet_tenant_entitled",
+            "Fair-share chip entitlement per tenant (floors + "
+            "priority-ordered water-fill)", ["tenant"],
+            registry=self.registry)
+        self.tenant_adapter_bytes = Gauge(
+            "tpu_fleet_tenant_adapter_bytes",
+            "Resident adapter-pool HBM per tenant across the serving "
+            "workload's replicas (the adapter-quota enforcement "
+            "surface)", ["tenant"], registry=self.registry)
+
+    def render(self) -> bytes:
+        return self.registry.render()
+
+
+def render_all(*metrics) -> bytes:
+    """One text exposition over several registries (anything with
+    ``render() -> bytes``: the gateway's, the fleet's, a ``MemWatch``).
+    Valid as long as no two share a metric family name, which the
+    per-subsystem prefixes (tpu_gateway_/tpu_fleet_/tpu_mem_) keep so.
+    This is what utils/httpendpoint.py serves on ``/metrics``."""
+    return b"".join(m.render() for m in metrics)
+
+
+__all__ = ["Counter", "FleetMetrics", "Gauge", "GatewayMetrics",
+           "Histogram", "Registry", "digest_exposition",
+           "escape_label_value", "expo_line", "render_all"]

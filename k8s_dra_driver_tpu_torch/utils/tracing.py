@@ -1,9 +1,10 @@
 """Causal span layer: one trace per request.
 
 The port's copy of ``k8s_dra_driver_tpu/utils/tracing.py``: the span
-recorder and its pool wiring (``Tracer``, ``wire_pool``); the
-supervisor hook, the critical-path analysis and the Chrome-trace
-exporter wait for their consumers.  A **span** is a plain dict
+recorder and its pool wiring (``Tracer``, ``wire_pool``), the
+per-request critical path and the Chrome-trace exporter; the
+supervisor hook (``attach_supervisor``) waits for the gang supervisor.
+A **span** is a plain dict
 ``{trace, span, parent, name, t0, t1, track, tenant?, attrs?}``
 recording one arc of a request's life (admission, dispatch, prefill,
 migrate, decode, terminal).
@@ -26,6 +27,7 @@ the gateway's own track); ``span`` ids are tracer-global and monotone;
 from __future__ import annotations
 
 import itertools
+import json
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -134,4 +136,80 @@ def wire_pool(tracer: Tracer, manager) -> None:
         lambda replica: setattr(replica, "tracer", tracer))
 
 
-__all__ = ["TraceContext", "Tracer", "wire_pool"]
+# -- analysis ------------------------------------------------------------
+
+def critical_path(spans, trace_id: str) -> dict:
+    """Per-request latency breakdown from one trace's spans — where
+    the TTFT went.  Cross-checkable against GatewayMetrics histograms
+    (queue_wait ↔ ``tpu_gateway_queue_wait_seconds``, decode ↔ the
+    TTFT/latency pair); the cross-check test pins that the two
+    accountings agree on the same run."""
+    recs = [r for r in spans if r["trace"] == trace_id]
+    out = {"queue_wait": 0.0, "route": 0.0, "prefill": 0.0,
+           "migrate": 0.0, "decode": 0.0, "decode_per_token": 0.0,
+           "drain_gap": 0.0, "total": 0.0, "spans": len(recs)}
+    if not recs:
+        return out
+    for r in recs:
+        dur = r["t1"] - r["t0"]
+        a = r.get("attrs", {})
+        if r["name"] == "dispatch":
+            out["queue_wait"] += dur
+            out["route"] += a.get("route_s", 0.0) or 0.0
+        elif r["name"] == "drain_gap":
+            out["drain_gap"] += dur
+            out["route"] += a.get("route_s", 0.0) or 0.0
+        elif r["name"] in ("prefill", "migrate"):
+            out[r["name"]] += dur
+        elif r["name"] == "terminal":
+            out["decode"] += dur
+            tokens = a.get("tokens") or 0
+            if tokens:
+                out["decode_per_token"] = dur / tokens
+    out["total"] = (max(r["t1"] for r in recs)
+                    - min(r["t0"] for r in recs))
+    return out
+
+
+# -- Chrome-trace-event (Perfetto) exporter ------------------------------
+
+def chrome_trace(spans) -> dict:
+    """Spans → Chrome trace-event JSON (the ``traceEvents`` array
+    format Perfetto and chrome://tracing load).  Complete 'X' events,
+    µs timebase; one tid per track (replica / supervisor /
+    reconciler / gateway), discovered in span order so the mapping is
+    deterministic.  Load it beside a ``torch.profiler`` trace of the
+    same run and the control-plane spans line up with the kernel
+    launches they caused."""
+    tracks: dict[str, int] = {}
+    events = []
+    for rec in spans:
+        track = rec.get("track") or rec["trace"]
+        tid = tracks.setdefault(track, len(tracks) + 1)
+        args = {"trace": rec["trace"], "span": rec["span"],
+                "parent": rec["parent"]}
+        if "tenant" in rec:
+            args["tenant"] = rec["tenant"]
+        args.update(rec.get("attrs", {}))
+        events.append({"ph": "X", "name": rec["name"], "pid": 1,
+                       "tid": tid,
+                       "ts": round(rec["t0"] * 1e6, 3),
+                       "dur": round(
+                           max(rec["t1"] - rec["t0"], 0.0) * 1e6, 3),
+                       "args": args})
+    meta = [{"ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
+             "args": {"name": track}}
+            for track, tid in tracks.items()]
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+
+def export_chrome(spans) -> str:
+    """Deterministic serialization of :func:`chrome_trace` — sorted
+    keys, no whitespace — so same seed ⇒ byte-identical export, and
+    the same bytes as the JAX package's exporter for the same spans."""
+    return json.dumps(chrome_trace(spans), sort_keys=True,
+                      separators=(",", ":"))
+
+
+__all__ = ["TraceContext", "Tracer", "chrome_trace", "critical_path",
+           "export_chrome", "wire_pool"]

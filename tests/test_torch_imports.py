@@ -77,7 +77,13 @@ def test_scan_covers_the_port():
                 "gateway/ctlprobe.py", "gateway/loadgen.py",
                 "gateway/procpump.py", "gateway/procprobe.py",
                 "cluster/faults.py", "coordclient/client.py",
-                "utils/backoff.py", "sim/clock.py"):
+                "utils/backoff.py", "sim/clock.py",
+                "gateway/burnrate.py", "gateway/obsprobe.py",
+                "utils/memwatch.py", "utils/httpendpoint.py",
+                "serving_kv/probe.py", "fleet/__init__.py",
+                "fleet/policy.py", "fleet/supply.py", "fleet/binpack.py",
+                "fleet/reconciler.py", "fleet/tenancy.py",
+                "fleet/probe.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 
