@@ -30,7 +30,11 @@ the flash kernels (K1, K3, K4), the matrix products, the optimizer and
 everything else.  Then the same for one moe_heavy training step with
 gmm dispatch (``chip_smoke.py``'s MoE phase: 16 experts, top_k 2,
 B=8 x T=1024), split further into the grouped-matmul kernels K5 and K6
-and the routing (sorts, counts, index scatters and gathers).
+and the routing (sorts, counts, index scatters and gathers).  Then the
+elastic gang's step (``chip_smoke.py``'s ``phase_gang_recovery``: the
+154M at B=8 x T=2048 as ``ElasticTrainJob(chips=4)`` rows, each row its
+own forward and backward, f32 gradient sums, one AdamW step) at dp=4
+and dp=2, split the same way.
 
 Then int8 serving: the 154M weights through ``quantize_params``, the
 steady decode window of each KV layout on them (device ms split into
@@ -361,12 +365,20 @@ def by_kind(prof) -> dict:
 
 
 def train_profile(cfg=None, b: int = smoke.TRAIN_B,
-                  t: int = smoke.TRAIN_T) -> dict:
+                  t: int = smoke.TRAIN_T, dp: int | None = None) -> dict:
     """Wall and device time per full-width training step of ``cfg``
-    (default the 154M configuration) at B=b x T=t."""
+    (default the 154M configuration) at B=b x T=t; with ``dp``, the
+    elastic gang's step over that many rows (``ElasticTrainJob``)."""
     from k8s_dra_driver_tpu_torch.models.transformer import make_train_step
+    from k8s_dra_driver_tpu_torch.parallel.supervisor import (
+        ElasticTrainJob)
     cfg = cfg or smoke.serving_config()
-    step, init_state = make_train_step(cfg, device="cuda")
+    if dp is None:
+        step, init_state = make_train_step(cfg, device="cuda")
+    else:
+        job = ElasticTrainJob(cfg, np.zeros(b * t, np.int32), batch=b,
+                              seq_len=t, chips=dp, device="cuda")
+        _, step, init_state = job.build(dp)
     params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
     motif = np.random.default_rng(0).integers(0, cfg.vocab, 32)
     batch = np.tile(motif, b * t // 32).reshape(b, t).astype(np.int32)
@@ -519,6 +531,10 @@ def main() -> None:
     moe = train_profile(smoke.moe_heavy_config(
         aux_loss_weight=smoke.MOE_AUX_WEIGHT), smoke.MOE_B, smoke.MOE_T)
     report_train(moe, "moe_heavy train step (gmm)")
+    gang = {}
+    for dp in (4, 2):
+        gang[dp] = train_profile(dp=dp)
+        report_train(gang[dp], f"154M gang step, dp={dp} rows")
     int8 = int8_profile(params, cfg, ServingEngine, Request)
     from k8s_dra_driver_tpu_torch.models.quant import quantize_params
     fused = {}
@@ -556,7 +572,8 @@ def main() -> None:
         report_lora(f"154M bf16 weights, contiguous, {label}", lora[label],
                     plain)
     print(json.dumps({"device": kind, "layouts": out, "train": train,
-                      "moe_train": moe, "int8": int8, "fused": fused,
+                      "moe_train": moe, "gang_train": gang,
+                      "int8": int8, "fused": fused,
                       "spec": spec, "lora": lora}), flush=True)
 
 

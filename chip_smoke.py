@@ -68,6 +68,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bitwise and resume to losses within
     RESUME_TOL of the uninterrupted run; one step under remat launches
     K1 twice per layer;
+10b. training recovery (``phase_gang_recovery``): the 154M supervised
+    by ``GangSupervisor`` over ``ElasticTrainJob(chips=4)``, every dp
+    row of a step its own forward and backward: (a) the kill arc of
+    the JAX package's supervisor test in bf16 (dp 4 -> 2, restored
+    step 4, the transitions, steps once, the contract, the metrics,
+    K1/K3/K4 exactly n_layers x the rows of each step; MTTR, each
+    sharded generation's bytes, save ms and MiB/s, the restore ms and
+    the steady step walls at dp=4 and dp=2 printed), (b) a wedged
+    worker caught by the step deadline, (c) the kill arc in f32 within
+    1e-4 of an uninterrupted run, then a flipped byte: the restore
+    falls back a generation and ``read_slice`` raises, (d) a resize, a
+    park and an unpark at a checkpoint step: no step lost, no device
+    memory held while parked, (e) the recovery, fleet and multi-tenant
+    probes on the card, each ``valid``;
 11. MoE training, small: one f32 AdamW step of a 2-layer, 4-expert
     gmm config with the router aux losses, card against CPU, every
     parameter (router included) moved, exact K1/K3-K6 launches (K1,
@@ -4293,6 +4307,413 @@ def phase_train(fa, tmp: Path, record: dict) -> dict:
     return counts
 
 
+#: the gang recovery phase: the kill arc's steps, the checkpoint cadence,
+#: the f32 arc's batch, and the tolerance of its losses against an
+#: uninterrupted dp=4 run (summation order only: a dp change is a
+#: placement change)
+GANG_STEPS = 8
+GANG_EVERY = 2
+GANG_F32_B, GANG_F32_T = 4, 512
+GANG_F32_RTOL = 1e-4
+#: live bytes a parked gang may leave behind, over the pre-begin reading
+GANG_PARK_SLACK = 16 * 2 ** 20
+#: the wedge arc's step deadline: this many steady dp=4 step walls, and
+#: never under GANG_MIN_DEADLINE_S
+GANG_DEADLINE_X = 5.0
+GANG_MIN_DEADLINE_S = 1.0
+
+
+class TimedSaves:
+    """Wraps a checkpointer's ``save`` and ``restore``: each save that
+    wrote a generation records (step, bytes, ms), each skipped one
+    (step already committed) is counted, each restore records (step,
+    ms)."""
+
+    def __init__(self, ckpt):
+        self.ckpt = ckpt
+        self.saves, self.skipped, self.restores = [], 0, []
+        save, restore = ckpt.save, ckpt.restore
+
+        def timed_save(step, params, opt, wait=True, extra=None):
+            before = set(ckpt.all_steps())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(step, params, opt, wait=wait, extra=extra)
+            ms = 1e3 * (time.perf_counter() - t0)
+            if step in before:
+                self.skipped += 1
+            else:
+                self.saves.append((step, generation_bytes(ckpt, step), ms))
+
+        def timed_restore(params, opt, step=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(params, opt, step=step)
+            torch.cuda.synchronize()
+            self.restores.append((out[2], 1e3 * (time.perf_counter() - t0)))
+            return out
+
+        ckpt.save, ckpt.restore = timed_save, timed_restore
+
+    def line(self) -> str:
+        gens = ", ".join(
+            f"step {s}: {b / 2 ** 20:.1f} MiB in {ms:.0f} ms "
+            f"({b / 2 ** 20 / (ms / 1e3):.0f} MiB/s)"
+            for s, b, ms in self.saves)
+        rest = ", ".join(f"step {s} in {ms:.0f} ms" for s, ms in
+                         self.restores)
+        return (f"generations written [{gens}]; {self.skipped} saves of a "
+                f"committed step skipped; restores [{rest}]")
+
+
+def generation_bytes(ckpt, step: int) -> int:
+    """Bytes of one committed generation on disk."""
+    from k8s_dra_driver_tpu_torch.parallel.resharding import (
+        ShardedCheckpointer)
+    if isinstance(ckpt, ShardedCheckpointer):
+        root = ckpt.step_path(step)
+    else:
+        root = ckpt.directory / str(step)
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def timed_job(cfg, corpus, batch: int, seq_len: int, walls: list):
+    """``ElasticTrainJob`` on this card over 4 chip slots whose train
+    step appends ``(dp, wall seconds)`` to ``walls`` (the card
+    synchronized before the clock reads)."""
+    from k8s_dra_driver_tpu_torch.parallel.supervisor import (
+        ElasticTrainJob)
+
+    class Job(ElasticTrainJob):
+        def build(self, dp, exclude_chips=frozenset(), tp=None):
+            gang, step, init_state = super().build(dp, exclude_chips, tp)
+
+            def timed(params, opt, tokens):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(params, opt, tokens)
+                torch.cuda.synchronize()
+                walls.append((dp, time.perf_counter() - t0))
+                return out
+
+            return gang, timed, init_state
+
+    return Job(cfg, corpus, batch=batch, seq_len=seq_len, chips=4,
+               device="cuda")
+
+
+def steady_ms(walls, dp: int) -> float:
+    """Mean wall of the steps at ``dp`` past the first of each
+    formation at that width."""
+    runs, prev = [], None
+    for d, w in walls:
+        if d == dp and prev == dp:
+            runs.append(w)
+        prev = d
+    if not runs:
+        fail(f"gang: no steady step at dp={dp}")
+    return 1e3 * sum(runs) / len(runs)
+
+
+def gang_supervisor(job, ckpt, coord: Path, *, plan=None,
+                    checkpoint_every: int = GANG_EVERY,
+                    step_deadline_s: float = 60.0):
+    from k8s_dra_driver_tpu_torch.parallel.supervisor import GangSupervisor
+    return GangSupervisor(job, ckpt, coordination_dir=coord, dp=4,
+                          fault_plan=plan, checkpoint_every=checkpoint_every,
+                          step_deadline_s=step_deadline_s,
+                          first_step_deadline_s=600.0)
+
+
+def gang_plan(name: str, skip: int, error: str = "crash",
+              latency_s: float = 0.0):
+    """One fault on gang worker ``name`` after ``skip`` decisions."""
+    from k8s_dra_driver_tpu_torch.cluster.faults import FaultPlan, FaultRule
+    return FaultPlan([FaultRule(verb="gang", kind="Worker", name=name,
+                                skip=skip, times=1, error=error,
+                                latency_s=latency_s)])
+
+
+def gang_corpus(cfg, batch: int, seq_len: int) -> np.ndarray:
+    """phase_train's corpus: a repeated 32-token motif, two epochs."""
+    motif = np.random.default_rng(0).integers(0, cfg.vocab, 32)
+    return np.tile(motif, 2 * batch * seq_len // 32)
+
+
+def check_kill_arc(sup, report, label: str) -> None:
+    """The gates of tests/test_supervisor.py's kill arc."""
+    from k8s_dra_driver_tpu_torch.parallel import supervisor as sv
+    recs = report.recoveries
+    rec = recs[0] if recs else None
+    losses = [l for _, l in report.losses]
+    reg = sup.metrics.registry
+    contract = json.loads((sup.dir / sv.CONTRACT_FILENAME).read_text())
+    problems = []
+    if len(recs) != 1 or rec.cause != "dead" or rec.victims != ["g0w2"]:
+        problems.append(f"recoveries {recs}")
+    elif ((rec.from_dp, rec.to_dp) != (4, 2) or rec.restored_step != 4
+          or rec.steps_lost > GANG_EVERY or not rec.mttr_s > 0):
+        problems.append(f"recovery {rec}")
+    if report.transitions != [sv.RUNNING, sv.SUSPECT, sv.EVICT, sv.REFORM,
+                              sv.RESUME, sv.RUNNING]:
+        problems.append(f"transitions {report.transitions}")
+    if [s for s, _ in report.losses] != list(range(1, GANG_STEPS + 1)):
+        problems.append(f"steps {[s for s, _ in report.losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < min(losses[:4]):
+        problems.append(f"losses {losses}")
+    if (contract["num_workers"], contract["generation"],
+            contract["excluded_chips"]) != (2, 1, [2]):
+        problems.append(f"contract {contract}")
+    want = {("tpu_train_restarts_total", (("cause", "dead"),)): 1,
+            ("tpu_train_recovery_seconds_count", ()): 1,
+            ("tpu_train_dp_width", ()): 2,
+            ("tpu_train_supervisor_state", (("state", sv.RUNNING),)): 1}
+    for (name, labels), value in want.items():
+        if reg.get_sample_value(name, dict(labels)) != value:
+            problems.append(f"{name}{dict(labels)} = "
+                            f"{reg.get_sample_value(name, dict(labels))}")
+    if reg.get_sample_value("tpu_train_steps_lost_total") > GANG_EVERY:
+        problems.append("tpu_train_steps_lost_total")
+    if problems:
+        fail(f"gang {label}: " + "; ".join(map(str, problems)))
+
+
+def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
+    """Training recovery: ``GangSupervisor`` over
+    ``ElasticTrainJob(chips=4, device="cuda")`` with the 154M at full
+    width (B=8 x T=2048, bf16), every dp row of a step its own forward
+    and backward.
+
+    (a) The kill arc (tests/test_supervisor.py's): dp=4,
+    ``ShardedCheckpointer`` (keep 2, the transformer's rules), a
+    generation every GANG_EVERY steps, GANG_STEPS steps, ``g0w2``
+    crashing after 4 decisions.  Gated: one recovery, cause ``dead``,
+    victims ``["g0w2"]``, dp 4 → 2, restored step 4, steps lost <=
+    GANG_EVERY, MTTR > 0; the transitions RUNNING, SUSPECT, EVICT,
+    REFORM, RESUME, RUNNING; steps 1..8 each once, the last loss below
+    the pre-kill minimum; the contract file at 2 workers, generation 1,
+    chip 2 excluded; ``RecoveryMetrics`` as that test reads it; K1, K3
+    and K4 each exactly n_layers x the rows of every step (4 before the
+    kill, 2 after), all on the tensor cores.  Printed: MTTR, each
+    generation's bytes with its save ms and MiB/s, the restore ms, the
+    steady step wall at dp=4 and dp=2.  (b) The wedge: a ``hang`` on
+    ``g0w1`` after the two warm-up steps, the step deadline
+    GANG_DEADLINE_X steady dp=4 walls: cause ``wedged``, victims
+    ``["g0w1"]``, dp 4 → 2, every step once.  (c) Placement, not math:
+    the kill arc in f32 at B=4 x T=512, each step's loss within
+    GANG_F32_RTOL of an uninterrupted dp=4 run's; then one byte flipped
+    in the newest generation's largest shard: ``restore()`` falls back
+    to the previous generation and ``read_slice`` of that shard raises
+    ``ShardCorruption``.  (d) ``request_width(2)``, ``park()`` and
+    ``request_width(4)``, each at a checkpoint step, over
+    ``TrainCheckpointer``: zero steps lost, the card's live bytes after
+    the park within GANG_PARK_SLACK of the pre-begin reading, the
+    unpark restored from the park's step.  (e) ``recovery_probe``,
+    ``fleet_probe`` and ``multitenant_probe`` on the card at their
+    reference sizes but a head dim of 64 (K1 takes 64 or 128), tp=1:
+    ``valid`` gated; MTTR, steps lost, the preempt and cascade ms and
+    their K1/K2 launches printed.  Returns (the bf16 arcs' K1/K3/K4
+    launches, totals and by route; the f32 ones' by route)."""
+    from k8s_dra_driver_tpu_torch.fleet import fleet_probe, multitenant_probe
+    from k8s_dra_driver_tpu_torch.models.checkpoint import TrainCheckpointer
+    from k8s_dra_driver_tpu_torch.models.layouts import transformer_rules
+    from k8s_dra_driver_tpu_torch.models.transformer import TransformerConfig
+    from k8s_dra_driver_tpu_torch.parallel import supervisor as sv
+    from k8s_dra_driver_tpu_torch.parallel.probe import recovery_probe
+    from k8s_dra_driver_tpu_torch.parallel.resharding import (
+        ShardCorruption, ShardedCheckpointer)
+
+    cfg = serving_config()
+    corpus = gang_corpus(cfg, TRAIN_B, TRAIN_T)
+    layers = cfg.n_layers
+    t_phase = time.perf_counter()
+
+    # (a) the kill arc, bf16
+    walls: list = []
+    ckpt = ShardedCheckpointer(tmp / "a", keep=2,
+                               rules=transformer_rules(cfg))
+    saves = TimedSaves(ckpt)
+    sup = gang_supervisor(timed_job(cfg, corpus, TRAIN_B, TRAIN_T, walls),
+                          ckpt, tmp / "a-coord",
+                          plan=gang_plan("g0w2", 4))
+    zero_counts(fa)
+    report = sup.run(GANG_STEPS)
+    torch.cuda.synchronize()
+    check_kill_arc(sup, report, "(a)")
+    rows = 4 * 4 + 2 * (GANG_STEPS - 4)
+    routes = train_counts(fa)
+    routes.update(require_routes(fa, "gang (a) kill arc", layers * rows, 0))
+    rec = report.recoveries[0]
+    ms4, ms2 = steady_ms(walls, 4), steady_ms(walls, 2)
+    print(f"gang (a) 154M bf16 kill arc: dp 4 -> 2 at step "
+          f"{rec.restored_step}, steps lost {rec.steps_lost}, MTTR "
+          f"{1e3 * rec.mttr_s:.1f} ms; transitions {report.transitions}; "
+          f"losses {[round(l, 4) for _, l in report.losses]}; steady "
+          f"step wall {ms4:.1f} ms at dp=4, {ms2:.1f} ms at dp=2; "
+          f"K1/K3/K4 {layers} x {rows} rows each (gated)", flush=True)
+    print(f"gang (a) checkpoints: {saves.line()}", flush=True)
+    if not saves.saves or not saves.restores:
+        fail("gang (a): no generation written or restored")
+    del sup, report, ckpt, saves
+    gc.collect()
+
+    # (b) the wedge, bf16
+    walls = []
+    deadline = max(GANG_MIN_DEADLINE_S, GANG_DEADLINE_X * ms4 / 1e3)
+    # the first step past the two warm-up steps hangs (steady deadline)
+    plan = gang_plan("g0w1", 2, "hang", 600.0)
+    ckpt = TrainCheckpointer(tmp / "b", keep=2)
+    sup = gang_supervisor(timed_job(cfg, corpus, TRAIN_B, TRAIN_T, walls),
+                          ckpt, tmp / "b-coord", plan=plan,
+                          step_deadline_s=deadline)
+    zero_counts(fa)
+    t0 = time.perf_counter()
+    report = sup.run(6)
+    wall_b = time.perf_counter() - t0
+    ckpt.close()
+    recs = report.recoveries
+    if (len(recs) != 1 or recs[0].cause != "wedged"
+            or recs[0].victims != ["g0w1"]
+            or (recs[0].from_dp, recs[0].to_dp) != (4, 2)
+            or [s for s, _ in report.losses] != list(range(1, 7))):
+        fail(f"gang (b): recoveries {recs}, steps "
+             f"{[s for s, _ in report.losses]}")
+    for name, n in {**train_counts(fa), **flash_routes(fa)}.items():
+        routes[name] += n
+    print(f"gang (b) 154M bf16 wedge: step deadline {deadline:.2f} s; "
+          f"cause {recs[0].cause}, victims {recs[0].victims}, dp 4 -> 2, "
+          f"restored step {recs[0].restored_step}, MTTR "
+          f"{1e3 * recs[0].mttr_s:.1f} ms; run {wall_b:.1f} s (gated)",
+          flush=True)
+    del sup, report, ckpt
+    gc.collect()
+
+    # (c) placement, not math, f32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    corpus32 = gang_corpus(cfg32, GANG_F32_B, GANG_F32_T)
+    zero_counts(fa)
+    ref = gang_supervisor(
+        timed_job(cfg32, corpus32, GANG_F32_B, GANG_F32_T, []),
+        TrainCheckpointer(tmp / "c-ref", keep=1), tmp / "c-ref-coord",
+        checkpoint_every=10 ** 6)
+    ref_losses = [l for _, l in ref.run(GANG_STEPS).losses]
+    ref.ckpt.close()
+    del ref
+    ckpt = ShardedCheckpointer(tmp / "c", keep=2)
+    sup = gang_supervisor(
+        timed_job(cfg32, corpus32, GANG_F32_B, GANG_F32_T, []), ckpt,
+        tmp / "c-coord", plan=gang_plan("g0w2", 4))
+    report = sup.run(GANG_STEPS)
+    check_kill_arc(sup, report, "(c)")
+    losses = [l for _, l in report.losses]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    f32_routes = flash_routes(fa)
+    print(f"gang (c) 154M f32 B={GANG_F32_B} T={GANG_F32_T} kill arc "
+          f"against an uninterrupted dp=4 run: max relative loss gap "
+          f"{rel:.3g} (tol {GANG_F32_RTOL}); losses "
+          f"{[round(l, 5) for l in losses]}", flush=True)
+    if not rel <= GANG_F32_RTOL:
+        fail(f"gang (c): losses {losses} against {ref_losses}")
+    newest = ckpt.latest_step()
+    leaves = ckpt._read_manifest(ckpt.step_path(newest))["leaves"]
+    name, shard = max(((n, sh) for n, e in leaves.items()
+                       for sh in e["shards"]),
+                      key=lambda kv: kv[1]["nbytes"])
+    path = ckpt.step_path(newest) / shard["file"]
+    with open(path, "r+b") as f:
+        f.seek(shard["nbytes"] // 2)
+        byte = f.read(1)
+        f.seek(shard["nbytes"] // 2)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    params, opt = sup.init_state(sup._key())
+    _, _, at = ckpt.restore(params, opt)
+    try:
+        ckpt.read_slice(newest, name, bounds=shard["bounds"])
+        detected = False
+    except ShardCorruption:
+        detected = True
+    print(f"gang (c) one byte flipped in {shard['file']} "
+          f"({shard['nbytes']} bytes) of step {newest}: restore fell back "
+          f"to step {at}, read_slice raised ShardCorruption={detected}",
+          flush=True)
+    if at != ckpt.all_steps()[-2] or not detected:
+        fail(f"gang (c): restore at {at} of {ckpt.all_steps()}, "
+             f"detected={detected}")
+    del sup, report, ckpt, params, opt
+    gc.collect()
+
+    # (d) resize, park and unpark at a checkpoint step
+    walls = []
+    torch.cuda.empty_cache()
+    base = allocated()
+    ckpt = TrainCheckpointer(tmp / "d", keep=2)
+    sup = gang_supervisor(timed_job(cfg, corpus, TRAIN_B, TRAIN_T, walls),
+                          ckpt, tmp / "d-coord")
+    zero_counts(fa)
+    sup.begin(GANG_STEPS)
+    while sup._step < GANG_EVERY:
+        sup.step_once()
+    sup.request_width(2)
+    sup.step_once()
+    sup.park()
+    sup.step_once()
+    gc.collect()
+    parked = allocated()
+    sup.request_width(4)
+    sup.step_once()
+    while sup.step_once():
+        pass
+    report = sup.report()
+    ckpt.close()
+    causes = [(r.cause, r.restored_step, r.steps_lost)
+              for r in report.recoveries]
+    residue = parked - base
+    print(f"gang (d) 154M bf16 request_width(2), park(), request_width(4) "
+          f"at step {GANG_EVERY}: recoveries {causes}; live bytes before "
+          f"begin {base}, parked {parked} (residue {residue}, slack "
+          f"{GANG_PARK_SLACK}); steps {[s for s, _ in report.losses]}",
+          flush=True)
+    if (causes != [("preempt", GANG_EVERY, 0), ("park", GANG_EVERY, 0),
+                   ("expand", GANG_EVERY, 0)]
+            or abs(residue) > GANG_PARK_SLACK
+            or sv.PARKED not in report.transitions
+            or [s for s, _ in report.losses]
+            != list(range(1, GANG_STEPS + 1))):
+        fail("gang (d): the resize and park arc lost steps or held memory")
+    for name, n in {**train_counts(fa), **flash_routes(fa)}.items():
+        routes[name] += n
+    del sup, report, ckpt
+    gc.collect()
+
+    # (e) the probes on the card
+    small = TransformerConfig(vocab=64, d_model=256, n_layers=2, n_heads=4,
+                              d_head=64, d_ff=64, max_seq=32,
+                              dtype=torch.float32)
+    for label, fn, keys in (
+            ("recovery_probe", recovery_probe,
+             ("mttr_ms", "steps_lost_worst")),
+            ("fleet_probe", fleet_probe,
+             ("scaleup_ms", "preempt_ms", "regrow_ms")),
+            ("multitenant_probe", multitenant_probe,
+             ("preempt_cascade_ms", "regrow_ms", "frag_win_x",
+              "fairshare_err"))):
+        zero_counts(fa)
+        pa.launches = 0
+        out = fn(cfg=small, device="cuda")
+        counts = kernel_snapshot(fa, pa)
+        print(f"gang (e) {label} on the card (d_head 64, tp=1): "
+              + ", ".join(f"{k} {out[k]}" for k in keys)
+              + f", causes {out.get('recovery_causes', '-')}, K1 "
+              f"{counts['flash_fwd']}, K2 {counts['paged_decode']}, valid "
+              f"{out['valid']} (gated)", flush=True)
+        if not out["valid"] or counts["flash_fwd"] <= 0:
+            fail(f"gang (e): {label} {out}")
+        for name, n in flash_routes(fa).items():
+            f32_routes[name] += n
+    print(f"gang phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return routes, f32_routes
+
+
 #: the sp phase: two worker processes on the one card, a gloo group
 #: (NCCL refuses two ranks on one device), SP_STEPS steps of the 154M
 SP_WORLD = 2
@@ -4914,6 +5335,12 @@ def main() -> None:
         counts = phase_train(fa, Path(tmp), record)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    with tempfile.TemporaryDirectory() as tmp:
+        gang_bf16, gang_f32 = phase_gang_recovery(fa, pa, Path(tmp))
+    for name, n in gang_bf16.items():
+        launches[name] = launches.get(name, 0) + n
+    for name in ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
+        f32_routes[name] += gang_f32[name]
     # the sp path's kernels (summed over ranks): K1's block entry, and
     # K3/K4 beside the single-device steps'
     sp = phase_sp_train(fa, record)
@@ -4935,7 +5362,7 @@ def main() -> None:
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
           f"oracle, surviving pumps and codec block + the observability "
           f"drain and paged-KV probes + the control loops and their "
-          f"oracle + {TRAIN_STEPS} train "
+          f"oracle + the gang recovery arcs + {TRAIN_STEPS} train "
           f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 

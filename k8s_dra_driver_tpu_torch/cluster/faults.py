@@ -1,10 +1,11 @@
 """Deterministic fault injection: the part the multi-process gateway
-uses.
+and the gang supervisor use.
 
 The port's copy of the plan half of ``k8s_dra_driver_tpu/cluster/
 faults.py``: ``FaultRule``, ``Decision`` and ``FaultPlan`` with the
-plan's JSON form, the pump-kill target names, and the process-level
-crashpoints armed through ``TPU_DRA_FAULT_PLAN``.  The environment
+plan's JSON form, the pump-kill and gang-worker target names, and the
+process-level crashpoints armed through ``TPU_DRA_FAULT_PLAN`` (the
+outcome journal's and the two checkpoint formats').  The environment
 variable and the plan JSON are the reference's, so a plan written by
 either package loads in the other.  The cluster-client wrapper, the
 scripted chip-health source and the disk-corruption helpers are not
@@ -52,6 +53,14 @@ CRASH_EXIT_CODE = 86
 
 ERROR_KINDS = ("429", "500", "502", "503", "conflict", "notfound",
                "drop", "crash", "hang", "heal", "")
+
+#: gang-worker fault targets (parallel/supervisor.py): one decision per
+#: (worker, step), verb "gang", kind "Worker", name = the worker's gang
+#: name.  ``error: "crash"`` kills the worker (in-band gang death);
+#: ``error: "hang"`` wedges it for ``latency_s`` while its peers block
+#: in the collective.
+GANG_VERB = "gang"
+GANG_WORKER_KIND = "Worker"
 
 #: pump-process fault targets (gateway/procpump.py): one decision per
 #: (pump, conductor cycle), verb "pump", kind "Pump", name = the pump
@@ -166,6 +175,15 @@ class FaultPlan:
 # process-level plan: crash windows inside a process
 # --------------------------------------------------------------------------
 
+#: sharded workload checkpoints (parallel/resharding.py): between the
+#: last shard file and the manifest commit, and just after the commit
+CRASH_RESHARD_SHARDS_WRITTEN = "reshard.shards-written"
+CRASH_RESHARD_COMMITTED = "reshard.manifest-committed"
+#: monolithic workload checkpoints (models/checkpoint.py): with the
+#: write in flight (before the rename), and after the rename but before
+#: the integrity sidecar lands
+CRASH_TRAIN_CKPT_SAVING = "train_ckpt.saving"
+CRASH_TRAIN_CKPT_COMMITTED = "train_ckpt.committed"
 #: durable outcome journal (gateway/outcome_store.py): between the
 #: buffered append reaching the OS (flush) and the fsync that commits
 #: it, and just after the commit
@@ -208,7 +226,9 @@ def crashpoint(point: str) -> None:
 
 
 __all__ = ["CRASH_EXIT_CODE", "CRASH_OUTCOME_APPENDED",
-           "CRASH_OUTCOME_COMMITTED", "Decision", "ERROR_KINDS",
-           "FAULT_PLAN_ENV", "FaultPlan", "FaultRule", "PUMP_KIND",
-           "PUMP_VERB", "crashpoint", "install_process_plan",
-           "load_plan_from_env"]
+           "CRASH_OUTCOME_COMMITTED", "CRASH_RESHARD_COMMITTED",
+           "CRASH_RESHARD_SHARDS_WRITTEN", "CRASH_TRAIN_CKPT_COMMITTED",
+           "CRASH_TRAIN_CKPT_SAVING", "Decision", "ERROR_KINDS",
+           "FAULT_PLAN_ENV", "FaultPlan", "FaultRule", "GANG_VERB",
+           "GANG_WORKER_KIND", "PUMP_KIND", "PUMP_VERB", "crashpoint",
+           "install_process_plan", "load_plan_from_env"]

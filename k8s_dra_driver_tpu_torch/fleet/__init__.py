@@ -5,8 +5,10 @@ The port of ``k8s_dra_driver_tpu/fleet/``.  One control loop above the
 subsystems: demand from the gateway's metrics, supply from the chip
 ledger's health-and-ownership view, hysteresis policy in between, and
 actuation exclusively through existing machinery — replica
-scale-up/drain/retire and a gang supervisor's ``request_width`` /
-``readmit`` (duck-typed; the port's supervisor comes later).  The
+scale-up/drain/retire and the gang supervisor's ``request_width`` /
+``readmit`` / ``park`` / ``update_fence`` (parallel/supervisor.py's
+``GangSupervisor``; duck-typed, so any object with those verbs
+serves).  The
 multi-tenant tier (tenancy.py + binpack.py) generalizes the loop from
 1x1 to N gangs + N pools: per-tenant quotas/priority classes/floors, a
 fair-share arbiter with a strict-priority preemption cascade, adapter
@@ -33,14 +35,15 @@ __all__ = [
     "TrainingTenant", "entitlements", "owner_tenant", "read_demand",
     "serving_tag", "training_tag",
     "PREEMPT", "REGROW", "SCALE_DOWN", "SCALE_UP",
-    "fragmentation_probe",
+    "fleet_probe", "fragmentation_probe", "multitenant_probe",
 ]
 
 
 def __getattr__(name):
-    # the probes load on demand, as in the reference package (whose
-    # gang probes pull in the models layer)
-    if name == "fragmentation_probe":
+    # the probes pull in the models layer: loaded on demand so
+    # control-plane consumers stay light
+    if name in ("fleet_probe", "fragmentation_probe",
+                "multitenant_probe"):
         from . import probe
         return getattr(probe, name)
     raise AttributeError(name)

@@ -22,9 +22,21 @@ sidecar, e.g. the data loader's ``state_dict()``), all on the CPU.
   before it returns; with ``wait=False`` the files are written by a
   background thread while training goes on.  The next ``save``,
   ``restore`` or ``close`` waits for it.
+- **Already-saved steps.**  Saving a step that has a committed
+  generation returns without writing and keeps the first generation's
+  bytes and ``extra``, as orbax does: a step replayed after a restore,
+  or saved again by a resize or park that lands on a checkpoint step,
+  recomputes the saved state.
+- **Crashpoints.**  ``cluster/faults.py``'s ``train_ckpt.saving`` fires
+  with the write in flight (files in the temp directory, before the
+  rename: the generation never appears) and ``train_ckpt.committed``
+  after the rename and the directory fsync, before the integrity
+  sidecar (the generation verifies trivially, as one written before
+  sidecars existed).
 
-Not ported yet: the ``cluster/faults.crashpoint`` hooks of the JAX
-save path come with the crucible.
+The sharded, per-leaf format of the reference (``tpu-dra-sharded-ckpt/1``)
+is ``parallel/resharding.py``'s ``ShardedCheckpointer``, with the same
+API; ``ShardCorruption`` is its.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from typing import Any
 
 import torch
 
+from ..cluster import faults
+from ..parallel.resharding import ShardCorruption
 from ..utils import atomicio
 from .transformer import named_tensors
 
@@ -49,10 +63,6 @@ log = logging.getLogger(__name__)
 
 INTEGRITY_FORMAT = "tpu-dra-ckpt-integrity/1"
 _PARAMS, _OPT, _EXTRA = "params.pt", "opt_state.pt", "extra.json"
-
-
-class ShardCorruption(RuntimeError):
-    """A generation's bytes no longer match its integrity sidecar."""
 
 
 def _crc32_file(path: Path) -> int:
@@ -104,12 +114,13 @@ class TrainCheckpointer:
     def save(self, step: int, params: Any, opt_state: Any,
              wait: bool = True, extra: dict | None = None) -> None:
         """``extra``: small JSON-able sidecar state saved with the step
-        — e.g. the data loader's ``state_dict()``."""
+        — e.g. the data loader's ``state_dict()``.  A step that already
+        has a committed generation is left as it is (module
+        docstring)."""
         self._wait()
         step = int(step)
-        if (self.directory / str(step)).exists():
-            raise ValueError(f"step {step} is already saved under "
-                             f"{self.directory}")
+        if (self.directory / str(step)).is_dir():
+            return
         payload = {
             _PARAMS: _serialized({name: _to_cpu(t)
                                   for name, t in named_tensors(params)}),
@@ -133,11 +144,15 @@ class TrainCheckpointer:
             for name, data in payload.items():
                 atomicio.write_durable_bytes(tmp / name, data)
             atomicio.fsync_dir(tmp)
+            # the write is in flight: a crash here leaves only the
+            # temp directory, which is no step
+            faults.crashpoint(faults.CRASH_TRAIN_CKPT_SAVING)
             os.rename(tmp, self.directory / str(step))
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         atomicio.fsync_dir(self.directory)
+        faults.crashpoint(faults.CRASH_TRAIN_CKPT_COMMITTED)
         self._write_integrity(step)
         self._retain()
 

@@ -16,10 +16,9 @@ input pipeline of the training step:
   back into ``load_state_dict()`` so a restored run consumes exactly the
   batches the interrupted one had not.
 - ``stripe_index/stripe_count`` make each process materialize only its
-  contiguous row stripe of the global batch.
-
-Not ported yet: ``as_global`` (placement on a device mesh) comes with
-the parallelism slice.
+  contiguous row stripe of the global batch, and :func:`as_global`
+  puts the stripes back together into the global batch the train step
+  takes.
 """
 
 from __future__ import annotations
@@ -28,6 +27,7 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 
@@ -148,5 +148,29 @@ def local_rows(batch: np.ndarray) -> np.ndarray:
     return batch[p * k:(p + 1) * k]
 
 
-__all__ = ["BatchLoader", "load_token_file", "local_rows",
+def as_global(local_batch, mesh=None) -> torch.Tensor:
+    """Local rows -> the global ``[B, T]`` batch as a tensor.
+
+    Without a process mesh (``mesh=None``, or the gang supervisor's
+    in-process gang, parallel/supervisor.py, whose dp rows all live in
+    this process) the local batch is the global one.  Over a
+    ``parallel.mesh.ProcessMesh`` each process holds the rows of its
+    batch coordinate (its ``local_rows`` when every process is on dp)
+    and they are gathered over the batch axes, in coordinate order,
+    into the global batch on the mesh's device — what the port's
+    ``make_train_step(..., mesh=mesh)`` takes on every rank."""
+    from ..parallel.mesh import BATCH_AXES, ProcessMesh
+
+    x = torch.as_tensor(np.asarray(local_batch))
+    if not isinstance(mesh, ProcessMesh):
+        return x
+    x = x.to(mesh.device)
+    # the batch is laid out dp-major over (dp, ep): gather the inner
+    # axis first
+    for axis in reversed(BATCH_AXES):
+        x = mesh.all_gather(x, axis, dim=0)
+    return x
+
+
+__all__ = ["BatchLoader", "as_global", "load_token_file", "local_rows",
            "write_token_file"]

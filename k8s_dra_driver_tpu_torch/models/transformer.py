@@ -622,6 +622,19 @@ def named_tensors(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+def bound_leaves(params, opt_state) -> list:
+    """The leaves of ``params`` in ``named_tensors`` order, after checking
+    that ``opt_state`` is the optimizer ``init_state`` bound to them
+    (one parameter group holding exactly those tensors)."""
+    leaves = [t for _, t in named_tensors(params)]
+    bound = opt_state.param_groups[0]["params"]
+    if (len(opt_state.param_groups) != 1 or len(bound) != len(leaves)
+            or any(a is not b for a, b in zip(bound, leaves))):
+        raise ValueError("opt_state is not bound to these params "
+                         "(build both with init_state)")
+    return leaves
+
+
 def make_optimizer(lr: float = 3e-4) -> Callable[..., torch.optim.Optimizer]:
     """The counterpart of ``optax.adamw(lr, weight_decay=0.01)``: a
     factory that binds ``torch.optim.AdamW`` with optax's betas and eps
@@ -667,12 +680,7 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
         return params, optimizer(leaves)
 
     def train_step(params, opt_state, tokens, segment_ids=None):
-        leaves = [t for _, t in named_tensors(params)]
-        bound = opt_state.param_groups[0]["params"]
-        if (len(opt_state.param_groups) != 1 or len(bound) != len(leaves)
-                or any(a is not b for a, b in zip(bound, leaves))):
-            raise ValueError("opt_state is not bound to these params "
-                             "(build both with init_state)")
+        leaves = bound_leaves(params, opt_state)
         tokens = torch.as_tensor(tokens)
         if segment_ids is not None:
             segment_ids = torch.as_tensor(segment_ids)

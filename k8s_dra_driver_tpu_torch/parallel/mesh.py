@@ -14,7 +14,15 @@ batch and the sequence, and the collectives below move what the
 sharded layout needs between processes.
 
 This slice runs dp and sp: tp, ep and pp larger than 1 raise
-``NotImplementedError`` (ROADMAP Queue A item 6).
+``NotImplementedError`` (ROADMAP Queue A item 6b).
+
+:class:`PartitionSpec` (alias ``P``) is the port's own layout
+annotation: a tuple with one entry per array dimension, each an axis
+name, a tuple of axis names or ``None`` (replicated), as JAX's
+``jax.sharding.PartitionSpec`` holds them.  The layout tables
+(models/layouts.py) and the sharded checkpoint format
+(parallel/resharding.py) are written in it; ``resharding.encode_spec``
+gives the same JSON list for a spec of either package.
 
 Transport follows the group's backend.  NCCL (one card per rank) moves
 CUDA tensors as they are.  Gloo carries host tensors only, so a gloo
@@ -41,6 +49,34 @@ BATCH_AXES = ("dp", "ep")
 
 #: mesh axes this slice of the port runs at sizes above 1
 SUPPORTED_AXES = ("dp", "sp")
+
+
+def _canonical_entry(entry):
+    """One entry as JAX's ``PartitionSpec`` keeps it: a list becomes a
+    tuple, a one-axis tuple its axis name, an empty tuple ``None``."""
+    if isinstance(entry, (list, tuple)):
+        entry = tuple(entry)
+        if len(entry) == 0:
+            return None
+        if len(entry) == 1:
+            return entry[0]
+    return entry
+
+
+class PartitionSpec(tuple):
+    """Per-dimension placement of an array over the mesh axes: each
+    entry an axis name, a tuple of axis names, or ``None``.  Dimensions
+    past the last entry are replicated, so ``P()`` replicates the whole
+    array."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, map(_canonical_entry, entries))
+
+    def __repr__(self) -> str:
+        return "PartitionSpec(" + ", ".join(map(repr, self)) + ")"
+
+
+P = PartitionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +108,18 @@ class MeshSpec:
         spec = cls(dp=dp, ep=ep, sp=sp, tp=tp)
         assert spec.num_devices == n_devices, (spec, n_devices)
         return spec
+
+
+def require_supported(spec: MeshSpec) -> None:
+    """Raise ``NotImplementedError`` when ``spec`` sets an axis the port
+    does not run yet (tp, ep or pp above 1)."""
+    unsupported = {a: n for a, n in spec.axis_sizes().items()
+                   if n > 1 and a not in SUPPORTED_AXES}
+    if unsupported:
+        raise NotImplementedError(
+            f"mesh axes {unsupported} are not ported yet: the port runs dp "
+            f"and sp; tp, ep and pp come with the rest of the parallelism "
+            f"slice (ROADMAP Queue A item 6b)")
 
 
 def mesh_coords(rank: int, spec: MeshSpec) -> dict[str, int]:
@@ -241,13 +289,7 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
     if spec.num_devices != world:
         raise ValueError(f"mesh {spec} wants {spec.num_devices} devices, "
                          f"have {world} processes")
-    unsupported = {a: n for a, n in spec.axis_sizes().items()
-                   if n > 1 and a not in SUPPORTED_AXES}
-    if unsupported:
-        raise NotImplementedError(
-            f"mesh axes {unsupported} are not ported yet: the port runs dp "
-            f"and sp; tp, ep and pp come with the rest of the parallelism "
-            f"slice (ROADMAP Queue A item 6)")
+    require_supported(spec)
     dev = resolve_device(device)
     rank = dist.get_rank()
     sizes = spec.axis_sizes()
@@ -267,5 +309,6 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
     return ProcessMesh(spec, dev, rank, groups, lines)
 
 
-__all__ = ["BATCH_AXES", "MESH_AXES", "MeshSpec", "ProcessMesh",
-           "SUPPORTED_AXES", "make_mesh", "mesh_coords", "mesh_rank"]
+__all__ = ["BATCH_AXES", "MESH_AXES", "MeshSpec", "P", "PartitionSpec",
+           "ProcessMesh", "SUPPORTED_AXES", "make_mesh", "mesh_coords",
+           "mesh_rank", "require_supported"]

@@ -30,10 +30,10 @@ already queued there; each load keeps its staging tensors until an
 event recorded after its copies has passed.
 
 Leaves come from an in-memory ``{leaf name: array}`` tree or a
-``fetch(name)`` callable; names are ``layers/<i>/<wq|wo>/<A|B>`` and
-are validated against ``LORA_RULES`` at registration.  Streaming from
-the sharded checkpoint format (the JAX package's ``checkpoint_source``)
-waits for that format in the port's checkpoint module.
+``fetch(name)`` callable (:func:`checkpoint_source` streams them from a
+sharded checkpoint, parallel/resharding.py); names are
+``layers/<i>/<wq|wo>/<A|B>`` and are validated against
+``models/layouts.py``'s ``lora_rules`` at registration.
 """
 
 from __future__ import annotations
@@ -45,19 +45,19 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.layouts import lora_rules
 from ..serving_kv.manager import NULL_BLOCK, BlocksExhausted, KVBlockManager
 from ..utils.device import resolve_device
 
 __all__ = ["LORA_RULES", "AdapterManifest", "AdapterPool", "adapter_leaves",
-           "make_adapter"]
+           "checkpoint_source", "make_adapter"]
 
-#: the leaf patterns of the JAX package's ``models/layouts.py
-#: lora_rules``: an adapter targets wq and wo only.  K/V projections are
-#: left out by design, so prompt K/V rows and every shared prefix block
-#: stay adapter-independent and prefix sharing works across adapters.
-#: An unmatched leaf is an error; the tensor-parallel placements come
-#: with the port's device mesh.
-LORA_RULES = (r"wq/A$", r"wq/B$", r"wo/A$", r"wo/B$")
+#: the leaf patterns of ``models/layouts.py``'s ``lora_rules``: an
+#: adapter targets wq and wo only.  K/V projections are left out by
+#: design, so prompt K/V rows and every shared prefix block stay
+#: adapter-independent and prefix sharing works across adapters.  An
+#: unmatched leaf is an error.
+LORA_RULES = tuple(pattern for pattern, _ in lora_rules(None))
 
 #: leaf tails per layer, in buffer order: the A/B factors of the wq
 #: delta (added before RoPE) and of the wo delta
@@ -83,6 +83,17 @@ def make_adapter(cfg, rank: int, seed: int, scale: float = 0.05) -> dict:
     rng = np.random.default_rng(seed)
     return {name: (scale * rng.standard_normal(shape)).astype(np.float32)
             for _, _, name, shape in adapter_leaves(cfg, rank)}
+
+
+def checkpoint_source(ckpt, step: int, prefix: str = "params/"):
+    """Streaming cold-load source over a sharded checkpoint
+    (parallel/resharding.py ``ShardedCheckpointer``): each leaf is ONE
+    verified ``read_slice`` (only the shard files overlapping that leaf
+    are opened), so loading one adapter never reads the full
+    checkpoint."""
+    def fetch(name: str):
+        return ckpt.read_slice(int(step), prefix + name)
+    return fetch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +148,7 @@ class AdapterPool:
                           for _, _, _, shape in leaves]
                          for leaves in _per_layer(adapter_leaves(cfg,
                                                                  self.rank))]
-        self._rules = tuple(re.compile(pat) for pat in LORA_RULES)
+        self._rules = tuple(re.compile(pat) for pat, _ in lora_rules(cfg))
         self._manifests: dict[str, AdapterManifest] = {}
         self._slot: dict[str, int] = {}
         self._touch: dict[str, int] = {}

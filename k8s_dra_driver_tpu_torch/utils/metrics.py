@@ -3,8 +3,9 @@
 The port's copy of ``GatewayMetrics`` from
 ``k8s_dra_driver_tpu/utils/metrics.py``, with the helpers it uses
 (``escape_label_value``, ``expo_line``, ``digest_exposition``,
-``_DigestSourceMixin``), ``FleetMetrics`` and ``render_all``.  The
-driver's and the recovery registries wait for their consumers.
+``_DigestSourceMixin``), ``RecoveryMetrics`` (the gang supervisor's),
+``FleetMetrics`` and ``render_all``.  The driver's registry waits for
+its consumer.
 
 The reference builds on ``prometheus_client``, which the card's machine
 does not have, so this module carries a small registry of its own:
@@ -593,6 +594,80 @@ class GatewayMetrics(_DigestSourceMixin):
         return self.registry.render() + self._render_digests()
 
 
+# Recovery wall time spans a checkpoint restore plus the first train
+# step on the reformed gang: seconds to minutes, not the gateway's
+# sub-second scale.
+_RECOVERY_BUCKETS = (.1, .5, 1, 2.5, 5, 10, 30, 60, 120, 300, 600)
+
+
+class RecoveryMetrics(_DigestSourceMixin):
+    """Elastic-gang training recovery observability
+    (parallel/supervisor.py): the same families, names, labels, buckets
+    and HELP texts as the reference's ``RecoveryMetrics``.
+
+    The acceptance surface for a recovery: ``restarts_total`` advances
+    once per eviction→resume cycle (labeled by cause: dead / wedged /
+    health, and the controlled preempt / expand / park), ``steps_lost``
+    records the replay distance back to the restored checkpoint
+    generation, and ``recovery_seconds`` is MTTR — eviction decision to
+    the first *completed* post-resume step (scalar readback included,
+    so a wedged resume can't look fast).
+    """
+
+    DIGEST_SERIES = (
+        ("recovery", "tpu_train_digest_recovery_seconds",
+         "Streaming quantile digest of gang MTTR (eviction decision "
+         "to first completed post-resume step)"),
+    )
+
+    def __init__(self):
+        self.registry = Registry()
+        self._init_digest_sources()
+        self.digests = DigestBank(("recovery",))
+        self.add_digest_source(lambda: self.digests)
+        reg = self.registry
+        self.restarts = Counter(
+            "tpu_train_restarts_total",
+            "Gang recoveries (eviction→resume cycles) by cause",
+            ["cause"], registry=reg)
+        self.evicted_workers = Counter(
+            "tpu_train_evicted_workers_total",
+            "Gang workers evicted across all recoveries", registry=reg)
+        self.steps_lost = Counter(
+            "tpu_train_steps_lost_total",
+            "Completed-but-uncheckpointed steps replayed after "
+            "restores", registry=reg)
+        self.steps_lost_last = Gauge(
+            "tpu_train_steps_lost_last",
+            "Steps lost in the most recent recovery", registry=reg)
+        self.recovery_seconds = Histogram(
+            "tpu_train_recovery_seconds",
+            "Eviction decision to first completed post-resume step",
+            registry=reg, buckets=_RECOVERY_BUCKETS)
+        self.dp_width = Gauge(
+            "tpu_train_dp_width",
+            "Current data-parallel width of the supervised gang",
+            registry=reg)
+        self.supervisor_state = Gauge(
+            "tpu_train_supervisor_state",
+            "1 on the supervisor's current state, 0 elsewhere",
+            ["state"], registry=reg)
+
+    def set_state(self, state: str, all_states) -> None:
+        for s in all_states:
+            self.supervisor_state.labels(state=s).set(
+                1.0 if s == state else 0.0)
+
+    def observe_recovery(self, mttr_s: float) -> None:
+        """One recovery sample into both views: the fixed-bucket
+        histogram and the streaming digest."""
+        self.recovery_seconds.observe(mttr_s)
+        self.digests.observe("recovery", mttr_s)
+
+    def render(self) -> bytes:
+        return self.registry.render() + self._render_digests()
+
+
 class FleetMetrics:
     """Fleet-reconciler observability (fleet/reconciler.py,
     fleet/tenancy.py): the same families, names, labels and HELP texts
@@ -667,5 +742,5 @@ def render_all(*metrics) -> bytes:
 
 
 __all__ = ["Counter", "FleetMetrics", "Gauge", "GatewayMetrics",
-           "Histogram", "Registry", "digest_exposition",
+           "Histogram", "RecoveryMetrics", "Registry", "digest_exposition",
            "escape_label_value", "expo_line", "render_all"]

@@ -2,8 +2,8 @@
 
 The port's copy of ``k8s_dra_driver_tpu/utils/tracing.py``: the span
 recorder and its pool wiring (``Tracer``, ``wire_pool``), the
-per-request critical path and the Chrome-trace exporter; the
-supervisor hook (``attach_supervisor``) waits for the gang supervisor.
+per-request critical path, the Chrome-trace exporter and the gang
+supervisor's hook (``attach_supervisor``, parallel/supervisor.py).
 A **span** is a plain dict
 ``{trace, span, parent, name, t0, t1, track, tenant?, attrs?}``
 recording one arc of a request's life (admission, dispatch, prefill,
@@ -124,6 +124,31 @@ class Tracer:
 
 # -- wiring helpers ------------------------------------------------------
 
+def attach_supervisor(tracer: Tracer, supervisor,
+                      name: str = "gang") -> TraceContext:
+    """Turn gang state transitions into ``"gang"`` spans via the
+    supervisor's ``listeners`` hook (parallel/supervisor.py
+    ``_transition``).  Each span covers the time SPENT in the previous
+    state, with attrs ``{from, to, dp, step, generation}`` — so a
+    RUNNING→SUSPECT→EVICT→REFORM→RESUME arc reads as contiguous spans
+    on the "supervisor" track."""
+    ctx = tracer.begin(name)
+    hold = {"state": supervisor.state, "t": tracer.clock()}
+
+    def listener(state, info):
+        now = tracer.clock()
+        tracer.emit(ctx, "gang", hold["t"], now, track="supervisor",
+                    **{"from": info.get("from", hold["state"]),
+                       "to": state,
+                       "dp": info.get("dp"),
+                       "step": info.get("step"),
+                       "generation": info.get("generation")})
+        hold["state"], hold["t"] = state, now
+
+    supervisor.listeners.append(listener)
+    return ctx
+
+
 def wire_pool(tracer: Tracer, manager) -> None:
     """Hand the tracer to a ReplicaManager and every replica it will
     ever spawn (initial pool, replacements, scale-ups) — how
@@ -211,5 +236,5 @@ def export_chrome(spans) -> str:
                       separators=(",", ":"))
 
 
-__all__ = ["TraceContext", "Tracer", "chrome_trace", "critical_path",
-           "export_chrome", "wire_pool"]
+__all__ = ["TraceContext", "Tracer", "attach_supervisor", "chrome_trace",
+           "critical_path", "export_chrome", "wire_pool"]

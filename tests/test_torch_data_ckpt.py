@@ -195,8 +195,37 @@ def test_latest_retention_and_integrity_sidecars(tmp_path):
         assert (zlib.crc32(blob) & 0xFFFFFFFF, len(blob)) == (crc, size)
     _, _, at = ckpt.restore(params, opt)
     assert at == 3
-    with pytest.raises(ValueError, match="already saved"):
-        ckpt.save(3, params, opt)
+    # a second save of a committed step returns and keeps the first
+    # generation's bytes and extra, as the JAX checkpointer (orbax)
+    # does on the same inputs
+    step_dir = tmp_path / "ckpt" / "3"
+    blobs = {p.name: p.read_bytes() for p in step_dir.iterdir()}
+    first = snapshot(params, opt)
+    _, params_x, opt_x = train_state(seed=5)
+    ckpt.save(3, params_x, opt_x, extra={"epoch": 9, "step": 9})
+    assert {p.name: p.read_bytes() for p in step_dir.iterdir()} == blobs
+    _, params_r, opt_r = train_state(seed=6)
+    ckpt.restore(params_r, opt_r, step=3)
+    assert_same_state(snapshot(params_r, opt_r), first)
+    assert ckpt.restore_extra(3) == {}
+
+    from k8s_dra_driver_tpu.models import checkpoint as jckpt
+
+    def host(tree):
+        return {n.replace(".", "_"): t.detach().numpy().copy()
+                for n, t in tt.named_tensors(tree)}
+
+    jck = jckpt.TrainCheckpointer(tmp_path / "jax")
+    m = {"m": np.zeros((4,), np.float32)}
+    jck.save(3, host(params), m)
+    jck.save(3, host(params_x), m, extra={"epoch": 9, "step": 9})
+    got, _, at = jck.restore(host(params_r), m)
+    assert at == 3
+    assert jck.restore_extra(3) == ckpt.restore_extra(3)
+    for name, t in tt.named_tensors(params_r):
+        np.testing.assert_array_equal(np.asarray(got[name.replace(".", "_")]),
+                                      t.detach().numpy())
+    jck.close()
     ckpt.close()
 
 

@@ -11,8 +11,8 @@ and a 1x1 loop over real engines — a burst under a tight SLO, calm, a
 chip fault and its heal, with the burn-rate engine, ``MemWatch`` and a
 tracer attached — must give equal action lists, events, ledger views,
 greedy streams and rendered ``FleetMetrics`` (all but ``_created``).
-The gang half waits for the port's supervisor: the reconciler's
-``readmit`` / ``request_width`` go to a stub here.
+The reconciler's ``readmit`` / ``request_width`` go to a stub here;
+tests/test_torch_fleet_gang.py runs them against real supervisors.
 """
 
 import threading
@@ -636,16 +636,24 @@ def test_1x1_loop_equals_jax(params):
 # -- combined exposition over HTTP ---------------------------------------
 
 def test_serve_metrics_combines_fleet_registries():
-    """One /metrics serves the reconciler's and the gateway's
-    registries (the supervisor's waits for the port's supervisor); the
-    body equals the JAX reconciler's but for ``_created``.  With a
-    ``MemWatch`` on the gateway the port adds its families (ROADMAP
-    Queue C item 17)."""
+    """One /metrics serves the reconciler's, the gateway's and the
+    supervisor's registries; the body equals the JAX reconciler's but
+    for ``_created``.  With a ``MemWatch`` on the gateway the port adds
+    its families (ROADMAP Queue C item 17)."""
+    from k8s_dra_driver_tpu.utils.metrics import RecoveryMetrics as JRM
+    from k8s_dra_driver_tpu_torch.utils.metrics import RecoveryMetrics as TRM
+
+    class Job:
+        tp = 1
+
     bodies = {}
-    for side in ("jax", "torch"):
+    for side, metrics in (("jax", JRM), ("torch", TRM)):
         f, g = SIDES[side][:2]
+        sup = type("Sup", (), {"dp": 2, "job": Job(), "workers": [],
+                               "metrics": metrics()})()
+        sup.metrics.dp_width.set(2)
         gw = g.FleetGateway(_IdleManager(), queue_capacity=4)
-        rec = f.FleetReconciler(gw, ledger=f.ChipLedger([0, 1]))
+        rec = f.FleetReconciler(gw, sup, ledger=f.ChipLedger([0, 1]))
         rec.tick()
         endpoint = rec.serve_metrics("127.0.0.1:0")
         try:
@@ -653,7 +661,8 @@ def test_serve_metrics_combines_fleet_registries():
                                    timeout=5).read().decode()
         finally:
             endpoint.stop()
-    for family in ("tpu_fleet_ticks_total", "tpu_gateway_queue_depth"):
+    for family in ("tpu_fleet_ticks_total", "tpu_gateway_queue_depth",
+                   "tpu_train_dp_width"):
         assert f"# TYPE {family}" in bodies["torch"], family
     assert bodies["torch"].splitlines() == [
         ln for ln in bodies["jax"].splitlines() if "_created" not in ln]

@@ -83,7 +83,10 @@ def test_scan_covers_the_port():
                 "serving_kv/probe.py", "fleet/__init__.py",
                 "fleet/policy.py", "fleet/supply.py", "fleet/binpack.py",
                 "fleet/reconciler.py", "fleet/tenancy.py",
-                "fleet/probe.py"):
+                "fleet/probe.py", "utils/watchdog.py",
+                "models/layouts.py", "parallel/resharding.py",
+                "parallel/supervisor.py", "parallel/probe.py",
+                "parallel/__init__.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 

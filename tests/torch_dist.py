@@ -219,3 +219,13 @@ def contract_worker(rank, world):
 def jobs_worker(rank, world, jobs):
     """``[(worker, args), ...]`` run in turn on one group."""
     return [fn(rank, world, *args) for fn, args in jobs]
+
+
+def as_global_worker(rank, world, batch):
+    """``models/data.as_global`` over a dp mesh of the world: each rank
+    hands in its ``local_rows`` stripe of ``batch`` and gets the global
+    batch back."""
+    from k8s_dra_driver_tpu_torch.models.data import as_global, local_rows
+    from k8s_dra_driver_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(device="cpu")
+    return as_global(local_rows(batch), mesh).numpy()
