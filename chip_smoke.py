@@ -82,6 +82,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
     park and an unpark at a checkpoint step: no step lost, no device
     memory held while parked, (e) the recovery, fleet and multi-tenant
     probes on the card, each ``valid``;
+10c. the compound-fault crucible (``phase_crucible``): the port's
+    ``CrucibleRig`` (a ShardedGateway over a one-prefill, one-decode
+    paged, tiered, LoRA pool, two elastic gangs on
+    ``ShardedCheckpointer``, the multi-tenant reconciler over an
+    8-slot ledger, the burn engine) under the seeded default schedule
+    of every fault kind: (a) 220 cycles at the reference crucible's
+    proportions with d_head 64 (the kernels' head dims) in f32, every
+    assertion of the reference acceptance (no violation, every kind
+    fired, >= 3 overlaps, the four window-triggered arcs inside their
+    windows, every request finished byte-equal to its oracle, both
+    gangs recovered with losses exactly once, no burn alert) and K1,
+    K2, K3, K4 launched; (b) the same gates at full width (engines and
+    oracles on the 154M in f32, gangs on the 154M's widths at 2 layers in
+    bf16, 88 cycles),
+    with the generations saved (count, bytes, mean ms) and the
+    restores; (c) the spec-fleet schedule run twice, equal injection
+    logs, fired cycles, outcomes and tokens, and its repro replayed to
+    the same fired cycles;
 11. MoE training, small: one f32 AdamW step of a 2-layer, 4-expert
     gmm config with the router aux losses, card against CPU, every
     parameter (router included) moved, exact K1/K3-K6 launches (K1,
@@ -4714,6 +4732,312 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     return routes, f32_routes
 
 
+#: the crucible's full-width run: the smallest default-schedule length
+#: of at least 60 at which the soak passes in either package
+#: (tests/test_torch_crucible_soak.py pins it on the CPU)
+CRUCIBLE_FULL_CYCLES = 88
+CRUCIBLE_SOAK_CYCLES = 220
+#: (b)'s gangs: the 154M's widths at this depth.  At all 8 layers the
+#: gangs' 79 saves of a 879 MiB generation took about 200 of (b)'s
+#: 239-257 s on the H100 and the whole script 958 s of its 1200 s limit
+#: (PERF.md section 6); two layers keep every width and cut the bytes
+#: to 57%
+CRUCIBLE_GANG_LAYERS = 2
+#: the four window-triggered double-fault arcs of the default schedule
+CRUCIBLE_ARCS = ("mid-chip4-in-reform", "decode-kill-in-handoff",
+                 "chip0-in-cascade", "chip1-while-parked")
+
+
+class ShardedSaveTimer:
+    """Times every ``ShardedCheckpointer`` save and restore of a block
+    (the class's methods are wrapped, so checkpointers a rig builds are
+    covered): each save that wrote a generation records (bytes, ms),
+    each successful restore (step, ms)."""
+
+    def __enter__(self):
+        from k8s_dra_driver_tpu_torch.parallel.resharding import (
+            ShardedCheckpointer)
+        self.cls = ShardedCheckpointer
+        self.save0, self.restore0 = self.cls.save, self.cls.restore
+        self.saves, self.restores = [], []
+        timer = self
+
+        def save(ck, step, params, opt_state, wait=True, extra=None):
+            before = set(ck.all_steps())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.save0(ck, step, params, opt_state, wait=wait, extra=extra)
+            ms = 1e3 * (time.perf_counter() - t0)
+            if step not in before and step in ck.all_steps():
+                timer.saves.append((generation_bytes(ck, step), ms))
+
+        def restore(ck, params_like, opt_state_like, step=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = timer.restore0(ck, params_like, opt_state_like, step=step)
+            torch.cuda.synchronize()
+            timer.restores.append((out[2], 1e3 * (time.perf_counter() - t0)))
+            return out
+
+        self.cls.save, self.cls.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.save, self.cls.restore = self.save0, self.restore0
+        return False
+
+
+def crucible_model(cfg, label: str):
+    """(cfg, params): ``cfg`` with weights from generator seed 0 on the
+    card."""
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    n = sum(p.numel() for p in param_tensors(params))
+    print(f"crucible {label}: model {n} parameters, {cfg.dtype}, "
+          f"d_head {cfg.d_head}", flush=True)
+    return cfg, params
+
+
+def crucible_gates(label: str, sched, res, rig, cycles: int) -> None:
+    """Every assertion of the reference acceptance
+    (tests/test_crucible.py test_compound_soak_zero_violations)."""
+    bad = [f"cycle {c}: {m}" for c, v in res.violations for m in v]
+    from k8s_dra_driver_tpu_torch.cluster import crucible as cru
+    from k8s_dra_driver_tpu_torch.cluster import invariants as inv
+    if bad:
+        fail(f"{label}: {len(bad)} violation(s): {bad[:8]}")
+    if not (res.cycles >= cycles and res.survived_cycles == res.cycles):
+        fail(f"{label}: survived {res.survived_cycles} of {res.cycles} "
+             f"cycles, want {cycles}")
+    if set(res.fault_kinds_fired) != set(cru.EVENT_KINDS):
+        fail(f"{label}: kinds fired {res.fault_kinds_fired}, want every "
+             f"one of {cru.EVENT_KINDS}")
+    if res.overlap_hits < 3:
+        fail(f"{label}: {res.overlap_hits} overlap hits, want >= 3")
+    if res.gang_failures or res.operator_repairs:
+        fail(f"{label}: gang failures {res.gang_failures}, operator "
+             f"repairs {res.operator_repairs}")
+    if not (res.submitted > 0 and res.finished == res.submitted):
+        fail(f"{label}: {res.finished} of {res.submitted} finished")
+    if not res.compound_mttr_ms > 0:
+        fail(f"{label}: no recovery MTTR measured")
+    for name, sup in rig.sups.items():
+        lost = inv.losses_exactly_once(sup.losses, sup.recoveries)
+        if not sup.recoveries or lost:
+            fail(f"{label}: gang {name} recoveries {sup.recoveries}, "
+                 f"losses {lost}")
+    by_id = {e.id: e for e in sched.events}
+    for eid in CRUCIBLE_ARCS:
+        if by_id[eid].fired_cycle is None or not by_id[eid].hit_windows:
+            fail(f"{label}: {eid} fired at {by_id[eid].fired_cycle} in "
+                 f"windows {by_id[eid].hit_windows}")
+    if rig.burn.cycle < res.cycles or rig.burn.alerts_total:
+        fail(f"{label}: burn engine at cycle {rig.burn.cycle}, "
+             f"{rig.burn.alerts_total} alerts")
+    victims = [info for _, kind, info in rig.rec.events
+               if kind.startswith("reclaim") and info.get("tenant") == "hi"]
+    if victims:
+        fail(f"{label}: the serving tenant was a reclaim victim {victims}")
+
+
+def crucible_soak(fa, pa, label, cycles, workdir, **kw):
+    """One default-schedule soak through ``run_soak`` with the counts
+    zeroed just before and read just after; prints the run's line.
+    Returns (schedule, result, rig, counts, wall s)."""
+    from k8s_dra_driver_tpu_torch.cluster import crucible as cru
+    sched = cru.default_schedule(7, cycles=cycles)
+    zero_counts(fa)
+    pa.launches = 0
+    t0 = time.perf_counter()
+    res, rig = cru.run_soak(sched, workdir, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**flash_routes(fa), "paged_decode": pa.launches,
+              "flash_fwd": fa.launches}
+    recs = {name: [(r.cause, r.from_dp, r.to_dp, r.restored_step,
+                    r.steps_lost) for r in sup.recoveries]
+            for name, sup in rig.sups.items()}
+    fired = sorted(res.fault_kinds_fired)
+    print(f"crucible {label}: default_schedule(7, cycles={cycles}) in "
+          f"{wall:.1f} s ({res.cycles / wall:.2f} cycles/s over "
+          f"{res.cycles} cycles with the drain), MTTR "
+          f"{res.compound_mttr_ms:.1f} ms, violations "
+          f"{sum(len(v) for _, v in res.violations)}, overlap hits "
+          f"{res.overlap_hits}, {res.finished}/{res.submitted} finished, "
+          f"kinds fired {len(fired)} {fired}, recoveries (cause, from_dp, "
+          f"to_dp, restored step, steps lost) {recs}, burn cycle "
+          f"{rig.burn.cycle} alerts {rig.burn.alerts_total}, "
+          f"step_deadline_s {rig.step_deadline_s} hang_stall_s "
+          f"{rig.hang_stall_s}, tier "
+          f"corruptions {rig.tier_corruptions}, kv seizures "
+          f"{rig.kv_seizures}, adapter storms {rig.adapter_storms}; "
+          f"launches {counts}", flush=True)
+    return sched, res, rig, counts, wall
+
+
+def crucible_record(sched, rig) -> dict:
+    """What a run must reproduce: each plan's injection log, every
+    event's fired cycle and windows, every uid's outcome status and
+    every finished token array."""
+    plans = {"chip": rig.chip_plan.log, "replica": rig.replica_plan.log,
+             **{f"gang-{n}": p.log for n, p in rig.gang_plans.items()}}
+    return dict(
+        plans={k: list(v) for k, v in plans.items()},
+        fired=[(e.id, e.fired_cycle, tuple(e.hit_windows))
+               for e in sched.events],
+        outcomes={u: g.status for u, g in rig.gw.outcomes.items()},
+        tokens={u: np.asarray(f.tokens).tolist()
+                for u, f in rig.gw.results.items()})
+
+
+def phase_crucible(fa, pa, tmp: Path) -> tuple[dict, dict]:
+    """The compound-fault crucible on the card
+    (``k8s_dra_driver_tpu_torch/cluster/crucible.py``): the full stack
+    (a ShardedGateway over a one-prefill, one-decode paged, tiered,
+    LoRA-carrying pool, two elastic gangs on ``ShardedCheckpointer``,
+    ``MultiTenantReconciler`` over one 8-slot ledger, the burn engine
+    and the tracer) in one co-loop under the seeded default schedule.
+    The card's kernels take head dims 64 and 128 only, so the
+    reference crucible's model (d_head 8) becomes its proportions at
+    d_head 64.
+
+    (a) ``default_schedule(7, 220)`` at vocab 64, 2 layers, 4 heads
+    over 2 KV heads of 64, d_model 256, d_ff 512, max_seq 48, f32:
+    every assertion of the reference acceptance, K1 (f32 route), K2,
+    K3 and K4 (f32 route) launched.  (b) The slice at full width:
+    engines and oracles on the 154M in f32, the gangs on the 154M's
+    widths at CRUCIBLE_GANG_LAYERS layers in bf16,
+    ``default_schedule(7, CRUCIBLE_FULL_CYCLES)``: the same gates,
+    K1 on both routes and K3/K4 on the tensor cores; the generations'
+    count, bytes and save ms, the restores.  (c) The spec-fleet
+    schedule (seed 11, 14 cycles, n-gram drafts) twice at (a)'s shape:
+    equal injection logs, fired cycles and windows, outcomes and
+    tokens; then a repro of it written and replayed, its fired cycles
+    equal.  Returns the main-route and f32-route launch counts."""
+    from k8s_dra_driver_tpu_torch.cluster import crucible as cru
+    from k8s_dra_driver_tpu_torch.cluster.crucible import (FaultEvent,
+                                                           Schedule)
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        TransformerConfig)
+    t_phase = time.perf_counter()
+    routes = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0,
+              "flash_bwd_dq_tc": 0, "flash_bwd_dkv_tc": 0}
+    f32_routes = {"flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
+
+    def add(counts):
+        for name in routes:
+            routes[name] += counts[name]
+        for name in f32_routes:
+            f32_routes[name] += counts[name]
+
+    # (a) the reference acceptance at d_head 64
+    small = crucible_model(TransformerConfig(
+        vocab=64, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_head=64, d_ff=512, max_seq=48, dtype=torch.float32), "(a)")
+    sched, res, rig, counts, _ = crucible_soak(
+        fa, pa, "(a)", CRUCIBLE_SOAK_CYCLES, tmp / "a", model=small)
+    crucible_gates("crucible (a)", sched, res, rig, CRUCIBLE_SOAK_CYCLES)
+    if (counts["flash_fwd_f32"] <= 0 or counts["flash_fwd_tc"]
+            or counts["paged_decode"] <= 0
+            or counts["flash_bwd_dq_f32"] <= 0
+            or counts["flash_bwd_dkv_f32"] <= 0
+            or counts["flash_bwd_dq_tc"] or counts["flash_bwd_dkv_tc"]):
+        fail(f"crucible (a): launches {counts}")
+    add(counts)
+    del rig
+    gc.collect()
+
+    # (b) the slice at full width
+    full = serving_config()
+    big = crucible_model(dataclasses.replace(full, dtype=torch.float32),
+                         "(b) serving")
+    gang_cfg = dataclasses.replace(full, n_layers=CRUCIBLE_GANG_LAYERS)
+    print(f"crucible (b) gangs: the 154M's widths at {gang_cfg.n_layers} "
+          f"layers, {gang_cfg.dtype}", flush=True)
+    with ShardedSaveTimer() as timer:
+        sched, res, rig, counts, wall = crucible_soak(
+            fa, pa, "(b)", CRUCIBLE_FULL_CYCLES, tmp / "b", model=big,
+            gang_cfg=gang_cfg)
+    crucible_gates("crucible (b)", sched, res, rig, CRUCIBLE_FULL_CYCLES)
+    if (counts["flash_fwd_f32"] <= 0 or counts["flash_fwd_tc"] <= 0
+            or counts["paged_decode"] <= 0
+            or counts["flash_bwd_dq_tc"] <= 0
+            or counts["flash_bwd_dkv_tc"] <= 0
+            or counts["flash_bwd_dq_f32"] or counts["flash_bwd_dkv_f32"]):
+        fail(f"crucible (b): launches {counts}")
+    saved = sum(b for b, _ in timer.saves)
+    mean_ms = (sum(ms for _, ms in timer.saves) / len(timer.saves)
+               if timer.saves else float("nan"))
+    print(f"crucible (b) 154M (serving f32; gangs bf16, "
+          f"{gang_cfg.n_layers} layers): {wall:.1f} s, "
+          f"{len(timer.saves)} generations saved, {saved / 2 ** 20:.1f} "
+          f"MiB in all ({saved / 2 ** 20 / max(len(timer.saves), 1):.1f} "
+          f"MiB each), mean save {mean_ms:.0f} ms; {len(timer.restores)} "
+          f"restores (step, ms) "
+          f"{[(s, round(ms)) for s, ms in timer.restores]}; "
+          f"step_deadline_s {rig.step_deadline_s}, hang_stall_s "
+          f"{rig.hang_stall_s}; burn alerts {rig.burn.alerts_total}",
+          flush=True)
+    if not timer.saves or not timer.restores:
+        fail("crucible (b): no generation saved or restored")
+    add(counts)
+    del rig, big
+    gc.collect()
+
+    # (c) determinism: the spec-fleet schedule twice, then its repro
+    def spec_schedule():
+        return Schedule(seed=11, cycles=14, events=[
+            FaultEvent(id="warm-burst", kind="burst", at_cycle=1, n=6,
+                       prompt_seed=31),
+            FaultEvent(id="mid-burst", kind="burst", at_cycle=4, n=6,
+                       prompt_seed=47),
+            FaultEvent(id="decode-kill", kind="replica_kill", at_cycle=5,
+                       replica_glob="d*"),
+            FaultEvent(id="kv-squeeze", kind="kv_exhaust", at_cycle=6,
+                       heal_after=12),
+            FaultEvent(id="tail-burst", kind="burst", at_cycle=8, n=6,
+                       prompt_seed=59)])
+
+    spec_kw = dict(model=small, device="cuda", draft_source="ngram",
+                   draft_len=3)
+    records = []
+    for i in range(2):
+        sched = spec_schedule()
+        zero_counts(fa)
+        pa.launches = 0
+        res, rig = cru.run_soak(sched, tmp / f"c{i}", **spec_kw)
+        counts = {**flash_routes(fa), "paged_decode": pa.launches,
+                  "flash_fwd": fa.launches}
+        add(counts)
+        bad = [m for _, v in res.violations for m in v]
+        if bad or res.finished != res.submitted or res.submitted != 18:
+            fail(f"crucible (c) run {i}: {res.finished}/{res.submitted} "
+                 f"finished, violations {bad[:8]}")
+        records.append(crucible_record(sched, rig))
+    same = {k: records[0][k] == records[1][k] for k in records[0]}
+    print(f"crucible (c) spec fleet (seed 11, 14 cycles, n-gram) twice: "
+          f"equal {same}; fired {records[0]['fired']}; "
+          f"{len(records[0]['tokens'])} token arrays, injections "
+          f"{ {k: len(v) for k, v in records[0]['plans'].items()} }",
+          flush=True)
+    if not all(same.values()):
+        fail(f"crucible (c): the two runs parted: {same}")
+    repro = cru.write_repro(tmp / "c-repro.json", sched, res)
+    res2, rig2 = cru.replay(repro, tmp / "c-replay", **spec_kw)
+    replayed = [(e.id, e.fired_cycle) for e in rig2.schedule.events]
+    original = [(e.id, e.fired_cycle) for e in sched.events]
+    print(f"crucible (c) repro replayed: fired {replayed} (original "
+          f"{original}), violations {len(res2.violations)}", flush=True)
+    if replayed != original or res2.violations:
+        fail("crucible (c): the replay fired apart from the original")
+    del rig, rig2
+    gc.collect()
+    print(f"crucible phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return routes, f32_routes
+
+
 #: the sp phase: two worker processes on the one card, a gloo group
 #: (NCCL refuses two ranks on one device), SP_STEPS steps of the 154M
 SP_WORLD = 2
@@ -5341,6 +5665,15 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     for name in ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
         f32_routes[name] += gang_f32[name]
+    # the crucible: its K1 launches join flash_fwd (both routes: the f32
+    # ones count through flash_fwd - flash_fwd_tc), K2 paged_decode,
+    # K3/K4 their tensor-core and f32 routes
+    with tempfile.TemporaryDirectory() as tmp:
+        cru_main, cru_f32 = phase_crucible(fa, pa, Path(tmp))
+    for name, n in cru_main.items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in cru_f32.items():
+        f32_routes[name] += n
     # the sp path's kernels (summed over ranks): K1's block entry, and
     # K3/K4 beside the single-device steps'
     sp = phase_sp_train(fa, record)
@@ -5362,7 +5695,8 @@ def main() -> None:
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
           f"oracle, surviving pumps and codec block + the observability "
           f"drain and paged-KV probes + the control loops and their "
-          f"oracle + the gang recovery arcs + {TRAIN_STEPS} train "
+          f"oracle + the gang recovery arcs + the crucible's soaks + "
+          f"{TRAIN_STEPS} train "
           f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 

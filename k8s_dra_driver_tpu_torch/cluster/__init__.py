@@ -1,3 +1,33 @@
-"""Control-plane plumbing shared by the port's serving layers: the
-in-process event bus and its cross-process tap (bus.py), and the
-deterministic fault plan with its process crashpoints (faults.py)."""
+"""Cluster access and control-plane plumbing shared by the port's
+layers: the client interface and fake API server (client.py), the
+in-process event bus and its cross-process tap (bus.py), fault
+injection (faults.py), the fleet invariants (invariants.py), the
+flight recorder (flightrec.py) and the compound-fault crucible
+(crucible.py, chaosprobe.py).  The driver's object kinds come with the
+driver layer."""
+
+from .client import (ApiServerError, ApiUnavailableError, ClusterClient,
+                     ConflictError, EVENT_ADDED, EVENT_DELETED,
+                     EVENT_MODIFIED, FakeCluster, NotFoundError, match_labels)
+from .faults import (FaultPlan, FaultRule, FaultyClusterClient,
+                     ScriptedChipHealth)
+from .invariants import check_cycle
+
+__all__ = [
+    "ApiServerError", "ApiUnavailableError", "ClusterClient",
+    "ConflictError", "EVENT_ADDED", "EVENT_DELETED",
+    "EVENT_MODIFIED", "FakeCluster", "FaultEvent", "FaultPlan",
+    "FaultRule", "FaultyClusterClient", "NotFoundError",
+    "Schedule", "check_cycle", "default_schedule", "match_labels",
+    "run_soak", "ScriptedChipHealth",
+]
+
+
+def __getattr__(name):
+    # the crucible pulls in the whole workload stack: loaded on demand
+    # so `import ...cluster` stays light
+    if name in ("FaultEvent", "Schedule", "default_schedule",
+                "run_soak"):
+        from . import crucible
+        return getattr(crucible, name)
+    raise AttributeError(name)

@@ -28,6 +28,8 @@ from __future__ import annotations
 import itertools
 from typing import Callable
 
+from ..cluster.faults import HEALTH_VERB
+
 READY = "ready"
 DRAINING = "draining"
 DEAD = "dead"
@@ -229,7 +231,8 @@ class ReplicaManager:
                 down.append(r)
                 continue
             if self.fault_plan is not None:
-                d = self.fault_plan.decide("health", "Replica", r.name)
+                d = self.fault_plan.decide(HEALTH_VERB, "Replica",
+                                           r.name)
                 if d is not None and d.error:
                     down.append(r)
         return down

@@ -76,7 +76,10 @@ def test_scan_covers_the_port():
                 "gateway/outcome_store.py", "gateway/sharded.py",
                 "gateway/ctlprobe.py", "gateway/loadgen.py",
                 "gateway/procpump.py", "gateway/procprobe.py",
-                "cluster/faults.py", "coordclient/client.py",
+                "cluster/faults.py", "cluster/client.py",
+                "cluster/invariants.py", "cluster/flightrec.py",
+                "cluster/crucible.py", "cluster/chaosprobe.py",
+                "coordclient/client.py",
                 "utils/backoff.py", "sim/clock.py",
                 "gateway/burnrate.py", "gateway/obsprobe.py",
                 "utils/memwatch.py", "utils/httpendpoint.py",

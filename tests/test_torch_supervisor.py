@@ -29,6 +29,7 @@ from k8s_dra_driver_tpu.models import transformer as jt
 from k8s_dra_driver_tpu.models.checkpoint import \
     TrainCheckpointer as JTrainCheckpointer
 from k8s_dra_driver_tpu.parallel import supervisor as jsv
+from k8s_dra_driver_tpu_torch.cluster import faults as tfaults
 from k8s_dra_driver_tpu_torch.cluster.faults import FaultPlan, FaultRule
 from k8s_dra_driver_tpu_torch.models import transformer as tt
 from k8s_dra_driver_tpu_torch.models.checkpoint import TrainCheckpointer
@@ -590,9 +591,9 @@ def test_corrupt_generation_plus_kill_falls_back_and_resumes(
         victim = max(ckpt.step_path(step).glob("*.bin"),
                      key=lambda p: p.stat().st_size)
         if damage == "bitflip":
-            jfaults.corrupt_file(victim, jfaults.CORRUPT_BITFLIP, seed=1)
+            tfaults.corrupt_file(victim, tfaults.CORRUPT_BITFLIP, seed=1)
         elif damage == "truncate":
-            jfaults.corrupt_file(victim, jfaults.CORRUPT_TRUNCATE, seed=1)
+            tfaults.corrupt_file(victim, tfaults.CORRUPT_TRUNCATE, seed=1)
         else:
             victim.unlink()
         hit["step"] = step

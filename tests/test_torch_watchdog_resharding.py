@@ -371,9 +371,9 @@ def test_corruption_falls_back_alike(tmp_path, damage):
         ckpt.save(2, tree(2), {})
         victim = sorted(ckpt.step_path(2).glob("*.bin"))[0]
         if damage == "bitflip":
-            jfaults.corrupt_file(victim, jfaults.CORRUPT_BITFLIP, seed=3)
+            tfaults.corrupt_file(victim, tfaults.CORRUPT_BITFLIP, seed=3)
         elif damage == "truncate":
-            jfaults.corrupt_file(victim, jfaults.CORRUPT_TRUNCATE, seed=3)
+            tfaults.corrupt_file(victim, tfaults.CORRUPT_TRUNCATE, seed=3)
         elif damage == "missing":
             victim.unlink()
         else:
@@ -384,9 +384,9 @@ def test_corruption_falls_back_alike(tmp_path, damage):
         with pytest.raises(res.ShardCorruption):
             ckpt.restore(like(good), {}, step=2)
         for s in (1, 2):
-            jfaults.corrupt_file(
+            tfaults.corrupt_file(
                 sorted(ckpt.step_path(s).glob("*.bin"))[-1],
-                jfaults.CORRUPT_BITFLIP, seed=s)
+                tfaults.CORRUPT_BITFLIP, seed=s)
         with pytest.raises(FileNotFoundError, match="no restorable"):
             ckpt.restore(like(good), {})
 
@@ -412,8 +412,8 @@ def test_sharded_format_contract(tmp_path):
     (ckpt.step_path(10) / tres.MANIFEST).unlink()
     assert ckpt.all_steps() == [8, 9]
     nv = tres.ShardedCheckpointer(tmp_path / "a", verify=False)
-    jfaults.corrupt_file(sorted(nv.step_path(9).glob("*.bin"))[0],
-                         jfaults.CORRUPT_TRUNCATE, seed=0)
+    tfaults.corrupt_file(sorted(nv.step_path(9).glob("*.bin"))[0],
+                         tfaults.CORRUPT_TRUNCATE, seed=0)
     with pytest.raises(tres.ShardCorruption, match="truncated"):
         nv.restore(like(t), {}, step=9)
 
