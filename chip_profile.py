@@ -377,7 +377,7 @@ def train_profile(cfg=None, b: int = smoke.TRAIN_B,
         step, init_state = make_train_step(cfg, device="cuda")
     else:
         job = ElasticTrainJob(cfg, np.zeros(b * t, np.int32), batch=b,
-                              seq_len=t, chips=dp, device="cuda")
+                              seq_len=t, chips=dp, tp=1, device="cuda")
         _, step, init_state = job.build(dp)
     params, opt = init_state(torch.Generator(device="cuda").manual_seed(0))
     motif = np.random.default_rng(0).integers(0, cfg.vocab, 32)

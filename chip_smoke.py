@@ -262,16 +262,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
     weights, dense dispatch, the teacher-forced check, K7b twice per
     layer and K7a 4 per layer + 1 for each such pass, over the same
     passes, every one on the CUDA-core route;
-20. each kernel's device time at its main-path shape and at a long
+20. tensor, expert and pipeline parallelism (``phase_mesh_train``):
+    worker processes sharing the card over gloo; f32 2-layer steps over
+    tp=2 and ep=2 x tp=2 (MoE gmm, four ranks) against one CPU process,
+    loss, gathered gradients and parameters; the 154M over tp=2 (8 of
+    16 heads a rank) and over pp=2 (GPipe, 4 layers a stage, 4
+    microbatches) and moe_heavy over ep=2 (8 experts and a dead group a
+    rank), SP_STEPS steps each against the single-device losses, exact
+    per-rank K1/K3/K4/K5/K6 launches on the tensor cores;
+21. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
-21. one JSON line naming every kernel with its launches on the main
+22. one JSON line naming every kernel with its launches on the main
     paths (serving drains and training steps), its error against the
     plain version and its times; K1, K3-K6 name their tensor-core
     source and launches, and their f32 route's apart; K7 its launches
     by route.  A kernel or library reading below its bound is flagged
     impossible, re-timed cold and, if still below, not used;
-22. last line: ``{"ok": true, "device": {...}}``.
+23. last line: ``{"ok": true, "device": {...}}``.
 
 Every drain and step holds its K1, K5, K6 and K7 launches to the route
 of its dtype: bf16 on the tensor cores, f32 on the CUDA cores.
@@ -4352,11 +4360,11 @@ class TimedSaves:
         self.saves, self.skipped, self.restores = [], 0, []
         save, restore = ckpt.save, ckpt.restore
 
-        def timed_save(step, params, opt, wait=True, extra=None):
+        def timed_save(step, params, opt, wait=True, extra=None, mesh=None):
             before = set(ckpt.all_steps())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            save(step, params, opt, wait=wait, extra=extra)
+            save(step, params, opt, wait=wait, extra=extra, mesh=mesh)
             ms = 1e3 * (time.perf_counter() - t0)
             if step in before:
                 self.skipped += 1
@@ -4416,7 +4424,7 @@ def timed_job(cfg, corpus, batch: int, seq_len: int, walls: list):
 
             return gang, timed, init_state
 
-    return Job(cfg, corpus, batch=batch, seq_len=seq_len, chips=4,
+    return Job(cfg, corpus, batch=batch, seq_len=seq_len, chips=4, tp=1,
                device="cuda")
 
 
@@ -4617,7 +4625,8 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     ref_losses = [l for _, l in ref.run(GANG_STEPS).losses]
     ref.ckpt.close()
     del ref
-    ckpt = ShardedCheckpointer(tmp / "c", keep=2)
+    ckpt = ShardedCheckpointer(tmp / "c", keep=2,
+                               rules=transformer_rules(cfg32))
     sup = gang_supervisor(
         timed_job(cfg32, corpus32, GANG_F32_B, GANG_F32_T, []), ckpt,
         tmp / "c-coord", plan=gang_plan("g0w2", 4))
@@ -4719,7 +4728,7 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
         pa.launches = 0
         out = fn(cfg=small, device="cuda")
         counts = kernel_snapshot(fa, pa)
-        print(f"gang (e) {label} on the card (d_head 64, tp=1): "
+        print(f"gang (e) {label} on the card (d_head 64, tp={out['tp']}): "
               + ", ".join(f"{k} {out[k]}" for k in keys)
               + f", causes {out.get('recovery_causes', '-')}, K1 "
               f"{counts['flash_fwd']}, K2 {counts['paged_decode']}, valid "
@@ -4762,11 +4771,13 @@ class ShardedSaveTimer:
         self.saves, self.restores = [], []
         timer = self
 
-        def save(ck, step, params, opt_state, wait=True, extra=None):
+        def save(ck, step, params, opt_state, wait=True, extra=None,
+                 mesh=None):
             before = set(ck.all_steps())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            timer.save0(ck, step, params, opt_state, wait=wait, extra=extra)
+            timer.save0(ck, step, params, opt_state, wait=wait, extra=extra,
+                        mesh=mesh)
             ms = 1e3 * (time.perf_counter() - t0)
             if step not in before and step in ck.all_steps():
                 timer.saves.append((generation_bytes(ck, step), ms))
@@ -5186,54 +5197,20 @@ def phase_sp_train(fa, record: dict) -> dict:
     past SP_TIMEOUT_S or disagreement fails the run.  Returns the main
     path's launches summed over ranks (the ring steps of (b); the f32
     block route from (a))."""
-    import multiprocessing as mp
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     small = small_train_config()
     tokens, seg = small_batch(small)
-    with tempfile.TemporaryDirectory() as tmp:
-        job = Path(tmp) / "job.pt"
-        torch.save(dict(tokens=tokens, seg=seg,
-                        batches=record["batches"][:SP_STEPS]), job)
-        ctx = mp.get_context("spawn")
-        port = free_port()
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=sp_worker,
-                             args=(r, SP_WORLD, port, str(job), tmp))
-                 for r in range(SP_WORLD)]
-        for proc in procs:
-            proc.start()
-        # meanwhile, the one-process CPU step (a) and (d) are held to
-        cpu_loss, cpu_params, cpu_grads = small_step(small, "cpu", tokens,
-                                                     seg)
-        deadline = time.monotonic() + SP_TIMEOUT_S
-        for proc in procs:
-            proc.join(max(0.0, deadline - time.monotonic()))
-        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-                proc.join(30)
-        took = time.perf_counter() - t0
-        errs = {r: (Path(tmp) / f"rank{r}.err").read_text()
-                for r in range(SP_WORLD)
-                if (Path(tmp) / f"rank{r}.err").exists()}
-        codes = [proc.exitcode for proc in procs]
-        if hung or errs or any(codes):
-            fail(f"sp workers failed: hung {hung} (timeout {SP_TIMEOUT_S} "
-                 f"s), exit codes {codes}\n"
-                 + "\n".join(f"rank {r}:\n{e}" for r, e in errs.items()))
-        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
-                 for r in range(SP_WORLD)]
-    psums = [r["psum"] for r in ranks]
-    want_psum = SP_WORLD * (SP_WORLD + 1) / 2
+    # meanwhile, the one-process CPU step (a) and (d) are held to
+    ranks, (cpu_loss, cpu_params, cpu_grads), took = run_workers(
+        sp_worker, SP_WORLD, dict(tokens=tokens, seg=seg,
+                                  batches=record["batches"][:SP_STEPS]),
+        "sp", SP_TIMEOUT_S, lambda: small_step(small, "cpu", tokens, seg))
     print(f"sp gang: {SP_WORLD} worker processes on the one card, group "
           f"from rendezvous.initialize (backend gloo: NCCL refuses two "
-          f"ranks on one device), gang_psum {psums} (expected "
-          f"{want_psum}); workers took {took:.1f} s start to join",
-          flush=True)
-    if psums != [want_psum] * SP_WORLD:
-        fail(f"gang_psum disagrees: {psums}")
+          f"ranks on one device), gang_psum {[r['psum'] for r in ranks]} "
+          f"(expected {SP_WORLD * (SP_WORLD + 1) / 2}); workers took "
+          f"{took:.1f} s start to join", flush=True)
 
     layers = small.n_layers
     small_want = {
@@ -5395,7 +5372,7 @@ def map_params(params, fn):
                 if k == "layers" else fn(v)) for k, v in params.items()}
 
 
-def phase_moe_train(fa, gm, tmp: Path) -> dict:
+def phase_moe_train(fa, gm, tmp: Path, record: dict) -> dict:
     """moe_heavy at full width with gmm dispatch: TRAIN_STEPS AdamW
     steps of MOE_B x MOE_T tokens from a token file through
     ``BatchLoader``, load-balance loss weight MOE_AUX_WEIGHT, with the
@@ -5403,7 +5380,8 @@ def phase_moe_train(fa, gm, tmp: Path) -> dict:
     steps again from the same seed (bitwise the same losses and
     parameters: no step is order-dependent); then one bf16 forward of
     the initial parameters under dense dispatch against gmm.  Returns
-    the steps' launches."""
+    the steps' launches; ``record`` gets the losses and the first
+    SP_STEPS batches, which the mesh phase trains again over ep=2."""
     from k8s_dra_driver_tpu_torch.models.data import (BatchLoader,
                                                       load_token_file,
                                                       write_token_file)
@@ -5428,13 +5406,17 @@ def phase_moe_train(fa, gm, tmp: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_moe_counts(fa, gm)
+    record["batches"] = []
     for _ in range(TRAIN_STEPS):
         batch = next(data)
         first = batch if first is None else first
+        if len(record["batches"]) < SP_STEPS:
+            record["batches"].append(batch)
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, batch)
         losses.append(float(loss))          # waits for the step
         walls.append(time.perf_counter() - t0)
+    record["losses"] = losses
     counts = moe_counts(fa, gm)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = 1e3 * sum(walls[1:]) / (len(walls) - 1)
@@ -5555,6 +5537,308 @@ def phase_moe_serving(fa, pa, gm) -> dict:
     require_gmm_routes(gm, "moe_heavy f32 teacher-forced check", 0,
                        gm.launches["gmm"], 0, 0)
     return counts
+
+
+#: the mesh phase: worker processes on the one card (gloo), part (a)'s
+#: ep x tp step on MESH_MOE_WORLD of them, (a)'s tp step and (b)-(d) on
+#: SP_WORLD; the seconds each group may take, start to join
+MESH_MOE_WORLD = 4
+MESH_TIMEOUT_S = 480
+
+
+def small_moe_config():
+    """small_train_config made MoE with gmm dispatch (4 experts, top 2),
+    the f32 config of the ep x tp card-vs-CPU step."""
+    return dataclasses.replace(small_train_config(), n_experts=4, top_k=2,
+                               moe_dispatch="gmm")
+
+
+def mesh_counts(fa, gm) -> dict:
+    """K1, K3, K4 (normalized entry), K5 and K6 launches by route, the
+    nonzero ones."""
+    routes = {**flash_routes(fa), "gmm_tc": gm.tc_launches,
+              "gmm_f32": gm.launches["gmm"] - gm.tc_launches,
+              "gmm_dw_tc": gm.dw_tc_launches,
+              "gmm_dw_f32": gm.launches["gmm_dw"] - gm.dw_tc_launches}
+    return {k: v for k, v in routes.items() if v}
+
+
+def mesh_small_step(cfg, tokens, seg, mesh):
+    """small_step over ``mesh``: one AdamW step of ``cfg`` from generator
+    seed 3 on this rank's blocks; (loss, every parameter after the step
+    and every summed gradient, gathered whole, on the host)."""
+    from k8s_dra_driver_tpu_torch.models.transformer import (
+        gather_params, grad_tree, make_train_step, named_tensors)
+    step, init_state = make_train_step(cfg, device="cuda", mesh=mesh)
+    params, opt = init_state(torch.Generator().manual_seed(3))
+    params, opt, loss = step(params, opt, tokens, seg)
+    grads = gather_params(grad_tree(params), cfg, mesh)
+    whole = gather_params(params, cfg, mesh)
+    return (float(loss), [t.cpu() for _, t in named_tensors(whole)],
+            [g.cpu() for _, g in named_tensors(grads)])
+
+
+def mesh_worker(rank: int, world: int, port: int, job_path: str,
+                out_dir: str) -> None:
+    """One rank of the mesh phase, on the card: the group from the
+    rendezvous contract (gloo), then the job's parts in turn — "a_moe"
+    (the f32 small MoE step over ep=2 x tp=2), "a_tp" (the f32 small
+    step over tp=2), "b" (the 154M over tp=2), "c" (moe_heavy over ep=2)
+    and "d" (the 154M over pp=2).  Writes its results, or its
+    traceback, under ``out_dir``."""
+    import traceback
+
+    import torch.distributed as dist
+    out = Path(out_dir)
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from k8s_dra_driver_tpu_torch.models import transformer as tt
+        from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+        from k8s_dra_driver_tpu_torch.ops import gmm as gm
+        from k8s_dra_driver_tpu_torch.parallel import rendezvous
+        from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "TPU_WORKER_ID": str(rank), "TPU_NUM_WORKERS": str(world),
+               "TPU_RENDEZVOUS_BARRIER_TIMEOUT_S": str(SP_BARRIER_S)}
+        rendezvous.initialize(rendezvous.spec_from_env(env), backend="gloo")
+        res = {"psum": rendezvous.gang_psum(float(rank + 1))}
+        job = torch.load(job_path, weights_only=False)
+        for part in job["parts"]:
+            if part in ("a_moe", "a_tp"):
+                cfg = (small_moe_config() if part == "a_moe"
+                       else small_train_config())
+                mesh = make_mesh(MeshSpec(ep=2, tp=2) if part == "a_moe"
+                                 else MeshSpec(tp=2), device="cuda")
+                zero_moe_counts(fa, gm)
+                loss, params, grads = mesh_small_step(
+                    cfg, job["tokens"], job["seg"], mesh)
+                res[part] = dict(loss=loss, params=params, grads=grads,
+                                 counts=mesh_counts(fa, gm),
+                                 coords=mesh.coords)
+                continue
+            if part == "c":
+                cfg = moe_heavy_config(aux_loss_weight=MOE_AUX_WEIGHT)
+                spec, batches = MeshSpec(ep=2), job["moe_batches"]
+            else:
+                cfg = serving_config()
+                if part == "d":
+                    cfg = dataclasses.replace(cfg, pp_stages=2)
+                spec = MeshSpec(tp=2) if part == "b" else MeshSpec(pp=2)
+                batches = job["batches"]
+            mesh = make_mesh(spec, device="cuda")
+            step, init_state = tt.make_train_step(cfg, device="cuda",
+                                                  mesh=mesh)
+            params, opt = init_state(
+                torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.reset_peak_memory_stats()
+            steps, routed = [], []
+            plain = tt._gmm_dispatch_combine
+
+            def counted(xf, gate_vals, expert_ids, w_in, w_out, e, bm):
+                # this rank's routed rows: its own experts', and the
+                # dead group's (the last of the e groups)
+                routed.append((int((expert_ids < e - 1).sum()),
+                               int((expert_ids == e - 1).sum())))
+                return plain(xf, gate_vals, expert_ids, w_in, w_out, e, bm)
+
+            for i, batch in enumerate(batches):
+                tt._gmm_dispatch_combine = counted if i == 0 else plain
+                zero_moe_counts(fa, gm)
+                params, opt, loss, wall, dev = profiled_step(
+                    step, params, opt, batch)
+                steps.append(dict(loss=loss, wall_ms=wall, device_ms=dev,
+                                  counts=mesh_counts(fa, gm)))
+            tt._gmm_dispatch_combine = plain
+            res[part] = dict(
+                steps=steps, coords=mesh.coords, routed=routed,
+                peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del params, opt, step, init_state
+            torch.cuda.empty_cache()
+        torch.save(res, out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_workers(target, world: int, job: dict, label: str, timeout_s: float,
+                cpu_work=None):
+    """``world`` processes of ``target(rank, world, port, job_path,
+    out_dir)`` on the card running ``job``; while they run,
+    ``cpu_work()`` (the CPU references) runs here.  Returns (the ranks'
+    results, cpu_work's result, seconds start to join); any failure, a
+    hang past ``timeout_s`` or a wrong ``gang_psum`` fails the run."""
+    import multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        job_path = Path(tmp) / "job.pt"
+        torch.save(job, job_path)
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=target,
+                             args=(r, world, port, str(job_path), tmp))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        extra = cpu_work() if cpu_work is not None else None
+        deadline = time.monotonic() + timeout_s
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+        took = time.perf_counter() - t0
+        errs = {r: (Path(tmp) / f"rank{r}.err").read_text()
+                for r in range(world)
+                if (Path(tmp) / f"rank{r}.err").exists()}
+        codes = [proc.exitcode for proc in procs]
+        if hung or errs or any(codes):
+            fail(f"{label} workers failed: hung {hung} (timeout "
+                 f"{timeout_s} s), exit codes {codes}\n"
+                 + "\n".join(f"rank {r}:\n{e}" for r, e in errs.items()))
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    want = world * (world + 1) / 2
+    if [r["psum"] for r in ranks] != [want] * world:
+        fail(f"{label}: gang_psum {[r['psum'] for r in ranks]}")
+    return ranks, extra, took
+
+
+def phase_mesh_train(fa, gm, record: dict, moe_record: dict) -> dict:
+    """Tensor, expert and pipeline parallelism on the card: worker
+    processes share the one card and stand their group up through
+    ``rendezvous.initialize`` (gloo: NCCL refuses two ranks on one
+    device, so every collective is staged through host memory).
+
+    (a) f32 2-layer steps against one CPU process's single-device step
+    (plain versions) of the same weights and batch: small_train_config
+    over MeshSpec(tp=2), and made MoE with gmm dispatch over
+    MeshSpec(ep=2, tp=2) on four ranks; each rank's loss, its gradients
+    and its parameters after the step, gathered whole, at phase_sp_train's
+    tolerances, and exact f32-route launches.  (b) SP_STEPS steps of the
+    154M bf16 over MeshSpec(tp=2) on phase_train's weights and batches,
+    losses against phase_train's, K1/K3/K4 8 a step on each rank on the
+    tensor cores (8 of the 16 heads).  (c) moe_heavy bf16 gmm over
+    MeshSpec(ep=2) against phase_moe_train's losses, each rank's step
+    the launches of moe_step_launches(cfg, 1) on the tensor cores (K5/K6
+    over its 8 experts and the dead group), and each rank's live and
+    dead-group rows.  (d) the 154M bf16 over MeshSpec(pp=2): GPipe, 4
+    layers a stage, 2 S = 4 microbatches, the bubble ticks skipped, so
+    K1/K3/K4 launch 4 x 4 = 16 times a step on each stage.  Returns the
+    launches summed over ranks by route."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    card = card_line()
+    small = small_train_config()
+    tokens, seg = small_batch(small)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def small_refs():
+        return {"a_tp": small_step(small, "cpu", tokens, seg),
+                "a_moe": small_step(small_moe_config(), "cpu", tokens, seg)}
+
+    moe_ranks, cpu, took_a = run_workers(
+        mesh_worker, MESH_MOE_WORLD,
+        dict(parts=["a_moe"], tokens=tokens, seg=seg), "mesh (a) ep x tp",
+        MESH_TIMEOUT_S, small_refs)
+    ranks, _, took = run_workers(
+        mesh_worker, SP_WORLD,
+        dict(parts=["a_tp", "b", "c", "d"], tokens=tokens, seg=seg,
+             batches=record["batches"][:SP_STEPS],
+             moe_batches=moe_record["batches"][:SP_STEPS]),
+        "mesh (a) tp, (b)-(d)", MESH_TIMEOUT_S)
+    print(f"mesh gang: {MESH_MOE_WORLD} then {SP_WORLD} worker processes "
+          f"on the one card, groups from rendezvous.initialize (gloo), "
+          f"took {took_a:.1f} s and {took:.1f} s start to join; {card}",
+          flush=True)
+
+    layers = small.n_layers
+    f32_flash = {"flash_fwd_f32": layers, "flash_bwd_dq_f32": layers,
+                 "flash_bwd_dkv_f32": layers}
+    for part, label, per_rank, want in (
+            ("a_tp", "MeshSpec(tp=2)", ranks, f32_flash),
+            ("a_moe", "MeshSpec(ep=2, tp=2) MoE gmm", moe_ranks,
+             {**f32_flash, "gmm_f32": 4 * layers, "gmm_dw_f32": 2 * layers})):
+        cpu_loss, cpu_params, cpu_grads = cpu[part]
+        for r, res in enumerate(per_rank):
+            got = res[part]
+            loss_rel = abs(got["loss"] - cpu_loss) / abs(cpu_loss)
+            gerr = grad_errors(got["grads"], cpu_grads)
+            strict, noisy, n_noisy = step_param_errors(got["params"],
+                                                       cpu_params, cpu_grads)
+            ok = (loss_rel <= STEP_LOSS_RTOL and gerr <= SP_GRAD_TOL
+                  and strict <= STEP_PARAM_ATOL and noisy <= 2 * 3e-4
+                  and got["counts"] == want)
+            print(f"mesh (a) f32 small step {label}, rank {r} "
+                  f"{got['coords']} on the card (kernels) vs one CPU process "
+                  f"(plain): loss {got['loss']:.7f} vs {cpu_loss:.7f} (rel "
+                  f"{loss_rel:.3g}, tol {STEP_LOSS_RTOL}); gathered grads "
+                  f"max rel {gerr:.3g} (tol {SP_GRAD_TOL}); gathered params "
+                  f"max|d| {strict:.3g} (tol {STEP_PARAM_ATOL}), {n_noisy} "
+                  f"noise-band entries max|d| {noisy:.3g}; launches "
+                  f"{got['counts']} (expected {want}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"mesh (a) {label} disagrees on rank {r}")
+            add(got["counts"])
+
+    n = serving_config().n_layers
+    heavy = moe_heavy_config()
+    moe_want = moe_step_launches(heavy, 1)
+    for part, label, ref, want in (
+            ("b", "154M bf16 MeshSpec(tp=2), 8 of 16 heads a rank",
+             record["losses"], {"flash_fwd_tc": n, "flash_bwd_dq_tc": n,
+                                "flash_bwd_dkv_tc": n}),
+            ("c", "moe_heavy bf16 gmm MeshSpec(ep=2), 8 experts a rank",
+             moe_record["losses"],
+             {"flash_fwd_tc": moe_want["flash_fwd"],
+              "flash_bwd_dq_tc": moe_want["flash_bwd_dq"],
+              "flash_bwd_dkv_tc": moe_want["flash_bwd_dkv"],
+              "gmm_tc": moe_want["gmm"], "gmm_dw_tc": moe_want["gmm_dw"]}),
+            ("d", "154M bf16 MeshSpec(pp=2) GPipe, 4 layers a stage, 4 "
+             "microbatches", record["losses"],
+             {"flash_fwd_tc": 16, "flash_bwd_dq_tc": 16,
+              "flash_bwd_dkv_tc": 16})):
+        for r, res in enumerate(ranks):
+            got = res[part]
+            for i, st in enumerate(got["steps"]):
+                gap = abs(st["loss"] - ref[i])
+                ok = gap <= SP_LOSS_TOL and st["counts"] == want
+                print(f"mesh ({part}) {label}, step {i + 1} rank {r} "
+                      f"{got['coords']}: loss {st['loss']:.5f} vs "
+                      f"single-device {ref[i]:.5f} (|d| {gap:.3g}, tol "
+                      f"{SP_LOSS_TOL}); wall {st['wall_ms']:.1f} ms, device "
+                      f"{fmt(st['device_ms'])} ms (kernels and copies; two "
+                      f"processes sharing one card, host-staged gloo "
+                      f"collectives, under the profiler); launches "
+                      f"{st['counts']} (expected {want}) "
+                      f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
+                if not ok:
+                    fail(f"mesh ({part}) step {i + 1} disagrees on rank {r}")
+                add(st["counts"])
+            if part == "c":
+                live = sum(a for a, _ in got["routed"])
+                dead = sum(b for _, b in got["routed"])
+                print(f"mesh (c) rank {r}: step 1 routed {live} rows to its "
+                      f"own experts and {dead} to the dead group over "
+                      f"{len(got['routed'])} layers ({live + dead} gathered "
+                      f"token slots)", flush=True)
+                if live + dead != len(got["routed"]) * MOE_B * MOE_T \
+                        * heavy.top_k:
+                    fail(f"mesh (c): rank {r} routed {live} + {dead} rows")
+            print(f"mesh ({part}) rank {r}: peak device memory "
+                  f"{got['peak_gb']:.2f} GiB", flush=True)
+    return total
 
 
 def main() -> None:
@@ -5684,20 +5968,30 @@ def main() -> None:
 
     for name, n in phase_moe_train_small(fa, gm).items():
         f32_routes[name] = f32_routes.get(name, 0) + n
+    moe_record = {}
     with tempfile.TemporaryDirectory() as tmp:
-        counts = phase_moe_train(fa, gm, Path(tmp))
+        counts = phase_moe_train(fa, gm, Path(tmp), moe_record)
     counts_drain = phase_moe_serving(fa, pa, gm)
     counts_int8 = phase_int8_moe_serving(fa, pa)
     for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
+    # tp, ep and pp (summed over ranks): the tensor-core launches join
+    # the main path's, the f32 small steps' their routes
+    for name, n in phase_mesh_train(fa, gm, record, moe_record).items():
+        if name.endswith("_f32"):
+            f32_routes[name] = f32_routes.get(name, 0) + n
+        else:
+            launches[name] = launches.get(name, 0) + n
+            if name == "flash_fwd_tc":
+                launches["flash_fwd"] += n
     print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
           f"oracle, surviving pumps and codec block + the observability "
           f"drain and paged-KV probes + the control loops and their "
           f"oracle + the gang recovery arcs + the crucible's soaks + "
           f"{TRAIN_STEPS} train "
-          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks): "
+          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,

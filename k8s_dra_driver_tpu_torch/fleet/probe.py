@@ -31,7 +31,7 @@ import time
 from pathlib import Path
 
 
-def fleet_probe(tp: int = 1, train_dp: int = 2, batch: int = 4,
+def fleet_probe(tp: int = 2, train_dp: int = 2, batch: int = 4,
                 seq_len: int = 16, n_requests: int = 10,
                 max_new: int = 4, slots: int = 2,
                 d_model: int = 32, n_layers: int = 2, heads: int = 4,
@@ -43,8 +43,7 @@ def fleet_probe(tp: int = 1, train_dp: int = 2, batch: int = 4,
     plus ONE serving chip, so the burst's scale-up has no free supply
     and MUST preempt — the arbitration path is what is being timed.
     ``cfg`` replaces the small default config (on the card K1 needs a
-    head dim of 64 or 128); ``tp`` defaults to 1 where the reference's
-    is 2 (the port has no tp axis yet).
+    head dim of 64 or 128); ``tp`` defaults to 2, as in the reference.
     """
     import numpy as np
     import torch

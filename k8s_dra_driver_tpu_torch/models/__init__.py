@@ -10,11 +10,13 @@ from .decode import (KVCache, greedy_generate, init_cache,
 from .layouts import transformer_rules
 from .quant import QTensor, quantize_params, quantized_bytes
 from .transformer import (TransformerConfig, forward, init_params, loss_fn,
-                          make_optimizer, make_train_step)
+                          make_optimizer, make_train_step, param_specs,
+                          shard_params, stage_params, unstage_params)
 
 __all__ = ["BatchLoader", "KVCache", "QTensor", "ShardCorruption",
            "TrainCheckpointer", "TransformerConfig", "as_global", "forward",
            "greedy_generate", "init_cache", "init_params", "load_token_file",
            "local_rows", "loss_fn", "make_optimizer", "make_train_step",
-           "quantize_params", "quantized_bytes", "sample_generate",
-           "transformer_rules", "write_token_file"]
+           "param_specs", "quantize_params", "quantized_bytes",
+           "sample_generate", "shard_params", "stage_params",
+           "transformer_rules", "unstage_params", "write_token_file"]

@@ -112,9 +112,12 @@ class TrainCheckpointer:
     # -- save -----------------------------------------------------------
 
     def save(self, step: int, params: Any, opt_state: Any,
-             wait: bool = True, extra: dict | None = None) -> None:
+             wait: bool = True, extra: dict | None = None,
+             mesh=None) -> None:
         """``extra``: small JSON-able sidecar state saved with the step
-        — e.g. the data loader's ``state_dict()``.  A step that already
+        — e.g. the data loader's ``state_dict()``.  ``mesh``, the
+        formation a gang supervisor hands every checkpointer, is
+        ignored: this format is whole tensors.  A step that already
         has a committed generation is left as it is (module
         docstring)."""
         self._wait()

@@ -72,7 +72,7 @@ from ..utils import dispatch
 from . import quant
 from .quant import QTensor, ein, take_rows
 from .transformer import (Params, TransformerConfig, _dense_mlp, _moe_mlp,
-                          require_single_device, rms_norm, rotary)
+                          rms_norm, rotary, unstage_params)
 
 _NEG_INF = -1e30
 
@@ -124,6 +124,15 @@ def copy_cache(cache: KVCache, pos: int) -> KVCache:
                    k_scale=dup(cache.k_scale), v_scale=dup(cache.v_scale))
 
 
+def _with_layers(params: Params, cfg: TransformerConfig) -> Params:
+    """Accept the pp staged layout wherever decoding iterates the layers
+    (JAX's ``decode.py:278``): serving runs on one device, so staged
+    params are unstaged (views, no copy)."""
+    if "stages" in params:
+        return unstage_params(params, cfg)
+    return params
+
+
 def _device(params: Params) -> torch.device:
     return params["embed"].device
 
@@ -132,7 +141,6 @@ def init_cache(cfg: TransformerConfig, batch: int,
                max_seq: int | None = None, device="cuda") -> KVCache:
     """Zero cache of ``batch`` rows by ``max_seq`` positions (int8 k/v
     with f32 [B, S, H_kv, 1] scales under ``kv_cache_dtype="int8"``)."""
-    require_single_device(cfg)
     max_seq = max_seq or cfg.max_seq
     shape = (batch, max_seq, cfg.kv_heads, cfg.d_head)
 
@@ -270,6 +278,7 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     attention runs causally against just the chunk's own K/V — through
     the flash kernel on the card.  Wrong results if asserted on a
     non-empty cache (earlier keys would be ignored)."""
+    params = _with_layers(params, cfg)
     b, t = tokens.shape
     size = cache.k[0].shape[1]
     pos = int(cache.pos)
@@ -353,6 +362,7 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
     bo)``, the pooled adapter buffers (serving_lora/): each row gathers
     its adapter's factors by slot id, so a batch of mixed adapters is
     one pass of fixed shapes."""
+    params = _with_layers(params, cfg)
     b, t = tokens.shape
     dev = tokens.device
     pos_rows = pos_rows.to(device=dev, dtype=torch.long)
@@ -1261,7 +1271,6 @@ def init_paged_pool(cfg: TransformerConfig, n_blocks: int,
     """Zero block pool: per-layer [n_blocks, block_size, H_kv, D]
     (block 0 is the null block dead table rows point at).  The int8
     cache is refused, as in the JAX package."""
-    require_single_device(cfg)
     if cfg.kv_cache_dtype == "int8":
         raise ValueError("paged KV does not support the int8 cache")
     shape = (n_blocks, block_size, cfg.kv_heads, cfg.d_head)
@@ -1293,6 +1302,7 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
     blocks are gathered into the contiguous cache's shape and read by
     ``_cached_attention``.  ``lora`` as :func:`_rows_forward` takes
     it."""
+    params = _with_layers(params, cfg)
     b, t = tokens.shape
     if use_kernel and t > 1:
         raise ValueError("the paged-attention kernel is single-query; "

@@ -2,11 +2,11 @@
 
 The port's copy of ``k8s_dra_driver_tpu/models/layouts.py``, the tables
 entry for entry, written in the port's ``PartitionSpec``
-(parallel/mesh.py).  The port's dp x sp placements replicate every
-parameter, so today the tables are data: the sharded checkpoint
-(parallel/resharding.py) records the spec each leaf's rule gives, and
-the tp, ep and pp axes that would run them come with ROADMAP Queue A
-item 6b.
+(parallel/mesh.py).  ``models/transformer.py`` cuts each rank's
+blocks by them (``param_specs``, ``shard_params``) on any dp x ep x sp
+x tp x pp process mesh, and the sharded checkpoint
+(parallel/resharding.py) writes each leaf in the blocks its rule gives
+on the formation it is handed.
 
 Layout here is declarative data — an ordered table of
 ``(regex, PartitionSpec)`` matched against '/'-joined pytree leaf

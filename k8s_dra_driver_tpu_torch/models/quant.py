@@ -448,10 +448,11 @@ def quantize_params(params: dict[str, Any], cfg) -> dict[str, Any]:
 
     Works on the tree from ``init_params`` (transformer.py); the result
     drops into ``forward``, the cache paths and ``ServingEngine``
-    unchanged, since their einsums go through :func:`ein`.  Pipeline
-    stages are refused as :func:`require_single_device` refuses them."""
-    from .transformer import require_single_device
-    require_single_device(cfg)
+    unchanged, since their einsums go through :func:`ein`.  pp staged
+    params are unstaged first (serving is single-device)."""
+    if "stages" in params:
+        from .transformer import unstage_params
+        params = unstage_params(params, cfg)
     moe = cfg.is_moe
     out: dict[str, Any] = {
         "embed": quantize(params["embed"], (1,)),   # per row, for gather

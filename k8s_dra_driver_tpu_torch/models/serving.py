@@ -98,7 +98,7 @@ from .decode import (KVCache, decode_step_rows, decode_window_rows,
                      draft_ngram_rows, draft_propose_rows,
                      draft_sample_rows, init_cache, sample_token,
                      spec_accept_rows)
-from .transformer import TransformerConfig, require_single_device
+from .transformer import TransformerConfig, unstage_params
 
 
 @dataclasses.dataclass
@@ -372,7 +372,9 @@ class ServingEngine:
                  kv_spill_dir=None,
                  adapter_pool=None,
                  device="cuda"):
-        require_single_device(cfg)
+        if "stages" in params:
+            # a pp-trained checkpoint serves on one device
+            params = unstage_params(params, cfg)
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         if kv_layout not in ("contiguous", "paged"):

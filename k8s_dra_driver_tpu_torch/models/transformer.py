@@ -2,7 +2,7 @@
 the training step.
 
 The port of ``k8s_dra_driver_tpu/models/transformer.py`` for dense
-and MoE configs on one device, and for dense configs over a dp x sp
+and MoE configs on one device and over any dp x ep x sp x tp x pp
 process mesh (``parallel/mesh.py``).  Parameters keep the JAX package's
 layout and key names — ``wq [d,h,dh]``, ``wk/wv [d,h_kv,dh]``, ``wo
 [h,dh,d]``, ``w_in [d,f]``, ``w_out [f,d]`` (MoE: ``router [d,E]``,
@@ -31,23 +31,42 @@ weight, the attention projections through the flash backward kernels
 K3/K4 and the experts through K5/K6 on the card.
 
 The mesh path (``mesh=`` on :func:`forward`, :func:`loss_fn` and
-:func:`make_train_step`): each rank holds its ``B/dp x T/sp`` shard of
-the batch and replicated weights; attention crosses the sp axis by ring
-(K1's block entry forward, K3/K4 backward) or Ulysses (the normalized
-K1, K3/K4) by ``cfg.seq_parallel``, with rotary positions from the
-shard's absolute start; the loss is the JAX package's global mean, and
-the step sums the gradients over the world before identical AdamW
-steps on every rank.
+:func:`make_train_step`): each rank holds its ``B/(dp ep) x T/sp``
+shard of the batch and its block of each parameter, cut by the layout
+table (models/layouts.py, :func:`param_specs`, :func:`shard_params`).
+Where JAX's compiler places the collectives a layout needs, the port
+writes them (parallel/mesh.py's differentiable wrappers):
 
-Not ported yet: tp, ep and pp — pipeline stages (refused by
-:func:`require_single_device`) and the ep-sharded gmm dispatch
-(``_moe_mlp_gmm_sharded``; an MoE config with a mesh raises).
+- tp: each rank runs its ``H/tp`` query and KV heads (K1, K3/K4 on
+  them) and its ``d_ff/tp`` hidden units; the attention and MLP inputs
+  enter through ``copy_to`` and their partial outputs leave through
+  ``reduce_from``; the embedding looks up its d-slice and all-gathers
+  it, the unembedding sums its partial logits.
+- ep: each rank all-gathers the ep part of the batch, runs every
+  gathered token against its local experts (gmm: non-local picks go to
+  a zero-weight dead group, so K5/K6 run per shard over ``E/ep + 1``
+  groups; dense and capacity: the local experts' slice of the gates),
+  sums over tp and reduce-scatters back over ep.
+- sp: ring (K1's block entry forward, K3/K4 backward) or Ulysses (the
+  normalized K1, K3/K4) attention by ``cfg.seq_parallel`` over the
+  local heads, rotary positions from the shard's absolute start.
+- pp: staged parameters (``stages/<name>`` leaves ``[S, L/S, ...]``,
+  this rank's stage a block of 1) run through GPipe
+  (parallel/pipeline.py); the embedding and the tail run on every pp
+  rank.
+
+The loss is the JAX package's global mean (sums over the batch axes dp,
+ep and sp only: tp and pp ranks hold copies), and the step sums each
+leaf's gradient over the batch axes its spec does not name (and
+``embed``'s over pp, where stage 0 alone feeds it) before every rank's
+AdamW step on its own blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable
 
 import torch
@@ -58,6 +77,11 @@ from ..ops.flash_attention import flash_attention
 from ..ops.gmm import _round_up, gmm, pick_gmm_blocks
 from ..ops.ring_attention import attention_reference, ring_attention
 from ..ops.ulysses_attention import ulysses_attention
+from ..parallel.mesh import (all_gather_ad, copy_to, gather_replicated,
+                             reduce_from, reduce_scatter_ad, spec_axes,
+                             spec_block)
+from ..parallel.resharding import (leaf_name, match_partition_rules,
+                                   tree_flatten_with_path, tree_map)
 from ..utils.device import resolve_device
 from .quant import QTensor, ein, take_rows
 
@@ -67,9 +91,7 @@ Params = dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Same fields, defaults and validation as the JAX
-    ``TransformerConfig``; ``dtype`` is a torch dtype.  Fields of
-    paths the port does not run yet (pipeline stages) are validated
-    here and refused where they would be used."""
+    ``TransformerConfig``; ``dtype`` is a torch dtype."""
 
     vocab: int = 32000
     d_model: int = 512
@@ -139,29 +161,6 @@ class TransformerConfig:
         return self.n_experts > 0
 
 
-def require_single_device(cfg: TransformerConfig) -> None:
-    """Refuse configs that pipeline the layer stack: ``pp_stages > 1``
-    runs over a pp mesh axis, and the port's mesh (``parallel/mesh.py``)
-    has dp and sp only; pipelining comes with the rest of the
-    parallelism slice (ROADMAP Queue A item 6)."""
-    if cfg.pp_stages > 1:
-        raise NotImplementedError(
-            "pipeline stages (pp_stages > 1) run over a pp mesh axis; the "
-            "port's mesh has dp and sp only, pp comes with the rest of "
-            "the parallelism slice (ROADMAP Queue A item 6)")
-
-
-def _require_mesh_support(cfg: TransformerConfig, mesh) -> None:
-    """Refuse what the mesh path does not run yet: an MoE config (its
-    ep-sharded gmm dispatch, ``_moe_mlp_gmm_sharded`` in the JAX
-    package, comes with ROADMAP Queue A item 6)."""
-    if mesh is not None and cfg.is_moe:
-        raise NotImplementedError(
-            "MoE configs over a mesh need the ep-sharded gmm dispatch, "
-            "which comes with the rest of the parallelism slice (ROADMAP "
-            "Queue A item 6); the mesh path runs dense configs")
-
-
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
@@ -202,8 +201,8 @@ def init_params(cfg: TransformerConfig,
     nearly one-hot, and two bf16 evaluations of one prefix can then
     differ by whole logits.  With the contraction size, bf16 decode and
     the full forward agree closely enough to check one against the
-    other."""
-    require_single_device(cfg)
+    other.  The layers come as a list for every config;
+    :func:`shard_params` stages a pp config's."""
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
@@ -234,6 +233,109 @@ def init_params(cfg: TransformerConfig,
     return params
 
 
+def _param_skeleton(cfg: TransformerConfig) -> Params:
+    """The tree of :func:`init_params` (staged as :func:`stage_params`
+    stages it when ``pp_stages > 1``) over shape-only meta tensors:
+    what the layout table matches against."""
+    def meta(shape):
+        return torch.empty(tuple(shape), dtype=cfg.dtype, device="meta")
+
+    head: Params = {
+        "embed": meta((cfg.vocab, cfg.d_model)),
+        "unembed": meta((cfg.d_model, cfg.vocab)),
+        "ln_f": meta((cfg.d_model,)),
+    }
+    shapes = _layer_shapes(cfg)
+    if cfg.pp_stages > 1:
+        from ..parallel.pipeline import split_layers
+        lps = split_layers(cfg.n_layers, cfg.pp_stages)
+        head["stages"] = {name: meta((cfg.pp_stages, lps) + shape)
+                          for name, shape in shapes.items()}
+        return head
+    head["layers"] = [{name: meta(shape) for name, shape in shapes.items()}
+                      for _ in range(cfg.n_layers)]
+    return head
+
+
+def param_specs(cfg: TransformerConfig) -> Params:
+    """Per-leaf ``PartitionSpec``s from the model's rule table
+    (models/layouts.py) matched over the shape skeleton: one table lays
+    the model out on any dp x ep x sp x tp x pp mesh."""
+    from .layouts import transformer_rules
+    return match_partition_rules(transformer_rules(cfg),
+                                 _param_skeleton(cfg))
+
+
+def stage_params(params: Params, cfg: TransformerConfig) -> Params:
+    """layers-list params -> the staged layout for pipeline parallelism:
+    ``params["stages"]`` leaves lead with ``[S, L/S, ...]``.  Inverse:
+    :func:`unstage_params`."""
+    from ..parallel.pipeline import split_layers
+    lps = split_layers(cfg.n_layers, cfg.pp_stages)
+    layers = params["layers"]
+    stages = {name: torch.stack([
+        torch.stack([layers[s * lps + i][name] for i in range(lps)])
+        for s in range(cfg.pp_stages)]) for name in layers[0]}
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["stages"] = stages
+    return out
+
+
+def unstage_params(params: Params, cfg: TransformerConfig) -> Params:
+    """Staged layout -> layers list (to run the sequential path, serve,
+    or restore onto a pp-less mesh).  The layers are views of the
+    staged leaves."""
+    from ..parallel.pipeline import split_layers
+    lps = split_layers(cfg.n_layers, cfg.pp_stages)
+    layers = [{name: a[s, i] for name, a in params["stages"].items()}
+              for s in range(cfg.pp_stages) for i in range(lps)]
+    out = {k: v for k, v in params.items() if k != "stages"}
+    out["layers"] = layers
+    return out
+
+
+def _map_with_specs(fn, params: Params, cfg: TransformerConfig) -> Params:
+    """``params`` (in the layout of :func:`param_specs`) with every leaf
+    replaced by ``fn(leaf, its spec)``."""
+    specs = dict(tree_flatten_with_path(param_specs(cfg)))
+    return tree_map(lambda path, x: fn(x, specs[path]), params)
+
+
+def shard_params(params: Params, cfg: TransformerConfig, mesh) -> Params:
+    """This rank's block of every leaf of whole ``params`` (staged first
+    for a pp config), cut by :func:`param_specs` and the rank's mesh
+    coordinates: fresh contiguous tensors, the counterpart of JAX's
+    ``device_put`` onto the mesh."""
+    if cfg.pp_stages > 1 and "layers" in params:
+        params = stage_params(params, cfg)   # pp wants staged residency
+    sizes, coords = mesh.spec.axis_sizes(), mesh.coords
+
+    def cut(x, spec):
+        bounds = spec_block(x.shape, spec, sizes, coords)
+        for dim, (lo, hi) in enumerate(bounds):
+            x = x.narrow(dim, lo, hi - lo)
+        return x.detach().clone()
+    return _map_with_specs(cut, params, cfg)
+
+
+def grad_tree(params: Params) -> Params:
+    """``params``' tree with each leaf's gradient in its place."""
+    return tree_map(lambda _, x: x.grad, params)
+
+
+def gather_params(params: Params, cfg: TransformerConfig, mesh) -> Params:
+    """The inverse of :func:`shard_params`: every rank's blocks of a
+    tree in the sharded layout (parameters, or their gradients) gathered
+    into whole tensors on every rank.  Collective over the mesh."""
+    def whole(x, spec):
+        x = x.detach()
+        for dim, entry in enumerate(tuple(spec)):
+            for axis in reversed(spec_axes(entry)):
+                x = mesh.all_gather(x.contiguous(), axis, dim)
+        return x
+    return _map_with_specs(whole, params, cfg)
+
+
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
@@ -262,14 +364,17 @@ def rotary(x, positions, theta: float = 10000.0):
 
 def _attention(x, layer, cfg: TransformerConfig, segment_ids=None,
                mesh=None):
-    """Attention of one layer.  With a mesh whose sp axis is > 1 (the
-    JAX ``transformer.py:354-364`` branch): ring or Ulysses attention by
+    """Attention of one layer over this rank's heads (all of them, or
+    its ``H/tp`` with its block of wq/wk/wv/wo under tp: the input
+    enters by ``copy_to`` and the partial output leaves by
+    ``reduce_from``).  With a mesh whose sp axis is > 1 (the JAX
+    ``transformer.py:354-364`` branch): ring or Ulysses attention by
     ``cfg.seq_parallel`` over this rank's sequence shard, rotary
-    positions from the shard's absolute start.  Otherwise
-    single-device: flash attention on the card (K1 forward, K3/K4
-    backward), the dense oracle elsewhere — the split
-    ``transformer.py:365-374`` makes between the TPU and other
-    backends."""
+    positions from the shard's absolute start.  Otherwise flash
+    attention on the card (K1 forward, K3/K4 backward), the dense
+    oracle elsewhere — the split ``transformer.py:365-374`` makes
+    between the TPU and other backends."""
+    x = copy_to(x, mesh, "tp")
     b, t, d = x.shape
     sp = mesh.size("sp") if mesh is not None else 1
     start = mesh.index("sp") * t if sp > 1 else 0
@@ -293,7 +398,7 @@ def _attention(x, layer, cfg: TransformerConfig, segment_ids=None,
     else:
         o = attention_reference(q, k, v, causal=True, window=window,
                                 segment_ids=segment_ids).to(x.dtype)
-    return ein("bthk,hkd->btd", o, layer["wo"])
+    return reduce_from(ein("bthk,hkd->btd", o, layer["wo"]), mesh, "tp")
 
 
 def _gelu(x):
@@ -301,9 +406,12 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _dense_mlp(x, layer):
+def _dense_mlp(x, layer, mesh=None):
+    """The dense MLP over this rank's ``d_ff/tp`` hidden units under tp
+    (w_in ``P(None, "tp")``, w_out ``P("tp", None)``)."""
+    x = copy_to(x, mesh, "tp")
     h = _gelu(ein("btd,df->btf", x, layer["w_in"]))
-    return ein("btf,fd->btd", h, layer["w_out"])
+    return reduce_from(ein("btf,fd->btd", h, layer["w_out"]), mesh, "tp")
 
 
 def _router_gates(x, layer, cfg: TransformerConfig):
@@ -323,16 +431,38 @@ def _router_gates(x, layer, cfg: TransformerConfig):
     return gates, probs, logits
 
 
-def _moe_aux(gates, probs, logits, cfg: TransformerConfig):
+def _batch_axes(mesh) -> list[str]:
+    """The mesh axes of size > 1 that split the batch or the sequence:
+    the axes a token sum runs over."""
+    return [a for a in ("dp", "ep", "sp") if mesh.size(a) > 1]
+
+
+def _token_sum(x, mesh):
+    """``x`` summed over every token of the global batch: this rank's
+    sums added over the batch axes (identity backward: each rank's
+    gradient reaches its own tokens)."""
+    if mesh is not None:
+        for axis in _batch_axes(mesh):
+            x = reduce_from(x, mesh, axis)
+    return x
+
+
+def _moe_aux(gates, probs, logits, cfg: TransformerConfig, mesh=None):
     """Router auxiliary objectives of one layer, f32 scalars: the
     load balance ``E * sum_e assignment_fraction_e * mean_prob_e``
     (Switch Transformer, generalized to top-k; 1 at uniform routing)
-    and the z-loss ``mean(logsumexp(logits)^2)``."""
+    and the z-loss ``mean(logsumexp(logits)^2)``, the means over the
+    global batch (over the mesh's batch axes with a mesh).  Every rank
+    holds an equal shard (``ProcessMesh.local_batch``), so the global
+    token count is the local one times the batch axes' sizes."""
+    n = gates.shape[0] * gates.shape[1]
+    if mesh is not None:
+        n *= math.prod(mesh.size(a) for a in _batch_axes(mesh))
     sel = (gates > 0.0).float()
-    frac = sel.mean(dim=(0, 1)) / max(cfg.top_k, 1)      # [E]
-    mean_prob = probs.mean(dim=(0, 1))                   # [E]
+    frac = _token_sum(sel.sum(dim=(0, 1)), mesh) / n / max(cfg.top_k, 1)
+    mean_prob = _token_sum(probs.sum(dim=(0, 1)), mesh) / n
     load = cfg.n_experts * torch.sum(frac * mean_prob)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    z = _token_sum((torch.logsumexp(logits, dim=-1) ** 2).sum(), mesh) / n
     return load, z
 
 
@@ -440,22 +570,100 @@ def _moe_mlp_gmm(x, gates, layer, cfg: TransformerConfig):
     return out.reshape(b, t, d)
 
 
-def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False):
+def _moe_mlp_sharded(x, gates, layer, cfg: TransformerConfig, mesh):
+    """The MoE MLP over the process mesh, every dispatch: the JAX
+    ``_moe_mlp_gmm_sharded`` skeleton (``transformer.py:541-612``),
+    whose gmm core JAX runs under ``shard_map`` and whose dense and
+    capacity dispatch it leaves to GSPMD.
+
+    Per rank: this rank's expert block (``E/ep`` experts, ``d_ff/tp``
+    hidden units: w_in ``P("ep", None, "tp")``, w_out ``P("ep", "tp",
+    None)``), the ep part of the batch all-gathered (x and gates), every
+    gathered token run against the local experts only, the partial
+    output summed over tp and reduce-scattered back over ep, so exactly
+    one rank owns each (token, expert) pair.  gmm routes each token's
+    top-k picks, non-local ones to a zero-weight dead group ``e_local``
+    with their gates zeroed, through ``_gmm_dispatch_combine`` over
+    ``e_local + 1`` groups (K5/K6 per shard); its row block is JAX's,
+    from the global ``(b/dp) (t/sp) k`` rows.  Dense and capacity take
+    the local experts' slice of the gates; capacity counts each
+    expert's budget over a row's whole sequence, so under sp it also
+    gathers the sequence and keeps its own shard of the output."""
+    e, k = cfg.n_experts, cfg.top_k
+    ep = mesh.size("ep")
+    if e % ep:
+        raise ValueError(
+            f"moe_dispatch={cfg.moe_dispatch!r} needs n_experts ({e}) "
+            f"divisible by the ep axis ({ep})")
+    e_local = e // ep
+    e0 = mesh.index("ep") * e_local
+    x = copy_to(x, mesh, "tp")
+    gates = copy_to(gates, mesh, "tp")
+    whole_rows = cfg.moe_dispatch == "capacity" and mesh.size("sp") > 1
+    if whole_rows:
+        x = all_gather_ad(x, mesh, "sp", 1)
+        gates = all_gather_ad(gates, mesh, "sp", 1)
+    xg = all_gather_ad(x, mesh, "ep", 0)
+    gg = all_gather_ad(gates, mesh, "ep", 0)
+    if cfg.moe_dispatch == "gmm":
+        bg, tl, d = xg.shape
+        n = bg * tl
+        # JAX's per-shard routed rows: (b / dp) (t / sp) k over the
+        # global b and t
+        rows = (x.shape[0] * ep) * x.shape[1] * k
+        w_in, w_out = layer["w_in"], layer["w_out"]
+        bm = pick_gmm_blocks(cfg.d_model, cfg.d_ff, e, w_in.dtype,
+                             rows=rows)["block_m"]
+        gate_vals, expert_ids = torch.topk(gg.reshape(n, e), k, dim=-1)
+        local = expert_ids - e0
+        mine = (local >= 0) & (local < e_local)
+        local_ids = torch.where(mine, local, e_local)         # dead group
+        gate_loc = torch.where(mine, gate_vals, 0.0)
+        out = _gmm_dispatch_combine(
+            xg.reshape(n, d), gate_loc, local_ids,
+            torch.cat([w_in, w_in.new_zeros((1,) + w_in.shape[1:])]),
+            torch.cat([w_out, w_out.new_zeros((1,) + w_out.shape[1:])]),
+            e_local + 1, bm).reshape(bg, tl, d)
+    elif cfg.moe_dispatch == "capacity":
+        out = _moe_mlp_capacity(xg, gg[..., e0:e0 + e_local], layer, cfg)
+    else:
+        g = gg[..., e0:e0 + e_local].to(xg.dtype)
+        h = _gelu(ein("btd,edf->btef", xg, layer["w_in"]))
+        y = ein("btef,efd->bted", h, layer["w_out"])
+        out = torch.einsum("bted,bte->btd", y, g)
+    out = reduce_scatter_ad(reduce_from(out, mesh, "tp"), mesh, "ep", 0)
+    if whole_rows:
+        tl = out.shape[1] // mesh.size("sp")
+        out = out[:, mesh.index("sp") * tl:(mesh.index("sp") + 1) * tl]
+    return out
+
+
+def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False,
+             mesh=None):
     """The MoE MLP under ``cfg.moe_dispatch``: "dense" computes every
     expert on every token and mixes by the top-k-zeroed gates;
-    "capacity" and "gmm" as above.  ``with_aux`` also returns this
-    layer's router objectives ``(load_balance, z)``.  gmm refuses
-    int8 ``QTensor`` experts, as in the JAX package: quantized serving
-    runs the dense dispatch."""
+    "capacity" and "gmm" as above; over a mesh,
+    :func:`_moe_mlp_sharded`.  ``with_aux`` also returns this layer's
+    router objectives ``(load_balance, z)``.  gmm refuses int8
+    ``QTensor`` experts and pipeline stages, as in the JAX package:
+    quantized serving runs the dense dispatch, pipelined MoE configs
+    capacity."""
     gates, probs, logits = _router_gates(x, layer, cfg)
-    if cfg.moe_dispatch == "capacity":
-        out = _moe_mlp_capacity(x, gates, layer, cfg)
-    elif cfg.moe_dispatch == "gmm":
+    if cfg.moe_dispatch == "gmm":
         if isinstance(layer["w_in"], QTensor):
             raise NotImplementedError(
                 "moe_dispatch='gmm' expects full-precision expert "
                 "weights; quantized serving runs the dense dispatch "
                 "(models/decode.py:_serving_cfg)")
+        if mesh is not None and cfg.pp_stages > 1:
+            raise NotImplementedError(
+                "moe_dispatch='gmm' does not compose with pp stages; "
+                "pipelined MoE configs use 'capacity'")
+    if mesh is not None:
+        out = _moe_mlp_sharded(x, gates, layer, cfg, mesh)
+    elif cfg.moe_dispatch == "capacity":
+        out = _moe_mlp_capacity(x, gates, layer, cfg)
+    elif cfg.moe_dispatch == "gmm":
         out = _moe_mlp_gmm(x, gates, layer, cfg)
     else:
         g = gates.to(x.dtype)
@@ -463,7 +671,7 @@ def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False):
         y = ein("btef,efd->bted", h, layer["w_out"])
         out = torch.einsum("bted,bte->btd", y, g)
     if with_aux:
-        return out, _moe_aux(gates, probs, logits, cfg)
+        return out, _moe_aux(gates, probs, logits, cfg, mesh)
     return out
 
 
@@ -474,14 +682,57 @@ def _layer_forward(x, layer, cfg: TransformerConfig, segment_ids=None,
     mlp_in = rms_norm(x, layer["ln2"])
     if cfg.is_moe:
         if with_aux:
-            out, aux = _moe_mlp(mlp_in, layer, cfg, with_aux=True)
+            out, aux = _moe_mlp(mlp_in, layer, cfg, with_aux=True,
+                                mesh=mesh)
             return x + out, aux
-        return x + _moe_mlp(mlp_in, layer, cfg)
-    out = x + _dense_mlp(mlp_in, layer)
+        return x + _moe_mlp(mlp_in, layer, cfg, mesh=mesh)
+    out = x + _dense_mlp(mlp_in, layer, mesh)
     if with_aux:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return out, (zero, zero)
     return out
+
+
+def _pipelined_layers(x, params, cfg: TransformerConfig, mesh):
+    """The layer stack as ``pp_stages`` pipelined stage groups
+    (parallel/pipeline.py), this rank running its stage: the staged
+    ``params["stages"]`` leaves (this stage's block, or all S stages),
+    or a layers list staged on the fly.  Each stage applies its L/S
+    layers with the mesh's other axes inside; ``cfg.remat`` maps to
+    the pipeline's stage-level checkpoint."""
+    from ..parallel.pipeline import pipeline_apply, split_layers
+    lps = split_layers(cfg.n_layers, cfg.pp_stages)
+    stacked = (params["stages"] if "stages" in params
+               else stage_params(params, cfg)["stages"])
+
+    def stage_fn(stage, x):
+        for i in range(lps):
+            x = _layer_forward(x, {n: a[i] for n, a in stage.items()},
+                               cfg, mesh=mesh)
+        return x
+
+    return pipeline_apply(
+        stage_fn, stacked, x, mesh=mesh,
+        n_microbatches=cfg.pp_microbatches or 2 * cfg.pp_stages,
+        checkpoint_stages=cfg.remat)
+
+
+def _embed(params, tokens, cfg: TransformerConfig, mesh):
+    """Embedding lookup; under tp this rank's d-slice (embed ``P(None,
+    "tp")``), all-gathered along d."""
+    x = take_rows(params["embed"], tokens, cfg.dtype)
+    return gather_replicated(x, mesh, "tp", 2)
+
+
+def _unembed(x, params, mesh):
+    """Logits; under tp this rank's d-slice of x against its rows of the
+    unembedding (``P("tp", None)``), the partial logits summed."""
+    w = params["unembed"]
+    if mesh is not None and mesh.size("tp") > 1:
+        x = copy_to(x, mesh, "tp")
+        n = w.shape[0]
+        x = x[..., mesh.index("tp") * n:(mesh.index("tp") + 1) * n]
+    return reduce_from(ein("btd,dv->btv", x, w), mesh, "tp")
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -494,17 +745,40 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     dense-MLP configs), which ``loss_fn`` adds when the router aux
     weights are set.  Runs on the device the parameters live on.
 
-    ``mesh`` (a ``parallel.mesh.ProcessMesh``, dense configs): tokens
-    and segment ids are this rank's ``[B/dp, T/sp]`` shard (the shard
-    at sp coordinate i holds positions ``[i T/sp, (i+1) T/sp)``), and
-    the logits are that shard's: the JAX ``forward`` on the same mesh,
-    cut to this rank's rows and positions."""
-    require_single_device(cfg)
-    _require_mesh_support(cfg, mesh)
-    x = take_rows(params["embed"], tokens, cfg.dtype)
+    ``mesh`` (a ``parallel.mesh.ProcessMesh``): ``params`` are this
+    rank's blocks (:func:`shard_params`); tokens and segment ids are
+    this rank's ``[B/(dp ep), T/sp]`` shard (the shard at sp coordinate
+    i holds positions ``[i T/sp, (i+1) T/sp)``), and the logits are that
+    shard's, whole over the vocabulary: the JAX ``forward`` on the same
+    mesh, cut to this rank's rows and positions.  A pp config pipelines
+    its stages over the mesh's pp axis, with JAX's checks; without a
+    mesh, staged params are unstaged and run in sequence."""
+    pipelined = cfg.pp_stages > 1 and mesh is not None
+    if pipelined:
+        if mesh.size("pp") != cfg.pp_stages:
+            raise ValueError(
+                f"mesh pp axis {mesh.size('pp')} != pp_stages "
+                f"{cfg.pp_stages}")
+        if mesh.size("sp") > 1:
+            raise ValueError(
+                "pp_stages > 1 does not compose with sp sequence "
+                "sharding (stages run their layers with the "
+                "single-device path); use sp or pp, not both")
+        if segment_ids is not None or return_aux:
+            raise ValueError(
+                "pp_stages > 1 supports neither segment_ids nor "
+                "return_aux (stage traffic carries activations only)")
+    elif "stages" in params:
+        # staged params on the sequential path (a pp-trained checkpoint
+        # evaluated unsharded)
+        params = unstage_params(params, cfg)
+    x = _embed(params, tokens, cfg, mesh)
     load_total = z_total = torch.zeros((), dtype=torch.float32,
                                        device=x.device)
-    for layer in params["layers"]:
+    layers = [] if pipelined else params["layers"]
+    if pipelined:
+        x = _pipelined_layers(x, params, cfg, mesh)
+    for layer in layers:
         if cfg.remat:
             # activations of the layer are recomputed in the backward,
             # as jax.checkpoint does for the JAX package's layer
@@ -521,7 +795,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         else:
             x = out
     x = rms_norm(x, params["ln_f"])
-    logits = ein("btd,dv->btv", x, params["unembed"])
+    logits = _unembed(x, params, mesh)
     if not return_aux:
         return logits
     n = max(len(params["layers"]), 1)
@@ -542,10 +816,10 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     With ``mesh`` (tokens and ids this rank's shard, as in
     :func:`forward`), see :func:`_mesh_loss`: the value is the JAX
     package's global loss on every rank."""
-    if mesh is not None:
-        return _mesh_loss(params, tokens, cfg, segment_ids, mesh)
     want_aux = cfg.is_moe and (cfg.aux_loss_weight > 0
                                or cfg.router_z_weight > 0)
+    if mesh is not None:
+        return _mesh_loss(params, tokens, cfg, segment_ids, mesh, want_aux)
     if want_aux:
         logits, aux = forward(params, tokens, cfg, segment_ids,
                               return_aux=True)
@@ -565,20 +839,27 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
     return loss
 
 
-def _mesh_loss(params, tokens, cfg, segment_ids, mesh):
+def _mesh_loss(params, tokens, cfg, segment_ids, mesh, want_aux=False):
     """The global next-token loss from this rank's shard.
 
     The shift crosses shard boundaries: a shard's last position
     predicts the next sp shard's first token (gathered along sp), and
     the globally last position is dropped; with segment ids the keep
-    mask crosses the same way.  The mean is over every rank's kept
-    positions: an all-reduce over the world of the sum and the count.
+    mask crosses the same way.  The mean is over every kept position of
+    the global batch: the sum and the count all-reduced over the batch
+    axes (dp, ep, sp; tp and pp ranks hold copies of their row's
+    logits).  The router objectives, when weighted, are the global ones
+    (:func:`_moe_aux`).
 
     The returned tensor's value is that global loss on every rank; its
     gradient is this rank's share (its own sum over the global count),
-    so the sum of the ranks' gradients, which the train step takes, is
-    the gradient of the global loss."""
-    logits = forward(params, tokens, cfg, segment_ids, mesh=mesh)
+    so the sum of the gradients over the batch axes, which the train
+    step takes, is the gradient of the global loss."""
+    if want_aux:
+        logits, aux = forward(params, tokens, cfg, segment_ids,
+                              return_aux=True, mesh=mesh)
+    else:
+        logits = forward(params, tokens, cfg, segment_ids, mesh=mesh)
     sp, idx = mesh.size("sp"), mesh.index("sp")
     last = idx == sp - 1
 
@@ -599,10 +880,15 @@ def _mesh_loss(params, tokens, cfg, segment_ids, mesh):
         keep = (shifted(segment_ids) == segment_ids[:, :n]).to(ll.dtype)
     local = -(ll * keep).sum()
     totals = torch.stack([local.detach(), keep.sum()])
-    mesh.all_reduce_(totals)
+    for axis in _batch_axes(mesh):
+        mesh.all_reduce_(totals, axis)
     count = torch.clamp(totals[1], min=1.0)
     share = local / count
-    return share + (totals[0] / count - share).detach()
+    loss = share + (totals[0] / count - share).detach()
+    if want_aux:
+        loss = (loss + cfg.aux_loss_weight * aux["load_balance"]
+                + cfg.router_z_weight * aux["router_z"])
+    return loss
 
 
 # --------------------------------------------------------------------------
@@ -659,16 +945,17 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
     gradients of :func:`loss_fn`, then one optimizer step, in place;
     ``tokens`` [B, T] (tensor or numpy) is moved to ``device``.
 
-    With ``mesh`` (a ``parallel.mesh.ProcessMesh`` on ``device``, dense
-    configs), every rank calls ``train_step`` with the same **global**
-    ``[B, T]`` batch, as the JAX step takes it, and works on its own
-    ``B/dp x T/sp`` shard of it; after the backward the gradients are
-    summed over the world (in f32, one all-reduce) and every rank takes
-    the same AdamW step on its replica of the weights.  The loss
-    returned is the global one.  ``init_state`` must give every rank the
-    same weights (the same generator seed)."""
-    require_single_device(cfg)
-    _require_mesh_support(cfg, mesh)
+    With ``mesh`` (a ``parallel.mesh.ProcessMesh`` on ``device``),
+    ``init_state`` cuts this rank's blocks (:func:`shard_params`) from
+    the whole initialization, which must be the same on every rank (the
+    same generator seed), and the optimizer holds those blocks: a
+    staged pp config keeps each stage's moments on its stage.  Every
+    rank calls ``train_step`` with the same **global** ``[B, T]``
+    batch, as the JAX step takes it, and works on its own ``B/(dp ep)
+    x T/sp`` shard; after the backward each leaf's gradient is summed
+    (in f32) over the batch axes its spec does not name, and embed's
+    over pp (:func:`_sum_grads`), then every rank steps AdamW on its
+    blocks.  The loss returned is the global one."""
     dev = resolve_device(device)
     if mesh is not None and mesh.device != dev:
         raise ValueError(f"mesh computes on {mesh.device}, not {dev}")
@@ -676,6 +963,8 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
 
     def init_state(generator: torch.Generator | None = None):
         params = init_params(cfg, generator, device=dev)
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
         leaves = [t.requires_grad_() for _, t in named_tensors(params)]
         return params, optimizer(leaves)
 
@@ -695,27 +984,53 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
         loss = loss_fn(params, tokens, cfg, segment_ids, mesh)
         loss.backward()
         if mesh is not None and mesh.world_size > 1:
-            _sum_grads(leaves, mesh)
+            _sum_grads(params, cfg, mesh)
         opt_state.step()
         return params, opt_state, loss.detach()
 
     return train_step, init_state
 
 
-def _sum_grads(leaves, mesh) -> None:
-    """Sum every leaf's gradient over the world, in one f32 all-reduce,
-    and write the sums back in the gradients' dtype."""
-    grads = [t.grad for t in leaves]
-    if any(g is None for g in grads):
-        raise RuntimeError("a parameter got no gradient on this rank")
-    flat = torch.cat([g.reshape(-1).float() for g in grads])
-    mesh.all_reduce_(flat)
-    at = 0
-    for g in grads:
-        g.copy_(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
+def _grad_axes(name: str, spec, mesh) -> tuple[str, ...]:
+    """The mesh axes a leaf's gradient is summed over after the
+    backward: each batch axis (dp, ep, sp) its spec does not name, and
+    pp for ``embed``, which stage 0 alone feeds.  Never tp: ``copy_to``
+    makes a tp-replicated leaf's gradient whole on every tp rank; nor
+    ep for an ep-sharded expert block, whose all-gather's backward
+    already brought every token's part."""
+    named = {a for entry in tuple(spec) for a in spec_axes(entry)}
+    axes = tuple(a for a in _batch_axes(mesh) if a not in named)
+    if name == "embed" and mesh.size("pp") > 1:
+        axes += ("pp",)
+    return axes
 
 
-__all__ = ["Params", "TransformerConfig", "forward", "init_params",
-           "loss_fn", "make_optimizer", "make_train_step",
-           "named_tensors", "require_single_device", "rms_norm", "rotary"]
+def _sum_grads(params, cfg: TransformerConfig, mesh) -> None:
+    """Sum each leaf's gradient over its :func:`_grad_axes` (in f32, one
+    all-reduce an axis for every set of leaves that shares them) and
+    write the sums back in the gradients' dtype.  ``params`` are in the
+    layout of :func:`param_specs` (staged for a pp config)."""
+    specs = dict(tree_flatten_with_path(param_specs(cfg)))
+    groups: dict = {}
+    for path, t in tree_flatten_with_path(params):
+        name, spec = leaf_name(path), specs[path]
+        if t.grad is None:
+            raise RuntimeError(f"parameter {name} got no gradient on this "
+                               f"rank")
+        axes = _grad_axes(name, spec, mesh)
+        if axes:
+            groups.setdefault(axes, []).append(t.grad)
+    for axes, grads in groups.items():
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        for axis in axes:
+            mesh.all_reduce_(flat, axis)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+
+
+__all__ = ["Params", "TransformerConfig", "forward", "gather_params",
+           "grad_tree", "init_params", "loss_fn", "make_optimizer",
+           "make_train_step", "named_tensors", "param_specs", "rms_norm",
+           "rotary", "shard_params", "stage_params", "unstage_params"]

@@ -1,25 +1,29 @@
 """The process mesh, the gang rendezvous and training recovery of the
-port: the dp x sp mesh over ``torch.distributed`` process groups
-(``mesh``), the workload side of the driver's rendezvous contract
-(``rendezvous``), the sharded checkpoint format (``resharding``), the
-elastic gang supervisor (``supervisor``) and its recovery probe
-(``probe``)."""
+port: the dp x ep x sp x tp x pp mesh over ``torch.distributed``
+process groups and its differentiable collectives (``mesh``), GPipe
+pipelining over its pp axis (``pipeline``), the workload side of the
+driver's rendezvous contract (``rendezvous``), the sharded checkpoint
+format (``resharding``), the elastic gang supervisor (``supervisor``)
+and its recovery and resharding probes (``probe``)."""
 
 from .mesh import (BATCH_AXES, MESH_AXES, MeshSpec, P, PartitionSpec,
                    ProcessMesh, make_mesh)
+from .pipeline import pipeline_apply, split_layers, stack_stages
 from .rendezvous import (ContractError, RendezvousSpec, gang_psum,
                          initialize, spec_from_env)
 
 __all__ = ["BATCH_AXES", "MESH_AXES", "ContractError", "MeshSpec", "P",
            "PartitionSpec", "ProcessMesh", "RendezvousSpec", "gang_psum",
-           "initialize", "make_mesh", "spec_from_env",
+           "initialize", "make_mesh", "pipeline_apply", "spec_from_env",
+           "split_layers", "stack_stages",
            "ElasticTrainJob", "GangSupervisor", "SupervisorError",
-           "SupervisorReport", "recovery_probe", "ShardCorruption",
-           "ShardedCheckpointer", "match_partition_rules"]
+           "SupervisorReport", "recovery_probe", "resharding_probe",
+           "ShardCorruption", "ShardedCheckpointer",
+           "match_partition_rules"]
 
 _LAZY = {"ElasticTrainJob": "supervisor", "GangSupervisor": "supervisor",
          "SupervisorError": "supervisor", "SupervisorReport": "supervisor",
-         "recovery_probe": "probe",
+         "recovery_probe": "probe", "resharding_probe": "probe",
          "ShardCorruption": "resharding",
          "ShardedCheckpointer": "resharding",
          "match_partition_rules": "resharding"}

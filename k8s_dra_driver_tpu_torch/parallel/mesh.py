@@ -13,8 +13,18 @@ initialized default group.  Each process holds its own shard of the
 batch and the sequence, and the collectives below move what the
 sharded layout needs between processes.
 
-This slice runs dp and sp: tp, ep and pp larger than 1 raise
-``NotImplementedError`` (ROADMAP Queue A item 6b).
+Every axis runs at any size: dp and ep shard the batch rows (row-major
+over ``BATCH_AXES``, as JAX's ``P(BATCH_AXES, "sp")``), sp the sequence,
+tp the attention heads and MLP hidden units, ep the experts, pp the
+layer stages (parallel/pipeline.py).  Where JAX's compiler inserts
+the collectives a layout needs (GSPMD), the port writes each one, and
+its gradient: the ``torch.autograd.Function`` wrappers at the end of
+this module (:func:`copy_to`, :func:`reduce_from`, :func:`all_gather_ad`,
+:func:`reduce_scatter_ad`, :func:`gather_replicated`; the pipeline's
+point-to-point steps have their own, parallel/pipeline.py).  Their backward follows one convention: the
+gradient of an activation every rank of an axis holds alike
+(replicated) is the whole gradient on every one of those ranks, never
+a share of it.
 
 :class:`PartitionSpec` (alias ``P``) is the port's own layout
 annotation: a tuple with one entry per array dimension, each an axis
@@ -46,10 +56,6 @@ MESH_AXES = ("dp", "ep", "sp", "tp", "pp")
 
 # Batch dimension is sharded over every data-like axis.
 BATCH_AXES = ("dp", "ep")
-
-#: mesh axes this slice of the port runs at sizes above 1
-SUPPORTED_AXES = ("dp", "sp")
-
 
 def _canonical_entry(entry):
     """One entry as JAX's ``PartitionSpec`` keeps it: a list becomes a
@@ -110,18 +116,6 @@ class MeshSpec:
         return spec
 
 
-def require_supported(spec: MeshSpec) -> None:
-    """Raise ``NotImplementedError`` when ``spec`` sets an axis the port
-    does not run yet (tp, ep or pp above 1)."""
-    unsupported = {a: n for a, n in spec.axis_sizes().items()
-                   if n > 1 and a not in SUPPORTED_AXES}
-    if unsupported:
-        raise NotImplementedError(
-            f"mesh axes {unsupported} are not ported yet: the port runs dp "
-            f"and sp; tp, ep and pp come with the rest of the parallelism "
-            f"slice (ROADMAP Queue A item 6b)")
-
-
 def mesh_coords(rank: int, spec: MeshSpec) -> dict[str, int]:
     """The mesh position of ``rank``: its row-major index in
     ``(dp, ep, sp, tp, pp)``."""
@@ -139,6 +133,38 @@ def mesh_rank(coords: dict[str, int], spec: MeshSpec) -> int:
     for axis in MESH_AXES:
         rank = rank * spec.axis_sizes()[axis] + coords[axis]
     return rank
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes one ``PartitionSpec`` entry names, major first."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def spec_block(shape, spec, sizes: dict, coords: dict) -> list[list[int]]:
+    """``[[start, stop], ...]``: the block of an array of ``shape`` laid
+    out by ``spec`` that the mesh position ``coords`` holds, on a mesh
+    of axis ``sizes``.  A dimension split over several axes is cut
+    row-major over them.  A dimension that does not divide raises
+    ``ValueError`` in the words JAX's ``device_put`` uses."""
+    out = []
+    spec = tuple(spec)
+    for dim, n in enumerate(shape):
+        axes = spec_axes(spec[dim]) if dim < len(spec) else ()
+        parts, index = 1, 0
+        for axis in axes:
+            parts *= sizes[axis]
+            index = index * sizes[axis] + coords[axis]
+        if n % parts:
+            raise ValueError(
+                f"the sharding {PartitionSpec(*spec)} implies that the "
+                f"global size of its dimension {dim} should be divisible "
+                f"by {parts}, but it is equal to {n} (full shape: "
+                f"{tuple(int(d) for d in shape)})")
+        step = n // parts
+        out.append([index * step, (index + 1) * step])
+    return out
 
 
 class _Pending:
@@ -207,15 +233,22 @@ class ProcessMesh:
         return x.cpu() if self.host_staged(axis) else x
 
     def local_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """This process's shard of a global ``[B, T, ...]`` batch: the
-        rows of its ``dp`` coordinate, the columns of its ``sp`` one."""
+        """This process's shard of a global ``[B, T, ...]`` batch, as
+        JAX's ``P(BATCH_AXES, "sp")`` places it: the rows of its
+        (dp, ep) block, row-major, the columns of its ``sp``
+        coordinate.  Every tp and pp rank holds its block's whole
+        rows."""
         b, t = x.shape[0], x.shape[1]
-        dp, sp = self.size("dp"), self.size("sp")
-        if b % dp or t % sp:
+        bi, nb = 0, 1                     # row-major over BATCH_AXES
+        for axis in BATCH_AXES:
+            bi = bi * self.size(axis) + self.index(axis)
+            nb *= self.size(axis)
+        sp = self.size("sp")
+        if b % nb or t % sp:
             raise ValueError(f"batch [B={b}, T={t}] does not split over "
-                             f"dp={dp} x sp={sp}")
-        bi, si = self.index("dp"), self.index("sp")
-        return x[bi * (b // dp):(bi + 1) * (b // dp),
+                             f"dp x ep={nb} x sp={sp}")
+        si = self.index("sp")
+        return x[bi * (b // nb):(bi + 1) * (b // nb),
                  si * (t // sp):(si + 1) * (t // sp)]
 
     def all_reduce_(self, x: torch.Tensor, axis: str | None = None):
@@ -247,6 +280,53 @@ class ProcessMesh:
         out = torch.empty_like(wire)
         dist.all_to_all_single(out, wire, group=self.group(axis))
         return out.to(x.device)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = 0):
+        """Sum ``x`` over ``axis`` and keep this coordinate's chunk of
+        the sum along ``dim`` (JAX's tiled ``psum_scatter``).  NCCL runs
+        ``reduce_scatter_tensor``; a gloo group all-reduces and slices,
+        which every torch version's gloo can do (its reduce-scatter
+        came late)."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
+                             f"scatter over {axis}={n}")
+        i = self.index(axis)
+        if dist.get_backend(self.group(axis)) == "gloo":
+            total = self.all_reduce_(x.clone(), axis)
+            return total.narrow(dim, i * (x.shape[dim] // n),
+                                x.shape[dim] // n).contiguous()
+        chunks = x.movedim(dim, 0).contiguous()
+        out = torch.empty((chunks.shape[0] // n,) + chunks.shape[1:],
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, chunks, group=self.group(axis))
+        return out.movedim(0, dim).contiguous()
+
+    def broadcast(self, x: torch.Tensor, axis: str, src: int):
+        """Coordinate ``src``'s ``x`` on every process of the ``axis``
+        line (a new tensor; ``x`` gives the shape and dtype elsewhere)."""
+        if self.size(axis) == 1:
+            return x
+        wire = self._wire(x.contiguous(), axis)
+        if wire is x:
+            wire = x.clone()
+        dist.broadcast(wire, self.line(axis)[src], group=self.group(axis))
+        return wire.to(x.device)
+
+    def send(self, x: torch.Tensor, axis: str, to: int) -> None:
+        """Send ``x`` to coordinate ``to`` along ``axis`` (blocking)."""
+        dist.send(self._wire(x.contiguous(), axis), self.line(axis)[to],
+                  group=self.group(axis))
+
+    def recv(self, shape, dtype, axis: str, frm: int) -> torch.Tensor:
+        """A tensor of ``shape``/``dtype`` from coordinate ``frm`` along
+        ``axis``, on this mesh's device."""
+        on = ("cpu" if self.host_staged(axis) else self.device)
+        buf = torch.empty(shape, dtype=dtype, device=on)
+        dist.recv(buf, self.line(axis)[frm], group=self.group(axis))
+        return buf.to(self.device)
 
     def exchange_start(self, tensors, axis: str, send_to: int,
                        recv_from: int) -> _Pending:
@@ -280,7 +360,7 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
     its other group-making calls: each axis line becomes a process group
     (``dist.new_group`` is collective over the world).  Raises
     ``ValueError`` when the spec's device count differs from the world
-    size and ``NotImplementedError`` for tp, ep or pp > 1."""
+    size, as JAX's ``make_mesh`` does."""
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized: call "
                            "parallel.rendezvous.initialize first")
@@ -289,7 +369,6 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
     if spec.num_devices != world:
         raise ValueError(f"mesh {spec} wants {spec.num_devices} devices, "
                          f"have {world} processes")
-    require_supported(spec)
     dev = resolve_device(device)
     rank = dist.get_rank()
     sizes = spec.axis_sizes()
@@ -309,6 +388,119 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
     return ProcessMesh(spec, dev, rank, groups, lines)
 
 
+# --------------------------------------------------------------------------
+# Differentiable collectives
+# --------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the axis
+    (each rank's use of a replicated input is one part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        return mesh.all_reduce_(g.contiguous().clone(), axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Sum of the axis's partial values forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce_(x.contiguous().clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim`` forward; the backward reduce-scatters the
+    gradient (each rank's gradient of the gathered tensor is a part)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return mesh.reduce_scatter(g, axis, dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return mesh.reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return mesh.all_gather(g.contiguous(), axis, dim), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` into a tensor every rank then uses alike;
+    the backward keeps this rank's slice of the (whole) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim, x.shape[dim])
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, n = ctx.args
+        return (g.narrow(dim, mesh.index(axis) * n, n).contiguous(), None,
+                None, None)
+
+
+def _axis_live(mesh, axis) -> bool:
+    return mesh is not None and mesh.size(axis) > 1
+
+
+def copy_to(x, mesh, axis: str):
+    """``x`` as the input of work split over ``axis`` (Megatron's f):
+    identity forward, all-reduce of the gradient backward."""
+    return _CopyTo.apply(x, mesh, axis) if _axis_live(mesh, axis) else x
+
+
+def reduce_from(x, mesh, axis: str):
+    """The sum over ``axis`` of partial outputs (Megatron's g):
+    all-reduce forward, identity backward."""
+    return _ReduceFrom.apply(x, mesh, axis) if _axis_live(mesh, axis) else x
+
+
+def all_gather_ad(x, mesh, axis: str, dim: int = 0):
+    """Differentiable all-gather whose consumers are split over
+    ``axis``: the backward is a reduce-scatter."""
+    return (_AllGather.apply(x, mesh, axis, dim)
+            if _axis_live(mesh, axis) else x)
+
+
+def reduce_scatter_ad(x, mesh, axis: str, dim: int = 0):
+    """Differentiable reduce-scatter: the backward is an all-gather."""
+    return (_ReduceScatter.apply(x, mesh, axis, dim)
+            if _axis_live(mesh, axis) else x)
+
+
+def gather_replicated(x, mesh, axis: str, dim: int):
+    """Differentiable all-gather into a replicated activation: the
+    backward keeps this rank's slice of the gradient."""
+    return (_GatherReplicated.apply(x, mesh, axis, dim)
+            if _axis_live(mesh, axis) else x)
+
+
 __all__ = ["BATCH_AXES", "MESH_AXES", "MeshSpec", "P", "PartitionSpec",
-           "ProcessMesh", "SUPPORTED_AXES", "make_mesh", "mesh_coords",
-           "mesh_rank", "require_supported"]
+           "ProcessMesh", "all_gather_ad", "copy_to",
+           "gather_replicated", "make_mesh", "mesh_coords", "mesh_rank",
+           "reduce_from", "reduce_scatter_ad", "spec_axes", "spec_block"]

@@ -24,11 +24,16 @@ restores in the other:
   shard classifies the generation unreadable and the newest-first
   fallback resumes from the previous good generation.
 
-The port's tensors are whole (its dp x sp placements replicate every
-parameter), so a port save writes one shard per leaf; a reference
-generation saved from a tp mesh, several shards a leaf, is assembled
-from its shards on restore.  Leaf names are the reference's slash
-names under ``params/`` and ``opt_state/``.  A ``torch.optim.AdamW``
+A save is handed whole tensors.  Given the formation it was made on
+(``mesh=``, a ``MeshSpec``) and a checkpointer built with a rule table
+(``rules=``), it cuts each leaf into the blocks the reference writes
+for that leaf's spec on that mesh: one file per distinct block, in the
+order of the mesh positions (row-major, as JAX orders a mesh's
+devices), replicas once — so a generation the port saves from dp=2 x
+tp=4 has the manifest JAX writes from the same weights on the same
+mesh.  Without a mesh (or a rule) a leaf is one shard.  Restore
+assembles any layout from its shards.  Leaf names are the reference's
+slash names under ``params/`` and ``opt_state/``.  A ``torch.optim.AdamW``
 is written under optax's ``adamw`` state names (:func:`adamw_leaves`):
 ``opt_state/0/count`` (int32), ``opt_state/0/mu/<param path>``
 (``exp_avg``) and ``opt_state/0/nu/<param path>`` (``exp_avg_sq``),
@@ -52,7 +57,7 @@ import torch
 
 from ..cluster import faults
 from ..utils import atomicio
-from .mesh import P, PartitionSpec
+from .mesh import P, PartitionSpec, mesh_coords, spec_block
 
 log = logging.getLogger(__name__)
 
@@ -111,16 +116,16 @@ def tree_flatten_with_path(tree, prefix: tuple = ()) -> list:
             for pair in tree_flatten_with_path(child, prefix + (k,))]
 
 
-def _tree_map(fn, tree, prefix: tuple = ()):
+def tree_map(fn, tree, prefix: tuple = ()):
     """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
     if tree is None:
         return None
     if not _is_node(tree):
         return fn(prefix, tree)
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, tree[k], prefix + (k,)) for k in tree}
+        return {k: tree_map(fn, tree[k], prefix + (k,)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        items = [_tree_map(fn, x, prefix + (i,))
+        items = [tree_map(fn, x, prefix + (i,))
                  for i, x in enumerate(tree)]
         if isinstance(tree, list):
             return items
@@ -157,7 +162,7 @@ def match_partition_rules(rules: Sequence[tuple[str, Any]], tree):
             f"no partition rule matches leaf {name!r} "
             f"(shape {tuple(shape) if shape else None}); add a "
             f"rule to the model's table in models/layouts.py")
-    return _tree_map(spec, tree)
+    return tree_map(spec, tree)
 
 
 def encode_spec(spec) -> list:
@@ -338,17 +343,18 @@ class ShardedCheckpointer:
 
     def _save_leaves(self, params, opt_state) -> list:
         """``[(name, leaf, spec or None), ...]`` to write."""
+        rules = self.rules
         named = [(f"params/{leaf_name(p)}", x)
                  for p, x in tree_flatten_with_path(params)]
         specs: dict = {}
-        if self.rules is not None:
+        if rules is not None:
             flat = tree_flatten_with_path(
-                match_partition_rules(self.rules, params))
+                match_partition_rules(rules, params))
             specs = {leaf_name(p): encode_spec(s) for p, s in flat}
         if isinstance(opt_state, torch.optim.Optimizer):
             opt = adamw_leaves(params, opt_state)
             named += [(f"opt_state/{k}", v) for k, v in opt.items()]
-            if self.rules is not None:
+            if rules is not None:
                 specs.update({f"0/mu/{k}": s for k, s in specs.items()}
                              | {f"0/nu/{k}": s for k, s in specs.items()}
                              | {"0/count": []})
@@ -361,13 +367,18 @@ class ShardedCheckpointer:
     # -- save -----------------------------------------------------
 
     def save(self, step: int, params: Any, opt_state: Any,
-             wait: bool = True, extra: dict | None = None) -> None:
-        """Write every leaf's shard, then commit by writing the
-        manifest atomically.  A step that already has a committed
-        generation is skipped, matching orbax's already-saved semantics
-        — a replayed step after a restore recomputes the saved state,
-        and rewriting it would only widen the torn-write window.  The
-        write is synchronous; ``wait`` is accepted for API parity."""
+             wait: bool = True, extra: dict | None = None,
+             mesh=None) -> None:
+        """Write every leaf's shards, then commit by writing the
+        manifest atomically.  ``mesh`` (a ``MeshSpec``: the formation
+        that holds the tensors) cuts each leaf into the blocks of its
+        spec under the checkpointer's ``rules`` on that mesh (module
+        docstring).  A step that already
+        has a committed generation is skipped, matching orbax's
+        already-saved semantics — a replayed step after a restore
+        recomputes the saved state, and rewriting it would only widen
+        the torn-write window.  The write is synchronous; ``wait`` is
+        accepted for API parity."""
         step = int(step)
         if step in set(self.all_steps()):
             return
@@ -377,7 +388,7 @@ class ShardedCheckpointer:
         sd.mkdir(parents=True)
         leaves = {}
         for name, leaf, spec in self._save_leaves(params, opt_state):
-            leaves[name] = self._write_leaf(sd, name, leaf, spec)
+            leaves[name] = self._write_leaf(sd, name, leaf, spec, mesh)
         faults.crashpoint(faults.CRASH_RESHARD_SHARDS_WRITTEN)
         manifest = {"format": FORMAT, "step": step,
                     "extra": extra or {}, "leaves": leaves}
@@ -388,16 +399,29 @@ class ShardedCheckpointer:
         faults.crashpoint(faults.CRASH_RESHARD_COMMITTED)
         self._prune()
 
-    def _write_leaf(self, sd: Path, name: str, leaf, spec) -> dict:
-        block, dtype = _host_block(leaf)
-        shape = [int(d) for d in block.shape]
-        raw = _raw_view(block)
-        fname = f"{_mangle(name)}.000.bin"
-        atomicio.write_durable_bytes(sd / fname, raw)
+    def _write_leaf(self, sd: Path, name: str, leaf, spec,
+                    mesh=None) -> dict:
+        whole, dtype = _host_block(leaf)
+        shape = [int(d) for d in whole.shape]
+        cuts = [_whole(shape)]
+        if mesh is not None and spec:
+            sizes = mesh.axis_sizes()
+            cuts = []
+            for rank in range(mesh.num_devices):
+                bounds = spec_block(shape, spec, sizes,
+                                    mesh_coords(rank, mesh))
+                if bounds not in cuts:     # a replica of a written block
+                    cuts.append(bounds)
+        shards = []
+        for i, bounds in enumerate(cuts):
+            raw = _raw_view(whole[tuple(slice(lo, hi) for lo, hi in bounds)])
+            fname = f"{_mangle(name)}.{i:03d}.bin"
+            atomicio.write_durable_bytes(sd / fname, raw)
+            shards.append({"file": fname, "bounds": bounds,
+                           "crc32": zlib.crc32(raw) & 0xFFFFFFFF,
+                           "nbytes": raw.nbytes})
         return {"shape": shape, "dtype": dtype, "spec": spec,
-                "shards": [{"file": fname, "bounds": _whole(shape),
-                            "crc32": zlib.crc32(raw) & 0xFFFFFFFF,
-                            "nbytes": raw.nbytes}]}
+                "shards": shards}
 
     def _prune(self) -> None:
         steps = self.all_steps()
@@ -524,7 +548,7 @@ class ShardedCheckpointer:
                    else block)
             want = np.dtype(getattr(like, "dtype", arr.dtype))
             return arr if arr.dtype == want else arr.astype(want)
-        return _tree_map(one, tree)
+        return tree_map(one, tree)
 
     def read_slice(self, step: int, name: str,
                    bounds: Sequence[Sequence[int]] | None = None

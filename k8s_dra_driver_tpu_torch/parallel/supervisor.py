@@ -16,8 +16,16 @@ reference's virtual host devices), a formation takes the first
 gradients over the rows in f32 and takes one AdamW step — so a dp
 change is a placement change, not a math change, and the parameters
 and the optimizer stay in the supervisor's process for its checkpoint,
-park and restore.  ``tp`` above 1 is refused until the port's mesh has
-a tp axis (ROADMAP Queue A item 6b).
+park and restore.  tp, like dp, is a change of placement, not of math:
+a formation's ``dp x tp`` grid of slots decides which chips a dp row
+owns (row i the slots ``[i tp, (i+1) tp)`` of the survivors), and each
+row's step still runs on whole tensors.  The formation's ``MeshSpec(dp,
+tp)`` is handed to every save; a ``ShardedCheckpointer`` built with
+the model's rule table (models/layouts.py ``transformer_rules``)
+writes its generations in that layout, as the reference writes its
+tp-sharded arrays, and a re-formed gang
+restores from whatever layout the generation holds — so a tp change
+across a reform moves through the reference's format as JAX's does.
 
 Recovery state machine::
 
@@ -101,7 +109,7 @@ from ..utils.device import resolve_device
 from ..utils.metrics import RecoveryMetrics
 from ..utils.watchdog import (HeartbeatMonitor, WatchdogTimeout,
                               WorkerHeartbeat, run_with_deadline)
-from .mesh import MeshSpec, require_supported
+from .mesh import MeshSpec
 
 log = logging.getLogger(__name__)
 
@@ -171,10 +179,15 @@ class SupervisorReport:
 class GangMesh:
     """One formation of an :class:`ElasticTrainJob`: ``devices`` is the
     ``[dp, tp]`` array of chip slots (ints) the dp rows own, all
-    computing on ``device``."""
+    computing on ``device``; :attr:`spec` is the formation a
+    checkpoint save is cut for."""
 
     devices: np.ndarray
     device: torch.device
+
+    @property
+    def spec(self) -> MeshSpec:
+        return MeshSpec(dp=self.dp, tp=self.tp)
 
     @property
     def dp(self) -> int:
@@ -239,15 +252,14 @@ class ElasticTrainJob:
     in-process analog of re-running a gang prepare at a smaller world
     size: victims' chips never reappear in the new formation.  Real
     deployments supply their own job with the same three methods
-    (``build`` / ``make_loader`` / ``batch``).  ``tp`` above 1 raises
-    ``NotImplementedError`` (ROADMAP Queue A item 6b); the reference
-    defaults to 2.
+    (``build`` / ``make_loader`` / ``batch``).  ``tp`` defaults to 2, as
+    in the reference; it places, it does not split the math (module
+    docstring).
     """
 
     def __init__(self, cfg, tokens, *, batch: int, seq_len: int,
-                 tp: int = 1, loader_seed: int = 1, chips: int = 8,
+                 tp: int = 2, loader_seed: int = 1, chips: int = 8,
                  device="cuda"):
-        require_supported(MeshSpec(tp=tp))
         self.cfg = cfg
         self.tokens = tokens
         self.batch = batch
@@ -268,7 +280,6 @@ class ElasticTrainJob:
         from ..models import make_train_step
 
         tp = self.tp if tp is None else tp
-        require_supported(MeshSpec(dp=dp, tp=tp))
         devs = [c for c in range(self.chips) if c not in exclude_chips]
         need = dp * tp
         if len(devs) < need:
@@ -305,7 +316,8 @@ class GangSupervisor:
     steps pay the allocator's growth and, on the card, the kernels'
     first loads).  ``ckpt`` is a models/checkpoint.py
     ``TrainCheckpointer`` or a parallel/resharding.py
-    ``ShardedCheckpointer``; a generation is
+    ``ShardedCheckpointer`` (both take the formation as ``save(...,
+    mesh=)``; the first ignores it); a generation is
     saved every ``checkpoint_every`` completed steps (plus generation
     0 at start, so an early death never strands the gang without a
     restore point) with the loader state as the ``extra`` sidecar.
@@ -409,9 +421,9 @@ class GangSupervisor:
         checkpoint-then-shrink preemption when ``dp`` is smaller,
         EXPAND regrow when larger — including regrow out of PARKED.
         ``tp`` (optional) re-aims the tensor-parallel width in the
-        same boundary; None keeps the job's current tp, and a tp above
-        1 raises ``NotImplementedError`` until the port has a tp axis
-        (ROADMAP Queue A item 6b).
+        same boundary (a dp AND tp change is still restore-onto-a-new-
+        layout, not a different operation); None keeps the job's
+        current tp.
         ``exclude`` (optional) replaces the placement-exclusion set,
         so a multi-tenant arbiter can pin WHICH chips the formation
         may use (fleet/binpack.py chose them); None keeps the current
@@ -434,10 +446,6 @@ class GangSupervisor:
                 f"dp {dp} does not divide global batch {self.job.batch}")
         if tp is not None and tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
-        if tp is not None:
-            # the port has no tp axis yet: a width no formation of it
-            # could run
-            require_supported(MeshSpec(tp=int(tp)))
         with self._width_lock:
             self._requested = ("width", dp, None if tp is None
                                else int(tp),
@@ -533,6 +541,14 @@ class GangSupervisor:
                 victims.append(w)
                 cause = cause or "dead"
         return victims, cause
+
+    def _save(self, step: int) -> None:
+        """Checkpoint ``step`` with the loader state as the sidecar,
+        handing the checkpointer the formation (``mesh``): a
+        ``ShardedCheckpointer`` built with the model's rules cuts the
+        generation into that formation's blocks."""
+        self.ckpt.save(step, self.params, self.opt,
+                       extra=self.loader.state_dict(), mesh=self.mesh.spec)
 
     # -- formation -------------------------------------------------------
 
@@ -784,8 +800,7 @@ class GangSupervisor:
         # immediate second eviction instead of staying parked
         self._poll_down()
         if not parked:
-            self.ckpt.save(self._step, self.params, self.opt,
-                           extra=self.loader.state_dict())
+            self._save(self._step)
         from_dp = self.dp
         old_placement = set(self._placement_excluded)
         if exclude is not None:
@@ -838,8 +853,7 @@ class GangSupervisor:
         and idle in PARKED.  Zero steps lost by construction — the
         checkpoint IS the current step, and the later unpark restores
         it through the normal elastic path."""
-        self.ckpt.save(self._step, self.params, self.opt,
-                       extra=self.loader.state_dict())
+        self._save(self._step)
         from_dp = self.dp
         self.workers = []
         self.dp = 0
@@ -890,8 +904,7 @@ class GangSupervisor:
         self._form(self.dp)
         self.loader = self.job.make_loader()
         self.params, self.opt = self.init_state(self._key())
-        self.ckpt.save(0, self.params, self.opt,
-                       extra=self.loader.state_dict())
+        self._save(0)
         self._step = 0
         self._pending = None
         self.metrics.set_state(RUNNING, STATES)
@@ -965,8 +978,7 @@ class GangSupervisor:
             self.metrics.observe_recovery(rec.mttr_s)
             self._pending = None
         if self._step % self.checkpoint_every == 0:
-            self.ckpt.save(self._step, self.params, self.opt,
-                           extra=self.loader.state_dict())
+            self._save(self._step)
         return self._step < self._total_steps
 
     def report(self) -> SupervisorReport:

@@ -358,7 +358,8 @@ def test_regrow_width_counts_own_chips(tmp_path):
 def test_fleet_probes_are_valid_on_the_cpu(probe):
     out = getattr(tf, probe)(device="cpu")
     assert out["valid"], out
-    assert out["tp"] == 1
+    # the reference's defaults: fleet_probe's gang at tp=2
+    assert out["tp"] == (2 if probe == "fleet_probe" else 1)
     assert out["recovery_causes"] in (["preempt", "expand"],
                                       ["park", "expand"])
     assert out["steps_lost"] == [0, 0] and out["exactly_once"]
@@ -368,7 +369,7 @@ def test_recovery_probe_is_valid_on_the_cpu():
     from k8s_dra_driver_tpu_torch.parallel import recovery_probe
     out = recovery_probe(device="cpu")
     assert out["valid"], out
-    assert out["tp"] == 1
+    assert out["tp"] == 2
     assert [r["cadence"] for r in out["runs"]] == [1, 4]
     assert all(r["dp_from"] == 2 and r["dp_to"] == 1 for r in out["runs"])
     assert out["steps_lost_worst"] <= 4

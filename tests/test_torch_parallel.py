@@ -6,8 +6,9 @@ JAX package's.
   ``ContractError`` cases included.
 - On spawned gloo groups of 2 and 4 ranks (tests/torch_dist.py), each
   rank standing its group up through ``rendezvous.initialize``:
-  ``gang_psum``, ``make_mesh``'s refusals, and the transformer's mesh
-  path.  ``forward`` with ``MeshSpec(sp=2)`` (ring and Ulysses) and
+  ``gang_psum``, ``make_mesh`` over every axis (tp, ep and pp meshes
+  and their row-major coordinates and lines), and the transformer's
+  mesh path.  ``forward`` with ``MeshSpec(sp=2)`` (ring and Ulysses) and
   ``MeshSpec(dp=2, sp=2)`` is held against JAX's ``forward`` on the
   virtual CPU mesh of the same shape and against the single-device
   port at 2e-4 (tests/test_workloads.py's tolerance);
@@ -17,6 +18,8 @@ JAX package's.
   steps at its PARAM_ATOL.  f32 throughout; JAX's parameters move over
   with ``params_from_jax``.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -202,13 +205,24 @@ def test_mesh_train_steps_match_jax(results, name):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_gang_psum_and_mesh_refusals(results, world):
+    """gang_psum; make_mesh refuses a spec of another size, in JAX's
+    words; tp, ep and pp meshes (and on 4 ranks tp x pp and dp x ep)
+    form, each rank at its row-major coordinates, its lines along each
+    axis the ranks that differ from it there alone, and a sum over a
+    line adds exactly those ranks."""
     for rank, r in enumerate(results["contract"][world]):
         assert r["psum"] == world * (world + 1) / 2
-        assert r["mismatch"][0] == "ValueError"
-        for axis in ("tp", "ep", "pp"):
-            kind, msg = r[axis]
-            assert kind == "NotImplementedError"
-            assert "ROADMAP Queue A item 6" in msg
+        kind, msg = r["mismatch"]
+        assert kind == "ValueError" and "wants" in msg
+        assert {"tp", "ep", "pp"} <= set(r["meshes"])
+        for name, (sizes, coords, lines, sums) in r["meshes"].items():
+            spec = tmesh.MeshSpec(**sizes)
+            assert coords == tmesh.mesh_coords(rank, spec), name
+            for axis, line in lines.items():
+                want = [tmesh.mesh_rank({**coords, axis: i}, spec)
+                        for i in range(sizes[axis])]
+                assert line == want and rank in line, (name, axis)
+                assert sums[axis] == sum(want), (name, axis)
         sizes, coords = r["default"]
         assert sizes["dp"] == world and coords["dp"] == rank
 
@@ -280,16 +294,21 @@ def test_mesh_coords_are_row_major_over_the_axes():
 
 
 def test_mesh_path_refuses_moe_and_pipeline_configs():
-    moe = tt.TransformerConfig(vocab=32, d_model=16, n_layers=1, n_heads=2,
-                               d_head=8, d_ff=32, n_experts=2,
-                               dtype=torch.float32)
-    params = tt.init_params(moe, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    fake_mesh = object()      # refused before the mesh is used
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tt.forward(params, toks, moe, mesh=fake_mesh)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        tt.make_train_step(moe, device="cpu", mesh=fake_mesh)
-    with pytest.raises(NotImplementedError, match="pp mesh axis"):
-        tt.require_single_device(tt.TransformerConfig(n_layers=2,
-                                                      pp_stages=2))
+    """The mesh path's refusals are now JAX's own: a pp config on a mesh
+    whose pp axis differs ("pp axis"), pp with sp ("sp"), and gmm inside
+    pipeline stages ("gmm"); MoE configs and pp configs otherwise run
+    (tests/test_torch_ep.py, tests/test_torch_pipeline.py)."""
+    from test_torch_ep import FakeMesh
+    pp = tt.TransformerConfig(vocab=32, d_model=16, n_layers=2, n_heads=2,
+                              d_head=8, d_ff=32, pp_stages=2,
+                              dtype=torch.float32)
+    toks = torch.zeros((4, 4), dtype=torch.long)
+    params = tt.init_params(pp, device="cpu")
+    with pytest.raises(ValueError, match="pp axis"):
+        tt.forward(params, toks, pp, mesh=FakeMesh(dp=2))
+    with pytest.raises(ValueError, match="sp"):
+        tt.forward(params, toks, pp, mesh=FakeMesh(sp=2, pp=2))
+    moe = dataclasses.replace(pp, n_experts=2, moe_dispatch="gmm")
+    with pytest.raises(NotImplementedError, match="gmm"):
+        tt.forward(tt.init_params(moe, device="cpu"), toks, moe,
+                   mesh=FakeMesh(dp=2, pp=2))

@@ -322,11 +322,22 @@ def test_gmm_refuses_quantized_experts_as_jax_does():
 
 
 def test_quantize_params_refuses_pipeline_stages():
+    """Pipeline stages are no longer refused: staged params are unstaged
+    first, as JAX's ``quantize_params`` does (serving is single-device),
+    and quantize to the layers list bit for bit."""
     cfg = tt.TransformerConfig(dtype=torch.float32, pp_stages=2, **FIELDS)
     tp = params_from_jax(jax_params(jt.TransformerConfig(
         dtype=jnp.float32, **FIELDS)), device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline stages"):
-        tq.quantize_params(tp, cfg)
+    got = tq.quantize_params(tt.stage_params(tp, cfg), cfg)
+    want = tq.quantize_params(tp, cfg)
+    assert len(got["layers"]) == cfg.n_layers
+    for (name, a), (_, b) in zip(tt.named_tensors(got),
+                                 tt.named_tensors(want)):
+        if isinstance(a, tq.QTensor):
+            assert torch.equal(a.q, b.q) and torch.equal(a.scale,
+                                                         b.scale), name
+        else:
+            assert torch.equal(a, b), name
 
 
 def test_k7_wrappers_refuse_bad_arguments():

@@ -1,11 +1,13 @@
 """Port elastic gang supervisor (k8s_dra_driver_tpu_torch/parallel/
 supervisor.py) and its in-process gang, on the CPU in f32.
 
-One scenario runs on both packages on the same inputs: the kill arc of
+Two scenarios run on both packages on the same inputs: the kill arc of
 tests/test_supervisor.py (dp=4, tp=1, 8 steps, ``g0w2`` crashing after
 4 decisions), with the port's gang started from the JAX package's
 initial weights — equal transitions, recoveries (MTTR aside) and
-contract, and losses within the port's training tolerance.  The other
+contract, and losses within the port's training tolerance — and the
+same arc at the reference's default tp=2 through both packages'
+sharded checkpointers, whose generations carry the tp layout.  The other
 scenarios run on the port alone and are held to the JAX tests' own
 assertions (tests/test_supervisor.py, tests/test_model_checkpoint.py,
 tests/test_resharding.py's corrupt-generation arc), with the port's
@@ -34,6 +36,7 @@ from k8s_dra_driver_tpu_torch.cluster.faults import FaultPlan, FaultRule
 from k8s_dra_driver_tpu_torch.models import transformer as tt
 from k8s_dra_driver_tpu_torch.models.checkpoint import TrainCheckpointer
 from k8s_dra_driver_tpu_torch.models.data import as_global
+from k8s_dra_driver_tpu_torch.models.layouts import transformer_rules
 from k8s_dra_driver_tpu_torch.parallel import supervisor as sv
 from k8s_dra_driver_tpu_torch.parallel.resharding import \
     ShardedCheckpointer
@@ -49,23 +52,26 @@ TCFG = tt.TransformerConfig(dtype=torch.float32, **FIELDS)
 JCFG = jt.TransformerConfig(dtype=jnp.float32, **FIELDS)
 #: tests/test_torch_train.py's tolerance for port steps against JAX's
 LOSS_RTOL = 1e-5
+#: JAX's tp=2 gang sums its head and hidden halves apart, the port's
+#: in-process gang runs whole tensors: f32 rounding over eight steps
+TP_LOSS_RTOL = 1e-4
 
 
 def corpus():
     return np.tile(np.random.default_rng(0).integers(0, 64, 32), 64)
 
 
-def _job(batch=8, chips=8, cls=ElasticTrainJob):
+def _job(batch=8, chips=8, cls=ElasticTrainJob, tp=1):
     return cls(TCFG, corpus(), batch=batch, seq_len=16, chips=chips,
-               device="cpu")
+               tp=tp, device="cpu")
 
 
 def _supervisor(tmp_path, *, dp=4, plan=None, health_source=None,
                 checkpoint_every=2, batch=8, chips=8, ckpt=None,
-                job_cls=ElasticTrainJob, **kw):
+                job_cls=ElasticTrainJob, tp=1, **kw):
     ckpt = ckpt or TrainCheckpointer(tmp_path / "ckpt")
     sup = GangSupervisor(
-        _job(batch=batch, chips=chips, cls=job_cls), ckpt,
+        _job(batch=batch, chips=chips, cls=job_cls, tp=tp), ckpt,
         coordination_dir=tmp_path / "coord", dp=dp, fault_plan=plan,
         health_source=health_source, checkpoint_every=checkpoint_every,
         step_deadline_s=kw.pop("step_deadline_s", 30.0),
@@ -153,6 +159,60 @@ def test_kill_arc_equals_jax(tmp_path):
     assert reg.get_sample_value("tpu_train_dp_width") == 2
     assert reg.get_sample_value("tpu_train_supervisor_state",
                                 {"state": sv.RUNNING}) == 1
+
+
+def test_tp2_kill_arc_equals_jax(tmp_path):
+    """The kill arc at the reference's default tp=2 on both packages,
+    both saving through their ``ShardedCheckpointer``: equal
+    transitions, recoveries and contract (each dp row owning two
+    chips), losses within TP_LOSS_RTOL, and the generations written in
+    the formation's tp layout — the port's manifests name JAX's shards,
+    specs and bounds, parameter for parameter."""
+    from k8s_dra_driver_tpu.parallel import resharding as jres
+    jsup = jsv.GangSupervisor(
+        jsv.ElasticTrainJob(JCFG, corpus(), batch=8, seq_len=16),
+        jres.ShardedCheckpointer(tmp_path / "jckpt", keep=8),
+        coordination_dir=tmp_path / "jcoord", dp=4,
+        fault_plan=kill_plan(jfaults.FaultPlan, jfaults.FaultRule),
+        checkpoint_every=2, step_deadline_s=30.0,
+        first_step_deadline_s=240.0)
+    jrep = jsup.run(8)
+    ckpt = ShardedCheckpointer(tmp_path / "ckpt", keep=8,
+                               rules=transformer_rules(TCFG))
+    sup, _ = _supervisor(tmp_path, plan=kill_plan(FaultPlan, FaultRule),
+                         job_cls=JaxInitJob, ckpt=ckpt, tp=2)
+    report = sup.run(8)
+
+    def recs(r):
+        return [(x.cause, x.victims, x.from_dp, x.to_dp, x.restored_step,
+                 x.steps_lost) for x in r.recoveries]
+
+    assert report.transitions == jrep.transitions
+    assert recs(report) == recs(jrep) == [("dead", ["g0w2"], 4, 2, 4, 0)]
+    assert report.contract == jrep.contract
+    assert report.contract["excluded_chips"] == [4, 5]   # row 2's chips
+    assert [s for s, _ in report.losses] == [s for s, _ in jrep.losses]
+    np.testing.assert_allclose([l for _, l in report.losses],
+                               [l for _, l in jrep.losses],
+                               rtol=TP_LOSS_RTOL)
+    assert_losses_exactly_once(report)
+    # generation 0 holds init_state's placement, the rules' on the
+    # dp=4 x tp=2 mesh (a stepped JAX state sits where XLA placed the
+    # step's outputs instead, so later generations are held by shape)
+    jm = ckpt._read_manifest(tmp_path / "jckpt" / "step_00000000")
+    tm = ckpt._read_manifest(ckpt.step_path(0))
+    assert sorted(tm["leaves"]) == sorted(jm["leaves"])
+    for name, ent in jm["leaves"].items():
+        if name.startswith("params/"):
+            got = tm["leaves"][name]
+            assert got["spec"] == ent["spec"], name
+            assert ([(sh["file"], sh["bounds"]) for sh in got["shards"]]
+                    == [(sh["file"], sh["bounds"])
+                        for sh in ent["shards"]]), name
+    for step in (4, 8):
+        tm = ckpt._read_manifest(ckpt.step_path(step))
+        wq = tm["leaves"]["params/layers/0/wq"]["shards"]
+        assert [sh["bounds"][1] for sh in wq] == [[0, 2], [2, 4]]
 
 
 # -- failure arcs (port only, the JAX tests' assertions) ----------------------
@@ -291,12 +351,18 @@ def test_request_width_validates_statically(tmp_path):
         sup.request_width(3)
     with pytest.raises(ValueError, match="tp must be"):
         sup.request_width(2, tp=0)
-    # the port has no tp axis yet: refused, naming the item that adds it
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        sup.request_width(2, tp=2)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ElasticTrainJob(TCFG, corpus(), batch=8, seq_len=16, tp=2,
-                        device="cpu")
+    # tp re-aims with the width (the reference's default is 2) ...
+    sup.request_width(2, tp=2)
+    assert sup._requested == ("width", 2, 2, None)
+    job = ElasticTrainJob(TCFG, corpus(), batch=8, seq_len=16,
+                          device="cpu")
+    assert job.tp == 2
+    gang, _, _ = job.build(4)
+    assert gang.devices.tolist() == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    # ... and a width the slots cannot hold still raises at formation
+    with pytest.raises(sv.SupervisorError, match="dp=4 tp=4: need 16"):
+        job.build(4, tp=4)
+    assert job.tp == 2
     sup.request_width(2)
     sup.request_width(4)
     assert sup._requested == ("width", 4, None, None)

@@ -199,7 +199,10 @@ def test_train_step_refuses_an_optimizer_of_other_params():
 
 def test_make_train_step_refuses_moe_and_missing_card():
     """MoE configs train (tests/test_torch_moe.py holds them to JAX);
-    a pipelined config, which needs a device mesh, stays refused."""
+    a pipelined config without a mesh trains its layers in sequence,
+    as JAX's ``mesh=None`` path runs them (its mesh path is held to JAX
+    in tests/test_torch_pipeline.py): the same loss as the config
+    without stages on the same weights."""
     jmoe, moe = configs(n_experts=4, moe_dispatch="gmm")
     _, init_state = tt.make_train_step(moe, device="cpu")
     params, opt = init_state(torch.Generator().manual_seed(0))
@@ -207,8 +210,14 @@ def test_make_train_step_refuses_moe_and_missing_card():
         == jt._layer_shapes(jmoe)
     assert len(opt.param_groups[0]["params"]) == 3 + 9 * moe.n_layers
     _, piped = configs(n_experts=4, pp_stages=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tt.make_train_step(piped, device="cpu")
+    _, flat = configs(n_experts=4)
+    losses = []
+    for cfg in (piped, flat):
+        step, init = tt.make_train_step(cfg, device="cpu")
+        p, o = init(torch.Generator().manual_seed(0))
+        assert "layers" in p and len(p["layers"]) == cfg.n_layers
+        losses.append(float(step(p, o, tokens(0))[2]))
+    assert losses[0] == losses[1]
     if not torch.cuda.is_available():
         _, dense = configs()
         with pytest.raises(RuntimeError, match="CUDA is not available"):

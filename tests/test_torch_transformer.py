@@ -196,8 +196,10 @@ def test_config_fields_match_jax():
 
 
 def test_moe_and_missing_card_are_refused():
-    """MoE configs build (the JAX layout, key for key); what stays
-    refused is the mesh: pipeline stages, MoE or dense."""
+    """MoE configs build (the JAX layout, key for key), and so do
+    pipelined configs: ``init_params`` gives the layers list, as JAX's
+    does, and their staged form runs the sequential path without a
+    mesh, equal to the layers list (JAX's ``mesh=None`` path)."""
     jcfg, tcfg = configs(n_experts=4)
     tp = tt.init_params(tcfg, torch.Generator().manual_seed(0),
                         device="cpu")
@@ -206,11 +208,15 @@ def test_moe_and_missing_card_are_refused():
             jt._layer_shapes(jcfg)
     assert tp["layers"][0]["w_in"].shape == (4, 48, 96)
     for kw in (dict(n_experts=4, pp_stages=2), dict(pp_stages=2)):
-        _, piped = configs(**kw)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tt.init_params(piped, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tt.forward(tp, torch.zeros((1, 4), dtype=torch.long), piped)
+        jpiped, piped = configs(**kw)
+        params = tt.init_params(piped, device="cpu")
+        assert [{k: tuple(v.shape) for k, v in layer.items()}
+                for layer in params["layers"]] == \
+            [jt._layer_shapes(jpiped)] * piped.n_layers
+        toks = torch.zeros((1, 4), dtype=torch.long)
+        assert torch.equal(
+            tt.forward(tt.stage_params(params, piped), toks, piped),
+            tt.forward(params, toks, piped))
     if not torch.cuda.is_available():
         _, dense = configs()
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -11,7 +11,8 @@ same lists; a sharded generation written by JAX (from a dp=2 x tp=1
 and a dp=1 x tp=2 mesh, several shards a leaf) restores bit-equal into
 the port, optax's adamw names included, and steps on to JAX's loss;
 a port generation restores into JAX; the manifests agree leaf for
-leaf; every corruption class falls back to the same step in both; the
+leaf, a port save from a dp=2 x tp=4 formation shard for shard with
+JAX's from that mesh; every corruption class falls back to the same step in both; the
 crashpoints fire through a real ``os._exit`` in a subprocess.
 """
 
@@ -40,6 +41,7 @@ from k8s_dra_driver_tpu.utils import watchdog as jwd
 from k8s_dra_driver_tpu_torch.cluster import faults as tfaults
 from k8s_dra_driver_tpu_torch.models import layouts as tlayouts
 from k8s_dra_driver_tpu_torch.models import transformer as tt
+from k8s_dra_driver_tpu_torch.parallel import mesh as tmesh
 from k8s_dra_driver_tpu_torch.parallel import resharding as tres
 from k8s_dra_driver_tpu_torch.parallel.mesh import P as TP
 from k8s_dra_driver_tpu_torch.utils import metrics as tmetrics
@@ -344,6 +346,65 @@ def test_manifest_leaves_equal_jax_at_tp1(tmp_path):
                 == {k: v for k, v in ent.items() if k != "spec"}, name
     assert {k: v for k, v in tm.items() if k != "leaves"} \
         == {k: v for k, v in jm.items() if k != "leaves"}
+
+
+def test_manifest_leaves_equal_jax_at_dp2_tp4(tmp_path):
+    """A port save handed the formation (``mesh=MeshSpec(dp=2, tp=4)``)
+    cuts each leaf into the blocks JAX writes from the same weights on
+    a dp=2 x tp=4 mesh: every manifest leaf equal, shard for shard —
+    names, shapes, dtypes, specs, bounds, crc32.  The two generations
+    then restore across the packages both ways, bit-equal."""
+    mesh = jmake_mesh(JMeshSpec(dp=2, tp=4), jax.devices()[:8])
+    _, jinit = jt.make_train_step(JCFG, mesh)
+    p, o = jinit(jax.random.PRNGKey(0))
+    jck = jres.ShardedCheckpointer(tmp_path / "j")
+    jck.save(0, p, o)
+    _, tinit = tt.make_train_step(TCFG, device="cpu")
+    params, opt = tinit()
+    with torch.no_grad():
+        for (_, t), v in zip(tt.named_tensors(params),
+                             jax.tree.leaves(host(p))):
+            t.copy_(torch.from_numpy(np.array(v)))
+    tck = tres.ShardedCheckpointer(
+        tmp_path / "t", rules=tlayouts.transformer_rules(TCFG))
+    tck.save(0, params, opt, mesh=tmesh.MeshSpec(dp=2, tp=4))
+    jm = tck._read_manifest(tmp_path / "j" / "step_00000000")
+    tm = tck._read_manifest(tck.step_path(0))
+    assert sorted(tm["leaves"]) == sorted(jm["leaves"])
+    sharded = 0
+    for name, ent in jm["leaves"].items():
+        assert tm["leaves"][name] == ent, name
+        sharded += len(ent["shards"]) == 4
+    assert sharded >= 3 * 4 * FIELDS["n_layers"]     # wq/wk/wv/wo, w_*
+    # across the packages, both ways
+    got_p, got_o, at = tck.restore(*tinit())
+    assert at == 0
+    for (name, a), (_, b) in zip(tt.named_tensors(got_p),
+                                 tt.named_tensors(params)):
+        assert torch.equal(a, b), name
+    jp, jo, at = jck.restore(*jinit(jax.random.PRNGKey(5)))
+    tp_, to_, _ = tres.ShardedCheckpointer(tmp_path / "j").restore(
+        *tinit())
+    for (name, a), v in zip(tt.named_tensors(tp_), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(v))
+    jp2, _, _ = jres.ShardedCheckpointer(tmp_path / "t").restore(
+        *jinit(jax.random.PRNGKey(5)))
+    for (name, a), v in zip(tt.named_tensors(params), jax.tree.leaves(jp2)):
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(v))
+
+
+def test_resharding_probe_has_the_reference_keys():
+    """``resharding_probe`` on the port: the reference's keys, the same
+    model bytes saved from dp=2 x tp=4 (4 shards a tp-sharded leaf) and
+    the flipped shard detected."""
+    from k8s_dra_driver_tpu.parallel.probe import resharding_probe as jprobe
+    from k8s_dra_driver_tpu_torch.parallel import resharding_probe
+    got = resharding_probe(repeats=1, device="cpu")
+    want = jprobe(repeats=1)
+    assert sorted(got) == sorted(want)
+    assert got["model_mb"] == want["model_mb"]
+    assert got["shards_per_leaf"] == 4
+    assert got["corrupt_detected"] == want["corrupt_detected"] == 1
 
 
 # -- corruption classes -------------------------------------------------------

@@ -1,5 +1,6 @@
 """Spawned gloo process groups for the port's distributed tests
-(test_torch_ring.py, test_torch_parallel.py).
+(test_torch_ring.py, test_torch_parallel.py, test_torch_tp.py,
+test_torch_ep.py, test_torch_pipeline.py).
 
 :func:`run_group` starts ``world`` processes (spawn), each standing up
 the default group through the port's ``rendezvous.initialize`` from the
@@ -13,6 +14,10 @@ in their own process and hand the workers numpy inputs.
 Several checks run inside one group: a worker gets a list of cases and
 returns one result per case, and :func:`jobs_worker` runs several
 workers in turn.
+
+The ``jax_*`` helpers at the end compute the JAX package's side of the
+mesh cases in the test process; they import JAX inside, so the workers,
+which import this module, never do.
 """
 
 from __future__ import annotations
@@ -105,22 +110,20 @@ def run_group(fn, world: int, *args, out_dir) -> list:
 
 def shard(x, mesh):
     """This rank's shard of a global numpy array [B, T, ...]: batch rows
-    by dp, the sequence by sp."""
-    b, t = x.shape[0], x.shape[1]
-    dp, sp = mesh.size("dp"), mesh.size("sp")
-    bi, si = mesh.index("dp"), mesh.index("sp")
-    return torch.from_numpy(np.ascontiguousarray(
-        x[bi * b // dp:(bi + 1) * b // dp, si * t // sp:(si + 1) * t // sp]))
+    by (dp, ep), the sequence by sp (``ProcessMesh.local_batch``)."""
+    return mesh.local_batch(torch.from_numpy(np.ascontiguousarray(x)))
 
 
 def unshard(parts: list, coords: list) -> np.ndarray:
     """The global array from the ranks' shards, each placed at its
-    rank's ``coords`` ({"dp": i, "sp": j, ...})."""
-    dp = 1 + max(c["dp"] for c in coords)
-    sp = 1 + max(c["sp"] for c in coords)
-    grid = [[None] * sp for _ in range(dp)]
+    rank's ``coords`` ({"dp": i, "ep": j, "sp": k, ...}); the tp and pp
+    copies of a shard must agree, and coordinate 0's is taken."""
+    n = {a: 1 + max(c.get(a, 0) for c in coords) for a in ("dp", "ep", "sp")}
+    grid = [[None] * n["sp"] for _ in range(n["dp"] * n["ep"])]
     for part, c in zip(parts, coords):
-        grid[c["dp"]][c["sp"]] = np.asarray(part)
+        row = c["dp"] * n["ep"] + c.get("ep", 0)
+        if c.get("tp", 0) == 0 and c.get("pp", 0) == 0:
+            grid[row][c["sp"]] = np.asarray(part)
     return np.concatenate([np.concatenate(row, axis=1) for row in grid],
                           axis=0)
 
@@ -157,10 +160,12 @@ def attention_worker(rank, world, cases):
 
 
 def model_worker(rank, world, cases):
-    """The transformer's mesh path on each case: ``forward`` logits of
+    """The transformer's mesh path on each case, on this rank's blocks of
+    the case's (JAX) parameters (``shard_params``): ``forward`` logits of
     this rank's shard, or the losses of ``make_train_step`` steps on
-    global batches (every rank the same batch), plus the parameters
-    after the steps on rank 0."""
+    global batches (every rank the same batch), with the first step's
+    summed gradients and the parameters after the steps gathered whole
+    (``gather_params``)."""
     from k8s_dra_driver_tpu_torch.models import transformer as tt
     from k8s_dra_driver_tpu_torch.models.convert import params_from_jax
     from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
@@ -171,7 +176,8 @@ def model_worker(rank, world, cases):
             meshes[spec] = make_mesh(spec, device="cpu")
         mesh = meshes[spec]
         cfg = tt.TransformerConfig(**c["cfg"])
-        params = params_from_jax(c["params"], device="cpu")
+        params = tt.shard_params(params_from_jax(c["params"], device="cpu"),
+                                 cfg, mesh)
         seg = c.get("seg")
         if c["kind"] == "forward":
             with torch.no_grad():
@@ -184,33 +190,86 @@ def model_worker(rank, world, cases):
         step, _ = tt.make_train_step(cfg, device="cpu", mesh=mesh)
         leaves = [t.requires_grad_() for _, t in tt.named_tensors(params)]
         opt = tt.make_optimizer()(leaves)
-        losses = []
+        losses, grads = [], None
         for i, toks in enumerate(c["tokens"]):
             segs = None if seg is None else seg[i]
             params, opt, loss = step(params, opt, toks, segs)
             losses.append(float(loss))
+            if grads is None:
+                grads = tt.gather_params(tt.grad_tree(params), cfg, mesh)
+        whole = tt.gather_params(params, cfg, mesh)
+        moments = {id(t): opt.state[t]["exp_avg"] for t in leaves}
         results.append(dict(
             coords=mesh.coords, losses=losses,
-            params={n: t.detach().numpy()
+            grads={n: t.numpy() for n, t in tt.named_tensors(grads)},
+            params={n: t.numpy() for n, t in tt.named_tensors(whole)},
+            blocks={n: (tuple(t.shape), tuple(moments[id(t)].shape))
                     for n, t in tt.named_tensors(params)}))
     return results
 
 
+def mlp_stage(params, x):
+    """Two chained residual MLP layers a stage (tests/test_pipeline.py's
+    stage body)."""
+    for w1, w2 in zip(params["w1"], params["w2"]):
+        x = x + torch.tanh(x @ w1) @ w2
+    return x
+
+
+def pipeline_worker(rank, world, cases):
+    """``pipeline_apply`` of :func:`mlp_stage` on each case's mesh: the
+    output, and the gradients of sum(out * wgt) in x and in the stacked
+    stage parameters (this rank's stage's rows nonzero)."""
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from k8s_dra_driver_tpu_torch.parallel.pipeline import pipeline_apply
+    meshes, results = {}, []
+    for c in cases:
+        spec = MeshSpec(**c["spec"])
+        if spec not in meshes:
+            meshes[spec] = make_mesh(spec, device="cpu")
+        mesh = meshes[spec]
+        stacked = {k: torch.from_numpy(v).requires_grad_()
+                   for k, v in c["stages"].items()}
+        x = torch.from_numpy(c["x"]).requires_grad_()
+        out = pipeline_apply(mlp_stage, stacked, x, mesh=mesh,
+                             n_microbatches=c["m"],
+                             checkpoint_stages=c["checkpoint"])
+        (out * torch.from_numpy(c["wgt"])).sum().backward()
+        results.append(dict(
+            coords=mesh.coords, out=out.detach().numpy(),
+            dx=x.grad.numpy(),
+            grads={k: v.grad.numpy() for k, v in stacked.items()}))
+    return results
+
+
 def contract_worker(rank, world):
-    """The rendezvous' liveness psum, and what ``make_mesh`` refuses on
-    this group: (exception type, message) per refused spec, or None."""
+    """The rendezvous' liveness psum, what ``make_mesh`` refuses on this
+    group ((exception type, message), or None), and, for the tp, ep and
+    pp meshes and one of every axis the group can hold, this rank's
+    coordinates, its line along each axis and a sum over each line."""
     from k8s_dra_driver_tpu_torch.parallel import rendezvous
     from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     out = {"psum": rendezvous.gang_psum(float(rank + 1))}
-    for name, spec in (("mismatch", MeshSpec(dp=world + 1)),
-                       ("tp", MeshSpec(tp=world)),
-                       ("ep", MeshSpec(ep=world)),
-                       ("pp", MeshSpec(pp=world))):
-        try:
-            make_mesh(spec, device="cpu")
-            out[name] = None
-        except Exception as e:    # recorded for the test to judge
-            out[name] = (type(e).__name__, str(e))
+    try:
+        make_mesh(MeshSpec(dp=world + 1), device="cpu")
+        out["mismatch"] = None
+    except Exception as e:    # recorded for the test to judge
+        out["mismatch"] = (type(e).__name__, str(e))
+    specs = {"tp": MeshSpec(tp=world), "ep": MeshSpec(ep=world),
+             "pp": MeshSpec(pp=world)}
+    if world == 4:
+        specs["tp_pp"] = MeshSpec(tp=2, pp=2)
+        specs["dp_ep"] = MeshSpec(dp=2, ep=2)
+    out["meshes"] = {}
+    for name, spec in specs.items():
+        mesh = make_mesh(spec, device="cpu")
+        sums = {}
+        for axis, n in spec.axis_sizes().items():
+            if n > 1:
+                x = torch.tensor([float(rank)])
+                sums[axis] = float(mesh.all_reduce_(x, axis))
+        out["meshes"][name] = (spec.axis_sizes(), mesh.coords,
+                               {a: mesh.line(a) for a in sums}, sums)
     mesh = make_mesh(device="cpu")
     out["default"] = (mesh.spec.axis_sizes(), mesh.coords)
     return out
@@ -229,3 +288,63 @@ def as_global_worker(rank, world, batch):
     from k8s_dra_driver_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh(device="cpu")
     return as_global(local_rows(batch), mesh).numpy()
+
+
+# --------------------------------------------------------------------------
+# The JAX side of the mesh cases (test process only)
+# --------------------------------------------------------------------------
+
+def jax_mesh(world, spec: dict):
+    import jax
+
+    from k8s_dra_driver_tpu.parallel.mesh import MeshSpec, make_mesh
+    return make_mesh(MeshSpec(**spec), devices=jax.devices()[:world])
+
+
+def jax_forward(jcfg, params, tokens, world, spec, seg=None) -> np.ndarray:
+    """JAX's ``forward`` of numpy ``params`` on the virtual mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    from k8s_dra_driver_tpu.models import transformer as jt
+    mesh = jax_mesh(world, spec)
+    placed = jt.shard_params(jax.tree.map(jnp.asarray, params), jcfg, mesh)
+    fn = jax.jit(lambda p, t, s: jt.forward(p, t, jcfg, mesh,
+                                            segment_ids=s))
+    return np.asarray(fn(placed, jnp.asarray(tokens),
+                         None if seg is None else jnp.asarray(seg)))
+
+
+def jax_train(jcfg, world, spec, batches, seed=2, segs=None):
+    """JAX's ``make_train_step`` on the virtual mesh from
+    ``init_state(PRNGKey(seed))``: the initial parameters (numpy, in
+    JAX's layout: staged for a pp config) at once, and ``finish()``,
+    which computes the gradient of the first batch's loss at them, the
+    losses of a step a batch and the final parameters (both trees by
+    ``named_tensors`` name) — to run while the port's group runs."""
+    import jax
+    import jax.numpy as jnp
+
+    from k8s_dra_driver_tpu.models import transformer as jt
+    from k8s_dra_driver_tpu_torch.models.transformer import named_tensors
+    mesh = jax_mesh(world, spec)
+    step, init_state = jt.make_train_step(jcfg, mesh)
+    params, opt = init_state(jax.random.PRNGKey(seed))
+    init = jax.tree.map(np.array, params)
+
+    def finish() -> dict:
+        nonlocal params, opt
+        seg0 = None if segs is None else jnp.asarray(segs[0])
+        grads = jax.jit(jax.grad(lambda p, t, s: jt.loss_fn(
+            p, t, jcfg, mesh, s)))(params, jnp.asarray(batches[0]), seg0)
+        grads = dict(named_tensors(jax.tree.map(np.asarray, grads)))
+        losses = []
+        for i, toks in enumerate(batches):
+            seg = None if segs is None else jnp.asarray(segs[i])
+            params, opt, loss = step(params, opt, jnp.asarray(toks), seg)
+            losses.append(float(loss))
+        return dict(params=init, grads=grads, losses=losses,
+                    final=dict(named_tensors(jax.tree.map(np.asarray,
+                                                          params))))
+
+    return init, finish
