@@ -270,6 +270,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     microbatches) and moe_heavy over ep=2 (8 experts and a dead group a
     rank), SP_STEPS steps each against the single-device losses, exact
     per-rank K1/K3/K4/K5/K6 launches on the tensor cores;
+20b. the measurement utilities (``phase_measure``): (a) the
+    autotuner names the card (``backend_key``), the checked-in H100
+    table is empty so every K7 launch of the run took ``int8_plan``'s
+    plan (picks by source printed, none measured), ``Autotuner.tune``
+    times K7a at the 154M unembedding and K7b at moe_heavy's
+    up-projection over a few ``k_chunk``/``ring`` plans with the
+    differential-median harness (each plan valid only within INT8_TOL
+    of its plain version), and the saved table, pointed to by
+    ``TPU_AUTOTUNE_TABLE``, makes the wrappers launch the tuned plans
+    within tolerance before the default is restored; (b) every probe of
+    ``ops/collectives.py`` (attention forward and gradient, the matmul
+    yardstick, decode on bf16 and int8 weights, serving at chain_steps
+    1 and 47, dispatch, the one-card all-reduce) at its defaults,
+    ``valid`` under the H100 ceilings, its K1, K3/K4 and K7 launches
+    joining the kernels line; (c) a Chrome trace of one 154M generation
+    step holding the ``annotate`` span and K1, a device memory
+    snapshot, and the fleet simulator's probe (1000 replicas, seed 7,
+    20 cycles, a 70-cycle A/B), which runs on the host in a process of
+    its own from the end of the kernel checks (phases 3-6, 14) on: no
+    violation, every cycle survived, the minimized repro starving, and
+    a same-seed rerun of its soak with an equal journal digest;
 21. each kernel's device time at its main-path shape and at a long
     context (torch.profiler), after the drains and the steps so that
     profiling cannot tax them;
@@ -289,10 +310,13 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1572,7 +1596,8 @@ def phase_int8(qm) -> tuple[dict, dict, dict]:
                                       "batched W8A16 product")
                 x_rows = m if shared else g * m
             route = qm.int8_route(dtype)
-            plan = qm.int8_plan(g, m, k, n, dtype)
+            plan = qm.pick_int8_tiles(g, m, k, n, dtype,
+                                      batched=kind == "K7b")
             before = qm.tc_launches
             out, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -5841,6 +5866,379 @@ def phase_mesh_train(fa, gm, record: dict, moe_record: dict) -> dict:
     return total
 
 
+MEASURE_SIM = dict(seed=7, cycles=20, ab_cycles=70)
+# K7's tuned shapes: (kind, G, M, K, N, dtype, candidates); the 154M
+# unembedding at 8 slots and moe_heavy's up-projection (x shared by the
+# experts, f32 as the int8 MoE drain runs it; ring 3 there is a plan the
+# kernel refuses, recorded as an error run)
+MEASURE_TUNE = (
+    ("K7a", 1, 8, 1024, 32000, torch.bfloat16,
+     [{"k_chunk": c, "ring": r} for c in (1024, 512, 256) for r in (3, 2)]),
+    ("K7b", 16, 8, 512, 4096, torch.float32,
+     [{"k_chunk": c, "ring": 2} for c in (512, 256, 128)]
+     + [{"k_chunk": 512, "ring": 3}]),
+)
+# weight copies a tuning chain cycles through, so that every call finds
+# its weight outside the 50 MB L2, as a decode step does
+MEASURE_WEIGHT_COPIES = 4
+MEASURE_TUNE_ITERS = 32
+
+
+def start_sim_probe() -> tuple[subprocess.Popen, Path]:
+    """``python -m k8s_dra_driver_tpu_torch.sim.probe`` in a process of
+    its own, writing under a fresh temporary directory: the simulator
+    runs on the host (no tensor, no device), so it runs beside the
+    card's phases and ``phase_measure`` collects it.  The process is
+    killed and the directory removed when this script exits, whatever
+    the exit."""
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-sim-"))
+    workdir = tmp / "sim"
+    args = [sys.executable, "-m", "k8s_dra_driver_tpu_torch.sim.probe",
+            "--seed", str(MEASURE_SIM["seed"]),
+            "--cycles", str(MEASURE_SIM["cycles"]),
+            "--ab-cycles", str(MEASURE_SIM["ab_cycles"]),
+            "--workdir", str(workdir)]
+    with open(tmp / "sim_probe.err", "w") as err:
+        proc = subprocess.Popen(args, cwd=root, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+
+    def stop() -> None:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, workdir
+
+
+def tune_k7(qm, at, col, tuner, card: str) -> list:
+    """``tuner.tune`` over MEASURE_TUNE: each candidate plan timed by the
+    differential-median harness (``measure_chain``: a chain of calls
+    captured as one CUDA graph, each call through the next of
+    MEASURE_WEIGHT_COPIES weights and feeding a scalar of its output
+    into the next call's x) and valid only when its output is within
+    INT8_TOL of the plain version and the harness found no artifact.
+    Returns [(kind, G, M, K, N, dtype, best plan, x, weight, plain
+    output, call)]."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    tuned = []
+    for kind, g, m, k, n, dtype, cands in MEASURE_TUNE:
+        copies = []
+        for _ in range(MEASURE_WEIGHT_COPIES):
+            w = torch.randn((g, k, n), generator=gen, device=dev) * k ** -0.5
+            copies.append(qm.quantize(w, (1,)))
+            del w
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        batched = kind == "K7b"
+
+        def call(x2, qt, params, batched=batched, g=g, m=m, k=k):
+            if batched:        # btd,edf->btef: x shared, stride 0 over E
+                return qm.int8_bmm(x2[None].expand(g, m, k), qt.q,
+                                   qt.scale, **params)
+            return qm.int8_matmul(x2, qt.q[0], qt.scale[0], **params)
+
+        def plain(x2, qt, batched=batched, g=g, m=m, k=k):
+            if batched:
+                return qm.int8_bmm_reference(x2[None].expand(g, m, k),
+                                             qt.q, qt.scale)
+            return qm.int8_matmul_reference(x2, qt.q[0], qt.scale[0])
+
+        want = plain(x, copies[0])
+        es = torch.tensor([], dtype=dtype).element_size()
+        bound_ms, _ = int8_bound(g, m, k, n, es, m, H100_BF16_FLOPS
+                                 if dtype == torch.bfloat16
+                                 else H100_F32_FLOPS)
+        # the weight's int8 bytes at the harness's generous memory
+        # ceiling: a reading below it is an artifact
+        floor_s = g * k * n / (col._PEAK_HBM_GBPS_CEILING * 1e9)
+        checks = {}
+
+        def measure(params, x=x, copies=copies, want=want, call=call,
+                    floor_s=floor_s, checks=checks, dtype=dtype):
+            got = call(x, copies[0], params)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            agrees = err <= INT8_TOL[dtype] * scale
+            checks[json.dumps(params, sort_keys=True)] = err
+
+            def body(acc, n_calls):
+                for i in range(n_calls):
+                    y = call(acc, copies[i % len(copies)], params)
+                    # a scalar of the output into the next x keeps the
+                    # calls dependent, whatever their shapes
+                    acc = acc + (y.float().sum() * 1e-7).to(acc.dtype)
+                return acc.float().sum()
+
+            def make(n_calls):
+                # the chain is one CUDA graph, as the reference's is one
+                # compiled program: a replay times the device, not the
+                # host's enqueue of n_calls launches; each call copies
+                # its fresh input into the graph's x first
+                static_x = x.clone()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    body(static_x, 1)           # allocations, the plan
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    total = body(static_x, n_calls)
+
+                def chain(arg):
+                    static_x.copy_(arg)
+                    graph.replay()
+                    return total
+                return chain
+
+            seconds, valid = col.measure_chain(make, x, MEASURE_TUNE_ITERS,
+                                               floor_s)
+            return seconds, valid and agrees
+
+        key = at.shape_key(g=g, m=m, k=k, n=n)
+        name = "int8_bmm" if batched else "int8_matmul"
+        default = qm.int8_plan(g, m, k, n, dtype)
+        best = tuner.tune(name, key, dtype, cands, measure)
+        entry = tuner.table[at.table_key(name, key, dtype, at.backend_key())]
+        for run in entry["runs"]:
+            err = checks.get(json.dumps(run["params"], sort_keys=True))
+            print(f"measure (a) tune {kind} {key} "
+                  f"{str(dtype)[6:]} {run['params']}: "
+                  + (f"error {run['error']}" if "error" in run else
+                     f"chain_ms={run['ms']:.4f} valid={run['valid']} "
+                     f"max|d|={err:.3g} (tol {INT8_TOL[dtype]})")
+                  + f" [{card}]", flush=True)
+        print(f"measure (a) tune {kind} best {best} (valid "
+              f"{entry['valid']}, {entry['ms']:.4f} ms a chained call, the "
+              f"fold-back included; int8_plan's "
+              f"k_chunk {default.k_chunk} ring {default.ring}; bound "
+              f"{bound_ms * 1e3:.2f} us; the kernel table's cold kernel ms "
+              f"{'0.0280' if kind == 'K7a' else '0.0438'}) [{card}]",
+              flush=True)
+        if not entry["valid"]:
+            fail(f"{kind}: no tuned candidate was valid")
+        tuned.append((kind, g, m, k, n, dtype, best, x, copies[0], want,
+                      call))
+    return tuned
+
+
+def measure_counts(fa, qm) -> dict:
+    return {"flash_fwd": fa.launches, "flash_fwd_tc": fa.tc_launches,
+            "flash_bwd_dq_tc": fa.dq_tc_launches,
+            "flash_bwd_dkv_tc": fa.dkv_tc_launches,
+            "int8_matmul": qm.launches["int8_matmul"],
+            "int8_tc": qm.tc_launches}
+
+
+def phase_measure(fa, qm, sim: subprocess.Popen, sim_dir: Path,
+                  tmp: Path) -> dict:
+    """The measurement utilities on the card.  (a) the autotuner:
+    ``backend_key`` names the card; the checked-in H100 table holds no
+    entries, so every K7 launch of the run took ``int8_plan``'s plan
+    (picks by source, none measured); ``Autotuner.tune`` over K7a at
+    the 154M unembedding and K7b at moe_heavy's up-projection (each
+    candidate held to the plain version); the saved table pointed to
+    by ``TPU_AUTOTUNE_TABLE``: the wrapper launches the tuned plan
+    within tolerance; the default restored.  (b) the probes of
+    ``ops/collectives.py`` at their defaults (the 154M for decode and
+    serving), each ``valid``, K1, K3/K4 and K7 launches counted (these
+    join the kernels line).  (c) ``utils/profiling.py``: a Chrome trace
+    of one 154M generation step (prefill and one decode step) holding
+    the ``annotate`` span and K1's kernel, and a device memory
+    snapshot; then the fleet simulator's probe, which ran on the HOST
+    in its own process beside the serving and training phases
+    (``start_sim_probe``; the simulator touches no device): 1000
+    replicas, no violation,
+    every cycle survived, the minimized repro still starving, and a
+    same-seed rerun of its soak here with an equal journal digest.
+    Every line carries the card's name and power limit."""
+    from k8s_dra_driver_tpu_torch.models import greedy_generate
+    from k8s_dra_driver_tpu_torch.ops import autotune as at
+    from k8s_dra_driver_tpu_torch.ops import collectives as col
+    from k8s_dra_driver_tpu_torch.sim.fleet import SimConfig
+    from k8s_dra_driver_tpu_torch.sim.rig import (default_sim_schedule,
+                                                  run_sim_soak)
+    from k8s_dra_driver_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    card = card_line()
+
+    # (a) the autotuner and K7's plan
+    backend = at.backend_key()
+    want_backend = "gpu-" + re.sub(r"[^a-z0-9]+", "-",
+                                   torch.cuda.get_device_name(0).lower()
+                                   ).strip("-")
+    if backend != want_backend:
+        fail(f"backend_key {backend!r}, want {want_backend!r}")
+    default = at.get_autotuner()
+    if default.path != at.DEFAULT_TABLE_PATH or default.table:
+        fail(f"the run's table is {default.path} with "
+             f"{len(default.table)} entries: want the checked-in H100 "
+             f"table, empty")
+    print(f"measure (a) backend_key {backend}; table "
+          f"{at.DEFAULT_TABLE_PATH.name}: 0 entries; K7 plan picks this "
+          f"run by source: {default.picks} [{card}]", flush=True)
+    if default.picks["measured"] or not default.picks["default"]:
+        fail(f"K7's picks {default.picks}: want every one int8_plan's")
+    tuner = at.Autotuner(tmp / "autotune_tuned.json")
+    tuned = tune_k7(qm, at, col, tuner, card)
+    table = tuner.save(meta={"card": card})
+    old_env = os.environ.get(at.TABLE_ENV)
+    os.environ[at.TABLE_ENV] = str(table)
+    at.reset_autotuner()
+    try:
+        for kind, g, m, k, n, dtype, best, x, qt, want, call in tuned:
+            plan = qm.pick_int8_tiles(g, m, k, n, dtype,
+                                      batched=kind == "K7b")
+            if (plan.k_chunk, plan.ring) != (best["k_chunk"], best["ring"]):
+                fail(f"{kind}: the wrapper's plan {plan} is not the "
+                     f"tuned {best}")
+            before = dict(qm.launches)
+            got = call(x, qt, {})
+            torch.cuda.synchronize()
+            name = "int8_bmm" if kind == "K7b" else "int8_matmul"
+            if qm.launches[name] != before[name] + 1:
+                fail(f"{kind}: the tuned call launched no kernel")
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            print(f"measure (a) {kind} through the tuned table: {plan}, "
+                  f"max|d|={err:.3g} (tol {INT8_TOL[dtype]} x {scale:.3g}) "
+                  f"[{card}]", flush=True)
+            if err > INT8_TOL[dtype] * scale:
+                fail(f"{kind} disagrees with its plain version on the "
+                     f"tuned plan")
+        if at.get_autotuner().picks["measured"] != len(tuned):
+            fail(f"tuned picks {at.get_autotuner().picks}")
+    finally:
+        if old_env is None:
+            os.environ.pop(at.TABLE_ENV, None)
+        else:
+            os.environ[at.TABLE_ENV] = old_env
+        at.reset_autotuner()
+    if qm.pick_int8_tiles(1, 8, 1024, 32000, torch.bfloat16) != \
+            qm.int8_plan(1, 8, 1024, 32000, torch.bfloat16):
+        fail("the default table was not restored")
+    del tuned
+    torch.cuda.empty_cache()
+
+    # (b) the probes; their kernel launches join the main paths'
+    start = measure_counts(fa, qm)
+
+    def probe(label, fn, **kw):
+        t0 = time.perf_counter()
+        before = measure_counts(fa, qm)
+        out = fn(**kw)
+        after = measure_counts(fa, qm)
+        delta = {k2: after[k2] - before[k2] for k2 in after
+                 if after[k2] != before[k2]}
+        print(f"measure (b) {label} ({time.perf_counter() - t0:.1f} s; "
+              f"launches {delta}): {json.dumps(out)} [{card}]", flush=True)
+        if not out["valid"]:
+            fail(f"{label} is not valid")
+        return out, delta
+
+    _, d = probe("attention_probe", col.attention_probe)
+    if d.get("flash_fwd_tc", 0) <= 0 or d.get("flash_fwd_tc") != \
+            d.get("flash_fwd"):
+        fail(f"attention_probe's K1 launches {d}: want all on the tensor "
+             f"cores")
+    _, d = probe("attention_grad_probe", col.attention_grad_probe)
+    if min(d.get(k2, 0) for k2 in ("flash_fwd_tc", "flash_bwd_dq_tc",
+                                   "flash_bwd_dkv_tc")) <= 0:
+        fail(f"attention_grad_probe's K1/K3/K4 launches {d}")
+    probe("matmul_tflops", col.matmul_tflops, dim=4096)
+    for int8 in (False, True):
+        out, d = probe(f"decode_probe{' int8' if int8 else ''}",
+                       col.decode_probe, int8=int8)
+        if out["implied_gbps"] >= col._DECODE_HBM_GBPS_CEILING:
+            fail(f"decode_probe implies {out['implied_gbps']} GB/s")
+        if int8 and (d.get("int8_matmul", 0) <= 0
+                     or d.get("int8_tc") != d.get("int8_matmul")):
+            fail(f"decode_probe int8's K7 launches {d}: want all on the "
+                 f"tensor cores")
+    for k_steps in (1, FUSED_CHAIN):
+        probe(f"serving_probe chain_steps={k_steps}", col.serving_probe,
+              slots=8, n_requests=24, prompt_len=96, max_new=48,
+              chain_steps=k_steps)
+    probe("dispatch_probe", col.dispatch_probe)
+    out, _ = probe("allreduce_bandwidth", col.allreduce_bandwidth,
+                   devices=["cuda"])
+    if out["devices"] != 1:
+        fail(f"allreduce_bandwidth ran on {out['devices']} devices")
+    end = measure_counts(fa, qm)
+    counts = {k2: end[k2] - start[k2] for k2 in end}
+    print(f"measure (b) the probes' kernel launches: {counts} [{card}]",
+          flush=True)
+
+    # (c) profiling: one 154M generation step, traced
+    cfg, params = serving_model()
+    prompt = torch.randint(0, cfg.vocab, (8, 96),
+                           generator=torch.Generator().manual_seed(3)
+                           ).to("cuda")
+    with torch.no_grad():
+        greedy_generate(params, prompt, cfg, 2)          # warm
+        torch.cuda.synchronize()
+        with profiling.trace(tmp / "trace"):
+            with profiling.annotate("measure-generation-step"):
+                greedy_generate(params, prompt, cfg, 2)
+                torch.cuda.synchronize()
+    traces = sorted((tmp / "trace").glob("*.json"))
+    if len(traces) != 1:
+        fail(f"trace wrote {traces}")
+    names = {e.get("name", "") for e in json.loads(
+        traces[0].read_text())["traceEvents"]}
+    k1_names = sorted(n for n in names if "flash_fwd_sm90_kernel" in n)
+    if "measure-generation-step" not in names or not k1_names:
+        fail(f"the trace lacks the span or K1 ({len(names)} names)")
+    snap = profiling.device_memory_profile(tmp / "memory.pickle")
+    print(f"measure (c) trace {traces[0].name}: "
+          f"{traces[0].stat().st_size} bytes, {len(names)} event names, "
+          f"the annotate span and K1 as {k1_names[0][:60]!r}; device "
+          f"memory snapshot {snap.stat().st_size} bytes [{card}]",
+          flush=True)
+    if snap.stat().st_size <= 0:
+        fail("empty device memory snapshot")
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the fleet simulator (host only)
+    t0 = time.perf_counter()
+    out, _ = sim.communicate(timeout=600)
+    waited = time.perf_counter() - t0
+    if sim.returncode:
+        fail(f"the simulator probe exited {sim.returncode}: "
+             f"{(sim_dir.parent / 'sim_probe.err').read_text()[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    print(f"measure (c) fleet_sim_probe (host, its own process; this "
+          f"phase waited {waited:.1f} s for it): {json.dumps(res)} "
+          f"[{card}]", flush=True)
+    if (res["sim_replicas"], res["sim_invariant_violations"],
+            res["sim_survived_cycles"], res["sim_repro_starved"]) != (
+                1000, 0, MEASURE_SIM["cycles"], True):
+        fail("fleet_sim_probe: want 1000 replicas, 0 violations, every "
+             "cycle survived and the repro starving")
+    first = json.loads((sim_dir / "scale" / "sim_soak.json").read_text())
+    t0 = time.perf_counter()
+    _, fleet = run_sim_soak(
+        default_sim_schedule(MEASURE_SIM["seed"],
+                             cycles=MEASURE_SIM["cycles"]),
+        tmp / "sim_rerun", config=SimConfig(seed=MEASURE_SIM["seed"]))
+    digest = fleet.journal_digest()
+    print(f"measure (c) same-seed rerun of the 1000-replica soak "
+          f"({time.perf_counter() - t0:.1f} s, host): digest {digest[:16]} "
+          f"{'==' if digest == first['journal_digest'] else '!='} the "
+          f"probe's {first['journal_digest'][:16]}, "
+          f"{fleet.heap.processed} events [{card}]", flush=True)
+    if digest != first["journal_digest"]:
+        fail("the same-seed rerun's journal digest differs")
+    print(f"measure: phase wall {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+    return counts
+
+
 def main() -> None:
     kind = phase_device()
     from k8s_dra_driver_tpu_torch.models import quant as qm
@@ -5857,6 +6255,9 @@ def main() -> None:
     k3, k4, bwd_probes = phase_flash_bwd(fa)
     k5, k6, gmm_probes = phase_gmm(gm)
     k7a, k7b, int8_probes = phase_int8(qm)
+    # the fleet simulator's probe runs on the host beside the later
+    # phases (after the kernel timings, which it must not disturb)
+    sim, sim_dir = start_sim_probe()
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
@@ -5985,13 +6386,18 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
             if name == "flash_fwd_tc":
                 launches["flash_fwd"] += n
+    # the measurement utilities: the probes' K1, K3/K4 and K7 launches
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in phase_measure(fa, qm, sim, sim_dir,
+                                     Path(tmp)).items():
+            launches[name] = launches.get(name, 0) + n
     print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
           f"oracle, surviving pumps and codec block + the observability "
           f"drain and paged-KV probes + the control loops and their "
           f"oracle + the gang recovery arcs + the crucible's soaks + "
           f"{TRAIN_STEPS} train "
-          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks): "
+          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the measurement probes): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,

@@ -14,9 +14,10 @@ output:
   (``csrc/int8_matmul_sm90.cu`` via :func:`int8_matmul` /
   :func:`int8_bmm`), which reads the int8 weight from device memory,
   converts it on chip, sums in f32 (bf16 x on the tensor cores, f32 x
-  on the CUDA cores, :func:`int8_route`; K split across blocks by
-  :func:`int8_plan`) and applies the per-channel scale and the cast to
-  x's dtype in its epilogue;
+  on the CUDA cores, :func:`int8_route`; K split across blocks by the
+  plan :func:`pick_int8_tiles` takes from the autotune table, else
+  :func:`int8_plan`'s) and applies the per-channel scale and the cast
+  to x's dtype in its epilogue;
 - larger calls take ``einsum(spec, x, q.to(x.dtype))`` and rescale
   the output in f32, as the JAX package's default path does.
 
@@ -42,7 +43,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..ops import _build
+from ..ops import _build, autotune
 from ..utils.device import on_card
 
 #: kernel launches on CUDA tensors, by entry point: K7a
@@ -208,6 +209,63 @@ def int8_plan(g: int, m: int, k: int, n: int,
                     3 if deep else 2)
 
 
+#: K7's register rings by route: the deep ring of three k16 steps a warp
+#: holds x in registers too and exists on the tensor-core route only
+_RINGS = {"tensor_cores": (2, 3), "cuda_cores": (2,)}
+
+
+def _tuned_plan(params: dict, g: int, m: int, k: int, n: int, dtype,
+                key: str) -> Int8Plan:
+    """The plan of a table entry ``{"k_chunk", "ring"}`` for this shape;
+    raises ``ValueError`` naming ``key`` for an entry the kernel cannot
+    take (``csrc/int8_matmul_sm90.cu`` refuses the same plans)."""
+    route = int8_route(dtype)
+    try:
+        k_chunk, ring = int(params["k_chunk"]), int(params["ring"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"autotune entry {key}: want integer k_chunk and "
+                         f"ring, got {params}") from e
+    if k_chunk <= 0 or k_chunk % INT8_K_STEP:
+        raise ValueError(f"autotune entry {key}: k_chunk {k_chunk} is not "
+                         f"a positive multiple of {INT8_K_STEP}")
+    if ring not in _RINGS[route]:
+        raise ValueError(f"autotune entry {key}: ring {ring} is not one "
+                         f"of {_RINGS[route]} on the {route} route")
+    splits = _cdiv(k, k_chunk)
+    if g * splits > _MAX_Z:
+        raise ValueError(f"autotune entry {key}: G x splits = "
+                         f"{g * splits} exceeds the grid's {_MAX_Z}")
+    m_tile = INT8_TILE_M[route]
+    blocks = g * _cdiv(m, m_tile) * _cdiv(n, INT8_TILE_N) * splits
+    return Int8Plan(m_tile, INT8_TILE_N, splits, k_chunk, blocks, ring)
+
+
+def pick_int8_tiles(g: int, m: int, k: int, n: int, dtype=torch.bfloat16,
+                    batched: bool = False) -> Int8Plan:
+    """K7's plan for ``[G, M, K] x [G, K, N]`` from the autotune table
+    (``ops/autotune.py``; kernel ``"int8_bmm"`` when ``batched``, else
+    ``"int8_matmul"``; shape key ``g,k,m,n``), falling back to
+    :func:`int8_plan`.  A table entry tunes ``k_chunk`` (a whole number
+    of :data:`INT8_K_STEP`, which fixes ``splits``) and ``ring``; tile M
+    and N stay the route's.  Host-only and cached per shape and dtype
+    on the table, so it runs inside CUDA-graph capture.  The port's
+    counterpart of the JAX package's ``pick_int8_tiles``, whose
+    parameters are the Pallas tiles instead."""
+    tuner = autotune.get_autotuner()
+
+    def build() -> Int8Plan:
+        kernel = "int8_bmm" if batched else "int8_matmul"
+        key = autotune.shape_key(g=g, m=m, k=k, n=n)
+        choice = tuner.pick(kernel, key, dtype, default={})
+        if choice.source == "default":
+            return int8_plan(g, m, k, n, dtype)
+        return _tuned_plan(choice.params, g, m, k, n, dtype,
+                           autotune.table_key(kernel, key, dtype,
+                                              autotune.backend_key()))
+
+    return tuner.memo(("int8", batched, g, m, k, n, dtype), build)
+
+
 def _check(x, q, scale, batched: bool) -> None:
     want = 3 if batched else 2
     if x.ndim != want or q.ndim != want:
@@ -224,12 +282,16 @@ def _check(x, q, scale, batched: bool) -> None:
                          f"match q {tuple(q.shape)}")
 
 
-def _launch(x3, q3, scale2, out3, name: str) -> None:
+def _launch(x3, q3, scale2, out3, name: str, k_chunk=None,
+            ring=None) -> None:
     """K7 on ``x3`` [G, M, K] (any strides, unit stride along K: the
     shared x of the MoE up-projection has stride 0 along G), ``q3``
     [G, K, N] int8 and ``scale2`` [G, N] f32, both contiguous, into
     ``out3`` [G, M, N] (any strides, unit stride along N), by the route
-    of x's dtype and the plan :func:`int8_plan` gives."""
+    of x's dtype and the plan :func:`pick_int8_tiles` gives
+    (:func:`int8_plan`'s unless the autotune table has the shape).  An
+    explicit ``k_chunk`` or ``ring`` wins over the pick (the tuner
+    measures specific plans); the pick fills in the other."""
     global tc_launches
     route = int8_route(x3.dtype)
     code = _build.DTYPE_CODES[str(x3.dtype).removeprefix("torch.")]
@@ -247,7 +309,13 @@ def _launch(x3, q3, scale2, out3, name: str) -> None:
                          f"their last dim")
     g, m, k_dim = x3.shape
     n_dim = q3.shape[2]
-    plan = int8_plan(g, m, k_dim, n_dim, x3.dtype)
+    plan = pick_int8_tiles(g, m, k_dim, n_dim, x3.dtype,
+                           batched=name == "int8_bmm")
+    if k_chunk is not None or ring is not None:
+        plan = _tuned_plan(
+            {"k_chunk": plan.k_chunk if k_chunk is None else k_chunk,
+             "ring": plan.ring if ring is None else ring},
+            g, m, k_dim, n_dim, x3.dtype, f"{name} explicit plan")
     # the f32 partial tiles of a split K, added in slice order by the
     # kernel's second pass
     ws = (torch.empty((plan.splits, g, m, n_dim), dtype=torch.float32,
@@ -266,29 +334,32 @@ def _launch(x3, q3, scale2, out3, name: str) -> None:
     tc_launches += route == "tensor_cores"
 
 
-def int8_matmul(x, q, scale):
+def int8_matmul(x, q, scale, k_chunk=None, ring=None):
     """``[M, K] @ [K, N]`` int8 -> ``[M, N]`` in x's dtype, rescaled by
     ``scale`` ([N]-broadcastable f32): K7a on CUDA tensors (x float32
     or bfloat16 with unit stride along K; q contiguous), the plain
-    version on CPU tensors."""
+    version on CPU tensors.  ``k_chunk``/``ring`` default to
+    :func:`pick_int8_tiles`; explicit values win (the autotuner measures
+    specific plans)."""
     _check(x, q, scale, batched=False)
     if not on_card(x, "int8_matmul"):
         return int8_matmul_reference(x, q, scale)
     m, n = x.shape[0], q.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _launch(x[None], q[None], scale.reshape(1, n), out[None],
-            "int8_matmul")
+            "int8_matmul", k_chunk, ring)
     return out
 
 
-def int8_bmm(x, q, scale, out=None):
+def int8_bmm(x, q, scale, out=None, k_chunk=None, ring=None):
     """Batched ``[G, M, K] @ [G, K, N]`` int8 -> ``[G, M, N]`` in x's
     dtype, rescaled by ``scale`` ([G, 1, N]-broadcastable f32): K7b on
     CUDA tensors, the plain version on CPU tensors.  ``x`` may be any
     view with unit stride along K (an expanded x shared by every
     expert has stride 0 along G); ``out``, when given, is a [G, M, N]
     view with unit stride along N (a permuted [M, G, N] buffer, say)
-    that receives the result and is returned."""
+    that receives the result and is returned.  ``k_chunk``/``ring`` as
+    in :func:`int8_matmul`."""
     _check(x, q, scale, batched=True)
     g, m, _ = x.shape
     n = q.shape[2]
@@ -299,7 +370,7 @@ def int8_bmm(x, q, scale, out=None):
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty((g, m, n), dtype=x.dtype, device=x.device)
-    _launch(x, q, scale.reshape(g, n), out, "int8_bmm")
+    _launch(x, q, scale.reshape(g, n), out, "int8_bmm", k_chunk, ring)
     return out
 
 
@@ -504,6 +575,6 @@ def quantized_bytes(params: dict[str, Any]) -> tuple[int, int]:
 
 __all__ = ["Int8Plan", "QTensor", "ein", "int8_bmm",
            "int8_bmm_reference", "int8_matmul", "int8_matmul_reference",
-           "int8_plan", "int8_route", "launches", "qeinsum", "quantize",
-           "quantize_for", "quantize_params", "quantized_bytes",
-           "take_rows", "tc_launches"]
+           "int8_plan", "int8_route", "launches", "pick_int8_tiles",
+           "qeinsum", "quantize", "quantize_for", "quantize_params",
+           "quantized_bytes", "take_rows", "tc_launches"]

@@ -89,7 +89,10 @@ def test_scan_covers_the_port():
                 "fleet/probe.py", "utils/watchdog.py",
                 "models/layouts.py", "parallel/resharding.py",
                 "parallel/supervisor.py", "parallel/probe.py",
-                "parallel/__init__.py"):
+                "parallel/__init__.py", "ops/autotune.py",
+                "ops/collectives.py", "utils/profiling.py",
+                "sim/__init__.py", "sim/workload.py", "sim/fleet.py",
+                "sim/rig.py", "sim/probe.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 
