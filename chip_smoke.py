@@ -11,6 +11,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    TF32 off;
 2. build the CUDA kernels from ``k8s_dra_driver_tpu_torch/csrc`` with
    nvcc (sm_90a) and print the build time;
+2b. the driver's device layer on the live card (``phase_driver``):
+   (a) ``SysfsBackend("/")`` and the C++ shim's ``NativeBackend("/")``
+   (built from ``k8s_dra_driver_tpu_torch/native`` into
+   ``build/native/``) give equal topologies, whose cards agree with
+   ``nvidia-smi`` (count, name, memory, ``nvidia-smi -q``'s minor
+   numbers; its UUIDs, and its bus ids where it has them) and with
+   ``torch.cuda`` (count, each UUID, bus id and name), every device node
+   present, generation ``h100``, no card unhealthy; (b) the device
+   model publishes one chip and one core a card, no slice on one card,
+   the chip's ``uuid`` CUDA's and its ``hbm`` the card's memory
+   (``total_memory`` at most it and at least 95% of it); (c) a claim
+   for one chip by CEL on ``productName`` is allocated by the Python
+   and the native engine to the same device, and a claim for that
+   chip's core is refused by both with one message (shared token); (d)
+   a child ``python3`` under ``CUDA_VISIBLE_DEVICES=<the allocated
+   uuid>`` sees one card with that UUID and runs K1 against its plain
+   version at phase 3's tolerance (its launches are not counted);
 3. K1 (flash-attention forward) against its plain PyTorch version at
    the serving path's shapes and the training shape, with timings and
    the card's bound: bf16 on the tensor-core route, its output before
@@ -410,6 +427,11 @@ INT8_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 QUANT_MEAN_REL = 0.05
 QUANT_AGREE = 0.9
 
+#: the device layer's card memory (the H100 80GB HBM3's nvidia-smi
+#: memory.total) against torch's total_memory: at most it, at least
+#: this share of it
+DRIVER_HBM_SHARE = 0.95
+
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
@@ -564,6 +586,235 @@ def phase_build(build) -> None:
     print(f"build: {took:.2f} s (nvcc: {build.build_seconds}) log "
           f"{build.build_log}", flush=True)
     print("\n".join(ptxas_lines(build.build_log.read_text())), flush=True)
+
+
+def smi_cards() -> tuple[list[dict], list[int]]:
+    """The cards as ``nvidia-smi`` lists them (index, uuid, bus id,
+    name, memory MiB), and the minor numbers of ``nvidia-smi -q``."""
+    query = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid,pci.bus_id,name,"
+         "memory.total", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    full = subprocess.run(["nvidia-smi", "-q"], capture_output=True,
+                          text=True, timeout=60)
+    if query.returncode or full.returncode:
+        fail(f"nvidia-smi failed: {query.stderr}{full.stderr}")
+    cards = []
+    for line in query.stdout.strip().splitlines():
+        index, uuid, bus, name, mem = (f.strip() for f in line.split(","))
+        cards.append(dict(index=int(index), uuid=uuid, bus=bus, name=name,
+                          mib=int(mem)))
+    minors = [int(line.split(":")[1]) for line in full.stdout.splitlines()
+              if line.strip().startswith("Minor Number")]
+    return cards, minors
+
+
+def driver_child(want: str) -> None:
+    """phase_driver (d), in a child under CUDA_VISIBLE_DEVICES=<want>:
+    one card, whose UUID is ``want``, and K1 against its plain version
+    at phase 3's tolerance; one JSON line, exit 1 on any failure."""
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+    n = torch.cuda.device_count()
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 96, h, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (16, 4, 4))
+    before = fa.tc_launches
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    full, full_lse = fa.flash_forward(q, k, v, causal=True,
+                                      out_dtype=torch.float32)
+    ref, ref_lse = fa.flash_forward_reference(q, k, v, causal=True,
+                                              out_dtype=torch.float32)
+    oracle = fa.attention_forward(q, k, v, causal=True)[0]
+    torch.cuda.synchronize()
+    scale = max(1.0, ref.abs().max().item())
+    row = dict(count=n, uuid=uuid, name=torch.cuda.get_device_name(0),
+               launches=fa.tc_launches - before,
+               err=(full - ref).abs().max().item(),
+               rounded=bool(torch.equal(out, full.to(torch.bfloat16))
+                            and torch.equal(lse, full_lse)),
+               oracle_err=(out.float() - oracle.float()).abs().max().item(),
+               lse_err=(lse - ref_lse).abs().max().item())
+    row["ok"] = (n == 1 and uuid == want and row["launches"] == 2
+                 and row["err"] <= FWD_TC_TOL * scale and row["rounded"]
+                 and row["oracle_err"] <= TOL[torch.bfloat16]
+                 and row["lse_err"] <= LSE_TOL)
+    print(json.dumps(row), flush=True)
+    sys.exit(0 if row["ok"] else 1)
+
+
+def phase_driver() -> None:
+    """The driver's device layer against the live card: enumeration,
+    the device model, both allocator engines, and a child process on
+    the allocated card (see the module docstring, 2b)."""
+    from k8s_dra_driver_tpu_torch.allocator import AllocationError, Allocator
+    from k8s_dra_driver_tpu_torch.allocator import native as native_alloc
+    from k8s_dra_driver_tpu_torch.api import resource
+    from k8s_dra_driver_tpu_torch.api.classes import standard_device_classes
+    from k8s_dra_driver_tpu_torch.cluster import Node
+    from k8s_dra_driver_tpu_torch.devicemodel import enumerate_host_devices
+    from k8s_dra_driver_tpu_torch.discovery import GENERATIONS, SysfsBackend
+    from k8s_dra_driver_tpu_torch.discovery.native import (NativeBackend,
+                                                           ensure_built)
+    from k8s_dra_driver_tpu_torch.discovery.probe import probe, tools
+    from k8s_dra_driver_tpu_torch.discovery.sysfs import (
+        normalize_bus_id, nvidia_product_name)
+    t0 = time.perf_counter()
+    card = card_line()
+    root = Path(__file__).resolve().parent
+    shims = [str(p.relative_to(root)) for p in (ensure_built(),
+                                                native_alloc.ensure_built())]
+    native_alloc.load()
+    shim_s = time.perf_counter() - t0
+
+    def line(part: str, text: str) -> None:
+        print(f"driver ({part}) [{card}, {time.perf_counter() - t0:.2f} s "
+              f"into the phase]: {text}", flush=True)
+
+    # (a) enumeration: the two backends, nvidia-smi and torch.cuda
+    py = SysfsBackend("/").enumerate()
+    cc = NativeBackend("/").enumerate()
+    if dataclasses.asdict(py) != dataclasses.asdict(cc):
+        fail(f"driver (a): the backends disagree: python {py}, "
+             f"shim {cc}")
+    smi, minors = smi_cards()
+    n = torch.cuda.device_count()
+    cuda = {}
+    for i in range(n):
+        props = torch.cuda.get_device_properties(i)
+        cuda["GPU-" + str(props.uuid)] = dict(
+            bus=f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:"
+                f"{props.pci_device_id:02x}.0", name=props.name,
+            total=props.total_memory)
+    chips = {c.uuid: c for c in py.chips}
+    if not len(chips) == len(smi) == n or set(chips) != set(cuda):
+        fail(f"driver (a): {len(chips)} cards enumerated {sorted(chips)}, "
+             f"nvidia-smi {len(smi)}, torch.cuda {n} {sorted(cuda)}")
+    if sorted(minors) != sorted(c.index for c in py.chips):
+        fail(f"driver (a): indices {[c.index for c in py.chips]} are not "
+             f"nvidia-smi's minor numbers {minors}")
+    smi_buses = {normalize_bus_id(c["bus"]) for c in smi
+                 if c["bus"] not in ("[N/A]", "N/A")}
+    if {c["uuid"] for c in smi} != set(chips) or not smi_buses <= {
+            c.pci_address for c in py.chips}:
+        fail(f"driver (a): nvidia-smi's UUIDs {[c['uuid'] for c in smi]} "
+             f"/ bus ids {smi_buses} are not the enumerated ones")
+    h100 = GENERATIONS["h100"]
+    for uuid, c in chips.items():
+        want = cuda[uuid]
+        if (c.pci_address != want["bus"] or c.generation != h100
+                or nvidia_product_name(want["name"]) != h100.product_name):
+            fail(f"driver (a): {c} against torch.cuda's {want}")
+        for path in c.dev_paths:
+            if not os.path.exists(path):
+                fail(f"driver (a): {path} of {uuid} does not exist")
+    if any(nvidia_product_name(c["name"]) != h100.product_name
+           or c["mib"] * 2**20 != h100.hbm_bytes_per_chip for c in smi):
+        fail(f"driver (a): nvidia-smi's cards {smi} are not the h100 entry")
+    expected = {c.index for c in py.chips}
+    for backend in (SysfsBackend("/"), NativeBackend("/")):
+        bad = backend.health(expected=expected)
+        if bad:
+            fail(f"driver (a): unhealthy cards {bad}")
+    line("a", f"shims {shims} built or found and loaded in {shim_s:.2f} s; "
+         f"{n} card(s) equal from the Python backend and the shim: "
+         + "; ".join(f"index {c.index} {c.uuid} {c.pci_address} "
+                     f"{c.dev_paths[0]} {c.generation.name}"
+                     for c in py.chips)
+         + f"; libcuda {py.libtpu_path}; nvidia-smi: {smi} (UUIDs equal "
+         f"to the enumerated ones, bus ids {sorted(smi_buses)} among "
+         f"them), minors {minors}; torch.cuda: {cuda}; health {{}}")
+    line("a", f"what the host shows: {json.dumps(probe('/'))}; tools "
+         f"{json.dumps(tools())}")
+
+    # (b) the device model
+    devices = enumerate_host_devices(py)
+    kinds = [d.kind for d in devices.values()]
+    if (kinds.count("chip"), kinds.count("core")) != (n, n) or (
+            n == 1 and "slice" in kinds):
+        fail(f"driver (b): devices {sorted(devices)}")
+    for name, dev in devices.items():
+        if dev.kind != "chip":
+            continue
+        d = dev.to_device()
+        total = cuda[d.attributes["uuid"]]["total"]
+        hbm = d.capacity["hbm"]
+        if not DRIVER_HBM_SHARE * hbm <= total <= hbm:
+            fail(f"driver (b): {name} hbm {hbm} against total_memory "
+                 f"{total}")
+        line("b", f"{name}: uuid {d.attributes['uuid']} (CUDA's), "
+             f"productName {d.attributes['productName']}, hbm {hbm} B "
+             f"(81559 MiB); total_memory {total} B = "
+             f"{total / hbm:.4f} of it (>= {DRIVER_HBM_SHARE}); devices "
+             f"{sorted(devices)}")
+
+    # (c) allocation by both engines
+    pool = py.hostname
+    rslice = resource.ResourceSlice(
+        metadata=resource.ObjectMeta(name=f"{pool}-slice"),
+        driver="tpu.google.com", pool=resource.ResourcePool(name=pool),
+        node_name=pool, devices=[d.to_device() for _, d in
+                                 sorted(devices.items())])
+    nodes = [Node(metadata=resource.ObjectMeta(name=pool))]
+    classes = standard_device_classes()
+
+    def claim(name, cls, cel):
+        return resource.ResourceClaim(
+            metadata=resource.ObjectMeta(name=name, namespace="default"),
+            spec=resource.ResourceClaimSpec(devices=resource.DeviceClaim(
+                requests=[resource.DeviceRequest(
+                    name="r0", device_class_name=cls,
+                    selectors=[resource.DeviceSelector(cel=cel)])])))
+    picked, refusals, ms = [], [], {}
+    for engine in ("python", "native"):
+        alloc = Allocator(engine=engine)
+        first = claim("card", "tpu.google.com",
+                      f'device.attributes["productName"] == '
+                      f'"{h100.product_name}"')
+        a0 = time.perf_counter()
+        first.status.allocation = alloc.allocate(first, [rslice], classes,
+                                                 nodes=nodes)
+        ms[engine] = (time.perf_counter() - a0) * 1e3
+        (res,) = first.status.allocation.results
+        picked.append(res.device)
+        index = devices[res.device].chips[0].index
+        core = claim("core", "tpu-core.google.com",
+                     f'device.attributes["index"] == {index}')
+        try:
+            alloc.allocate(core, [rslice], classes, nodes=nodes,
+                           allocated_claims=[first])
+            fail(f"driver (c): the {engine} engine gave the core of "
+                 f"{res.device} to a second claim")
+        except AllocationError as e:
+            refusals.append(str(e))
+    if picked[0] != picked[1] or refusals[0] != refusals[1]:
+        fail(f"driver (c): engines disagree: {picked} {refusals}")
+    uuid = devices[picked[0]].to_device().attributes["uuid"]
+    line("c", f"python and native engines both allocate {picked[0]} "
+         f"({uuid}) in {ms['python']:.3f} / {ms['native']:.3f} ms host; "
+         f"its core refused by both: {refusals[0]}")
+
+    # (d) the allocated card runs K1 in a child process
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=uuid,
+               PYTHONPATH=os.pathsep.join(
+                   [str(root)] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.driver_child(sys.argv[1])", uuid], cwd=root, env=env,
+        capture_output=True, text=True, timeout=120)
+    if child.returncode:
+        fail(f"driver (d): the child on {uuid} exited {child.returncode}: "
+             f"{child.stdout[-2000:]}{child.stderr[-4000:]}")
+    row = json.loads(child.stdout.strip().splitlines()[-1])
+    line("d", f"child under CUDA_VISIBLE_DEVICES={uuid}: {row['count']} "
+         f"device, {row['name']} {row['uuid']}; K1 B=2 T=96 H=16 Hkv=4 "
+         f"D=64 causal bf16, {row['launches']} launches: f32 output "
+         f"max|d|={row['err']:.3g} (tol {FWD_TC_TOL} x max(1, max|plain|)),"
+         f" bf16 the f32 rounded: {row['rounded']}, oracle "
+         f"max|d|={row['oracle_err']:.3g} (tol {TOL[torch.bfloat16]}), lse "
+         f"max|d|={row['lse_err']:.3g} (tol {LSE_TOL}); phase wall "
+         f"{time.perf_counter() - t0:.2f} s")
 
 
 def sdpa_fn(q, k, v, causal):
@@ -6249,6 +6500,7 @@ def main() -> None:
     from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
 
     phase_build(_build)
+    phase_driver()
     k1, k1_probes = phase_flash(fa)
     k1b, k1b_probes = phase_flash_block(fa)
     k2, k2_probes = phase_paged(pa)

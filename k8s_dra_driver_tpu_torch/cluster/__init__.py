@@ -3,8 +3,8 @@ layers: the client interface and fake API server (client.py), the
 in-process event bus and its cross-process tap (bus.py), fault
 injection (faults.py), the fleet invariants (invariants.py), the
 flight recorder (flightrec.py) and the compound-fault crucible
-(crucible.py, chaosprobe.py).  The driver's object kinds come with the
-driver layer."""
+(crucible.py, chaosprobe.py), and the driver's object kinds
+(objects.py: Node, Pod, Deployment)."""
 
 from .client import (ApiServerError, ApiUnavailableError, ClusterClient,
                      ConflictError, EVENT_ADDED, EVENT_DELETED,
@@ -12,12 +12,13 @@ from .client import (ApiServerError, ApiUnavailableError, ClusterClient,
 from .faults import (FaultPlan, FaultRule, FaultyClusterClient,
                      ScriptedChipHealth)
 from .invariants import check_cycle
+from .objects import Deployment, Node, Pod
 
 __all__ = [
     "ApiServerError", "ApiUnavailableError", "ClusterClient",
-    "ConflictError", "EVENT_ADDED", "EVENT_DELETED",
+    "ConflictError", "Deployment", "EVENT_ADDED", "EVENT_DELETED",
     "EVENT_MODIFIED", "FakeCluster", "FaultEvent", "FaultPlan",
-    "FaultRule", "FaultyClusterClient", "NotFoundError",
+    "FaultRule", "FaultyClusterClient", "Node", "NotFoundError", "Pod",
     "Schedule", "check_cycle", "default_schedule", "match_labels",
     "run_soak", "ScriptedChipHealth",
 ]

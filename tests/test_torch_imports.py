@@ -92,7 +92,22 @@ def test_scan_covers_the_port():
                 "parallel/__init__.py", "ops/autotune.py",
                 "ops/collectives.py", "utils/profiling.py",
                 "sim/__init__.py", "sim/workload.py", "sim/fleet.py",
-                "sim/rig.py", "sim/probe.py"):
+                "sim/rig.py", "sim/probe.py",
+                "utils/nativebuild.py", "utils/quantity.py",
+                "discovery/__init__.py", "discovery/topology.py",
+                "discovery/types.py", "discovery/sysfs.py",
+                "discovery/mask.py", "discovery/fake.py",
+                "discovery/native.py", "api/__init__.py",
+                "api/resource.py", "api/classes.py",
+                "api/config/__init__.py", "api/config/v1alpha1/__init__.py",
+                "api/config/v1alpha1/sharing.py",
+                "api/config/v1alpha1/types.py",
+                "api/config/v1alpha1/decoder.py", "cluster/objects.py",
+                "devicemodel/__init__.py", "devicemodel/model.py",
+                "devicemodel/prepared.py", "allocator/__init__.py",
+                "allocator/cel.py", "allocator/allocator.py",
+                "allocator/scheduler.py", "allocator/native.py",
+                "discovery/probe.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 
@@ -134,6 +149,26 @@ def test_no_jax_module_strings():
     assert not bad, bad
     src = (PORT / "gateway" / "procpump.py").read_text()
     assert '"k8s_dra_driver_tpu_torch.gateway.procpump"' in src
+
+
+def native_sources():
+    return sorted((PORT / "native").glob("*.cc"))
+
+
+def test_native_sources_stay_in_the_port():
+    """The port's C++ shims are its own: the wrappers build them from
+    ``k8s_dra_driver_tpu_torch/native/`` into ``build/native/``, and no
+    source names a path into the JAX package or its ``native/``
+    directory (its sources, its Makefile, its ``native/build/``)."""
+    names = {p.name for p in native_sources()}
+    assert {"tpudiscovery.cc", "tpualloc.cc", "fakenvidia.cc"} <= names
+    jax_path = re.compile(r"k8s_dra_driver_tpu/|(?<![\w/])native/")
+    bad = {p.name: jax_path.findall(p.read_text())
+           for p in native_sources() if jax_path.search(p.read_text())}
+    assert not bad, bad
+    from k8s_dra_driver_tpu_torch.utils import nativebuild
+    assert nativebuild.NATIVE_DIR == PORT / "native"
+    assert nativebuild.BUILD_DIR == ROOT / "build" / "native"
 
 
 def test_port_reads_its_own_fixtures():
