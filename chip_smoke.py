@@ -28,6 +28,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    a child ``python3`` under ``CUDA_VISIBLE_DEVICES=<the allocated
    uuid>`` sees one card with that UUID and runs K1 against its plain
    version at phase 3's tolerance (its launches are not counted);
+2c. the port's kubelet plugin on the live card (``phase_plugin``):
+   ``cmd/plugin.py``'s ``run`` on a thread with ``--fake-cluster``,
+   ``--discovery auto`` and its gRPC services on short ``/tmp``
+   sockets: (a) the published ResourceSlice holds a chip and a core
+   device a card with CUDA's UUID and product name, registration
+   ``GetInfo`` names ``tpu.google.com`` and the plugin socket, the
+   standard CDI spec validates and every device node and mount source
+   in it exists; (b) a claim the port's allocator gave the card is
+   prepared by ``NodePrepareResources`` over gRPC, its claim spec
+   carries ``CUDA_VISIBLE_DEVICES=<uuid>`` alone, and a child started
+   with the merged edits of both specs (this script's CDI interpreter
+   plays the runtime: env applied, nodes and mount sources checked)
+   sees one card with that UUID and runs K1 against its plain version
+   at phase 3's tolerance (``driver_child``; its launches are not
+   counted); (c) ``run`` stopped and started again on the same plugin
+   root: the checkpoint holds the claim, a second prepare gives the
+   same CDI ids without writing the spec, and ``NodeUnprepareResources``
+   removes the spec and empties the checkpoint; (d) a time-sliced claim
+   (policy file, ``TPU_RUNTIME_PREEMPTION_MS``, the timeshare mount)
+   prepares and its unprepare resets the policy; (e) ``HealthMonitor``
+   on the live backend sees no change, and a backend reporting the card
+   failed republishes the slice without it, then with it again, the
+   listeners told each time; the phase wall and the gRPC latencies
+   (host clock) printed;
 3. K1 (flash-attention forward) against its plain PyTorch version at
    the serving path's shapes and the training shape, with timings and
    the card's bound: bf16 on the tensor-core route, its output before
@@ -337,6 +361,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -815,6 +840,374 @@ def phase_driver() -> None:
          f"max|d|={row['oracle_err']:.3g} (tol {TOL[torch.bfloat16]}), lse "
          f"max|d|={row['lse_err']:.3g} (tol {LSE_TOL}); phase wall "
          f"{time.perf_counter() - t0:.2f} s")
+
+
+PLUGIN_NODE = "h100-node"
+PLUGIN_READY_S = 60.0
+
+
+def plugin_thread(plugin_cmd, argv: list[str], client):
+    """The port's ``cmd/plugin.py`` ``run`` on a thread, as the binary
+    runs it; returns (thread, stop event) once it is ready."""
+    args = plugin_cmd.build_parser().parse_args(argv)
+    ready, stop = threading.Event(), threading.Event()
+    t = threading.Thread(target=plugin_cmd.run, args=(args,),
+                         kwargs=dict(client=client, ready_event=ready,
+                                     stop_event=stop),
+                         name="tpu-dra-plugin", daemon=True)
+    t.start()
+    if not ready.wait(PLUGIN_READY_S):
+        stop.set()
+        fail(f"plugin: not ready within {PLUGIN_READY_S} s")
+    return t, stop
+
+
+def plugin_stop(t, stop) -> None:
+    stop.set()
+    t.join(timeout=30)
+    if t.is_alive():
+        fail("plugin: run() did not return within 30 s of its stop")
+
+
+def cdi_apply(cdi_root: Path, cdi_ids: list[str]) -> dict:
+    """A small CDI interpreter, as a container runtime applies a claim's
+    qualified device ids: each id's spec file by kind and device by
+    name; the spec's common edits, then the device's.  Env entries merge
+    last-wins; device nodes and mounts accumulate once each."""
+    specs = [json.loads(p.read_text()) for p in sorted(
+        cdi_root.glob("*.json"))]
+    env, nodes, mounts = {}, [], []
+    for qualified in cdi_ids:
+        kind, _, name = qualified.partition("=")
+        hits = [(s, d) for s in specs if s["kind"] == kind
+                for d in s["devices"] if d["name"] == name]
+        if len(hits) != 1:
+            fail(f"plugin: CDI id {qualified} resolves to {len(hits)} "
+                 f"device(s)")
+        spec, dev = hits[0]
+        for edits in (spec.get("containerEdits", {}),
+                      dev.get("containerEdits", {})):
+            for e in edits.get("env", []):
+                k, _, v = e.partition("=")
+                env[k] = v
+            for n in edits.get("deviceNodes", []):
+                if n["path"] not in nodes:
+                    nodes.append(n["path"])
+            for m in edits.get("mounts", []):
+                if m not in mounts:
+                    mounts.append(m)
+    return dict(env=env, device_nodes=nodes, mounts=mounts)
+
+
+def phase_plugin() -> dict:
+    """The port's kubelet plugin on the live card (see the module
+    docstring, 2c).  Returns the gRPC latencies and the child's K1
+    reading."""
+    import logging
+
+    import grpc
+
+    from k8s_dra_driver_tpu_torch.allocator import Allocator
+    from k8s_dra_driver_tpu_torch.api import resource
+    from k8s_dra_driver_tpu_torch.api.classes import standard_device_classes
+    from k8s_dra_driver_tpu_torch.cluster import FakeCluster, Node
+    from k8s_dra_driver_tpu_torch.cmd import plugin as plugin_cmd
+    from k8s_dra_driver_tpu_torch.discovery import GENERATIONS
+    from k8s_dra_driver_tpu_torch.discovery.sysfs import nvidia_product_name
+    from k8s_dra_driver_tpu_torch.plugin import (DeviceState,
+                                                 DeviceStateConfig, Driver)
+    from k8s_dra_driver_tpu_torch.plugin import cdi as cdi_mod
+    from k8s_dra_driver_tpu_torch.plugin.cdi_schema import validate_spec
+    from k8s_dra_driver_tpu_torch.plugin.health import HealthMonitor
+    from k8s_dra_driver_tpu_torch.proto import (DRAPluginStub,
+                                                RegistrationStub, dra_pb2,
+                                                registration_pb2)
+    t0 = time.perf_counter()
+    card = card_line()
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="cps-", dir="/tmp"))
+    saved_log = (logging.getLogger().handlers[:],
+                 logging.getLogger().level)
+    argv = ["--node-name", PLUGIN_NODE, "--plugin-root",
+            str(tmp / "plugin"), "--registrar-root", str(tmp / "reg"),
+            "--cdi-root", str(tmp / "cdi"), "--fake-cluster",
+            "--discovery", "auto", "--health-interval", "0", "-v", "0"]
+    cdi_root, plugin_root = tmp / "cdi", tmp / "plugin"
+    h100 = GENERATIONS["h100"]
+    cuda = {}
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        cuda["GPU-" + str(props.uuid)] = nvidia_product_name(props.name)
+    out = {}
+
+    def line(part: str, text: str) -> None:
+        print(f"plugin ({part}) [{card}, {time.perf_counter() - t0:.2f} s "
+              f"into the phase]: {text}", flush=True)
+
+    client = FakeCluster()
+    client.create(Node(metadata=resource.ObjectMeta(name=PLUGIN_NODE)))
+    classes = standard_device_classes()
+    for cls in classes.values():
+        client.create(cls)
+    try:
+        # (a) boot: live discovery, publication, registration, the spec
+        t, stop = plugin_thread(plugin_cmd, argv, client)
+        boot_s = time.perf_counter() - t0
+        (rslice,) = client.list("ResourceSlice")
+        devs = {d.name: d for d in rslice.devices}
+        chips = {d.attributes["uuid"]: d for d in devs.values()
+                 if d.attributes.get("type") == "chip"}
+        cores = [d for d in devs.values()
+                 if d.attributes.get("type") == "core"]
+        if set(chips) != set(cuda) or len(cores) != len(cuda) or (
+                len(cuda) == 1 and len(devs) != 2):
+            fail(f"plugin (a): published {sorted(devs)} with chip UUIDs "
+                 f"{sorted(chips)}; torch.cuda has {sorted(cuda)}")
+        for uuid, d in chips.items():
+            if (d.attributes["productName"] != cuda[uuid]
+                    or cuda[uuid] != h100.product_name):
+                fail(f"plugin (a): {d.name} productName "
+                     f"{d.attributes['productName']} against CUDA's "
+                     f"{cuda[uuid]}")
+        reg = RegistrationStub(grpc.insecure_channel(
+            f"unix://{tmp / 'reg' / 'tpu.google.com-reg.sock'}"))
+        info = reg.GetInfo(registration_pb2.InfoRequest(), timeout=10)
+        sock = plugin_root / "plugin.sock"
+        if (info.name, info.type, info.endpoint) != (
+                "tpu.google.com", "DRAPlugin", str(sock)):
+            fail(f"plugin (a): GetInfo answered {info}")
+        std = json.loads((cdi_root / "tpu.google.com-chip.json")
+                         .read_text())
+        validate_spec(std)
+        common = std["containerEdits"]
+        nodes = [n["path"] for d in std["devices"]
+                 for n in d["containerEdits"].get("deviceNodes", [])]
+        nodes += [n["path"] for n in common.get("deviceNodes", [])]
+        hosts = [m["hostPath"] for m in common.get("mounts", [])]
+        missing = [p for p in nodes + hosts if not os.path.exists(p)]
+        if missing or "NVIDIA_VISIBLE_DEVICES=void" not in common.get(
+                "env", []) or cdi_mod.CONTAINER_LIBCUDA_PATH not in [
+                m["containerPath"] for m in common.get("mounts", [])]:
+            fail(f"plugin (a): standard spec {json.dumps(std)}; missing on "
+                 f"the host: {missing}")
+        line("a", f"run() ready in {boot_s:.2f} s (--discovery auto); "
+             f"ResourceSlice {rslice.metadata.name} pool "
+             f"{rslice.pool.name} devices {sorted(devs)}: "
+             + "; ".join(f"{d.name} uuid {u} productName "
+                         f"{d.attributes['productName']}"
+                         for u, d in sorted(chips.items()))
+             + f"; GetInfo {info.name} {info.type} {info.endpoint} "
+             f"{list(info.supported_versions)}; standard spec valid, "
+             f"device nodes {nodes} and mounts {hosts} all present, env "
+             f"{common.get('env')}")
+
+        # (b) prepare a claim the allocator gave the card, run K1 under it
+        def allocated(name, configs=()):
+            c = resource.ResourceClaim(
+                metadata=resource.ObjectMeta(name=name, namespace="default",
+                                             uid=f"uid-{name}"),
+                spec=resource.ResourceClaimSpec(
+                    devices=resource.DeviceClaim(
+                        requests=[resource.DeviceRequest(
+                            name="r0", device_class_name="tpu.google.com",
+                            selectors=[resource.DeviceSelector(
+                                cel=f'device.attributes["productName"] == '
+                                    f'"{h100.product_name}"')])],
+                        config=[resource.ClaimConfig(
+                            opaque=resource.OpaqueConfig(
+                                driver="tpu.google.com", parameters=p))
+                            for p in configs])))
+            c.status.allocation = Allocator().allocate(
+                c, client.list("ResourceSlice"), classes,
+                nodes=client.list("Node"))
+            client.create(c)
+            return c
+
+        stub = DRAPluginStub(grpc.insecure_channel(f"unix://{sock}"))
+
+        def grpc_call(verb, claim):
+            req_cls = (dra_pb2.NodePrepareResourcesRequest if verb ==
+                       "prepare" else dra_pb2.NodeUnprepareResourcesRequest)
+            fn = (stub.NodePrepareResources if verb == "prepare"
+                  else stub.NodeUnprepareResources)
+            c0 = time.perf_counter()
+            resp = fn(req_cls(claims=[dra_pb2.Claim(
+                uid=claim.metadata.uid, namespace="default",
+                name=claim.metadata.name)]), timeout=30)
+            ms = (time.perf_counter() - c0) * 1e3
+            res = resp.claims[claim.metadata.uid]
+            if res.error:
+                fail(f"plugin: {verb} of {claim.metadata.name}: "
+                     f"{res.error}")
+            return res, ms
+
+        claim = allocated("card")
+        (pick,) = claim.status.allocation.results
+        uuid = devs[pick.device].attributes["uuid"]
+        res, prep_ms = grpc_call("prepare", claim)
+        ids = [i for d in res.devices for i in d.cdi_device_ids]
+        spec_path = cdi_root / f"tpu.google.com-claim_{claim.metadata.uid}.json"
+        cspec = json.loads(spec_path.read_text())
+        validate_spec(cspec)
+        if cspec["devices"][0]["containerEdits"].get("env") != [
+                f"CUDA_VISIBLE_DEVICES={uuid}"]:
+            fail(f"plugin (b): claim spec {json.dumps(cspec)}")
+        view = cdi_apply(cdi_root, ids)
+        gone = [p for p in view["device_nodes"] + [
+            m["hostPath"] for m in view["mounts"]] if not os.path.exists(p)]
+        if gone or view["env"].get("CUDA_VISIBLE_DEVICES") != uuid:
+            fail(f"plugin (b): the container's edits {view}; missing {gone}")
+        env = dict(os.environ, **view["env"], PYTHONPATH=os.pathsep.join(
+            [str(root)] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p]))
+        child = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.driver_child(sys.argv[1])", uuid], cwd=root,
+            env=env, capture_output=True, text=True, timeout=120)
+        if child.returncode:
+            fail(f"plugin (b): the child under the claim's edits exited "
+                 f"{child.returncode}: {child.stdout[-2000:]}"
+                 f"{child.stderr[-4000:]}")
+        row = json.loads(child.stdout.strip().splitlines()[-1])
+        out.update(prepare_ms=prep_ms, child=row)
+        line("b", f"claim {claim.metadata.name} allocated {pick.device} "
+             f"({uuid}); NodePrepareResources over gRPC {prep_ms:.3f} ms "
+             f"host, CDI ids {ids}; the container's edits: env "
+             f"{view['env']}, device nodes {view['device_nodes']}, mounts "
+             f"{[(m['hostPath'], m['containerPath']) for m in view['mounts']]}"
+             f" (a host process cannot bind-mount: sources checked "
+             f"present); child: {row['count']} device, {row['name']} "
+             f"{row['uuid']}; K1 B=2 T=96 H=16 Hkv=4 D=64 causal bf16, "
+             f"{row['launches']} launches: f32 output max|d|="
+             f"{row['err']:.3g} (tol {FWD_TC_TOL} x max(1, max|plain|)), "
+             f"bf16 the f32 rounded: {row['rounded']}, oracle max|d|="
+             f"{row['oracle_err']:.3g} (tol {TOL[torch.bfloat16]}), lse "
+             f"max|d|={row['lse_err']:.3g} (tol {LSE_TOL})")
+
+        # (c) restart over the same plugin root: the checkpoint keeps it
+        plugin_stop(t, stop)
+        spec_stat = spec_path.stat().st_mtime_ns, spec_path.read_text()
+        r0 = time.perf_counter()
+        t, stop = plugin_thread(plugin_cmd, argv, client)
+        restart_s = time.perf_counter() - r0
+        ckpt = json.loads((plugin_root / "checkpoint.json").read_text())
+        if list(ckpt["v1"]["preparedClaims"]) != [claim.metadata.uid]:
+            fail(f"plugin (c): checkpoint after restart {ckpt}")
+        res2, again_ms = grpc_call("prepare", claim)
+        ids2 = [i for d in res2.devices for i in d.cdi_device_ids]
+        if ids2 != ids or (spec_path.stat().st_mtime_ns,
+                           spec_path.read_text()) != spec_stat:
+            fail(f"plugin (c): re-prepare gave {ids2} (first {ids}) or "
+                 f"rewrote the claim spec")
+        _, unprep_ms = grpc_call("unprepare", claim)
+        ckpt = json.loads((plugin_root / "checkpoint.json").read_text())
+        if spec_path.exists() or ckpt["v1"]["preparedClaims"]:
+            fail(f"plugin (c): after unprepare the spec exists "
+                 f"{spec_path.exists()}, checkpoint {ckpt}")
+        out.update(unprepare_ms=unprep_ms, reprepare_ms=again_ms)
+        line("c", f"restarted in {restart_s:.2f} s; the checkpoint holds "
+             f"{claim.metadata.uid}; re-prepare {again_ms:.3f} ms gives "
+             f"the same CDI ids and no spec write; NodeUnprepareResources "
+             f"{unprep_ms:.3f} ms removed the claim spec and emptied the "
+             f"checkpoint")
+
+        # (d) a time-sliced claim on the card
+        client.delete("ResourceClaim", "default", "card")
+        ts = allocated("ts", [{
+            "apiVersion": "tpu.google.com/v1alpha1",
+            "kind": "TpuChipConfig",
+            "sharing": {"strategy": "TimeSlicing",
+                        "timeSlicing": {"interval": "Short"}}}])
+        (tpick,) = ts.status.allocation.results
+        minor = int(tpick.device.removeprefix("chip-"))
+        _, ts_ms = grpc_call("prepare", ts)
+        policy = plugin_root / "policy" / f"chip{minor}.json"
+        tspec = json.loads((cdi_root / "tpu.google.com-claim_uid-ts.json")
+                           .read_text())
+        validate_spec(tspec)
+        edits = tspec["devices"][0]["containerEdits"]
+        want_env = [f"CUDA_VISIBLE_DEVICES={uuid}",
+                    "TPU_RUNTIME_PREEMPTION_MS=1",
+                    "TPU_TIMESHARE_DIR=/var/run/tpu-timeshare"]
+        if (json.loads(policy.read_text()) != {"preemptionMs": 1}
+                or edits.get("env") != want_env
+                or [(m["hostPath"], m["containerPath"]) for m in
+                    edits.get("mounts", [])] != [
+                    (str(plugin_root / "timeshare"),
+                     "/var/run/tpu-timeshare")]):
+            fail(f"plugin (d): policy {policy.read_text()}, edits {edits}")
+        _, ts_un_ms = grpc_call("unprepare", ts)
+        if policy.exists():
+            fail("plugin (d): unprepare left the time-slicing policy")
+        line("d", f"time-sliced claim on {tpick.device}: policy "
+             f"{policy.name} preemptionMs 1, claim env {edits['env']}, "
+             f"timeshare mount; prepare {ts_ms:.3f} ms, unprepare "
+             f"{ts_un_ms:.3f} ms reset the policy")
+        plugin_stop(t, stop)
+
+        # (e) health on the live backend, then a reported failure
+        args = plugin_cmd.build_parser().parse_args(argv)
+        backend = plugin_cmd.build_backend(args)
+        hcluster = FakeCluster()
+        state = DeviceState(backend, hcluster, DeviceStateConfig(
+            plugin_root=str(tmp / "plugin-e"), cdi_root=str(tmp / "cdi-e"),
+            node_name=PLUGIN_NODE))
+        driver = Driver(state, hcluster, plugin_dir=str(tmp / "pe"))
+        driver.start()
+        try:
+            if HealthMonitor(driver, backend, interval=0).check_once() or \
+                    state.unhealthy:
+                fail(f"plugin (e): the live card reads unhealthy "
+                     f"{state.unhealthy}")
+
+            class Reported:
+                """The live backend, with the card reported failed
+                while ``failed`` holds."""
+                failed = True
+
+                def health(self, expected=None):
+                    live = backend.health(expected=expected)
+                    if self.failed:
+                        live = {**live, minor: "reported failed"}
+                    return live
+
+            def published():
+                return sorted(d.name for s in hcluster.list("ResourceSlice")
+                              for d in s.devices)
+            before = published()
+            seen = []
+            wrapper = Reported()
+            monitor = HealthMonitor(driver, wrapper, interval=0)
+            monitor.listeners.append(seen.append)
+            down = monitor.check_once()
+            while_down = published()
+            wrapper.failed = False
+            up = monitor.check_once()
+            after = published()
+            if not (down and up and not any(
+                    n.startswith(f"chip-{minor}") for n in while_down)
+                    and after == before
+                    and seen == [{minor: "reported failed"}, {}]):
+                fail(f"plugin (e): down {down} up {up}; published "
+                     f"{before} -> {while_down} -> {after}; listeners "
+                     f"{seen}")
+        finally:
+            driver.shutdown()
+        line("e", f"live check_once: no change, unhealthy {{}}; card "
+             f"{minor} reported failed: republished {while_down}, "
+             f"listeners {seen[0]}; healthy again: republished {after}")
+    finally:
+        root_log = logging.getLogger()
+        root_log.handlers[:] = saved_log[0]
+        root_log.setLevel(saved_log[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"plugin [{card}]: phase wall {out['wall_s']:.2f} s; gRPC "
+          f"prepare {out['prepare_ms']:.3f} ms, re-prepare after restart "
+          f"{out['reprepare_ms']:.3f} ms, unprepare "
+          f"{out['unprepare_ms']:.3f} ms (host clock, one claim each); "
+          f"child K1 max|d| {out['child']['err']:.3g}", flush=True)
+    return out
 
 
 def sdpa_fn(q, k, v, causal):
@@ -6501,6 +6894,7 @@ def main() -> None:
 
     phase_build(_build)
     phase_driver()
+    phase_plugin()
     k1, k1_probes = phase_flash(fa)
     k1b, k1b_probes = phase_flash_block(fa)
     k2, k2_probes = phase_paged(pa)

@@ -3,8 +3,9 @@ layers: the client interface and fake API server (client.py), the
 in-process event bus and its cross-process tap (bus.py), fault
 injection (faults.py), the fleet invariants (invariants.py), the
 flight recorder (flightrec.py) and the compound-fault crucible
-(crucible.py, chaosprobe.py), and the driver's object kinds
-(objects.py: Node, Pod, Deployment)."""
+(crucible.py, chaosprobe.py), the driver's object kinds (objects.py:
+Node, Pod, Deployment) and the REST client of a real API server
+(rest.py, imported on demand)."""
 
 from .client import (ApiServerError, ApiUnavailableError, ClusterClient,
                      ConflictError, EVENT_ADDED, EVENT_DELETED,

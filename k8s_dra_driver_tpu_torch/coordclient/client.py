@@ -20,6 +20,9 @@ from pathlib import Path
 from ..utils.atomicio import write_atomic
 
 ENV_COORDINATION_DIR = "TPU_COORDINATOR_DIR"
+#: the file a coordinator daemon publishes in its coordination dir once
+#: it serves (the plugin's readiness watch, plugin/sharing.py)
+READY_FILE = "ready"
 
 #: how often a live client refreshes its registration; a daemon
 #: evicts anything silent for 15 s, so this stays well inside it

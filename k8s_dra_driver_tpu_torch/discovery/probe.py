@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import importlib
+import importlib.metadata
 import json
 import os
 import shutil
@@ -74,9 +75,17 @@ def _nvml_facts(nvml: Path, cuda_uuids: set[str]) -> dict:
     return out
 
 
+#: modules the plugin imports beside grpc and protobuf (the CDI schema
+#: check, the coordinator template, kubeconfigs), and the reference's
+#: metrics library the port's registry stands in for: module ->
+#: distribution
+_PACKAGES = {"jsonschema": "jsonschema", "yaml": "PyYAML",
+             "prometheus_client": "prometheus_client"}
+
+
 def tools() -> dict:
     """``g++``'s version line and the versions of the Python modules
-    the plugin needs (None where absent)."""
+    the plugin needs, and of ``prometheus_client`` (None where absent)."""
     gxx = shutil.which("g++")
     out = {"g++": subprocess.run(
         [gxx, "--version"], capture_output=True, text=True,
@@ -84,6 +93,12 @@ def tools() -> dict:
     for name in ("grpc", "google.protobuf"):
         try:
             out[name] = importlib.import_module(name).__version__
+        except ImportError:
+            out[name] = None
+    for name, dist in _PACKAGES.items():
+        try:
+            importlib.import_module(name)
+            out[name] = importlib.metadata.version(dist)
         except ImportError:
             out[name] = None
     return out

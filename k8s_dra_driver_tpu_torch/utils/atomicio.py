@@ -1,7 +1,8 @@
-"""Durable small-file writes for the port's checkpointer.
+"""Durable small-file writes for the port's checkpointers.
 
 The port's own copy of the parts of ``k8s_dra_driver_tpu/utils/
-atomicio.py`` that ``models/checkpoint.py`` uses: tmp file in the same
+atomicio.py`` that ``models/checkpoint.py`` and
+``plugin/checkpoint.py`` use: tmp file in the same
 directory, fsync the data, ``os.replace`` over the target, fsync the
 parent directory.  Without the two fsyncs a crash can leave the
 renamed file without its data blocks.
@@ -32,6 +33,12 @@ def write_durable_bytes(path, data: bytes) -> None:
         os.fsync(f.fileno())
 
 
+def write_durable(path, text: str) -> None:
+    """:func:`write_durable_bytes` for text (UTF-8; callers that need a
+    crashpoint between write and commit do their own ``os.replace``)."""
+    write_durable_bytes(path, text.encode())
+
+
 def write_atomic_bytes(path, data: bytes) -> None:
     """Sibling tmp + fsync + ``os.replace`` + parent-directory fsync.
     After return the new content is durable; a crash at any interior
@@ -49,4 +56,4 @@ def write_atomic(path, text: str) -> None:
 
 
 __all__ = ["fsync_dir", "write_atomic", "write_atomic_bytes",
-           "write_durable_bytes"]
+           "write_durable", "write_durable_bytes"]

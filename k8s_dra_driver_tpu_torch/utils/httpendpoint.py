@@ -75,9 +75,8 @@ def _frame_chain(frame):
 
 
 class HTTPEndpoint:
-    """``metrics`` is any object with ``render() -> bytes`` (the
-    reference types it as the driver's ``DriverMetrics``, which the
-    port does not have yet); ``extra_metrics`` appends further
+    """``metrics`` is any object with ``render() -> bytes``
+    (``DriverMetrics`` in the plugin binary); ``extra_metrics`` appends further
     registries to the same ``/metrics`` exposition — how a process
     that runs the fleet stack (gateway, reconciler, ``MemWatch``)
     exports their state on the one scrape endpoint (utils/metrics.py

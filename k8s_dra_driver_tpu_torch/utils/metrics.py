@@ -3,9 +3,9 @@
 The port's copy of ``GatewayMetrics`` from
 ``k8s_dra_driver_tpu/utils/metrics.py``, with the helpers it uses
 (``escape_label_value``, ``expo_line``, ``digest_exposition``,
-``_DigestSourceMixin``), ``RecoveryMetrics`` (the gang supervisor's),
-``FleetMetrics`` and ``render_all``.  The driver's registry waits for
-its consumer.
+``_DigestSourceMixin``), ``DriverMetrics`` (the kubelet plugin's),
+``RecoveryMetrics`` (the gang supervisor's), ``FleetMetrics`` and
+``render_all``.
 
 The reference builds on ``prometheus_client``, which the card's machine
 does not have, so this module carries a small registry of its own:
@@ -16,13 +16,15 @@ same updates render the same samples ``prometheus_client``'s
 ``generate_latest`` renders (``_total`` on counters; ``_bucket{le=...}``,
 ``_count`` and ``_sum`` on histograms, ``_sum`` left out when a bucket
 bound is negative; HELP/TYPE lines; the value and label formatting),
-except the ``_created`` samples, which are left out.  Single-threaded by
-design: the gateway pump is.
+except the ``_created`` samples, which are left out.  Updates are
+thread-safe, as ``prometheus_client``'s are: the plugin's gRPC workers
+and its health thread share one ``DriverMetrics``.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 from .digest import DigestBank
 
@@ -121,6 +123,7 @@ class _Family:
         self.documentation = documentation
         self.labelnames = tuple(labelnames)
         self._children: dict[tuple, object] = {}
+        self._lock = threading.Lock()
         if not self.labelnames:
             self._children[()] = self._new_child()
         registry.register(self)
@@ -135,9 +138,10 @@ class _Family:
             raise ValueError(f"{self.name}: labels {sorted(kw)} != "
                              f"{sorted(self.labelnames)}")
         key = tuple(str(kw[n]) for n in self.labelnames)
-        child = self._children.get(key)
-        if child is None:
-            child = self._children[key] = self._new_child()
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._new_child()
         return child
 
     def _only(self):
@@ -151,7 +155,9 @@ class _Family:
                 f"# TYPE {name} {self.TYPE}\n")
 
     def _label_dicts(self):
-        for key, child in self._children.items():
+        with self._lock:
+            children = list(self._children.items())
+        for key, child in children:
             yield dict(zip(self.labelnames, key)), child
 
     def samples(self):
@@ -167,12 +173,14 @@ class _Family:
 class _CounterChild:
     def __init__(self) -> None:
         self.value = 0.0
+        self._lock = threading.Lock()
 
     def inc(self, amount: float = 1) -> None:
         if amount < 0:
             raise ValueError("counters can only be incremented by "
                              "non-negative amounts")
-        self.value += amount
+        with self._lock:
+            self.value += amount
 
 
 class Counter(_Family):
@@ -226,13 +234,15 @@ class _HistogramChild:
         self.bounds = bounds
         self.counts = [0.0] * len(bounds)
         self.sum = 0.0
+        self._lock = threading.Lock()
 
     def observe(self, amount: float) -> None:
-        self.sum += amount
-        for i, bound in enumerate(self.bounds):
-            if amount <= bound:
-                self.counts[i] += 1
-                break
+        with self._lock:
+            self.sum += amount
+            for i, bound in enumerate(self.bounds):
+                if amount <= bound:
+                    self.counts[i] += 1
+                    break
 
 
 class Histogram(_Family):
@@ -270,6 +280,46 @@ class Histogram(_Family):
                 # a sum over signed observations is not a histogram sum
                 # (the OpenMetrics rule prometheus_client follows)
                 yield f"{self.name}_sum", labels, h.sum
+
+
+#: the driver's prepare/unprepare latency ladder (seconds)
+_BUCKETS = (.001, .005, .01, .05, .1, .5, 1, 5, 10, 30, 60)
+
+
+class DriverMetrics:
+    """The kubelet plugin's registry (plugin/driver.py,
+    plugin/publisher.py, plugin/health.py): the same families, names,
+    labels, buckets and HELP texts as the reference's
+    ``DriverMetrics``."""
+
+    def __init__(self):
+        self.registry = Registry()
+        self.prepare_seconds = Histogram(
+            "tpu_dra_prepare_seconds",
+            "Latency of NodePrepareResources per claim",
+            ["outcome"], registry=self.registry, buckets=_BUCKETS)
+        self.unprepare_seconds = Histogram(
+            "tpu_dra_unprepare_seconds",
+            "Latency of NodeUnprepareResources per claim",
+            ["outcome"], registry=self.registry, buckets=_BUCKETS)
+        self.prepared_claims = Gauge(
+            "tpu_dra_prepared_claims",
+            "Number of currently prepared claims", registry=self.registry)
+        self.published_devices = Gauge(
+            "tpu_dra_published_devices",
+            "Number of devices currently published in ResourceSlices",
+            registry=self.registry)
+        self.unhealthy_chips = Gauge(
+            "tpu_dra_unhealthy_chips",
+            "Chips currently excluded from publication by the health "
+            "monitor", registry=self.registry)
+        self.slice_reconciles = Counter(
+            "tpu_dra_resourceslice_reconciles_total",
+            "ResourceSlice reconcile operations", ["op"],
+            registry=self.registry)
+
+    def render(self) -> bytes:
+        return self.registry.render()
 
 
 #: quantiles every digest series exposes, as (label, q) pairs —
@@ -741,6 +791,6 @@ def render_all(*metrics) -> bytes:
     return b"".join(m.render() for m in metrics)
 
 
-__all__ = ["Counter", "FleetMetrics", "Gauge", "GatewayMetrics",
+__all__ = ["Counter", "DriverMetrics", "FleetMetrics", "Gauge", "GatewayMetrics",
            "Histogram", "RecoveryMetrics", "Registry", "digest_exposition",
            "escape_label_value", "expo_line", "render_all"]

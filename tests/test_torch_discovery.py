@@ -417,5 +417,6 @@ class TestProbe:
     def test_tools(self):
         from k8s_dra_driver_tpu_torch.discovery.probe import tools
         got = tools()
-        assert set(got) == {"g++", "grpc", "google.protobuf"}
+        assert set(got) == {"g++", "grpc", "google.protobuf", "jsonschema",
+                            "yaml", "prometheus_client"}
         assert got["g++"] is None or "g++" in got["g++"]

@@ -2,8 +2,9 @@
 nor its on-card scripts (chip_smoke.py, chip_profile.py,
 chip_bwd_rounding.py), imports JAX
 (jax, jaxlib, optax), ml_dtypes (the bfloat16 numpy type JAX brings
-along), prometheus_client (absent on the card's machine; the port's
-utils/metrics.py carries its own registry) or anything of the JAX
+along), prometheus_client (the port's utils/metrics.py carries its own
+registry, as the card's machine has not always had the package) or
+anything of the JAX
 package k8s_dra_driver_tpu — not even its numpy-only modules.  A static
 AST scan, so imports hidden inside functions are caught too.  The
 multi-process gateway starts its pumps with ``python -m <module>`` and
@@ -107,7 +108,15 @@ def test_scan_covers_the_port():
                 "devicemodel/prepared.py", "allocator/__init__.py",
                 "allocator/cel.py", "allocator/allocator.py",
                 "allocator/scheduler.py", "allocator/native.py",
-                "discovery/probe.py"):
+                "discovery/probe.py", "proto/__init__.py",
+                "proto/dra_pb2.py", "proto/registration_pb2.py",
+                "proto/services.py", "utils/files.py", "utils/info.py",
+                "utils/flags.py", "cluster/rest.py", "plugin/__init__.py",
+                "plugin/cdi.py", "plugin/cdi_schema.py",
+                "plugin/checkpoint.py", "plugin/sharing.py",
+                "plugin/device_state.py", "plugin/publisher.py",
+                "plugin/driver.py", "plugin/health.py", "cmd/__init__.py",
+                "cmd/plugin.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 

@@ -1,7 +1,10 @@
 """Helpers of the driver twins (tests/test_torch_discovery.py,
 test_torch_native_discovery.py, test_torch_devicemodel.py,
 test_torch_configapi.py, test_torch_allocator.py,
-test_torch_native_alloc.py): one namespace per package, so a scenario
+test_torch_native_alloc.py, and the plugin's: test_torch_plugin_state.py,
+test_torch_driver_grpc.py, test_torch_health.py,
+test_torch_rest_client.py, test_torch_cmd_plugin.py,
+test_torch_oop_plugin.py): one namespace per package, so a scenario
 written once runs through the JAX package and through the port, and
 the two results are compared."""
 
@@ -21,7 +24,16 @@ def _package(root: str) -> SimpleNamespace:
         devicemodel=mod("devicemodel"), resource=mod("api.resource"),
         classes=mod("api.classes"), configapi=mod("api.config.v1alpha1"),
         quantity=mod("utils.quantity"), allocator=mod("allocator"),
-        native_alloc=mod("allocator.native"), cluster=mod("cluster"))
+        native_alloc=mod("allocator.native"), cluster=mod("cluster"),
+        objects=mod("cluster.objects"), plugin=mod("plugin"),
+        cdi=mod("plugin.cdi"), cdi_schema=mod("plugin.cdi_schema"),
+        sharing=mod("plugin.sharing"), health=mod("plugin.health"),
+        device_state=mod("plugin.device_state"), proto=mod("proto"),
+        services=mod("proto.services"), cmd_plugin=mod("cmd.plugin"),
+        rest=mod("cluster.rest"), flags=mod("utils.flags"),
+        info=mod("utils.info"), metrics=mod("utils.metrics"),
+        httpendpoint=mod("utils.httpendpoint"),
+        backoff=mod("utils.backoff"))
 
 
 JAX = _package("k8s_dra_driver_tpu")
