@@ -52,6 +52,50 @@ Phases, in order; any failure ends the run with a non-zero exit:
    failed republishes the slice without it, then with it again, the
    listeners told each time; the phase wall and the gRPC latencies
    (host clock) printed;
+2d. the port's controller and coordination on the live card
+   (``phase_coordination``), the port's plugin on a thread as in 2c,
+   this script playing the kubelet of coordinator Deployments (each one
+   the plugin creates runs as a real ``python -m
+   k8s_dra_driver_tpu_torch.cmd.coordinatord`` process with the rendered
+   args, container paths mapped to host paths; ready once its ready
+   file exists; stopped when the Deployment goes): (a)
+   ``cmd/controller.py``'s ``run`` on a thread over the same cluster: a
+   node labelled ``tpu.google.com/slice=<id>.2x2`` gets its pool (1
+   ``podslice`` and 128 ``channel-*`` devices), unlabelled it goes,
+   ``stop`` cleans up, and the card's own node, which has no label,
+   gets none; (b) a Coordinated claim (duty cycle 100%, the node's
+   time-slicing policy file giving a 1000 ms cycle) prepared over gRPC,
+   its daemon a real process; two children under ``python -m
+   k8s_dra_driver_tpu_torch.coordclient.gate exec`` with the claim's
+   edits each loop K1 at phase 3's main-path shape in stamped batches:
+   both progress, every batch completed while both ran lies in its own
+   window plus one batch and the gate's 0.25 s, K1 within phase 3's
+   tolerance of its plain version, status.json lists both workers and
+   no violation other than this script's own process (which holds a
+   CUDA context, reported on the card's ``/dev/nvidia<minor>``), and a
+   third, ungated child that opens the card is reported as an
+   ``unregisteredDeviceHolder`` of that node; (c) a Coordinated claim
+   with a 4 GiB limit: a child whose ``PYTORCH_CUDA_ALLOC_CONF`` came
+   from its budget before torch started allocates 2 GiB and gets
+   ``torch.cuda.OutOfMemoryError`` for 6 GiB, and, its cap lifted,
+   reports ``memory_reserved()`` above the limit, which status.json
+   shows as a violation (action ``report``); (d) two time-sliced claims
+   (interval Long, 20 ms) on the card, each child under the gate with
+   the card's UUID in ``CUDA_VISIBLE_DEVICES`` (one lock,
+   ``<uuid>.lock``): the two children's uninterrupted K1 batches
+   overlap by no more than one batch in all; (e) a Coordinated claim
+   whose env a child takes: the 154M paged engine in bf16 at full
+   width and depth, 4 greedy requests of 16 new tokens through a
+   ``FleetGateway`` whose ``ReplicaManager`` leases with
+   ``DraChipLease(env, mounts)``: the replica's label is the card's
+   UUID, its registration exists and heartbeats while it serves, its
+   tokens equal the same engine's without a lease, K1 and K2 launch,
+   its registration is gone after ``retire``; a replica added and the
+   card reported failed by the health source (the live backend's view
+   mapped to UUIDs) drains it.  The K1 children's loop launches and the
+   leased replica's K1 and K2 join the kernels line; the phase wall,
+   the batch counts and window shares, the OOM, the overlap and the
+   replica's tokens/s are printed with the card and its power limit;
 3. K1 (flash-attention forward) against its plain PyTorch version at
    the serving path's shapes and the training shape, with timings and
    the card's bound: bf16 on the tensor-core route, its output before
@@ -358,6 +402,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1207,6 +1252,889 @@ def phase_plugin() -> dict:
           f"{out['reprepare_ms']:.3f} ms, unprepare "
           f"{out['unprepare_ms']:.3f} ms (host clock, one claim each); "
           f"child K1 max|d| {out['child']['err']:.3g}", flush=True)
+    return out
+
+
+COORD_NODE = "h100-coord"
+#: the node's time-slicing policy for the card while (b) runs (the
+#: file the plugin's TimeSlicingManager writes): the coordinator takes
+#: the larger of the claim's quantum (0) and the node's as its cycle,
+#: so two gated workers get windows of 500 ms each
+COORD_POLICY_MS = 1000
+#: K1 launches in one synchronized, stamped batch of a K1 child
+COORD_BATCH = 100
+#: wall seconds of each K1 child's stamped loop: (b) gated, (d) sliced
+COORD_LOOP_S = 5.0
+TS_LOOP_S = 3.0
+#: the gate's longest sleep between two looks at the schedule
+#: (coordclient/gate.py _run_coordinated)
+GATE_REEVAL_S = 0.25
+#: (c): the claim's device-memory limit on the card
+COORD_HBM = "4Gi"
+COORD_HBM_BYTES = 4 << 30
+#: (e): greedy requests of s8_r24's prompts, new tokens each
+LEASE_REQS = 4
+LEASE_NEW = 16
+DAEMON_MODULE = "k8s_dra_driver_tpu_torch.cmd.coordinatord"
+GATE_MODULE = "k8s_dra_driver_tpu_torch.coordclient.gate"
+#: the coordinator template's command, the reference's console script
+COORD_COMMAND = ["tpu-coordinatord"]
+CHILD_S = 180.0
+
+
+def coord_k1_batches(out: str, seconds: float) -> None:
+    """phase_coordination (b), (d), in a child under a claim's edits and
+    the port's gate: K1 at phase 3's main-path shape (B=2 T=96 H=16
+    Hkv=4 D=64 causal bf16) held to its plain version (those launches
+    not counted), then batches of COORD_BATCH launches, each
+    synchronized and stamped on the host clock (unix seconds), for
+    ``seconds`` of wall time, stopped time included.  Writes its pid to
+    ``out``.pid at the start and one JSON object to ``out`` at the
+    end."""
+    Path(out + ".pid").write_text(str(os.getpid()))
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 96, h, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (16, 4, 4))
+    full, _ = fa.flash_forward(q, k, v, causal=True,
+                               out_dtype=torch.float32)
+    ref, _ = fa.flash_forward_reference(q, k, v, causal=True,
+                                        out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    row = dict(pid=os.getpid(), count=torch.cuda.device_count(),
+               uuid="GPU-" + str(torch.cuda.get_device_properties(0).uuid),
+               err=(full - ref).abs().max().item(),
+               tol=FWD_TC_TOL * max(1.0, ref.abs().max().item()))
+    before, before_tc = fa.launches, fa.tc_launches
+    batches = []
+    end = time.time() + seconds
+    while time.time() < end:
+        t0 = time.time()
+        for _ in range(COORD_BATCH):
+            fa.flash_forward(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        batches.append((t0, time.time()))
+    row.update(launches=fa.launches - before,
+               tc_launches=fa.tc_launches - before_tc, batches=batches)
+    Path(out).write_text(json.dumps(row))
+
+
+def coord_holder(go: str) -> None:
+    """phase_coordination (b)'s ungated holder: once ``go`` exists it
+    opens the card (a CUDA context), prints ``open`` and sleeps until
+    it is killed."""
+    while not os.path.exists(go):
+        time.sleep(0.05)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    print("open", flush=True)
+    time.sleep(CHILD_S)
+
+
+#: (c)'s child: the budget reaches the CUDA allocator before torch
+#: starts (the coordclient package imports no torch)
+HBM_CHILD = """
+import sys
+from k8s_dra_driver_tpu_torch.coordclient import CoordinatorClient
+client = CoordinatorClient.from_env(name="hbm")
+client.wait_ready(30)
+client.register()
+edits = client.apply_hbm_env(int(sys.argv[2]))
+import chip_smoke
+chip_smoke.coord_hbm_worker(client, edits, sys.argv[1])
+"""
+
+
+def await_status(cdir: Path, after: float, want, timeout_s: float = 15.0
+                 ) -> dict:
+    """The coordinator's status.json once it was written after
+    ``after`` (unix seconds) and ``want(status)`` holds; the last one
+    read on timeout."""
+    deadline = time.time() + timeout_s
+    status = {}
+    while time.time() < deadline:
+        try:
+            status = json.loads((cdir / "status.json").read_text())
+        except (OSError, ValueError):
+            status = {}
+        if status.get("updatedAt", 0) > after and want(status):
+            return status
+        time.sleep(0.05)
+    return status
+
+
+def coord_hbm_worker(client, edits: dict, out: str) -> None:
+    """phase_coordination (c), in a child whose allocator option came
+    from its claim's budget (``HBM_CHILD``): half the budget allocates,
+    one and a half raise ``torch.cuda.OutOfMemoryError``, a heartbeat of
+    ``memory_reserved()`` under the budget reads no violation; then the
+    same process with its cap lifted (a workload ignoring its budget)
+    holds one and a half budgets and its heartbeat reads as a
+    violation in status.json.  One JSON object to ``out``."""
+    budget = client.hbm_limit_bytes()
+    row = dict(pid=os.getpid(), edits=edits, budget=budget,
+               conf=os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+               total=torch.cuda.get_device_properties(0).total_memory)
+    below = torch.empty(budget // 2, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    row["below"] = below.numel()
+    try:
+        torch.empty(budget + budget // 2, dtype=torch.uint8, device="cuda")
+        row["above"] = "allocated"
+    except torch.cuda.OutOfMemoryError as e:
+        row["above"] = "OutOfMemoryError"
+        row["oom"] = str(e).splitlines()[0][:240]
+    row["reserved_under"] = torch.cuda.memory_reserved()
+    t = time.time()
+    client.heartbeat(hbm_bytes_in_use=row["reserved_under"])
+    status = await_status(client.dir, t, lambda s: True)
+    row["under"] = [v for v in status.get("violations", [])
+                    if v.get("worker") == "hbm"]
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    over = torch.empty(budget + budget // 2, dtype=torch.uint8,
+                       device="cuda")
+    torch.cuda.synchronize()
+    row["reserved_over"] = torch.cuda.memory_reserved()
+    t = time.time()
+    client.heartbeat(hbm_bytes_in_use=row["reserved_over"])
+    status = await_status(client.dir, t, lambda s: any(
+        v.get("worker") == "hbm" for v in s.get("violations", [])))
+    row["over"] = [v for v in status.get("violations", [])
+                   if v.get("worker") == "hbm"]
+    client.unregister()
+    del below, over
+    Path(out).write_text(json.dumps(row))
+
+
+def coord_replica_worker(spec: str, out: str) -> None:
+    """phase_coordination (e), in a child with its coordinated claim's
+    env: the 154M paged engine in bf16 at full width and depth; the same
+    requests drained without a lease (the reference), then through a
+    ``FleetGateway`` over a ``ReplicaManager`` whose ``lease_factory``
+    builds ``DraChipLease`` from the claim's env and mounts (``spec``, a
+    JSON file); the health source is the live backend's view with the
+    card optionally reported failed, mapped to UUIDs by
+    ``card_health_source`` over the discovered topology.  Retires the
+    serving replica, adds one, reports the card failed and steps the
+    gateway.  One JSON object to ``out``."""
+    from k8s_dra_driver_tpu_torch.coordclient.client import \
+        HEARTBEAT_INTERVAL_S
+    from k8s_dra_driver_tpu_torch.discovery import SysfsBackend
+    from k8s_dra_driver_tpu_torch.gateway import (DraChipLease, FleetGateway,
+                                                  ReplicaManager,
+                                                  card_health_source)
+    from k8s_dra_driver_tpu_torch.models.serving import (Request,
+                                                         ServingEngine)
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+    from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
+    claim = json.loads(Path(spec).read_text())
+    cfg, params = serving_model()
+    reqs = [Request(uid=f"lease{i}", prompt=r.prompt, max_new=LEASE_NEW)
+            for i, r in enumerate(s8_r24(cfg.vocab)[:LEASE_REQS])]
+    backend = SysfsBackend("/")
+    topology = backend.enumerate()
+    reported: dict = {}
+
+    def plugin_view() -> dict:
+        return {**backend.health(), **reported}
+
+    def engine(name):
+        return ServingEngine(params, cfg, slots=LEASE_REQS,
+                             kv_layout="paged")
+
+    mgr = ReplicaManager(
+        engine, replicas=1,
+        health_source=card_health_source(plugin_view, topology),
+        lease_factory=lambda name: DraChipLease(
+            claim["env"], claim["mounts"], name=name))
+    t_acquire = time.time()
+    r0 = mgr.replicas[0]
+    ctl = r0.lease.client.dir / "ctl"
+    row = dict(pid=os.getpid(), chip=r0.chip, lease_chips=r0.lease.chips,
+               coordination_dir=str(r0.lease.client.dir),
+               registered=(ctl / "r0.json").exists())
+    ref_engine = engine("ref")
+    for r in reqs:
+        ref_engine.submit(r)
+    ref = {f.uid: np.asarray(f.tokens).tolist() for f in ref_engine.run()}
+    del ref_engine
+    # the pump heartbeats a lease once HEARTBEAT_INTERVAL_S has passed
+    time.sleep(max(0.0, t_acquire + HEARTBEAT_INTERVAL_S + 0.1
+                   - time.time()))
+    gw = FleetGateway(mgr, queue_capacity=8, auto_replace=False)
+    for r in reqs:
+        gw.submit(r)
+    torch.cuda.synchronize()
+    zero_serving_counts(fa, pa)
+    t0 = time.perf_counter()
+    done = gw.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row["counts"] = kernel_snapshot(fa, pa)
+    reg = json.loads((ctl / "r0.json").read_text())
+    row.update(reg=reg, wall_s=wall, finished=len(done))
+    tokens = {g.uid: np.asarray(gw.results[g.uid].tokens).tolist()
+              for g in done}
+    row["byte_equal"] = sum(tokens.get(u) == t for u, t in ref.items())
+    row["generated"] = sum(len(gw.results[g.uid].tokens)
+                           - gw.results[g.uid].n_prompt for g in done)
+    mgr.begin_drain(r0)
+    mgr.retire(r0)
+    row["after_retire"] = (ctl / "r0.json").exists()
+    r1 = mgr.add_replica()
+    row["r1"] = dict(name=r1.name, chip=r1.chip,
+                     registered=(ctl / f"{r1.name}.json").exists())
+    minor = next(c.index for c in topology.chips if c.uuid == r1.chip)
+    reported[minor] = "reported failed"
+    gw.step()
+    row["r1"].update(state=r1.state, after_health=(
+        ctl / f"{r1.name}.json").exists(), counts=mgr.counts())
+    Path(out).write_text(json.dumps(row))
+
+
+def coordination_env(view: dict) -> dict:
+    """A child's environment under a claim: this process's, with the
+    claim's env applied, every value that names a container path of the
+    claim's mounts rewritten to its host path (a host process cannot
+    bind-mount), and the checkout on ``PYTHONPATH``."""
+    from k8s_dra_driver_tpu_torch.gateway import resolve_container_path
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env.update({k: resolve_container_path(v, view["mounts"])
+                for k, v in view["env"].items()})
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "")
+                       .split(os.pathsep) if p])
+    return env
+
+
+class CoordinatorPods:
+    """This script as the kubelet of coordinator Deployments: each one
+    the port's plugin creates is run as a real process, ``python -m
+    k8s_dra_driver_tpu_torch.cmd.coordinatord`` with the rendered args
+    and env, container paths mapped to host paths through its volumes;
+    the Deployment is marked ready only once the daemon's ready file
+    exists, and its process is stopped when the Deployment is deleted
+    (and by ``stop_all``)."""
+
+    def __init__(self, cluster, logs: Path):
+        self.cluster = cluster
+        self.logs = logs
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.dirs: dict[str, Path] = {}
+        self.errors: list[str] = []
+        self._lock = threading.Lock()
+        self._unwatch = cluster.watch("Deployment", self._on_event)
+
+    def _on_event(self, event, obj) -> None:
+        name = obj.metadata.name
+        if event == "DELETED":
+            self._stop(name)
+            return
+        if event != "ADDED" or obj.ready:
+            return
+        pod = obj.spec["template"]["spec"]
+        ctr = pod["containers"][0]
+        if ctr.get("command") != COORD_COMMAND:
+            self.errors.append(f"{name}: command {ctr.get('command')}")
+            return
+        vols = {v["name"]: v["hostPath"]["path"] for v in pod["volumes"]}
+        mounts = [{"containerPath": m["mountPath"],
+                   "hostPath": vols[m["name"]]}
+                  for m in ctr.get("volumeMounts", [])]
+        from k8s_dra_driver_tpu_torch.gateway import resolve_container_path
+        args = []
+        for arg in ctr.get("args", []):
+            flag, eq, value = arg.partition("=")
+            args.append(f"{flag}={resolve_container_path(value, mounts)}"
+                        if eq else arg)
+        cdir = Path(next(a.split("=", 1)[1] for a in args
+                         if a.startswith("--coordination-dir=")))
+        env = dict(os.environ, **{e["name"]: e["value"]
+                                  for e in ctr.get("env", [])})
+        log = open(self.logs / f"{name}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", DAEMON_MODULE, *args],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+        log.close()
+        with self._lock:
+            self.procs[name], self.dirs[name] = proc, cdir
+        threading.Thread(target=self._mark_ready, args=(obj, proc, cdir),
+                         daemon=True).start()
+
+    def _mark_ready(self, obj, proc, cdir: Path) -> None:
+        deadline = time.time() + 30
+        while time.time() < deadline and proc.poll() is None:
+            if (cdir / "ready").exists():
+                obj.ready_replicas = obj.replicas
+                self.cluster.update(obj)
+                return
+            time.sleep(0.01)
+        self.errors.append(f"{obj.metadata.name}: daemon rc {proc.poll()}, "
+                           f"no ready file in 30 s")
+
+    def _stop(self, name: str) -> None:
+        with self._lock:
+            proc = self.procs.pop(name, None)
+        if proc is None:
+            return
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(10)
+        if proc.returncode != 0:
+            self.errors.append(f"{name}: daemon exited {proc.returncode}")
+
+    def stop_all(self) -> None:
+        self._unwatch()
+        for name in list(self.procs):
+            self._stop(name)
+
+
+def k1_children_check(label: str, rows: dict, uuid: str) -> None:
+    """Each K1 child saw one card, the claimed one, held K1 to its plain
+    version, and every loop launch was K1's tensor-core route."""
+    for name, row in rows.items():
+        if (row["count"] != 1 or row["uuid"] != uuid
+                or row["err"] > row["tol"]
+                or row["launches"] != row["tc_launches"]
+                or row["launches"] != COORD_BATCH * len(row["batches"])
+                or not row["batches"]):
+            fail(f"coordination ({label}): child {name}: "
+                 f"{ {k: v for k, v in row.items() if k != 'batches'} }, "
+                 f"{len(row['batches'])} batches")
+
+
+def overlap_s(a: list, b: list) -> float:
+    """Total time two lists of (start, end) intervals, each sorted and
+    disjoint within itself, overlap."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def kill_children(children: list, outs: list) -> None:
+    """Every child this phase started, and each K1 worker's process
+    group (the gate starts it in a session of its own)."""
+    for p in children:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for out in outs:
+        pid_file = Path(str(out) + ".pid")
+        if pid_file.exists():
+            try:
+                os.killpg(int(pid_file.read_text()), signal.SIGKILL)
+            except (ProcessLookupError, PermissionError, ValueError):
+                pass
+
+
+def phase_coordination() -> dict:
+    """The port's controller and coordination on the live card (see the
+    module docstring, 2d).  Returns the kernels launched on its main
+    paths (the K1 children's loops and the leased replica's serving)."""
+    import logging
+
+    import grpc
+
+    from k8s_dra_driver_tpu_torch import SLICE_LABEL
+    from k8s_dra_driver_tpu_torch.allocator import Allocator
+    from k8s_dra_driver_tpu_torch.api import resource
+    from k8s_dra_driver_tpu_torch.api.classes import standard_device_classes
+    from k8s_dra_driver_tpu_torch.cluster import FakeCluster, Node
+    from k8s_dra_driver_tpu_torch.cmd import controller as controller_cmd
+    from k8s_dra_driver_tpu_torch.cmd import plugin as plugin_cmd
+    from k8s_dra_driver_tpu_torch.coordclient import schedule as sched
+    from k8s_dra_driver_tpu_torch.discovery import GENERATIONS
+    from k8s_dra_driver_tpu_torch.proto import DRAPluginStub, dra_pb2
+    t0 = time.perf_counter()
+    card = card_line()
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="cco-", dir="/tmp"))
+    saved_log = (logging.getLogger().handlers[:],
+                 logging.getLogger().level)
+    plugin_root, cdi_root = tmp / "plugin", tmp / "cdi"
+    argv = ["--node-name", COORD_NODE, "--plugin-root", str(plugin_root),
+            "--registrar-root", str(tmp / "reg"), "--cdi-root",
+            str(cdi_root), "--fake-cluster", "--discovery", "auto",
+            "--health-interval", "0", "--coordinator-image",
+            "registry.local/tpu-dra-driver:smoke", "-v", "0"]
+    h100 = GENERATIONS["h100"]
+    out = {"launches": {"flash_fwd": 0, "flash_fwd_tc": 0,
+                        "paged_decode": 0}}
+    children, outs = [], []
+    me = os.getpid()
+
+    def line(part: str, text: str) -> None:
+        print(f"coordination ({part}) [{card}, "
+              f"{time.perf_counter() - t0:.2f} s into the phase]: {text}",
+              flush=True)
+
+    cluster = FakeCluster()
+    cluster.create(Node(metadata=resource.ObjectMeta(name=COORD_NODE)))
+    classes = standard_device_classes()
+    for cls in classes.values():
+        cluster.create(cls)
+    (tmp / "logs").mkdir()
+    pods = CoordinatorPods(cluster, tmp / "logs")
+    plugin = ctl = None
+    try:
+        plugin = plugin_thread(plugin_cmd, argv, cluster)
+        (rslice,) = cluster.list("ResourceSlice")
+        chips = {d.name: d for d in rslice.devices
+                 if d.attributes.get("type") == "chip"}
+
+        # (a) the controller over the same cluster
+        ctl_args = controller_cmd.build_parser().parse_args(
+            ["--device-classes", "podslice,rendezvous", "-v", "0"])
+        ctl_ready, ctl_stop = threading.Event(), threading.Event()
+        ctl_t = threading.Thread(
+            target=controller_cmd.run, args=(ctl_args,),
+            kwargs=dict(client=cluster, ready_event=ctl_ready,
+                        stop_event=ctl_stop), daemon=True)
+        ctl_t.start()
+        ctl = (ctl_t, ctl_stop)
+        if not ctl_ready.wait(30):
+            fail("coordination (a): the controller was not ready in 30 s")
+
+        def gang_pools():
+            return [s for s in cluster.list("ResourceSlice")
+                    if s.node_selector]
+
+        card_node = cluster.get("Node", "", COORD_NODE)
+        if gang_pools() or SLICE_LABEL in card_node.metadata.labels:
+            fail(f"coordination (a): the card's node has labels "
+                 f"{card_node.metadata.labels} and gang pools "
+                 f"{[s.metadata.name for s in gang_pools()]}")
+        label = "slice-smoke.2x2"
+        cluster.create(Node(metadata=resource.ObjectMeta(
+            name="tpu-w0", labels={SLICE_LABEL: label})))
+        (pool,) = gang_pools()
+        kinds = sorted(d.attributes.get("type") for d in pool.devices)
+        channels = [d for d in pool.devices
+                    if d.attributes.get("type") == "rendezvous"]
+        if (pool.node_selector != {SLICE_LABEL: label}
+                or kinds.count("podslice") != 1 or len(channels) != 128
+                or len(pool.devices) != 129):
+            fail(f"coordination (a): pool {pool.pool.name} selector "
+                 f"{pool.node_selector}, kinds {sorted(set(kinds))}, "
+                 f"{len(channels)} channels")
+        node = cluster.get("Node", "", "tpu-w0")
+        node.metadata.labels.pop(SLICE_LABEL)
+        cluster.update(node)
+        gone = not gang_pools()
+        cluster.create(Node(metadata=resource.ObjectMeta(
+            name="tpu-w1", labels={SLICE_LABEL: label})))
+        again = len(gang_pools())
+        ctl_stop.set()
+        ctl_t.join(timeout=30)
+        ctl = None
+        if not gone or again != 1 or ctl_t.is_alive() or gang_pools():
+            fail(f"coordination (a): pool gone on unlabel {gone}, back "
+                 f"{again}, controller stopped {not ctl_t.is_alive()}, "
+                 f"left {[s.metadata.name for s in gang_pools()]}")
+        line("a", f"controller run(): node tpu-w0 labelled {label} -> "
+             f"pool {pool.pool.name}: 1 podslice + {len(channels)} "
+             f"channel devices (channel-{channels[0].attributes['channelId']}"
+             f"..), selector {pool.node_selector}; unlabelled: pool gone; "
+             f"relabelled on tpu-w1: back; stop: cleaned up; the card's "
+             f"node {COORD_NODE} (labels {card_node.metadata.labels}) "
+             f"got no pool")
+
+        # the claims: the port's allocator places each on the card
+        sock = plugin_root / "plugin.sock"
+        stub = DRAPluginStub(grpc.insecure_channel(f"unix://{sock}"))
+
+        def allocated(name, sharing):
+            c = resource.ResourceClaim(
+                metadata=resource.ObjectMeta(name=name, namespace="default",
+                                             uid=f"uid-{name}"),
+                spec=resource.ResourceClaimSpec(
+                    devices=resource.DeviceClaim(
+                        requests=[resource.DeviceRequest(
+                            name="r0", device_class_name="tpu.google.com",
+                            selectors=[resource.DeviceSelector(
+                                cel=f'device.attributes["productName"] == '
+                                    f'"{h100.product_name}"')])],
+                        config=[resource.ClaimConfig(
+                            opaque=resource.OpaqueConfig(
+                                driver="tpu.google.com", parameters={
+                                    "apiVersion": "tpu.google.com/v1alpha1",
+                                    "kind": "TpuChipConfig",
+                                    "sharing": sharing}))])))
+            c.status.allocation = Allocator().allocate(
+                c, [rslice], classes, nodes=cluster.list("Node"))
+            cluster.create(c)
+            return c
+
+        def grpc_call(verb, claim):
+            req_cls = (dra_pb2.NodePrepareResourcesRequest if verb ==
+                       "prepare" else dra_pb2.NodeUnprepareResourcesRequest)
+            fn = (stub.NodePrepareResources if verb == "prepare"
+                  else stub.NodeUnprepareResources)
+            c0 = time.perf_counter()
+            resp = fn(req_cls(claims=[dra_pb2.Claim(
+                uid=claim.metadata.uid, namespace="default",
+                name=claim.metadata.name)]), timeout=60)
+            res = resp.claims[claim.metadata.uid]
+            if res.error:
+                fail(f"coordination: {verb} of {claim.metadata.name}: "
+                     f"{res.error}; daemons: {pods.errors}")
+            return res, (time.perf_counter() - c0) * 1e3
+
+        def prepared(name, sharing):
+            claim = allocated(name, sharing)
+            (pick,) = claim.status.allocation.results
+            res, ms = grpc_call("prepare", claim)
+            view = cdi_apply(cdi_root, [i for d in res.devices
+                                        for i in d.cdi_device_ids])
+            return claim, pick, view, ms
+
+        def coord_dir(view) -> Path:
+            from k8s_dra_driver_tpu_torch.gateway import \
+                resolve_container_path
+            return Path(resolve_container_path(
+                view["env"]["TPU_COORDINATOR_DIR"], view["mounts"]))
+
+        def wait_children(procs, label):
+            for p in procs:
+                try:
+                    rc = p.wait(CHILD_S)
+                except subprocess.TimeoutExpired:
+                    fail(f"coordination ({label}): a child ran past "
+                         f"{CHILD_S} s")
+                if rc:
+                    tail = p.stdout.read()[-3000:] if p.stdout else ""
+                    fail(f"coordination ({label}): {p.args[:6]} exited "
+                         f"{rc}: {tail}")
+
+        def k1_child(env, name, path, seconds, gated_by):
+            outs.append(path)
+            cmd = [sys.executable, "-m", GATE_MODULE, "exec"]
+            if gated_by == "coordinator":
+                cmd += ["--name", name]
+            cmd += ["--", sys.executable, "-c",
+                    "import sys, chip_smoke; chip_smoke.coord_k1_batches("
+                    "sys.argv[1], float(sys.argv[2]))", str(path),
+                    str(seconds)]
+            p = subprocess.Popen(cmd, cwd=root, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            children.append(p)
+            return p
+
+        # (b) a coordinated claim, the real daemon, two gated K1 children
+        policy_files = [plugin_root / "policy" / f"chip{name[5:]}.json"
+                        for name in chips]
+        for path in policy_files:
+            path.write_text(json.dumps({"preemptionMs": COORD_POLICY_MS}))
+        co, pick, view, co_ms = prepared("coord", {
+            "strategy": "Coordinated",
+            "coordinated": {"dutyCyclePercent": 100}})
+        uuid = chips[pick.device].attributes["uuid"]
+        minor = int(pick.device.removeprefix("chip-"))
+        node_path = f"/dev/nvidia{minor}"
+        cdir = coord_dir(view)
+        if view["env"].get("CUDA_VISIBLE_DEVICES") != uuid or not (
+                cdir / "ready").exists() or len(pods.procs) != 1:
+            fail(f"coordination (b): env {view['env']}, ready "
+                 f"{(cdir / 'ready').exists()}, daemons {list(pods.procs)} "
+                 f"{pods.errors}")
+        env = coordination_env(view)
+        go = tmp / "go"
+        holder = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.coord_holder(sys.argv[1])", str(go)], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        children.append(holder)
+        b_outs = {w: tmp / f"b-{w}.json" for w in ("w0", "w1")}
+        gates = [k1_child(env, w, path, COORD_LOOP_S, "coordinator")
+                 for w, path in b_outs.items()]
+        # the published two-worker schedule (a 1000 ms cycle: the node
+        # policy) and the status while both serve
+        schedule, deadline = {}, time.time() + 60
+        while time.time() < deadline:
+            schedule = json.loads((cdir / "schedule.json").read_text())
+            if (len(schedule.get("slots", [])) == 2
+                    and schedule.get("cycleMs") == COORD_POLICY_MS):
+                break
+            time.sleep(0.05)
+        else:
+            fail(f"coordination (b): schedule {schedule}")
+        while time.time() < deadline and not all(
+                Path(str(p) + ".pid").exists() for p in b_outs.values()):
+            time.sleep(0.05)
+        status_both = await_status(cdir, time.time(),
+                                   lambda s: s["workers"] == 2, 30)
+        wait_children(gates, "b")
+        rows = {w: json.loads(p.read_text()) for w, p in b_outs.items()}
+        k1_children_check("b", rows, uuid)
+        slots = {s["worker"]: s for s in schedule["slots"]}
+        # the span both loops ran (one child's gate unregisters at its
+        # end, which republishes the other's window as the whole cycle)
+        lo = max(r["batches"][0][0] for r in rows.values())
+        hi = min(r["batches"][-1][1] for r in rows.values())
+        cycle, epoch = schedule["cycleMs"], schedule["epochMs"]
+        # one batch: the longest that no stop interrupted (a stop lasts
+        # the other worker's whole window)
+        half = min(s["windowMs"] for s in schedule["slots"]) / 2e3
+        batch_s = max((b - a for r in rows.values()
+                       for a, b in r["batches"] if b - a < half), default=0.0)
+        slack_ms = (batch_s + GATE_REEVAL_S) * 1e3
+        shares, strict = {}, {}
+        for w, row in rows.items():
+            s = slots[w]
+            inside = [(a, b) for a, b in row["batches"] if lo <= b <= hi]
+            late = [b for a, b in inside
+                    if (b * 1e3 - epoch - s["offsetMs"]) % cycle
+                    >= s["windowMs"] + slack_ms]
+            strict[w] = sum(sched.active_worker(schedule, b * 1e3) == w
+                            for a, b in inside) / max(1, len(inside))
+            shares[w] = len(inside)
+            if late or len(inside) < 10:
+                fail(f"coordination (b): {w}: {len(late)} of {len(inside)} "
+                     f"batches completed outside its window {s} plus "
+                     f"{slack_ms:.1f} ms")
+        total = sum(shares.values())
+        others = [v for v in status_both.get("violations", [])
+                  if v.get("pid") != me]
+        mine = [v for v in status_both.get("violations", [])
+                if v.get("pid") == me]
+        if (status_both.get("workers") != 2 or others
+                or any(v.get("devices") != [node_path] for v in mine)):
+            fail(f"coordination (b): status.json while both served "
+                 f"{status_both}")
+        # the ungated holder: opens the card now
+        go.write_text("")
+        if holder.stdout.readline().strip() != "open":
+            fail(f"coordination (b): holder {holder.stdout.read()[-2000:]}")
+        t_open = time.time()
+        status_h = await_status(cdir, t_open, lambda s: any(
+            v.get("pid") == holder.pid for v in s["violations"]), 20)
+        seen = [v for v in status_h.get("violations", [])
+                if v.get("pid") == holder.pid]
+        holder.kill()
+        holder.wait()
+        if not seen or seen[0]["devices"] != [node_path] or seen[0][
+                "type"] != "unregisteredDeviceHolder":
+            fail(f"coordination (b): the ungated holder {holder.pid} was "
+                 f"not reported on {node_path}: {status_h}")
+        for w, row in rows.items():
+            out["launches"]["flash_fwd"] += row["launches"]
+            out["launches"]["flash_fwd_tc"] += row["tc_launches"]
+        for path in policy_files:
+            path.unlink()
+        _, un_ms = grpc_call("unprepare", co)
+        if pods.procs or pods.errors:
+            fail(f"coordination (b): daemons after unprepare "
+                 f"{list(pods.procs)} {pods.errors}")
+        busy = {w: sum(b - a for a, b in r["batches"]
+                       if lo <= b <= hi and b - a < half)
+                for w, r in rows.items()}
+        out["b"] = dict(shares=shares, strict=strict, slack_ms=slack_ms,
+                        busy_s=busy)
+        line("b", f"claim coord on {pick.device} ({uuid}), prepare over "
+             f"gRPC {co_ms:.1f} ms (the daemon a real process, ready file "
+             f"seen); schedule cycle {cycle} ms, windows "
+             + ", ".join(f"{w} [{s['offsetMs']}, "
+                         f"{s['offsetMs'] + s['windowMs']})"
+                         for w, s in slots.items())
+             + f"; gated K1 children (B=2 T=96 H=16 Hkv=4 D=64 causal "
+             f"bf16, {COORD_BATCH} launches a batch, {COORD_LOOP_S} s "
+             f"loops): batches while both ran "
+             + ", ".join(f"{w} {n} ({n / max(1, total):.1%}), in its "
+                         f"window without slack {strict[w]:.1%}"
+                         for w, n in shares.items())
+             + f"; seconds in uninterrupted batches "
+             + ", ".join(f"{w} {v:.3f}" for w, v in busy.items())
+             + f", all within the window plus {slack_ms:.1f} ms (one "
+             f"batch + {GATE_REEVAL_S} s); K1 max|d| "
+             + ", ".join(f"{w} {r['err']:.3g} (tol {r['tol']:.3g})"
+                         for w, r in rows.items())
+             + f"; status.json with both: workers 2, violations other "
+             f"than this script's own process: none (this script holds a "
+             f"CUDA context: "
+             f"{[v['devices'] for v in mine] or 'not reported'}); the "
+             f"ungated holder pid {holder.pid} reported as "
+             f"{seen[0]['type']} on {seen[0]['devices']} "
+             f"{time.time() - t_open:.2f} s after it opened the card; "
+             f"unprepare {un_ms:.1f} ms stopped the daemon")
+
+        # (c) a device-memory limit on the card
+        hb, _, hview, _ = prepared("hbm", {
+            "strategy": "Coordinated",
+            "coordinated": {"dutyCyclePercent": 100,
+                            "perDeviceHbmLimits": {"default": COORD_HBM}}})
+        total = torch.cuda.get_device_properties(0).total_memory
+        hbm_out = tmp / "c.json"
+        hchild = subprocess.run(
+            [sys.executable, "-c", HBM_CHILD, str(hbm_out), str(total)],
+            cwd=root, env=coordination_env(hview), capture_output=True,
+            text=True, timeout=CHILD_S)
+        if hchild.returncode:
+            fail(f"coordination (c): child exited {hchild.returncode}: "
+                 f"{hchild.stdout[-2000:]}{hchild.stderr[-3000:]}")
+        hrow = json.loads(hbm_out.read_text())
+        over = hrow["over"]
+        if (hrow["budget"] != COORD_HBM_BYTES
+                or hrow["above"] != "OutOfMemoryError" or hrow["under"]
+                or len(over) != 1 or over[0]["action"] != "report"
+                or over[0]["limitBytes"] != COORD_HBM_BYTES
+                or over[0]["usedBytes"] != hrow["reserved_over"]
+                or hrow["reserved_over"] <= COORD_HBM_BYTES):
+            fail(f"coordination (c): {hrow}")
+        grpc_call("unprepare", hb)
+        out["c"] = hrow
+        line("c", f"claim hbm, limit {COORD_HBM} on {uuid}: the child's "
+             f"budget {hrow['budget']} B of total {hrow['total']} B as "
+             f"{hrow['edits']} (set before torch starts); "
+             f"{hrow['below']} B allocated, {COORD_HBM_BYTES * 3 // 2} B "
+             f"raised {hrow['above']} ({hrow['oom']}); heartbeat of "
+             f"memory_reserved() {hrow['reserved_under']} B: no violation; "
+             f"cap lifted, {hrow['reserved_over']} B reserved: status.json "
+             f"{over[0]}")
+
+        # (d) two time-sliced claims on the card
+        sliced = {"strategy": "TimeSlicing",
+                  "timeSlicing": {"interval": "Long"}}
+        d_outs, d_claims = {}, []
+        gates = []
+        for name in ("ts-a", "ts-b"):
+            claim, tpick, tview, _ = prepared(name, sliced)
+            d_claims.append(claim)
+            if (tpick.device != pick.device or tview["env"].get(
+                    "CUDA_VISIBLE_DEVICES") != uuid
+                    or "TPU_VISIBLE_CHIPS" in tview["env"]):
+                fail(f"coordination (d): {name} on {tpick.device}, env "
+                     f"{tview['env']}")
+            d_outs[name] = tmp / f"d-{name}.json"
+            gates.append(k1_child(coordination_env(tview), name,
+                                  d_outs[name], TS_LOOP_S, "timeshare"))
+        quantum = int(tview["env"]["TPU_RUNTIME_PREEMPTION_MS"])
+        wait_children(gates, "d")
+        drows = {n: json.loads(p.read_text()) for n, p in d_outs.items()}
+        k1_children_check("d", drows, uuid)
+        lock = plugin_root / "timeshare" / f"{uuid}.lock"
+        d_med = float(np.median([b - a for r in drows.values()
+                                 for a, b in r["batches"]]))
+        # a batch is uninterrupted when it took under half a quantum: a
+        # stop inside it lasts the other claim's whole quantum
+        whole = {n: [(a, b) for a, b in r["batches"]
+                     if b - a < quantum / 2e3] for n, r in drows.items()}
+        (na, a_b), (nb, b_b) = whole.items()
+        overlap = overlap_s(a_b, b_b)
+        d_max = max((b - a for r in whole.values() for a, b in r),
+                    default=0.0)
+        if (overlap > d_max or len(a_b) < 10 or len(b_b) < 10
+                or not lock.exists()):
+            fail(f"coordination (d): uninterrupted batches {len(a_b)}, "
+                 f"{len(b_b)}; their overlap {overlap * 1e3:.3f} ms "
+                 f"against one batch {d_max * 1e3:.3f} ms; lock "
+                 f"{lock.exists()}")
+        for row in drows.values():
+            out["launches"]["flash_fwd"] += row["launches"]
+            out["launches"]["flash_fwd_tc"] += row["tc_launches"]
+        for claim in d_claims:
+            grpc_call("unprepare", claim)
+        out["d"] = dict(overlap_ms=overlap * 1e3, batch_ms=d_max * 1e3,
+                        whole={n: len(v) for n, v in whole.items()})
+        line("d", f"claims ts-a, ts-b (TimeSlicing Long: quantum "
+             f"{quantum} ms) both on {pick.device}, each child under the "
+             f"gate with CUDA_VISIBLE_DEVICES={uuid}: lock {lock.name}; "
+             f"batches {len(drows[na]['batches'])} and "
+             f"{len(drows[nb]['batches'])} ({len(a_b)} and {len(b_b)} "
+             f"uninterrupted, median {d_med * 1e3:.3f} ms); uninterrupted "
+             f"batches of the two overlap {overlap * 1e3:.3f} ms in all "
+             f"(one batch: {d_max * 1e3:.3f} ms)")
+
+        # (e) a leased 154M replica
+        lc, _, lview, _ = prepared("lease", {
+            "strategy": "Coordinated",
+            "coordinated": {"dutyCyclePercent": 100}})
+        spec = tmp / "e-claim.json"
+        spec.write_text(json.dumps(dict(env=lview["env"],
+                                        mounts=lview["mounts"])))
+        e_out = tmp / "e.json"
+        env = dict(os.environ, **lview["env"],
+                   PYTHONPATH=coordination_env(lview)["PYTHONPATH"])
+        echild = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.coord_replica_worker(sys.argv[1], sys.argv[2])",
+             str(spec), str(e_out)], cwd=root, env=env,
+            capture_output=True, text=True, timeout=CHILD_S)
+        if echild.returncode:
+            fail(f"coordination (e): child exited {echild.returncode}: "
+                 f"{echild.stdout[-2000:]}{echild.stderr[-3000:]}")
+        erow = json.loads(e_out.read_text())
+        counts = erow["counts"]
+        reg = erow["reg"]
+        r1 = erow["r1"]
+        if (erow["chip"] != uuid or erow["lease_chips"] != [uuid]
+                or Path(erow["coordination_dir"]) != coord_dir(lview)
+                or not erow["registered"] or reg.get("pid") != erow["pid"]
+                or reg.get("heartbeatAtMs", 0) <= reg["registeredAtMs"]
+                or erow["finished"] != LEASE_REQS
+                or erow["byte_equal"] != LEASE_REQS
+                or erow["after_retire"]
+                or counts["flash_fwd"] <= 0 or counts["paged_decode"] <= 0
+                or counts["flash_fwd_tc"] != counts["flash_fwd"]
+                or r1["chip"] != uuid or not r1["registered"]
+                or r1["state"] != "dead" or r1["after_health"]
+                or r1["counts"]["dead"] != 1):
+            fail(f"coordination (e): {erow}")
+        grpc_call("unprepare", lc)
+        for name in ("flash_fwd", "flash_fwd_tc", "paged_decode"):
+            out["launches"][name] += counts[name]
+        out["e"] = dict(tokens_per_s=erow["generated"] / erow["wall_s"],
+                        wall_s=erow["wall_s"], counts=counts)
+        line("e", f"claim lease on {uuid}; a child with its env builds the "
+             f"154M paged engine (bf16, full width and depth); "
+             f"DraChipLease chips {erow['lease_chips']}, replica chip label "
+             f"{erow['chip']}, registered in {erow['coordination_dir']} "
+             f"(resolved through the claim's mounts) and heartbeaten "
+             f"(heartbeatAtMs - registeredAtMs = "
+             f"{reg['heartbeatAtMs'] - reg['registeredAtMs']:.0f} ms); "
+             f"{LEASE_REQS} greedy requests x {LEASE_NEW} new tokens "
+             f"through FleetGateway: {erow['generated']} tokens in "
+             f"{erow['wall_s']:.3f} s = {out['e']['tokens_per_s']:.1f} "
+             f"tokens/s, {erow['byte_equal']}/{LEASE_REQS} byte-equal to "
+             f"the same engine without a lease, launches {counts}; after "
+             f"retire the registration is gone; {r1['name']} added "
+             f"(registered), the card reported failed: {r1['name']} "
+             f"{r1['state']}, registration gone, pool {r1['counts']}")
+    finally:
+        if ctl is not None:
+            ctl[1].set()
+            ctl[0].join(timeout=30)
+        kill_children(children, outs)
+        if plugin is not None:
+            plugin_stop(*plugin)
+        pods.stop_all()
+        root_log = logging.getLogger()
+        root_log.handlers[:] = saved_log[0]
+        root_log.setLevel(saved_log[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+    if pods.errors:
+        fail(f"coordination: coordinator pods {pods.errors}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"coordination [{card}]: phase wall {out['wall_s']:.2f} s; (b) "
+          f"batches {out['b']['shares']}, in-window shares "
+          f"{ {w: round(v, 4) for w, v in out['b']['strict'].items()} }; "
+          f"(c) over the limit: {out['c']['above']}; (d) overlap "
+          f"{out['d']['overlap_ms']:.3f} ms; (e) "
+          f"{out['e']['tokens_per_s']:.1f} tokens/s; launches "
+          f"{out['launches']}", flush=True)
     return out
 
 
@@ -6895,6 +7823,7 @@ def main() -> None:
     phase_build(_build)
     phase_driver()
     phase_plugin()
+    coordination = phase_coordination()
     k1, k1_probes = phase_flash(fa)
     k1b, k1b_probes = phase_flash_block(fa)
     k2, k2_probes = phase_paged(pa)
@@ -6907,7 +7836,8 @@ def main() -> None:
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
-    launches = {"flash_fwd": 0, "flash_fwd_tc": 0, "paged_decode": 0}
+    # the coordination phase's K1 children and leased replica
+    launches = dict(coordination["launches"])
 
     done_c, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                               "contiguous", top_k=50)
@@ -7037,7 +7967,9 @@ def main() -> None:
         for name, n in phase_measure(fa, qm, sim, sim_dir,
                                      Path(tmp)).items():
             launches[name] = launches.get(name, 0) + n
-    print(f"kernel launches on the main paths ({30 + DISAGG_DRAINS} "
+    print(f"kernel launches on the main paths (the coordination phase's "
+          f"gated and time-sliced K1 children and leased replica + "
+          f"{30 + DISAGG_DRAINS} "
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
           f"oracle, surviving pumps and codec block + the observability "
           f"drain and paged-KV probes + the control loops and their "

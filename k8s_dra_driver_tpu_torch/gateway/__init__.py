@@ -21,18 +21,21 @@ from .calibrate import Capacity, calibrate_capacity
 from .ctlprobe import NullEngine, control_plane_probe
 from .frontend import FleetGateway
 from .probe import gateway_probe
-from .replica import (EngineReplica, ReplicaManager, ROLE_DECODE,
-                      ROLE_PREFILL, ROLE_UNIFIED)
+from .replica import (DraChipLease, EngineReplica, ReplicaManager,
+                      ROLE_DECODE, ROLE_PREFILL, ROLE_UNIFIED,
+                      card_health_source, resolve_container_path)
 from .router import (LeastLoadedRouter, PrefixAffinityRouter,
                      RoundRobinRouter, Router)
 from .sharded import ShardedGateway
 
 __all__ = [
-    "AdmissionError", "AdmissionQueue", "Capacity", "EngineReplica",
+    "AdmissionError", "AdmissionQueue", "Capacity", "DraChipLease",
+    "EngineReplica",
     "FINISHED", "FleetGateway", "GatewayRequest", "LeastLoadedRouter",
     "NullEngine", "PrefixAffinityRouter", "REJECTED_DUPLICATE", "REJECTED_FULL",
     "REJECTED_INVALID", "ROLE_DECODE", "ROLE_PREFILL", "ROLE_UNIFIED",
     "ReplicaManager", "RoundRobinRouter", "Router", "SHED_EXPIRED",
     "ShardedGateway", "SloBurnEngine", "calibrate_capacity",
-    "control_plane_probe", "gateway_probe",
+    "card_health_source", "control_plane_probe", "gateway_probe",
+    "resolve_container_path",
 ]

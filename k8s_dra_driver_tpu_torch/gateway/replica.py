@@ -1,4 +1,4 @@
-"""Replica pool lifecycle: engines + health-driven drain.
+"""Replica pool lifecycle: DRA-acquired engines + health-driven drain.
 
 The port of ``k8s_dra_driver_tpu/gateway/replica.py``.  A replica is one
 ``ServingEngine`` with a name.  This module owns the two facts about a
@@ -7,28 +7,37 @@ replica the engine itself cannot know:
 - **Where its capacity came from.**  A replica may hold a lease: any
   object with ``acquire`` / ``heartbeat`` / ``release`` (built by
   ``lease_factory``), acquired at spawn, heartbeaten by the pump and
-  released on drain or retire.  The reference's ``DraChipLease`` reads
-  the TPU driver's prepared-claim env contract; the port's lease waits
-  for the card's (``CUDA_VISIBLE_DEVICES``) contract.  Pools without
-  one pass no factory.
+  released on drain or retire.  :class:`DraChipLease` is the one a
+  prepared claim gives: it resolves ``TPU_COORDINATOR_DIR`` through the
+  claim's mounts, registers with the claim's coordinator daemon as one
+  more sharing-slot client (coordclient/client.py), heartbeats while
+  the replica serves so the daemon never evicts it as dead, and
+  unregisters on drain.  It names its devices as the claim does: a TPU
+  claim's chip indices (``TPU_VISIBLE_CHIPS``), or, on an NVIDIA card,
+  the GPU UUIDs of ``CUDA_VISIBLE_DEVICES``; the first is the replica's
+  ``chip`` label.  Pools without a lease pass no factory.
 - **Whether it should keep receiving traffic.**  ``ReplicaManager``
   folds two down-signals into one verdict per replica: a health view
   (``health_source()``, a dict of unhealthy labels, matched against
-  each replica's ``chip`` from ``chip_of(name)``; the labels are any
-  hashable, not devices) and a scripted fault plan (``fault_plan``,
-  duck-typed: ``decide("health", "Replica", name)`` returning a
-  decision whose ``error`` is set kills the replica).  The gateway pump
-  turns a down verdict into drain: stop dispatch, active-cancel the
-  in-flight rows, requeue them, and route around the hole until a
-  replacement is up.
+  each replica's ``chip`` from ``chip_of(name)`` or its lease; the
+  labels are any hashable, not devices; :func:`card_health_source`
+  turns the plugin's card indices into UUID labels) and a scripted
+  fault plan (``fault_plan``, duck-typed: ``decide("health",
+  "Replica", name)`` returning a decision whose ``error`` is set kills
+  the replica).  The gateway pump turns a down verdict into drain: stop
+  dispatch, active-cancel the in-flight rows, requeue them, and route
+  around the hole until a replacement is up.
 """
 
 from __future__ import annotations
 
 import itertools
+from pathlib import Path
 from typing import Callable
 
 from ..cluster.faults import HEALTH_VERB
+from ..coordclient.client import ENV_COORDINATION_DIR, CoordinatorClient
+from ..coordclient.gate import ENV_VISIBLE_CHIPS, claim_cards
 
 READY = "ready"
 DRAINING = "draining"
@@ -43,6 +52,87 @@ RETIRED = "retired"     # counts() key only: gracefully scaled down
 ROLE_UNIFIED = "unified"
 ROLE_PREFILL = "prefill"
 ROLE_DECODE = "decode"
+
+
+def resolve_container_path(path: str, mounts: list[dict] | None
+                           ) -> str:
+    """Map a container path from prepared-claim env back to the host
+    path through the claim's CDI mounts: the serving process and the
+    coordinator daemon rendezvous on the HOST directory; only
+    containerized workloads see the container alias."""
+    for m in mounts or []:
+        cpath = m.get("containerPath", "")
+        if path == cpath or path.startswith(cpath.rstrip("/") + "/"):
+            return m["hostPath"] + path[len(cpath):]
+    return path
+
+
+def claim_devices(env: dict[str, str]) -> list:
+    """The devices a prepared claim's env names: a TPU claim's chip
+    indices, or, where it has no ``TPU_VISIBLE_CHIPS``, an NVIDIA
+    claim's GPU UUIDs."""
+    if ENV_VISIBLE_CHIPS in env:
+        return [int(x) for x in env[ENV_VISIBLE_CHIPS].split(",")
+                if x != ""]
+    return claim_cards(env)
+
+
+def card_health_source(health: Callable[[], dict],
+                       topology) -> Callable[[], dict]:
+    """A ``health_source`` for replicas labelled by GPU UUID: the
+    plugin's view ``health()`` (``{card index: reason}``, a backend's
+    ``health`` or a health monitor's last verdict) mapped to
+    ``{uuid: reason}`` through the discovered ``topology``'s cards.  An
+    index the topology does not know maps to nothing."""
+    uuid_of = {c.index: c.uuid for c in topology.chips}
+
+    def source() -> dict:
+        return {uuid_of[i]: reason for i, reason in (health() or {}).items()
+                if i in uuid_of}
+    return source
+
+
+class DraChipLease:
+    """One replica's hold on its prepared-claim sharing slot.
+
+    Built from the env/mounts a DRA prepare injected (a test bed's
+    ``PodView`` or a real pod's environment).  ``None`` coordination
+    dir (an exclusive, non-coordinated claim) degrades to a no-op
+    lease: the claim still pins the device and the lease still names
+    it; there is just no daemon to register with.
+    """
+
+    def __init__(self, env: dict[str, str],
+                 mounts: list[dict] | None = None, *,
+                 name: str | None = None, weight: float = 1.0):
+        self.env = dict(env)
+        self.chips = claim_devices(self.env)
+        cdir = env.get(ENV_COORDINATION_DIR)
+        self.client: CoordinatorClient | None = None
+        if cdir:
+            self.client = CoordinatorClient(
+                Path(resolve_container_path(cdir, mounts)),
+                name=name, weight=weight)
+
+    def acquire(self, wait_ready_s: float = 0.0) -> None:
+        """Register as a sharing-slot client (and optionally wait for
+        the coordinator daemon): after this the duty-cycle schedule
+        includes the replica."""
+        if self.client is None:
+            return
+        if wait_ready_s > 0:
+            self.client.wait_ready(timeout_s=wait_ready_s)
+        self.client.register()
+
+    def heartbeat(self) -> None:
+        """Called from the gateway pump: a serving replica must never
+        look SIGKILLed to the daemon's staleness eviction."""
+        if self.client is not None:
+            self.client.maybe_heartbeat()
+
+    def release(self) -> None:
+        if self.client is not None:
+            self.client.unregister()
 
 
 class EngineReplica:
@@ -322,5 +412,6 @@ class ReplicaManager:
 
 
 __all__ = ["DEAD", "DRAINING", "READY", "RETIRED", "ROLE_DECODE",
-           "ROLE_PREFILL", "ROLE_UNIFIED", "EngineReplica",
-           "ReplicaManager"]
+           "ROLE_PREFILL", "ROLE_UNIFIED", "DraChipLease", "EngineReplica",
+           "ReplicaManager", "card_health_source", "claim_devices",
+           "resolve_container_path"]

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of k8s_dra_driver_tpu_torch,
 nor its on-card scripts (chip_smoke.py, chip_profile.py,
-chip_bwd_rounding.py), imports JAX
+chip_bwd_rounding.py, chip_coord_probe.py), imports JAX
 (jax, jaxlib, optax), ml_dtypes (the bfloat16 numpy type JAX brings
 along), prometheus_client (the port's utils/metrics.py carries its own
 registry, as the card's machine has not always had the package) or
@@ -26,7 +26,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "k8s_dra_driver_tpu", "ml_dtypes",
 def scanned_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
-        ROOT / "chip_bwd_rounding.py"]
+        ROOT / "chip_bwd_rounding.py", ROOT / "chip_coord_probe.py"]
 
 
 def imported_modules(path: Path) -> list[str]:
@@ -53,7 +53,7 @@ def forbidden(name: str) -> bool:
 def test_scan_covers_the_port():
     files = {p.relative_to(ROOT).as_posix() for p in scanned_files()}
     assert {"chip_smoke.py", "chip_profile.py",
-            "chip_bwd_rounding.py"} <= files
+            "chip_bwd_rounding.py", "chip_coord_probe.py"} <= files
     for mod in ("models/serving.py", "models/decode.py",
                 "models/transformer.py", "models/data.py",
                 "models/checkpoint.py", "models/quant.py",
@@ -116,8 +116,42 @@ def test_scan_covers_the_port():
                 "plugin/checkpoint.py", "plugin/sharing.py",
                 "plugin/device_state.py", "plugin/publisher.py",
                 "plugin/driver.py", "plugin/health.py", "cmd/__init__.py",
-                "cmd/plugin.py"):
+                "cmd/plugin.py", "coordclient/__init__.py",
+                "coordclient/schedule.py", "coordclient/gate.py",
+                "cmd/coordinatord.py", "cmd/controller.py",
+                "controller/__init__.py", "controller/slices.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
+
+
+def test_every_jax_module_has_a_port_but_the_shims():
+    """File by file, the port has every module of the JAX package but
+    the three JAX shims (compilation cache, CPU-process env, jax
+    version compatibility), which need no port."""
+    jax_pkg = ROOT / "k8s_dra_driver_tpu"
+    missing = sorted(
+        p.relative_to(jax_pkg).as_posix() for p in jax_pkg.rglob("*.py")
+        if not (PORT / p.relative_to(jax_pkg)).is_file())
+    assert missing == ["utils/compcache.py", "utils/cpuproc.py",
+                       "utils/jax_compat.py"]
+
+
+@pytest.mark.parametrize("module", [
+    "k8s_dra_driver_tpu_torch.cmd.controller",
+    "k8s_dra_driver_tpu_torch.cmd.coordinatord",
+    "k8s_dra_driver_tpu_torch.coordclient.gate"])
+def test_daemon_import_graphs_load_no_torch(module):
+    """The controller, the coordinator daemon and the gate start before
+    (or beside) any workload: their import graphs load neither torch nor
+    jax, and nothing of the JAX package."""
+    import subprocess
+    import sys
+    probe = (f"import sys, {module}; "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'jaxlib', 'k8s_dra_driver_tpu')))")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
 
 
 @pytest.mark.parametrize("path", scanned_files(),

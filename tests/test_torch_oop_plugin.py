@@ -5,6 +5,7 @@ prepared over its unix-socket gRPC service, and what a container would
 see is held against the JAX package's binary on the same scenario.
 The coordinated claim waits for the port's ``coordinatord``."""
 
+import json
 import shutil
 import sys
 import time
@@ -95,6 +96,43 @@ class TestOutOfProcessPlugin:
 
     def test_unknown_claim_unprepare_is_noop(self, beds):
         beds[PORT.name].delete_pod(make_claim(PORT, "oop-ghost"))
+
+    def test_coordinated_claim_spawns_ready_coordinator(self, beds):
+        """A coordinated claim's Deployment, created over REST, becomes
+        ready only when its rendered command, run by the port's
+        ``coordinatord``, publishes its ready file; the daemon's files
+        sit in the claim's coordination dir; teardown deletes it."""
+        views = {}
+        for pkg in (JAX, PORT):
+            bed = beds[pkg.name]
+            c = make_claim(pkg, "oop-coord")
+            c.spec.devices.config = [pkg.resource.ClaimConfig(
+                opaque=pkg.resource.OpaqueConfig(
+                    driver="tpu.google.com", parameters={
+                        "apiVersion": "tpu.google.com/v1alpha1",
+                        "kind": "TpuChipConfig",
+                        "sharing": {"strategy": "Coordinated",
+                                    "coordinated": {
+                                        "dutyCyclePercent": 50}}}))]
+            c = bed.create_claim(c)
+            view = views[pkg.name] = bed.run_pod(c)
+            assert view.env.get("TPU_COORDINATOR_DIR") == "/coordination"
+            assert view.env.get("TPU_COORDINATOR_DUTY_CYCLE_PCT") == "50"
+            deps = bed.client.list("Deployment", namespace="tpu-dra-driver")
+            assert deps, "no coordinator Deployment was created over REST"
+            assert all(d.ready_replicas >= 1 for d in deps)
+            if pkg is PORT:
+                assert [k.rsplit("/", 1)[-1] for k in
+                        bed.coordinator_runs] == [deps[0].metadata.name]
+            (host,) = [m["hostPath"] for m in view.mounts
+                       if m["containerPath"] == "/coordination"]
+            schedule = json.loads((Path(host) / "schedule.json").read_text())
+            assert schedule["dutyCyclePercent"] == 50
+            assert (Path(host) / "ready").exists()
+            bed.teardown_claim(c)
+            assert not bed.client.list("Deployment",
+                                       namespace="tpu-dra-driver")
+        assert views[PORT.name].env == views[JAX.name].env
 
 
 class TestRealProcessRestart:
