@@ -102,10 +102,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the final rounding held to ``flash_forward_reference`` (which rounds
    q and p where the TPU kernel does, per key tile of the kernel) and
    more loosely to the f32 oracle ``attention_forward``; f32 on the
-   CUDA-core route;
+   CUDA-core route.  Phases 3-5 also hold each kernel at the small head
+   dims of the JAX package's probe models (D = 8, 16 and 32,
+   ``SMALL_DIMS``) in both dtypes and every GQA group K2 has, at the
+   same gates, and time it at a shape a reference-width probe gives it
+   (the kernels line's ``small_d`` rows); the main paths' launches at
+   those dims (the probes below, at their reference defaults) are the
+   line's ``small_d_launches``, gated per SMALL_D_REQUIRED;
 3b. K1's block entry (``flash_block_attention``: q against one K/V
    block at absolute offsets, Tq != Tk, q/k segments, the unnormalized
-   statistics o, m, l) on both routes, D = 64 and 128, against
+   statistics o, m, l) on both routes, D = 64, 128, 8, 16, 32, against
    ``flash_block_attention_reference`` at a ring's offset pairs (full
    block, diagonal, a block wholly above the diagonal whose rows must
    come out m = -1e30, l = 0, o = 0 exactly, a window crossing the
@@ -166,14 +172,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
     falls back a generation and ``read_slice`` raises, (d) a resize, a
     park and an unpark at a checkpoint step: no step lost, no device
     memory held while parked, (e) the recovery, fleet and multi-tenant
-    probes on the card, each ``valid``;
+    probes on the card at their own defaults (the reference's widths,
+    d_head 8, f32), each ``valid``;
 10c. the compound-fault crucible (``phase_crucible``): the port's
     ``CrucibleRig`` (a ShardedGateway over a one-prefill, one-decode
     paged, tiered, LoRA pool, two elastic gangs on
     ``ShardedCheckpointer``, the multi-tenant reconciler over an
     8-slot ledger, the burn engine) under the seeded default schedule
-    of every fault kind: (a) 220 cycles at the reference crucible's
-    proportions with d_head 64 (the kernels' head dims) in f32, every
+    of every fault kind: (a) 220 cycles on the crucible's default
+    model, the reference crucible's (d_head 8, f32), every
     assertion of the reference acceptance (no violation, every kind
     fired, >= 3 overlaps, the four window-triggered arcs inside their
     windows, every request finished byte-equal to its oracle, both
@@ -243,8 +250,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     dispatches plus readbacks a token beside the non-speculative drain
     of the same call; then ``spec_accept_rows`` alone on 16384 rows
     against the closed-form target distribution (total variation), and
-    the ported spec-decode probe in bf16 and f32, byte-equal to its
-    closed-form ramp;
+    the ported spec-decode probe at its reference config (8 heads of 16
+    over 4) in bf16 and f32, byte-equal to its closed-form ramp;
 18. multi-adapter LoRA serving (``phase_lora_serving``): s8_r24 on the
     154M with six rank-16 adapters from ``make_adapter`` over a pool of
     four resident slots (base rows and adapter rows in every batch, so
@@ -260,7 +267,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     prefill and an adapter window); in f32 every stream byte-equal to
     one-adapter oracle engines of the same slot count (in bf16
     counted); then the pool's probe at the 154M in bf16 and f32 (switch
-    and cold-load times, the churn's hit share);
+    and cold-load times, the churn's hit share) and at its reference
+    default (4 heads of 16, f32: byte-equal gated);
 18b. disaggregated prefill/decode and the KV tiers
     (``phase_disagg_tiers``): s8_r24 exported by a prefill engine
     (``prefill_export``) and adopted in request order by a decode
@@ -278,9 +286,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     directory and promoted by a fresh engine (residency (1024, "disk"),
     streams byte-equal to the all-HBM engine's); the promotion's pieces
     (gather, crc32, adopt, suffix fill) against a full prefill; the
-    ported tier probe at the 154M in bf16 and f32 (promote and
-    recompute ms; byte-equal gated in f32, the churn's hit share above
-    0);
+    ported tier probe at the 154M in bf16 and f32 and at its reference
+    default (8 heads of 32, f32) (promote and recompute ms; byte-equal
+    gated in f32, the churn's hit share above 0);
 18c. the fleet (``phase_fleet``): s8_r24 in three bursts of 8 through
     two-replica pools of 8-slot engines, r0 downed through the health
     signal after its first wave: f32 paged (every uid finished exactly
@@ -323,11 +331,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``"device"``), s8_r24 drained through it (teacher-forced, exact K1
     and K2 launches, the ledger unchanged, the allocator's residue
     printed); ``observatory_probe`` at bench.py's tiny request counts
-    with the 154M as its engine (``valid``, source ``"device"``, the
-    merged digest count = the per-pump sum; ``digest_overhead_x``
-    printed); ``paged_kv_probe`` at the 154M in f32 (``byte_equal``, CoW
-    share > 0, no allocation failure, concurrency above contiguous,
-    exact K1 and K2 launches) and in bf16 (printed);
+    with the 154M as its engine, then with its reference default
+    (``valid``, source ``"device"``, the merged digest count = the
+    per-pump sum; ``digest_overhead_x`` printed); ``paged_kv_probe`` at
+    the 154M in f32 (``byte_equal``, CoW share > 0, no allocation
+    failure, concurrency above contiguous, exact K1 and K2 launches), in
+    bf16 (printed) and at its reference default (D = 16, f32: the
+    reference's gates, as its tight budget fails allocations by
+    design);
 18f. the fleet control loop (``phase_fleet_control``): (a)
     ``FleetReconciler`` over f32 paged 154M replicas on allocation
     labels 0-3 of this card, with the burn-rate engine, ``MemWatch`` and
@@ -450,6 +461,14 @@ BWD_TOL = 1e-3
 # 2e-3 of max|ref| from it on the CPU (B=1 T=128 H=4 Hkv=2 D=64 causal
 # bf16; 0.8-2.2e-3 in tests/test_torch_flash_bwd.py)
 BWD_BF16_ORACLE_TOL = 1e-2
+#: the small head dims the kernels take beside 64 and 128: the JAX
+#: package's probe models (8, 16 and 32).  Phases 3-5 hold every kernel
+#: at each of them in both dtypes; the reference-width probes run them
+#: on the main paths
+SMALL_DIMS = (8, 16, 32)
+#: the kernels-line rows of the small head dims: each kernel at a shape
+#: a reference-width probe gives it (filled by phases 3, 4 and 5)
+SMALL_D_ROWS: dict = {}
 # training, f32 card (kernels) vs CPU (plain): summation order only; a
 # missing or wrong gradient moves a weight by a whole AdamW step (lr
 # 3e-4), three times this bound
@@ -2213,11 +2232,27 @@ def phase_flash(fa) -> dict:
         dict(b=1, t=2048, d=128, window=32, seg=False,
              dtype=torch.float32),
     ]
+    # the small head dims in both dtypes: a causal prefill, a long
+    # windowed one with segments, MHA once; then the spec probe's
+    # prompt fill (4 prompts of 40 tokens, 8 heads of 16 over 4), the
+    # kernels-line row of the small dims
+    for d in SMALL_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            cases += [
+                dict(b=2, t=96, d=d, window=None, seg=False, dtype=dtype,
+                     h=8, h_kv=4),
+                dict(b=1, t=300, d=d, window=64, seg=True, dtype=dtype,
+                     h=4, h_kv=2),
+                dict(b=2, t=128, d=d, window=None, seg=False, dtype=dtype,
+                     h=8, h_kv=8)]
+    cases.append(dict(b=4, t=40, d=16, window=None, seg=False,
+                      dtype=torch.bfloat16, h=8, h_kv=4,
+                      probe="the spec probe's prompt fill"))
     row, probes = None, {}
     for c in cases:
         b, t, d, dtype = c["b"], c["t"], c["d"], c["dtype"]
         tc = dtype == torch.bfloat16
-        h, h_kv = 16, 4
+        h, h_kv = c.get("h", 16), c.get("h_kv", 4)
         q = torch.randn((b, t, h, d), generator=gen, device=dev,
                         dtype=torch.float32).to(dtype)
         k = torch.randn((b, t, h_kv, d), generator=gen, device=dev,
@@ -2290,6 +2325,12 @@ def phase_flash(fa) -> dict:
         if plain_causal and (b, t, d) == (2, 96, 64):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        if "probe" in c:
+            SMALL_D_ROWS["K1"] = dict(
+                shape=f"B={b} T={t} H={h} Hkv={h_kv} D={d} causal bf16 "
+                f"({c['probe']})", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
     return row, probes
 
 
@@ -2372,7 +2413,8 @@ def check_block(fa, q, k, v, q_off, k_off, label, causal=True, window=None,
 
 def phase_flash_block(fa) -> tuple[dict, dict]:
     """K1's block entry (``flash_block_attention``) on both routes,
-    D = 64 and 128, GQA 16/4, against ``flash_block_attention_reference``
+    D = 64, 128 and SMALL_DIMS, GQA 16/4, against
+    ``flash_block_attention_reference``
     at the offset pairs of a ring: the full block, the diagonal, a block
     wholly above it (every row empty), a window crossing the block,
     Tq != Tk (192 x 320), distinct q/k segments.  Then S = 4 hops of one
@@ -2395,7 +2437,7 @@ def phase_flash_block(fa) -> tuple[dict, dict]:
             torch.int32)
 
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (64, 128):
+        for d in (64, 128) + SMALL_DIMS:
             t = 256
             q = rand(2, t, h, d, dtype=dtype)
             k, v = rand(2, t, h_kv, d, dtype=dtype), rand(2, t, h_kv, d,
@@ -2513,6 +2555,23 @@ def paged_cases(pa) -> list:
     ]
 
 
+def paged_small_cases() -> list:
+    """K2 at the small head dims: (label, lengths, head dim, dtype,
+    query heads, KV heads).  Each D in SMALL_DIMS, both dtypes, groups
+    of 1, 2 and 4 query heads a KV head (every block width the kernel
+    has), on rows of one key to 2048 (several splits); then the paged-KV
+    probe's decode step (6 rows of 21-26 keys, 8 heads of 16 over 4,
+    f32), the kernels-line row of the small dims."""
+    mixed = [1, 17, 96, 2048, 5, 33, 300, 1000]
+    cases = [(f"D={d} group {g}", mixed, d, dtype, 4 * g, 4)
+             for d in SMALL_DIMS
+             for dtype in (torch.bfloat16, torch.float32)
+             for g in (1, 2, 4)]
+    cases.append(("paged-KV probe step", [21, 22, 23, 24, 25, 26], 16,
+                  torch.float32, 8, 4))
+    return cases
+
+
 def k2_direct(pa, args, plan) -> torch.Tensor:
     """K2 launched through its C entry on a given plan (outside the
     wrapper and its count): the main path's step on one split, so the
@@ -2550,10 +2609,12 @@ def phase_paged(pa) -> tuple[dict, dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
-    h, h_kv, bs = 16, 4, 16
+    bs = 16
     n_pages = 2048 // bs
     row, probes, multi = None, {}, 0
-    for label, lengths, d, dtype in paged_cases(pa):
+    cases = ([(*c, 16, 4) for c in paged_cases(pa)]
+             + paged_small_cases())
+    for label, lengths, d, dtype, h, h_kv in cases:
         b = len(lengths)
         n_blocks = b * n_pages + 1
         k_pool = torch.randn((n_blocks, bs, h_kv, d), generator=gen,
@@ -2630,6 +2691,12 @@ def phase_paged(pa) -> tuple[dict, dict]:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=None,
                        plan=plan._asdict())
+        if label == "paged-KV probe step":
+            SMALL_D_ROWS["K2"] = dict(
+                shape=f"B={b} H={h} Hkv={h_kv} D={d} bs={bs} lengths "
+                f"{lengths} f32 (the paged-KV probe's decode step)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, plan=plan._asdict())
     if not multi:
         fail("no K2 case spanned several splits: the merge never ran")
     busy = [int(c.count_nonzero()) for _, c in pa._buffers.values()]
@@ -2721,6 +2788,22 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
         dict(full, b=2, t=512, tk=1024, q_off=1536, k_off=512,
              k_end=1400, window=700),
     ]
+    # the small head dims in both dtypes: a causal block, one with a
+    # window and segments, and a ring hop with a window and a valid-key
+    # end; then the gang probes' step (2 rows of 16 tokens, 4 heads of
+    # 8, f32), the kernels-line row of the small dims
+    for d in SMALL_DIMS:
+        for dtype in (bf, f32):
+            cases += [
+                dict(full, b=2, t=256, tk=256, h=8, h_kv=4, d=d,
+                     dtype=dtype),
+                dict(full, b=2, t=256, tk=256, h=4, h_kv=2, d=d,
+                     dtype=dtype, window=100, seg=True),
+                dict(full, b=2, t=128, tk=256, h=4, h_kv=2, d=d,
+                     dtype=dtype, q_off=192, k_off=64, k_end=300,
+                     window=150)]
+    cases.append(dict(full, b=2, t=16, tk=16, h=4, h_kv=4, d=8, dtype=f32,
+                      probe="the gang probes' step"))
     rows, probes = {}, {"K3": {}, "K4": {}}
     for c in cases:
         b, t, tk, h, h_kv, d, dtype = (c["b"], c["t"], c["tk"], c["h"],
@@ -2819,7 +2902,18 @@ def phase_flash_bwd(fa) -> tuple[dict, dict, dict]:
             fail(f"K3/K4 disagree with their plain version at {c}")
         if not ok_oracle:
             fail(f"bf16 K3/K4 stray from the f32 oracle at {c}")
-        if c is full or dtype == f32:
+        if "probe" in c:
+            shape = (f"B={b} T={t} H={h} Hkv={h_kv} D={d} causal "
+                     f"{str(dtype).removeprefix('torch.')} ({c['probe']})")
+            SMALL_D_ROWS["K3"] = dict(
+                shape=shape, max_abs_err=errs["dq"][0], ms=ms_dq,
+                plain_ms=plain_ms, bound_ms=b_dq[0], bound_by=b_dq[1],
+                library_ms=lib_ms)
+            SMALL_D_ROWS["K4"] = dict(
+                shape=shape, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                ms=ms_dkv, plain_ms=plain_ms, bound_ms=b_dkv[0],
+                bound_by=b_dkv[1], library_ms=lib_ms)
+        if c is full or (dtype == f32 and d >= 64):
             shape = ("B=8 T=2048 (main path)" if c is full else
                      f"B={b} T={t} segments f32 (the CUDA-core route)")
             plain_fn = (lambda a=args, k2=kw_plain, dd=d, fn=plain_bwd:
@@ -4119,6 +4213,14 @@ def phase_lora_serving(params, cfg, reqs, fa, pa, refs) -> dict:
         if c is cfg32 and not probe["byte_equal"]:
             fail("lora probe in f32: churn streams differ from the oracle "
                  "engines'")
+    # the probe at its reference default (4 heads of 16 over 2, f32,
+    # rank 2): K1 at head dim 16
+    probe = lora_serving_probe()
+    print(f"lora probe at its reference default ({card_line()}): "
+          f"{json.dumps(probe)}", flush=True)
+    if not probe["byte_equal"]:
+        fail("lora probe at its reference default: churn streams differ "
+             "from the oracle engines'")
     print(f"lora serving: {json.dumps(summary)}", flush=True)
     print(f"lora phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -4434,6 +4536,13 @@ def phase_disagg_tiers(params, cfg, reqs, fa, pa, refs) -> dict:
         if c is cfg32 and not probe["byte_equal"]:
             fail("tier probe in f32: the promoted streams differ from the "
                  "recompute twin's")
+    # the probe at its reference default (8 heads of 32, f32): K1 at head
+    # dim 32
+    probe = serving_tier_probe()
+    print(f"tier probe at its reference default ({card_line()}): "
+          f"{json.dumps(probe)}", flush=True)
+    if probe["tier_hit_frac"] <= 0 or not probe["byte_equal"]:
+        fail(f"tier probe at its reference default: {probe}")
     print(f"disagg/tier phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return total
@@ -5167,30 +5276,41 @@ def phase_observability(cfg, reqs, fa, pa) -> dict:
           f"first product and the like)", flush=True)
     del eng, params, done, mw, again
 
-    # (b) the observatory probe
-    probe = observatory_probe(**OBS_PROBE_KWARGS, cfg=cfg, device="cuda")
-    if not probe["valid"]:
-        fail(f"obs (b): observatory_probe not valid: {probe}")
-    if probe["hbm_device_source"] != "device":
-        fail(f"obs (b): the probe's ledger read {probe['hbm_device_source']}")
-    if probe["merged_digest_count"] != sum(probe["per_pump_counts"]):
-        fail(f"obs (b): merged count {probe['merged_digest_count']} != the "
-             f"per-pump counts {probe['per_pump_counts']}")
-    print(f"obs (b) observatory probe ({card_line()}): valid (gated), "
-          f"digest_overhead_x {probe['digest_overhead_x']} (ratios "
-          f"{probe['digest_ratios']}), merged count "
-          f"{probe['merged_digest_count']} = sum of per-pump "
-          f"{probe['per_pump_counts']} (gated), merged quantiles "
-          f"{probe['merged_quantiles']}; the 154M engine's ledger "
-          f"{probe['hbm_accounted_bytes']} bytes, accounted_frac "
-          f"{probe['hbm_accounted_frac']} of {probe['hbm_device_bytes']} "
-          f"allocated (source {probe['hbm_device_source']}, gated), "
-          f"components {probe['hbm_components']}", flush=True)
+    # (b) the observatory probe: the 154M as its accounted engine, then
+    # its reference default (d_head 8, bf16)
+    for engine, pcfg in (("the 154M", cfg),
+                         ("the reference default (d_head 8)", None)):
+        probe = observatory_probe(**OBS_PROBE_KWARGS, cfg=pcfg,
+                                  device="cuda")
+        if not probe["valid"]:
+            fail(f"obs (b): observatory_probe on {engine} not valid: "
+                 f"{probe}")
+        if probe["hbm_device_source"] != "device":
+            fail(f"obs (b): the probe's ledger read "
+                 f"{probe['hbm_device_source']}")
+        if probe["merged_digest_count"] != sum(probe["per_pump_counts"]):
+            fail(f"obs (b): merged count {probe['merged_digest_count']} != "
+                 f"the per-pump counts {probe['per_pump_counts']}")
+        print(f"obs (b) observatory probe ({card_line()}): valid (gated), "
+              f"digest_overhead_x {probe['digest_overhead_x']} (ratios "
+              f"{probe['digest_ratios']}), merged count "
+              f"{probe['merged_digest_count']} = sum of per-pump "
+              f"{probe['per_pump_counts']} (gated), merged quantiles "
+              f"{probe['merged_quantiles']}; {engine} engine's ledger "
+              f"{probe['hbm_accounted_bytes']} bytes, accounted_frac "
+              f"{probe['hbm_accounted_frac']} of {probe['hbm_device_bytes']} "
+              f"allocated (source {probe['hbm_device_source']}, gated), "
+              f"components {probe['hbm_components']}", flush=True)
 
-    # (c) the paged-KV probe, f32 (gated) then bf16 (printed)
-    for dtype in (torch.float32, torch.bfloat16):
-        name = "f32" if dtype == torch.float32 else "bf16"
-        pcfg = dataclasses.replace(cfg, dtype=dtype)
+    # (c) the paged-KV probe, f32 (gated) then bf16 (printed) at the
+    # 154M, then at its reference default (8 heads of 16 over 4, f32,
+    # gated)
+    for dtype, name, pcfg in (
+            (torch.float32, "f32",
+             dataclasses.replace(cfg, dtype=torch.float32)),
+            (torch.bfloat16, "bf16",
+             dataclasses.replace(cfg, dtype=torch.bfloat16)),
+            (torch.float32, "at its reference default (D=16) f32", None)):
         zero_serving_counts(fa, pa)
         # the concurrency wave's two drains (paged, then contiguous) are
         # the probe's first two pumps: keep them to count equal streams
@@ -5220,12 +5340,19 @@ def phase_observability(cfg, reqs, fa, pa) -> dict:
                 f"{out['paged_tok_s']} / contiguous {out['contig_tok_s']} "
                 f"tokens/s), wall {out['wall_s']} s")
         if dtype == torch.float32:
+            # at its reference default the budget (96 rows) is tight by
+            # design and the wave's allocations fail and preempt, in the
+            # JAX probe too: there the reference's acceptance holds
+            # (tests/test_bench_smoke.py), at the 154M none may fail
+            roomy = out["alloc_failures"] == 0 or pcfg is None
             if not (out["byte_equal"] and out["pg_cow_shared_frac"] > 0
-                    and out["alloc_failures"] == 0
-                    and out["pg_max_concurrent_x"] > 1):
+                    and roomy and out["pg_max_concurrent_x"] > 1
+                    and out["paged_peak_active"]
+                    > out["contig_peak_active"]):
                 fail(f"obs (c): f32 probe gates failed: {out}")
             line += "; gates held; " + kv_kernel_counts(
-                cfg, counts, t.by_label, "obs (c) f32")
+                pcfg or kv_probe.probe_config(), counts, t.by_label,
+                f"obs (c) {name}")
         else:
             line += f" (not gated); K1 {counts['flash_fwd']}, K2 " \
                     f"{counts['paged_decode']}"
@@ -6132,8 +6259,8 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     ``TrainCheckpointer``: zero steps lost, the card's live bytes after
     the park within GANG_PARK_SLACK of the pre-begin reading, the
     unpark restored from the park's step.  (e) ``recovery_probe``,
-    ``fleet_probe`` and ``multitenant_probe`` on the card at their
-    reference sizes but a head dim of 64 (K1 takes 64 or 128), tp=1:
+    ``fleet_probe`` and ``multitenant_probe`` on the card at their own
+    defaults, the reference's widths (d_model 32, 4 heads of 8, f32):
     ``valid`` gated; MTTR, steps lost, the preempt and cascade ms and
     their K1/K2 launches printed.  Returns (the bf16 arcs' K1/K3/K4
     launches, totals and by route; the f32 ones' by route)."""
@@ -6309,10 +6436,7 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     del sup, report, ckpt
     gc.collect()
 
-    # (e) the probes on the card
-    small = TransformerConfig(vocab=64, d_model=256, n_layers=2, n_heads=4,
-                              d_head=64, d_ff=64, max_seq=32,
-                              dtype=torch.float32)
+    # (e) the probes on the card, at their reference defaults
     for label, fn, keys in (
             ("recovery_probe", recovery_probe,
              ("mttr_ms", "steps_lost_worst")),
@@ -6323,9 +6447,10 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
               "fairshare_err"))):
         zero_counts(fa)
         pa.launches = 0
-        out = fn(cfg=small, device="cuda")
+        out = fn(device="cuda")
         counts = kernel_snapshot(fa, pa)
-        print(f"gang (e) {label} on the card (d_head 64, tp={out['tp']}): "
+        print(f"gang (e) {label} on the card (reference widths, d_head 8, "
+              f"tp={out['tp']}): "
               + ", ".join(f"{k} {out[k]}" for k in keys)
               + f", causes {out.get('recovery_causes', '-')}, K1 "
               f"{counts['flash_fwd']}, K2 {counts['paged_decode']}, valid "
@@ -6506,12 +6631,10 @@ def phase_crucible(fa, pa, tmp: Path) -> tuple[dict, dict]:
     LoRA-carrying pool, two elastic gangs on ``ShardedCheckpointer``,
     ``MultiTenantReconciler`` over one 8-slot ledger, the burn engine
     and the tracer) in one co-loop under the seeded default schedule.
-    The card's kernels take head dims 64 and 128 only, so the
-    reference crucible's model (d_head 8) becomes its proportions at
-    d_head 64.
 
-    (a) ``default_schedule(7, 220)`` at vocab 64, 2 layers, 4 heads
-    over 2 KV heads of 64, d_model 256, d_ff 512, max_seq 48, f32:
+    (a) ``default_schedule(7, 220)`` on the crucible's default model,
+    the reference's (vocab 64, d_model 32, 2 layers, 4 heads of 8 over
+    2 KV heads, d_ff 64, max_seq 48, f32):
     every assertion of the reference acceptance, K1 (f32 route), K2,
     K3 and K4 (f32 route) launched.  (b) The slice at full width:
     engines and oracles on the 154M in f32, the gangs on the 154M's
@@ -6539,10 +6662,11 @@ def phase_crucible(fa, pa, tmp: Path) -> tuple[dict, dict]:
         for name in f32_routes:
             f32_routes[name] += counts[name]
 
-    # (a) the reference acceptance at d_head 64
-    small = crucible_model(TransformerConfig(
-        vocab=64, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
-        d_head=64, d_ff=512, max_seq=48, dtype=torch.float32), "(a)")
+    # (a) the reference acceptance on the reference's model
+    small = cru.default_model("cuda")
+    print(f"crucible (a): the default model, "
+          f"{sum(p.numel() for p in param_tensors(small[1]))} parameters, "
+          f"{small[0].dtype}, d_head {small[0].d_head}", flush=True)
     sched, res, rig, counts, _ = crucible_soak(
         fa, pa, "(a)", CRUCIBLE_SOAK_CYCLES, tmp / "a", model=small)
     crucible_gates("crucible (a)", sched, res, rig, CRUCIBLE_SOAK_CYCLES)
@@ -7811,6 +7935,39 @@ def phase_measure(fa, qm, sim: subprocess.Popen, sim_dir: Path,
     return counts
 
 
+#: the kernels-line names of the kernels the small head dims reach, and
+#: their SMALL_D_ROWS keys
+SMALL_D_KERNELS = {"flash_fwd": "K1", "flash_fwd_block": None,
+                   "paged_decode": "K2", "flash_bwd_dq": "K3",
+                   "flash_bwd_dkv": "K4"}
+#: the small dims each kernel must have run at on the main paths: every
+#: prompt fill of the probes (K1); the paged-KV probe (16) and the
+#: crucible's paged replica (8) (K2); the gangs
+#: of the recovery, fleet and multitenant probes and of the crucible
+#: (K3, K4).  No probe runs K1's block entry at a small dim: phase 3b
+#: holds it there
+SMALL_D_REQUIRED = {"flash_fwd": (8, 16, 32), "paged_decode": (8, 16),
+                    "flash_bwd_dq": (8,), "flash_bwd_dkv": (8,)}
+
+
+def small_d_launches(fa, pa) -> dict:
+    """The main paths' launches at the small head dims by kernel, head
+    dim and dtype (the wrappers' ``dim_launches`` since they were
+    cleared after the kernel phases); fails unless each kernel ran at
+    every dim SMALL_D_REQUIRED names."""
+    out = {name: {str(d): {} for d in SMALL_DIMS} for name in SMALL_D_KERNELS}
+    for (entry, dtype, d), n in {**fa.dim_launches,
+                                 **pa.dim_launches}.items():
+        if d in SMALL_DIMS:
+            out[entry][str(d)][dtype] = n
+    for name, dims in SMALL_D_REQUIRED.items():
+        missing = [d for d in dims if not sum(out[name][str(d)].values())]
+        if missing:
+            fail(f"{name} never ran at head dims {missing} on the main "
+                 f"paths: {out[name]}")
+    return out
+
+
 def main() -> None:
     kind = phase_device()
     from k8s_dra_driver_tpu_torch.models import quant as qm
@@ -7830,6 +7987,10 @@ def main() -> None:
     k3, k4, bwd_probes = phase_flash_bwd(fa)
     k5, k6, gmm_probes = phase_gmm(gm)
     k7a, k7b, int8_probes = phase_int8(qm)
+    # the launches by head dim count the main paths from here on (the
+    # reference-width probes run the small dims)
+    fa.dim_launches.clear()
+    pa.dim_launches.clear()
     # the fleet simulator's probe runs on the host beside the later
     # phases (after the kernel timings, which it must not disturb)
     sim, sim_dir = start_sim_probe()
@@ -8021,6 +8182,11 @@ def main() -> None:
                                  row["cold_device_ms"].items()),
                       flush=True)
 
+    small = small_d_launches(fa, pa)
+    print(f"small head dims on the main paths (the reference-width "
+          f"probes; entry -> head dim -> dtype -> launches): "
+          f"{json.dumps(small)}", flush=True)
+
     # K1 and K5: the tensor-core route the bf16 main paths take; the
     # f32 route's launches (K1: the f32 MoE drains and card steps; K5:
     # the f32 MoE card step) apart
@@ -8091,6 +8257,12 @@ def main() -> None:
                                 "cuda_cores": launches["int8_bmm"]},
              **k7b),
     ]
+    for k in kernels:
+        if k["name"] in small:
+            k["small_d_launches"] = small[k["name"]]
+        row = SMALL_D_ROWS.get(SMALL_D_KERNELS.get(k["name"]))
+        if row is not None:
+            k["small_d"] = row
     if min(k["launches"] for k in kernels) <= 0:
         fail(f"a kernel was never launched on the main paths: {launches}")
     print(json.dumps({"kernels": kernels}), flush=True)

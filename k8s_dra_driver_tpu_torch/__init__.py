@@ -12,6 +12,10 @@ kernel wrapper takes its plain PyTorch version.  The driver's plugin
 imports no ``torch``.
 """
 
+#: the DRA driver's name: its device classes, ResourceSlices and CDI
+#: vendor (the JAX package's)
+DRIVER_NAME = "tpu.google.com"
+
 # Node label carrying multi-host slice identity, value
 # "<sliceId>.<topology>" (the imex-domain label analog, reference
 # cmd/nvidia-dra-controller/imex.go:40-46).

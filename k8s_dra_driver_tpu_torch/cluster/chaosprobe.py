@@ -10,9 +10,8 @@ fault's recovery window; a soak that composes nothing proves nothing).
     python -m k8s_dra_driver_tpu_torch.cluster.chaosprobe --cycles 90 \\
         --device cpu
 
-runs the default model (head dim 8, which the card's attention kernels
-refuse: on the card call :func:`crucible_probe` with ``model=`` a
-config whose heads are 64 or 128 wide).
+runs the default model (head dim 8) on the CPU; without ``--device``
+it runs on the card, where the attention kernels run at head dim 8.
 """
 
 from __future__ import annotations

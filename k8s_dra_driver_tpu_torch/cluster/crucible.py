@@ -41,8 +41,8 @@ layers, 4 heads of 8 over 2 KV heads, d_ff 64, max_seq 48, f32) with
 weights from the port's ``init_params`` on a CPU generator seeded 0,
 and burst prompts are ``np.random.default_rng(seed).integers(0,
 vocab, n)``; neither is the reference's (its weights and prompts come
-from JAX's RNG).  The card's attention kernels take head dims 64 and
-128 only, so a run on the card passes a model with such heads.
+from JAX's RNG).  On the card the default model's attention runs the
+kernels at head dim 8.
 
 Determinism contract: a run is a pure function of the schedule (and
 the model).  Fault plans are armed at event fire time

@@ -33,7 +33,8 @@
 //     k tiles the masks can reach (tiles above the causal diagonal or
 //     behind the window are never loaded), four threads per query row,
 //     each forming 16 of the 64 scores and dp values of a k tile and
-//     holding D/4 of the row's dq in registers.
+//     holding D/4 of the row's dq in registers (D 8 to 128: at D = 8
+//     two columns a thread).
 //   - K4: one block of 256 threads per (64-key tile, KV head, batch).
 //     K and V of the tile stay in shared memory; the block walks the
 //     group's query heads and, for each, the q tiles that can reach the
@@ -367,6 +368,12 @@ cudaError_t launch(bool dq_pass, const BwdPtrs& p, const BwdArgs& a, int B,
 cudaError_t launch_d(int D, bool dq_pass, const BwdPtrs& p,
                      const BwdArgs& a, int B, cudaStream_t stream) {
   switch (D) {
+    case 8:
+      return launch<8>(dq_pass, p, a, B, stream);
+    case 16:
+      return launch<16>(dq_pass, p, a, B, stream);
+    case 32:
+      return launch<32>(dq_pass, p, a, B, stream);
     case 64:
       return launch<64>(dq_pass, p, a, B, stream);
     case 128:

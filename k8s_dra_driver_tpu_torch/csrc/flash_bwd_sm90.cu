@@ -7,7 +7,8 @@
 // `_bwd_common`).  The contract is flash_bwd.cu's, which keeps the f32
 // route: q/do [B,Tq,H,D], k/v [B,Tk,H_kv,D] bf16, lse/delta [B,H,Tq]
 // f32, absolute offsets q_off/k_off, a valid-key count k_len, causal,
-// window, int32 segments, D 64 or 128 with GQA; f32 outputs.
+// window, int32 segments, D 8, 16, 32, 64 or 128 with GQA; f32
+// outputs.
 //
 //   p  = exp(q k^T * scale - lse)     (masked pairs: 0)
 //   ds = p * (do v^T - delta) * scale
@@ -67,6 +68,14 @@
 //     them at the front of the grid.
 // One warpgroup of 128 threads per block, 64-row tiles; shared memory
 // 49 KB (K3) / 51 KB (K4) at D = 64, twice that at D = 128.
+//
+// Small head dims (D = 8, 16, 32) run the D = 64 tiles with columns
+// D..63 zero in shared memory, as flash_fwd_sm90.cu does: each block
+// zeroes its tiles once before its first copy and the copies fill only
+// the D real columns (no padded tensor in global memory).  The first
+// products sum the ceil(D / 16) k16 steps that hold real columns (at
+// D = 8 the step's upper half adds exact zeros), the second run their
+// 64 columns, and the epilogues store the first D.
 #include <math.h>
 #include <stdint.h>
 
@@ -132,9 +141,11 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const bf16* __restrict__ x, int t0,
                                           int T, int b, int nh, int hh) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kN = kTile * kChunks;  // 64 at D = 8: half the threads
 #pragma unroll
-  for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
+  for (int j = 0; j < (kN + kThreads - 1) / kThreads; ++j) {
     const int e = threadIdx.x + j * kThreads;
+    if (kN % kThreads != 0 && e >= kN) break;
     const int r = e / kChunks, c = e % kChunks, t = t0 + r;
     const bool ok = t < T;
     const bf16* src =
@@ -166,9 +177,30 @@ __device__ __forceinline__ uint32_t mnstep(int sub, int kk) {
   return sub * kSubBytes + kk * 16 * kRowBytes;
 }
 
+// columns a tile holds in shared memory: D, or 64 (zero past D) for
+// the small head dims
+template <int D>
+__host__ __device__ constexpr int tile_cols() {
+  return D < 64 ? 64 : D;
+}
+
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  return kTile * D * 2;
+  return kTile * tile_cols<D>() * 2;
+}
+
+// the columns past D of every tile at base (n_tiles of them), zeroed
+// once before the block's first copy: the copies fill only the D real
+// columns, so the padding stays zero
+template <int D>
+__device__ __forceinline__ void zero_tiles(uint8_t* base, int n_tiles) {
+  if constexpr (D < 64) {
+    uint4* tiles = reinterpret_cast<uint4*>(base);
+    for (int i = threadIdx.x; i < n_tiles * tile_bytes<D>() / 16;
+         i += kThreads)
+      tiles[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
 }
 
 template <int D>
@@ -211,8 +243,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_sm90_kernel(const TcArgs a) {
   constexpr int kTB = tile_bytes<D>();
-  constexpr int kSub = D / 64;  // 64-column sub-tiles
-  constexpr int kK = D / 16;    // k16 steps over D
+  constexpr int kSub = tile_cols<D>() / 64;  // 64-column sub-tiles
+  constexpr int kK = (D + 15) / 16;          // k16 steps over D
+  constexpr int kN8 = D < 64 ? D / 8 : 8;    // 8-column groups stored
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -232,6 +265,7 @@ flash_bwd_dq_sm90_kernel(const TcArgs a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4;  // rows r0, r0 + 8
   const int c0 = 2 * (lane % 4);        // columns 8 n + c0 + {0, 1}
+  zero_tiles<D>(gbase, 2 + 2 * kStages);
 
   // local keys any row of this q tile can see: [k_lo, k_hi]
   const int q_last = min(q0 + kTile, a.Tq) - 1;
@@ -352,7 +386,7 @@ flash_bwd_dq_sm90_kernel(const TcArgs a) {
 #pragma unroll
     for (int sub = 0; sub < kSub; ++sub)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < kN8; ++n)
         *reinterpret_cast<float2*>(out + sub * 64 + 8 * n + c0) =
             make_float2(acc[sub][4 * n + 2 * rr], acc[sub][4 * n + 2 * rr + 1]);
   }
@@ -364,8 +398,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_sm90_kernel(const TcArgs a) {
   constexpr int kTB = tile_bytes<D>();
-  constexpr int kSub = D / 64;
-  constexpr int kK = D / 16;
+  constexpr int kSub = tile_cols<D>() / 64;
+  constexpr int kK = (D + 15) / 16;
+  constexpr int kN8 = D < 64 ? D / 8 : 8;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -384,6 +419,7 @@ flash_bwd_dkv_sm90_kernel(const TcArgs a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4;  // key rows r0, r0 + 8
   const int c0 = 2 * (lane % 4);        // query columns 8 n + c0 + {0, 1}
+  zero_tiles<D>(gbase, 2 + 2 * kStages);
 
   // local queries that can see any valid key of this tile: [q_lo, q_hi]
   const int k_last = min(k0 + kTile, a.k_len) - 1;
@@ -527,7 +563,7 @@ flash_bwd_dkv_sm90_kernel(const TcArgs a) {
 #pragma unroll
     for (int sub = 0; sub < kSub; ++sub)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kN8; ++n) {
         const int col = sub * 64 + 8 * n + c0;
         const int i = 4 * n + 2 * rr;
         *reinterpret_cast<float2*>(a.dk + off + col) =
@@ -602,6 +638,12 @@ int run(bool dq_pass, const void* q, const void* k, const void* v,
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 8:
+      return launch<8>(dq_pass, a, st);
+    case 16:
+      return launch<16>(dq_pass, a, st);
+    case 32:
+      return launch<32>(dq_pass, a, st);
     case 64:
       return launch<64>(dq_pass, a, st);
     case 128:

@@ -21,7 +21,9 @@
 // order, so the k dimension becomes a loop inside the block:
 //   - one block of 256 threads per (64-row q tile, head, batch);
 //   - four threads per query row, each holding 16 of the 64 scores of
-//     a k tile and D/4 of the row's output accumulators in registers;
+//     a k tile and D/4 of the row's output accumulators in registers
+//     (columns lane, lane + 4, ...: D = 8 gives each thread two, so
+//     every head dim the wrapper takes, 8 to 128, maps whole);
 //   - the loop walks only the k tiles the masks can reach: tiles
 //     wholly above the causal diagonal or wholly behind the window are
 //     never loaded;
@@ -253,6 +255,15 @@ cudaError_t launch_d(int D, const FwdArgs<T>& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const bool block = a.l != nullptr;
   switch (D) {
+    case 8:
+      return block ? launch<T, 8, true>(a, stream)
+                   : launch<T, 8, false>(a, stream);
+    case 16:
+      return block ? launch<T, 16, true>(a, stream)
+                   : launch<T, 16, false>(a, stream);
+    case 32:
+      return block ? launch<T, 32, true>(a, stream)
+                   : launch<T, 32, false>(a, stream);
     case 64:
       return block ? launch<T, 64, true>(a, stream)
                    : launch<T, 64, false>(a, stream);

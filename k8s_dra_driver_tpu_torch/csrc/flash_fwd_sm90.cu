@@ -5,8 +5,8 @@
 // k8s_dra_driver_tpu/ops/flash_attention.py (launched by
 // `_flash_block_attention`, entered through `flash_attention` ->
 // `_flash_forward`).  The contract is flash_fwd.cu's, which keeps the
-// f32 route: q [B,T,H,D], k/v [B,T,H_kv,D] bf16, D 64 or 128, GQA by
-// head index, causal, a sliding window, int32 segment ids; the
+// f32 route: q [B,T,H,D], k/v [B,T,H_kv,D] bf16, D 8, 16, 32, 64 or
+// 128, GQA by head index, causal, a sliding window, int32 segment ids; the
 // normalized output (bf16, or f32 before its final rounding) and the
 // f32 lse [B,H,T].
 //
@@ -57,6 +57,17 @@
 //     T and segments only where the tile needs it.
 // Shared memory 74 KB at D = 64 (three blocks an SM), 146 KB at
 // D = 128 (one).
+//
+// Small head dims (D = 8, 16, 32: the JAX package's probe models) run
+// the D = 64 tiles with columns D..63 zero in shared memory: the block
+// zeroes its tiles once before its first copy, and the copies fill only
+// the D real columns, so no padded q, k or v exists in global memory.
+// S sums the ceil(D / 16) k16 steps that hold real columns (at D = 8 the
+// one step's upper half is zero, which adds exact zeros), P V runs its
+// 64 columns and the epilogue stores the first D.  The scale is the
+// caller's, D ** -0.5 of the real D.  Same shared memory and registers
+// as D = 64; at these dims a prompt fill is a few microseconds and the
+// wasted tensor-core columns do not bound it.
 //
 // The block entry (`flash_fwd_block_tc`) is the same kernel in a second
 // mode: the port of `flash_block_attention`, q [B,Tq,H,D] against one
@@ -111,14 +122,21 @@ struct FwdArgs {
   float scale;
 };
 
+// columns a tile holds in shared memory: D, or 64 (zero past D) for
+// the small head dims
+template <int D>
+__host__ __device__ constexpr int tile_cols() {
+  return D < 64 ? 64 : D;
+}
+
 template <int D>
 __host__ __device__ constexpr int q_bytes() {
-  return kTileQ * D * 2;
+  return kTileQ * tile_cols<D>() * 2;
 }
 
 template <int D>
 __host__ __device__ constexpr int kv_bytes() {
-  return kTileK * D * 2;
+  return kTileK * tile_cols<D>() * 2;
 }
 
 template <int D>
@@ -176,9 +194,11 @@ template <int D>
 __device__ __forceinline__ void load_q_scaled(uint8_t* dst, const FwdArgs& a,
                                               int q0, int b, int h) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kN = kTileQ * kChunks;  // 64 at D = 8: half the threads
 #pragma unroll
-  for (int j = 0; j < kTileQ * kChunks / kThreads; ++j) {
+  for (int j = 0; j < (kN + kThreads - 1) / kThreads; ++j) {
     const int e = threadIdx.x + j * kThreads;
+    if (kN % kThreads != 0 && e >= kN) break;
     const int r = e / kChunks, c = e % kChunks, t = q0 + r;
     uint4 x = make_uint4(0, 0, 0, 0);
     if (t < a.Tq)
@@ -221,8 +241,9 @@ __device__ __forceinline__ void load_kv_tile(uint32_t dst,
 template <int D, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_sm90_kernel(const FwdArgs a) {
-  constexpr int kSub = D / 64;  // 64-column sub-tiles
-  constexpr int kK = D / 16;    // k16 steps of S over D
+  constexpr int kSub = tile_cols<D>() / 64;  // 64-column sub-tiles
+  constexpr int kK = (D + 15) / 16;          // k16 steps of S over D
+  constexpr int kN8 = D < 64 ? D / 8 : 8;    // 8-column groups stored
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -242,6 +263,14 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4;  // rows r0, r0 + 8 of the tile
   const int c0 = 2 * (lane % 4);        // columns 8 n + c0 + {0, 1}
+
+  if constexpr (D < 64) {  // the columns past D stay zero from here on
+    uint4* tiles = reinterpret_cast<uint4*>(gbase);
+    for (int i = tid; i < (q_bytes<D>() + kStages * 2 * kv_bytes<D>()) / 16;
+         i += kThreads)
+      tiles[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
 
   // local key tiles any row of this q tile can see, by absolute
   // position: [k_lo, k_hi] clipped to the block.  In the normalized mode
@@ -400,7 +429,7 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
 #pragma unroll
       for (int sub = 0; sub < kSub; ++sub)
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < kN8; ++n)
           *reinterpret_cast<float2*>(static_cast<float*>(a.out) + row +
                                      sub * 64 + 8 * n + c0) =
               make_float2(o[sub][4 * n + 2 * rr], o[sub][4 * n + 2 * rr + 1]);
@@ -414,7 +443,7 @@ flash_fwd_sm90_kernel(const FwdArgs a) {
 #pragma unroll
     for (int sub = 0; sub < kSub; ++sub)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kN8; ++n) {
         const int col = sub * 64 + 8 * n + c0;
         const float x0 = __fdiv_rn(o[sub][4 * n + 2 * rr], lc);
         const float x1 = __fdiv_rn(o[sub][4 * n + 2 * rr + 1], lc);
@@ -455,6 +484,12 @@ cudaError_t dispatch(const FwdArgs& a, int D, cudaStream_t stream) {
     return cudaErrorMisalignedAddress;
   const bool block = a.l != nullptr;
   switch (D) {
+    case 8:
+      return block ? launch<8, true>(a, stream) : launch<8, false>(a, stream);
+    case 16:
+      return block ? launch<16, true>(a, stream) : launch<16, false>(a, stream);
+    case 32:
+      return block ? launch<32, true>(a, stream) : launch<32, false>(a, stream);
     case 64:
       return block ? launch<64, true>(a, stream) : launch<64, false>(a, stream);
     case 128:

@@ -30,7 +30,8 @@
 //     of one KV head); the grid is 1-D, the split slowest.  A block
 //     reads its row's length and exits at once when its span starts at
 //     or past it, so the grid is sized by the table width.
-//   - A span is cut into chunks of kC tokens (K + V of a chunk: 4 KB).
+//   - A span is cut into chunks of kC tokens (K + V of a chunk: 4 KB,
+//     or 32 tokens where rows are narrower than 64 bytes).
 //     Warp w takes chunks w, w + 4, ... through its own two-stage ring
 //     of 16-byte cp.async copies (zero-filled past the span's last
 //     valid key, so null-block tail entries are never read) and keeps
@@ -39,6 +40,12 @@
 //     each lane holding D / 32 columns of every head.  Rows sit in
 //     shared memory with their 16-byte pieces XOR-swizzled by row, so
 //     neither read conflicts on banks.
+//   - Small head dims (D = 8, 16, 32: the JAX package's probe models)
+//     keep that shape: a chunk holds at most 32 tokens, so a head's
+//     scores stay one warp's lanes; a row of fewer than eight 16-byte
+//     pieces is swizzled over the pieces it has; and where D < 32, p . v
+//     gives each lane one column and 32 / D of the chunk's tokens, the
+//     lanes of a column summed by shuffles once the span is walked.
 //   - The 4 warps' states are folded in warp order.  A row whose valid
 //     keys fit one span (every row of the serving step) writes its
 //     normalized output at once.  Otherwise each live block writes its
@@ -65,14 +72,19 @@ constexpr int kChunkBytes = 2048;  // K (and V) bytes of one chunk
 template <typename T, int D, int kG>
 struct Tile {
   static constexpr int kRow = D * (int)sizeof(T);  // bytes of one key row
-  static constexpr int kC = kChunkBytes / kRow;    // tokens a chunk: 4-16
+  // tokens a chunk: 2 KB of rows, at most 32 (a head's scores of a
+  // chunk are reduced across the warp's lanes): 4-32
+  static constexpr int kC =
+      kChunkBytes / kRow < 32 ? kChunkBytes / kRow : 32;
   static constexpr int kVec = kRow / 16;           // 16-byte pieces a row
+  static constexpr int kSwz = (kVec < 8 ? kVec : 8) - 1;  // swizzle mask
   static constexpr int kE = 16 / (int)sizeof(T);   // elements a piece
   static constexpr int kPer = kVec * kC / 32;      // pieces a lane loads
-  static constexpr int kCols = D / 32;             // p . v columns a lane
+  static constexpr int kCols = D < 32 ? 1 : D / 32;  // p . v columns a lane
+  static constexpr int kColLanes = D / kCols;      // lanes over a row
+  static constexpr int kTokLanes = 32 / kColLanes;  // lanes of one column
   static constexpr int kPairs = (kG * kC + 31) / 32;  // scores a lane
   static constexpr int kQ = D + 4;                 // padded q row, floats
-  static_assert(kVec >= 8, "the swizzle permutes 8 pieces of a row");
   static_assert(kPer * 32 == kVec * kC, "a chunk is whole pieces a lane");
 
   struct alignas(16) Smem {
@@ -87,9 +99,10 @@ struct Tile {
   };
 };
 
-// byte offset of 16-byte piece v of row t in a chunk
-__device__ __forceinline__ int piece(int t, int v, int row_bytes) {
-  return t * row_bytes + ((v ^ (t & 7)) << 4);
+// byte offset of 16-byte piece v of row t in a chunk (swizzle mask 7,
+// or the row's pieces less one where a row has fewer than 8)
+__device__ __forceinline__ int piece(int t, int v, int row_bytes, int swz) {
+  return t * row_bytes + ((v ^ (t & swz)) << 4);
 }
 
 __device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
@@ -109,11 +122,13 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
   x[3] = __uint_as_float(r.w);
 }
 
-// N consecutive elements at p (4, 8 or 16 bytes, aligned) as f32
+// N consecutive elements at p (2, 4, 8 or 16 bytes, aligned) as f32
 template <typename T, int N>
 __device__ __forceinline__ void load_cols(const unsigned char* p,
                                           float (&x)[N]) {
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2 && N == 1) {
+    x[0] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  } else if constexpr (sizeof(T) == 2) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) {
@@ -168,7 +183,7 @@ __device__ __forceinline__ void load_chunk(
     const size_t off =
         ok ? (((size_t)blk[i] * bs + pos % bs) * Hkv + hk) * D + v * C::kE
            : 0;
-    const uint32_t o = piece(t, v, C::kRow);
+    const uint32_t o = piece(t, v, C::kRow, C::kSwz);
     sm90::cp16(dk + o, k_pool + off, ok);
     sm90::cp16(dk + kChunkBytes + o, v_pool + off, ok);
   }
@@ -244,7 +259,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     m_run[j] = -INFINITY;
     l_run[j] = 0.f;
   }
-  const int d0 = lane * C::kCols;  // this lane's p . v columns
+  // this lane's p . v columns, and its first token of each chunk
+  // (tokens t0, t0 + kTokLanes, ...: all of them unless D < 32)
+  const int d0 = (C::kTokLanes > 1 ? lane % C::kColLanes : lane) * C::kCols;
+  const int t0 = C::kTokLanes > 1 ? lane / C::kColLanes : 0;
 
   for (int i = 0;; ++i) {
     const int c = warp + kWarps * i;
@@ -275,7 +293,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int v = 0; v < C::kVec; ++v) {
         float kx[C::kE];
-        unpack(*reinterpret_cast<const uint4*>(sk + piece(t, v, C::kRow)),
+        unpack(*reinterpret_cast<const uint4*>(
+                   sk + piece(t, v, C::kRow, C::kSwz)),
                kx);
 #pragma unroll
         for (int e4 = 0; e4 < C::kE / 4; ++e4) {
@@ -318,9 +337,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     }
     const int v = d0 / C::kE, off = (d0 % C::kE) * (int)sizeof(T);
 #pragma unroll 4
-    for (int t = 0; t < kC; ++t) {
+    for (int t = t0; t < kC; t += C::kTokLanes) {
       float vx[C::kCols];
-      load_cols<T>(sv + piece(t, v, C::kRow) + off, vx);
+      load_cols<T>(sv + piece(t, v, C::kRow, C::kSwz) + off, vx);
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         const float pg = sm.p[warp][t][g];
@@ -336,13 +355,23 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     sm90::cp_commit();
   }
   sm90::cp_wait<0>();  // the last refills only zero-fill: let them land
+  // lanes that took other tokens of the same columns (D < 32) add up
+#pragma unroll
+  for (int off = C::kColLanes; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+#pragma unroll
+      for (int e = 0; e < C::kCols; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
 
   // -- fold the warps' states in warp order (a warp without a chunk
   // holds the empty state)
+  if (t0 == 0) {
 #pragma unroll
-  for (int g = 0; g < kG; ++g)
+    for (int g = 0; g < kG; ++g)
 #pragma unroll
-    for (int e = 0; e < C::kCols; ++e) sm.o[warp][g][d0 + e] = acc[g][e];
+      for (int e = 0; e < C::kCols; ++e) sm.o[warp][g][d0 + e] = acc[g][e];
+  }
 #pragma unroll
   for (int j = 0; j < C::kPairs; ++j) {
     const int pr = lane + 32 * j;
@@ -451,6 +480,18 @@ cudaError_t launch_d(int D, int kg, const void* q, const void* k_pool,
                      int B, int H, int Hkv, int bs, int n_pages, int pps,
                      int splits, float scale, cudaStream_t st) {
   switch (D) {
+    case 8:
+      return launch_g<T, 8>(kg, q, k_pool, v_pool, tables, lengths, out, ws,
+                            counters, B, H, Hkv, bs, n_pages, pps, splits,
+                            scale, st);
+    case 16:
+      return launch_g<T, 16>(kg, q, k_pool, v_pool, tables, lengths, out, ws,
+                             counters, B, H, Hkv, bs, n_pages, pps, splits,
+                             scale, st);
+    case 32:
+      return launch_g<T, 32>(kg, q, k_pool, v_pool, tables, lengths, out, ws,
+                             counters, B, H, Hkv, bs, n_pages, pps, splits,
+                             scale, st);
     case 64:
       return launch_g<T, 64>(kg, q, k_pool, v_pool, tables, lengths, out, ws,
                              counters, B, H, Hkv, bs, n_pages, pps, splits,

@@ -42,8 +42,8 @@ def fleet_probe(tp: int = 2, train_dp: int = 2, batch: int = 4,
     (module docstring).  The ledger holds ``train_dp*tp`` gang chips
     plus ONE serving chip, so the burst's scale-up has no free supply
     and MUST preempt — the arbitration path is what is being timed.
-    ``cfg`` replaces the small default config (on the card K1 needs a
-    head dim of 64 or 128); ``tp`` defaults to 2, as in the reference.
+    ``cfg`` replaces the small default config (head dim 8, which the
+    card's kernels run); ``tp`` defaults to 2, as in the reference.
     """
     import numpy as np
     import torch

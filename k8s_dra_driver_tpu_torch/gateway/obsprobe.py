@@ -18,8 +18,7 @@ scalars:
   and the kernel build directory — then reconciles against the card's
   allocator (``device="cuda"``, the default) or against itself
   (``device="cpu"``).  ``cfg=None`` takes the reference probe's tiny
-  config (d_head 8, which K1 refuses on the card: pass a config of
-  head dim 64 or 128 there).
+  config (d_head 8: on the card K1 and K2 run at head dim 8).
 """
 
 from __future__ import annotations

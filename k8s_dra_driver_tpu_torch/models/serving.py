@@ -756,10 +756,13 @@ class ServingEngine:
         ``prefill_chunk``-token chunks: (last chunk's logits, cache)."""
         fill = _prefill_suffix if start > 0 else _decode._prefill
         c = self.prefill_chunk or req.prompt.size
-        for off in range(start, req.prompt.size, c):
-            logits, one = fill(self.params,
-                               self._prompt(req, off, off + c)[None],
-                               self.cfg, one, off == 0)
+        # the chunk loop is one phase on a trace (utils/dispatch.py
+        # annotated; a no-op unless annotations are on)
+        with dispatch.annotated("prefill_export"):
+            for off in range(start, req.prompt.size, c):
+                logits, one = fill(self.params,
+                                   self._prompt(req, off, off + c)[None],
+                                   self.cfg, one, off == 0)
         return logits, one
 
     def _export_block(self, req: Request, kv, logits, start: int,

@@ -24,12 +24,11 @@ speed of the fused verify-accept machinery at full acceptance, while
 byte equality against the non-speculative engine and the closed-form
 ramp pins its correctness.
 
-Its config is the JAX probe's (vocab 32, d_model 128, 2 layers, d_ff
-512, max_seq 128, query heads twice the KV heads) but for the head
-layout: 2 heads of 64 over 1 KV head in place of 8 heads of 16 over 4,
-because the card's flash-forward kernel (K1, every prompt fill) takes
-head dims 64 and 128 only.  Attention is dead in the ramp (``wo`` is
-zero), so the layout changes no token.
+Its config is the JAX probe's: vocab 32, d_model 128, 2 layers of 8
+heads of 16 over 4 KV heads, d_ff 512, max_seq 128 (on the card every
+prompt fill runs K1 at head dim 16).  ``python -m
+k8s_dra_driver_tpu_torch.models.specprobe`` prints the probe's JSON line
+(the JAX command's flags, plus ``--device``).
 """
 
 from __future__ import annotations
@@ -44,10 +43,10 @@ from .transformer import TransformerConfig, init_params, rms_norm
 
 
 def probe_config(dtype=torch.float32) -> TransformerConfig:
-    """The probe's model: vocab 32, d_model 128, 2 layers of 2 heads of
-    64 over 1 KV head, d_ff 512, max_seq 128."""
-    return TransformerConfig(vocab=32, d_model=128, n_layers=2, n_heads=2,
-                             d_head=64, d_ff=512, max_seq=128, n_kv_heads=1,
+    """The probe's model, the JAX probe's: vocab 32, d_model 128, 2
+    layers of 8 heads of 16 over 4 KV heads, d_ff 512, max_seq 128."""
+    return TransformerConfig(vocab=32, d_model=128, n_layers=2, n_heads=8,
+                             d_head=16, d_ff=512, max_seq=128, n_kv_heads=4,
                              dtype=dtype)
 
 
@@ -169,4 +168,23 @@ def spec_decode_probe(wave: int = 4, timed_new: int = 45,
     }
 
 
-__all__ = ["probe_config", "spec_decode_probe"]
+def main(argv=None) -> int:
+    """``python -m k8s_dra_driver_tpu_torch.models.specprobe``: the
+    probe's JSON line, on the card unless ``--device cpu``."""
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--wave", type=int, default=4)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    ns = ap.parse_args(argv)
+    print(json.dumps(spec_decode_probe(wave=ns.wave, repeats=ns.repeats,
+                                       device=ns.device)))
+    return 0
+
+
+__all__ = ["main", "probe_config", "spec_decode_probe"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -650,7 +650,7 @@ def serving_probe(slots: int = 8, n_requests: int = 24,
 
 def dispatch_probe(slots: int = 2, n_requests: int = 4,
                    max_new: int = 12, chain_steps: int = 8,
-                   n_layers: int = 2, d_model: int = 256,
+                   n_layers: int = 2, d_model: int = 128,
                    heads: int = 4, kv_heads: int = 2, d_ff: int = 256,
                    prompt_len: int = 12, max_seq: int = 64,
                    rtt_samples: int = 30, device="cuda") -> dict:
@@ -667,8 +667,8 @@ def dispatch_probe(slots: int = 2, n_requests: int = 4,
       dispatch counter: hardware-independent numbers, equal to the
       JAX engine's at the same widths.
 
-    The default ``d_model`` is 256 (heads of 64): the reference's 128
-    over 4 heads gives heads of 32, which the card's K1 refuses.
+    The defaults are the reference's: d_model 128 over 4 heads, so K1
+    runs at head dim 32 on the card.
     """
     from ..models import init_params
     from ..models.serving import Request, ServingEngine

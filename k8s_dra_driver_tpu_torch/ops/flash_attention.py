@@ -42,12 +42,21 @@ normalized forward through ``_flash_forward`` and the backward of its
 There is no other path: an unsupported shape or dtype on the card
 raises.
 
+The kernels take head dims 8, 16, 32, 64 and 128
+(:data:`_KERNEL_HEAD_DIMS`; the small ones are the JAX package's probe
+models), where the JAX kernels take any: another D raises.  K1's plan
+(the route and its tiles) comes from :func:`pick_fwd_params`, through
+the autotune table (``ops/autotune.py``), as K7's does; the kernels
+have one plan a route.
+
 ``launches``, ``dq_launches`` and ``dkv_launches`` count kernel
 launches of K1, K3 and K4 (CPU calls never count); ``tc_launches``,
 ``dq_tc_launches`` and ``dkv_tc_launches`` count those on the
 tensor-core route.  ``block_launches`` and ``block_tc_launches`` count
 K1's block-entry launches apart: ``launches`` counts only the
-normalized entry.
+normalized entry.  ``dim_launches`` counts every launch again by
+``(entry, dtype, head dim)``, entry one of ``flash_fwd``,
+``flash_fwd_block``, ``flash_bwd_dq``, ``flash_bwd_dkv``.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import on_card
-from . import _build
+from . import _build, autotune
 from .ring_attention import _NEG_INF, attention_mask, kv_group
 
 #: kernel launches made by :func:`flash_forward` on CUDA tensors (K1)
@@ -72,13 +81,25 @@ dkv_tc_launches = 0
 #: of those the ones on the tensor-core route
 block_launches = 0
 block_tc_launches = 0
+#: every launch of the four kernels by (entry, dtype name, head dim)
+dim_launches: dict = {}
 
 #: keys per tile of the tensor-core K1 (``csrc/flash_fwd_sm90.cu``); the
 #: plain version walks the keys in blocks of this width by default, so
 #: that it rounds p against the running max the kernel keeps
 FWD_BLOCK_K = 128
 
-_KERNEL_HEAD_DIMS = (64, 128)
+#: the head dims the kernels take (the JAX kernels take any)
+_KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+#: K1's one plan a route: query rows a block and keys a tile
+#: (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_fwd.cu``)
+_FWD_PLANS = {"tensor_cores": dict(block_q=64, block_k=FWD_BLOCK_K),
+              "cuda_cores": dict(block_q=64, block_k=64)}
+
+
+def _count_dims(entry: str, dtype, d: int) -> None:
+    key = (entry, str(dtype).removeprefix("torch."), d)
+    dim_launches[key] = dim_launches.get(key, 0) + 1
 
 
 def _validate(q, k, v, causal, window, segment_ids):
@@ -236,8 +257,47 @@ def fwd_route(dtype, head_dim: int) -> str:
     dim ``head_dim``: ``"tensor_cores"`` for bfloat16
     (``csrc/flash_fwd_sm90.cu``), ``"cuda_cores"`` for float32
     (``csrc/flash_fwd.cu``).  Raises for any other dtype or a head dim
-    other than 64 or 128: there is no fallback."""
+    outside :data:`_KERNEL_HEAD_DIMS`: there is no fallback."""
     return _route(_ROUTES, "flash forward", dtype, head_dim)
+
+
+def pick_fwd_params(tq: int, tk: int, head_dim: int, kv_group: int = 1,
+                    window: int | None = None,
+                    dtype=torch.bfloat16) -> dict:
+    """K1's plan at a shape: ``route`` (:func:`fwd_route`), ``block_q``
+    and ``block_k`` (query rows a block, keys a tile), from the autotune
+    table (``ops/autotune.py``; kernel ``"flash_fwd"``,
+    the JAX package's shape key ``d,g,tk,tq,w``), falling back to the
+    route's plan.  Each route's kernel has one plan, so a table entry
+    must name it or the pick raises ``ValueError``.  Host-only and
+    cached per shape on the table; both entries of K1 take their route
+    from it.  The port's counterpart of the JAX ``pick_fwd_params``,
+    whose plans are the Pallas grid's blocks."""
+    tuner = autotune.get_autotuner()
+
+    def build() -> dict:
+        route = fwd_route(dtype, head_dim)
+        plan = dict(route=route, **_FWD_PLANS[route])
+        key = autotune.shape_key(tq=tq, tk=tk, d=head_dim, g=kv_group,
+                                 w=window or 0)
+        choice = tuner.pick("flash_fwd", key, dtype, default=plan)
+        if choice.params != plan:
+            entry = autotune.table_key("flash_fwd", key, dtype,
+                                       autotune.backend_key())
+            raise ValueError(f"autotune entry {entry}: K1 has one plan on "
+                             f"the {route} route, {plan}; got "
+                             f"{choice.params}")
+        return plan
+
+    return dict(tuner.memo(("flash_fwd", tq, tk, head_dim, kv_group,
+                            window, dtype), build))
+
+
+def pick_blocks(tq: int, tk: int, head_dim: int) -> tuple[int, int]:
+    """``(block_q, block_k)`` of :func:`pick_fwd_params` for bfloat16
+    at this shape, as the JAX ``pick_blocks`` views its pick."""
+    plan = pick_fwd_params(tq, tk, head_dim)
+    return plan["block_q"], plan["block_k"]
 
 
 def _route(routes, what: str, dtype, head_dim: int) -> str:
@@ -254,7 +314,8 @@ def _route(routes, what: str, dtype, head_dim: int) -> str:
 def _launch(q, k, v, causal, scale, window, segment_ids, out_dtype):
     global launches, tc_launches
     b, t, h, d = q.shape
-    tc = fwd_route(q.dtype, d) == "tensor_cores"
+    plan = pick_fwd_params(t, t, d, h // k.shape[2], window, q.dtype)
+    tc = plan["route"] == "tensor_cores"
     if out_dtype != q.dtype and not (tc and out_dtype == torch.float32):
         raise ValueError(f"the flash forward kernel writes q's dtype"
                          f"{' or float32' if tc else ''}, not {out_dtype}")
@@ -277,6 +338,7 @@ def _launch(q, k, v, causal, scale, window, segment_ids, out_dtype):
     _build.check(rc, name)
     launches += 1
     tc_launches += tc
+    _count_dims("flash_fwd", q.dtype, d)
     return out, lse
 
 
@@ -286,7 +348,8 @@ def flash_forward(q, k, v, *, causal=True, scale=None, window=None,
     :func:`fwd_route` picks, and the plain version
     :func:`flash_forward_reference` on CPU tensors.  q ``[B, T, H, D]``,
     k/v ``[B, T, H_kv, D]`` (float32 or bfloat16, contiguous and
-    16-byte aligned on the card, D in {64, 128}), ``segment_ids``
+    16-byte aligned on the card, D in :data:`_KERNEL_HEAD_DIMS`),
+    ``segment_ids``
     [B, T] int32.  ``out_dtype`` (default q's dtype) may be float32
     for bfloat16 inputs: the output before its final rounding."""
     _validate(q, k, v, causal, window, segment_ids)
@@ -361,7 +424,8 @@ def _launch_block(q, k, v, q_offset, k_offset, causal, scale, window,
     global block_launches, block_tc_launches
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    tc = fwd_route(q.dtype, d) == "tensor_cores"
+    plan = pick_fwd_params(tq, tk, d, h // k.shape[2], window, q.dtype)
+    tc = plan["route"] == "tensor_cores"
     _require_contiguous(q=q, k=k, v=v, q_segments=q_segments,
                         k_segments=k_segments)
     _require_int32(q_segments=q_segments, k_segments=k_segments)
@@ -383,6 +447,7 @@ def _launch_block(q, k, v, q_offset, k_offset, causal, scale, window,
     _build.check(rc, name)
     block_launches += 1
     block_tc_launches += tc
+    _count_dims("flash_fwd_block", q.dtype, d)
     return o, m, l
 
 
@@ -403,7 +468,8 @@ def flash_block_attention(q, k, v, q_offset, k_offset, *, causal=True,
 
     On CUDA tensors K1 runs in its block mode by the route
     :func:`fwd_route` picks (bf16 on the tensor cores, f32 on the CUDA
-    cores; contiguous, 16-byte aligned, D in {64, 128}); on CPU tensors
+    cores; contiguous, 16-byte aligned, D in :data:`_KERNEL_HEAD_DIMS`);
+    on CPU tensors
     the plain version :func:`flash_block_attention_reference`.  The TPU
     call's grid knobs (``block_q``, ``block_k``, ``narrow_window``,
     ``kv_reuse``, ``interpret``) have no counterpart: the CUDA kernels
@@ -589,7 +655,7 @@ def bwd_route(dtype, head_dim: int) -> str:
     head dim ``head_dim``: ``"tensor_cores"`` for bfloat16
     (``csrc/flash_bwd_sm90.cu``), ``"cuda_cores"`` for float32
     (``csrc/flash_bwd.cu``).  Raises for any other dtype or a head dim
-    other than 64 or 128: there is no fallback."""
+    outside :data:`_KERNEL_HEAD_DIMS`: there is no fallback."""
     return _route(_ROUTES, "flash backward", dtype, head_dim)
 
 
@@ -638,6 +704,8 @@ def _launch_bwd(dq_pass: bool, *args):
         rc = getattr(lib, name)(*inputs, *(o.data_ptr() for o in outs),
                                 *sizes, stream)
     _build.check(rc, name)
+    _count_dims("flash_bwd_dq" if dq_pass else "flash_bwd_dkv", q.dtype,
+                q.shape[-1])
     if dq_pass:
         dq_launches += 1
         dq_tc_launches += tc
@@ -767,4 +835,5 @@ __all__ = ["FWD_BLOCK_K", "attention_block_grads", "attention_delta",
            "flash_block_attention_reference", "flash_block_grads",
            "flash_block_grads_reference", "flash_bwd_dkv",
            "flash_bwd_dq", "flash_forward", "flash_forward_reference",
-           "fwd_route", "merge_flash_stats", "normalize_flash_stats"]
+           "fwd_route", "merge_flash_stats", "normalize_flash_stats",
+           "pick_blocks", "pick_fwd_params"]

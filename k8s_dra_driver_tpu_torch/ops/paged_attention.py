@@ -17,8 +17,14 @@ each row's pages across blocks as :func:`paged_plan` says and merges
 the partial softmax states in split order; ``paged_attention_split``
 is that algorithm in plain PyTorch, and ``merge_partials`` its merge.
 
+The kernel takes head dims 8, 16, 32, 64 and 128 (the JAX kernel
+takes any, padding D to 128 lanes); its plan comes from
+:func:`pick_decode_params`, through the autotune table
+(``ops/autotune.py``), falling back to :func:`paged_plan`.
+
 ``launches`` counts kernel launches (CPU calls never count): one per
-call, the merge included.
+call, the merge included; ``dim_launches`` counts them again by
+``("paged_decode", dtype, head dim)``.
 """
 
 from __future__ import annotations
@@ -29,19 +35,24 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, autotune
 from .ring_attention import _NEG_INF
 
 #: kernel launches made by :func:`paged_attention` on CUDA tensors
 launches = 0
+#: the same launches by ("paged_decode", dtype name, head dim)
+dim_launches: dict = {}
 
-_KERNEL_HEAD_DIMS = (64, 128)
+#: the head dims the kernel takes (the JAX kernel takes any)
+_KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _SMS = 132
 #: blocks a call aims for: about two waves on the card's SMs
 _TARGET_BLOCKS = 2 * _SMS
-#: the kernel's warps per block and K (or V) bytes of one warp's chunk
+#: the kernel's warps per block, K (or V) bytes of one warp's chunk,
+#: and the most tokens a chunk holds (one a lane of a warp)
 _WARPS = 4
 _CHUNK_BYTES = 2048
+_CHUNK_TOKENS = 32
 _MAX_BLOCKS = 2**31 - 1
 
 
@@ -80,7 +91,8 @@ def paged_plan(b: int, h_kv: int, group: int, d: int, bs: int,
     per = n_pages
     if rows < _SMS:
         es = torch.tensor([], dtype=dtype).element_size()
-        chunk = _CHUNK_BYTES // (d * es)          # tokens a warp's chunk
+        chunk = min(_CHUNK_BYTES // (d * es),     # tokens a warp's chunk
+                    _CHUNK_TOKENS)
         per = max(_cdiv(n_pages, _cdiv(_TARGET_BLOCKS, rows)),
                   _cdiv(_WARPS * chunk, bs))
         per = min(per, n_pages)
@@ -90,6 +102,59 @@ def paged_plan(b: int, h_kv: int, group: int, d: int, bs: int,
         raise ValueError(f"the paged kernel's grid of {blocks} blocks "
                          f"passes CUDA's limit")
     return PagedPlan(heads, per, splits, blocks)
+
+
+def _tuned_plan(params: dict, b: int, h_kv: int, group: int,
+                n_pages: int, key: str) -> PagedPlan:
+    """The plan of a table entry ``{"heads_per_block",
+    "pages_per_split"}`` for this shape; raises ``ValueError`` naming
+    ``key`` for an entry the kernel cannot take
+    (``csrc/paged_decode.cu`` refuses the same plans)."""
+    try:
+        heads = int(params["heads_per_block"])
+        per = int(params["pages_per_split"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"autotune entry {key}: want integer "
+                         f"heads_per_block and pages_per_split, got "
+                         f"{params}") from e
+    if heads not in (1, 2, 4) or group % heads:
+        raise ValueError(f"autotune entry {key}: heads_per_block {heads} "
+                         f"is not 1, 2 or 4 dividing the group {group}")
+    if not 1 <= per <= n_pages:
+        raise ValueError(f"autotune entry {key}: pages_per_split {per} is "
+                         f"not in [1, {n_pages}]")
+    splits = _cdiv(n_pages, per)
+    blocks = b * h_kv * (group // heads) * splits
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"autotune entry {key}: a grid of {blocks} "
+                         f"blocks passes CUDA's limit")
+    return PagedPlan(heads, per, splits, blocks)
+
+
+def pick_decode_params(b: int, h_kv: int, group: int, d: int, bs: int,
+                       n_pages: int, dtype=torch.bfloat16) -> dict:
+    """K2's plan at a shape, as a dict of :class:`PagedPlan`'s fields:
+    from the autotune table (``ops/autotune.py``; kernel
+    ``"paged_decode"``, the JAX package's shape key ``b,bs,d,g,hkv,nb``),
+    whose entries tune ``heads_per_block`` and ``pages_per_split``,
+    falling back to :func:`paged_plan`.  Host-only and cached per shape
+    on the table; the kernel's launch takes its plan from here.  The
+    port's counterpart of the JAX ``pick_decode_params``, whose only
+    tunable is the Pallas grid's dimension semantics."""
+    tuner = autotune.get_autotuner()
+
+    def build() -> PagedPlan:
+        key = autotune.shape_key(b=b, hkv=h_kv, g=group, d=d, bs=bs,
+                                 nb=n_pages)
+        choice = tuner.pick("paged_decode", key, dtype, default={})
+        if choice.source == "default":
+            return paged_plan(b, h_kv, group, d, bs, n_pages, dtype)
+        return _tuned_plan(choice.params, b, h_kv, group, n_pages,
+                           autotune.table_key("paged_decode", key, dtype,
+                                              autotune.backend_key()))
+
+    return tuner.memo(("paged_decode", b, h_kv, group, d, bs, n_pages,
+                       dtype), build)._asdict()
 
 
 def merge_partials(o, m, l, o2, m2, l2):
@@ -238,7 +303,8 @@ def _launch(q, k_pool, v_pool, tables, lengths, scale):
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("tables and lengths must be int32")
     n_pages = tables.shape[1]
-    plan = paged_plan(b, h_kv, h // h_kv, d, bs, n_pages, q.dtype)
+    plan = PagedPlan(**pick_decode_params(b, h_kv, h // h_kv, d, bs,
+                                          n_pages, q.dtype))
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -259,6 +325,8 @@ def _launch(q, k_pool, v_pool, tables, lengths, scale):
             plan.pages_per_split, plan.splits, float(scale), code, stream)
     _build.check(rc, "paged_decode")
     launches += 1
+    key = ("paged_decode", str(q.dtype).removeprefix("torch."), d)
+    dim_launches[key] = dim_launches.get(key, 0) + 1
     return out
 
 
@@ -287,4 +355,4 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
 
 __all__ = ["PagedPlan", "merge_partials", "paged_attention",
            "paged_attention_reference", "paged_attention_split",
-           "paged_plan"]
+           "paged_plan", "pick_decode_params"]

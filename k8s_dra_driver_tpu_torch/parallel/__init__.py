@@ -7,15 +7,16 @@ format (``resharding``), the elastic gang supervisor (``supervisor``)
 and its recovery and resharding probes (``probe``)."""
 
 from .mesh import (BATCH_AXES, MESH_AXES, MeshSpec, P, PartitionSpec,
-                   ProcessMesh, make_mesh)
+                   ProcessMesh, log2_int, make_mesh, visible_chip_count)
 from .pipeline import pipeline_apply, split_layers, stack_stages
 from .rendezvous import (ContractError, RendezvousSpec, gang_psum,
                          initialize, spec_from_env)
 
 __all__ = ["BATCH_AXES", "MESH_AXES", "ContractError", "MeshSpec", "P",
            "PartitionSpec", "ProcessMesh", "RendezvousSpec", "gang_psum",
-           "initialize", "make_mesh", "pipeline_apply", "spec_from_env",
-           "split_layers", "stack_stages",
+           "initialize", "log2_int", "make_mesh", "pipeline_apply",
+           "spec_from_env", "split_layers", "stack_stages",
+           "visible_chip_count",
            "ElasticTrainJob", "GangSupervisor", "SupervisorError",
            "SupervisorReport", "recovery_probe", "resharding_probe",
            "ShardCorruption", "ShardedCheckpointer",

@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
+import os
 
 import torch
 import torch.distributed as dist
@@ -114,6 +116,32 @@ class MeshSpec:
         spec = cls(dp=dp, ep=ep, sp=sp, tp=tp)
         assert spec.num_devices == n_devices, (spec, n_devices)
         return spec
+
+
+def visible_chip_count(env: dict[str, str] | None = None) -> int:
+    """How many chips the DRA claim made visible (the driver's
+    contract): the entries of ``TPU_VISIBLE_CHIPS`` where a TPU claim
+    set it, as the JAX function counts them; else the GPU UUIDs
+    (``GPU-...``) of ``CUDA_VISIBLE_DEVICES``, which the port's plugin
+    writes for an NVIDIA claim; else ``torch.cuda.device_count()``.
+    ``env`` defaults to the process environment (an empty one too, as
+    in the JAX function)."""
+    env = env or dict(os.environ)
+    chips = env.get("TPU_VISIBLE_CHIPS", "")
+    if chips:
+        return len([x for x in chips.split(",") if x != ""])
+    uuids = [x for x in env.get("CUDA_VISIBLE_DEVICES", "").split(",")
+             if x.strip().startswith("GPU-")]
+    if uuids:
+        return len(uuids)
+    return torch.cuda.device_count()
+
+
+def log2_int(n: int) -> int:
+    """log2 of ``n``, which must be a power of two."""
+    out = int(math.log2(n))
+    assert 2 ** out == n, f"{n} is not a power of two"
+    return out
 
 
 def mesh_coords(rank: int, spec: MeshSpec) -> dict[str, int]:
@@ -502,5 +530,6 @@ def gather_replicated(x, mesh, axis: str, dim: int):
 
 __all__ = ["BATCH_AXES", "MESH_AXES", "MeshSpec", "P", "PartitionSpec",
            "ProcessMesh", "all_gather_ad", "copy_to",
-           "gather_replicated", "make_mesh", "mesh_coords", "mesh_rank",
-           "reduce_from", "reduce_scatter_ad", "spec_axes", "spec_block"]
+           "gather_replicated", "log2_int", "make_mesh", "mesh_coords",
+           "mesh_rank", "reduce_from", "reduce_scatter_ad", "spec_axes",
+           "spec_block", "visible_chip_count"]

@@ -8,9 +8,9 @@ The port of ``k8s_dra_driver_tpu/parallel/probe.py``:
   post-resume step, checkpoint restore included) and
   steps-lost-since-checkpoint at two checkpoint cadences, so the
   durability-vs-overhead trade is an artifact instead of a claim.  The
-  same keys and defaults as the reference (tp=2), plus ``cfg`` (a model
-  config that replaces the small default; on the card K1 needs a head
-  dim of 64 or 128) and ``device``.
+  same keys and defaults as the reference (tp=2; head dim 8, which the
+  card's kernels run), plus ``cfg`` (a model config that replaces the
+  small default) and ``device``.
 - ``resharding_probe``: streaming-restore cost against restore width
   on one generation saved from a dp=2 x tp=4 formation
   (parallel/resharding.py), the reference's keys.

@@ -16,10 +16,12 @@ The port of ``k8s_dra_driver_tpu/serving_kv/probe.py``.  It records:
   checked byte-equal in the same run, ``byte_equal``).
 
 Its default model is the reference probe's (vocab 64, d_model 128, 2
-layers, 8 heads of 16 over 4 KV heads, d_ff 512, max_seq 48, f32).  On
-the card K1 (every prompt fill) takes head dims 64 and 128 only, so a
-caller there passes its own ``cfg`` (the on-card smoke passes the
-154M).  Prompts come from numpy generators.
+layers, 8 heads of 16 over 4 KV heads, d_ff 512, max_seq 48, f32): on
+the card every prompt fill runs K1 and every paged step K2 at head dim
+16.  A caller may pass its own ``cfg`` (the on-card smoke also passes
+the 154M).  Prompts come from numpy generators.  ``python -m
+k8s_dra_driver_tpu_torch.serving_kv.probe`` prints the probe's JSON
+line (the JAX command's flags, plus ``--device``).
 """
 
 from __future__ import annotations
@@ -32,6 +34,15 @@ import torch
 from ..models.serving import Request, ServingEngine
 from ..models.transformer import TransformerConfig, init_params
 from ..utils.device import resolve_device
+
+
+def probe_config(dtype=torch.float32) -> TransformerConfig:
+    """The probe's default model, the JAX probe's: vocab 64, d_model
+    128, 2 layers of 8 heads of 16 over 4 KV heads, d_ff 512, max_seq
+    48."""
+    return TransformerConfig(vocab=64, d_model=128, n_layers=2, n_heads=8,
+                             d_head=16, d_ff=512, max_seq=48, n_kv_heads=4,
+                             dtype=dtype)
 
 
 def _mk(seed: int, n: int, vocab: int) -> np.ndarray:
@@ -69,10 +80,7 @@ def paged_kv_probe(prefix_len: int = 16, suffix_len: int = 4,
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if cfg is None:
-        cfg = TransformerConfig(vocab=64, d_model=128, n_layers=2,
-                                n_heads=8, d_head=16, d_ff=512,
-                                max_seq=48, n_kv_heads=4,
-                                dtype=torch.float32)
+        cfg = probe_config()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     bs = 16
@@ -163,4 +171,23 @@ def paged_kv_probe(prefix_len: int = 16, suffix_len: int = 4,
     }
 
 
-__all__ = ["paged_kv_probe"]
+def main(argv=None) -> int:
+    """``python -m k8s_dra_driver_tpu_torch.serving_kv.probe``: the probe's
+    JSON line, on the card unless ``--device cpu``."""
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--wave", type=int, default=6)
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--device", default="cuda")
+    ns = ap.parse_args(argv)
+    print(json.dumps(paged_kv_probe(wave=ns.wave, repeats=ns.repeats,
+                                    device=ns.device)))
+    return 0
+
+
+__all__ = ["main", "paged_kv_probe", "probe_config"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -21,12 +21,13 @@ two compute the prompt differently (the twin's one full-prompt prefill
 against the promoted rows plus a suffix fill), so in bf16 they round
 apart and their streams may part; in f32 they agree.
 
-Its default model keeps the JAX probe's (vocab 64, d_model 256, 4
-layers, d_ff 1024) but for the head layout: 4 heads of 64 in place of 8
-of 32, because the card's flash-forward kernel (K1, every prompt fill)
-takes head dims 64 and 128 only.  A caller may pass its own ``cfg`` and
-``params`` (the on-card smoke passes the 154M).  Prompts come from numpy
-generators.
+Its default model is the JAX probe's: vocab 64, d_model 256, 4 layers
+of 8 heads of 32 (as many KV heads), d_ff 1024, max_seq the prefix plus
+16 rounded up to whole blocks, f32 (on the card K1 runs at head dim
+32).  A caller may pass its own ``cfg`` and ``params`` (the on-card
+smoke also passes the 154M).  Prompts come from numpy generators.
+``python -m k8s_dra_driver_tpu_torch.serving_kv.tierprobe`` prints the
+probe's JSON line (the JAX command's flags, plus ``--device``).
 """
 
 from __future__ import annotations
@@ -44,14 +45,16 @@ from ..utils.device import resolve_device
 _BLOCK = 16
 
 
-def probe_config(d_model: int = 256, n_layers: int = 4) -> TransformerConfig:
-    """The probe's default model: vocab 64, heads of 64 (``d_model //
-    64`` of them, as many KV heads), d_ff 4 x d_model, f32."""
-    heads = d_model // 64
+def probe_config(d_model: int = 256, n_layers: int = 4,
+                 prefix_len: int = 112) -> TransformerConfig:
+    """The probe's default model, the JAX probe's: vocab 64, 8 heads of
+    ``d_model // 8`` (as many KV heads), d_ff 4 x d_model, max_seq
+    ``prefix_len + 16`` rounded up to whole blocks, f32."""
     return TransformerConfig(vocab=64, d_model=d_model, n_layers=n_layers,
-                             n_heads=heads, d_head=64, d_ff=4 * d_model,
-                             max_seq=2048, n_kv_heads=heads,
-                             dtype=torch.float32)
+                             n_heads=8, d_head=d_model // 8,
+                             d_ff=4 * d_model,
+                             max_seq=-(-(prefix_len + 16) // _BLOCK) * _BLOCK,
+                             n_kv_heads=8, dtype=torch.float32)
 
 
 def _mk(seed: int, n: int, vocab: int) -> np.ndarray:
@@ -70,7 +73,7 @@ def serving_tier_probe(prefix_len: int = 112, suffix_len: int = 4,
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if cfg is None:
-        cfg = probe_config(d_model, n_layers)
+        cfg = probe_config(d_model, n_layers, prefix_len)
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              device=dev)
     need = prefix_len + suffix_len + max_new
@@ -161,4 +164,24 @@ def serving_tier_probe(prefix_len: int = 112, suffix_len: int = 4,
     }
 
 
-__all__ = ["probe_config", "serving_tier_probe"]
+def main(argv=None) -> int:
+    """``python -m k8s_dra_driver_tpu_torch.serving_kv.tierprobe``: the probe's
+    JSON line, on the card unless ``--device cpu``."""
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--prefix-len", type=int, default=112)
+    ap.add_argument("--device", default="cuda")
+    ns = ap.parse_args(argv)
+    print(json.dumps(serving_tier_probe(repeats=ns.repeats,
+                                        prefix_len=ns.prefix_len,
+                                        device=ns.device)))
+    return 0
+
+
+__all__ = ["main", "probe_config", "serving_tier_probe"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,12 +22,12 @@ engine's slot count (the JAX probe's have one slot): every product then
 has the same shapes as in the churn engine, so the card picks the same
 algorithms and rounds the same way.
 
-Its default model is the JAX probe's config (vocab 64, d_model 64, 2
-layers, d_ff 256, max_seq 96, query heads twice the KV heads) but for
-the head layout: 2 heads of 64 over 1 KV head in place of 4 heads of 16
-over 2, because the card's flash-forward kernel (K1, every prompt fill)
-takes head dims 64 and 128 only.  A caller may pass its own ``cfg`` and
-``params`` (the on-card smoke passes the 154M).
+Its default model is the JAX probe's config: vocab 64, d_model 64, 2
+layers of 4 heads of 16 over 2 KV heads, d_ff 256, max_seq 96 (on the
+card K1 runs at head dim 16).  A caller may pass its own ``cfg`` and
+``params`` (the on-card smoke also passes the 154M).  ``python -m
+k8s_dra_driver_tpu_torch.serving_lora.probe`` prints the probe's JSON
+line (the JAX command's flags, plus ``--device``).
 """
 
 from __future__ import annotations
@@ -49,10 +49,11 @@ _CHURN_PATTERN = ("l-0", "l-0", None, "l-1", "l-1", "l-2", "l-0", "l-2")
 
 
 def probe_config(dtype=torch.float32) -> TransformerConfig:
-    """The probe's default model: vocab 64, d_model 64, 2 layers of 2
-    heads of 64 over 1 KV head, d_ff 256, max_seq 96."""
-    return TransformerConfig(vocab=64, d_model=64, n_layers=2, n_heads=2,
-                             d_head=64, d_ff=256, max_seq=96, n_kv_heads=1,
+    """The probe's default model, the JAX probe's: vocab 64, d_model
+    64, 2 layers of 4 heads of 16 over 2 KV heads, d_ff 256, max_seq
+    96."""
+    return TransformerConfig(vocab=64, d_model=64, n_layers=2, n_heads=4,
+                             d_head=16, d_ff=256, max_seq=96, n_kv_heads=2,
                              dtype=dtype)
 
 
@@ -169,4 +170,24 @@ def lora_serving_probe(wave: int = 16, n_adapters: int = 3,
     }
 
 
-__all__ = ["lora_serving_probe", "probe_config"]
+def main(argv=None) -> int:
+    """``python -m k8s_dra_driver_tpu_torch.serving_lora.probe``: the probe's
+    JSON line, on the card unless ``--device cpu``."""
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--wave", type=int, default=16)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    ns = ap.parse_args(argv)
+    print(json.dumps(lora_serving_probe(wave=ns.wave,
+                                        repeats=ns.repeats,
+                                        device=ns.device)))
+    return 0
+
+
+__all__ = ["lora_serving_probe", "main", "probe_config"]
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

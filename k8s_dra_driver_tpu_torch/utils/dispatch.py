@@ -14,6 +14,13 @@ models/quant.py).
 Blocking device->host readbacks (``.cpu()``/``int()`` on device
 values) are recorded separately via :func:`record_readback`.
 
+With :func:`enable_annotations` on, every counted call also runs inside
+a ``torch.profiler`` range named by its label
+(utils/profiling.py :func:`~.profiling.annotate`), and
+:func:`annotated` names a multi-launch host phase the same way, so a
+trace taken with ``profiling.trace`` shows which launch site enqueued
+each kernel.  Off by default: a range costs a profiler call a launch.
+
 Scoping: the counter is process-global.  Measurements use
 :func:`track`, which snapshots deltas, so interleaved engines in one
 process must not run concurrently during a tracked region.
@@ -54,6 +61,28 @@ class DispatchCounter:
 
 #: the process-global counter every wrapped launch site feeds
 COUNTER = DispatchCounter()
+
+#: when True, every counted launch site also wraps its call in a
+#: ``torch.profiler`` range named by its dispatch label, so a trace
+#: shows which launch site enqueued each kernel.  Off by default: the
+#: tests and the hot paths must not pay a profiler call a launch.
+ANNOTATE = False
+
+
+def enable_annotations(on: bool = True) -> None:
+    """Flip the launch-site ranges on (or off)."""
+    global ANNOTATE
+    ANNOTATE = on
+
+
+def annotated(label: str):
+    """Context for a multi-launch host phase (a chunked prefill, an
+    export): a ``torch.profiler`` range when annotations are on, a
+    ``nullcontext`` (no profiler call) when off."""
+    if not ANNOTATE:
+        return contextlib.nullcontext()
+    from . import profiling
+    return profiling.annotate(label)
 
 
 class Tracked:
@@ -119,6 +148,10 @@ class _Counted:
 
     def __call__(self, *args, **kwargs):
         COUNTER.record(self._label)
+        if ANNOTATE:
+            from . import profiling
+            with profiling.annotate(self._label):
+                return self._fn(*args, **kwargs)
         return self._fn(*args, **kwargs)
 
     def __getattr__(self, name):

@@ -9,6 +9,9 @@ and table keys, a table saved by either package read the same by the
 other; then the K7 picker: with the checked-in H100 table (no entries)
 every plan is ``int8_plan``'s, a table entry sets ``k_chunk`` and
 ``ring``, and an entry the kernel cannot take raises naming its key.
+Then K1's and K2's pickers (``pick_fwd_params``, ``pick_blocks``,
+``pick_decode_params``): each returns the plan its kernel's launch uses,
+at every head dim the kernels take.
 """
 
 import json
@@ -361,3 +364,101 @@ def test_explicit_plan_is_checked_before_any_launch(monkeypatch, k_chunk,
         reset_autotuner()
     assert "int8_bmm explicit plan" in str(err.value)
     assert not called
+
+
+# -- K1's and K2's pickers ---------------------------------------------------
+
+from k8s_dra_driver_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from k8s_dra_driver_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype,route,block_k", [
+    (torch.bfloat16, "tensor_cores", 128),
+    (torch.float32, "cuda_cores", 64)])
+def test_pick_fwd_params_is_k1s_launch_plan(scratch_table, d, dtype, route,
+                                            block_k):
+    """With no table entry (the checked-in table has none) K1's pick is
+    the route's one plan, the route ``fwd_route`` gives, from the
+    default source; ``pick_blocks`` is its bf16 tiles."""
+    plan = tfa.pick_fwd_params(96, 96, d, 2, None, dtype)
+    assert plan == {"route": route, "block_q": 64, "block_k": block_k}
+    assert plan["route"] == tfa.fwd_route(dtype, d)
+    assert tfa.pick_blocks(96, 96, d) == (64, tfa.FWD_BLOCK_K)
+    assert get_autotuner().picks["default"] >= 1
+    assert get_autotuner().picks["measured"] == 0
+
+
+def test_pick_fwd_params_refuses_what_k1_refuses(scratch_table):
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.pick_fwd_params(96, 96, 24)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.pick_fwd_params(96, 96, 16, dtype=torch.float16)
+
+
+def test_k1_table_entry_must_name_the_routes_plan(scratch_table):
+    key = shape_key(tq=40, tk=40, d=16, g=2, w=0)
+    plan = {"route": "tensor_cores", "block_q": 64, "block_k": 128}
+    _entry(scratch_table, "flash_fwd", key, torch.bfloat16, plan)
+    assert tfa.pick_fwd_params(40, 40, 16, 2) == plan
+    assert get_autotuner().picks["measured"] == 1
+    _entry(scratch_table, "flash_fwd", key, torch.bfloat16,
+           dict(plan, block_k=64))
+    reset_autotuner()
+    with pytest.raises(ValueError, match="one plan") as err:
+        tfa.pick_fwd_params(40, 40, 16, 2)
+    assert table_key("flash_fwd", key, torch.bfloat16, "cpu") in str(
+        err.value)
+
+
+def test_pick_fwd_params_is_cached_per_shape(scratch_table):
+    tuner = get_autotuner()
+    for _ in range(3):
+        tfa.pick_fwd_params(96, 96, 8, 2, None, torch.float32)
+    tfa.pick_fwd_params(97, 97, 8, 2, None, torch.float32)
+    assert tuner.picks == {"measured": 0, "default": 2}
+    # a returned plan is the caller's to change
+    tfa.pick_fwd_params(96, 96, 8, 2, None, torch.float32)["route"] = "x"
+    assert tfa.pick_fwd_params(96, 96, 8, 2, None,
+                               torch.float32)["route"] == "cuda_cores"
+
+
+@pytest.mark.parametrize("dims", [(8, 4, 4, 64, 16, 128),
+                                  (6, 4, 2, 16, 16, 3),
+                                  (2, 2, 2, 8, 8, 6),
+                                  (1, 8, 1, 32, 16, 8),
+                                  (1, 4, 4, 8, 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pick_decode_params_default_is_paged_plan(scratch_table, dims,
+                                                  dtype):
+    assert tpa.pick_decode_params(*dims, dtype) == \
+        tpa.paged_plan(*dims, dtype)._asdict()
+
+
+def test_k2_table_entry_sets_heads_and_span(scratch_table):
+    key = shape_key(b=8, hkv=4, g=4, d=16, bs=16, nb=128)
+    _entry(scratch_table, "paged_decode", key, torch.bfloat16,
+           {"heads_per_block": 2, "pages_per_split": 40})
+    got = tpa.pick_decode_params(8, 4, 4, 16, 16, 128, torch.bfloat16)
+    assert got == {"heads_per_block": 2, "pages_per_split": 40,
+                   "splits": 4, "blocks": 8 * 4 * 2 * 4}
+    # f32 is another key: the heuristic
+    assert tpa.pick_decode_params(8, 4, 4, 16, 16, 128, torch.float32) == \
+        tpa.paged_plan(8, 4, 4, 16, 16, 128, torch.float32)._asdict()
+
+
+@pytest.mark.parametrize("params,match", [
+    ({"heads_per_block": 3, "pages_per_split": 8}, "heads_per_block 3"),
+    ({"heads_per_block": 4, "pages_per_split": 8}, "dividing the group 2"),
+    ({"heads_per_block": 1, "pages_per_split": 0}, "not in"),
+    ({"heads_per_block": 1, "pages_per_split": 9}, "not in"),
+    ({"pages_per_split": 4}, "integer heads_per_block"),
+])
+def test_k2_entry_the_kernel_cannot_take_raises_naming_its_key(
+        scratch_table, params, match):
+    key = shape_key(b=2, hkv=2, g=2, d=8, bs=8, nb=8)
+    _entry(scratch_table, "paged_decode", key, torch.float32, params)
+    with pytest.raises(ValueError, match=match) as err:
+        tpa.pick_decode_params(2, 2, 2, 8, 8, 8, torch.float32)
+    assert table_key("paged_decode", key, torch.float32, "cpu") in str(
+        err.value)

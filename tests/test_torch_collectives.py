@@ -222,8 +222,15 @@ def test_dispatch_probe_counts_equal_jax_at_its_widths():
 
 
 def test_dispatch_probe_default_widths_are_the_cards():
-    """Its default d_model is 256 (heads of 64, which K1 takes); the
-    counts do not depend on the width."""
+    """Its defaults are the JAX probe's, parameter by parameter (d_model
+    128 over 4 heads: heads of 32, which the card's kernels take), and
+    its counts at those defaults are the reference's."""
+    import inspect
+    want = inspect.signature(jcol.dispatch_probe).parameters
+    have = inspect.signature(collectives.dispatch_probe).parameters
+    assert {n: p.default for n, p in have.items() if n != "device"} == {
+        n: p.default for n, p in want.items()}
+    assert have["d_model"].default // have["heads"].default == 32
     got = collectives.dispatch_probe(device="cpu", rtt_samples=3)
     assert got["valid"] is True
     assert got["per_step_dispatches_per_token"] == 0.5

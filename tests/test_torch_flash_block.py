@@ -30,7 +30,9 @@ NEG = -1e30
 
 # (Tq, Tk, q_offset, k_offset): the full block below the diagonal, the
 # diagonal, a block wholly above it, a window that crosses the block,
-# Tq != Tk at ragged lengths; GQA throughout, MQA and D=128 once
+# Tq != Tk at ragged lengths; GQA throughout, MQA and D=128 once.  Each
+# case has a twin (``twin`` names it) at one of the small head dims the
+# kernels take (8, 16, 32: the JAX package's probe models)
 CASES = {
     "full": dict(tq=128, tk=128, q_off=128, k_off=0),
     "diagonal": dict(tq=128, tk=128, q_off=0, k_off=0),
@@ -43,6 +45,12 @@ CASES = {
     "d128_mqa_window": dict(tq=96, tk=96, q_off=96, k_off=0, window=50,
                             d=128, h_kv=1),
 }
+for _base, _d in (("full", 8), ("diagonal", 16), ("masked", 32),
+                  ("window_crossing", 32), ("ragged_tq_ne_tk", 8),
+                  ("segments", 16), ("segments_non_causal", 8),
+                  ("d128_mqa_window", 16)):
+    CASES[f"{_base.removeprefix('d128_')}_d{_d}"] = dict(
+        CASES[_base], d=_d, twin=_base)
 
 
 def case(name, seed=0, grid=False):
@@ -54,6 +62,7 @@ def case(name, seed=0, grid=False):
     score is exact in f32 whatever the summation order."""
     c = dict(dict(d=64, h_kv=2, window=None, seg=False, causal=True),
              **CASES[name])
+    c.pop("twin", None)
     rng = np.random.default_rng(seed)
     b, h, d = 2, 4, c["d"]
     tq, tk = c["tq"], c["tk"]
@@ -123,15 +132,19 @@ def test_block_entry_matches_jax_in_f32(name):
     want = jax_block(c, arrays, segs, jnp.float32)
     got = port_block(c, arrays, segs, torch.float32)
     dead = assert_stats_close(got, want, F32_TOL)
-    if name == "masked":
+    base = CASES[name].get("twin", name)
+    if base == "masked":
         assert dead.all()
-    if name in ("full", "diagonal", "ragged_tq_ne_tk"):
+    if base in ("full", "diagonal", "ragged_tq_ne_tk"):
         assert not dead.any()
 
 
 @pytest.mark.parametrize("name,block_k", [
     ("full", 128), ("diagonal", 128), ("window_crossing", 128),
-    ("segments", 128), ("ragged_tq_ne_tk", 256), ("d128_mqa_window", 128)])
+    ("segments", 128), ("ragged_tq_ne_tk", 256), ("d128_mqa_window", 128),
+    ("full_d8", 128), ("diagonal_d16", 128), ("window_crossing_d32", 128),
+    ("segments_d16", 128), ("ragged_tq_ne_tk_d8", 256),
+    ("mqa_window_d16", 128)])
 def test_block_reference_matches_jax_pallas_in_bf16(name, block_k):
     """bf16 against the interpreted Pallas kernel with the same key
     partition (``block_k``): the roundings of q and p where the TPU

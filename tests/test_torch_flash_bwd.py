@@ -28,6 +28,10 @@ from k8s_dra_driver_tpu_torch.ops import flash_attention as tfa
 jfa = importlib.import_module("k8s_dra_driver_tpu.ops.flash_attention")
 
 ATOL = RTOL = 1e-5
+#: the small head dims the kernels take beside 64 and 128 (the JAX
+#: package's probe models); the block cases below run at 16 and, where
+#: a test is parametrised over them, at each
+SMALL_DIMS = (8, 16, 32)
 
 # tq/tk, heads, block offsets (ring hops), masks
 BLOCK_CASES = {
@@ -72,10 +76,13 @@ def j_(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("name", sorted(BLOCK_CASES))
-def test_attention_block_grads_matches_jax(name):
-    c, arrays, qs, ks = block_case(name)
-    scale = 16 ** -0.5
+@pytest.mark.parametrize("name,d", [(n, 16) for n in sorted(BLOCK_CASES)]
+                         + [("causal_gqa", 8), ("window_mqa", 32),
+                            ("ring_window_valid_end", 8),
+                            ("noncausal_segments_valid_end", 32)])
+def test_attention_block_grads_matches_jax(name, d):
+    c, arrays, qs, ks = block_case(name, d=d)
+    scale = d ** -0.5
     kw = dict(k_valid_end=c["k_end"], window=c["window"])
     want = jfa.attention_block_grads(
         *map(j_, arrays), c["q_off"], c["k_off"], c["causal"], scale,
@@ -106,12 +113,13 @@ def test_attention_block_grads_matches_jax(name):
     assert (tfa.dq_launches, tfa.dkv_launches) == before
 
 
-@pytest.mark.parametrize("name", ["causal_gqa", "window_mqa",
-                                  "segments_gqa", "ring_later_q"])
-def test_block_grads_match_jax_pallas_interpret(name):
+@pytest.mark.parametrize("name,d", [
+    ("causal_gqa", 16), ("window_mqa", 16), ("segments_gqa", 16),
+    ("ring_later_q", 16), ("causal_gqa", 8), ("ring_later_q", 32)])
+def test_block_grads_match_jax_pallas_interpret(name, d):
     """The Pallas K3/K4 themselves (interpret mode) against the port's
     plain version, on blocks they take (no valid-key end)."""
-    c, arrays, qs, ks = block_case(name, seed=1)
+    c, arrays, qs, ks = block_case(name, seed=1, d=d)
     want = jfa.flash_block_grads(
         *map(j_, arrays), c["q_off"], c["k_off"], causal=c["causal"],
         window=c["window"], interpret=True, q_segments=j_(qs),
@@ -241,13 +249,14 @@ def test_backward_wrappers_refuse_devices_other_than_cuda_and_cpu():
 
 
 @pytest.mark.parametrize("d,dtype,match", [
-    (16, torch.float32, "head dims"),
+    (24, torch.float32, "head dims"),
     (64, torch.float16, "float32 or bfloat16"),
 ])
 def test_kernel_arguments_refuse_what_the_kernels_do_not_take(d, dtype,
                                                               match):
     """The checks the card path runs before a launch: head dims other
-    than 64/128 and dtypes other than f32/bf16 raise, no fallback."""
+    than 8/16/32/64/128 and dtypes other than f32/bf16 raise, no
+    fallback."""
     q = torch.zeros((1, 8, 2, d), dtype=dtype)
     k = torch.zeros((1, 8, 1, d), dtype=dtype)
     stats = torch.zeros((1, 2, 8))
@@ -269,8 +278,8 @@ BF16_TOL = 1e-3
 BF16_ORACLE_TOL = 1e-2
 
 
-def bf16_block(name, seed=1):
-    c, arrays, qs, ks = block_case(name, seed=seed, d=64)
+def bf16_block(name, seed=1, d=64):
+    c, arrays, qs, ks = block_case(name, seed=seed, d=d)
     return c, list(arrays[:4]), list(arrays[4:]), qs, ks
 
 
@@ -279,17 +288,19 @@ def relative_error(got, want) -> float:
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
 
 
-@pytest.mark.parametrize("name", ["causal_gqa", "window_mqa",
-                                  "segments_gqa", "ring_later_q"])
-def test_rounding_reference_matches_jax_pallas_in_bf16(name):
+@pytest.mark.parametrize("name,d", [
+    ("causal_gqa", 64), ("window_mqa", 64), ("segments_gqa", 64),
+    ("ring_later_q", 64), ("causal_gqa", 8), ("window_mqa", 16),
+    ("segments_gqa", 32), ("ring_later_q", 8)])
+def test_rounding_reference_matches_jax_pallas_in_bf16(name, d):
     """The plain version the tensor-core K3/K4 are held against, on
     bf16 inputs, against the Pallas kernels (interpret mode) on the same
     inputs; the f32 oracle stays within the card's oracle gate of
-    both."""
-    c, operands, (delta, lse), qs, ks = bf16_block(name)
+    both.  At D = 64 and at each small head dim."""
+    c, operands, (delta, lse), qs, ks = bf16_block(name, d=d)
     j_ops = [jnp.asarray(a).astype(jnp.bfloat16) for a in operands]
     t_ops = [t_(a).to(torch.bfloat16) for a in operands]
-    scale = 64 ** -0.5
+    scale = d ** -0.5
     want = jfa.flash_block_grads(
         *j_ops, j_(delta), j_(lse), c["q_off"], c["k_off"],
         causal=c["causal"], window=c["window"], interpret=True,
@@ -305,12 +316,13 @@ def test_rounding_reference_matches_jax_pallas_in_bf16(name):
         assert relative_error(o.numpy(), w) <= BF16_ORACLE_TOL
 
 
+@pytest.mark.parametrize("d", SMALL_DIMS)
 @pytest.mark.parametrize("name", sorted(BLOCK_CASES))
-def test_rounding_reference_equals_oracle_in_f32(name):
+def test_rounding_reference_equals_oracle_in_f32(name, d):
     """In f32 the rounding does nothing: bit for bit the oracle."""
-    c, arrays, qs, ks = block_case(name)
+    c, arrays, qs, ks = block_case(name, d=d)
     args = (*map(t_, arrays), c["q_off"], c["k_off"], c["causal"],
-            16 ** -0.5)
+            d ** -0.5)
     kw = dict(k_valid_end=c["k_end"], window=c["window"],
               q_segments=t_(qs), k_segments=t_(ks))
     got = tfa.flash_block_grads_reference(*args, **kw)
@@ -350,7 +362,8 @@ def test_cpu_wrappers_take_the_rounding_reference(dtype):
     (torch.bfloat16, 128, "tensor_cores"),
     (torch.float32, 64, "cuda_cores"),
     (torch.float32, 128, "cuda_cores"),
-])
+] + [(torch.bfloat16, d, "tensor_cores") for d in SMALL_DIMS]
+  + [(torch.float32, d, "cuda_cores") for d in SMALL_DIMS])
 def test_route_picker_sends_each_dtype_to_its_kernels(dtype, d, route):
     assert tfa.bwd_route(dtype, d) == route
 
@@ -358,7 +371,7 @@ def test_route_picker_sends_each_dtype_to_its_kernels(dtype, d, route):
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float16, 64, "float32 or bfloat16"),
     (torch.float64, 128, "float32 or bfloat16"),
-    (torch.bfloat16, 32, "head dims"),
+    (torch.bfloat16, 24, "head dims"),
     (torch.bfloat16, 256, "head dims"),
     (torch.float32, 96, "head dims"),
 ])

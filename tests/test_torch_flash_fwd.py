@@ -33,7 +33,10 @@ BF16_TOL = 2e-4
 F32_TOL = 1e-6
 
 # T <= block_k (one key block) and T > block_k (several, the last one
-# ragged); GQA throughout, segments, a window at T <= block_k
+# ragged); GQA throughout, segments, a window at T <= block_k.  Each
+# D = 64/128 case has a twin at one of the small head dims the kernels
+# take (8, 16, 32: the JAX package's probe models), each small D three
+# of the shapes
 CASES = {
     "d64_one_block": dict(d=64, t=96, block_k=128),
     "d128_one_block": dict(d=128, t=96, block_k=128),
@@ -45,11 +48,26 @@ CASES = {
     "d64_window": dict(d=64, t=128, block_k=128, window=32),
     "d128_window_segments": dict(d=128, t=80, block_k=128, window=17,
                                  seg=True),
+    "d8_one_block": dict(d=8, t=96, block_k=128),
+    "d32_one_block": dict(d=32, t=96, block_k=128),
+    "d16_three_blocks": dict(d=16, t=320, block_k=128),
+    "d32_two_blocks_bk256": dict(d=32, t=384, block_k=256),
+    "d8_mqa_two_blocks": dict(d=8, t=256, block_k=128, h_kv=1),
+    "d16_segments": dict(d=16, t=256, block_k=128, seg=True),
+    "d32_segments_one_block": dict(d=32, t=112, block_k=128, seg=True),
+    "d8_window": dict(d=8, t=128, block_k=128, window=32),
+    "d16_window_segments": dict(d=16, t=80, block_k=128, window=17,
+                                seg=True),
 }
+#: the small head dims, beside the cases' own 64 and 128
+SMALL_DIMS = (8, 16, 32)
 
 
-def case(name, seed=0, b=1, h=4):
+def case(name, seed=0, b=1, h=4, d=None):
+    """One case's inputs from numpy; ``d`` replaces its head dim."""
     c = dict(dict(h_kv=2, window=None, seg=False), **CASES[name])
+    if d is not None:
+        c["d"] = d
     rng = np.random.default_rng(seed)
     t, d = c["t"], c["d"]
     q = rng.standard_normal((b, t, h, d), np.float32)
@@ -105,13 +123,15 @@ def test_rounding_reference_matches_jax_pallas_in_bf16(name):
     assert torch.equal(bf16_lse, lse)
 
 
+@pytest.mark.parametrize("d", (None,) + SMALL_DIMS)
 @pytest.mark.parametrize("block_k", [16, 128, 1000])
 @pytest.mark.parametrize("name", ["d64_three_blocks", "d64_segments",
                                   "d128_window_segments"])
-def test_rounding_reference_is_the_oracle_in_f32(name, block_k):
+def test_rounding_reference_is_the_oracle_in_f32(name, block_k, d):
     """f32: every rounding is a no-op, so whatever the key partition the
-    plain version is the f32 oracle to a few units in the last place."""
-    c, arrays, seg = case(name, seed=1)
+    plain version is the f32 oracle to a few units in the last place
+    (at the case's head dim and at each small one)."""
+    c, arrays, seg = case(name, seed=1, d=d)
     tq, tk, tv = (t_(a) for a in arrays)
     kw = dict(causal=True, window=c["window"], segment_ids=t_(seg,
                                                               torch.int32))
@@ -135,11 +155,12 @@ def test_key_partition_moves_the_bf16_rounding():
     assert relative_error(outs[0].numpy(), outs[1].numpy()) < 1e-2
 
 
+@pytest.mark.parametrize("d", (64,) + SMALL_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cpu_flash_forward_takes_the_rounding_reference(dtype):
+def test_cpu_flash_forward_takes_the_rounding_reference(dtype, d):
     """On CPU tensors flash_forward and flash_attention return the plain
     version's result with the kernel's key tile and launch nothing."""
-    c, arrays, seg = case("d64_segments", seed=3)
+    c, arrays, seg = case("d64_segments", seed=3, d=d)
     tq, tk, tv = (t_(a, dtype) for a in arrays)
     kw = dict(window=None, segment_ids=t_(seg, torch.int32))
     want, want_lse = tfa.flash_forward_reference(tq, tk, tv, **kw)
@@ -161,15 +182,17 @@ def test_cpu_flash_forward_takes_the_rounding_reference(dtype):
     (torch.bfloat16, 128, "tensor_cores"),
     (torch.float32, 64, "cuda_cores"),
     (torch.float32, 128, "cuda_cores"),
-])
+] + [(torch.bfloat16, d, "tensor_cores") for d in SMALL_DIMS]
+  + [(torch.float32, d, "cuda_cores") for d in SMALL_DIMS])
 def test_route_picker_sends_each_dtype_to_its_kernel(dtype, d, route):
     assert tfa.fwd_route(dtype, d) == route
+    assert tfa._KERNEL_HEAD_DIMS == (8, 16, 32, 64, 128)
 
 
 @pytest.mark.parametrize("dtype,d,match", [
     (torch.float16, 64, "float32 or bfloat16"),
     (torch.float64, 128, "float32 or bfloat16"),
-    (torch.bfloat16, 32, "head dims"),
+    (torch.bfloat16, 24, "head dims"),
     (torch.bfloat16, 256, "head dims"),
     (torch.float32, 96, "head dims"),
 ])
@@ -180,7 +203,7 @@ def test_route_picker_refuses_what_no_route_takes(dtype, d, match):
 
 @pytest.mark.parametrize("dtype,d,out_dtype,match", [
     (torch.float16, 64, None, "float32 or bfloat16"),
-    (torch.bfloat16, 16, None, "head dims"),
+    (torch.bfloat16, 96, None, "head dims"),
     (torch.float32, 64, torch.bfloat16, "writes q's dtype, not"),
     (torch.bfloat16, 64, torch.float16, "or float32, not"),
 ])

@@ -135,6 +135,82 @@ def test_every_jax_module_has_a_port_but_the_shims():
                        "utils/jax_compat.py"]
 
 
+#: the JAX package's public names that need no port, by module (the
+#: three JAX shims have no module at all, above), each with its reason
+JAX_ONLY_NAMES = {
+    "allocator/native.py": {
+        "NATIVE_DIR": "the JAX package's shim build directory; the port "
+                      "builds its shims into build/native/ (ROADMAP "
+                      "Queue C item 35)"},
+    "discovery/native.py": {
+        "NATIVE_DIR": "as allocator/native.py's"},
+    "models/decode.py": {
+        "KVCache.tree_flatten": "JAX pytree registration",
+        "KVCache.tree_unflatten": "JAX pytree registration"},
+    "models/quant.py": {
+        "QTensor.tree_flatten": "JAX pytree registration",
+        "QTensor.tree_unflatten": "JAX pytree registration"},
+    "ops/ring_attention.py": {
+        "sharded_attention_call": "a shard_map call; the port runs one "
+                                  "process a mesh position"},
+    "parallel/mesh.py": {
+        "batch_sharding": "a JAX NamedSharding",
+        "replicated": "a JAX NamedSharding",
+        "mesh_platform": "the platform of JAX devices"},
+}
+
+
+def public_names(path: Path) -> set[str]:
+    """A module's public top-level names (functions, classes, assigned
+    names) and its public classes' public methods as ``Class.method``."""
+    out = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out |= {f"{node.name}.{sub.name}" for sub in node.body
+                        if isinstance(sub, (ast.FunctionDef,
+                                            ast.AsyncFunctionDef))}
+        elif isinstance(node, ast.Assign):
+            out |= {n.id for t in node.targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        elif (isinstance(node, ast.AnnAssign)
+              and isinstance(node.target, ast.Name)):
+            out.add(node.target.id)
+    return {n for n in out
+            if not any(part.startswith("_") for part in n.split("."))}
+
+
+def test_every_public_jax_name_has_a_port():
+    """Name by name: every public top-level name and public method of a
+    JAX module is in the port's module of the same path, but the
+    JAX-only names of JAX_ONLY_NAMES, which are all still in the JAX
+    package and all still missing from the port."""
+    jax_pkg = ROOT / "k8s_dra_driver_tpu"
+    missing = {}
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg).as_posix()
+        if not (PORT / rel).is_file():
+            continue                  # the shims: the test above
+        gone = public_names(path) - public_names(PORT / rel)
+        if gone:
+            missing[rel] = gone
+    assert missing == {mod: set(names)
+                       for mod, names in JAX_ONLY_NAMES.items()}
+    assert all(reason for names in JAX_ONLY_NAMES.values()
+               for reason in names.values())
+
+
+def test_public_names_sees_methods_and_assignments(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("A = 1\n_b = 2\nc: int = 3\nx, (y, _z) = 1, (2, 3)\n"
+                   "def f(): pass\nclass K:\n    def m(self): pass\n"
+                   "    def _p(self): pass\nclass _H:\n    def q(self): "
+                   "pass\n")
+    assert public_names(src) == {"A", "c", "x", "y", "f", "K", "K.m"}
+
+
 @pytest.mark.parametrize("module", [
     "k8s_dra_driver_tpu_torch.cmd.controller",
     "k8s_dra_driver_tpu_torch.cmd.coordinatord",

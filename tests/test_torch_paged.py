@@ -33,13 +33,16 @@ jpa = importlib.import_module("k8s_dra_driver_tpu.ops.paged_attention")
 ATOL = 1e-5
 SMS = 132
 DTYPES = (torch.bfloat16, torch.float32)
+#: the small head dims the kernel takes beside 64 and 128 (the JAX
+#: package's probe models)
+SMALL_DIMS = (8, 16, 32)
 
 
 def min_span_pages(d, bs, dtype):
-    """The shortest span the planner gives: one chunk (2 KB of K) for
-    each of the block's 4 warps."""
+    """The shortest span the planner gives: one chunk (2 KB of K, at
+    most 32 tokens: one a lane) for each of the block's 4 warps."""
     es = torch.tensor([], dtype=dtype).element_size()
-    return -(-4 * (2048 // (d * es)) // bs)
+    return -(-4 * min(2048 // (d * es), 32) // bs)
 
 
 PLAN_SHAPES = [
@@ -54,6 +57,11 @@ PLAN_SHAPES = [
     (33, 4, 4, 64, 16, 128),      # 132 (row, head) blocks: one split
     (64, 8, 2, 128, 16, 64),
     (1, 1, 3, 64, 16, 1),         # one page
+    (6, 4, 2, 16, 16, 3),         # the paged-KV probe's step (D=16)
+    (2, 2, 2, 8, 8, 6),           # the crucible's paged replica (D=8)
+    (1, 4, 2, 8, 16, 128),
+    (8, 8, 1, 32, 16, 8),         # the tier probe's engine (D=32)
+    (1, 1, 1, 16, 4, 33),
 ]
 
 
@@ -88,7 +96,8 @@ def test_plan_keeps_one_split_when_rows_fill_the_card(b, h_kv):
 
 @pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
                                      (128, torch.bfloat16),
-                                     (64, torch.float32)])
+                                     (64, torch.float32)]
+                         + [(d, dt) for d in SMALL_DIMS for dt in DTYPES])
 def test_plan_splits_a_long_single_row(d, dtype):
     plan = tpa.paged_plan(1, 4, 4, d, 16, 2048 // 16, dtype)
     assert plan.splits >= 8
@@ -137,12 +146,13 @@ SPLIT_CASES = {
 }
 
 
+@pytest.mark.parametrize("d", SMALL_DIMS)
 @pytest.mark.parametrize("h,h_kv", [(8, 2), (4, 4), (6, 3)],
                          ids=["gqa4", "mha", "gqa2"])
 @pytest.mark.parametrize("name", sorted(SPLIT_CASES))
-def test_split_and_merge_matches_jax(name, h, h_kv):
+def test_split_and_merge_matches_jax(name, h, h_kv, d):
     pages, lengths = SPLIT_CASES[name]
-    b, d, bs, n_pages = 4, 16, 4, 8
+    b, bs, n_pages = 4, 4, 8
     plan = plan_of(pages, b, h, h_kv, n_pages)
     case = paged_case(len(name) * 13 + h, b, h, h_kv, d, bs, n_pages,
                       lengths)
@@ -156,11 +166,13 @@ def test_split_and_merge_matches_jax(name, h, h_kv):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("d", (64,) + SMALL_DIMS)
 @pytest.mark.parametrize("pages", [1, 2, 5, 15])
-def test_split_and_merge_on_the_planners_spans(pages):
+def test_split_and_merge_on_the_planners_spans(pages, d):
     """The planner's own plan and hand-made ones at the serving step's
-    widths (16 heads, 4 KV heads, D=64, bs=16), lengths 1 to 120."""
-    b, h, h_kv, d, bs, n_pages = 4, 16, 4, 64, 16, 16
+    widths (16 heads, 4 KV heads, D=64 and the small dims, bs=16),
+    lengths 1 to 120."""
+    b, h, h_kv, bs, n_pages = 4, 16, 4, 16, 16
     case = paged_case(pages, b, h, h_kv, d, bs, n_pages, [1, 16, 80, 120])
     tensors = [torch.from_numpy(a) for a in case]
     ref = tpa.paged_attention_reference(*tensors)
@@ -171,10 +183,11 @@ def test_split_and_merge_on_the_planners_spans(pages):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL)
 
 
-def test_split_and_merge_rounds_bf16_once():
+@pytest.mark.parametrize("d", (64,) + SMALL_DIMS)
+def test_split_and_merge_rounds_bf16_once(d):
     """bf16 q and pools: f32 partials, one rounding of the output; the
     reference rounds once too, so the two stay within one bf16 step."""
-    b, h, h_kv, d, bs, n_pages = 2, 8, 2, 64, 16, 8
+    b, h, h_kv, bs, n_pages = 2, 8, 2, 16, 8
     case = paged_case(5, b, h, h_kv, d, bs, n_pages, [17, 128])
     tensors = [torch.from_numpy(a).to(torch.bfloat16) if a.dtype ==
                np.float32 else torch.from_numpy(a) for a in case]
@@ -269,8 +282,9 @@ def test_paged_signature_matches_the_c_entry():
     assert kinds == _build._SIGNATURES["paged_decode"]
 
 
-def test_cpu_calls_take_the_reference_and_never_launch():
-    case = paged_case(3, 2, 8, 2, 64, 16, 4, [5, 64])
+@pytest.mark.parametrize("d", (64,) + SMALL_DIMS)
+def test_cpu_calls_take_the_reference_and_never_launch(d):
+    case = paged_case(3, 2, 8, 2, d, 16, 4, [5, 64])
     tensors = [torch.from_numpy(a) for a in case]
     before = tpa.launches
     got = tpa.paged_attention(*tensors)
