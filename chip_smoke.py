@@ -96,8 +96,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    leased replica's K1 and K2 join the kernels line; the phase wall,
    the batch counts and window shares, the OOM, the overlap and the
    replica's tokens/s are printed with the card and its power limit;
+2e. the H100 demo specs on the live card (``phase_demo``): the port's
+   plugin on a thread as in 2c over a fake cluster, this script playing
+   the claim controller, the scheduler (the port's allocator), the
+   kubelet (gRPC prepare, CDI applied; coordinator Deployments run as
+   in 2d) and the container runtime: each ``demo/specs/h100/`` spec is
+   applied (its claims created), each pod's claim scheduled and
+   prepared, every CDI device node checked present, and each container
+   run as a child process under this process's environment without
+   ``CUDA_VISIBLE_DEVICES``, with the claim's CDI env (container paths
+   of its mounts mapped to host paths); each container's first line
+   names the claim's card and torch.cuda shows that one card.
+   tpu-test1: pod2's claim refused while pod1 holds the one card, then
+   given the same card; tpu-test2/3 and the coordinated specs: the
+   containers sharing a claim run at once on one UUID; the enforced
+   pods run under ``python -m k8s_dra_driver_tpu_torch.coordclient.gate
+   exec``, the coordinator's schedule lists both, each counts ticks;
+   tpu-test5 (two cards) refused on one card; tpu-test6 allocated by its
+   CEL selector; the serve pod's ``decode_probe`` and ``serving_probe``
+   valid on the card at the widths ``DEMO_SERVE_K1`` names (phase 3
+   holds K1 at each of the pod's prefill shapes), their K1 launches
+   (tensor-core route) joining the kernels line.  Every container's
+   output, each claim-created ->
+   first-line latency and their p50 (host clock, a reading) and the serve
+   pod's tokens/s are printed with the card and its power limit;
 3. K1 (flash-attention forward) against its plain PyTorch version at
-   the serving path's shapes and the training shape, with timings and
+   the serving path's shapes (the demo serve pod's among them) and the
+   training shape, with timings and
    the card's bound: bf16 on the tensor-core route, its output before
    the final rounding held to ``flash_forward_reference`` (which rounds
    q and p where the TPU kernel does, per key tile of the kernel) and
@@ -420,6 +445,19 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+if __name__ == "__main__":
+    # An interpreter whose site-packages hold no bytecode and whose
+    # environment sets PYTHONDONTWRITEBYTECODE compiles torch from source
+    # at every import (7-10 s on the H100 machine; about 6 s from
+    # bytecode, PERF.md section 6).  This process writes the bytecode of
+    # what it imports under build/pycache, and every child it starts
+    # (pods, workers, pumps, daemons) reads it from there.
+    PYCACHE = str(Path(__file__).resolve().parent / "build" / "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.pycache_prefix = PYCACHE
+    sys.dont_write_bytecode = False
 
 import numpy as np
 import torch
@@ -1512,13 +1550,15 @@ def coord_replica_worker(spec: str, out: str) -> None:
 
 
 def coordination_env(view: dict) -> dict:
-    """A child's environment under a claim: this process's, with the
-    claim's env applied, every value that names a container path of the
-    claim's mounts rewritten to its host path (a host process cannot
-    bind-mount), and the checkout on ``PYTHONPATH``."""
+    """A child's environment under a claim: this process's without
+    ``CUDA_VISIBLE_DEVICES``, with the claim's env applied, every value
+    that names a container path of the claim's mounts rewritten to its
+    host path (a host process cannot bind-mount), and the checkout on
+    ``PYTHONPATH``."""
     from k8s_dra_driver_tpu_torch.gateway import resolve_container_path
     root = Path(__file__).resolve().parent
-    env = dict(os.environ)
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUDA_VISIBLE_DEVICES"}
     env.update({k: resolve_container_path(v, view["mounts"])
                 for k, v in view["env"].items()})
     env["PYTHONPATH"] = os.pathsep.join(
@@ -2157,6 +2197,423 @@ def phase_coordination() -> dict:
     return out
 
 
+DEMO_NODE = "h100-demo"
+#: the H100 demo specs the phase applies (every file of demo/specs/h100)
+DEMO_SPECS = ("tpu-test1", "tpu-test2", "tpu-test3", "tpu-test5",
+              "tpu-test6", "tpu-test-coordinator", "tpu-test-enforced",
+              "tpu-test-serve")
+#: the longest a pod's containers may run (the serve pod's two probes
+#: and the gated pods' import under a 50% window are the longest)
+DEMO_CHILD_S = 300.0
+#: the serve pod's K1 calls (tpu-test-serve.yaml: 8 heads of 64 over 2
+#: KV heads, bf16, causal): decode_probe's prefill of its batch of 4 at
+#: its default prompt of 128, and serving_probe's fills, each prompt
+#: length's group padded to the 4 slots (48 and its 1/2, 3/4 and 1/4).
+#: phase_flash holds K1 at each; phase_demo holds the pod's reported
+#: widths to these
+DEMO_SERVE_K1 = dict(b=4, ts=(128, 48, 36, 24, 12), h=8, h_kv=2, d=64)
+
+
+class DemoPod:
+    """One container of a demo pod, run as this host's child process:
+    its command and args with ``python`` this interpreter, its
+    environment the given one; its standard output's lines read on a
+    thread (the first line's arrival and the end stamped on this
+    process's clock), its standard error on another."""
+
+    def __init__(self, key: str, argv: list[str], env: dict, cwd: Path):
+        self.key = key
+        self.lines: list[str] = []
+        self.errors: list[str] = []
+        self.first_at = self.end_at = None
+        self.start_at = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable if a == "python" else a for a in argv],
+            cwd=cwd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, bufsize=1)
+        self._readers = [threading.Thread(target=self._read, daemon=True),
+                         threading.Thread(target=self._read_errors,
+                                          daemon=True)]
+        for t in self._readers:
+            t.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if self.first_at is None:
+                self.first_at = time.perf_counter()
+            self.lines.append(line.rstrip("\n"))
+        self.end_at = time.perf_counter()
+
+    def _read_errors(self) -> None:
+        for line in self.proc.stderr:
+            self.errors.append(line.rstrip("\n"))
+
+    def wait(self, label: str) -> str:
+        try:
+            rc = self.proc.wait(DEMO_CHILD_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            fail(f"demo {label}: {self.key} ran past {DEMO_CHILD_S} s")
+        for t in self._readers:
+            t.join(timeout=30)
+        if rc:
+            fail(f"demo {label}: {self.key} exited {rc}: "
+                 + "\n".join(self.lines + self.errors)[-4000:])
+        return "\n".join(self.lines)
+
+    def line(self, prefix: str) -> str:
+        hits = [ln for ln in self.lines if ln.startswith(prefix)]
+        if len(hits) != 1:
+            fail(f"demo: {self.key} printed {len(hits)} lines starting "
+                 f"{prefix!r}: {self.lines}")
+        return hits[0]
+
+
+def phase_demo() -> dict:
+    """The H100 demo specs on the live card (see the module docstring,
+    2e).  Returns the serve pod's K1 launches, its tokens/s and the
+    claim-created to first-line latencies."""
+    import logging
+
+    import grpc
+
+    from k8s_dra_driver_tpu_torch.allocator import (AllocationError,
+                                                    allocate_claim)
+    from k8s_dra_driver_tpu_torch.api import resource
+    from k8s_dra_driver_tpu_torch.api.classes import standard_device_classes
+    from k8s_dra_driver_tpu_torch.cluster import FakeCluster, Node, specs
+    from k8s_dra_driver_tpu_torch.cmd import plugin as plugin_cmd
+    from k8s_dra_driver_tpu_torch.proto import DRAPluginStub, dra_pb2
+    t0 = time.perf_counter()
+    card = card_line()
+    root = Path(__file__).resolve().parent
+    specs_dir = root / "demo" / "specs" / "h100"
+    tmp = Path(tempfile.mkdtemp(prefix="cdm-", dir="/tmp"))
+    saved_log = (logging.getLogger().handlers[:],
+                 logging.getLogger().level)
+    cdi_root = tmp / "cdi"
+    argv = ["--node-name", DEMO_NODE, "--plugin-root", str(tmp / "plugin"),
+            "--registrar-root", str(tmp / "reg"), "--cdi-root",
+            str(cdi_root), "--fake-cluster", "--discovery", "auto",
+            "--health-interval", "0", "--coordinator-image",
+            "tpu-dra-driver-torch:smoke", "-v", "0"]
+    cuda = {}
+    for i in range(torch.cuda.device_count()):
+        props = torch.cuda.get_device_properties(i)
+        cuda["GPU-" + str(props.uuid)] = props.name
+    out = {"launches": {"flash_fwd": 0, "flash_fwd_tc": 0},
+           "latency_ms": {}}
+    children: list[DemoPod] = []
+
+    def line(spec: str, text: str) -> None:
+        print(f"demo {spec} [{card}, {time.perf_counter() - t0:.2f} s "
+              f"into the phase]: {text}", flush=True)
+
+    on_disk = sorted(p.stem for p in specs_dir.glob("*.yaml"))
+    if on_disk != sorted(DEMO_SPECS):
+        fail(f"demo: {specs_dir} holds {on_disk}; the phase runs "
+             f"{sorted(DEMO_SPECS)}")
+    cluster = FakeCluster()
+    cluster.create(Node(metadata=resource.ObjectMeta(name=DEMO_NODE)))
+    for cls in standard_device_classes().values():
+        cluster.create(cls)
+    (tmp / "logs").mkdir()
+    pods = CoordinatorPods(cluster, tmp / "logs")
+    plugin = None
+    try:
+        plugin = plugin_thread(plugin_cmd, argv, cluster)
+        (rslice,) = cluster.list("ResourceSlice")
+        uuid_of = {d.name: d.attributes["uuid"] for d in rslice.devices
+                   if d.attributes.get("type") == "chip"}
+        if set(uuid_of.values()) != set(cuda):
+            fail(f"demo: published cards {uuid_of}, torch.cuda {cuda}")
+        stub = DRAPluginStub(grpc.insecure_channel(
+            f"unix://{tmp / 'plugin' / 'plugin.sock'}"))
+
+        def grpc_call(verb, claim):
+            req_cls = (dra_pb2.NodePrepareResourcesRequest if verb ==
+                       "prepare" else dra_pb2.NodeUnprepareResourcesRequest)
+            fn = (stub.NodePrepareResources if verb == "prepare"
+                  else stub.NodeUnprepareResources)
+            resp = fn(req_cls(claims=[dra_pb2.Claim(
+                uid=claim.metadata.uid, namespace=claim.metadata.namespace,
+                name=claim.metadata.name)]), timeout=60)
+            res = resp.claims[claim.metadata.uid]
+            if res.error:
+                fail(f"demo: {verb} of {claim.metadata.name}: {res.error}; "
+                     f"coordinator pods {pods.errors}")
+            return res
+
+        class Applied:
+            """A spec applied (``cluster/specs.py``): its claims created
+            as the claim controller would (a template's claim for each
+            pod that names it), each stamped with its creation on this
+            clock."""
+
+            def __init__(self, name: str):
+                self.name = name
+                self.created: dict[str, float] = {}
+                spec = specs.SpecClaims(
+                    specs.load(specs_dir / f"{name}.yaml"), self._create)
+                self.pods = spec.pods
+                #: the spec's own ResourceClaims by name
+                self.claims = spec.shared
+                self.of_pod = {}
+                for pod in self.pods:
+                    (claim,) = spec.claims_for(pod)
+                    self.of_pod[pod["metadata"]["name"]] = claim
+
+            def _create(self, claim):
+                c = cluster.create(claim)
+                self.created[c.metadata.name] = time.perf_counter()
+                return c
+
+            def schedule(self, claim) -> str:
+                """The port's allocator as the scheduler: the card's
+                device name."""
+                if claim.status.allocation is None:
+                    allocate_claim(cluster, claim)
+                (pick,) = {r.device for r in
+                           claim.status.allocation.results}
+                return pick
+
+            def prepare(self, claim) -> dict:
+                """gRPC prepare, the CDI edits applied; every device node
+                must exist before a container starts."""
+                res = grpc_call("prepare", claim)
+                view = cdi_apply(cdi_root, [i for d in res.devices
+                                            for i in d.cdi_device_ids])
+                missing = [p for p in view["device_nodes"]
+                           if not os.path.exists(p)]
+                if missing:
+                    fail(f"demo {self.name}: CDI device nodes {missing} "
+                         f"missing on the host")
+                return view
+
+            def start(self, pod: dict, view: dict) -> list[DemoPod]:
+                env = coordination_env(view)
+                started = []
+                for ctr in pod["spec"]["containers"]:
+                    key = (ctr["name"] if len(pod["spec"]["containers"]) > 1
+                           else pod["metadata"]["name"])
+                    started.append(DemoPod(
+                        f"{self.name}/{key}",
+                        ctr["command"] + ctr.get("args", []), env, root))
+                children.extend(started)
+                return started
+
+            def finish(self, started: list[DemoPod], claim, uuid: str
+                       ) -> dict[str, str]:
+                """Wait for the containers; each saw the one card named
+                ``uuid`` (its first line, torch.cuda's name and UUID); its
+                output printed and its latency from the claim's creation
+                recorded."""
+                outs = {}
+                for p in started:
+                    text = p.wait(self.name)
+                    key = p.key.split("/", 1)[1]
+                    first = p.lines[0] if p.lines else ""
+                    tag = first.split(" ", 1)[0]
+                    cards = json.loads(p.line(f"{tag} cuda:").split(
+                        "cuda:", 1)[1])
+                    if (not first.startswith(
+                            f"{tag} CUDA_VISIBLE_DEVICES = {uuid}")
+                            or cards != [[cuda[uuid], uuid]]):
+                        fail(f"demo {p.key}: first line {first!r}, cuda "
+                             f"{cards}; the claim's card {uuid}")
+                    ms = (p.first_at - self.created[claim.metadata.name]) \
+                        * 1e3
+                    out["latency_ms"][p.key] = ms
+                    for ln in p.lines:
+                        line(self.name, f"{key}| {ln}")
+                    line(self.name, f"{key}: exit 0, claim created -> first "
+                         f"line {ms:.1f} ms (host clock), ran "
+                         f"{p.end_at - p.start_at:.2f} s")
+                    outs[key] = text
+                return outs
+
+            def delete(self, claim) -> None:
+                grpc_call("unprepare", claim)
+                cluster.delete("ResourceClaim", claim.metadata.namespace,
+                               claim.metadata.name)
+
+        def run_alone(a: Applied, pod_name: str):
+            """One pod whose claim is its own: schedule, prepare, run."""
+            claim = a.of_pod[pod_name]
+            dev = a.schedule(claim)
+            view = a.prepare(claim)
+            pod = next(p for p in a.pods
+                       if p["metadata"]["name"] == pod_name)
+            uuid = view["env"]["CUDA_VISIBLE_DEVICES"]
+            if uuid != uuid_of[dev]:
+                fail(f"demo {a.name}: {pod_name} allocated {dev} "
+                     f"({uuid_of[dev]}), CUDA_VISIBLE_DEVICES {uuid}")
+            return claim, dev, uuid, a.finish(a.start(pod, view), claim,
+                                              uuid)
+
+        # tpu-test1: on one card the second pod's claim is refused until
+        # the first pod is gone, then gets the same card
+        a = Applied("tpu-test1")
+        c1, dev1, uuid1, _ = run_alone(a, "pod1")
+        c2 = a.of_pod["pod2"]
+        refused = None
+        if len(cuda) == 1:
+            try:
+                a.schedule(c2)
+            except AllocationError as e:
+                refused = str(e)
+            if refused is None:
+                fail("demo tpu-test1: pod2's claim was allocated while "
+                     "pod1 held the one card")
+        a.delete(c1)
+        _, dev2, uuid2, _ = run_alone(a, "pod2")
+        if len(cuda) == 1 and (dev2, uuid2) != (dev1, uuid1):
+            fail(f"demo tpu-test1: pod2 got {dev2} after pod1's {dev1}")
+        a.delete(c2)
+        line("tpu-test1", f"pod1 on {dev1}; pod2 refused while pod1 held "
+             f"it ({refused}); after pod1's unprepare pod2 on {dev2}, the "
+             f"same card: {dev2 == dev1}")
+
+        # tpu-test2: one claim, two containers of one pod at once
+        a = Applied("tpu-test2")
+        (pod,) = a.pods
+        claim = a.of_pod["pod"]
+        dev = a.schedule(claim)
+        view = a.prepare(claim)
+        uuid = uuid_of[dev]
+        outs = a.finish(a.start(pod, view), claim, uuid)
+        for key in ("ctr0", "ctr1"):
+            if not outs[key].splitlines()[0].endswith("preemption = 20"):
+                fail(f"demo tpu-test2: {key}: {outs[key]}")
+        a.delete(claim)
+
+        # tpu-test3 and the coordinated specs: pods sharing one claim run
+        # at once and see the same card
+        for name in ("tpu-test3", "tpu-test-coordinator",
+                     "tpu-test-enforced"):
+            a = Applied(name)
+            (claim,) = a.claims.values()
+            dev = a.schedule(claim)
+            uuid = uuid_of[dev]
+            # the kubelet prepares the claim for each pod that uses it
+            views = [a.prepare(claim) for _ in a.pods]
+            started = [p for pod, view in zip(a.pods, views)
+                       for p in a.start(pod, view)]
+            # the gated pods' registrations: the workers of the
+            # coordinator's published schedule while they run
+            cdir = (Path(coordination_env(views[0])["TPU_COORDINATOR_DIR"])
+                    if name == "tpu-test-enforced" else None)
+            slots = set()
+            while cdir is not None and any(
+                    p.proc.poll() is None for p in started):
+                try:
+                    published = json.loads(
+                        (cdir / "schedule.json").read_text())
+                    slots |= {s["worker"] for s in published["slots"]}
+                except (FileNotFoundError, json.JSONDecodeError):
+                    pass
+                time.sleep(0.05)
+            outs = a.finish(started, claim, uuid)
+            spans = [(p.start_at, p.end_at) for p in started]
+            if min(e for _, e in spans) <= max(s for s, _ in spans):
+                fail(f"demo {name}: the pods did not run at once: {spans}")
+            if name == "tpu-test-coordinator":
+                for key, text in outs.items():
+                    if " duty = 50 dir = " not in text.splitlines()[0]:
+                        fail(f"demo {name}: {key}: {text}")
+                if len(pods.procs) != 1:
+                    fail(f"demo {name}: coordinator daemons "
+                         f"{list(pods.procs)}")
+            if name == "tpu-test-enforced":
+                ticks = {k: int(t.split("ticks=")[1].split()[0])
+                         for k, t in outs.items()}
+                if slots != {"pod1", "pod2"} or min(ticks.values()) <= 0:
+                    fail(f"demo {name}: schedule slots {slots}, ticks "
+                         f"{ticks}")
+                line(name, f"the gate's schedule listed {sorted(slots)}; "
+                     f"ticks {ticks}")
+            a.delete(claim)
+
+        # tpu-test5: two requests need two cards
+        a = Applied("tpu-test5")
+        claim = a.of_pod["pod"]
+        if len(cuda) == 1:
+            try:
+                allocate_claim(cluster, claim)
+            except AllocationError as e:
+                line("tpu-test5", f"refused on the one-card node, as the "
+                     f"spec says (two requests, one card): {e}")
+            else:
+                fail("demo tpu-test5: two requests allocated on one card")
+            cluster.delete("ResourceClaim", claim.metadata.namespace,
+                           claim.metadata.name)
+        else:
+            fail(f"demo tpu-test5: this phase runs on one card, not "
+                 f"{len(cuda)}")
+
+        # tpu-test6: the CEL selector on the H100's attributes
+        a = Applied("tpu-test6")
+        claim, dev, uuid, _ = run_alone(a, "pod")
+        a.delete(claim)
+
+        # tpu-test-serve: the probes on the claimed card
+        a = Applied("tpu-test-serve")
+        claim, dev, uuid, outs = run_alone(a, "serve-pod")
+        res = json.loads(outs["serve-pod"].split("serve result:", 1)[1]
+                         .splitlines()[0])
+        r, s = res["decode"], res["serving"]
+        if not (r["valid"] and s["valid"] and res["flash_fwd_tc"] > 0
+                and res["flash_fwd"] == res["flash_fwd_tc"]):
+            fail(f"demo tpu-test-serve: {res}")
+        # the pod's K1 shapes are the ones phase_flash holds to the plain
+        # version and the oracle
+        sv = DEMO_SERVE_K1
+        ran = (r["batch"], r["prompt_len"], r["heads"], r["kv_heads"],
+               r["d_model"] // r["heads"], s["slots"])
+        if ran != (sv["b"], sv["ts"][0], sv["h"], sv["h_kv"], sv["d"],
+                   sv["b"]):
+            fail(f"demo tpu-test-serve: the pod ran (batch, prompt, heads, "
+                 f"kv heads, head dim, slots) {ran}; phase_flash holds K1 "
+                 f"at {sv}")
+        a.delete(claim)
+        out["launches"] = {k: res[k] for k in ("flash_fwd", "flash_fwd_tc")}
+        out["serve"] = dict(decode_tokens_per_s=r["tokens_per_s"],
+                            decode_ms_per_token=r["ms_per_token"],
+                            serving_tokens_per_s=s["tokens_per_s_lower_bound"])
+        line("tpu-test-serve", f"on {dev}: decode_probe {r['tokens_per_s']:.1f}"
+             f" tokens/s ({r['ms_per_token']:.4f} ms/token, {r['params_m']}M "
+             f"params, bf16, valid), serving_probe "
+             f"{s['tokens_per_s_lower_bound']:.1f} tokens/s lower bound over "
+             f"{s['requests']} requests on {s['slots']} slots (valid); K1 "
+             f"launches {out['launches']}, all on the tensor-core route")
+    finally:
+        for p in children:
+            if p.proc.poll() is None:
+                p.proc.kill()
+                p.proc.wait()
+        if plugin is not None:
+            plugin_stop(*plugin)
+        pods.stop_all()
+        root_log = logging.getLogger()
+        root_log.handlers[:] = saved_log[0]
+        root_log.setLevel(saved_log[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+    if pods.errors:
+        fail(f"demo: coordinator pods {pods.errors}")
+    lat = sorted(out["latency_ms"].values())
+    out["p50_ms"] = float(np.median(lat))
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"demo [{card}]: phase wall {out['wall_s']:.2f} s; claim created "
+          f"-> first line of the container, per pod (ms, host clock, a "
+          f"reading): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["latency_ms"].items())
+          + f"; p50 {out['p50_ms']:.1f} ms over {len(lat)} containers; serve "
+          f"pod {out['serve']['decode_tokens_per_s']:.1f} tokens/s decode, "
+          f"{out['serve']['serving_tokens_per_s']:.1f} tokens/s serving; K1 "
+          f"launches {out['launches']}", flush=True)
+    return out
+
+
 def sdpa_fn(q, k, v, causal):
     """One PyTorch call computing the same attention (yardstick only,
     never called by the port)."""
@@ -2248,6 +2705,11 @@ def phase_flash(fa) -> dict:
     cases.append(dict(b=4, t=40, d=16, window=None, seg=False,
                       dtype=torch.bfloat16, h=8, h_kv=4,
                       probe="the spec probe's prompt fill"))
+    # the demo serve pod's prefills
+    sv = DEMO_SERVE_K1
+    cases += [dict(b=sv["b"], t=t, d=sv["d"], window=None, seg=False,
+                   dtype=torch.bfloat16, h=sv["h"], h_kv=sv["h_kv"])
+              for t in sv["ts"]]
     row, probes = None, {}
     for c in cases:
         b, t, d, dtype = c["b"], c["t"], c["d"], c["dtype"]
@@ -7981,6 +8443,7 @@ def main() -> None:
     phase_driver()
     phase_plugin()
     coordination = phase_coordination()
+    demo = phase_demo()
     k1, k1_probes = phase_flash(fa)
     k1b, k1b_probes = phase_flash_block(fa)
     k2, k2_probes = phase_paged(pa)
@@ -7997,8 +8460,11 @@ def main() -> None:
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
-    # the coordination phase's K1 children and leased replica
+    # the coordination phase's K1 children and leased replica, and the
+    # demo's serve pod
     launches = dict(coordination["launches"])
+    for name, n in demo["launches"].items():
+        launches[name] += n
 
     done_c, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                               "contiguous", top_k=50)
@@ -8129,7 +8595,8 @@ def main() -> None:
                                      Path(tmp)).items():
             launches[name] = launches.get(name, 0) + n
     print(f"kernel launches on the main paths (the coordination phase's "
-          f"gated and time-sliced K1 children and leased replica + "
+          f"gated and time-sliced K1 children and leased replica + the "
+          f"demo's serve pod + "
           f"{30 + DISAGG_DRAINS} "
           f"drains + {FLEET_DRAINS} fleet drains + the process fleet's "
           f"oracle, surviving pumps and codec block + the observability "

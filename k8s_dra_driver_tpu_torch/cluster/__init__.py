@@ -4,8 +4,9 @@ in-process event bus and its cross-process tap (bus.py), fault
 injection (faults.py), the fleet invariants (invariants.py), the
 flight recorder (flightrec.py) and the compound-fault crucible
 (crucible.py, chaosprobe.py), the driver's object kinds (objects.py:
-Node, Pod, Deployment) and the REST client of a real API server
-(rest.py, imported on demand)."""
+Node, Pod, Deployment), a demo spec's claims as the claim controller
+makes them (specs.py) and the REST client of a real API server (rest.py,
+imported on demand)."""
 
 from .client import (ApiServerError, ApiUnavailableError, ClusterClient,
                      ConflictError, EVENT_ADDED, EVENT_DELETED,

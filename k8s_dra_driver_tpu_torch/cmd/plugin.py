@@ -75,6 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=env_default("DRIVER_ROOT", "/"),
                    help="host filesystem mount prefix for sysfs/dev probing "
                         "when containerized [env DRIVER_ROOT]")
+    p.add_argument("--host-driver-root",
+                   default=env_default("HOST_DRIVER_ROOT", None),
+                   help="the driver root as the node sees it, which CDI "
+                        "mounts' hostPaths name; default: --driver-root "
+                        "[env HOST_DRIVER_ROOT]")
     p.add_argument("--device-classes",
                    default=env_default("DEVICE_CLASSES", "chip,core,slice"),
                    help="comma list of device kinds to enumerate: "
@@ -213,6 +218,7 @@ def run(args: argparse.Namespace, client=None, backend=None,
     state = DeviceState(backend, client, DeviceStateConfig(
         plugin_root=args.plugin_root, cdi_root=args.cdi_root,
         node_name=args.node_name, driver_root=args.driver_root,
+        host_driver_root=args.host_driver_root,
         device_kinds=args.device_kinds,
         coordinator_namespace=args.coordinator_namespace,
         coordinator_image=args.coordinator_image))

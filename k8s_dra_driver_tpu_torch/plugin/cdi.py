@@ -110,9 +110,16 @@ class ContainerEdits:
 
 
 class CDIHandler:
-    def __init__(self, cdi_root: str, driver_root: str = "/"):
+    def __init__(self, cdi_root: str, driver_root: str = "/",
+                 host_driver_root: str | None = None):
+        """``driver_root``: where this process sees the driver's files;
+        ``host_driver_root``: where the node's container runtime sees
+        them, which a mount's ``hostPath`` names (the driver root when
+        not given, as the JAX package writes it)."""
         self.cdi_root = Path(cdi_root)
         self.driver_root = driver_root.rstrip("/") or "/"
+        self.host_driver_root = (self.driver_root if host_driver_root is None
+                                 else host_driver_root.rstrip("/") or "/")
         self.cdi_root.mkdir(parents=True, exist_ok=True)
 
     # -- qualified names (cdi.go:281-298 analog) -------------------------
@@ -146,6 +153,13 @@ class CDIHandler:
             return path
         return self.driver_root + path
 
+    def _node_path(self, path: str) -> str:
+        """A host path as the node's container runtime resolves it: a
+        mount's ``hostPath``."""
+        if self.host_driver_root == "/":
+            return path
+        return self.host_driver_root + path
+
     # -- standard spec ----------------------------------------------------
 
     def create_standard_spec(self, devices: dict[str, AllocatableDevice],
@@ -171,7 +185,7 @@ class CDIHandler:
         common = ContainerEdits()
         common.env["TPU_SKIP_MDS_QUERY"] = "true"
         if libtpu_path:
-            common.mounts.append((self._host_path(libtpu_path),
+            common.mounts.append((self._node_path(libtpu_path),
                                   CONTAINER_LIBTPU_PATH, ("ro", "bind")))
         return common
 
@@ -182,12 +196,12 @@ class CDIHandler:
             p for p in NVIDIA_COMMON_NODES
             if Path(self._host_path(p)).exists())
         if libcuda_path:
-            common.mounts.append((self._host_path(libcuda_path),
+            common.mounts.append((self._node_path(libcuda_path),
                                   CONTAINER_LIBCUDA_PATH, ("ro", "bind")))
-            nvml = self._host_path(str(Path(libcuda_path).parent / NVML_NAME))
-            if Path(nvml).exists():
-                common.mounts.append((nvml, CONTAINER_NVML_PATH,
-                                      ("ro", "bind")))
+            nvml = str(Path(libcuda_path).parent / NVML_NAME)
+            if Path(self._host_path(nvml)).exists():
+                common.mounts.append((self._node_path(nvml),
+                                      CONTAINER_NVML_PATH, ("ro", "bind")))
         return common
 
     # -- per-claim spec ----------------------------------------------------

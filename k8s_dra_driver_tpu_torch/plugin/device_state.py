@@ -51,6 +51,9 @@ class DeviceStateConfig:
     cdi_root: str
     node_name: str
     driver_root: str = "/"
+    #: the driver root as the node sees it, for CDI hostPaths (None: the
+    #: driver root)
+    host_driver_root: str | None = None
     device_kinds: tuple[str, ...] = (KIND_CHIP, KIND_CORE, KIND_SLICE)
     coordinator_namespace: str = "tpu-dra-driver"
     coordinator_image: str = ""      # required before a coordinated
@@ -89,7 +92,8 @@ class DeviceState:
         self.all_allocatable = dict(self.allocatable)
         self.unhealthy: dict[int, str] = {}
         self.nvidia = is_nvidia_host(self.topology)
-        self.cdi = CDIHandler(config.cdi_root, config.driver_root)
+        self.cdi = CDIHandler(config.cdi_root, config.driver_root,
+                              config.host_driver_root)
         self.cdi.create_standard_spec(self.allocatable,
                                       self.topology.libtpu_path,
                                       nvidia=self.nvidia)

@@ -25,17 +25,38 @@ from torch_plugin import make_allocated_claim, short_dir  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 
 
+#: the port's one plugin flag beyond the JAX package's (CDI hostPaths
+#: as the node sees them; ROADMAP Queue C 51), held in its own test
+HOST_ROOT_FLAG = "--host-driver-root"
+
+
 def parse(pkg, argv):
     return pkg.cmd_plugin.build_parser().parse_args(argv)
 
 
+def jax_surface(parser):
+    """``parser`` without the port's ``--host-driver-root``."""
+    action = parser._option_string_actions.pop(HOST_ROOT_FLAG, None)
+    if action is not None:
+        parser._remove_action(action)
+        for group in parser._action_groups:
+            if action in group._group_actions:
+                group._group_actions.remove(action)
+    return parser
+
+
 def parsed_both(argv, validate=True):
+    """Both packages' parsed flags; the port's ``host_driver_root``
+    (None unless given) is left out."""
     out = []
     for pkg in BOTH:
         args = parse(pkg, argv)
         if validate:
             pkg.cmd_plugin.validate(args)
-        out.append(vars(args))
+        flags = vars(args)
+        if pkg is PORT:
+            flags.pop("host_driver_root")
+        out.append(flags)
     return tuple(out)
 
 
@@ -98,9 +119,20 @@ class TestPluginFlags:
         assert mp == mj and "node-level" in mp
 
     def test_help_texts_equal(self):
-        hj, hp = (pkg.cmd_plugin.build_parser().format_help()
+        hj, hp = (jax_surface(pkg.cmd_plugin.build_parser()).format_help()
                   for pkg in BOTH)
         assert hp == hj
+        assert HOST_ROOT_FLAG in PORT.cmd_plugin.build_parser().format_help()
+
+    def test_host_driver_root(self, monkeypatch):
+        """Unset, CDI hostPaths keep the driver root (the JAX package's
+        specs); the env mirror and the flag name the node's root."""
+        assert parse(PORT, ["--node-name", "n"]).host_driver_root is None
+        monkeypatch.setenv("HOST_DRIVER_ROOT", "/")
+        args = parse(PORT, ["--node-name", "n", "--driver-root", "/host"])
+        assert (args.driver_root, args.host_driver_root) == ("/host", "/")
+        assert parse(PORT, ["--node-name", "n", HOST_ROOT_FLAG,
+                            "/node"]).host_driver_root == "/node"
 
 
 class TestVisibleChipsFlag:

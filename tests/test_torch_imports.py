@@ -119,7 +119,8 @@ def test_scan_covers_the_port():
                 "cmd/plugin.py", "coordclient/__init__.py",
                 "coordclient/schedule.py", "coordclient/gate.py",
                 "cmd/coordinatord.py", "cmd/controller.py",
-                "controller/__init__.py", "controller/slices.py"):
+                "controller/__init__.py", "controller/slices.py",
+                "cluster/specs.py"):
         assert f"k8s_dra_driver_tpu_torch/{mod}" in files
 
 

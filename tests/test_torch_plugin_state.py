@@ -548,10 +548,12 @@ class TestCDISchemaValidation:
 # The NVIDIA container contract (plugin/cdi.py), on fake NVIDIA trees
 # --------------------------------------------------------------------------
 
-def nvidia_env(tmp_path, form="procfs", num_chips=2, drop=()):
+def nvidia_env(tmp_path, form="procfs", num_chips=2, drop=(),
+               host_driver_root=None):
     """The port's DeviceState on a fake H100 host whose tree is also the
     driver root, so the common nodes and NVML are looked for there;
-    ``drop``: tree paths removed before the plugin starts."""
+    ``drop``: tree paths removed before the plugin starts;
+    ``host_driver_root``: the tree's root as the node sees it."""
     host = PORT.discovery.FakeHost(generation="h100", num_chips=num_chips,
                                    hostname="gpu-host-0", nvidia=form)
     root = tmp_path / "host"
@@ -564,7 +566,8 @@ def nvidia_env(tmp_path, form="procfs", num_chips=2, drop=()):
                                         plugin_root=str(tmp_path / "plugin"),
                                         cdi_root=str(tmp_path / "cdi"),
                                         node_name="gpu-host-0",
-                                        driver_root=str(root)))
+                                        driver_root=str(root),
+                                        host_driver_root=host_driver_root))
     return SimpleNamespace(pkg=PORT, state=state, cluster=cluster,
                            root=tmp_path, tree=root, host=host)
 
@@ -634,6 +637,32 @@ class TestNvidiaContract:
         # the driver form's stand-in /dev/nvidia0 is no card
         names = {d["name"] for d in standard(env)["devices"]}
         assert "chip-0" not in names and {"chip-4", "chip-6"} <= names
+        assert all_specs_valid(env) == 1
+
+    def test_host_paths_as_the_node_sees_them(self, tmp_path):
+        """A containerized plugin (driver root ``/host`` in the chart)
+        finds the driver's files under its driver root, and its mounts'
+        hostPaths name them where the node's runtime resolves them."""
+        env = nvidia_env(tmp_path, form="driver", host_driver_root="/")
+        common = standard(env)["containerEdits"]
+        assert [(m["hostPath"], m["containerPath"])
+                for m in common["mounts"]] == [
+            (f"/{LIBDIR}/libcuda.so.1",
+             "/usr/local/nvidia/lib64/libcuda.so.1"),
+            (f"/{LIBDIR}/libnvidia-ml.so.1",
+             "/usr/local/nvidia/lib64/libnvidia-ml.so.1")]
+        assert common["deviceNodes"] == [
+            {"path": "/dev/nvidiactl"}, {"path": "/dev/nvidia-uvm"},
+            {"path": "/dev/nvidia-uvm-tools"}]
+        node = nvidia_env(tmp_path / "n", form="driver",
+                          host_driver_root="/node/")
+        assert [m["hostPath"] for m in standard(node)["containerEdits"][
+            "mounts"]] == [f"/node/{LIBDIR}/libcuda.so.1",
+                           f"/node/{LIBDIR}/libnvidia-ml.so.1"]
+        # absent where the node's root has it: no mount
+        bare = nvidia_env(tmp_path / "b", host_driver_root="/",
+                          drop=(f"{LIBDIR}/libcuda.so.1",))
+        assert "mounts" not in standard(bare)["containerEdits"]
         assert all_specs_valid(env) == 1
 
     def test_no_libcuda_no_mount(self, tmp_path):

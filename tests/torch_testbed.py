@@ -17,7 +17,8 @@ import grpc
 from k8s_dra_driver_tpu_torch.allocator import allocate_claim
 from k8s_dra_driver_tpu_torch.api import resource
 from k8s_dra_driver_tpu_torch.api.classes import standard_device_classes
-from k8s_dra_driver_tpu_torch.cluster import FakeCluster, Node
+from k8s_dra_driver_tpu_torch.cluster import (FakeCluster, FaultPlan,
+                                              FaultyClusterClient, Node)
 from k8s_dra_driver_tpu_torch.controller import SliceGangController
 from k8s_dra_driver_tpu_torch.discovery import FakeHost
 from k8s_dra_driver_tpu_torch.plugin import (DeviceState, DeviceStateConfig,
@@ -31,9 +32,17 @@ from torch_plugin import short_dir, start_fake_deployment_controller
 
 
 class PortE2EBed:
-    def __init__(self, hosts: list[FakeHost], with_controller: bool = True):
+    def __init__(self, hosts: list[FakeHost], with_controller: bool = True,
+                 fault_plan: FaultPlan | None = None):
         self.tmp = short_dir("te2e-")
-        self.cluster = self.client = FakeCluster()
+        self.cluster = FakeCluster()
+        # the drivers' and the controller's API calls go through the
+        # fault plan when one is given; the bed's own calls (nodes,
+        # classes, claims) use the raw cluster, so a scripted outage
+        # breaks the system under test and not the harness
+        self.fault_plan = fault_plan
+        self.client = (FaultyClusterClient(self.cluster, fault_plan)
+                       if fault_plan is not None else self.cluster)
         start_fake_deployment_controller(PORT, self.cluster)
         self.classes = standard_device_classes()
         for cls in self.classes.values():
