@@ -96,7 +96,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    leased replica's K1 and K2 join the kernels line; the phase wall,
    the batch counts and window shares, the OOM, the overlap and the
    replica's tokens/s are printed with the card and its power limit;
-2e. the H100 demo specs on the live card (``phase_demo``): the port's
+2e. the H100 demo specs on the live card (``phase_demo``, in a process
+   of its own beside the serving phases, :class:`PhaseChild`): the port's
    plugin on a thread as in 2c over a fake cluster, this script playing
    the claim controller, the scheduler (the port's allocator), the
    kubelet (gRPC prepare, CDI applied; coordinator Deployments run as
@@ -192,19 +193,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
     K1/K3/K4 exactly n_layers x the rows of each step; MTTR, each
     sharded generation's bytes, save ms and MiB/s, the restore ms and
     the steady step walls at dp=4 and dp=2 printed), (b) a wedged
-    worker caught by the step deadline, (c) the kill arc in f32 within
-    1e-4 of an uninterrupted run, then a flipped byte: the restore
+    worker caught by the step deadline, (c) the kill arc in f32 (the
+    154M's widths at 2 layers) within 1e-4 of an uninterrupted run, then a flipped byte: the restore
     falls back a generation and ``read_slice`` raises, (d) a resize, a
     park and an unpark at a checkpoint step: no step lost, no device
     memory held while parked, (e) the recovery, fleet and multi-tenant
     probes on the card at their own defaults (the reference's widths,
     d_head 8, f32), each ``valid``;
-10c. the compound-fault crucible (``phase_crucible``): the port's
+10c. the compound-fault crucible (``phase_crucible``, in a process of
+    its own beside the serving phases, as 2e): the port's
     ``CrucibleRig`` (a ShardedGateway over a one-prefill, one-decode
     paged, tiered, LoRA pool, two elastic gangs on
     ``ShardedCheckpointer``, the multi-tenant reconciler over an
     8-slot ledger, the burn engine) under the seeded default schedule
-    of every fault kind: (a) 220 cycles on the crucible's default
+    of every fault kind: (a) 88 cycles on the crucible's default
     model, the reference crucible's (d_head 8, f32), every
     assertion of the reference acceptance (no violation, every kind
     fired, >= 3 overlaps, the four window-triggered arcs inside their
@@ -217,6 +219,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
     restores; (c) the spec-fleet schedule run twice, equal injection
     logs, fired cycles, outcomes and tokens, and its repro replayed to
     the same fired cycles;
+10d. context parallelism (``phase_sp_train``): two worker processes
+    sharing the card over gloo, their group from the rendezvous
+    contract; (a) the f32 small ring step over sp=2 and (d) over dp=2
+    against one CPU process, (b) 154M ring steps and (c) a Ulysses step
+    against phase 10's losses, exact per-rank K1-block/K3/K4 launches;
+    (e) a ring peer of the f32 small step SIGSTOPped, then one
+    SIGKILLed, after its first step: the survivor exits nonzero within
+    50 s, its stderr naming ``MeshPeerError`` and the ``sp`` axis;
 11. MoE training, small: one f32 AdamW step of a 2-layer, 4-expert
     gmm config with the router aux losses, card against CPU, every
     parameter (router included) moved, exact K1/K3-K6 launches (K1,
@@ -567,6 +577,28 @@ H100_F32_FLOPS = 67e12
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+class ScriptClock:
+    """The script's stretches on the host's clock: ``mark(name)`` prints
+    the seconds since the last mark and since the start; ``summary()``
+    the marks on one line, slowest first."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.marks = []
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.marks.append((name, round(now - self.last, 1)))
+        print(f"script clock: {name} {now - self.last:.1f} s, "
+              f"{now - self.t0:.1f} s since the start", flush=True)
+        self.last = now
+
+    def summary(self) -> str:
+        return json.dumps({
+            "total_s": round(time.perf_counter() - self.t0, 1),
+            "stretches_s": dict(sorted(self.marks, key=lambda m: -m[1]))})
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -6526,6 +6558,10 @@ def phase_train(fa, tmp: Path, record: dict) -> dict:
 GANG_STEPS = 8
 GANG_EVERY = 2
 GANG_F32_B, GANG_F32_T = 4, 512
+#: the f32 arc's depth: the 154M's widths at two of its eight layers (its
+#: five generations of 1.8 GiB at eight took about 30 s of the script's
+#: time limit; a dp change is a placement change at any depth)
+GANG_F32_LAYERS = 2
 GANG_F32_RTOL = 1e-4
 #: live bytes a parked gang may leave behind, over the pre-begin reading
 GANG_PARK_SLACK = 16 * 2 ** 20
@@ -6712,7 +6748,8 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     ``g0w1`` after the two warm-up steps, the step deadline
     GANG_DEADLINE_X steady dp=4 walls: cause ``wedged``, victims
     ``["g0w1"]``, dp 4 → 2, every step once.  (c) Placement, not math:
-    the kill arc in f32 at B=4 x T=512, each step's loss within
+    the kill arc in f32 at B=4 x T=512 on the 154M's widths at
+    GANG_F32_LAYERS layers, each step's loss within
     GANG_F32_RTOL of an uninterrupted dp=4 run's; then one byte flipped
     in the newest generation's largest shard: ``restore()`` falls back
     to the previous generation and ``read_slice`` of that shard raises
@@ -6801,7 +6838,8 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     gc.collect()
 
     # (c) placement, not math, f32
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=GANG_F32_LAYERS)
     corpus32 = gang_corpus(cfg32, GANG_F32_B, GANG_F32_T)
     zero_counts(fa)
     ref = gang_supervisor(
@@ -6821,7 +6859,8 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
     losses = [l for _, l in report.losses]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     f32_routes = flash_routes(fa)
-    print(f"gang (c) 154M f32 B={GANG_F32_B} T={GANG_F32_T} kill arc "
+    print(f"gang (c) 154M widths at {GANG_F32_LAYERS} layers, f32 "
+          f"B={GANG_F32_B} T={GANG_F32_T} kill arc "
           f"against an uninterrupted dp=4 run: max relative loss gap "
           f"{rel:.3g} (tol {GANG_F32_RTOL}); losses "
           f"{[round(l, 5) for l in losses]}", flush=True)
@@ -6929,7 +6968,10 @@ def phase_gang_recovery(fa, pa, tmp: Path) -> tuple[dict, dict]:
 #: of at least 60 at which the soak passes in either package
 #: (tests/test_torch_crucible_soak.py pins it on the CPU)
 CRUCIBLE_FULL_CYCLES = 88
-CRUCIBLE_SOAK_CYCLES = 220
+#: (a)'s soak on the reference's model: the same length (the
+#: reference acceptance runs 220 cycles; 88 keeps the script inside its
+#: time limit on a slow host, and 88-160 and 220 pass alike)
+CRUCIBLE_SOAK_CYCLES = CRUCIBLE_FULL_CYCLES
 #: (b)'s gangs: the 154M's widths at this depth.  At all 8 layers the
 #: gangs' 79 saves of a 879 MiB generation took about 200 of (b)'s
 #: 239-257 s on the H100 and the whole script 958 s of its 1200 s limit
@@ -7094,7 +7136,8 @@ def phase_crucible(fa, pa, tmp: Path) -> tuple[dict, dict]:
     ``MultiTenantReconciler`` over one 8-slot ledger, the burn engine
     and the tracer) in one co-loop under the seeded default schedule.
 
-    (a) ``default_schedule(7, 220)`` on the crucible's default model,
+    (a) ``default_schedule(7, CRUCIBLE_SOAK_CYCLES)`` on the crucible's
+    default model,
     the reference's (vocab 64, d_model 32, 2 layers, 4 heads of 8 over
     2 KV heads, d_ff 64, max_seq 48, f32):
     every assertion of the reference acceptance, K1 (f32 route), K2,
@@ -7357,6 +7400,161 @@ def sp_worker(rank: int, world: int, port: int, job_path: str,
             dist.destroy_process_group()
 
 
+#: (e): a ring peer wedged (SIGSTOP) and one killed (SIGKILL), each
+#: on its own pair of ranks of the f32 small ring step over sp=2, at
+#: this rendezvous deadline (every mesh group's timeout)
+SP_WEDGE_BARRIER_S = 10
+#: seconds rank 0 may take to exit nonzero after its peer's signal
+SP_WEDGE_BOUND_S = 50
+#: seconds the pairs may take to reach the victims' first steps
+SP_WEDGE_START_S = 120
+SP_WEDGE_SIGNALS = (("SIGSTOP", signal.SIGSTOP), ("SIGKILL", signal.SIGKILL))
+
+SP_WEDGE_CHILD = """
+import sys
+import chip_smoke
+chip_smoke.sp_wedge_worker(sys.argv[1])
+"""
+
+
+def sp_wedge_worker(go: str) -> None:
+    """A rank of (e): the CUDA context made, ``READY``; once ``go``
+    exists, the group from the rendezvous contract in the environment
+    (gloo) and the f32 small ring step over MeshSpec(sp=2) again and
+    again on the card, ``STEP i done`` after each, until its parent ends
+    it (or, left alone, exits 0 after SP_WEDGE_START_S +
+    SP_WEDGE_BOUND_S)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from k8s_dra_driver_tpu_torch.models.transformer import make_train_step
+    from k8s_dra_driver_tpu_torch.parallel import rendezvous
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    torch.zeros(1, device="cuda")
+    print("READY", flush=True)
+    end = time.monotonic() + SP_WEDGE_START_S
+    while not Path(go).exists():
+        if time.monotonic() > end:
+            fail("sp (e) worker: never told to start")
+        time.sleep(0.02)
+    rendezvous.initialize(rendezvous.spec_from_env(), backend="gloo")
+    mesh = make_mesh(MeshSpec(sp=2), device="cuda")
+    cfg = small_train_config()
+    tokens, seg = small_batch(cfg)
+    step, init_state = make_train_step(cfg, device="cuda", mesh=mesh)
+    params, opt = init_state(torch.Generator().manual_seed(3))
+    i = 0
+    while time.monotonic() < end + SP_WEDGE_BOUND_S:
+        params, opt, loss = step(params, opt, tokens, seg)
+        print(f"STEP {i} done loss {float(loss):.6f}", flush=True)
+        i += 1
+
+
+def sp_wedge(tmp: Path) -> None:
+    """(e): for each of SP_WEDGE_SIGNALS a pair of sp_wedge_worker
+    ranks sharing the card, both pairs at once; rank 1 gets the signal
+    after its first step's line, and rank 0 must exit nonzero within
+    SP_WEDGE_BOUND_S of it, its stderr naming ``MeshPeerError``, the
+    ``sp`` axis and the deadline.  Prints the case's wall and each
+    survivor's seconds to error; any miss fails the run."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    pairs, procs = {}, []
+    try:
+        for name, sig in SP_WEDGE_SIGNALS:
+            port = free_port()
+            ranks = []
+            for r in range(2):
+                env = dict(os.environ,
+                           TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                           TPU_WORKER_ID=str(r), TPU_NUM_WORKERS="2",
+                           TPU_RENDEZVOUS_BARRIER_TIMEOUT_S=str(
+                               SP_WEDGE_BARRIER_S),
+                           PYTHONPATH=os.pathsep.join(
+                               [str(root)] + [p for p in os.environ.get(
+                                   "PYTHONPATH", "").split(os.pathsep)
+                                   if p]))
+                out, err = tmp / f"{name}-{r}.out", tmp / f"{name}-{r}.err"
+                # a session of its own: a stopped rank in this script's
+                # process group would let the kernel hang the whole
+                # group up (SIGHUP) once that group is orphaned
+                with open(out, "w") as fo, open(err, "w") as fe:
+                    proc = subprocess.Popen(
+                        [sys.executable, "-c", SP_WEDGE_CHILD,
+                         str(tmp / f"go-{name}")], cwd=root, env=env,
+                        stdout=fo, stderr=fe, start_new_session=True)
+                procs.append(proc)
+                ranks.append((proc, out, err))
+            pairs[name] = dict(sig=sig, ranks=ranks)
+
+        def tails(name: str) -> str:
+            return "".join(f"\n--- rank {r} (rc {proc.poll()}):\n"
+                           f"{err.read_text()[-3000:]}"
+                           for r, (proc, _, err) in
+                           enumerate(pairs[name]["ranks"]))
+
+        # the CUDA contexts made, each pair stands its group up at once
+        deadline = time.monotonic() + SP_WEDGE_START_S
+        for name, pair in pairs.items():
+            for proc, out, _ in pair["ranks"]:
+                while "READY" not in out.read_text():
+                    if proc.poll() is not None or time.monotonic() > deadline:
+                        fail(f"sp (e) {name}: a rank never got ready"
+                             + tails(name))
+                    time.sleep(0.02)
+            (tmp / f"go-{name}").touch()
+        waiting = dict(pairs)
+        while waiting:
+            for name, pair in list(waiting.items()):
+                victim, out, _ = pair["ranks"][1]
+                if "STEP 0 done" in out.read_text():
+                    if pair["ranks"][0][0].poll() is not None:
+                        fail(f"sp (e) {name}: rank 0 ended before the "
+                             f"signal" + tails(name))
+                    os.kill(victim.pid, pair["sig"])
+                    pair["t_sig"] = time.monotonic()
+                    del waiting[name]
+                elif victim.poll() is not None or time.monotonic() > deadline:
+                    fail(f"sp (e) {name}: rank 1 never finished a step"
+                         + tails(name))
+            time.sleep(0.01)
+        waiting = dict(pairs)
+        while waiting:
+            for name, pair in list(waiting.items()):
+                survivor = pair["ranks"][0][0]
+                if survivor.poll() is not None:
+                    pair["took"] = time.monotonic() - pair["t_sig"]
+                    del waiting[name]
+                elif time.monotonic() > pair["t_sig"] + SP_WEDGE_BOUND_S:
+                    fail(f"sp (e) {name}: rank 0 hung past "
+                         f"{SP_WEDGE_BOUND_S} s after rank 1's {name}"
+                         + tails(name))
+            time.sleep(0.01)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+    for name, pair in pairs.items():
+        survivor, _, err = pair["ranks"][0]
+        text = err.read_text()
+        found = re.search(r"MeshPeerError: (mesh axis 'sp'[^\n]*)", text)
+        ok = (survivor.returncode != 0 and found is not None
+              and f"deadline of {SP_WEDGE_BARRIER_S} s" in found.group(1))
+        print(f"sp (e) ring peer {name} after its first step, f32 small "
+              f"MeshSpec(sp=2) on the card over gloo, rendezvous deadline "
+              f"{SP_WEDGE_BARRIER_S} s: rank 0 exited rc "
+              f"{survivor.returncode} {pair['took']:.2f} s after the signal "
+              f"(bound {SP_WEDGE_BOUND_S} s), stderr: "
+              f"{found.group(0)[:300] if found else '(no MeshPeerError)'} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"sp (e) {name}: rank 0 did not fail in-band" + tails(name))
+    print(f"sp (e) wall: {time.perf_counter() - t0:.2f} s (both pairs at "
+          f"once, beside the workers of (a)-(d), from their start to the "
+          f"last survivor's exit)", flush=True)
+
+
 def grad_errors(grads, want) -> float:
     """Largest gradient difference relative to each tensor's largest
     entry."""
@@ -7376,7 +7574,10 @@ def phase_sp_train(fa, record: dict) -> dict:
     phase_train's, K1-block/K3/K4 launches 8 a step on rank 0 and 16 on
     rank 1 on the tensor cores and no normalized K1, (c) one Ulysses
     step likewise (the normalized K1, K3, K4 8 a step on each rank), (d)
-    the f32 small step over MeshSpec(dp=2) as (a).  Any failure, hang
+    the f32 small step over MeshSpec(dp=2) as (a), (e) a ring peer of
+    the f32 small step wedged, then killed (:func:`sp_wedge`, beside
+    the workers of (a)-(d)), its survivor failing in-band by the
+    mesh's deadline.  Any failure, hang
     past SP_TIMEOUT_S or disagreement fails the run.  Returns the main
     path's launches summed over ranks (the ring steps of (b); the f32
     block route from (a))."""
@@ -7384,11 +7585,18 @@ def phase_sp_train(fa, record: dict) -> dict:
     torch.cuda.empty_cache()
     small = small_train_config()
     tokens, seg = small_batch(small)
-    # meanwhile, the one-process CPU step (a) and (d) are held to
+    def beside():
+        # meanwhile, the one-process CPU step (a) and (d) are held to,
+        # and (e)'s pairs
+        out = small_step(small, "cpu", tokens, seg)
+        with tempfile.TemporaryDirectory() as tmp:
+            sp_wedge(Path(tmp))
+        return out
+
     ranks, (cpu_loss, cpu_params, cpu_grads), took = run_workers(
         sp_worker, SP_WORLD, dict(tokens=tokens, seg=seg,
                                   batches=record["batches"][:SP_STEPS]),
-        "sp", SP_TIMEOUT_S, lambda: small_step(small, "cpu", tokens, seg))
+        "sp", SP_TIMEOUT_S, beside)
     print(f"sp gang: {SP_WORLD} worker processes on the one card, group "
           f"from rendezvous.initialize (backend gloo: NCCL refuses two "
           f"ranks on one device), gang_psum {[r['psum'] for r in ranks]} "
@@ -7930,20 +8138,27 @@ def phase_mesh_train(fa, gm, record: dict, moe_record: dict) -> dict:
         return {"a_tp": small_step(small, "cpu", tokens, seg),
                 "a_moe": small_step(small_moe_config(), "cpu", tokens, seg)}
 
-    moe_ranks, cpu, took_a = run_workers(
+    def beside():
+        # the CPU references, then the SP_WORLD group of (a) tp and
+        # (b)-(d), while the ep x tp group runs
+        refs = small_refs()
+        ranks, _, took = run_workers(
+            mesh_worker, SP_WORLD,
+            dict(parts=["a_tp", "b", "c", "d"], tokens=tokens, seg=seg,
+                 batches=record["batches"][:SP_STEPS],
+                 moe_batches=moe_record["batches"][:SP_STEPS]),
+            "mesh (a) tp, (b)-(d)", MESH_TIMEOUT_S)
+        return refs, ranks, took
+
+    moe_ranks, (cpu, ranks, took), took_a = run_workers(
         mesh_worker, MESH_MOE_WORLD,
         dict(parts=["a_moe"], tokens=tokens, seg=seg), "mesh (a) ep x tp",
-        MESH_TIMEOUT_S, small_refs)
-    ranks, _, took = run_workers(
-        mesh_worker, SP_WORLD,
-        dict(parts=["a_tp", "b", "c", "d"], tokens=tokens, seg=seg,
-             batches=record["batches"][:SP_STEPS],
-             moe_batches=moe_record["batches"][:SP_STEPS]),
-        "mesh (a) tp, (b)-(d)", MESH_TIMEOUT_S)
-    print(f"mesh gang: {MESH_MOE_WORLD} then {SP_WORLD} worker processes "
-          f"on the one card, groups from rendezvous.initialize (gloo), "
-          f"took {took_a:.1f} s and {took:.1f} s start to join; {card}",
-          flush=True)
+        MESH_TIMEOUT_S, beside)
+    print(f"mesh gang: {MESH_MOE_WORLD} and {SP_WORLD} worker processes "
+          f"side by side on the one card, groups from "
+          f"rendezvous.initialize (gloo), took {took_a:.1f} s (the "
+          f"{MESH_MOE_WORLD}, joined after the {SP_WORLD}) and {took:.1f} s "
+          f"start to join; {card}", flush=True)
 
     layers = small.n_layers
     f32_flash = {"flash_fwd_f32": layers, "flash_bwd_dq_f32": layers,
@@ -8025,6 +8240,10 @@ def phase_mesh_train(fa, gm, record: dict, moe_record: dict) -> dict:
 
 
 MEASURE_SIM = dict(seed=7, cycles=20, ab_cycles=70)
+#: decode_probe's longer generation (the probe's default 64; the shorter
+#: is a quarter of it): its two probes took 37 s of the script's time
+#: limit at 64
+MEASURE_DECODE_TOKENS = 32
 # K7's tuned shapes: (kind, G, M, K, N, dtype, candidates); the 154M
 # unembedding at 8 slots and moe_heavy's up-projection (x shared by the
 # experts, f32 as the int8 MoE drain runs it; ring 3 there is a plan the
@@ -8069,6 +8288,124 @@ def start_sim_probe() -> tuple[subprocess.Popen, Path]:
 
     atexit.register(stop)
     return proc, workdir
+
+
+#: a phase in a process of its own: runs ``chip_smoke.<argv[1]>()`` and
+#: prints its JSON result on the last line
+PHASE_CHILD = """
+import json
+import sys
+import chip_smoke
+result = getattr(chip_smoke, sys.argv[1])()
+print(chip_smoke.PHASE_RESULT + json.dumps(result), flush=True)
+"""
+PHASE_RESULT = "PHASE RESULT "
+#: seconds a phase in a process of its own may take, start to join
+PHASE_CHILD_S = 900
+
+
+class PhaseChild:
+    """``chip_smoke.<name>()`` in a process of its own, started here and
+    running beside this process's phases; ``join()`` waits for it,
+    replays its standard output and error here, fails the run if it
+    failed, hung past PHASE_CHILD_S or printed no result, and returns
+    its result.  The process runs in a session of its own, and its
+    whole group is killed when this script exits, whatever the exit."""
+
+    def __init__(self, name: str):
+        root = Path(__file__).resolve().parent
+        self.name = name
+        self.tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-phase-"))
+        self.out, self.err = self.tmp / "out", self.tmp / "err"
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root)] + [p for p in os.environ.get(
+                "PYTHONPATH", "").split(os.pathsep) if p]))
+        with open(self.out, "w") as fo, open(self.err, "w") as fe:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", PHASE_CHILD, name], cwd=root,
+                env=env, stdout=fo, stderr=fe, start_new_session=True)
+        self.t0 = time.perf_counter()
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def join(self):
+        try:
+            self.proc.wait(max(0.0, PHASE_CHILD_S
+                               - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            fail(f"{self.name}: still running {PHASE_CHILD_S} s after its "
+                 f"start")
+        took = time.perf_counter() - self.t0
+        lines = self.out.read_text().splitlines()
+        result = [ln for ln in lines if ln.startswith(PHASE_RESULT)]
+        for ln in lines:
+            if not ln.startswith(PHASE_RESULT):
+                print(ln, flush=True)
+        err = self.err.read_text()
+        if err:
+            print(err, end="" if err.endswith("\n") else "\n",
+                  file=sys.stderr, flush=True)
+        rc = self.proc.returncode
+        self.stop()
+        if rc != 0 or not result:
+            fail(f"{self.name} (a process of its own) exited rc {rc}"
+                 + ("" if result else ", no result"))
+        print(f"{self.name}: its own process, {took:.1f} s start to join",
+              flush=True)
+        return json.loads(result[-1][len(PHASE_RESULT):])
+
+
+def dims_list(fa, pa) -> list:
+    """The wrappers' launches by (entry, dtype, head dim) as a list."""
+    return [[*key, n] for key, n in {**fa.dim_launches,
+                                     **pa.dim_launches}.items()]
+
+
+def add_dims(fa, pa, dims: list) -> None:
+    """Adds :func:`dims_list`'s counts of another process here."""
+    for entry, dtype, d, n in dims:
+        table = pa.dim_launches if entry == "paged_decode" else \
+            fa.dim_launches
+        key = (entry, dtype, d)
+        table[key] = table.get(key, 0) + n
+
+
+def child_setup() -> None:
+    """A phase's own process: the card and the settings phase_device
+    gives this script."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def demo_child() -> dict:
+    """The demo phase in a process of its own (see :class:`PhaseChild`):
+    its pods are processes and report their K1 launches themselves."""
+    child_setup()
+    return phase_demo()
+
+
+def crucible_child() -> dict:
+    """The crucible phase in a process of its own: its main-route and
+    f32-route launches and its launches by head dim."""
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+    from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
+    child_setup()
+    fa.dim_launches.clear()
+    pa.dim_launches.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        routes, f32_routes = phase_crucible(fa, pa, Path(tmp))
+    return {"routes": routes, "f32_routes": f32_routes,
+            "dims": dims_list(fa, pa)}
 
 
 def tune_k7(qm, at, col, tuner, card: str) -> list:
@@ -8310,7 +8647,8 @@ def phase_measure(fa, qm, sim: subprocess.Popen, sim_dir: Path,
     probe("matmul_tflops", col.matmul_tflops, dim=4096)
     for int8 in (False, True):
         out, d = probe(f"decode_probe{' int8' if int8 else ''}",
-                       col.decode_probe, int8=int8)
+                       col.decode_probe, int8=int8,
+                       n_tokens=MEASURE_DECODE_TOKENS)
         if out["implied_gbps"] >= col._DECODE_HBM_GBPS_CEILING:
             fail(f"decode_probe implies {out['implied_gbps']} GB/s")
         if int8 and (d.get("int8_matmul", 0) <= 0
@@ -8431,6 +8769,7 @@ def small_d_launches(fa, pa) -> dict:
 
 
 def main() -> None:
+    clock = ScriptClock()
     kind = phase_device()
     from k8s_dra_driver_tpu_torch.models import quant as qm
     from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
@@ -8439,17 +8778,22 @@ def main() -> None:
     from k8s_dra_driver_tpu_torch.ops import gmm as gm
     from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
 
+    clock.mark("device and imports")
     phase_build(_build)
+    clock.mark("build")
     phase_driver()
+    clock.mark("driver")
     phase_plugin()
+    clock.mark("plugin")
     coordination = phase_coordination()
-    demo = phase_demo()
+    clock.mark("coordination")
     k1, k1_probes = phase_flash(fa)
     k1b, k1b_probes = phase_flash_block(fa)
     k2, k2_probes = phase_paged(pa)
     k3, k4, bwd_probes = phase_flash_bwd(fa)
     k5, k6, gmm_probes = phase_gmm(gm)
     k7a, k7b, int8_probes = phase_int8(qm)
+    clock.mark("kernels")
     # the launches by head dim count the main paths from here on (the
     # reference-width probes run the small dims)
     fa.dim_launches.clear()
@@ -8457,14 +8801,17 @@ def main() -> None:
     # the fleet simulator's probe runs on the host beside the later
     # phases (after the kernel timings, which it must not disturb)
     sim, sim_dir = start_sim_probe()
+    # the demo's pods and the crucible run in processes of their own
+    # beside the serving phases (their gates hold counts and outcomes,
+    # not times; the serving phases' host rates are read beside them)
+    demo_proc = PhaseChild("demo_child")
+    crucible_proc = PhaseChild("crucible_child")
 
     cfg, params = serving_model()
     reqs = s8_r24(cfg.vocab)
-    # the coordination phase's K1 children and leased replica, and the
-    # demo's serve pod
+    # the coordination phase's K1 children and leased replica (the
+    # demo's serve pod joins them below)
     launches = dict(coordination["launches"])
-    for name, n in demo["launches"].items():
-        launches[name] += n
 
     done_c, counts, _, _ = drain(ServingEngine, params, cfg, reqs, fa, pa,
                               "contiguous", top_k=50)
@@ -8505,6 +8852,7 @@ def main() -> None:
           flush=True)
     for name in launches:
         launches[name] += counts[name]
+    clock.mark("drains")
     refs = {"bf16 paged": (done_p, stats_p),
             "bf16 paged-preempt": (done_x, stats)}
     del done_c
@@ -8517,29 +8865,42 @@ def main() -> None:
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
     refs.update(fused_refs)
+    clock.mark("int8 and fused serving")
     counts, spec_refs = phase_spec_serving(params, cfg, reqs, fa, pa, refs)
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
     refs.update(spec_refs)
+    clock.mark("spec serving")
     counts = phase_lora_serving(params, cfg, reqs, fa, pa, refs)
     for name in ("flash_fwd", "flash_fwd_tc", "paged_decode",
                  "int8_matmul", "int8_bmm", "int8_tc"):
         launches[name] = launches.get(name, 0) + counts[name]
+    clock.mark("lora serving")
     for name, n in phase_disagg_tiers(params, cfg, reqs, fa, pa,
                                       refs).items():
         launches[name] += n
     del refs, fused_refs, spec_refs, done_p, done_x
+    clock.mark("disagg and tiers")
+    demo = demo_proc.join()
+    for name, n in demo["launches"].items():
+        launches[name] += n
+    cru = crucible_proc.join()
+    add_dims(fa, pa, cru["dims"])
+    clock.mark("the demo's and the crucible's processes")
     for name, n in phase_fleet(params, cfg, reqs, fa, pa).items():
         launches[name] += n
+    clock.mark("fleet")
     # the pumps' K1 (f32) joins the flash_fwd entry's f32 route
     for name, n in phase_procfleet(params, cfg, reqs, fa, pa).items():
         launches[name] += n
     del params
+    clock.mark("procfleet")
     # observability and the fleet control loop: their own 154M weights
     for phase in (phase_observability, phase_fleet_control):
         for name, n in phase(cfg, reqs, fa, pa).items():
             launches[name] += n
+        clock.mark(phase.__name__.removeprefix("phase_"))
 
     f32_routes = phase_train_small(fa)
     record = {}
@@ -8547,20 +8908,21 @@ def main() -> None:
         counts = phase_train(fa, Path(tmp), record)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
+    clock.mark("train")
     with tempfile.TemporaryDirectory() as tmp:
         gang_bf16, gang_f32 = phase_gang_recovery(fa, pa, Path(tmp))
+    clock.mark("gang recovery")
     for name, n in gang_bf16.items():
         launches[name] = launches.get(name, 0) + n
     for name in ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"):
         f32_routes[name] += gang_f32[name]
-    # the crucible: its K1 launches join flash_fwd (both routes: the f32
-    # ones count through flash_fwd - flash_fwd_tc), K2 paged_decode,
-    # K3/K4 their tensor-core and f32 routes
-    with tempfile.TemporaryDirectory() as tmp:
-        cru_main, cru_f32 = phase_crucible(fa, pa, Path(tmp))
-    for name, n in cru_main.items():
+    # the crucible (its own process, beside the serving phases): its K1
+    # launches join flash_fwd (both routes: the f32 ones count through
+    # flash_fwd - flash_fwd_tc), K2 paged_decode, K3/K4 their
+    # tensor-core and f32 routes
+    for name, n in cru["routes"].items():
         launches[name] = launches.get(name, 0) + n
-    for name, n in cru_f32.items():
+    for name, n in cru["f32_routes"].items():
         f32_routes[name] += n
     # the sp path's kernels (summed over ranks): K1's block entry, and
     # K3/K4 beside the single-device steps'
@@ -8569,6 +8931,7 @@ def main() -> None:
     f32_routes["flash_fwd_block_f32"] = sp["block_f32"]
     launches["flash_bwd_dq_tc"] += sp["dq_tc"]
     launches["flash_bwd_dkv_tc"] += sp["dkv_tc"]
+    clock.mark("sp train")
 
     for name, n in phase_moe_train_small(fa, gm).items():
         f32_routes[name] = f32_routes.get(name, 0) + n
@@ -8580,6 +8943,7 @@ def main() -> None:
     for part in (counts, counts_drain, counts_int8):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
+    clock.mark("moe train and serving")
     # tp, ep and pp (summed over ranks): the tensor-core launches join
     # the main path's, the f32 small steps' their routes
     for name, n in phase_mesh_train(fa, gm, record, moe_record).items():
@@ -8589,11 +8953,13 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
             if name == "flash_fwd_tc":
                 launches["flash_fwd"] += n
+    clock.mark("mesh train")
     # the measurement utilities: the probes' K1, K3/K4 and K7 launches
     with tempfile.TemporaryDirectory() as tmp:
         for name, n in phase_measure(fa, qm, sim, sim_dir,
                                      Path(tmp)).items():
             launches[name] = launches.get(name, 0) + n
+    clock.mark("measure")
     print(f"kernel launches on the main paths (the coordination phase's "
           f"gated and time-sliced K1 children and leased replica + the "
           f"demo's serve pod + "
@@ -8649,6 +9015,7 @@ def main() -> None:
                                  row["cold_device_ms"].items()),
                       flush=True)
 
+    clock.mark("device times")
     small = small_d_launches(fa, pa)
     print(f"small head dims on the main paths (the reference-width "
           f"probes; entry -> head dim -> dtype -> launches): "
@@ -8732,6 +9099,7 @@ def main() -> None:
             k["small_d"] = row
     if min(k["launches"] for k in kernels) <= 0:
         fail(f"a kernel was never launched on the main paths: {launches}")
+    print(f"script clock (host seconds): {clock.summary()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,8 +2,9 @@
 
 The port of ``k8s_dra_driver_tpu/gateway/calibrate.py``.  Every
 serving probe states offered load as a MULTIPLE of the pool's own
-measured drain rate, so "4x offered load" is machine-relative and means
-the same thing on the CPU and on the card.  gateway/probe.py and
+measured drain rate, so "offered load at four times the measured drain
+rate" is machine-relative and means the same thing on the CPU and on
+the card.  gateway/probe.py and
 serving_disagg/probe.py both call this one helper, so their
 ``base_rps`` is computed identically.
 

@@ -12,8 +12,9 @@ so every measured second is control-plane work: admission-queue
 bookkeeping, router scoring, drain accounting, metrics, the event
 bus.  Arrivals are **open-loop trace replay** (gateway/loadgen.py) at
 ``offered_x`` multiples of the null pool's own calibrated drain rate
-(gateway/calibrate.py); at the 10–100x levels the probe runs, the
-pump — not the pool — is the bottleneck by construction, so
+(gateway/calibrate.py); at the offered loads the probe runs, ten to a
+hundred times the measured drain rate, the pump — not the pool — is
+the bottleneck by construction, so
 
 - ``admissions_per_s`` = arrivals processed through ``submit`` per
   wall second (refusals included — saying no costs control plane

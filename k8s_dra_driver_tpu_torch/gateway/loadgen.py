@@ -20,7 +20,8 @@ by :func:`generate_trace`:
 
 Replay scales a trace by ``offered_x * base_rps`` where ``base_rps``
 comes from the shared calibration helper (gateway/calibrate.py), so
-"replayed bursty at 20x" is machine-relative.
+"bursty, replayed at twenty times the measured drain rate" is
+machine-relative.
 """
 
 from __future__ import annotations

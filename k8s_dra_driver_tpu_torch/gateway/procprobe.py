@@ -20,7 +20,9 @@ for their own topology.  The null engines do no device work; the pumps
 still open ``device`` (default the card), as every pump does.
 
 Run ``python -m k8s_dra_driver_tpu_torch.gateway.procprobe`` to write
-``tools/ctl_multiproc_torch.json`` (``--device cpu`` for CPU pumps).
+``tools/ctl_multiproc_torch.json`` (``--device cpu`` for CPU pumps);
+on the card the file carries the card's name and power limit
+(``card``, as ``nvidia-smi`` gives them) beside the host's CPU count.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import json
 import os
 import platform
+import subprocess
 import tempfile
 import time
 from pathlib import Path
@@ -155,11 +158,27 @@ def multiproc_probe(pump_counts=PUMP_COUNTS,
     return result
 
 
+def card() -> str | None:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them;
+    None without ``nvidia-smi``."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else None
+
+
 def main(out_path: str | None = None, device="cuda") -> dict:
     out = {
         "probe": "control_plane_multiproc",
         "host": platform.machine(),
         "device": str(device),
+        "card": card() if str(device).startswith("cuda") else None,
         "result": multiproc_probe(device=device),
     }
     path = Path(out_path or Path(__file__).resolve()

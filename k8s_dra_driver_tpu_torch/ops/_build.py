@@ -8,7 +8,8 @@ the checkout (listed in ``.gitignore``), keyed by a hash of the
 sources and flags, and is built at first use: nothing here runs at
 import time, so the CPU tests import the kernel modules freely.
 
-A missing ``nvcc`` or a failed build raises.  There is no fallback:
+A missing ``nvcc``, a failed build or one past its deadline
+(``BUILD_TIMEOUT_S``) raises.  There is no fallback:
 the kernel wrappers call :func:`library` only for CUDA tensors.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -21,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import tempfile
 import threading
@@ -32,6 +34,10 @@ _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "cuda"
 _LIB_NAME = "libtpu_torch_kernels.so"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
           "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: seconds the compiles may take together, and the link alone (the
+#: whole build takes well under a minute on an H100 host)
+BUILD_TIMEOUT_S = 300.0
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -112,41 +118,84 @@ def _nvcc() -> str:
         "the CUDA kernels cannot be built")
 
 
+def _start(cmd: list[str]) -> subprocess.Popen:
+    # a session of its own, so that a kill at the deadline reaches
+    # nvcc's children (cicc, ptxas), which hold the output pipe too
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def _kill(proc: subprocess.Popen) -> str:
+    """Kill ``proc``'s whole session; the output it wrote."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    try:
+        out, _ = proc.communicate(timeout=10)
+    except subprocess.TimeoutExpired:
+        out = "(no output after the kill)"
+    return out or ""
+
+
+def _finish(jobs: list, seconds: float, log: list[str]) -> list:
+    """Wait ``seconds`` in all for every ``(label, process)`` of
+    ``jobs``, logging each one's output; returns ``(label, log entry)``
+    of each that failed.  Past the deadline every process still running
+    is killed, its output logged, and ``TimeoutError`` raised."""
+    deadline = time.monotonic() + seconds
+    failed = []
+    for i, (label, proc) in enumerate(jobs):
+        try:
+            out, _ = proc.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            late = [lb for lb, pr in jobs[i:] if pr.poll() is None]
+            for lb, pr in jobs[i:]:
+                state = ("killed at the deadline" if pr.poll() is None
+                         else f"rc {pr.returncode}")
+                log.append(f"== {lb} ({state})\n{_kill(pr)}")
+            raise TimeoutError(f"{', '.join(late)} still running after "
+                               f"{seconds:g} s") from None
+        log.append(f"== {label} (rc {proc.returncode})\n{out}")
+        if proc.returncode:
+            failed.append((label, log[-1]))
+    return failed
+
+
 def _build(out_dir: Path) -> None:
     """Compile every source in parallel, link, and move the result
-    into ``out_dir`` atomically."""
+    into ``out_dir`` atomically.  The compiles have BUILD_TIMEOUT_S
+    together and the link as long again; past either deadline every
+    compiler still running is killed, the build directory removed, and
+    the build raises with its log so far."""
     nvcc = _nvcc()
     _BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="build-", dir=_BUILD_ROOT))
-    procs = []
-    for src in _sources():
-        obj = tmp / (src.stem + ".o")
-        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-c", str(src),
-               "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    log, objs, failed, failed_logs = [], [], [], []
-    for src, obj, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
-        objs.append(str(obj))
-        if proc.returncode:
-            failed.append(src.name)
-            failed_logs.append(log[-1])
-    if not failed:
-        link = subprocess.run(
-            [nvcc, *_FLAGS, "-shared", *objs, "-o", str(tmp / _LIB_NAME)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        log.append(f"== link (rc {link.returncode})\n{link.stdout}")
-        if link.returncode:
-            failed.append("link")
-            failed_logs.append(log[-1])
+    compiles, objs, log = [], [], []
+    try:
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            compiles.append((src.name, _start(
+                [nvcc, *_FLAGS, "-I", str(_CSRC), "-c", str(src),
+                 "-o", str(obj)])))
+            objs.append(str(obj))
+        failed = _finish(compiles, BUILD_TIMEOUT_S, log)
+        if not failed:
+            failed = _finish([("link", _start(
+                [nvcc, *_FLAGS, "-shared", *objs, "-o",
+                 str(tmp / _LIB_NAME)]))], BUILD_TIMEOUT_S, log)
+    except TimeoutError as e:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(
+            f"CUDA kernel build passed its deadline ({e}); log so far:\n"
+            + "\n".join(log)[-8000:]) from None
     (tmp / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(
-            f"CUDA kernel build failed ({', '.join(failed)}):\n"
-            + "\n".join(failed_logs)[:8000])
+            f"CUDA kernel build failed ({', '.join(lb for lb, _ in failed)}"
+            "):\n" + "\n".join(entry for _, entry in failed)[:8000])
     try:
         tmp.rename(out_dir)
     except OSError:

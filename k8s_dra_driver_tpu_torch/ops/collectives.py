@@ -13,8 +13,9 @@ readback) cancels.  The harness's rules are the reference's:
   reading; a non-positive median (jitter swamped it) falls back to the
   absolute per-iteration time and is flagged ``valid=False``;
 - a reading below a physical floor (operations over twice the card's
-  peak, bytes over 2.5x its memory rate) is an artifact, in the
-  flattering direction, and is retried, then flagged.
+  peak, bytes over two and a half times its memory rate: sanity
+  ceilings, not measurements) is an artifact, in the flattering
+  direction, and is retried, then flagged.
 
 Timing: a chain whose input lies on one CUDA device is timed with CUDA
 events around the call (``elapsed_time`` after the end event completes);

@@ -21,7 +21,10 @@ D]``, as torch.distributed code does; the JAX entry takes global arrays
 under ``shard_map``.  On CUDA tensors every hop runs the kernels, on
 CPU tensors their plain versions.  Hops travel by
 ``batch_isend_irecv`` on the sp group (``parallel/mesh.py``); the next
-hop's blocks are in flight while this hop computes.
+hop's blocks are in flight while this hop computes.  Each hop waits at
+most the sp group's timeout, the mesh's deadline (``ProcessMesh.
+timeout``): a peer that died or stopped raises ``MeshPeerError`` on its
+neighbours.
 
 ``attention_reference`` is the O(T^2) single-device attention every
 fused path is held against, and the transformer's off-card attention
@@ -154,6 +157,7 @@ def _ring_forward(q, k, v, seg, seg_all, mesh, axis, causal, scale,
                 k_segments=_hop_segments(seg_all, k_offset, t_local))
             o, m, l = merge_flash_stats(o, m, l, *stats)
         if pending is not None:
+            # deadline: the sp group's timeout bounds the hop (mesh.py)
             k_blk, v_blk = pending.wait()
     out, lse = normalize_flash_stats(o, m, l)
     return out.to(q.dtype), lse
@@ -186,6 +190,7 @@ def _ring_backward(q, k, v, seg, seg_all, out, lse, do, mesh, axis, causal,
         # the quartet rotates together; after the last hop only the
         # accumulators travel, home to the block's owner
         moving = [dk, dv] if step == ring - 1 else [k_blk, v_blk, dk, dv]
+        # deadline: the sp group's timeout bounds the hop (mesh.py)
         moved = mesh.exchange_start(moving, axis, send_to,
                                     recv_from).wait()
         if step == ring - 1:

@@ -40,11 +40,31 @@ group stages each CUDA tensor through host memory on its way
 (:meth:`ProcessMesh.host_staged`): the compute stays on the card, the
 bytes cross the host.  That is the setup of several ranks sharing one
 card, which NCCL refuses, and of the CPU tests.
+
+Every exchange is bounded by the mesh's deadline, :attr:`ProcessMesh.
+timeout`: :func:`make_mesh` gives each axis group the timeout the
+port's rendezvous gave the default group (``TPU_RENDEZVOUS_BARRIER_
+TIMEOUT_S``), and on gloo a group's timeout bounds every wait on it,
+the ring's hops included.  A peer that dies closes its sockets and
+fails the exchange at once; a peer that is stopped or stuck keeps them
+open and fails it at the deadline.  Either way this rank raises
+:class:`MeshPeerError`, which names the axis, this rank's coordinates,
+the peers' coordinates on the line and the deadline, so a killed or
+wedged rank fails its survivors in-band.  Any other error (a bad
+argument, a CUDA fault surfacing at a staging copy) is raised as it
+is.  That holds for gloo.  On
+NCCL the group's timeout drives torch's watchdog instead: under
+torch's default ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` it reports the
+collective that passed the deadline on stderr and ends the process, so
+a survivor exits nonzero with no Python exception to catch.  That path
+needs a card a rank and is untested here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
 import itertools
 import math
 import os
@@ -53,6 +73,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from .rendezvous import group_timeout
 
 MESH_AXES = ("dp", "ep", "sp", "tp", "pp")
 
@@ -195,16 +216,55 @@ def spec_block(shape, spec, sizes: dict, coords: dict) -> list[list[int]]:
     return out
 
 
+class MeshPeerError(RuntimeError):
+    """A collective or exchange of the mesh failed: a peer on the line
+    dropped its connection, or did not answer within the deadline."""
+
+    def __init__(self, axis: str | None, coords: dict, peers: list,
+                 deadline_s: float | None, cause: BaseException):
+        self.axis, self.coords, self.peers = axis, coords, peers
+        self.deadline_s = deadline_s
+        where = "world" if axis is None else f"axis {axis!r}"
+        deadline = ("torch's default" if deadline_s is None
+                    else f"{deadline_s:g} s")
+        super().__init__(
+            f"mesh {where}: rank at {coords} lost its peers {peers} "
+            f"(dropped connection, or no answer within the deadline of "
+            f"{deadline}): {cause}")
+
+
+#: what gloo's transport writes into the ``RuntimeError`` of a peer
+#: that closed its connection or did not answer within the timeout
+_GLOO_TRANSPORT = ("/gloo/transport/", "pair closure")
+
+
+def _peer_lost(e: BaseException) -> bool:
+    """Whether ``e`` from a collective means a peer was lost: one of
+    torch's distributed errors, or gloo's transport failing."""
+    return isinstance(e, dist.DistError) or (
+        isinstance(e, RuntimeError)
+        and any(mark in str(e) for mark in _GLOO_TRANSPORT))
+
+
 class _Pending:
     """Receives of :meth:`ProcessMesh.exchange_start` in flight."""
 
-    def __init__(self, works, bufs, device):
-        self._works, self._bufs, self._device = works, bufs, device
+    def __init__(self, mesh, axis, peers, works, bufs):
+        self._mesh, self._axis, self._peers = mesh, axis, peers
+        self._works, self._bufs = works, bufs
 
     def wait(self) -> list[torch.Tensor]:
-        for work in self._works:
-            work.wait()
-        return [b.to(self._device) for b in self._bufs]
+        """The received tensors on the mesh's device, once every send
+        and receive completed; raises :class:`MeshPeerError` when a peer
+        is lost."""
+        mesh = self._mesh
+        with mesh._in_band(self._axis, self._peers):
+            for work in self._works:
+                # deadline: gloo bounds the wait by the group's timeout
+                # (the mesh's); on NCCL it only orders the stream, and
+                # the group's timeout drives torch's watchdog
+                work.wait()
+        return [b.to(mesh.device) for b in self._bufs]
 
 
 class ProcessMesh:
@@ -214,16 +274,20 @@ class ProcessMesh:
     :func:`make_mesh`.
 
     The collectives take the axis by name (``None``: the whole world)
-    and are identities on an axis of size 1."""
+    and are identities on an axis of size 1.  Each raises
+    :class:`MeshPeerError` when a peer is lost (module docstring)."""
 
     def __init__(self, spec: MeshSpec, device: torch.device, rank: int,
-                 groups: dict, lines: dict):
+                 groups: dict, lines: dict,
+                 timeout: datetime.timedelta | None = None):
         self.spec = spec
         self.device = device
         self.rank = rank
         self.coords = mesh_coords(rank, spec)
         self._groups = groups
         self._lines = lines
+        #: the deadline of every exchange (None: torch's default)
+        self.timeout = timeout
 
     @property
     def world_size(self) -> int:
@@ -247,6 +311,33 @@ class ProcessMesh:
         """Global ranks along ``axis`` through this process, by
         coordinate."""
         return self._lines.get(axis, [self.rank])
+
+    def _peers(self, axis: str | None, *coords: int) -> list:
+        """The peers of this rank on ``axis`` (None: the world): their
+        coordinates along the axis (global ranks on the world), those
+        given or else every other one on the line."""
+        if axis is None:
+            return [f"rank {r}" for r in range(self.world_size)
+                    if r != self.rank]
+        return [f"{axis}={c}" for c in
+                dict.fromkeys(coords or range(self.size(axis)))
+                if c != self.index(axis)]
+
+    @contextlib.contextmanager
+    def _in_band(self, axis: str | None, peers: list | None = None):
+        """Raise a lost peer inside (:func:`_peer_lost`) as
+        :class:`MeshPeerError` against ``peers`` (default: the line's);
+        any other error passes unchanged."""
+        try:
+            yield
+        except RuntimeError as e:
+            if not _peer_lost(e):
+                raise
+            raise MeshPeerError(
+                axis, dict(self.coords),
+                self._peers(axis) if peers is None else peers,
+                None if self.timeout is None
+                else self.timeout.total_seconds(), e) from e
 
     def host_staged(self, axis: str | None) -> bool:
         """Whether the group carries host tensors only (gloo) while the
@@ -284,7 +375,8 @@ class ProcessMesh:
         if axis is not None and self.size(axis) == 1:
             return x
         wire = self._wire(x, axis)
-        dist.all_reduce(wire, group=self.group(axis))
+        with self._in_band(axis):
+            dist.all_reduce(wire, group=self.group(axis))
         if wire is not x:
             x.copy_(wire)
         return x
@@ -296,7 +388,8 @@ class ProcessMesh:
             return x
         wire = self._wire(x.contiguous(), axis)
         parts = [torch.empty_like(wire) for _ in range(self.size(axis))]
-        dist.all_gather(parts, wire, group=self.group(axis))
+        with self._in_band(axis):
+            dist.all_gather(parts, wire, group=self.group(axis))
         return torch.cat(parts, dim=dim).to(x.device)
 
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -306,7 +399,8 @@ class ProcessMesh:
             return x
         wire = self._wire(x.contiguous(), axis)
         out = torch.empty_like(wire)
-        dist.all_to_all_single(out, wire, group=self.group(axis))
+        with self._in_band(axis):
+            dist.all_to_all_single(out, wire, group=self.group(axis))
         return out.to(x.device)
 
     def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = 0):
@@ -329,7 +423,8 @@ class ProcessMesh:
         chunks = x.movedim(dim, 0).contiguous()
         out = torch.empty((chunks.shape[0] // n,) + chunks.shape[1:],
                           dtype=x.dtype, device=x.device)
-        dist.reduce_scatter_tensor(out, chunks, group=self.group(axis))
+        with self._in_band(axis):
+            dist.reduce_scatter_tensor(out, chunks, group=self.group(axis))
         return out.movedim(0, dim).contiguous()
 
     def broadcast(self, x: torch.Tensor, axis: str, src: int):
@@ -340,20 +435,24 @@ class ProcessMesh:
         wire = self._wire(x.contiguous(), axis)
         if wire is x:
             wire = x.clone()
-        dist.broadcast(wire, self.line(axis)[src], group=self.group(axis))
+        with self._in_band(axis):
+            dist.broadcast(wire, self.line(axis)[src],
+                           group=self.group(axis))
         return wire.to(x.device)
 
     def send(self, x: torch.Tensor, axis: str, to: int) -> None:
         """Send ``x`` to coordinate ``to`` along ``axis`` (blocking)."""
-        dist.send(self._wire(x.contiguous(), axis), self.line(axis)[to],
-                  group=self.group(axis))
+        wire = self._wire(x.contiguous(), axis)
+        with self._in_band(axis, self._peers(axis, to)):
+            dist.send(wire, self.line(axis)[to], group=self.group(axis))
 
     def recv(self, shape, dtype, axis: str, frm: int) -> torch.Tensor:
         """A tensor of ``shape``/``dtype`` from coordinate ``frm`` along
         ``axis``, on this mesh's device."""
         on = ("cpu" if self.host_staged(axis) else self.device)
         buf = torch.empty(shape, dtype=dtype, device=on)
-        dist.recv(buf, self.line(axis)[frm], group=self.group(axis))
+        with self._in_band(axis, self._peers(axis, frm)):
+            dist.recv(buf, self.line(axis)[frm], group=self.group(axis))
         return buf.to(self.device)
 
     def exchange_start(self, tensors, axis: str, send_to: int,
@@ -363,7 +462,8 @@ class ProcessMesh:
         ``batch_isend_irecv``; ``.wait()`` on the result returns the
         received tensors on this mesh's device."""
         if self.size(axis) == 1:
-            return _Pending([], list(tensors), self.device)
+            return _Pending(self, axis, [], [], list(tensors))
+        peers = self._peers(axis, send_to, recv_from)
         line = self.line(axis)
         group = self.group(axis)
         ops, bufs = [], []
@@ -373,7 +473,9 @@ class ProcessMesh:
             ops.append(dist.P2POp(dist.isend, wire, line[send_to], group))
             ops.append(dist.P2POp(dist.irecv, buf, line[recv_from], group))
             bufs.append(buf)
-        return _Pending(dist.batch_isend_irecv(ops), bufs, self.device)
+        with self._in_band(axis, peers):
+            works = dist.batch_isend_irecv(ops)
+        return _Pending(self, axis, peers, works, bufs)
 
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.spec}, rank={self.rank}, "
@@ -388,7 +490,13 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
     its other group-making calls: each axis line becomes a process group
     (``dist.new_group`` is collective over the world).  Raises
     ``ValueError`` when the spec's device count differs from the world
-    size, as JAX's ``make_mesh`` does."""
+    size, as JAX's ``make_mesh`` does.
+
+    Every axis group takes the timeout ``parallel.rendezvous.initialize``
+    gave the default group (``TPU_RENDEZVOUS_BARRIER_TIMEOUT_S``), the
+    mesh's deadline.  Over a default group the port's rendezvous did
+    not stand up, the groups take torch's default (30 minutes on gloo,
+    10 on NCCL) and the mesh waits as long."""
     if not dist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized: call "
                            "parallel.rendezvous.initialize first")
@@ -398,6 +506,7 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
         raise ValueError(f"mesh {spec} wants {spec.num_devices} devices, "
                          f"have {world} processes")
     dev = resolve_device(device)
+    timeout = group_timeout()
     rank = dist.get_rank()
     sizes = spec.axis_sizes()
     groups, lines = {}, {}
@@ -410,10 +519,10 @@ def make_mesh(spec: MeshSpec | None = None, device="cuda") -> ProcessMesh:
             coords = dict(zip(others, fixed))
             ranks = [mesh_rank({**coords, axis: i}, spec)
                      for i in range(sizes[axis])]
-            group = dist.new_group(ranks)
+            group = dist.new_group(ranks, timeout=timeout)
             if rank in ranks:
                 groups[axis], lines[axis] = group, ranks
-    return ProcessMesh(spec, dev, rank, groups, lines)
+    return ProcessMesh(spec, dev, rank, groups, lines, timeout)
 
 
 # --------------------------------------------------------------------------
@@ -528,8 +637,8 @@ def gather_replicated(x, mesh, axis: str, dim: int):
             if _axis_live(mesh, axis) else x)
 
 
-__all__ = ["BATCH_AXES", "MESH_AXES", "MeshSpec", "P", "PartitionSpec",
-           "ProcessMesh", "all_gather_ad", "copy_to",
+__all__ = ["BATCH_AXES", "MESH_AXES", "MeshPeerError", "MeshSpec", "P",
+           "PartitionSpec", "ProcessMesh", "all_gather_ad", "copy_to",
            "gather_replicated", "log2_int", "make_mesh", "mesh_coords",
            "mesh_rank", "reduce_from", "reduce_scatter_ad", "spec_axes",
            "spec_block", "visible_chip_count"]

@@ -45,6 +45,11 @@ class ContractError(ValueError):
     gang never formed by its deadline."""
 
 
+#: (default group, timeout) of the last :func:`initialize`; the timeout
+#: holds while that group is still the world (:func:`group_timeout`)
+_recorded: tuple | None = None
+
+
 @dataclasses.dataclass(frozen=True)
 class RendezvousSpec:
     coordinator_address: str          # host:port
@@ -108,10 +113,15 @@ def initialize(spec: RendezvousSpec | None = None, *,
     the coordinator address, for test beds where gang worker hostnames
     are not resolvable.
 
-    ``TPU_RENDEZVOUS_BARRIER_TIMEOUT_S`` is the group's timeout: it
-    bounds the store's rendezvous (a coordinator that never comes up,
-    peers that never join) and every later collective.  A rendezvous
-    that fails raises :class:`ContractError` with the spec echoed."""
+    ``TPU_RENDEZVOUS_BARRIER_TIMEOUT_S`` is the default group's timeout:
+    it bounds the store's rendezvous (a coordinator that never comes
+    up, peers that never join) and every later collective on the
+    default group.  :func:`group_timeout` hands it on, and
+    ``parallel.mesh.make_mesh`` gives it to every axis group it makes,
+    so each collective and exchange of the mesh is bounded by it too.
+    A rendezvous that fails raises :class:`ContractError` with the spec
+    echoed."""
+    global _recorded
     spec = spec or spec_from_env()
     host, _, port = spec.coordinator_address.rpartition(":")
     host = host_override or host
@@ -127,7 +137,18 @@ def initialize(spec: RendezvousSpec | None = None, *,
             f"never formed at coordinator {host}:{port} (spec: worker "
             f"{spec.worker_id}/{spec.num_workers}, channel {spec.channel}, "
             f"topology {spec.topology!r}): {e}") from e
+    _recorded = (dist.group.WORLD, timeout)
     return spec
+
+
+def group_timeout() -> datetime.timedelta | None:
+    """The timeout :func:`initialize` gave the default group, while that
+    group is still the world; None when the world was stood up another
+    way (or torn down since)."""
+    if (_recorded is None or not dist.is_initialized()
+            or dist.group.WORLD is not _recorded[0]):
+        return None
+    return _recorded[1]
 
 
 def gang_psum(value: float) -> float:

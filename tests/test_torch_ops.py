@@ -237,3 +237,67 @@ def test_kernel_build_key_covers_every_source():
     assert {"flash_fwd_tc", "gmm_tc", "gmm_dw_tc",
             "int8_matmul"} <= set(_build._SIGNATURES)
     assert _build._digest() == _build._digest()
+
+
+#: a stand-in for nvcc: a compile (``-c``) or the link (``-shared``)
+#: named in $FAKE_NVCC_SLOW writes a partial output, records the pid of
+#: a child that holds the output pipe, and sleeps; the others write
+#: their output and end
+FAKE_NVCC = """#!/bin/sh
+out=""; step=compile
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift ;; -shared) step=link ;; esac
+  shift
+done
+echo "fake nvcc $step -> $out"
+printf partial > "$out"
+if [ "$step" = "$FAKE_NVCC_SLOW" ]; then
+  sleep 120 &
+  echo $! >> "$FAKE_NVCC_PIDS"
+  wait
+fi
+"""
+
+
+@pytest.mark.parametrize("slow", ["compile", "link"])
+def test_kernel_build_kills_a_compiler_past_its_deadline(monkeypatch,
+                                                         tmp_path, slow):
+    """A compile or link that outlives BUILD_TIMEOUT_S is killed with its
+    children, the build directory goes, and the build raises with the
+    log so far instead of hanging.  The slow stage gets 1 s of its
+    deadline, the other a minute, so that a loaded machine's slow forks
+    do not time the quick stage out."""
+    import time
+    from pathlib import Path
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    pids = tmp_path / "pids"
+    monkeypatch.setenv("FAKE_NVCC_SLOW", slow)
+    monkeypatch.setenv("FAKE_NVCC_PIDS", str(pids))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "_BUILD_ROOT", tmp_path / "cuda")
+    finish = _build._finish
+
+    def budget(jobs, seconds, log):
+        assert seconds == _build.BUILD_TIMEOUT_S
+        linking = [label for label, _ in jobs] == ["link"]
+        return finish(jobs, 1.0 if linking == (slow == "link") else 60.0,
+                      log)
+
+    monkeypatch.setattr(_build, "_finish", budget)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="passed its deadline") as err:
+        _build._build(tmp_path / "cuda" / "lib")
+    assert time.monotonic() - t0 < 30
+    assert "killed at the deadline" in str(err.value)
+    assert f"fake nvcc {slow}" in str(err.value)
+    assert list((tmp_path / "cuda").iterdir()) == []   # no partial library
+    sleepers = [int(p) for p in pids.read_text().split()]
+    n_slow = len(_build._sources()) if slow == "compile" else 1
+    assert len(sleepers) == n_slow
+    for pid in sleepers:
+        # gone, or a zombie its new parent has not reaped yet
+        stat = Path(f"/proc/{pid}/stat")
+        assert not stat.exists() or stat.read_text().split(")")[1].split()[
+            0] == "Z", f"child {pid} of a killed compiler still runs"

@@ -275,6 +275,23 @@ def contract_worker(rank, world):
     return out
 
 
+def timeout_worker(rank, world, spec: dict):
+    """The deadline of a ``make_mesh`` mesh of ``spec`` after
+    ``rendezvous.initialize`` and the gloo timeout of each of its axis
+    groups, in seconds (``mesh``); and the rendezvous' own record."""
+    from k8s_dra_driver_tpu_torch.parallel import rendezvous
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(**spec), device="cpu")
+    return dict(
+        recorded=rendezvous.group_timeout().total_seconds(),
+        mesh=dict(
+            mesh=mesh.timeout.total_seconds(),
+            groups={axis: mesh.group(axis)._get_backend(
+                torch.device("cpu")).options._timeout.total_seconds()
+                for axis, n in mesh.spec.axis_sizes().items() if n > 1}))
+
+
 def jobs_worker(rank, world, jobs):
     """``[(worker, args), ...]`` run in turn on one group."""
     return [fn(rank, world, *args) for fn, args in jobs]
