@@ -401,6 +401,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     microbatches) and moe_heavy over ep=2 (8 experts and a dead group a
     rank), SP_STEPS steps each against the single-device losses, exact
     per-rank K1/K3/K4/K5/K6 launches on the tensor cores;
+20a. the multichip certification (``phase_multichip``, the port's
+    ``graft_entry.py``; in a process of its own, :class:`PhaseChild`,
+    beside phase 20): (a) ``dryrun_multichip(8)``, eight rank
+    processes sharing the card over gloo, three f32 steps of each of
+    the JAX dryrun's configs on ep=2 x sp=2 x tp=2 (ring with capacity
+    MoE and remat, Ulysses with GQA and dense MoE, dropless gmm) and of
+    its pp=4 x dp=2 pipeline: every loss finite and decreasing, each
+    run's first loss within MULTICHIP_LOSS_RTOL of one process's
+    single-device f32 step of the same weights and batch, each rank's
+    K1, K1-block, K3, K4, K5, K6 launches by route, the tp-sharded
+    decode's tokens equal to ``greedy_generate``'s on every rank; (b)
+    the 154M at full width served over ``MeshSpec(tp=2)`` by two ranks:
+    8 prompts of 96 tokens and 32 greedy tokens through ``prefill`` +
+    ``decode_step_rows`` against single-process ``greedy_generate`` on
+    the card, f32 prefill logits within MULTICHIP_F32_TOL of their
+    largest magnitude and every token equal, bf16 logits within twice
+    the single-device bf16-to-f32 gap (tokens printed), 8 K1 launches a
+    prefill on each rank (tensor cores in bf16), the wall a token; (c)
+    ``graft_entry.entry()``'s forward on the card against the same
+    forward on the CPU (plain path) at TOL[bf16] of the largest logit;
 20b. the measurement utilities (``phase_measure``): (a) the
     autotuner names the card (``backend_key``), the checked-in H100
     table is empty so every K7 launch of the run took ``int8_plan``'s
@@ -2742,6 +2762,14 @@ def phase_flash(fa) -> dict:
     cases += [dict(b=sv["b"], t=t, d=sv["d"], window=None, seg=False,
                    dtype=torch.bfloat16, h=sv["h"], h_kv=sv["h_kv"])
               for t in sv["ts"]]
+    # the multichip phase's prefills: the 154M's at tp=2 on one rank's
+    # heads in both dtypes, the flagship forward's, the dryrun decode's
+    for shape, dtypes in ((TP_PREFILL_K1, (torch.bfloat16, torch.float32)),
+                          (ENTRY_K1, (torch.bfloat16,)),
+                          (DRYRUN_DECODE_K1, (torch.float32,))):
+        cases += [dict(b=shape["b"], t=shape["t"], d=shape["d"],
+                       window=None, seg=False, dtype=dtype, h=shape["h"],
+                       h_kv=shape["h_kv"]) for dtype in dtypes]
     row, probes = None, {}
     for c in cases:
         b, t, d, dtype = c["b"], c["t"], c["d"], c["dtype"]
@@ -7930,6 +7958,16 @@ def phase_moe_serving(fa, pa, gm) -> dict:
     return counts
 
 
+#: K1 at the 154M's tp=2 prefill on one rank's heads (8 of 16 query and
+#: 2 of 4 KV heads; phase_multichip (b)), at the flagship forward of
+#: graft_entry.entry() (phase_multichip (c)) and at the dryrun decode's
+#: prefill on one rank's heads (phase_multichip (a)): phase_flash holds
+#: K1 at each
+TP_PREFILL_K1 = dict(b=8, t=96, h=8, h_kv=2, d=64)
+ENTRY_K1 = dict(b=4, t=256, h=8, h_kv=8, d=64)
+DRYRUN_DECODE_K1 = dict(b=4, t=8, h=2, h_kv=1, d=8)
+
+
 #: the mesh phase: worker processes on the one card (gloo), part (a)'s
 #: ep x tp step on MESH_MOE_WORLD of them, (a)'s tp step and (b)-(d) on
 #: SP_WORLD; the seconds each group may take, start to join
@@ -8239,6 +8277,351 @@ def phase_mesh_train(fa, gm, record: dict, moe_record: dict) -> dict:
     return total
 
 
+#: the multichip phase: the dryrun's ranks, the 154M's tp ranks and its
+#: traffic (numpy seed 0), the weights' generator seed on the card, the
+#: seconds each group may take, start to join
+MULTICHIP_WORLD = 8
+MULTICHIP_TP = 2
+MULTICHIP_PROMPTS, MULTICHIP_PROMPT_LEN, MULTICHIP_NEW = 8, 96, 32
+MULTICHIP_SEED = 0
+MULTICHIP_TIMEOUT_S = 420
+#: a dryrun run's first loss against the single-device f32 step
+MULTICHIP_LOSS_RTOL = 1e-4
+#: the f32 tp prefill logits against the single-process ones, relative
+#: to their largest magnitude (partial sums over heads and hidden units
+#: added in another order)
+MULTICHIP_F32_TOL = 1e-4
+
+
+def multichip_prompts(vocab: int) -> np.ndarray:
+    """The 154M tp traffic: MULTICHIP_PROMPTS prompts of
+    MULTICHIP_PROMPT_LEN tokens from numpy seed 0."""
+    return np.random.default_rng(0).integers(
+        0, vocab, (MULTICHIP_PROMPTS, MULTICHIP_PROMPT_LEN))
+
+
+def multichip_weights(dtype):
+    """(cfg, whole weights on the card): the 154M in ``dtype`` from
+    generator seed MULTICHIP_SEED on the card (bf16 weights are the f32
+    ones rounded)."""
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    cfg = dataclasses.replace(serving_config(), dtype=dtype)
+    return cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(MULTICHIP_SEED),
+        device="cuda")
+
+
+def multichip_worker(rank: int, world: int, port: int, job_path: str,
+                     out_dir: str) -> None:
+    """One rank of part (b): the group from the rendezvous contract
+    (gloo), ``MeshSpec(tp=world)``, then in f32 and in bf16 its blocks
+    of the 154M (``shard_params``), ``prefill`` of the job's prompts and
+    greedy ``decode_step_rows`` steps under ``mesh=``.  Writes the
+    prefill logits, the tokens, K1's launches by route after the
+    prefill and after the steps, its cache's KV heads and the wall a
+    decode step, or its traceback, under ``out_dir``."""
+    import traceback
+
+    import torch.distributed as dist
+    out = Path(out_dir)
+    try:
+        child_setup()
+        from k8s_dra_driver_tpu_torch.models import decode as dm
+        from k8s_dra_driver_tpu_torch.models.transformer import shard_params
+        from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+        from k8s_dra_driver_tpu_torch.parallel import rendezvous
+        from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "TPU_WORKER_ID": str(rank), "TPU_NUM_WORKERS": str(world),
+               "TPU_RENDEZVOUS_BARRIER_TIMEOUT_S": str(SP_BARRIER_S)}
+        rendezvous.initialize(rendezvous.spec_from_env(env), backend="gloo")
+        res = {"psum": rendezvous.gang_psum(float(rank + 1))}
+        job = torch.load(job_path, weights_only=False)
+        mesh = make_mesh(MeshSpec(tp=world), device="cuda")
+        prompts = torch.from_numpy(job["prompts"]).cuda()
+        b, t = prompts.shape
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            cfg, whole = multichip_weights(dtype)
+            params = shard_params(whole, cfg, mesh)
+            del whole
+            zero_counts(fa)
+            with torch.no_grad():
+                cache = dm.init_cache(cfg, b, t + MULTICHIP_NEW,
+                                      device="cuda", mesh=mesh)
+                logits, cache = dm.prefill(params, prompts, cfg, cache,
+                                           mesh=mesh)
+                prefill_counts = flash_routes(fa)
+                tok = logits[:, -1].argmax(dim=-1)
+                pos = torch.full((b,), t, device="cuda")
+                toks = [tok]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(MULTICHIP_NEW - 1):
+                    lg, cache = dm.decode_step_rows(params, tok[:, None], cfg,
+                                                    cache, pos, mesh=mesh)
+                    tok, pos = lg.argmax(dim=-1), pos + 1
+                    toks.append(tok)
+                torch.cuda.synchronize()
+                step_ms = 1e3 * (time.perf_counter() - t0) / (
+                    MULTICHIP_NEW - 1)
+            res[name] = dict(
+                coords=mesh.coords, logits=logits.float().cpu(),
+                tokens=torch.stack(toks, dim=1).cpu(),
+                prefill_counts=prefill_counts, counts=flash_routes(fa),
+                kv_heads=cache.k[0].shape[2], step_ms=step_ms)
+            del params, cache, logits
+            torch.cuda.empty_cache()
+        torch.save(res, out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def multichip_refs(prompts: np.ndarray) -> dict:
+    """Part (b)'s single-process references on the card, f32 and bf16:
+    the prefill logits of a fresh cache and ``greedy_generate``'s
+    tokens on the whole weights."""
+    from k8s_dra_driver_tpu_torch.models import decode as dm
+    toks = torch.from_numpy(prompts).cuda()
+    b, t = toks.shape
+    refs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg, params = multichip_weights(dtype)
+        with torch.no_grad():
+            cache = dm.init_cache(cfg, b, t + MULTICHIP_NEW, device="cuda")
+            logits, _ = dm.forward_with_cache(params, toks, cfg, cache,
+                                              first_chunk=True)
+            tokens = dm.greedy_generate(params, toks, cfg, MULTICHIP_NEW,
+                                        max_seq=t + MULTICHIP_NEW)
+        refs[name] = (logits.float().cpu(), tokens[:, t:].cpu())
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    return refs
+
+
+def dryrun_routes(launches: dict) -> dict:
+    """A dryrun report's launch counters (graft_entry's) by route."""
+    out = {}
+    for name in ("flash_fwd", "flash_fwd_block", "flash_bwd_dq",
+                 "flash_bwd_dkv", "gmm", "gmm_dw"):
+        out[f"{name}_tc"] = launches[f"{name}_tc"]
+        out[f"{name}_f32"] = launches[name] - launches[f"{name}_tc"]
+    return out
+
+
+def dryrun_single_losses(ge) -> list:
+    """Each dryrun run's first loss from one process's single-device f32
+    step on the card, on the weights and batch every rank starts from."""
+    from k8s_dra_driver_tpu_torch.models.transformer import make_train_step
+    losses = []
+    for run in ge.dryrun_runs(MULTICHIP_WORLD):
+        step, init_state = make_train_step(run.cfg, device="cuda")
+        params, opt = init_state(
+            torch.Generator().manual_seed(ge.SEEDS["params"]))
+        _, _, loss = step(params, opt,
+                          ge.dryrun_tokens(run.cfg, run.batch, run.seq))
+        losses.append(float(loss))
+        del params, opt
+    return losses
+
+
+#: what each dryrun run must launch on every rank (by route, > 0), f32
+#: throughout: the ring's hops (K1's block entry) and Ulysses' and the
+#: pipeline stages' normalized K1, K3/K4 in each backward, K5/K6 under
+#: gmm
+DRYRUN_REQUIRED = {
+    "ring, capacity MoE, remat": ("flash_fwd_block_f32", "flash_bwd_dq_f32",
+                                  "flash_bwd_dkv_f32"),
+    "Ulysses, GQA, dense MoE": ("flash_fwd_f32", "flash_bwd_dq_f32",
+                                "flash_bwd_dkv_f32"),
+    "ring, dropless gmm MoE": ("flash_fwd_block_f32", "flash_bwd_dq_f32",
+                               "flash_bwd_dkv_f32", "gmm_f32",
+                               "gmm_dw_f32"),
+    "pipeline pp=4 x dp=2": ("flash_fwd_f32", "flash_bwd_dq_f32",
+                             "flash_bwd_dkv_f32"),
+}
+
+
+def phase_multichip(fa) -> dict:
+    """The multichip certification on the card (module docstring, 20a):
+    (b)'s two tp ranks are spawned first; while they run, this process
+    computes (b)'s references, then runs (a), ``dryrun_multichip(8)``
+    (its eight ranks, each in a session of its own, the kernel library
+    already built), and the single-device f32 steps; (c) last.  Returns
+    the launches summed over the ranks of (a) and (b) and of (c), by
+    route."""
+    from k8s_dra_driver_tpu_torch import graft_entry as ge
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    card = card_line()
+    spec = MeshSpec.infer(MULTICHIP_WORLD)
+    cfg154 = serving_config()
+    prompts = multichip_prompts(cfg154.vocab)
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def beside():
+        dims = dict(fa.dim_launches)
+        refs = multichip_refs(prompts)
+        t0 = time.perf_counter()
+        try:
+            reports = ge.dryrun_multichip(MULTICHIP_WORLD, device="cuda",
+                                          timeout_s=MULTICHIP_TIMEOUT_S)
+        except RuntimeError as e:
+            fail(f"multichip (a): {e}")
+        took = time.perf_counter() - t0
+        single = dryrun_single_losses(ge)
+        # the references are no main path: the launches by head dim
+        # stay the main paths'
+        fa.dim_launches.clear()
+        fa.dim_launches.update(dims)
+        return refs, reports, took, single
+
+    ranks, (refs, reports, took_a, single), took_b = run_workers(
+        multichip_worker, MULTICHIP_TP, dict(prompts=prompts),
+        "multichip (b)", MULTICHIP_TIMEOUT_S, beside)
+    print(f"multichip gang: dryrun_multichip({MULTICHIP_WORLD}) took "
+          f"{took_a:.1f} s (eight rank processes, gloo, beside (b)); (b)'s "
+          f"{MULTICHIP_TP} tp ranks {took_b:.1f} s start to join; {card}",
+          flush=True)
+
+    # (a): the JAX dryrun's runs and its serving half
+    runs = ge.dryrun_runs(MULTICHIP_WORLD)
+    for i, run in enumerate(runs):
+        first = reports[0]["runs"][i]
+        for rep in reports:
+            got = rep["runs"][i]
+            if not np.allclose(got["losses"], first["losses"], rtol=1e-6,
+                               atol=0.0):
+                fail(f"multichip (a) {run.label}: rank {rep['rank']}'s "
+                     f"losses {got['losses']} differ from rank 0's "
+                     f"{first['losses']}")
+        rel = abs(first["losses"][0] - single[i]) / abs(single[i])
+        ok = (rel <= MULTICHIP_LOSS_RTOL
+              and all(np.isfinite(first["losses"]))
+              and first["losses"][-1] < first["losses"][0])
+        print(f"multichip (a) {run.label} on {run.spec}, batch "
+              f"[{run.batch}, {run.seq}] f32: losses "
+              f"{[round(x, 6) for x in first['losses']]} (every rank "
+              f"equal); first loss vs one process's single-device f32 step "
+              f"on the card {single[i]:.7f} (rel {rel:.3g}, tol "
+              f"{MULTICHIP_LOSS_RTOL}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"multichip (a) {run.label} disagrees")
+    for rep in reports:
+        by_run = {}
+        for run, got in zip(runs, rep["runs"]):
+            routes = dryrun_routes(got["launches"])
+            by_run[run.label] = {k: v for k, v in routes.items() if v}
+            missing = [k for k in DRYRUN_REQUIRED[run.label] if not routes[k]]
+            on_tc = [k for k, v in routes.items() if k.endswith("_tc") and v]
+            if missing or on_tc:
+                fail(f"multichip (a) rank {rep['rank']} {run.label}: no "
+                     f"launch of {missing}, tensor-core launches {on_tc} "
+                     f"(f32 runs)")
+            add(routes)
+        dec = dryrun_routes(rep["decode"]["launches"])
+        add(dec)
+        print(f"multichip (a) rank {rep['rank']} "
+              f"{rep['runs'][0]['coords']}: launches by route {by_run}; "
+              f"decode {({k: v for k, v in dec.items() if v})}", flush=True)
+        want_dec = {k: 0 for k in dec}
+        want_dec["flash_fwd_f32"] = ge.decode_config(spec).n_layers
+        if dec != want_dec:
+            fail(f"multichip (a) rank {rep['rank']}: decode launches {dec}, "
+                 f"expected {want_dec} (K1 once a layer in the prefill)")
+        if rep["decode"]["tokens"] != reports[0]["decode"]["tokens"]:
+            fail(f"multichip (a) rank {rep['rank']}: decode tokens differ")
+    print(f"multichip (a) tp-sharded prefill + per-row decode on "
+          f"{spec}: tokens "
+          f"{reports[0]['decode']['tokens']} equal greedy_generate's on "
+          f"every rank ok", flush=True)
+
+    # (b): the 154M over tp=2
+    n = cfg154.n_layers
+    f32_logits, f32_tokens = refs["f32"]
+    bf_logits, bf_tokens = refs["bf16"]
+    gap = (bf_logits - f32_logits).abs().max().item()
+    bf16_tol = 2 * gap
+    print(f"multichip (b) single process, bf16 vs f32 prefill logits: "
+          f"max|d| {gap:.4g} (largest |logit| "
+          f"{f32_logits.abs().max().item():.4g}); the bf16 tp tolerance is "
+          f"twice it, {bf16_tol:.4g}", flush=True)
+    for r, res in enumerate(ranks):
+        for name, (ref_logits, ref_tokens), want in (
+                ("f32", refs["f32"], {"flash_fwd_f32": n}),
+                ("bf16", refs["bf16"], {"flash_fwd_tc": n})):
+            got = res[name]
+            err = (got["logits"] - ref_logits).abs().max().item()
+            scale = ref_logits.abs().max().item()
+            same = int((got["tokens"] == ref_tokens).all(dim=1).sum())
+            agree = int((got["tokens"] == ref_tokens).sum())
+            counts = {k: v for k, v in got["prefill_counts"].items() if v}
+            after = {k: v for k, v in got["counts"].items() if v}
+            if name == "f32":
+                ok = err <= MULTICHIP_F32_TOL * scale and same == len(
+                    ref_tokens)
+                held = (f"prefill logits max|d| {err:.3g} (tol "
+                        f"{MULTICHIP_F32_TOL} x {scale:.4g}); streams equal "
+                        f"{same}/{len(ref_tokens)} (gated)")
+            else:
+                ok = err <= bf16_tol
+                held = (f"prefill logits max|d| {err:.4g} (tol "
+                        f"{bf16_tol:.4g}); streams equal {same}/"
+                        f"{len(ref_tokens)}, tokens {agree}/"
+                        f"{ref_tokens.numel()} (printed, not gated)")
+            ok = (ok and counts == want and after == want
+                  and got["kv_heads"] == cfg154.kv_heads // MULTICHIP_TP)
+            print(f"multichip (b) 154M {name} MeshSpec(tp={MULTICHIP_TP}) "
+                  f"rank {r} {got['coords']}, {got['kv_heads']} of "
+                  f"{cfg154.kv_heads} KV heads a rank, "
+                  f"{MULTICHIP_PROMPTS} prompts of {MULTICHIP_PROMPT_LEN} + "
+                  f"{MULTICHIP_NEW} greedy tokens vs single-process "
+                  f"greedy_generate: {held}; K1 launches in the prefill "
+                  f"{counts}, after the steps {after} (expected {want}); "
+                  f"wall {got['step_ms']:.1f} ms a token (host-staged gloo "
+                  f"on one card, beside (a)'s ranks and the mesh phase's: "
+                  f"not a scaling number) "
+                  f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
+            if not ok:
+                fail(f"multichip (b) {name} disagrees on rank {r}")
+            add(got["counts"])
+
+    # (c): the flagship forward, the card against the CPU's plain path
+    zero_counts(fa)
+    fn, (params, tokens) = ge.entry(device="cuda")
+    with torch.no_grad():
+        got = fn(params, tokens).float().cpu()
+    counts = flash_routes(fa)
+    del params
+    cfn, (cparams, ctokens) = ge.entry(device="cpu")
+    with torch.no_grad():
+        want = cfn(cparams, ctokens).float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    layers = ge.FLAGSHIP["n_layers"]
+    ok = (bool(torch.isfinite(got).all()) and err <= TOL[torch.bfloat16]
+          * scale and counts["flash_fwd_tc"] == layers
+          and counts["flash_fwd_f32"] == 0)
+    print(f"multichip (c) graft_entry.entry() forward {tuple(got.shape)} "
+          f"bf16 on the card vs the CPU's plain path: max|d| {err:.4g} "
+          f"(tol {TOL[torch.bfloat16]} x {scale:.4g}); K1 launches "
+          f"{({k: v for k, v in counts.items() if v})} (expected "
+          f"{layers} on the tensor cores) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("multichip (c): entry()'s forward disagrees")
+    add({"flash_fwd_tc": counts["flash_fwd_tc"]})
+    return total
+
+
 MEASURE_SIM = dict(seed=7, cycles=20, ab_cycles=70)
 #: decode_probe's longer generation (the probe's default 64; the shorter
 #: is a quarter of it): its two probes took 37 s of the script's time
@@ -8406,6 +8789,17 @@ def crucible_child() -> dict:
         routes, f32_routes = phase_crucible(fa, pa, Path(tmp))
     return {"routes": routes, "f32_routes": f32_routes,
             "dims": dims_list(fa, pa)}
+
+
+def multichip_child() -> dict:
+    """The multichip phase in a process of its own: its launches by
+    route and by head dim."""
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+    from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
+    child_setup()
+    fa.dim_launches.clear()
+    pa.dim_launches.clear()
+    return {"launches": phase_multichip(fa), "dims": dims_list(fa, pa)}
 
 
 def tune_k7(qm, at, col, tuner, card: str) -> list:
@@ -8944,6 +9338,9 @@ def main() -> None:
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     clock.mark("moe train and serving")
+    # the multichip certification runs in a process of its own beside
+    # the mesh phase: both gate values and counts, not walls
+    multichip_proc = PhaseChild("multichip_child")
     # tp, ep and pp (summed over ranks): the tensor-core launches join
     # the main path's, the f32 small steps' their routes
     for name, n in phase_mesh_train(fa, gm, record, moe_record).items():
@@ -8954,6 +9351,19 @@ def main() -> None:
             if name == "flash_fwd_tc":
                 launches["flash_fwd"] += n
     clock.mark("mesh train")
+    # the multichip certification (summed over ranks): the dryrun's f32
+    # launches join their routes, the 154M tp prefills' and the flagship
+    # forward's K1 the main path's (both routes)
+    multichip = multichip_proc.join()
+    add_dims(fa, pa, multichip["dims"])
+    for name, n in multichip["launches"].items():
+        if name.endswith("_f32"):
+            f32_routes[name] = f32_routes.get(name, 0) + n
+        else:
+            launches[name] = launches.get(name, 0) + n
+            if name == "flash_fwd_tc":
+                launches["flash_fwd"] += n
+    clock.mark("multichip (its own process, beside the mesh phase)")
     # the measurement utilities: the probes' K1, K3/K4 and K7 launches
     with tempfile.TemporaryDirectory() as tmp:
         for name, n in phase_measure(fa, qm, sim, sim_dir,
@@ -8969,7 +9379,7 @@ def main() -> None:
           f"drain and paged-KV probes + the control loops and their "
           f"oracle + the gang recovery arcs + the crucible's soaks + "
           f"{TRAIN_STEPS} train "
-          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the measurement probes): "
+          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the multichip phase's dryrun on {MULTICHIP_WORLD} ranks, 154M tp={MULTICHIP_TP} prefills and flagship forward + the measurement probes): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,

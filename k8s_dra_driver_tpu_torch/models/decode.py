@@ -52,9 +52,29 @@ correction (exact match for greedy rows, rejection sampling for
 sampled ones).  ``decode_spec_fused_rows`` runs up to k windows a
 block, on the card as a ``FusedBlockGraph`` with a ``SpecDraft``.
 
+**Tensor parallelism** (``mesh=`` on the contiguous path:
+:func:`init_cache`, :func:`forward_with_cache`, :func:`prefill`,
+:func:`decode_step`, :func:`decode_step_rows`,
+:func:`greedy_generate`): over a ``parallel.mesh.ProcessMesh`` whose
+tp axis is > 1, each rank holds its blocks of the weights
+(``transformer.shard_params``) and a cache of its ``H_kv/tp`` KV
+heads.  The embedding is ``transformer._embed`` (this rank's d-slice,
+all-gathered); wq/wk/wv project this rank's heads from the replicated
+input, the fresh prefill runs K1 on them, and wo's partial output is
+summed over tp (``reduce_from``); the MLP is ``transformer._dense_mlp``
+and the logits ``transformer._unembed``, whole on every tp rank, so
+every tp rank takes the same argmax.  The other axes replicate the
+batch and the cache, as GSPMD does with the JAX package's unsharded
+cache: the only collectives are over tp.  What the slice does not
+carry under tp > 1 raises ``NotImplementedError`` naming ROADMAP's
+item (:func:`_refuse_tp`); with ``mesh=None`` every op is the
+single-process path's.
+
 Parity contract (tests/test_torch_decode.py): prefill + stepwise
 decode logits equal the training forward at every position, and equal
-the JAX package's within the stated f32 tolerance.
+the JAX package's within the stated f32 tolerance; under tp
+(tests/test_torch_tp_decode.py) they equal the JAX package's decode
+on its GSPMD-sharded weights.
 """
 
 from __future__ import annotations
@@ -68,11 +88,13 @@ import torch
 
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
+from ..parallel.mesh import reduce_from, spec_block
 from ..utils import dispatch
 from . import quant
 from .quant import QTensor, ein, take_rows
-from .transformer import (Params, TransformerConfig, _dense_mlp, _moe_mlp,
-                          rms_norm, rotary, unstage_params)
+from .transformer import (Params, TransformerConfig, _dense_mlp, _embed,
+                          _moe_mlp, _unembed, param_specs, rms_norm, rotary,
+                          unstage_params)
 
 _NEG_INF = -1e30
 
@@ -137,12 +159,78 @@ def _device(params: Params) -> torch.device:
     return params["embed"].device
 
 
+#: ROADMAP's item for what tensor-parallel decode does not carry yet
+_TP_LATER = "ROADMAP Queue A, item A0"
+
+
+def _tp(mesh) -> bool:
+    """Whether ``mesh`` splits the heads: a mesh whose tp axis is > 1."""
+    return mesh is not None and mesh.size("tp") > 1
+
+
+def _refuse_tp(cfg: TransformerConfig, mesh, params: Params | None = None,
+               lora=None) -> None:
+    """Raise ``NotImplementedError`` for what decode under tp > 1 does
+    not carry yet (each part of ROADMAP's item A0): the int8 KV cache,
+    ``QTensor`` weights, LoRA, MoE configs and pp-staged params."""
+    if not _tp(mesh):
+        return
+    what = None
+    if cfg.kv_cache_dtype == "int8":
+        what = "the int8 KV cache"
+    elif params is not None and any(
+            isinstance(w, QTensor) for w in _weights(params)):
+        what = "QTensor (int8) weights"
+    elif lora is not None:
+        what = "LoRA adapters"
+    elif cfg.is_moe:
+        what = "MoE configs"
+    elif cfg.pp_stages > 1 or (params is not None and "stages" in params):
+        what = "pp-staged params"
+    if what is not None:
+        _tp_later(what)
+
+
+def _tp_later(what: str) -> None:
+    raise NotImplementedError(
+        f"decode under tensor parallelism (tp > 1) does not carry {what} "
+        f"yet ({_TP_LATER})")
+
+
+def _weights(params: Params) -> list:
+    """The weight leaves decoding reads: embed, unembed and every
+    layer's (staged leaves for a pp tree)."""
+    layers = params.get("layers") or [params.get("stages", {})]
+    return ([params["embed"], params["unembed"]]
+            + [w for layer in layers for w in layer.values()])
+
+
+def _local_kv_heads(cfg: TransformerConfig, mesh) -> int:
+    """This rank's KV heads under ``mesh``: the block of wk's head axis
+    its tp coordinate holds (``H_kv/tp``; all of them without tp).  A
+    config whose query or KV heads do not divide by tp is refused in
+    the words of ``transformer.shard_params``."""
+    if not _tp(mesh):
+        return cfg.kv_heads
+    specs = param_specs(cfg)["layers"][0]
+    sizes, coords = mesh.spec.axis_sizes(), mesh.coords
+    spec_block((cfg.d_model, cfg.n_heads, cfg.d_head), specs["wq"], sizes,
+               coords)
+    lo, hi = spec_block((cfg.d_model, cfg.kv_heads, cfg.d_head),
+                        specs["wk"], sizes, coords)[1]
+    return hi - lo
+
+
 def init_cache(cfg: TransformerConfig, batch: int,
-               max_seq: int | None = None, device="cuda") -> KVCache:
+               max_seq: int | None = None, device="cuda",
+               mesh=None) -> KVCache:
     """Zero cache of ``batch`` rows by ``max_seq`` positions (int8 k/v
-    with f32 [B, S, H_kv, 1] scales under ``kv_cache_dtype="int8"``)."""
+    with f32 [B, S, H_kv, 1] scales under ``kv_cache_dtype="int8"``).
+    Under a ``mesh`` whose tp axis is > 1 the cache holds this rank's
+    ``H_kv/tp`` KV heads."""
+    _refuse_tp(cfg, mesh)
     max_seq = max_seq or cfg.max_seq
-    shape = (batch, max_seq, cfg.kv_heads, cfg.d_head)
+    shape = (batch, max_seq, _local_kv_heads(cfg, mesh), cfg.d_head)
 
     def zeros(shp, dtype):
         return [torch.zeros(shp, dtype=dtype, device=device)
@@ -248,27 +336,29 @@ def _project_and_write(layer, x, positions, cfg, k_cache, v_cache,
     return q, k, v
 
 
-def _attn_mlp_tail(x, o, layer, cfg, lora=None):
+def _attn_mlp_tail(x, o, layer, cfg, lora=None, mesh=None):
     """Shared per-layer back half: attention output projection +
     residual + MLP (dense, or MoE under the serving config).  ``lora``
     adds each row's wo delta ``(o@A)@B`` to the projection (the gather
-    of :func:`_project_and_write`)."""
+    of :func:`_project_and_write`).  Under tp (``mesh``) the projection
+    of this rank's heads is summed over tp and the MLP runs on its
+    ``d_ff/tp`` hidden units; without a mesh neither adds an op."""
     proj = ein("bthk,hkd->btd", o, layer["wo"])
     if lora is not None:
         slots, ao, bo = lora[0], lora[3], lora[4]
         proj = proj + torch.einsum(
             "btr,brd->btd", torch.einsum("bthk,bhkr->btr", o, ao[slots]),
             bo[slots])
-    x = x + proj
+    x = x + reduce_from(proj, mesh, "tp")
     mlp_in = rms_norm(x, layer["ln2"])
     if cfg.is_moe:
         return x + _moe_mlp(mlp_in, layer, _serving_cfg(cfg))
-    return x + _dense_mlp(mlp_in, layer)
+    return x + _dense_mlp(mlp_in, layer, mesh)
 
 
 def forward_with_cache(params: Params, tokens: torch.Tensor,
                        cfg: TransformerConfig, cache: KVCache,
-                       first_chunk: bool = False
+                       first_chunk: bool = False, mesh=None
                        ) -> tuple[torch.Tensor, KVCache]:
     """tokens [B, T] appended at ``cache.pos`` -> (logits [B,T,vocab],
     cache).  The cache tensors are written in place; the returned
@@ -277,7 +367,12 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
     ``first_chunk``: the caller guarantees ``cache.pos == 0``, so
     attention runs causally against just the chunk's own K/V — through
     the flash kernel on the card.  Wrong results if asserted on a
-    non-empty cache (earlier keys would be ignored)."""
+    non-empty cache (earlier keys would be ignored).
+
+    ``mesh``: this rank's blocks of the weights and its cache of
+    :func:`init_cache` under the same mesh (module docstring); the
+    logits are whole on every rank."""
+    _refuse_tp(cfg, mesh, params)
     params = _with_layers(params, cfg)
     b, t = tokens.shape
     size = cache.k[0].shape[1]
@@ -287,7 +382,7 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
             f"{t} tokens at position {pos} cannot fit a {size}-slot "
             f"cache")
     positions = pos + torch.arange(t, device=tokens.device)
-    x = take_rows(params["embed"], tokens, cfg.dtype)
+    x = _embed(params, tokens, cfg, mesh)
 
     def write(dst, new):
         dst[:, pos:pos + t] = new
@@ -305,9 +400,9 @@ def forward_with_cache(params: Params, tokens: torch.Tensor,
         else:
             o = _cached_attention(q, cache.k[i], cache.v[i], pos, t, cfg,
                                   ks, vs)
-        x = _attn_mlp_tail(x, o, layer, cfg)
+        x = _attn_mlp_tail(x, o, layer, cfg, mesh=mesh)
     x = rms_norm(x, params["ln_f"])
-    logits = ein("btd,dv->btv", x, params["unembed"])
+    logits = _unembed(x, params, mesh)
     return logits, dataclasses.replace(cache, pos=pos + t)
 
 
@@ -324,20 +419,23 @@ _prefill = dispatch.counted("prefill")(forward_with_cache)
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+            cache: KVCache, mesh=None) -> tuple[torch.Tensor, KVCache]:
     """Append the prompt chunk to the cache: the flash path on a fresh
     cache, the masked full-cache path on a non-empty one (chunked or
-    multi-turn prefill), correct at any position."""
-    return _prefill(params, tokens, cfg, cache, cache.pos == 0)
+    multi-turn prefill), correct at any position.  ``mesh`` as
+    :func:`forward_with_cache` takes it."""
+    return _prefill(params, tokens, cfg, cache, cache.pos == 0, mesh=mesh)
 
 
 @dispatch.counted("decode_step")
 def decode_step(params: Params, token: torch.Tensor,
-                cfg: TransformerConfig, cache: KVCache
+                cfg: TransformerConfig, cache: KVCache, mesh=None
                 ) -> tuple[torch.Tensor, KVCache]:
     """token [B, 1] appended at ``cache.pos`` -> (logits [B, vocab],
-    cache), the cache written in place."""
-    logits, cache = forward_with_cache(params, token, cfg, cache)
+    cache), the cache written in place.  ``mesh`` as
+    :func:`forward_with_cache` takes it."""
+    logits, cache = forward_with_cache(params, token, cfg, cache,
+                                       mesh=mesh)
     return logits[:, 0], cache
 
 
@@ -352,7 +450,7 @@ def _layer_lora(lora, i: int):
 
 def _rows_forward(params: Params, tokens: torch.Tensor,
                   cfg: TransformerConfig, cache: KVCache,
-                  pos_rows: torch.Tensor, lora=None
+                  pos_rows: torch.Tensor, lora=None, mesh=None
                   ) -> tuple[torch.Tensor, KVCache]:
     """tokens [B, T] appended at PER-ROW positions ``pos_rows`` [B] ->
     (logits [B, T, vocab], cache).  ``cache.pos`` is ignored: writes
@@ -361,14 +459,16 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
     ``lora`` is ``(slots [B], layers)`` with ``layers[i] = (aq, bq, ao,
     bo)``, the pooled adapter buffers (serving_lora/): each row gathers
     its adapter's factors by slot id, so a batch of mixed adapters is
-    one pass of fixed shapes."""
+    one pass of fixed shapes.  ``mesh`` as :func:`forward_with_cache`
+    takes it."""
+    _refuse_tp(cfg, mesh, params, lora)
     params = _with_layers(params, cfg)
     b, t = tokens.shape
     dev = tokens.device
     pos_rows = pos_rows.to(device=dev, dtype=torch.long)
     positions = pos_rows[:, None] + torch.arange(t, device=dev)[None]
     rows = torch.arange(b, device=dev)[:, None].expand(b, t)
-    x = take_rows(params["embed"], tokens, cfg.dtype)
+    x = _embed(params, tokens, cfg, mesh)
 
     def write_rows(dst, new):
         dst[rows, positions] = new
@@ -380,26 +480,27 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
                                      cache.v[i], ks, vs, write_rows, lr)
         o = _cached_attention(q, cache.k[i], cache.v[i], pos_rows, t, cfg,
                               ks, vs)
-        x = _attn_mlp_tail(x, o, layer, cfg, lr)
+        x = _attn_mlp_tail(x, o, layer, cfg, lr, mesh)
     x = rms_norm(x, params["ln_f"])
-    logits = ein("btd,dv->btv", x, params["unembed"])
+    logits = _unembed(x, params, mesh)
     return logits, cache
 
 
 @dispatch.counted("decode_step_rows")
 def decode_step_rows(params: Params, token: torch.Tensor,
                      cfg: TransformerConfig, cache: KVCache,
-                     pos_rows: torch.Tensor, lora=None
+                     pos_rows: torch.Tensor, lora=None, mesh=None
                      ) -> tuple[torch.Tensor, KVCache]:
     """One decode step with PER-ROW positions: token [B, 1], pos_rows
     [B] (each slot's fill depth) -> (logits [B, vocab], cache).  The
-    continuous-batching primitive (models/serving.py); ``lora`` as
-    :func:`_rows_forward` takes it."""
+    continuous-batching primitive (models/serving.py); ``lora`` and
+    ``mesh`` as :func:`_rows_forward` takes them."""
     b, t = token.shape
     if t != 1:
         raise ValueError(f"decode_step_rows is one token per slot, "
                          f"got T={t}")
-    logits, cache = _rows_forward(params, token, cfg, cache, pos_rows, lora)
+    logits, cache = _rows_forward(params, token, cfg, cache, pos_rows, lora,
+                                  mesh)
     return logits[:, 0], cache
 
 
@@ -783,7 +884,7 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
                       pos_rows: torch.Tensor, k: int, generators,
                       temps: torch.Tensor, budget: torch.Tensor,
                       eos: torch.Tensor, top_k: int = 0, top_p: float = 0.0,
-                      lora=None
+                      lora=None, mesh=None
                       ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """The generation block, step by step: up to ``k`` per-row decode
     steps of :func:`_block_step`, leaving as soon as every row is done
@@ -797,7 +898,11 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
     :func:`sample_rows` takes them.  Returns ``(packed [B, k+1] int32,
     rows_finished [], cache)``: ``packed[:, :k]`` the tokens (0 past a
     row's count), ``packed[:, k]`` each row's emitted count; the cache
-    is written in place.  ``lora`` as :func:`_rows_forward` takes it."""
+    is written in place.  ``lora`` as :func:`_rows_forward` takes it.
+    A ``mesh`` is refused: the fused block runs on one process
+    (ROADMAP's item A0)."""
+    if mesh is not None:
+        _tp_later("the fused generation block (a mesh)")
     s = _BlockState.empty(last.shape[0], k, cache.k[0].device)
     s.load(last, pos_rows, budget, eos, temps)
     s.begin()
@@ -1344,14 +1449,17 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
 def paged_decode_step_rows(params: Params, token: torch.Tensor,
                            cfg: TransformerConfig, pool: KVCache,
                            tables: torch.Tensor, pos_rows: torch.Tensor,
-                           use_kernel: bool = False, lora=None
+                           use_kernel: bool = False, lora=None, mesh=None
                            ) -> tuple[torch.Tensor, KVCache]:
     """One paged decode step: token [B, 1], tables [B, n_pages] int32,
     pos_rows [B] -> (logits [B, vocab], pool), pool written in place.
     ``use_kernel`` selects the paged kernel read (CUDA tensors); False
     keeps the gather + ``_cached_attention`` read that is bitwise equal
     to the contiguous engine on the CPU.  ``lora`` as
-    :func:`_rows_forward` takes it."""
+    :func:`_rows_forward` takes it.  Under tp > 1 (``mesh``) the paged
+    cache is refused (ROADMAP's item A0: K2 on local KV heads)."""
+    if _tp(mesh):
+        _tp_later("the paged KV cache (K2)")
     b, t = token.shape
     if t != 1:
         raise ValueError(f"paged_decode_step_rows is one token per "
@@ -1464,9 +1572,9 @@ def paged_dense_from_slab(slab_k: list, slab_v: list, pos: int,
     return KVCache(k=take(slab_k), v=take(slab_v), pos=int(pos))
 
 
-def _validated_prefill(params, prompt, cfg, n_tokens, max_seq):
+def _validated_prefill(params, prompt, cfg, n_tokens, max_seq, mesh=None):
     """Shared generation front half: bounds checks + flash prefill of a
-    fresh cache."""
+    fresh cache (under ``mesh`` as :func:`forward_with_cache`)."""
     b, tp = prompt.shape
     max_seq = max_seq or cfg.max_seq
     if n_tokens < 1:
@@ -1475,23 +1583,25 @@ def _validated_prefill(params, prompt, cfg, n_tokens, max_seq):
         raise ValueError(
             f"prompt ({tp}) + n_tokens ({n_tokens}) exceeds the "
             f"{max_seq}-slot cache")
-    cache = init_cache(cfg, b, max_seq, device=_device(params))
+    cache = init_cache(cfg, b, max_seq, device=_device(params), mesh=mesh)
     return forward_with_cache(params, prompt, cfg, cache,
-                              first_chunk=True)
+                              first_chunk=True, mesh=mesh)
 
 
 @torch.no_grad()
 def greedy_generate(params: Params, prompt: torch.Tensor,
                     cfg: TransformerConfig, n_tokens: int,
-                    max_seq: int | None = None) -> torch.Tensor:
-    """prompt [B, Tp] -> [B, Tp + n_tokens] greedy continuation."""
+                    max_seq: int | None = None, mesh=None) -> torch.Tensor:
+    """prompt [B, Tp] -> [B, Tp + n_tokens] greedy continuation
+    (``mesh`` as :func:`forward_with_cache` takes it: every rank
+    returns the same tokens)."""
     logits, cache = _validated_prefill(params, prompt, cfg, n_tokens,
-                                       max_seq)
+                                       max_seq, mesh)
     tok = logits[:, -1].argmax(dim=-1)
     out = [tok]
     for _ in range(n_tokens - 1):
         logits, cache = forward_with_cache(params, tok[:, None], cfg,
-                                           cache)
+                                           cache, mesh=mesh)
         tok = logits[:, 0].argmax(dim=-1)
         out.append(tok)
     generated = torch.stack(out, dim=1).to(prompt.dtype)

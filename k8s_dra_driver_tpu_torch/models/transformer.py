@@ -408,7 +408,10 @@ def _gelu(x):
 
 def _dense_mlp(x, layer, mesh=None):
     """The dense MLP over this rank's ``d_ff/tp`` hidden units under tp
-    (w_in ``P(None, "tp")``, w_out ``P("tp", None)``)."""
+    (w_in ``P(None, "tp")``, w_out ``P("tp", None)``).  Decoding
+    (models/decode.py) calls it, :func:`_embed` and :func:`_unembed`
+    forward-only: the collectives' autograd wrappers then record
+    nothing, and without a mesh each is its single-process op."""
     x = copy_to(x, mesh, "tp")
     h = _gelu(ein("btd,df->btf", x, layer["w_in"]))
     return reduce_from(ein("btf,fd->btd", h, layer["w_out"]), mesh, "tp")

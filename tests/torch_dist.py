@@ -1,6 +1,6 @@
 """Spawned gloo process groups for the port's distributed tests
 (test_torch_ring.py, test_torch_parallel.py, test_torch_tp.py,
-test_torch_ep.py, test_torch_pipeline.py).
+test_torch_ep.py, test_torch_pipeline.py, test_torch_tp_decode.py).
 
 :func:`run_group` starts ``world`` processes (spawn), each standing up
 the default group through the port's ``rendezvous.initialize`` from the
@@ -208,6 +208,56 @@ def model_worker(rank, world, cases):
     return results
 
 
+def tp_decode_worker(rank, world, cases):
+    """Tensor-parallel decode on each case's mesh, on this rank's blocks
+    of the case's (JAX) parameters: the logits of ``prefill`` and of
+    ``decode_step_rows`` steps fed the case's tokens, the greedy tokens
+    of ``prefill`` + ``decode_step_rows`` argmax steps, and those of
+    ``greedy_generate(mesh=)``; with this rank's cache shape."""
+    from k8s_dra_driver_tpu_torch.models import decode as td
+    from k8s_dra_driver_tpu_torch.models import transformer as tt
+    from k8s_dra_driver_tpu_torch.models.convert import params_from_jax
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    meshes, results = {}, []
+    for c in cases:
+        spec = MeshSpec(**c["spec"])
+        if spec not in meshes:
+            meshes[spec] = make_mesh(spec, device="cpu")
+        mesh = meshes[spec]
+        cfg = tt.TransformerConfig(**c["cfg"])
+        params = tt.shard_params(params_from_jax(c["params"], device="cpu"),
+                                 cfg, mesh)
+        prompt = torch.from_numpy(c["prompt"]).long()
+        forced = torch.from_numpy(c["forced"]).long()
+        b, t = prompt.shape
+        with torch.no_grad():
+            cache = td.init_cache(cfg, b, device="cpu", mesh=mesh)
+            logits, cache = td.prefill(params, prompt, cfg, cache, mesh=mesh)
+            steps, pos = [], torch.full((b,), t)
+            for i in range(forced.shape[1]):
+                lg, cache = td.decode_step_rows(params, forced[:, i:i + 1],
+                                                cfg, cache, pos, mesh=mesh)
+                steps.append(lg.numpy())
+                pos = pos + 1
+            gcache = td.init_cache(cfg, b, device="cpu", mesh=mesh)
+            lg, gcache = td.prefill(params, prompt, cfg, gcache, mesh=mesh)
+            tok, pos = lg[:, -1].argmax(-1), torch.full((b,), t)
+            greedy = [tok]
+            for _ in range(c["n_new"] - 1):
+                lg, gcache = td.decode_step_rows(params, tok[:, None], cfg,
+                                                 gcache, pos, mesh=mesh)
+                tok, pos = lg.argmax(-1), pos + 1
+                greedy.append(tok)
+            generated = td.greedy_generate(params, prompt, cfg, c["n_new"],
+                                           mesh=mesh)
+        results.append(dict(
+            coords=mesh.coords, prefill=logits.numpy(),
+            steps=np.stack(steps, 1), cache_shape=tuple(cache.k[0].shape),
+            greedy=torch.stack(greedy, 1).numpy(),
+            generated=generated[:, t:].numpy()))
+    return results
+
+
 def mlp_stage(params, x):
     """Two chained residual MLP layers a stage (tests/test_pipeline.py's
     stage body)."""
@@ -330,6 +380,30 @@ def jax_forward(jcfg, params, tokens, world, spec, seg=None) -> np.ndarray:
                                             segment_ids=s))
     return np.asarray(fn(placed, jnp.asarray(tokens),
                          None if seg is None else jnp.asarray(seg)))
+
+
+def jax_tp_decode(jcfg, params, prompt, forced, world, spec):
+    """JAX's ``prefill`` and ``decode_step_rows`` steps fed ``forced``
+    on numpy ``params`` placed by ``shard_params`` on the virtual mesh
+    (GSPMD splits the heads; the cache is unsharded): (prefill logits,
+    step logits [B, steps, V])."""
+    import jax
+    import jax.numpy as jnp
+
+    from k8s_dra_driver_tpu.models import decode as jd
+    from k8s_dra_driver_tpu.models import transformer as jt
+    mesh = jax_mesh(world, spec)
+    placed = jt.shard_params(jax.tree.map(jnp.asarray, params), jcfg, mesh)
+    b, t = prompt.shape
+    cache = jd.init_cache(jcfg, b)
+    logits, cache = jd.prefill(placed, jnp.asarray(prompt), jcfg, cache)
+    pos, steps = jnp.full((b,), t, jnp.int32), []
+    for i in range(forced.shape[1]):
+        lg, cache = jd.decode_step_rows(placed, jnp.asarray(forced[:, i:i + 1]),
+                                        jcfg, cache, pos)
+        steps.append(np.asarray(lg))
+        pos = pos + 1
+    return np.asarray(logits), np.stack(steps, 1)
 
 
 def jax_train(jcfg, world, spec, batches, seed=2, segs=None):
