@@ -147,7 +147,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    beside the bound, the plain version and SDPA (a yardstick);
 4. K2 (paged decode) likewise, with each case's plan (splits, blocks)
    printed, a bitwise repeat of every case, rows over several splits
-   (the merge) required and the merge's counters back at 0;
+   (the merge) required and the merge's counters back at 0; also at
+   one tp=2 rank of the 154M (8 query and 2 KV heads, both dtypes: the
+   kernels line's ``tp_rank`` rows of K2, as phase 14's K7a rows at the
+   rank's shards);
 5. K3 (flash backward dq) and K4 (dk/dv) against their plain version
    at the training shape (B=8 T=2048 H=16 Hkv=4 D=64 bf16 causal), with
    a window, segments, D=128, f32 and two ring-style blocks (offsets,
@@ -244,13 +247,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
     forward under gmm dispatch (K5);
 14. K7 (weight-only int8 matmul; K7a ``int8_matmul``, K7b ``int8_bmm``)
     against ``int8_matmul_reference`` / ``int8_bmm_reference`` at the
-    154M decode shapes (M = 1, 8, 64), the 660M shapes, off-gate M =
-    96 and 768, a ragged shape, and moe_heavy's expert products (shared
-    x, transposed view), in bf16 (the tensor-core route) and f32 (the
-    CUDA-core route), each case's plan (K split across blocks) printed,
-    with the device memory cache (L2) flushed before every timed call,
-    the bf16 cuBLAS product and ``torch._weight_int8pack_mm`` as
-    yardsticks, and the bound;
+    154M decode shapes (M = 1, 8, 64), one tp=2 rank's shards of them at
+    8 rows (TP_RANK_K7; the unembedding's x a column slice), the 660M
+    shapes, off-gate M = 96 and 768, a ragged shape, and moe_heavy's
+    expert products (shared x, transposed view), in bf16 (the
+    tensor-core route) and f32 (the CUDA-core route), each case's plan
+    (K split across blocks) printed, with the device memory cache (L2)
+    flushed before every timed call, the bf16 cuBLAS product and
+    ``torch._weight_int8pack_mm`` as yardsticks, and the bound;
 15. int8 serving at 154M: ``quantize_params`` of the same bf16 weights,
     held to the full-precision logits on one 8 x 96 forward; three
     drains of s8_r24 (contiguous KV, contiguous int8 KV, paged KV), each
@@ -412,15 +416,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     single-device f32 step of the same weights and batch, each rank's
     K1, K1-block, K3, K4, K5, K6 launches by route, the tp-sharded
     decode's tokens equal to ``greedy_generate``'s on every rank; (b)
-    the 154M at full width served over ``MeshSpec(tp=2)`` by two ranks:
-    8 prompts of 96 tokens and 32 greedy tokens through ``prefill`` +
-    ``decode_step_rows`` against single-process ``greedy_generate`` on
-    the card, f32 prefill logits within MULTICHIP_F32_TOL of their
-    largest magnitude and every token equal, bf16 logits within twice
-    the single-device bf16-to-f32 gap (tokens printed), 8 K1 launches a
-    prefill on each rank (tensor cores in bf16), the wall a token; (c)
+    the 154M at full width served over ``MeshSpec(tp=2)`` by two ranks,
+    in f32 and bf16, plain and in each of what tp decode once refused
+    (MULTICHIP_VARIANTS: the int8 KV cache, ``quantize_params`` weights
+    through K7, a paged pool of 16-token blocks read by K2, LoRA rows on
+    slots 0-3 of three rank-8 adapters): 8 prompts of 96 tokens and 32
+    greedy tokens through ``prefill`` + ``decode_step_rows`` (or
+    ``paged_decode_step_rows``) against single-process
+    ``greedy_generate`` (the plain run) or the same loop without a mesh
+    on the card, f32 prefill and first-step logits within
+    MULTICHIP_F32_TOL of their largest magnitude (the int8 cache's
+    first step within MULTICHIP_INT8KV_STEP_TOL, its int8 k/v entries
+    off the twin's printed) and every token equal, bf16 logits within twice the same variant's single-device
+    bf16-to-f32 gap (tokens printed), each rank's K1, K2 and K7 launches
+    by route exactly :func:`multichip_launches`', the wall a token; (c)
     ``graft_entry.entry()``'s forward on the card against the same
     forward on the CPU (plain path) at TOL[bf16] of the largest logit;
+    (d) moe_heavy in f32 over ``MeshSpec(ep=2, tp=2)`` by four ranks
+    of the same worker (started beside (b)'s): the same traffic's
+    prefill and greedy steps against single-process ``greedy_generate``, logits within
+    MULTICHIP_F32_TOL and every token equal, K1 4 a prefill a rank;
 20b. the measurement utilities (``phase_measure``): (a) the
     autotuner names the card (``backend_key``), the checked-in H100
     table is empty so every K7 launch of the run took ``int8_plan``'s
@@ -537,6 +552,10 @@ SMALL_DIMS = (8, 16, 32)
 #: the kernels-line rows of the small head dims: each kernel at a shape
 #: a reference-width probe gives it (filled by phases 3, 4 and 5)
 SMALL_D_ROWS: dict = {}
+#: the kernels line's rows of K2 and K7a at the shapes of one tp=2 rank
+#: of the 154M (phase_multichip (b)): filled by phase_paged and
+#: phase_int8, a list a kernel
+TP_RANK_ROWS: dict = {"K2": [], "K7a": []}
 # training, f32 card (kernels) vs CPU (plain): summation order only; a
 # missing or wrong gradient moves a weight by a whole AdamW step (lr
 # 3e-4), three times this bound
@@ -2763,8 +2782,10 @@ def phase_flash(fa) -> dict:
                    dtype=torch.bfloat16, h=sv["h"], h_kv=sv["h_kv"])
               for t in sv["ts"]]
     # the multichip phase's prefills: the 154M's at tp=2 on one rank's
-    # heads in both dtypes, the flagship forward's, the dryrun decode's
+    # heads in both dtypes, moe_heavy's at tp=2 in f32, the flagship
+    # forward's, the dryrun decode's
     for shape, dtypes in ((TP_PREFILL_K1, (torch.bfloat16, torch.float32)),
+                          (TP_MOE_PREFILL_K1, (torch.float32,)),
                           (ENTRY_K1, (torch.bfloat16,)),
                           (DRYRUN_DECODE_K1, (torch.float32,))):
         cases += [dict(b=shape["b"], t=shape["t"], d=shape["d"],
@@ -3094,6 +3115,20 @@ def paged_small_cases() -> list:
     return cases
 
 
+def paged_tp_cases() -> list:
+    """K2 at one tp=2 rank of the 154M (phase_multichip (b)'s paged
+    variant: 8 of 16 query and 2 of 4 KV heads, D=64, blocks of 16), at
+    its mid-run step (8 rows of 112 keys: 96 prompt tokens + 16 steps)
+    on its tables of (MULTICHIP_PROMPT_LEN + MULTICHIP_NEW) //
+    MULTICHIP_BS pages, so that the plan is the one (b) launches, in
+    both dtypes: (label, lengths, head dim, dtype, query heads, KV
+    heads, table width)."""
+    width = (MULTICHIP_PROMPT_LEN + MULTICHIP_NEW) // MULTICHIP_BS
+    return [(f"tp=2 rank {str(dtype).removeprefix('torch.')}", [112] * 8,
+             64, dtype, 8, 2, width)
+            for dtype in (torch.bfloat16, torch.float32)]
+
+
 def k2_direct(pa, args, plan) -> torch.Tensor:
     """K2 launched through its C entry on a given plan (outside the
     wrapper and its count): the main path's step on one split, so the
@@ -3117,12 +3152,12 @@ def k2_direct(pa, args, plan) -> torch.Tensor:
 
 
 def phase_paged(pa) -> tuple[dict, dict]:
-    """K2 against its plain version at :func:`paged_cases`, each case's
-    plan printed, on pools whose null block is NaN (the kernel must
-    never read a tail entry's page); a bitwise repeat of every case;
-    the run fails unless
-    some row spanned several splits (the merge ran) and every arrival
-    counter is back at 0.  Returns the kernels-line row at a mid-drain
+    """K2 against its plain version at :func:`paged_cases` (tables of
+    128 pages) and :func:`paged_tp_cases` (the width (b) builds), the
+    plan each launch takes printed, on pools whose null block is NaN
+    (the kernel must never read a tail entry's page); a bitwise repeat
+    of every case; the run fails unless some row spanned several splits
+    (the merge ran) and every arrival counter is back at 0.  Returns the kernels-line row at a mid-drain
     decode step of the s8_r24 paged engine (lengths 120/72/96/48), and,
     by shape, callables of the kernel and its plain version at that
     step, at eight and at one 2048-token rows, of the kernel on a
@@ -3132,11 +3167,11 @@ def phase_paged(pa) -> tuple[dict, dict]:
     gen = torch.Generator(device=dev).manual_seed(2)
     rng = np.random.default_rng(2)
     bs = 16
-    n_pages = 2048 // bs
+    wide = 2048 // bs
     row, probes, multi = None, {}, 0
-    cases = ([(*c, 16, 4) for c in paged_cases(pa)]
-             + paged_small_cases())
-    for label, lengths, d, dtype, h, h_kv in cases:
+    cases = ([(*c, 16, 4, wide) for c in paged_cases(pa)]
+             + [(*c, wide) for c in paged_small_cases()] + paged_tp_cases())
+    for label, lengths, d, dtype, h, h_kv, n_pages in cases:
         b = len(lengths)
         n_blocks = b * n_pages + 1
         k_pool = torch.randn((n_blocks, bs, h_kv, d), generator=gen,
@@ -3161,7 +3196,8 @@ def phase_paged(pa) -> tuple[dict, dict]:
             x[0], c[0] = float("nan"), 0.0
         args = (q, k_pool, v_pool, tables, lens)
         ref_args = (q, *clean, tables, lens)
-        plan = pa.paged_plan(b, h_kv, h // h_kv, d, bs, n_pages, dtype)
+        plan = pa.PagedPlan(**pa.pick_decode_params(
+            b, h_kv, h // h_kv, d, bs, n_pages, dtype))
         span = plan.pages_per_split * bs
         live = [-(-min(n, n_pages * bs) // span) for n in lengths]
         multi += sum(n > 1 for n in live)
@@ -3179,6 +3215,7 @@ def phase_paged(pa) -> tuple[dict, dict]:
         ok = (bool(torch.isfinite(out.float()).all()) and err <= TOL[dtype]
               and same)
         print(f"K2 {label}: B={b} H={h} Hkv={h_kv} D={d} bs={bs} "
+              f"tables of {n_pages} pages "
               f"lengths={lengths} {str(dtype).removeprefix('torch.')}: "
               f"plan heads_per_block={plan.heads_per_block} "
               f"pages_per_split={plan.pages_per_split} "
@@ -3213,6 +3250,14 @@ def phase_paged(pa) -> tuple[dict, dict]:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=None,
                        plan=plan._asdict())
+        if label.startswith("tp=2 rank"):
+            TP_RANK_ROWS["K2"].append(dict(
+                shape=f"B={b} H={h} Hkv={h_kv} D={d} bs={bs} tables of "
+                f"{n_pages} pages, lengths {lengths} "
+                f"{str(dtype).removeprefix('torch.')} (one tp=2 rank of "
+                f"the 154M, multichip (b))",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None, plan=plan._asdict()))
         if label == "paged-KV probe step":
             SMALL_D_ROWS["K2"] = dict(
                 shape=f"B={b} H={h} Hkv={h_kv} D={d} bs={bs} lengths "
@@ -3706,6 +3751,15 @@ def int8pack_fn(x, q, scale):
     return (lambda: fn(x, w_nk, sc)), None
 
 
+#: K7a's products on one tp=2 rank of the 154M at 8 rows (multichip (b)'s
+#: int8-weight variant), K x N: this rank's heads of wq/wk/wv, its rows
+#: of wo, its hidden units of w_in/w_out, its d-slice of the
+#: unembedding, whose x is a column slice of the rank's whole x
+TP_RANK_K7 = {"wq": (1024, 512), "wk/wv": (1024, 128), "wo": (512, 1024),
+              "w_in": (1024, 2048), "w_out": (2048, 1024),
+              "unembed": (512, 32000)}
+
+
 def int8_cases() -> list:
     """(kind, M, K, N, label) of the K7 checks: the 154M decode step's
     products (wq/wo 1024x1024, wk/wv 1024x256, w_in, w_out, the
@@ -3722,6 +3776,8 @@ def int8_cases() -> list:
               ("K7a", 5, 1000, 333, "ragged"),
               ("K7b", 8, 512, 4096, "moe_heavy w_in, x shared by 16 experts"),
               ("K7b", 8, 4096, 512, "moe_heavy w_out, transposed view")]
+    cases += [("K7a", 8, k, n, f"154M tp=2 rank {leaf}")
+              for leaf, (k, n) in TP_RANK_K7.items()]
     return cases
 
 
@@ -3749,6 +3805,10 @@ def phase_int8(qm) -> tuple[dict, dict, dict]:
             if kind == "K7a":
                 q2, s2 = qt.q[0], qt.scale[0]
                 x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                if label == "154M tp=2 rank unembed":
+                    # _unembed's column slice of the rank's [M, 2K] x
+                    x = torch.randn((m, 2 * k), generator=gen,
+                                    device=dev).to(dtype)[:, k:]
                 kernel = (lambda x=x, q2=q2, s2=s2:
                           qm.int8_matmul(x, q2, s2))
                 plain = (lambda x=x, q2=q2, s2=s2:
@@ -3829,6 +3889,11 @@ def phase_int8(qm) -> tuple[dict, dict, dict]:
                                   bound_ms=bound[0], bound_by=bound[1],
                                   library_ms=lib_ms)
             probes[kind][shape + (" (main path)" if main else "")] = probe
+            if label.startswith("154M tp=2 rank"):
+                TP_RANK_ROWS["K7a"].append(dict(
+                    shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound[0], bound_by=bound[1],
+                    library_ms=lib_ms, plan=plan._asdict()))
             del out, want
     return rows["K7a"], rows["K7b"], probes
 
@@ -7964,6 +8029,9 @@ def phase_moe_serving(fa, pa, gm) -> dict:
 #: prefill on one rank's heads (phase_multichip (a)): phase_flash holds
 #: K1 at each
 TP_PREFILL_K1 = dict(b=8, t=96, h=8, h_kv=2, d=64)
+#: K1 at moe_heavy's tp=2 prefill on one rank's heads (2 of 4 query and
+#: KV heads; phase_multichip (d), f32)
+TP_MOE_PREFILL_K1 = dict(b=8, t=96, h=2, h_kv=2, d=64)
 ENTRY_K1 = dict(b=4, t=256, h=8, h_kv=8, d=64)
 DRYRUN_DECODE_K1 = dict(b=4, t=8, h=2, h_kv=1, d=8)
 
@@ -8094,6 +8162,57 @@ def mesh_worker(rank: int, world: int, port: int, job_path: str,
             dist.destroy_process_group()
 
 
+class Workers:
+    """``world`` processes of ``target(rank, world, port, job_path,
+    out_dir)`` on the card running ``job``, started at once; :meth:`join`
+    waits for them."""
+
+    def __init__(self, target, world: int, job: dict, label: str):
+        import multiprocessing as mp
+        self.world, self.label = world, label
+        self.tmp = tempfile.TemporaryDirectory()
+        job_path = Path(self.tmp.name) / "job.pt"
+        torch.save(job, job_path)
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        self.t0 = time.perf_counter()
+        self.procs = [ctx.Process(target=target,
+                                  args=(r, world, port, str(job_path),
+                                        self.tmp.name))
+                      for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+
+    def join(self, timeout_s: float) -> tuple[list, float]:
+        """(the ranks' results, seconds start to join); any failure, a
+        hang past ``timeout_s`` from this call or a wrong ``gang_psum``
+        fails the run."""
+        tmp, world, label = Path(self.tmp.name), self.world, self.label
+        deadline = time.monotonic() + timeout_s
+        for proc in self.procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, proc in enumerate(self.procs) if proc.is_alive()]
+        for proc in self.procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+        took = time.perf_counter() - self.t0
+        errs = {r: (tmp / f"rank{r}.err").read_text()
+                for r in range(world) if (tmp / f"rank{r}.err").exists()}
+        codes = [proc.exitcode for proc in self.procs]
+        if hung or errs or any(codes):
+            fail(f"{label} workers failed: hung {hung} (timeout "
+                 f"{timeout_s} s), exit codes {codes}\n"
+                 + "\n".join(f"rank {r}:\n{e}" for r, e in errs.items()))
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        self.tmp.cleanup()
+        want = world * (world + 1) / 2
+        if [r["psum"] for r in ranks] != [want] * world:
+            fail(f"{label}: gang_psum {[r['psum'] for r in ranks]}")
+        return ranks, took
+
+
 def run_workers(target, world: int, job: dict, label: str, timeout_s: float,
                 cpu_work=None):
     """``world`` processes of ``target(rank, world, port, job_path,
@@ -8101,41 +8220,9 @@ def run_workers(target, world: int, job: dict, label: str, timeout_s: float,
     ``cpu_work()`` (the CPU references) runs here.  Returns (the ranks'
     results, cpu_work's result, seconds start to join); any failure, a
     hang past ``timeout_s`` or a wrong ``gang_psum`` fails the run."""
-    import multiprocessing as mp
-    with tempfile.TemporaryDirectory() as tmp:
-        job_path = Path(tmp) / "job.pt"
-        torch.save(job, job_path)
-        ctx = mp.get_context("spawn")
-        port = free_port()
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=target,
-                             args=(r, world, port, str(job_path), tmp))
-                 for r in range(world)]
-        for proc in procs:
-            proc.start()
-        extra = cpu_work() if cpu_work is not None else None
-        deadline = time.monotonic() + timeout_s
-        for proc in procs:
-            proc.join(max(0.0, deadline - time.monotonic()))
-        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-                proc.join(30)
-        took = time.perf_counter() - t0
-        errs = {r: (Path(tmp) / f"rank{r}.err").read_text()
-                for r in range(world)
-                if (Path(tmp) / f"rank{r}.err").exists()}
-        codes = [proc.exitcode for proc in procs]
-        if hung or errs or any(codes):
-            fail(f"{label} workers failed: hung {hung} (timeout "
-                 f"{timeout_s} s), exit codes {codes}\n"
-                 + "\n".join(f"rank {r}:\n{e}" for r, e in errs.items()))
-        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
-                 for r in range(world)]
-    want = world * (world + 1) / 2
-    if [r["psum"] for r in ranks] != [want] * world:
-        fail(f"{label}: gang_psum {[r['psum'] for r in ranks]}")
+    workers = Workers(target, world, job, label)
+    extra = cpu_work() if cpu_work is not None else None
+    ranks, took = workers.join(timeout_s)
     return ranks, extra, took
 
 
@@ -8291,6 +8378,49 @@ MULTICHIP_LOSS_RTOL = 1e-4
 #: to their largest magnitude (partial sums over heads and hidden units
 #: added in another order)
 MULTICHIP_F32_TOL = 1e-4
+#: (b)'s runs on each rank, in each dtype: the plain one, then what tp
+#: decode once refused: the int8 KV cache, int8 weights (K7), the paged
+#: pool read by K2, LoRA rows
+MULTICHIP_VARIANTS = ("plain", "int8kv", "quant", "paged", "lora")
+#: (b)'s paged pool: blocks of 16 tokens
+MULTICHIP_BS = 16
+#: (b)'s LoRA pool: three adapters of rank 8 (``make_adapter`` seeds
+#: 1-3); the 8 rows on slots 0-3, twice
+MULTICHIP_LORA = dict(rank=8, seeds=(1, 2, 3), rows=(0, 1, 2, 3, 0, 1, 2, 3))
+#: the int8 KV cache's f32 first-step logits against the twin's,
+#: relative to their largest magnitude: the CPU tests' FWD_TOL for the
+#: same variant (tests/torch_a0.py; an entry that lands on the other
+#: side of an int8 rounding step moves the logits more than a partial
+#: sum added in another order does)
+MULTICHIP_INT8KV_STEP_TOL = 2e-4
+#: (d): moe_heavy in f32 over ep=2 x tp=2, four ranks
+MULTICHIP_MOE_SPEC = dict(ep=2, tp=2)
+MULTICHIP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+#: each group's runs, (variant, dtype name), in order: (b) every variant
+#: in f32, then in bf16; (d) moe_heavy's plain run in f32
+MULTICHIP_RUNS = [(v, name) for name in MULTICHIP_DTYPES
+                  for v in MULTICHIP_VARIANTS]
+MULTICHIP_MOE_RUNS = [("plain", "f32")]
+
+
+def multichip_launches(variant: str, dtype_name: str, n_layers: int,
+                       steps: int) -> dict:
+    """A tp rank's launches in one run of (b)'s ``variant`` (or (d)'s,
+    "plain") of ``n_layers`` layers and ``steps`` decode steps, from the
+    code: K1 once a layer in the prefill, on the dtype's route; K2 once
+    a layer a paged step; K7a 49 times a step on int8 weights (the six
+    projections of each of the 154M's 8 layers and the unembedding,
+    each a call of at most 64 rows; the 768-row prefill takes the
+    einsum), on the tensor cores in bf16; nothing else."""
+    want = {("flash_fwd_f32" if dtype_name == "f32" else "flash_fwd_tc"):
+            n_layers}
+    if variant == "paged":
+        want["paged_decode"] = n_layers * steps
+    if variant == "quant":
+        want["int8_matmul"] = (6 * n_layers + 1) * steps
+        if dtype_name == "bf16":
+            want["int8_tc"] = want["int8_matmul"]
+    return want
 
 
 def multichip_prompts(vocab: int) -> np.ndarray:
@@ -8313,63 +8443,46 @@ def multichip_weights(dtype):
 
 def multichip_worker(rank: int, world: int, port: int, job_path: str,
                      out_dir: str) -> None:
-    """One rank of part (b): the group from the rendezvous contract
-    (gloo), ``MeshSpec(tp=world)``, then in f32 and in bf16 its blocks
-    of the 154M (``shard_params``), ``prefill`` of the job's prompts and
-    greedy ``decode_step_rows`` steps under ``mesh=``.  Writes the
-    prefill logits, the tokens, K1's launches by route after the
-    prefill and after the steps, its cache's KV heads and the wall a
-    decode step, or its traceback, under ``out_dir``."""
+    """One rank of part (b) or (d): the group from the rendezvous
+    contract (gloo), ``MeshSpec(**job["spec"])``, then each of the job's
+    runs, (variant, dtype name), on its blocks of the job's model
+    (:func:`multichip_setup`): ``prefill`` of the job's prompts and
+    greedy steps under ``mesh=`` (:func:`multichip_decode`).  Writes,
+    by run, the prefill logits, the first step's logits and int8 cache
+    (f32), the tokens, K1's launches by route after the prefill and K1,
+    K2 and K7's after the steps, its cache's KV heads, its experts a
+    layer (MoE) and the wall a decode step, or its traceback, under
+    ``out_dir``."""
     import traceback
 
     import torch.distributed as dist
     out = Path(out_dir)
     try:
         child_setup()
-        from k8s_dra_driver_tpu_torch.models import decode as dm
-        from k8s_dra_driver_tpu_torch.models.transformer import shard_params
+        from k8s_dra_driver_tpu_torch.models import quant as qm
         from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
-        from k8s_dra_driver_tpu_torch.parallel import rendezvous
+        from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
         from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
-        env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "TPU_WORKER_ID": str(rank), "TPU_NUM_WORKERS": str(world),
-               "TPU_RENDEZVOUS_BARRIER_TIMEOUT_S": str(SP_BARRIER_S)}
-        rendezvous.initialize(rendezvous.spec_from_env(env), backend="gloo")
-        res = {"psum": rendezvous.gang_psum(float(rank + 1))}
+        res = {"psum": worker_group(rank, world, port)}
         job = torch.load(job_path, weights_only=False)
-        mesh = make_mesh(MeshSpec(tp=world), device="cuda")
+        mesh = make_mesh(MeshSpec(**job["spec"]), device="cuda")
         prompts = torch.from_numpy(job["prompts"]).cuda()
-        b, t = prompts.shape
-        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            cfg, whole = multichip_weights(dtype)
-            params = shard_params(whole, cfg, mesh)
-            del whole
-            zero_counts(fa)
-            with torch.no_grad():
-                cache = dm.init_cache(cfg, b, t + MULTICHIP_NEW,
-                                      device="cuda", mesh=mesh)
-                logits, cache = dm.prefill(params, prompts, cfg, cache,
-                                           mesh=mesh)
-                prefill_counts = flash_routes(fa)
-                tok = logits[:, -1].argmax(dim=-1)
-                pos = torch.full((b,), t, device="cuda")
-                toks = [tok]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(MULTICHIP_NEW - 1):
-                    lg, cache = dm.decode_step_rows(params, tok[:, None], cfg,
-                                                    cache, pos, mesh=mesh)
-                    tok, pos = lg.argmax(dim=-1), pos + 1
-                    toks.append(tok)
-                torch.cuda.synchronize()
-                step_ms = 1e3 * (time.perf_counter() - t0) / (
-                    MULTICHIP_NEW - 1)
-            res[name] = dict(
-                coords=mesh.coords, logits=logits.float().cpu(),
-                tokens=torch.stack(toks, dim=1).cpu(),
-                prefill_counts=prefill_counts, counts=flash_routes(fa),
-                kv_heads=cache.k[0].shape[2], step_ms=step_ms)
-            del params, cache, logits
+        res["runs"] = {}
+        for variant, name in job["runs"]:
+            cfg, params, lora = multichip_setup(
+                variant, MULTICHIP_DTYPES[name], mesh, job["model"])
+            zero_tp_counts(fa, pa, qm)
+            got = multichip_decode(variant, cfg, params, prompts, mesh,
+                                   lora, counts=lambda: tp_counts(
+                                       fa, pa, qm))
+            if name == "bf16":
+                del got["step_logits"], got["int8"]
+            experts = (params["layers"][0]["w_in"].shape[0]
+                       if cfg.n_experts else None)
+            res["runs"][(variant, name)] = dict(
+                coords=mesh.coords, counts=tp_counts(fa, pa, qm),
+                experts=experts, **got)
+            del params, lora
             torch.cuda.empty_cache()
         torch.save(res, out / f"rank{rank}.pt")
     except BaseException:
@@ -8380,26 +8493,192 @@ def multichip_worker(rank: int, world: int, port: int, job_path: str,
             dist.destroy_process_group()
 
 
-def multichip_refs(prompts: np.ndarray) -> dict:
-    """Part (b)'s single-process references on the card, f32 and bf16:
-    the prefill logits of a fresh cache and ``greedy_generate``'s
-    tokens on the whole weights."""
+def worker_group(rank: int, world: int, port: int) -> float:
+    """A worker's default group from the rendezvous contract (gloo), at
+    phase_sp_train's barrier deadline; returns its ``gang_psum``."""
+    from k8s_dra_driver_tpu_torch.parallel import rendezvous
+    env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+           "TPU_WORKER_ID": str(rank), "TPU_NUM_WORKERS": str(world),
+           "TPU_RENDEZVOUS_BARRIER_TIMEOUT_S": str(SP_BARRIER_S)}
+    rendezvous.initialize(rendezvous.spec_from_env(env), backend="gloo")
+    return rendezvous.gang_psum(float(rank + 1))
+
+
+def zero_tp_counts(fa, pa, qm) -> None:
+    """K1's, K2's and K7's launch counters to 0."""
+    zero_counts(fa)
+    pa.launches = 0
+    for name in qm.launches:
+        qm.launches[name] = 0
+    qm.tc_launches = 0
+
+
+def tp_counts(fa, pa, qm) -> dict:
+    """The nonzero launches of K1 by route, of K2 and of K7 (its entries,
+    and those on the tensor cores) since :func:`zero_tp_counts`."""
+    routes = {**flash_routes(fa), "paged_decode": pa.launches,
+              "int8_matmul": qm.launches["int8_matmul"],
+              "int8_bmm": qm.launches["int8_bmm"],
+              "int8_tc": qm.tc_launches}
+    return {k: v for k, v in routes.items() if v}
+
+
+def multichip_setup(variant: str, dtype, mesh=None, model: str = "154m"):
+    """(cfg, params, lora) of ``variant`` in ``dtype``: the weights of
+    ``model``, (b)'s 154M (:func:`multichip_weights`) or (d)'s moe_heavy
+    (:func:`multichip_moe_weights`, f32), this rank's blocks under
+    ``mesh`` (``shard_params``), int8 through ``quantize_params`` first
+    for "quant", the int8 KV cache in the config for "int8kv", and for
+    "lora" an ``AdapterPool`` of MULTICHIP_LORA's adapters with each
+    row's slot id (this rank's cut of its buffers under ``mesh``,
+    ``shard_lora_buffers``)."""
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    from k8s_dra_driver_tpu_torch.models.transformer import shard_params
+    from k8s_dra_driver_tpu_torch.serving_lora.pool import (
+        AdapterManifest, AdapterPool, make_adapter, shard_lora_buffers)
+    cfg, whole = (multichip_weights(dtype) if model == "154m"
+                  else multichip_moe_weights())
+    if variant == "int8kv":
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    if variant == "quant":
+        whole = quantize_params(whole, cfg)
+    params = whole if mesh is None else shard_params(whole, cfg, mesh)
+    del whole
+    lora = None
+    if variant == "lora":
+        rank, seeds = MULTICHIP_LORA["rank"], MULTICHIP_LORA["seeds"]
+        pool = AdapterPool(cfg, rank, len(seeds), device="cuda")
+        for seed in seeds:
+            pool.register(AdapterManifest(
+                f"adapter{seed}", rank,
+                source=make_adapter(cfg, rank, seed)))
+        slots = [0] + [pool.acquire(f"adapter{seed}") for seed in seeds]
+        rows = torch.tensor([slots[r] for r in MULTICHIP_LORA["rows"]],
+                            device="cuda")
+        lora = (rows, pool.buffers if mesh is None
+                else shard_lora_buffers(pool.buffers, mesh))
+    return cfg, params, lora
+
+
+def multichip_decode(variant: str, cfg, params, prompts, mesh=None,
+                     lora=None, counts=None) -> dict:
+    """``prefill`` of ``prompts`` into a fresh cache, then
+    MULTICHIP_NEW - 1 greedy steps: ``decode_step_rows`` (with ``lora``),
+    or for "paged" ``paged_decode_step_rows`` with K2's read
+    (``use_kernel=True``) on a pool of MULTICHIP_BS-token blocks the
+    prefill's rows were adopted into (``paged_adopt_blocks``, as a
+    paged engine's fill lands).  Under ``mesh`` on this rank's blocks,
+    without one the single-process twin.  Returns the prefill logits,
+    the first step's logits (both f32, on the host), for "int8kv" the
+    int8 k and v of every layer after that step (on the host), the
+    tokens, the KV heads a layer holds, ``counts()`` after the prefill
+    and the wall a step."""
+    from k8s_dra_driver_tpu_torch.models import decode as dm
+    b, t = prompts.shape
+    total = t + MULTICHIP_NEW
+    with torch.no_grad():
+        cache = dm.init_cache(cfg, b, total, device="cuda", mesh=mesh)
+        logits, cache = dm.prefill(params, prompts, cfg, cache, mesh=mesh)
+        prefill_counts = counts() if counts is not None else None
+        kv_heads = cache.k[0].shape[2]
+        if variant == "paged":
+            bs = MULTICHIP_BS
+            per_row = total // bs
+            pool = dm.init_paged_pool(cfg, b * per_row + 1, bs,
+                                      device="cuda", mesh=mesh)
+            tables = (1 + torch.arange(b * per_row, dtype=torch.int32,
+                                       device="cuda")).reshape(b, per_row)
+            for r in range(b):
+                row = dm.KVCache(k=[a[r:r + 1] for a in cache.k],
+                                 v=[a[r:r + 1] for a in cache.v])
+                dm.paged_adopt_blocks(pool, row, tables[r, :t // bs], 0,
+                                      t // bs)
+            del cache
+
+            def step(tok, pos):
+                return dm.paged_decode_step_rows(
+                    params, tok[:, None], cfg, pool, tables, pos,
+                    use_kernel=True, mesh=mesh)[0]
+        else:
+            def step(tok, pos):
+                return dm.decode_step_rows(params, tok[:, None], cfg, cache,
+                                           pos, lora=lora, mesh=mesh)[0]
+        tok = logits[:, -1].argmax(dim=-1)
+        pos = torch.full((b,), t, device="cuda")
+        toks, first, int8 = [tok], None, None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MULTICHIP_NEW - 1):
+            lg = step(tok, pos)
+            if first is None:
+                first = lg.float().cpu()
+                if variant == "int8kv":
+                    int8 = [a[:, :t + 1].cpu() for a in cache.k + cache.v]
+            tok, pos = lg.argmax(dim=-1), pos + 1
+            toks.append(tok)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / (MULTICHIP_NEW - 1)
+    return dict(logits=logits.float().cpu(), step_logits=first, int8=int8,
+                tokens=torch.stack(toks, dim=1).cpu(), kv_heads=kv_heads,
+                prefill_counts=prefill_counts, step_ms=step_ms)
+
+
+def multichip_refs(prompts: np.ndarray, model: str, runs) -> dict:
+    """The single-process references on the card of ``model``'s
+    ``runs``, (variant, dtype name), by run: for "plain" the prefill
+    logits of a fresh cache and ``greedy_generate``'s tokens on the
+    whole weights; for the others :func:`multichip_decode`'s twin
+    without a mesh on the whole weights (and whole adapter buffers)."""
     from k8s_dra_driver_tpu_torch.models import decode as dm
     toks = torch.from_numpy(prompts).cuda()
     b, t = toks.shape
     refs = {}
-    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        cfg, params = multichip_weights(dtype)
-        with torch.no_grad():
-            cache = dm.init_cache(cfg, b, t + MULTICHIP_NEW, device="cuda")
-            logits, _ = dm.forward_with_cache(params, toks, cfg, cache,
-                                              first_chunk=True)
-            tokens = dm.greedy_generate(params, toks, cfg, MULTICHIP_NEW,
-                                        max_seq=t + MULTICHIP_NEW)
-        refs[name] = (logits.float().cpu(), tokens[:, t:].cpu())
-        del params, cache, logits
+    for variant, name in runs:
+        cfg, params, lora = multichip_setup(variant, MULTICHIP_DTYPES[name],
+                                            model=model)
+        if variant == "plain":
+            with torch.no_grad():
+                cache = dm.init_cache(cfg, b, t + MULTICHIP_NEW,
+                                      device="cuda")
+                logits, _ = dm.forward_with_cache(params, toks, cfg, cache,
+                                                  first_chunk=True)
+                tokens = dm.greedy_generate(params, toks, cfg, MULTICHIP_NEW,
+                                            max_seq=t + MULTICHIP_NEW)
+            refs[(variant, name)] = dict(logits=logits.float().cpu(),
+                                         tokens=tokens[:, t:].cpu())
+            del cache, logits
+        else:
+            refs[(variant, name)] = multichip_decode(variant, cfg, params,
+                                                     toks, lora=lora)
+        del params, lora
         torch.cuda.empty_cache()
     return refs
+
+
+def multichip_moe_weights():
+    """(cfg, whole weights on the card): moe_heavy in f32 from generator
+    seed MULTICHIP_SEED on the card."""
+    from k8s_dra_driver_tpu_torch.models.transformer import init_params
+    cfg = moe_heavy_config(dtype=torch.float32)
+    return cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(MULTICHIP_SEED),
+        device="cuda")
+
+
+def int8_steps_off(got: list, ref: list, coords: dict,
+                   kv_local: int) -> str:
+    """How a tp rank's int8 k and v (every layer, after the first step)
+    differ from its heads of the single-process twin's: the entries off
+    and the most int8 steps any is off."""
+    lo = coords["tp"] * kv_local
+    off = most = total = 0
+    for a, b in zip(got, ref):
+        d = (a.int() - b[:, :, lo:lo + kv_local].int()).abs()
+        off += int(d.count_nonzero())
+        most = max(most, int(d.max()))
+        total += d.numel()
+    return (f"int8 k/v entries off the twin's {off} of {total}, at most "
+            f"{most} step(s)")
 
 
 def dryrun_routes(launches: dict) -> dict:
@@ -8447,13 +8726,15 @@ DRYRUN_REQUIRED = {
 
 def phase_multichip(fa) -> dict:
     """The multichip certification on the card (module docstring, 20a):
-    (b)'s two tp ranks are spawned first; while they run, this process
-    computes (b)'s references, then runs (a), ``dryrun_multichip(8)``
-    (its eight ranks, each in a session of its own, the kernel library
-    already built), and the single-device f32 steps; (c) last.  Returns
-    the launches summed over the ranks of (a) and (b) and of (c), by
-    route."""
+    (b)'s two tp ranks and (d)'s four ep x tp ranks are spawned first,
+    side by side; while they run, this process computes (b)'s and (d)'s
+    references, then runs (a), ``dryrun_multichip(8)`` (its eight ranks,
+    each in a session of its own, the kernel library already built),
+    and the single-device f32 steps; (c) last.  Returns the launches
+    summed over the ranks of (a), (b) and (d) and of (c), by route (K2
+    and K7 by entry)."""
     from k8s_dra_driver_tpu_torch import graft_entry as ge
+    from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
     from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -8461,6 +8742,8 @@ def phase_multichip(fa) -> dict:
     spec = MeshSpec.infer(MULTICHIP_WORLD)
     cfg154 = serving_config()
     prompts = multichip_prompts(cfg154.vocab)
+    moe_cfg = moe_heavy_config()
+    moe_prompts = multichip_prompts(moe_cfg.vocab)
     total = {}
 
     def add(counts):
@@ -8468,8 +8751,10 @@ def phase_multichip(fa) -> dict:
             total[k] = total.get(k, 0) + v
 
     def beside():
-        dims = dict(fa.dim_launches)
-        refs = multichip_refs(prompts)
+        dims = (dict(fa.dim_launches), dict(pa.dim_launches))
+        refs = multichip_refs(prompts, "154m", MULTICHIP_RUNS)
+        moe_ref = multichip_refs(moe_prompts, "moe_heavy",
+                                 MULTICHIP_MOE_RUNS)[("plain", "f32")]
         t0 = time.perf_counter()
         try:
             reports = ge.dryrun_multichip(MULTICHIP_WORLD, device="cuda",
@@ -8480,17 +8765,26 @@ def phase_multichip(fa) -> dict:
         single = dryrun_single_losses(ge)
         # the references are no main path: the launches by head dim
         # stay the main paths'
-        fa.dim_launches.clear()
-        fa.dim_launches.update(dims)
-        return refs, reports, took, single
+        for table, saved in zip((fa.dim_launches, pa.dim_launches), dims):
+            table.clear()
+            table.update(saved)
+        return refs, moe_ref, reports, took, single
 
-    ranks, (refs, reports, took_a, single), took_b = run_workers(
-        multichip_worker, MULTICHIP_TP, dict(prompts=prompts),
-        "multichip (b)", MULTICHIP_TIMEOUT_S, beside)
+    moe_world = MULTICHIP_MOE_SPEC["ep"] * MULTICHIP_MOE_SPEC["tp"]
+    moe_workers = Workers(multichip_worker, moe_world, dict(
+        prompts=moe_prompts, spec=MULTICHIP_MOE_SPEC, model="moe_heavy",
+        runs=MULTICHIP_MOE_RUNS), "multichip (d)")
+    ranks, (refs, moe_ref, reports, took_a, single), took_b = run_workers(
+        multichip_worker, MULTICHIP_TP, dict(
+            prompts=prompts, spec=dict(tp=MULTICHIP_TP), model="154m",
+            runs=MULTICHIP_RUNS), "multichip (b)", MULTICHIP_TIMEOUT_S,
+        beside)
+    moe_ranks, took_d = moe_workers.join(MULTICHIP_TIMEOUT_S)
     print(f"multichip gang: dryrun_multichip({MULTICHIP_WORLD}) took "
-          f"{took_a:.1f} s (eight rank processes, gloo, beside (b)); (b)'s "
-          f"{MULTICHIP_TP} tp ranks {took_b:.1f} s start to join; {card}",
-          flush=True)
+          f"{took_a:.1f} s (eight rank processes, gloo, beside (b) and "
+          f"(d)); (b)'s {MULTICHIP_TP} tp ranks {took_b:.1f} s and (d)'s "
+          f"{moe_world} ep x tp ranks {took_d:.1f} s start to join, side "
+          f"by side; {card}", flush=True)
 
     # (a): the JAX dryrun's runs and its serving half
     runs = ge.dryrun_runs(MULTICHIP_WORLD)
@@ -8544,55 +8838,108 @@ def phase_multichip(fa) -> dict:
           f"{reports[0]['decode']['tokens']} equal greedy_generate's on "
           f"every rank ok", flush=True)
 
-    # (b): the 154M over tp=2
+    # (b): the 154M over tp=2, each variant in f32 and bf16
     n = cfg154.n_layers
-    f32_logits, f32_tokens = refs["f32"]
-    bf_logits, bf_tokens = refs["bf16"]
-    gap = (bf_logits - f32_logits).abs().max().item()
-    bf16_tol = 2 * gap
-    print(f"multichip (b) single process, bf16 vs f32 prefill logits: "
-          f"max|d| {gap:.4g} (largest |logit| "
-          f"{f32_logits.abs().max().item():.4g}); the bf16 tp tolerance is "
-          f"twice it, {bf16_tol:.4g}", flush=True)
-    for r, res in enumerate(ranks):
-        for name, (ref_logits, ref_tokens), want in (
-                ("f32", refs["f32"], {"flash_fwd_f32": n}),
-                ("bf16", refs["bf16"], {"flash_fwd_tc": n})):
-            got = res[name]
-            err = (got["logits"] - ref_logits).abs().max().item()
-            scale = ref_logits.abs().max().item()
-            same = int((got["tokens"] == ref_tokens).all(dim=1).sum())
-            agree = int((got["tokens"] == ref_tokens).sum())
-            counts = {k: v for k, v in got["prefill_counts"].items() if v}
-            after = {k: v for k, v in got["counts"].items() if v}
-            if name == "f32":
-                ok = err <= MULTICHIP_F32_TOL * scale and same == len(
-                    ref_tokens)
-                held = (f"prefill logits max|d| {err:.3g} (tol "
-                        f"{MULTICHIP_F32_TOL} x {scale:.4g}); streams equal "
-                        f"{same}/{len(ref_tokens)} (gated)")
-            else:
-                ok = err <= bf16_tol
-                held = (f"prefill logits max|d| {err:.4g} (tol "
-                        f"{bf16_tol:.4g}); streams equal {same}/"
-                        f"{len(ref_tokens)}, tokens {agree}/"
-                        f"{ref_tokens.numel()} (printed, not gated)")
-            ok = (ok and counts == want and after == want
-                  and got["kv_heads"] == cfg154.kv_heads // MULTICHIP_TP)
-            print(f"multichip (b) 154M {name} MeshSpec(tp={MULTICHIP_TP}) "
-                  f"rank {r} {got['coords']}, {got['kv_heads']} of "
-                  f"{cfg154.kv_heads} KV heads a rank, "
-                  f"{MULTICHIP_PROMPTS} prompts of {MULTICHIP_PROMPT_LEN} + "
-                  f"{MULTICHIP_NEW} greedy tokens vs single-process "
-                  f"greedy_generate: {held}; K1 launches in the prefill "
-                  f"{counts}, after the steps {after} (expected {want}); "
-                  f"wall {got['step_ms']:.1f} ms a token (host-staged gloo "
-                  f"on one card, beside (a)'s ranks and the mesh phase's: "
-                  f"not a scaling number) "
-                  f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
-            if not ok:
-                fail(f"multichip (b) {name} disagrees on rank {r}")
-            add(got["counts"])
+    steps = MULTICHIP_NEW - 1
+    kv_local = cfg154.kv_heads // MULTICHIP_TP
+    for variant in MULTICHIP_VARIANTS:
+        f32_logits = refs[(variant, "f32")]["logits"]
+        gap = (refs[(variant, "bf16")]["logits"]
+               - f32_logits).abs().max().item()
+        bf16_tol = 2 * gap
+        print(f"multichip (b) {variant} single process, bf16 vs f32 "
+              f"prefill logits: max|d| {gap:.4g} (largest |logit| "
+              f"{f32_logits.abs().max().item():.4g}); the bf16 tp "
+              f"tolerance is twice it, {bf16_tol:.4g}", flush=True)
+        for r, res in enumerate(ranks):
+            for name in ("f32", "bf16"):
+                got, ref = res["runs"][(variant, name)], refs[(variant, name)]
+                k1 = "flash_fwd_f32" if name == "f32" else "flash_fwd_tc"
+                want = multichip_launches(variant, name, n, steps)
+                err = (got["logits"] - ref["logits"]).abs().max().item()
+                scale = ref["logits"].abs().max().item()
+                same = int((got["tokens"] == ref["tokens"]).all(dim=1).sum())
+                agree = int((got["tokens"] == ref["tokens"]).sum())
+                n_rows = len(ref["tokens"])
+                if name == "f32":
+                    ok = err <= MULTICHIP_F32_TOL * scale and same == n_rows
+                    held = (f"prefill logits max|d| {err:.3g} (tol "
+                            f"{MULTICHIP_F32_TOL} x {scale:.4g}); streams "
+                            f"equal {same}/{n_rows} (gated)")
+                    if variant != "plain":
+                        serr = (got["step_logits"] - ref["step_logits"]
+                                ).abs().max().item()
+                        sscale = ref["step_logits"].abs().max().item()
+                        stol = (MULTICHIP_INT8KV_STEP_TOL
+                                if variant == "int8kv" else MULTICHIP_F32_TOL)
+                        ok = ok and serr <= stol * sscale
+                        held += (f"; first step's logits max|d| {serr:.3g} "
+                                 f"(tol {stol} x {sscale:.4g})")
+                        if variant == "int8kv":
+                            held += "; " + int8_steps_off(
+                                got["int8"], ref["int8"], got["coords"],
+                                kv_local)
+                else:
+                    ok = err <= bf16_tol
+                    held = (f"prefill logits max|d| {err:.4g} (tol "
+                            f"{bf16_tol:.4g}); streams equal {same}/"
+                            f"{n_rows}, tokens {agree}/"
+                            f"{ref['tokens'].numel()} (printed, not gated)")
+                ok = (ok and got["prefill_counts"] == {k1: n}
+                      and got["counts"] == want
+                      and got["kv_heads"] == kv_local)
+                print(f"multichip (b) 154M {variant} {name} "
+                      f"MeshSpec(tp={MULTICHIP_TP}) rank {r} "
+                      f"{got['coords']}, {got['kv_heads']} of "
+                      f"{cfg154.kv_heads} KV heads a rank, "
+                      f"{MULTICHIP_PROMPTS} prompts of "
+                      f"{MULTICHIP_PROMPT_LEN} + {MULTICHIP_NEW} greedy "
+                      f"tokens vs the single process's "
+                      f"{'greedy_generate' if variant == 'plain' else 'twin'}"
+                      f": {held}; K1 launches in the prefill "
+                      f"{got['prefill_counts']}, K1/K2/K7 after the steps "
+                      f"{got['counts']} (expected {want}); wall "
+                      f"{got['step_ms']:.1f} ms a token (host-staged gloo "
+                      f"on one card, beside (a)'s and (d)'s ranks and the "
+                      f"mesh phase's: not a scaling number) "
+                      f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
+                if not ok:
+                    fail(f"multichip (b) {variant} {name} disagrees on rank "
+                         f"{r}")
+                add(got["counts"])
+
+    # (d): moe_heavy f32 over ep=2 x tp=2
+    want = multichip_launches("plain", "f32", moe_cfg.n_layers, steps)
+    for r, res in enumerate(moe_ranks):
+        got = res["runs"][("plain", "f32")]
+        err = (got["logits"] - moe_ref["logits"]).abs().max().item()
+        scale = moe_ref["logits"].abs().max().item()
+        same = int((got["tokens"] == moe_ref["tokens"]).all(dim=1).sum())
+        n_rows = len(moe_ref["tokens"])
+        ok = (err <= MULTICHIP_F32_TOL * scale and same == n_rows
+              and got["prefill_counts"] == {"flash_fwd_f32":
+                                            moe_cfg.n_layers}
+              and got["counts"] == want
+              and got["kv_heads"] == moe_cfg.kv_heads
+              // MULTICHIP_MOE_SPEC["tp"]
+              and got["experts"] == moe_cfg.n_experts
+              // MULTICHIP_MOE_SPEC["ep"])
+        print(f"multichip (d) moe_heavy f32 MeshSpec(ep="
+              f"{MULTICHIP_MOE_SPEC['ep']}, tp={MULTICHIP_MOE_SPEC['tp']}) "
+              f"rank {r} {got['coords']}, {got['experts']} of "
+              f"{moe_cfg.n_experts} experts and {got['kv_heads']} of "
+              f"{moe_cfg.kv_heads} KV heads a rank, dense dispatch, "
+              f"{MULTICHIP_PROMPTS} prompts of {MULTICHIP_PROMPT_LEN} + "
+              f"{MULTICHIP_NEW} greedy tokens vs single-process "
+              f"greedy_generate: prefill logits max|d| {err:.3g} (tol "
+              f"{MULTICHIP_F32_TOL} x {scale:.4g}); streams equal "
+              f"{same}/{n_rows} (gated); K1 launches in the prefill "
+              f"{got['prefill_counts']}, after the steps {got['counts']} "
+              f"(expected {want}); wall {got['step_ms']:.1f} ms a token "
+              f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
+        if not ok:
+            fail(f"multichip (d) disagrees on rank {r}")
+        add(got["counts"])
 
     # (c): the flagship forward, the card against the CPU's plain path
     zero_counts(fa)
@@ -8791,11 +9138,19 @@ def crucible_child() -> dict:
             "dims": dims_list(fa, pa)}
 
 
+#: CPU threads a process the multichip phase starts may use: its 14
+#: ranks share the host's cores with the mesh phase's 6, and torch's
+#: default (a thread a core each) oversubscribes them (PERF.md §6)
+MULTICHIP_THREADS = "2"
+
+
 def multichip_child() -> dict:
     """The multichip phase in a process of its own: its launches by
-    route and by head dim."""
+    route and by head dim.  The processes it starts (the dryrun's ranks,
+    (b)'s and (d)'s) take MULTICHIP_THREADS CPU threads each."""
     from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
     from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
+    os.environ["OMP_NUM_THREADS"] = MULTICHIP_THREADS
     child_setup()
     fa.dim_launches.clear()
     pa.dim_launches.clear()
@@ -9353,7 +9708,9 @@ def main() -> None:
     clock.mark("mesh train")
     # the multichip certification (summed over ranks): the dryrun's f32
     # launches join their routes, the 154M tp prefills' and the flagship
-    # forward's K1 the main path's (both routes)
+    # forward's K1 the main path's (both routes), as do the tp ranks' K2
+    # (the paged variant) and K7 (the int8-weight variant: int8_tc of
+    # them on the tensor cores) and moe_heavy's ep x tp prefills' K1
     multichip = multichip_proc.join()
     add_dims(fa, pa, multichip["dims"])
     for name, n in multichip["launches"].items():
@@ -9379,7 +9736,7 @@ def main() -> None:
           f"drain and paged-KV probes + the control loops and their "
           f"oracle + the gang recovery arcs + the crucible's soaks + "
           f"{TRAIN_STEPS} train "
-          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the multichip phase's dryrun on {MULTICHIP_WORLD} ranks, 154M tp={MULTICHIP_TP} prefills and flagship forward + the measurement probes): "
+          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the multichip phase's dryrun on {MULTICHIP_WORLD} ranks, 154M tp={MULTICHIP_TP} runs ({', '.join(MULTICHIP_VARIANTS)}), moe_heavy ep x tp run and flagship forward + the measurement probes): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,
@@ -9507,6 +9864,10 @@ def main() -> None:
         row = SMALL_D_ROWS.get(SMALL_D_KERNELS.get(k["name"]))
         if row is not None:
             k["small_d"] = row
+        rows = TP_RANK_ROWS.get({"paged_decode": "K2",
+                                 "int8_matmul": "K7a"}.get(k["name"]))
+        if rows:
+            k["tp_rank"] = rows
     if min(k["launches"] for k in kernels) <= 0:
         fail(f"a kernel was never launched on the main paths: {launches}")
     print(f"script clock (host seconds): {clock.summary()}", flush=True)

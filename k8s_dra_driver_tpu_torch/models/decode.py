@@ -55,20 +55,28 @@ block, on the card as a ``FusedBlockGraph`` with a ``SpecDraft``.
 **Tensor parallelism** (``mesh=`` on the contiguous path:
 :func:`init_cache`, :func:`forward_with_cache`, :func:`prefill`,
 :func:`decode_step`, :func:`decode_step_rows`,
-:func:`greedy_generate`): over a ``parallel.mesh.ProcessMesh`` whose
-tp axis is > 1, each rank holds its blocks of the weights
-(``transformer.shard_params``) and a cache of its ``H_kv/tp`` KV
-heads.  The embedding is ``transformer._embed`` (this rank's d-slice,
+:func:`greedy_generate`; and on the paged one: :func:`init_paged_pool`,
+:func:`paged_decode_step_rows`, :func:`paged_window_rows`): over a
+``parallel.mesh.ProcessMesh`` whose tp axis is > 1, each rank holds
+its blocks of the weights (``transformer.shard_params``, int8
+``QTensor`` weights too) and a cache or block pool of its ``H_kv/tp``
+KV heads (with their int8 scales under ``kv_cache_dtype="int8"``).
+The embedding is ``transformer._embed`` (this rank's d-slice,
 all-gathered); wq/wk/wv project this rank's heads from the replicated
-input, the fresh prefill runs K1 on them, and wo's partial output is
-summed over tp (``reduce_from``); the MLP is ``transformer._dense_mlp``
-and the logits ``transformer._unembed``, whole on every tp rank, so
-every tp rank takes the same argmax.  The other axes replicate the
-batch and the cache, as GSPMD does with the JAX package's unsharded
-cache: the only collectives are over tp.  What the slice does not
-carry under tp > 1 raises ``NotImplementedError`` naming ROADMAP's
-item (:func:`_refuse_tp`); with ``mesh=None`` every op is the
-single-process path's.
+input, the fresh prefill runs K1 and the paged step K2 on them, and
+wo's partial output is summed over tp (``reduce_from``); the MLP is
+``transformer._dense_mlp`` (an MoE layer's
+``transformer._moe_mlp_replicated``: this rank's ``E/ep`` experts and
+``d_ff/tp`` hidden units, summed over tp and ep) and the logits
+``transformer._unembed``, whole on every tp rank, so every rank takes
+the same argmax.  LoRA rows take this rank's cut of the adapter
+buffers (``serving_lora.pool.shard_lora_buffers``): the wq delta of
+its heads, the wo delta summed with wo's partial output.  The other
+axes replicate the batch and the cache, as GSPMD does with the JAX
+package's unsharded cache.  pp-staged params under tp > 1 raise
+``NotImplementedError`` (:func:`_refuse_tp`), and the fused block
+refuses a mesh; with ``mesh=None`` every op is the single-process
+path's.
 
 Parity contract (tests/test_torch_decode.py): prefill + stepwise
 decode logits equal the training forward at every position, and equal
@@ -91,10 +99,10 @@ from ..ops.paged_attention import paged_attention
 from ..parallel.mesh import reduce_from, spec_block
 from ..utils import dispatch
 from . import quant
-from .quant import QTensor, ein, take_rows
+from .quant import QTensor, ein
 from .transformer import (Params, TransformerConfig, _dense_mlp, _embed,
-                          _moe_mlp, _unembed, param_specs, rms_norm, rotary,
-                          unstage_params)
+                          _moe_mlp, _moe_mlp_replicated, _unembed,
+                          param_specs, rms_norm, rotary, unstage_params)
 
 _NEG_INF = -1e30
 
@@ -159,7 +167,7 @@ def _device(params: Params) -> torch.device:
     return params["embed"].device
 
 
-#: ROADMAP's item for what tensor-parallel decode does not carry yet
+#: ROADMAP's item that names what decode keeps on one process
 _TP_LATER = "ROADMAP Queue A, item A0"
 
 
@@ -168,41 +176,19 @@ def _tp(mesh) -> bool:
     return mesh is not None and mesh.size("tp") > 1
 
 
-def _refuse_tp(cfg: TransformerConfig, mesh, params: Params | None = None,
-               lora=None) -> None:
-    """Raise ``NotImplementedError`` for what decode under tp > 1 does
-    not carry yet (each part of ROADMAP's item A0): the int8 KV cache,
-    ``QTensor`` weights, LoRA, MoE configs and pp-staged params."""
-    if not _tp(mesh):
-        return
-    what = None
-    if cfg.kv_cache_dtype == "int8":
-        what = "the int8 KV cache"
-    elif params is not None and any(
-            isinstance(w, QTensor) for w in _weights(params)):
-        what = "QTensor (int8) weights"
-    elif lora is not None:
-        what = "LoRA adapters"
-    elif cfg.is_moe:
-        what = "MoE configs"
-    elif cfg.pp_stages > 1 or (params is not None and "stages" in params):
-        what = "pp-staged params"
-    if what is not None:
-        _tp_later(what)
+def _refuse_tp(cfg: TransformerConfig, mesh, params: Params | None = None
+               ) -> None:
+    """Raise ``NotImplementedError`` for pp-staged params under tp > 1:
+    the JAX package's decode unstages them onto one device."""
+    if _tp(mesh) and (cfg.pp_stages > 1
+                      or (params is not None and "stages" in params)):
+        _tp_later("pp-staged params")
 
 
 def _tp_later(what: str) -> None:
     raise NotImplementedError(
         f"decode under tensor parallelism (tp > 1) does not carry {what} "
-        f"yet ({_TP_LATER})")
-
-
-def _weights(params: Params) -> list:
-    """The weight leaves decoding reads: embed, unembed and every
-    layer's (staged leaves for a pp tree)."""
-    layers = params.get("layers") or [params.get("stages", {})]
-    return ([params["embed"], params["unembed"]]
-            + [w for layer in layers for w in layer.values()])
+        f"({_TP_LATER})")
 
 
 def _local_kv_heads(cfg: TransformerConfig, mesh) -> int:
@@ -226,18 +212,20 @@ def init_cache(cfg: TransformerConfig, batch: int,
                mesh=None) -> KVCache:
     """Zero cache of ``batch`` rows by ``max_seq`` positions (int8 k/v
     with f32 [B, S, H_kv, 1] scales under ``kv_cache_dtype="int8"``).
-    Under a ``mesh`` whose tp axis is > 1 the cache holds this rank's
-    ``H_kv/tp`` KV heads."""
+    Under a ``mesh`` whose tp axis is > 1 the cache (and its scales)
+    holds this rank's ``H_kv/tp`` KV heads: quantization is per (row,
+    position, head), so each rank quantizes its own heads."""
     _refuse_tp(cfg, mesh)
     max_seq = max_seq or cfg.max_seq
-    shape = (batch, max_seq, _local_kv_heads(cfg, mesh), cfg.d_head)
+    h_kv = _local_kv_heads(cfg, mesh)
+    shape = (batch, max_seq, h_kv, cfg.d_head)
 
     def zeros(shp, dtype):
         return [torch.zeros(shp, dtype=dtype, device=device)
                 for _ in range(cfg.n_layers)]
 
     if cfg.kv_cache_dtype == "int8":
-        sshape = (batch, max_seq, cfg.kv_heads, 1)
+        sshape = (batch, max_seq, h_kv, 1)
         return KVCache(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
                        pos=0, k_scale=zeros(sshape, torch.float32),
                        v_scale=zeros(sshape, torch.float32))
@@ -341,8 +329,11 @@ def _attn_mlp_tail(x, o, layer, cfg, lora=None, mesh=None):
     residual + MLP (dense, or MoE under the serving config).  ``lora``
     adds each row's wo delta ``(o@A)@B`` to the projection (the gather
     of :func:`_project_and_write`).  Under tp (``mesh``) the projection
-    of this rank's heads is summed over tp and the MLP runs on its
-    ``d_ff/tp`` hidden units; without a mesh neither adds an op."""
+    of this rank's heads, its LoRA delta included, is summed over tp
+    and the MLP runs on its ``d_ff/tp`` hidden units; an MoE layer under
+    any mesh runs this rank's experts, summed over tp and ep
+    (``transformer._moe_mlp_replicated``).  Without a mesh none of it
+    adds an op."""
     proj = ein("bthk,hkd->btd", o, layer["wo"])
     if lora is not None:
         slots, ao, bo = lora[0], lora[3], lora[4]
@@ -351,6 +342,9 @@ def _attn_mlp_tail(x, o, layer, cfg, lora=None, mesh=None):
             bo[slots])
     x = x + reduce_from(proj, mesh, "tp")
     mlp_in = rms_norm(x, layer["ln2"])
+    if cfg.is_moe and mesh is not None:
+        return x + _moe_mlp_replicated(mlp_in, layer, _serving_cfg(cfg),
+                                       mesh)
     if cfg.is_moe:
         return x + _moe_mlp(mlp_in, layer, _serving_cfg(cfg))
     return x + _dense_mlp(mlp_in, layer, mesh)
@@ -460,8 +454,9 @@ def _rows_forward(params: Params, tokens: torch.Tensor,
     bo)``, the pooled adapter buffers (serving_lora/): each row gathers
     its adapter's factors by slot id, so a batch of mixed adapters is
     one pass of fixed shapes.  ``mesh`` as :func:`forward_with_cache`
-    takes it."""
-    _refuse_tp(cfg, mesh, params, lora)
+    takes it; under tp the buffers are this rank's cut
+    (``serving_lora.pool.shard_lora_buffers``)."""
+    _refuse_tp(cfg, mesh, params)
     params = _with_layers(params, cfg)
     b, t = tokens.shape
     dev = tokens.device
@@ -1372,13 +1367,15 @@ def suffix_fill_adopt(params: Params, entry: KVCache,
 
 
 def init_paged_pool(cfg: TransformerConfig, n_blocks: int,
-                    block_size: int, device="cuda") -> KVCache:
+                    block_size: int, device="cuda", mesh=None) -> KVCache:
     """Zero block pool: per-layer [n_blocks, block_size, H_kv, D]
-    (block 0 is the null block dead table rows point at).  The int8
-    cache is refused, as in the JAX package."""
+    (block 0 is the null block dead table rows point at); under a
+    ``mesh`` whose tp axis is > 1, this rank's ``H_kv/tp`` KV heads.
+    The int8 cache is refused, as in the JAX package."""
     if cfg.kv_cache_dtype == "int8":
         raise ValueError("paged KV does not support the int8 cache")
-    shape = (n_blocks, block_size, cfg.kv_heads, cfg.d_head)
+    _refuse_tp(cfg, mesh)
+    shape = (n_blocks, block_size, _local_kv_heads(cfg, mesh), cfg.d_head)
     return KVCache(
         k=[torch.zeros(shape, dtype=cfg.dtype, device=device)
            for _ in range(cfg.n_layers)],
@@ -1396,7 +1393,7 @@ def _paged_dense(pool_arr, tables):
 
 
 def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
-                        use_kernel, lora=None):
+                        use_kernel, lora=None, mesh=None):
     """tokens [B, T] appended at per-row positions into the block pool
     -> (logits [B, T, vocab], pool).  Each token's write lands at
     (tables[b, (pos+t)//bs], (pos+t) % bs).  Dead rows (table rows of
@@ -1405,8 +1402,10 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
     matter because no live row ever reads block 0.  ``use_kernel``
     reads through the paged kernel (single-query); otherwise the
     blocks are gathered into the contiguous cache's shape and read by
-    ``_cached_attention``.  ``lora`` as :func:`_rows_forward` takes
-    it."""
+    ``_cached_attention``.  ``lora`` and ``mesh`` as
+    :func:`_rows_forward` takes them (the pool of
+    :func:`init_paged_pool` under the same mesh)."""
+    _refuse_tp(cfg, mesh, params)
     params = _with_layers(params, cfg)
     b, t = tokens.shape
     if use_kernel and t > 1:
@@ -1415,7 +1414,7 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
     dev = tokens.device
     pos_rows = pos_rows.to(device=dev, dtype=torch.long)
     positions = pos_rows[:, None] + torch.arange(t, device=dev)[None]
-    x = take_rows(params["embed"], tokens, cfg.dtype)
+    x = _embed(params, tokens, cfg, mesh)
     bs = pool.k[0].shape[1]
     tl = tables.long()
     phys = [tl.gather(1, ((pos_rows + i) // bs)[:, None])[:, 0]
@@ -1439,9 +1438,9 @@ def _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
             o = _cached_attention(q, _paged_dense(k_pool, tables),
                                   _paged_dense(v_pool, tables),
                                   pos_rows, t, cfg)
-        x = _attn_mlp_tail(x, o, layer, cfg, lr)
+        x = _attn_mlp_tail(x, o, layer, cfg, lr, mesh)
     x = rms_norm(x, params["ln_f"])
-    logits = ein("btd,dv->btv", x, params["unembed"])
+    logits = _unembed(x, params, mesh)
     return logits, pool
 
 
@@ -1455,17 +1454,15 @@ def paged_decode_step_rows(params: Params, token: torch.Tensor,
     pos_rows [B] -> (logits [B, vocab], pool), pool written in place.
     ``use_kernel`` selects the paged kernel read (CUDA tensors); False
     keeps the gather + ``_cached_attention`` read that is bitwise equal
-    to the contiguous engine on the CPU.  ``lora`` as
-    :func:`_rows_forward` takes it.  Under tp > 1 (``mesh``) the paged
-    cache is refused (ROADMAP's item A0: K2 on local KV heads)."""
-    if _tp(mesh):
-        _tp_later("the paged KV cache (K2)")
+    to the contiguous engine on the CPU.  ``lora`` and ``mesh`` as
+    :func:`_rows_forward` takes them: under tp the kernel reads this
+    rank's pool of ``H_kv/tp`` heads."""
     b, t = token.shape
     if t != 1:
         raise ValueError(f"paged_decode_step_rows is one token per "
                          f"slot, got T={t}")
     logits, pool = _paged_rows_forward(params, token, cfg, pool, tables,
-                                       pos_rows, use_kernel, lora)
+                                       pos_rows, use_kernel, lora, mesh)
     return logits[:, 0], pool
 
 
@@ -1473,7 +1470,7 @@ def paged_decode_step_rows(params: Params, token: torch.Tensor,
 def paged_window_rows(params: Params, tokens: torch.Tensor,
                       cfg: TransformerConfig, pool: KVCache,
                       tables: torch.Tensor, pos_rows: torch.Tensor,
-                      lora=None) -> tuple[torch.Tensor, KVCache]:
+                      lora=None, mesh=None) -> tuple[torch.Tensor, KVCache]:
     """Multi-token paged step: tokens [B, K+1] appended at each row's
     own position through its block table -> (logits [B, K+1, vocab],
     pool), the paged twin of :func:`decode_window_rows`.  The read is
@@ -1481,10 +1478,10 @@ def paged_window_rows(params: Params, tokens: torch.Tensor,
     speculative window launches no K2.  The caller must have reserved
     writable blocks covering [pos, pos+K] a live row; rejected rows
     past the accepted prefix are rolled back by trimming the table,
-    never by rewriting the pool.  ``lora`` as :func:`_rows_forward`
-    takes it."""
+    never by rewriting the pool.  ``lora`` and ``mesh`` as
+    :func:`_rows_forward` takes them."""
     return _paged_rows_forward(params, tokens, cfg, pool, tables, pos_rows,
-                               use_kernel=False, lora=lora)
+                               use_kernel=False, lora=lora, mesh=mesh)
 
 
 @dispatch.counted("paged_adopt")

@@ -98,16 +98,22 @@ def _spec_parts(spec: str) -> tuple[str, str, str]:
     return x_labels, w_labels, out
 
 
-def quantize_for(spec: str, w: torch.Tensor) -> QTensor:
-    """Quantize ``w`` for use as the second operand of
-    ``einsum(spec, x, w)``: contraction dims are the w labels missing
-    from the output."""
+def _contracted(spec: str) -> tuple[int, ...]:
+    """The dims of ``einsum(spec, x, w)``'s second operand that the
+    product reduces over: the w labels missing from the output."""
     _, w_labels, out = _spec_parts(spec)
     contract = tuple(i for i, lbl in enumerate(w_labels)
                      if lbl not in out)
     if not contract:
         raise ValueError(f"no contraction dims in {spec!r}")
-    return quantize(w, contract)
+    return contract
+
+
+def quantize_for(spec: str, w: torch.Tensor) -> QTensor:
+    """Quantize ``w`` for use as the second operand of
+    ``einsum(spec, x, w)``: contraction dims are the w labels missing
+    from the output."""
+    return quantize(w, _contracted(spec))
 
 
 # --------------------------------------------------------------------------
@@ -512,6 +518,24 @@ _WEIGHT_SPECS = {
 }
 
 
+def _leaf_spec(name: str, moe: bool) -> str:
+    """The einsum spec weight leaf ``name`` is the second operand of."""
+    if name == "w_in":
+        return "btd,edf->btef" if moe else "btd,df->btf"
+    if name == "w_out":
+        return "btef,efd->bted" if moe else "btf,fd->btd"
+    return _WEIGHT_SPECS[name]
+
+
+def scale_dims(name: str, moe: bool) -> tuple[int, ...]:
+    """The dims along which :func:`quantize_params` reduced weight leaf
+    ``name``'s scale to size 1: its contraction dims, the embedding's
+    d (it is quantized per row).  A mesh cuts a ``QTensor``'s scale by
+    the leaf's spec on every other dim (models/transformer.py
+    ``shard_params``)."""
+    return (1,) if name == "embed" else _contracted(_leaf_spec(name, moe))
+
+
 def quantize_params(params: dict[str, Any], cfg) -> dict[str, Any]:
     """Full-model weight-only quantization.  Layer norms and the MoE
     router stay full precision (tiny, accuracy-sensitive); everything
@@ -536,14 +560,8 @@ def quantize_params(params: dict[str, Any], cfg) -> dict[str, Any]:
         for name, w in layer.items():
             if name.startswith("ln") or name == "router":
                 qlayer[name] = w
-            elif name == "w_in":
-                qlayer[name] = quantize_for(
-                    "btd,edf->btef" if moe else "btd,df->btf", w)
-            elif name == "w_out":
-                qlayer[name] = quantize_for(
-                    "btef,efd->bted" if moe else "btf,fd->btd", w)
             else:
-                qlayer[name] = quantize_for(_WEIGHT_SPECS[name], w)
+                qlayer[name] = quantize_for(_leaf_spec(name, moe), w)
         out["layers"].append(qlayer)
     return out
 
@@ -577,4 +595,4 @@ __all__ = ["Int8Plan", "QTensor", "ein", "int8_bmm",
            "int8_bmm_reference", "int8_matmul", "int8_matmul_reference",
            "int8_plan", "int8_route", "launches", "pick_int8_tiles",
            "qeinsum", "quantize", "quantize_for", "quantize_params",
-           "quantized_bytes", "take_rows", "tc_launches"]
+           "quantized_bytes", "scale_dims", "take_rows", "tc_launches"]

@@ -77,13 +77,13 @@ from ..ops.flash_attention import flash_attention
 from ..ops.gmm import _round_up, gmm, pick_gmm_blocks
 from ..ops.ring_attention import attention_reference, ring_attention
 from ..ops.ulysses_attention import ulysses_attention
-from ..parallel.mesh import (all_gather_ad, copy_to, gather_replicated,
+from ..parallel.mesh import (P, all_gather_ad, copy_to, gather_replicated,
                              reduce_from, reduce_scatter_ad, spec_axes,
                              spec_block)
 from ..parallel.resharding import (leaf_name, match_partition_rules,
                                    tree_flatten_with_path, tree_map)
 from ..utils.device import resolve_device
-from .quant import QTensor, ein, take_rows
+from .quant import QTensor, ein, scale_dims, take_rows
 
 Params = dict[str, Any]
 
@@ -296,16 +296,33 @@ def unstage_params(params: Params, cfg: TransformerConfig) -> Params:
 
 def _map_with_specs(fn, params: Params, cfg: TransformerConfig) -> Params:
     """``params`` (in the layout of :func:`param_specs`) with every leaf
-    replaced by ``fn(leaf, its spec)``."""
+    replaced by ``fn(leaf, its spec)``.  A ``QTensor`` leaf (int8
+    weights, models/quant.py) maps its values by the leaf's spec and its
+    scale by the same spec with the dims its quantization reduced to 1
+    (``quant.scale_dims``) left whole."""
     specs = dict(tree_flatten_with_path(param_specs(cfg)))
-    return tree_map(lambda path, x: fn(x, specs[path]), params)
+
+    def one(path, x):
+        spec = specs[path]
+        if not isinstance(x, QTensor):
+            return fn(x, spec)
+        reduced = scale_dims(path[-1], cfg.is_moe)
+        # layout: the leaf's own rule (layouts.py), its scale's size-1
+        # dims left whole
+        whole = P(*(None if dim in reduced else entry
+                    for dim, entry in enumerate(tuple(spec))))
+        return QTensor(q=fn(x.q, spec), scale=fn(x.scale, whole))
+    return tree_map(one, params)
 
 
 def shard_params(params: Params, cfg: TransformerConfig, mesh) -> Params:
     """This rank's block of every leaf of whole ``params`` (staged first
     for a pp config), cut by :func:`param_specs` and the rank's mesh
     coordinates: fresh contiguous tensors, the counterpart of JAX's
-    ``device_put`` onto the mesh."""
+    ``device_put`` onto the mesh.  ``quantize_params`` output is cut
+    leaf by leaf (:func:`_map_with_specs`): each rank's scales are then
+    those of JAX's ``quantize_params(shard_params(p))``, whose GSPMD
+    amax runs over the whole contracted axis."""
     if cfg.pp_stages > 1 and "layers" in params:
         params = stage_params(params, cfg)   # pp wants staged residency
     sizes, coords = mesh.spec.axis_sizes(), mesh.coords
@@ -326,7 +343,8 @@ def grad_tree(params: Params) -> Params:
 def gather_params(params: Params, cfg: TransformerConfig, mesh) -> Params:
     """The inverse of :func:`shard_params`: every rank's blocks of a
     tree in the sharded layout (parameters, or their gradients) gathered
-    into whole tensors on every rank.  Collective over the mesh."""
+    into whole tensors on every rank (``QTensor`` leaves with their
+    scales).  Collective over the mesh."""
     def whole(x, spec):
         x = x.detach()
         for dim, entry in enumerate(tuple(spec)):
@@ -573,6 +591,38 @@ def _moe_mlp_gmm(x, gates, layer, cfg: TransformerConfig):
     return out.reshape(b, t, d)
 
 
+def _dense_experts(x, g, layer):
+    """The dense dispatch: every expert of ``layer`` (``w_in`` [E, d,
+    f], ``w_out`` [E, f, d]) on every token of ``x`` [B, T, d], mixed by
+    the gates ``g`` [B, T, E] in x's dtype."""
+    h = _gelu(ein("btd,edf->btef", x, layer["w_in"]))
+    y = ein("btef,efd->bted", h, layer["w_out"])
+    return torch.einsum("bted,bte->btd", y, g)
+
+
+def _moe_mlp_replicated(x, layer, cfg: TransformerConfig, mesh):
+    """The dense-dispatch MoE MLP of a batch every rank of ``mesh``
+    holds whole (decoding, models/decode.py: the batch is replicated
+    over every axis).  This rank scores every token with the replicated
+    router, takes its ``E/ep`` experts' slice of the gates, runs its
+    ``d_ff/tp`` hidden units of them (w_in ``P("ep", None, "tp")``,
+    w_out ``P("ep", "tp", None)``) and sums the partial output over tp
+    and over ep.  :func:`_moe_mlp_sharded` would all-gather an ep shard
+    of the batch and reduce-scatter the output back, handing each rank
+    ``1/ep`` of a batch it already holds.  Forward only."""
+    e = cfg.n_experts
+    ep = mesh.size("ep")
+    if e % ep:
+        raise ValueError(
+            f"moe_dispatch='dense' needs n_experts ({e}) divisible by "
+            f"the ep axis ({ep})")
+    gates, _, _ = _router_gates(x, layer, cfg)
+    e_local = e // ep
+    e0 = mesh.index("ep") * e_local
+    out = _dense_experts(x, gates[..., e0:e0 + e_local].to(x.dtype), layer)
+    return reduce_from(reduce_from(out, mesh, "tp"), mesh, "ep")
+
+
 def _moe_mlp_sharded(x, gates, layer, cfg: TransformerConfig, mesh):
     """The MoE MLP over the process mesh, every dispatch: the JAX
     ``_moe_mlp_gmm_sharded`` skeleton (``transformer.py:541-612``),
@@ -630,10 +680,8 @@ def _moe_mlp_sharded(x, gates, layer, cfg: TransformerConfig, mesh):
     elif cfg.moe_dispatch == "capacity":
         out = _moe_mlp_capacity(xg, gg[..., e0:e0 + e_local], layer, cfg)
     else:
-        g = gg[..., e0:e0 + e_local].to(xg.dtype)
-        h = _gelu(ein("btd,edf->btef", xg, layer["w_in"]))
-        y = ein("btef,efd->bted", h, layer["w_out"])
-        out = torch.einsum("bted,bte->btd", y, g)
+        out = _dense_experts(xg, gg[..., e0:e0 + e_local].to(xg.dtype),
+                             layer)
     out = reduce_scatter_ad(reduce_from(out, mesh, "tp"), mesh, "ep", 0)
     if whole_rows:
         tl = out.shape[1] // mesh.size("sp")
@@ -669,10 +717,7 @@ def _moe_mlp(x, layer, cfg: TransformerConfig, with_aux: bool = False,
     elif cfg.moe_dispatch == "gmm":
         out = _moe_mlp_gmm(x, gates, layer, cfg)
     else:
-        g = gates.to(x.dtype)
-        h = _gelu(ein("btd,edf->btef", x, layer["w_in"]))
-        y = ein("btef,efd->bted", h, layer["w_out"])
-        out = torch.einsum("bted,bte->btd", y, g)
+        out = _dense_experts(x, gates.to(x.dtype), layer)
     if with_aux:
         return out, _moe_aux(gates, probs, logits, cfg, mesh)
     return out

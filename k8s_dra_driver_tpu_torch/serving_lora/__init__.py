@@ -8,7 +8,7 @@ manifests; the per-row adapter gather lives in ``models/decode.py``
 """
 
 from .pool import (LORA_RULES, AdapterManifest, AdapterPool, adapter_leaves,
-                   checkpoint_source, make_adapter)
+                   checkpoint_source, make_adapter, shard_lora_buffers)
 
 __all__ = ["LORA_RULES", "AdapterManifest", "AdapterPool", "adapter_leaves",
-           "checkpoint_source", "make_adapter"]
+           "checkpoint_source", "make_adapter", "shard_lora_buffers"]

@@ -46,11 +46,12 @@ import numpy as np
 import torch
 
 from ..models.layouts import lora_rules
+from ..parallel.mesh import P, spec_block
 from ..serving_kv.manager import NULL_BLOCK, BlocksExhausted, KVBlockManager
 from ..utils.device import resolve_device
 
 __all__ = ["LORA_RULES", "AdapterManifest", "AdapterPool", "adapter_leaves",
-           "checkpoint_source", "make_adapter"]
+           "checkpoint_source", "make_adapter", "shard_lora_buffers"]
 
 #: the leaf patterns of ``models/layouts.py``'s ``lora_rules``: an
 #: adapter targets wq and wo only.  K/V projections are left out by
@@ -373,6 +374,30 @@ class AdapterPool:
             "evictions_total": self.evictions_total,
             "storm_active": self.storm_active,
         }
+
+
+def shard_lora_buffers(buffers, mesh) -> tuple:
+    """This rank's blocks of an :class:`AdapterPool`'s ``buffers`` (the
+    decode ``lora[1]`` tree) for decoding under ``mesh``: each leaf cut
+    by ``models/layouts.py``'s ``lora_rules`` with the spec shifted one
+    dim right for the slot axis, so wq's B ``[S, r, H/tp, K]`` and wo's
+    A ``[S, H/tp, K, r]`` hold this rank's heads and wq's A and wo's B
+    stay whole.  Fresh contiguous tensors, as ``shard_params`` cuts the
+    weights: a load into the pool after the cut needs a new cut."""
+    rules = lora_rules(None)
+    sizes, coords = mesh.spec.axis_sizes(), mesh.coords
+    out = []
+    for i, layer in enumerate(buffers):
+        cut = []
+        for tail, buf in zip(_LEAF_TAILS, layer):
+            name = f"layers/{i}/{tail}"
+            spec = next(s for pat, s in rules if re.search(pat, name))
+            bounds = spec_block(buf.shape, P(None, *spec), sizes, coords)
+            for dim, (lo, hi) in enumerate(bounds):
+                buf = buf.narrow(dim, lo, hi - lo)
+            cut.append(buf.clone(memory_format=torch.contiguous_format))
+        out.append(tuple(cut))
+    return tuple(out)
 
 
 def _per_layer(leaves):

@@ -19,11 +19,16 @@ tests/test_torch_tp.py holds ``forward``.  f32, 2 layers.
   aten op trace of prefill, per-row and aligned decode steps and
   ``greedy_generate`` hashes to the parent tree's (recorded on the
   tree before the ``mesh=`` keyword), so its outputs are the parent's
-  bit for bit.
-- Under tp > 1 the int8 KV cache, ``QTensor`` weights, the paged path,
-  LoRA, MoE configs, pp-staged params and the fused block raise
+  bit for bit; so do the traces of the paged steps (both reads), the
+  int8 KV cache, int8 weights, LoRA rows and an MoE config (recorded on
+  the tree before tp carried them).
+- Under tp > 1 pp-staged params and the fused block raise
   ``NotImplementedError`` naming ROADMAP's item; heads that do not
-  divide by tp are refused in ``shard_params``' words.
+  divide by tp are refused in ``shard_params``' words.  What tp decode
+  once refused besides (the int8 KV cache, ``QTensor`` weights, the
+  paged path, LoRA, MoE) is held against JAX in
+  test_torch_tp_decode_a0.py, test_torch_tp_decode_a0_lora.py,
+  test_torch_tp_decode_a0_weights.py and test_torch_tp_decode_a0_moe.py.
 """
 
 import hashlib
@@ -43,6 +48,9 @@ from k8s_dra_driver_tpu_torch.models import decode as td
 from k8s_dra_driver_tpu_torch.models import transformer as tt
 from k8s_dra_driver_tpu_torch.models.quant import quantize_params
 from k8s_dra_driver_tpu_torch.parallel import mesh as tmesh
+from k8s_dra_driver_tpu_torch.serving_lora.pool import (AdapterManifest,
+                                                        AdapterPool,
+                                                        make_adapter)
 
 #: JAX's own forward tolerance (tests/test_workloads.py), relative to
 #: the largest logit
@@ -98,8 +106,9 @@ def results(tmp_path_factory):
     want = {}
     for name, (c, jcfg) in cases.items():
         world, spec, _ = CASES[name]
-        prefill, steps = torch_dist.jax_tp_decode(
-            jcfg, c["params"], c["prompt"], c["forced"], world, spec)
+        prefill, steps, _ = torch_dist.jax_tp_decode(
+            jcfg, c["params"], c["prompt"], c["forced"], N_NEW, world, spec,
+            greedy=False)
         tokens = np.asarray(jd.greedy_generate(
             jax.tree.map(jnp.asarray, c["params"]), jnp.asarray(c["prompt"]),
             jcfg, n_tokens=N_NEW))[:, PROMPT:]
@@ -202,6 +211,74 @@ def test_no_mesh_decode_runs_the_parent_ops(name):
     assert (len(trace.ops), digest[:16]) == PARENT_TRACE[name]
 
 
+#: sha256 of the op trace of :func:`single_process_variant` and its op
+#: count, recorded on the tree before tp decode carried the variants
+PARENT_VARIANT_TRACE = {
+    "paged": (4667, "da7d65f58b761729"),
+    "paged_kernel": (4707, "f019a2352758f4f1"),
+    "int8kv": (3709, "e2b1a9e380ca9f64"),
+    "quant": (2801, "44e00fda9be73038"),
+    "lora": (2002, "5177975c4c8be748"),
+    "moe": (3905, "f77a05a56f5f2d34"),
+}
+
+
+def single_process_variant(variant, cfg, params, toks, lora):
+    """Ten paged steps (the plain or the kernel's read) and a paged
+    window, or a prefill, three per-row steps and (without LoRA)
+    ``greedy_generate``."""
+    if variant.startswith("paged"):
+        pool = td.init_paged_pool(cfg, 13, 4, device="cpu")
+        tables = torch.arange(1, 13, dtype=torch.int32).reshape(4, 3)
+        for i in range(10):
+            col = toks[:, i] if i < 8 else lg.argmax(-1)
+            lg, pool = td.paged_decode_step_rows(
+                params, col[:, None], cfg, pool, tables, torch.full((4,), i),
+                use_kernel=variant == "paged_kernel", lora=lora)
+        td.paged_window_rows(params, toks[:, :2], cfg, pool, tables,
+                             torch.full((4,), 9), lora=lora)
+        return
+    cache = td.init_cache(cfg, 4, 32, device="cpu")
+    lg, cache = td.prefill(params, toks, cfg, cache)
+    pos, tok = torch.full((4,), 8), lg[:, -1].argmax(-1)
+    for _ in range(3):
+        lg, cache = td.decode_step_rows(params, tok[:, None], cfg, cache, pos,
+                                        lora=lora)
+        tok, pos = lg.argmax(-1), pos + 1
+    if lora is None:
+        td.greedy_generate(params, toks, cfg, 4)
+
+
+@pytest.mark.parametrize("variant", sorted(PARENT_VARIANT_TRACE))
+def test_no_mesh_variants_run_the_parent_ops(variant):
+    kw = dict(vocab=96, d_model=48, n_layers=2, n_heads=4, d_head=12,
+              d_ff=96, max_seq=32, dtype=torch.float32, n_kv_heads=2)
+    if variant == "int8kv":
+        kw["kv_cache_dtype"] = "int8"
+    if variant == "moe":
+        kw.update(n_experts=4, top_k=2)
+    cfg = tt.TransformerConfig(**kw)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
+    if variant == "quant":
+        params = quantize_params(params, cfg)
+    toks = torch.randint(0, 96, (4, 8),
+                         generator=torch.Generator().manual_seed(2))
+    lora = None
+    if variant == "lora":
+        pool = AdapterPool(cfg, 4, 3, device="cpu")
+        for i, name in enumerate("abc"):
+            pool.register(AdapterManifest(
+                name, 4, source=make_adapter(cfg, 4, 10 + i)))
+        slots = [pool.acquire(name) for name in "abc"]
+        lora = (torch.tensor([0] + slots), pool.buffers)
+    trace = OpTrace()
+    with trace:
+        single_process_variant(variant, cfg, params, toks, lora)
+    digest = hashlib.sha256("\n".join(trace.ops).encode()).hexdigest()
+    assert (len(trace.ops), digest[:16]) == PARENT_VARIANT_TRACE[variant]
+
+
 # --------------------------------------------------------------------------
 # Refusals
 # --------------------------------------------------------------------------
@@ -225,50 +302,12 @@ def refused(fn, what):
         fn()
 
 
-def test_tp_refuses_int8_kv_cache():
-    mesh = fake_mesh(tp=2)
-    cfg = small(kv_cache_dtype="int8")
-    refused(lambda: td.init_cache(cfg, 2, device="cpu", mesh=mesh),
-            "int8 KV cache")
-
-
-def test_tp_refuses_qtensor_weights():
-    mesh = fake_mesh(tp=2)
-    cfg = small()
-    qparams = quantize_params(tt.init_params(cfg, device="cpu"), cfg)
-    toks = torch.zeros((2, 1), dtype=torch.long)
-    cache = td.init_cache(cfg, 2, device="cpu")
-    refused(lambda: td.decode_step_rows(qparams, toks, cfg, cache,
-                                        torch.zeros(2), mesh=mesh),
-            "QTensor")
-
-
-def test_tp_refuses_paged_path():
-    mesh = fake_mesh(tp=2)
-    cfg = small()
-    params = tt.init_params(cfg, device="cpu")
-    pool = td.init_paged_pool(cfg, 4, 8, device="cpu")
-    refused(lambda: td.paged_decode_step_rows(
-        params, torch.zeros((1, 1), dtype=torch.long), cfg, pool,
-        torch.ones((1, 1), dtype=torch.int32), torch.zeros(1), mesh=mesh),
-        "paged KV cache")
-
-
-def test_tp_refuses_lora():
-    mesh = fake_mesh(tp=2)
-    cfg = small()
-    params = tt.init_params(cfg, device="cpu")
-    cache = td.init_cache(cfg, 1, device="cpu")
-    lora = (torch.zeros(1, dtype=torch.long), [()] * cfg.n_layers)
-    refused(lambda: td.decode_step_rows(
-        params, torch.zeros((1, 1), dtype=torch.long), cfg, cache,
-        torch.zeros(1), lora=lora, mesh=mesh), "LoRA")
-
-
 def test_tp_refuses_moe_and_pp_staged():
+    """Of the two refusals this test held, pp-staged params under tp
+    stay (the JAX package's decode unstages them onto one device); MoE
+    configs are carried under any mesh now
+    (test_torch_tp_decode_a0_moe.py)."""
     mesh = fake_mesh(tp=2)
-    refused(lambda: td.init_cache(small(n_experts=4, top_k=2), 1,
-                                  device="cpu", mesh=mesh), "MoE")
     refused(lambda: td.init_cache(small(pp_stages=2), 1, device="cpu",
                                   mesh=mesh), "pp-staged")
 

@@ -1,6 +1,7 @@
 """Spawned gloo process groups for the port's distributed tests
 (test_torch_ring.py, test_torch_parallel.py, test_torch_tp.py,
-test_torch_ep.py, test_torch_pipeline.py, test_torch_tp_decode.py).
+test_torch_ep.py, test_torch_pipeline.py, test_torch_tp_decode.py,
+test_torch_tp_decode_a0*.py).
 
 :func:`run_group` starts ``world`` processes (spawn), each standing up
 the default group through the port's ``rendezvous.initialize`` from the
@@ -208,16 +209,40 @@ def model_worker(rank, world, cases):
     return results
 
 
+def a0_lora(cfg, lora: dict, device="cpu"):
+    """An ``AdapterPool`` of ``lora["names"]`` (``make_adapter`` at
+    ``lora["seeds"]``, rank ``lora["rank"]``), each acquired once in
+    order: (the pool, their slots)."""
+    from k8s_dra_driver_tpu_torch.serving_lora.pool import (
+        AdapterManifest, AdapterPool, make_adapter)
+    pool = AdapterPool(cfg, lora["rank"], len(lora["names"]), device=device)
+    for name, seed in zip(lora["names"], lora["seeds"]):
+        pool.register(AdapterManifest(
+            name, lora["rank"], source=make_adapter(cfg, lora["rank"], seed)))
+    return pool, [pool.acquire(name) for name in lora["names"]]
+
+
 def tp_decode_worker(rank, world, cases):
     """Tensor-parallel decode on each case's mesh, on this rank's blocks
-    of the case's (JAX) parameters: the logits of ``prefill`` and of
-    ``decode_step_rows`` steps fed the case's tokens, the greedy tokens
-    of ``prefill`` + ``decode_step_rows`` argmax steps, and those of
-    ``greedy_generate(mesh=)``; with this rank's cache shape."""
+    of the case's (JAX) parameters: plain (``c["variant"]`` absent or
+    ``"plain"``), or with what tensor-parallel decode once refused: the
+    int8 KV cache (``"int8kv"``),
+    ``shard_params(quantize_params(p))`` weights (``"quant"``), the
+    paged pool read through K2's entry (``"paged"``: its plain version
+    here), LoRA rows on this rank's cut of the pool's buffers
+    (``"lora"``), an MoE config (``"moe"``).  Returns the logits of the
+    prompt (``prefill``; the paged variant steps through it) and of
+    steps fed the case's tokens, the greedy tokens of argmax steps (and
+    of ``greedy_generate(mesh=)`` where it applies), the shapes of this
+    rank's cache, scales, weights and adapter cut, and for ``"quant"``
+    the weights ``gather_params`` puts back together."""
     from k8s_dra_driver_tpu_torch.models import decode as td
     from k8s_dra_driver_tpu_torch.models import transformer as tt
     from k8s_dra_driver_tpu_torch.models.convert import params_from_jax
+    from k8s_dra_driver_tpu_torch.models.quant import (QTensor,
+                                                       quantize_params)
     from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from k8s_dra_driver_tpu_torch.serving_lora.pool import shard_lora_buffers
     meshes, results = {}, []
     for c in cases:
         spec = MeshSpec(**c["spec"])
@@ -225,36 +250,97 @@ def tp_decode_worker(rank, world, cases):
             meshes[spec] = make_mesh(spec, device="cpu")
         mesh = meshes[spec]
         cfg = tt.TransformerConfig(**c["cfg"])
-        params = tt.shard_params(params_from_jax(c["params"], device="cpu"),
-                                 cfg, mesh)
+        variant = c.get("variant", "plain")
+        whole = params_from_jax(c["params"], device="cpu")
+        if variant == "quant":
+            whole = quantize_params(whole, cfg)
+        params = tt.shard_params(whole, cfg, mesh)
         prompt = torch.from_numpy(c["prompt"]).long()
         forced = torch.from_numpy(c["forced"]).long()
         b, t = prompt.shape
+        lora, out = None, dict(coords=mesh.coords)
+        if variant == "lora":
+            pool, slots = a0_lora(cfg, c["lora"])
+            cut = shard_lora_buffers(pool.buffers, mesh)
+            lora = (torch.tensor([0] + slots)[c["lora"]["rows"]], cut)
+            out["lora_shapes"] = [tuple(a.shape) for a in cut[0]]
         with torch.no_grad():
-            cache = td.init_cache(cfg, b, device="cpu", mesh=mesh)
-            logits, cache = td.prefill(params, prompt, cfg, cache, mesh=mesh)
-            steps, pos = [], torch.full((b,), t)
-            for i in range(forced.shape[1]):
-                lg, cache = td.decode_step_rows(params, forced[:, i:i + 1],
-                                                cfg, cache, pos, mesh=mesh)
-                steps.append(lg.numpy())
-                pos = pos + 1
-            gcache = td.init_cache(cfg, b, device="cpu", mesh=mesh)
-            lg, gcache = td.prefill(params, prompt, cfg, gcache, mesh=mesh)
-            tok, pos = lg[:, -1].argmax(-1), torch.full((b,), t)
-            greedy = [tok]
-            for _ in range(c["n_new"] - 1):
-                lg, gcache = td.decode_step_rows(params, tok[:, None], cfg,
-                                                 gcache, pos, mesh=mesh)
-                tok, pos = lg.argmax(-1), pos + 1
-                greedy.append(tok)
-            generated = td.greedy_generate(params, prompt, cfg, c["n_new"],
+            if variant == "paged":
+                tables = torch.from_numpy(c["tables"])
+
+                def fresh():
+                    return td.init_paged_pool(cfg, c["n_blocks"], c["bs"],
+                                              device="cpu", mesh=mesh)
+
+                def step(pool, tok, i):
+                    return td.paged_decode_step_rows(
+                        params, tok[:, None], cfg, pool, tables,
+                        torch.full((b,), i), use_kernel=True, mesh=mesh)
+
+                pool, seen = fresh(), []
+                for i in range(t + forced.shape[1]):
+                    col = prompt[:, i] if i < t else forced[:, i - t]
+                    lg, pool = step(pool, col, i)
+                    seen.append(lg.numpy())
+                out["prefill"] = np.stack(seen[:t], 1)
+                out["steps"] = np.stack(seen[t:], 1)
+                out["cache_shape"] = tuple(pool.k[0].shape)
+                gpool = fresh()
+                for i in range(t):
+                    lg, gpool = step(gpool, prompt[:, i], i)
+                tok, greedy = lg.argmax(-1), [lg.argmax(-1)]
+                for i in range(t, t + c["n_new"] - 1):
+                    lg, gpool = step(gpool, tok, i)
+                    tok = lg.argmax(-1)
+                    greedy.append(tok)
+            else:
+                cache = td.init_cache(cfg, b, device="cpu", mesh=mesh)
+                logits, cache = td.prefill(params, prompt, cfg, cache,
                                            mesh=mesh)
-        results.append(dict(
-            coords=mesh.coords, prefill=logits.numpy(),
-            steps=np.stack(steps, 1), cache_shape=tuple(cache.k[0].shape),
-            greedy=torch.stack(greedy, 1).numpy(),
-            generated=generated[:, t:].numpy()))
+                steps, pos = [], torch.full((b,), t)
+                for i in range(forced.shape[1]):
+                    lg, cache = td.decode_step_rows(
+                        params, forced[:, i:i + 1], cfg, cache, pos,
+                        lora=lora, mesh=mesh)
+                    steps.append(lg.numpy())
+                    pos = pos + 1
+                out["prefill"] = logits.numpy()
+                out["steps"] = np.stack(steps, 1)
+                out["cache_shape"] = tuple(cache.k[0].shape)
+                out["scale_shape"] = (None if cache.k_scale is None
+                                      else tuple(cache.k_scale[0].shape))
+                gcache = td.init_cache(cfg, b, device="cpu", mesh=mesh)
+                lg, gcache = td.prefill(params, prompt, cfg, gcache,
+                                        mesh=mesh)
+                tok, pos = lg[:, -1].argmax(-1), torch.full((b,), t)
+                greedy = [tok]
+                for _ in range(c["n_new"] - 1):
+                    lg, gcache = td.decode_step_rows(
+                        params, tok[:, None], cfg, gcache, pos, lora=lora,
+                        mesh=mesh)
+                    tok, pos = lg.argmax(-1), pos + 1
+                    greedy.append(tok)
+                if variant != "lora":
+                    out["generated"] = td.greedy_generate(
+                        params, prompt, cfg, c["n_new"],
+                        mesh=mesh)[:, t:].numpy()
+        out["greedy"] = torch.stack(greedy, 1).numpy()
+        out["leaf_shapes"] = {
+            name: ((tuple(w.q.shape), tuple(w.scale.shape))
+                   if isinstance(w, QTensor) else tuple(w.shape))
+            for name, w in [("embed", params["embed"]),
+                            ("unembed", params["unembed"])]
+            + list(params["layers"][0].items())}
+        if variant == "quant":
+            back = tt.gather_params(params, cfg, mesh)
+            out["gathered"] = {
+                name: (w.q.numpy(), w.scale.numpy())
+                for name, w in [("embed", back["embed"]),
+                                ("unembed", back["unembed"])]
+                + [(f"layers/{i}/{k}", v)
+                   for i, layer in enumerate(back["layers"])
+                   for k, v in layer.items() if isinstance(v, QTensor)]}
+        results.append(out)
     return results
 
 
@@ -382,28 +468,81 @@ def jax_forward(jcfg, params, tokens, world, spec, seg=None) -> np.ndarray:
                          None if seg is None else jnp.asarray(seg)))
 
 
-def jax_tp_decode(jcfg, params, prompt, forced, world, spec):
-    """JAX's ``prefill`` and ``decode_step_rows`` steps fed ``forced``
-    on numpy ``params`` placed by ``shard_params`` on the virtual mesh
-    (GSPMD splits the heads; the cache is unsharded): (prefill logits,
-    step logits [B, steps, V])."""
+def jax_tp_decode(jcfg, params, prompt, forced, n_new, world=None,
+                  spec=None, *, quant=False, lora=None, paged=None,
+                  logits=True, greedy=True):
+    """The JAX package's decode on numpy ``params`` (plain, or one of
+    what tensor-parallel decode once refused), placed by
+    ``shard_params`` on the virtual mesh when ``world`` is given
+    (GSPMD splits them; caches, pools and adapter buffers stay whole),
+    on one device otherwise.  ``quant``: int8 weights, the JAX
+    order ``quantize_params(shard_params(p))``; ``lora``: ``(slots [B],
+    whole buffers)``; ``paged``: ``(n_blocks, block_size, tables)``,
+    every token (the prompt's too) through ``paged_decode_step_rows``
+    with the dense-gather read.  Returns ``(prompt logits [B, T, V],
+    logits of steps fed ``forced`` [B, N, V], greedy tokens [B,
+    n_new])``; the logits are None without ``logits``, the tokens
+    without ``greedy``."""
     import jax
     import jax.numpy as jnp
 
     from k8s_dra_driver_tpu.models import decode as jd
     from k8s_dra_driver_tpu.models import transformer as jt
-    mesh = jax_mesh(world, spec)
-    placed = jt.shard_params(jax.tree.map(jnp.asarray, params), jcfg, mesh)
+    from k8s_dra_driver_tpu.models.quant import quantize_params
+    placed = jax.tree.map(jnp.asarray, params)
+    if world is not None:
+        placed = jt.shard_params(placed, jcfg, jax_mesh(world, spec))
+    if quant:
+        placed = jax.jit(lambda p: quantize_params(p, jcfg))(placed)
+    if lora is not None:
+        lora = (jnp.asarray(lora[0], jnp.int32),
+                jax.tree.map(jnp.asarray, lora[1]))
     b, t = prompt.shape
-    cache = jd.init_cache(jcfg, b)
-    logits, cache = jd.prefill(placed, jnp.asarray(prompt), jcfg, cache)
-    pos, steps = jnp.full((b,), t, jnp.int32), []
-    for i in range(forced.shape[1]):
-        lg, cache = jd.decode_step_rows(placed, jnp.asarray(forced[:, i:i + 1]),
-                                        jcfg, cache, pos)
-        steps.append(np.asarray(lg))
-        pos = pos + 1
-    return np.asarray(logits), np.stack(steps, 1)
+    prompt, forced = jnp.asarray(prompt), jnp.asarray(forced)
+
+    if paged is not None:
+        n_blocks, bs, tables = paged
+        tables = jnp.asarray(tables)
+
+        def step(state, tok, i):
+            return jd.paged_decode_step_rows(
+                placed, tok[:, None], jcfg, state, tables,
+                jnp.full((b,), i, jnp.int32), use_kernel=False, lora=lora)
+
+        def start():
+            state, seen = jd.init_paged_pool(jcfg, n_blocks, bs), []
+            for i in range(t):
+                lg, state = step(state, prompt[:, i], i)
+                seen.append(np.asarray(lg))
+            return state, np.stack(seen, 1), lg
+    else:
+        def step(state, tok, i):
+            return jd.decode_step_rows(placed, tok[:, None], jcfg, state,
+                                       jnp.full((b,), i, jnp.int32), lora)
+
+        def start():
+            lg, state = jd.prefill(placed, prompt, jcfg,
+                                   jd.init_cache(jcfg, b))
+            return state, np.asarray(lg), lg[:, -1]
+
+    first = steps = tokens = None
+    if logits:
+        state, first, _ = start()
+        seen = []
+        for i in range(forced.shape[1]):
+            lg, state = step(state, forced[:, i], t + i)
+            seen.append(np.asarray(lg))
+        steps = np.stack(seen, 1)
+    if greedy:
+        state, _, lg = start()
+        tok = lg.argmax(-1)
+        seen = [tok]
+        for i in range(t, t + n_new - 1):
+            lg, state = step(state, tok, i)
+            tok = lg.argmax(-1)
+            seen.append(tok)
+        tokens = np.asarray(jnp.stack(seen, 1))
+    return first, steps, tokens
 
 
 def jax_train(jcfg, world, spec, batches, seed=2, segs=None):
