@@ -148,9 +148,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. K2 (paged decode) likewise, with each case's plan (splits, blocks)
    printed, a bitwise repeat of every case, rows over several splits
    (the merge) required and the merge's counters back at 0; also at
-   one tp=2 rank of the 154M (8 query and 2 KV heads, both dtypes: the
-   kernels line's ``tp_rank`` rows of K2, as phase 14's K7a rows at the
-   rank's shards);
+   one tp=2 rank of the 154M (8 query and 2 KV heads, both dtypes) on
+   the tables of multichip (b) and of (e)'s paged engine, each at the
+   plan its run launches: the kernels line's ``tp_rank`` rows of K2,
+   as phase 3's K1 rows at the rank's prefill and engine fills (B=8
+   and B=1, T=24-96) and phase 14's K7a rows at the rank's shards;
 5. K3 (flash backward dq) and K4 (dk/dv) against their plain version
    at the training shape (B=8 T=2048 H=16 Hkv=4 D=64 bf16 causal), with
    a window, segments, D=128, f32 and two ring-style blocks (offsets,
@@ -436,6 +438,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
     of the same worker (started beside (b)'s): the same traffic's
     prefill and greedy steps against single-process ``greedy_generate``, logits within
     MULTICHIP_F32_TOL and every token equal, K1 4 a prefill a rank;
+    (e) the engine variant, started beside (b) and (d): two ranks of
+    the same worker serve the 154M at full width through
+    ``ServingEngine(..., mesh=MeshSpec(tp=2))`` on their
+    ``shard_params`` blocks, in f32 and bf16, and drain s8_r24
+    (MULTICHIP_ENGINE_REQUESTS of its requests) in each of
+    MULTICHIP_ENGINE_MODES (step by step, fused at ``chain_steps=47``,
+    which runs step by step under a mesh, n-gram speculation, the
+    paged pool read by K2) against the same engine without a mesh on
+    the whole weights in this process: f32 streams every one equal
+    (gated), bf16 streams counted, each rank's K1 and K2 launches by
+    route exactly :func:`engine_launches`' of its dispatch labels, the
+    drain's wall;
 20b. the measurement utilities (``phase_measure``): (a) the
     autotuner names the card (``backend_key``), the checked-in H100
     table is empty so every K7 launch of the run took ``int8_plan``'s
@@ -555,7 +569,7 @@ SMALL_D_ROWS: dict = {}
 #: the kernels line's rows of K2 and K7a at the shapes of one tp=2 rank
 #: of the 154M (phase_multichip (b)): filled by phase_paged and
 #: phase_int8, a list a kernel
-TP_RANK_ROWS: dict = {"K2": [], "K7a": []}
+TP_RANK_ROWS: dict = {"K1": [], "K2": [], "K7a": []}
 # training, f32 card (kernels) vs CPU (plain): summation order only; a
 # missing or wrong gradient moves a weight by a whole AdamW step (lr
 # 3e-4), three times this bound
@@ -2782,15 +2796,19 @@ def phase_flash(fa) -> dict:
                    dtype=torch.bfloat16, h=sv["h"], h_kv=sv["h_kv"])
               for t in sv["ts"]]
     # the multichip phase's prefills: the 154M's at tp=2 on one rank's
-    # heads in both dtypes, moe_heavy's at tp=2 in f32, the flagship
-    # forward's, the dryrun decode's
-    for shape, dtypes in ((TP_PREFILL_K1, (torch.bfloat16, torch.float32)),
-                          (TP_MOE_PREFILL_K1, (torch.float32,)),
-                          (ENTRY_K1, (torch.bfloat16,)),
-                          (DRYRUN_DECODE_K1, (torch.float32,))):
+    # heads in both dtypes ((b)'s prefill, (e)'s engine fills: the
+    # kernels line's tp_rank rows of K1), moe_heavy's at tp=2 in f32,
+    # the flagship forward's, the dryrun decode's
+    both = (torch.bfloat16, torch.float32)
+    for shape, dtypes, tp_row in (
+            *((x, both, True) for x in [TP_PREFILL_K1, *TP_ENGINE_K1]),
+            (TP_MOE_PREFILL_K1, (torch.float32,), False),
+            (ENTRY_K1, (torch.bfloat16,), False),
+            (DRYRUN_DECODE_K1, (torch.float32,), False)):
         cases += [dict(b=shape["b"], t=shape["t"], d=shape["d"],
                        window=None, seg=False, dtype=dtype, h=shape["h"],
-                       h_kv=shape["h_kv"]) for dtype in dtypes]
+                       h_kv=shape["h_kv"], tp_rank=tp_row)
+                  for dtype in dtypes]
     row, probes = None, {}
     for c in cases:
         b, t, d, dtype = c["b"], c["t"], c["d"], c["dtype"]
@@ -2846,10 +2864,13 @@ def phase_flash(fa) -> dict:
             lib_ms = cuda_ms(sdpa_fn(q, k, v, True))
         bound, by = flash_bound(b, t, h, h_kv, d, c["window"], seg,
                                 dtype)
+        plan = fa.pick_fwd_params(t, t, d, h // h_kv, c["window"], dtype)
         print(f"K1 B={b} T={t} H={h} Hkv={h_kv} D={d} "
               f"window={c['window']} seg={seg is not None} "
               f"{str(dtype).removeprefix('torch.')} "
-              f"({'tensor cores' if tc else 'CUDA cores'}): {held} lse "
+              f"({'tensor cores' if tc else 'CUDA cores'}; plan "
+              f"block_q={plan['block_q']} block_k={plan['block_k']}): "
+              f"{held} lse "
               f"max|d|={lerr:.3g} (tol {LSE_TOL}) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={fmt(lib_ms)} "
               f"bound_us={bound * 1e3:.2f} ({by}) "
@@ -2868,6 +2889,16 @@ def phase_flash(fa) -> dict:
         if plain_causal and (b, t, d) == (2, 96, 64):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        if c.get("tp_rank"):
+            runs = ("multichip (b)'s prefill and (e)'s engine fills"
+                    if (b, t) == (TP_PREFILL_K1["b"], TP_PREFILL_K1["t"])
+                    else "multichip (e)'s engine fills")
+            TP_RANK_ROWS["K1"].append(dict(
+                shape=f"B={b} T={t} H={h} Hkv={h_kv} D={d} causal "
+                f"{str(dtype).removeprefix('torch.')} (one tp=2 rank of "
+                f"the 154M, {runs})",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, plan=plan))
         if "probe" in c:
             SMALL_D_ROWS["K1"] = dict(
                 shape=f"B={b} T={t} H={h} Hkv={h_kv} D={d} causal bf16 "
@@ -3116,16 +3147,23 @@ def paged_small_cases() -> list:
 
 
 def paged_tp_cases() -> list:
-    """K2 at one tp=2 rank of the 154M (phase_multichip (b)'s paged
-    variant: 8 of 16 query and 2 of 4 KV heads, D=64, blocks of 16), at
-    its mid-run step (8 rows of 112 keys: 96 prompt tokens + 16 steps)
-    on its tables of (MULTICHIP_PROMPT_LEN + MULTICHIP_NEW) //
-    MULTICHIP_BS pages, so that the plan is the one (b) launches, in
-    both dtypes: (label, lengths, head dim, dtype, query heads, KV
-    heads, table width)."""
+    """K2 at one tp=2 rank of the 154M (8 of 16 query and 2 of 4 KV
+    heads, D=64, blocks of 16) in both dtypes, on the tables each of
+    phase_multichip's paged runs builds, so that each plan is one a run
+    launches: (b)'s paged variant at its mid-run step (8 rows of 112
+    keys: 96 prompt tokens + 16 steps) on tables of
+    (MULTICHIP_PROMPT_LEN + MULTICHIP_NEW) // MULTICHIP_BS pages, and
+    (e)'s paged engine (8 slots, its default blocks of MULTICHIP_BS) at
+    a mid-drain step of s8_r24 (lengths 120/72/96/48) on its tables of
+    max_seq // MULTICHIP_BS pages: (label, lengths, head dim, dtype,
+    query heads, KV heads, table width)."""
     width = (MULTICHIP_PROMPT_LEN + MULTICHIP_NEW) // MULTICHIP_BS
-    return [(f"tp=2 rank {str(dtype).removeprefix('torch.')}", [112] * 8,
-             64, dtype, 8, 2, width)
+    engine = serving_config().max_seq // MULTICHIP_BS
+    return [(f"tp=2 {run} {str(dtype).removeprefix('torch.')}", lengths,
+             64, dtype, 8, 2, pages)
+            for run, lengths, pages in (
+                ("rank", [112] * 8, width),
+                ("engine", [120, 72, 96, 48, 120, 72, 96, 48], engine))
             for dtype in (torch.bfloat16, torch.float32)]
 
 
@@ -3250,12 +3288,14 @@ def phase_paged(pa) -> tuple[dict, dict]:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=None,
                        plan=plan._asdict())
-        if label.startswith("tp=2 rank"):
+        if label.startswith("tp=2 "):
+            run = ("multichip (b)" if label.startswith("tp=2 rank")
+                   else "multichip (e)'s paged engine")
             TP_RANK_ROWS["K2"].append(dict(
                 shape=f"B={b} H={h} Hkv={h_kv} D={d} bs={bs} tables of "
                 f"{n_pages} pages, lengths {lengths} "
                 f"{str(dtype).removeprefix('torch.')} (one tp=2 rank of "
-                f"the 154M, multichip (b))",
+                f"the 154M, {run})",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None, plan=plan._asdict()))
         if label == "paged-KV probe step":
@@ -8029,6 +8069,12 @@ def phase_moe_serving(fa, pa, gm) -> dict:
 #: prefill on one rank's heads (phase_multichip (a)): phase_flash holds
 #: K1 at each
 TP_PREFILL_K1 = dict(b=8, t=96, h=8, h_kv=2, d=64)
+#: K1 at the fills of phase_multichip (e)'s tp=2 engine on one rank's
+#: heads, beside TP_PREFILL_K1 (B=8 T=96): the contiguous engine's
+#: groups of one prompt length padded to its 8 slots, the paged
+#: engine's one-request fills, at s8_r24's prompt lengths
+TP_ENGINE_K1 = [dict(b=b, t=t, h=8, h_kv=2, d=64) for b in (8, 1)
+                for t in (24, 48, 72, 96) if (b, t) != (8, 96)]
 #: K1 at moe_heavy's tp=2 prefill on one rank's heads (2 of 4 query and
 #: KV heads; phase_multichip (d), f32)
 TP_MOE_PREFILL_K1 = dict(b=8, t=96, h=2, h_kv=2, d=64)
@@ -8401,6 +8447,78 @@ MULTICHIP_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 MULTICHIP_RUNS = [(v, name) for name in MULTICHIP_DTYPES
                   for v in MULTICHIP_VARIANTS]
 MULTICHIP_MOE_RUNS = [("plain", "f32")]
+#: (e): ``ServingEngine(..., mesh=)`` at tp=2 on the 154M, its drains of
+#: s8_r24 (the first MULTICHIP_ENGINE_REQUESTS requests), f32 then bf16
+#: (no runs: no (e) ranks, as before the engine took a mesh)
+MULTICHIP_ENGINE_MODES = {
+    "step": {}, "fused": {"chain_steps": FUSED_CHAIN},
+    "ngram": {"draft_source": "ngram", "draft_len": SPEC_DRAFT_LEN},
+    "paged": {"kv_layout": "paged"}}
+MULTICHIP_ENGINE_RUNS = [("engine", name) for name in MULTICHIP_DTYPES]
+MULTICHIP_ENGINE_REQUESTS = 24
+
+
+def engine_launches(dtype_name: str, n_layers: int, labels: dict) -> dict:
+    """A tp rank's launches in one engine drain, from its dispatch
+    labels and the code: K1 once a layer in each fresh fill
+    (``prefill_adopt_rows``, and the paged engine's ``prefill`` of a
+    fresh transient cache) on the dtype's route; K2 once a layer a paged
+    step (``paged_decode_step_rows``, the kernel read by default on the
+    card); nothing else (prefix-hit fills, windows and contiguous steps
+    read the cache through plain ops, and no weight is int8)."""
+    k1 = "flash_fwd_f32" if dtype_name == "f32" else "flash_fwd_tc"
+    want = {k1: n_layers * (labels.get("prefill_adopt_rows", 0)
+                            + labels.get("prefill", 0))}
+    if labels.get("paged_decode_step_rows"):
+        want["paged_decode"] = n_layers * labels["paged_decode_step_rows"]
+    return want
+
+
+def multichip_engine(dtype_name: str, reqs, mesh=None, counts=None,
+                     zero=None) -> dict:
+    """Each of MULTICHIP_ENGINE_MODES' drains of ``reqs`` by a
+    ``ServingEngine`` of 8 slots (engine ``top_k`` 50) over the 154M in
+    the dtype: this rank's ``shard_params`` blocks under ``mesh``, the
+    whole weights without one (the single-process twin, whose fused
+    mode replays ``FusedBlockGraph``s).  Returns, by mode, each
+    request's stream, ``counts()`` after the drain (``zero()`` before
+    it), the dispatch labels, the generated tokens, the wall, the KV
+    heads of the engine's cache or pool and the paged engine's block
+    tables' shape (the rows and pages K2 reads: phase 4 holds K2 at
+    them, :func:`paged_tp_cases`)."""
+    from k8s_dra_driver_tpu_torch.models.serving import ServingEngine
+    from k8s_dra_driver_tpu_torch.models.transformer import shard_params
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    cfg, whole = multichip_weights(MULTICHIP_DTYPES[dtype_name])
+    params = whole if mesh is None else shard_params(whole, cfg, mesh)
+    del whole
+    out = {}
+    for mode, kw in MULTICHIP_ENGINE_MODES.items():
+        eng = ServingEngine(params, cfg, slots=8, top_k=50, device="cuda",
+                            mesh=mesh, **kw)
+        for r in reqs:
+            eng.submit(r)
+        if zero is not None:
+            zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dispatch.track() as t, torch.no_grad():
+            done = eng.run()
+        torch.cuda.synchronize()
+        kv = eng.pool if eng.cache is None else eng.cache
+        out[mode] = dict(
+            streams={f.uid: f.tokens for f in done},
+            counts=counts() if counts is not None else None,
+            labels=dict(t.by_label), wall_s=time.perf_counter() - t0,
+            tokens=sum(len(f.tokens) - f.n_prompt for f in done),
+            kv_heads=kv.k[0].shape[2], graphs=eng._graphs is not None,
+            tables=(None if eng.cache is not None
+                    else tuple(eng._table.shape)))
+        del eng, kv
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def multichip_launches(variant: str, dtype_name: str, n_layers: int,
@@ -8443,15 +8561,18 @@ def multichip_weights(dtype):
 
 def multichip_worker(rank: int, world: int, port: int, job_path: str,
                      out_dir: str) -> None:
-    """One rank of part (b) or (d): the group from the rendezvous
+    """One rank of part (b), (d) or (e): the group from the rendezvous
     contract (gloo), ``MeshSpec(**job["spec"])``, then each of the job's
     runs, (variant, dtype name), on its blocks of the job's model
     (:func:`multichip_setup`): ``prefill`` of the job's prompts and
-    greedy steps under ``mesh=`` (:func:`multichip_decode`).  Writes,
-    by run, the prefill logits, the first step's logits and int8 cache
-    (f32), the tokens, K1's launches by route after the prefill and K1,
-    K2 and K7's after the steps, its cache's KV heads, its experts a
-    layer (MoE) and the wall a decode step, or its traceback, under
+    greedy steps under ``mesh=`` (:func:`multichip_decode`), or for the
+    "engine" variant the job's requests drained by
+    ``ServingEngine(..., mesh=)`` in each mode
+    (:func:`multichip_engine`).  Writes, by run, the prefill logits, the
+    first step's logits and int8 cache (f32), the tokens, K1's launches
+    by route after the prefill and K1, K2 and K7's after the steps, its
+    cache's KV heads, its experts a layer (MoE) and the wall a decode
+    step (the engine's drains, by mode), or its traceback, under
     ``out_dir``."""
     import traceback
 
@@ -8469,6 +8590,13 @@ def multichip_worker(rank: int, world: int, port: int, job_path: str,
         prompts = torch.from_numpy(job["prompts"]).cuda()
         res["runs"] = {}
         for variant, name in job["runs"]:
+            if variant == "engine":
+                res["runs"][(variant, name)] = dict(
+                    coords=mesh.coords, modes=multichip_engine(
+                        name, job["requests"], mesh,
+                        counts=lambda: tp_counts(fa, pa, qm),
+                        zero=lambda: zero_tp_counts(fa, pa, qm)))
+                continue
             cfg, params, lora = multichip_setup(
                 variant, MULTICHIP_DTYPES[name], mesh, job["model"])
             zero_tp_counts(fa, pa, qm)
@@ -8627,13 +8755,19 @@ def multichip_refs(prompts: np.ndarray, model: str, runs) -> dict:
     """The single-process references on the card of ``model``'s
     ``runs``, (variant, dtype name), by run: for "plain" the prefill
     logits of a fresh cache and ``greedy_generate``'s tokens on the
-    whole weights; for the others :func:`multichip_decode`'s twin
+    whole weights; for the engine :func:`multichip_engine`'s drains
+    without a mesh; for the others :func:`multichip_decode`'s twin
     without a mesh on the whole weights (and whole adapter buffers)."""
     from k8s_dra_driver_tpu_torch.models import decode as dm
     toks = torch.from_numpy(prompts).cuda()
     b, t = toks.shape
     refs = {}
     for variant, name in runs:
+        if variant == "engine":
+            refs[(variant, name)] = multichip_engine(
+                name, s8_r24(serving_config().vocab)[
+                    :MULTICHIP_ENGINE_REQUESTS])
+            continue
         cfg, params, lora = multichip_setup(variant, MULTICHIP_DTYPES[name],
                                             model=model)
         if variant == "plain":
@@ -8726,13 +8860,13 @@ DRYRUN_REQUIRED = {
 
 def phase_multichip(fa) -> dict:
     """The multichip certification on the card (module docstring, 20a):
-    (b)'s two tp ranks and (d)'s four ep x tp ranks are spawned first,
-    side by side; while they run, this process computes (b)'s and (d)'s
-    references, then runs (a), ``dryrun_multichip(8)`` (its eight ranks,
-    each in a session of its own, the kernel library already built),
-    and the single-device f32 steps; (c) last.  Returns the launches
-    summed over the ranks of (a), (b) and (d) and of (c), by route (K2
-    and K7 by entry)."""
+    (b)'s two tp ranks, (d)'s four ep x tp ranks and (e)'s two engine
+    ranks are spawned first, side by side; while they run, this process
+    computes (b)'s, (d)'s and (e)'s references, then runs (a),
+    ``dryrun_multichip(8)`` (its eight ranks, each in a session of its
+    own, the kernel library already built), and the single-device f32
+    steps; (c) last.  Returns the launches summed over the ranks of (a),
+    (b), (d) and (e) and of (c), by route (K2 and K7 by entry)."""
     from k8s_dra_driver_tpu_torch import graft_entry as ge
     from k8s_dra_driver_tpu_torch.ops import paged_attention as pa
     from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec
@@ -8752,7 +8886,8 @@ def phase_multichip(fa) -> dict:
 
     def beside():
         dims = (dict(fa.dim_launches), dict(pa.dim_launches))
-        refs = multichip_refs(prompts, "154m", MULTICHIP_RUNS)
+        refs = multichip_refs(prompts, "154m",
+                              MULTICHIP_RUNS + MULTICHIP_ENGINE_RUNS)
         moe_ref = multichip_refs(moe_prompts, "moe_heavy",
                                  MULTICHIP_MOE_RUNS)[("plain", "f32")]
         t0 = time.perf_counter()
@@ -8774,16 +8909,24 @@ def phase_multichip(fa) -> dict:
     moe_workers = Workers(multichip_worker, moe_world, dict(
         prompts=moe_prompts, spec=MULTICHIP_MOE_SPEC, model="moe_heavy",
         runs=MULTICHIP_MOE_RUNS), "multichip (d)")
+    engine_reqs = s8_r24(cfg154.vocab)[:MULTICHIP_ENGINE_REQUESTS]
+    engine_workers = (Workers(multichip_worker, MULTICHIP_TP, dict(
+        prompts=prompts, spec=dict(tp=MULTICHIP_TP), model="154m",
+        runs=MULTICHIP_ENGINE_RUNS, requests=engine_reqs), "multichip (e)")
+        if MULTICHIP_ENGINE_RUNS else None)
     ranks, (refs, moe_ref, reports, took_a, single), took_b = run_workers(
         multichip_worker, MULTICHIP_TP, dict(
             prompts=prompts, spec=dict(tp=MULTICHIP_TP), model="154m",
             runs=MULTICHIP_RUNS), "multichip (b)", MULTICHIP_TIMEOUT_S,
         beside)
     moe_ranks, took_d = moe_workers.join(MULTICHIP_TIMEOUT_S)
+    engine_ranks, took_e = (engine_workers.join(MULTICHIP_TIMEOUT_S)
+                            if engine_workers is not None else ([], 0.0))
     print(f"multichip gang: dryrun_multichip({MULTICHIP_WORLD}) took "
-          f"{took_a:.1f} s (eight rank processes, gloo, beside (b) and "
-          f"(d)); (b)'s {MULTICHIP_TP} tp ranks {took_b:.1f} s and (d)'s "
-          f"{moe_world} ep x tp ranks {took_d:.1f} s start to join, side "
+          f"{took_a:.1f} s (eight rank processes, gloo, beside (b), (d) "
+          f"and (e)); (b)'s {MULTICHIP_TP} tp ranks {took_b:.1f} s, (d)'s "
+          f"{moe_world} ep x tp ranks {took_d:.1f} s and (e)'s "
+          f"{MULTICHIP_TP} engine ranks {took_e:.1f} s start to join, side "
           f"by side; {card}", flush=True)
 
     # (a): the JAX dryrun's runs and its serving half
@@ -8940,6 +9083,59 @@ def phase_multichip(fa) -> dict:
         if not ok:
             fail(f"multichip (d) disagrees on rank {r}")
         add(got["counts"])
+
+    # (e): ServingEngine(mesh=) over tp=2, s8_r24 in each mode
+    for _, name in MULTICHIP_ENGINE_RUNS:
+        for mode in MULTICHIP_ENGINE_MODES:
+            ref = refs[("engine", name)][mode]["streams"]
+            for r, res in enumerate(engine_ranks):
+                got = res["runs"][("engine", name)]["modes"][mode]
+                first = engine_ranks[0]["runs"][("engine", name)]["modes"][
+                    mode]["streams"]
+                lens = {q.uid: len(q.prompt) + q.max_new
+                        for q in engine_reqs}
+                streams = got["streams"]
+                whole = sum(len(streams.get(u, ())) == m
+                            for u, m in lens.items())
+                same = sum(u in streams and u in ref
+                           and np.array_equal(streams[u], ref[u])
+                           for u in lens)
+                ranks_same = streams.keys() == first.keys() and all(
+                    np.array_equal(streams[u], first[u]) for u in streams)
+                want = engine_launches(name, cfg154.n_layers, got["labels"])
+                n = len(engine_reqs)
+                tables = (8, cfg154.max_seq // MULTICHIP_BS)
+                ok = (whole == n and ranks_same
+                      and got["counts"] == want
+                      and got["kv_heads"] == kv_local and not got["graphs"]
+                      and (mode != "paged" or (want.get("paged_decode")
+                                               and got["tables"] == tables)))
+                held = (f"streams equal the twin's {same}/{n} (gated)"
+                        if name == "f32" else
+                        f"streams equal the twin's {same}/{n} (printed, "
+                        f"not gated)")
+                if name == "f32":
+                    ok = ok and same == n
+                print(f"multichip (e) engine {mode} {name} "
+                      f"MeshSpec(tp={MULTICHIP_TP}) rank {r} "
+                      f"{res['runs'][('engine', name)]['coords']}, "
+                      f"{got['kv_heads']} of {cfg154.kv_heads} KV heads a "
+                      f"rank, {n} s8_r24 requests ({whole} finished "
+                      f"whole, every rank's streams the same: {ranks_same})"
+                      f": {held}; K1/K2 launches {got['counts']} (expected "
+                      f"{want} from its dispatch labels"
+                      + (f"; K2 on block tables {got['tables']}, phase 4's "
+                         f"{tables}" if mode == "paged" else "")
+                      + f"); {got['tokens']} "
+                      f"tokens in {got['wall_s']:.2f} s (host-staged gloo "
+                      f"on one card beside (a), (b) and (d): not a "
+                      f"scaling number); the twin's drain "
+                      f"{refs[('engine', name)][mode]['wall_s']:.2f} s "
+                      f"{'ok' if ok else 'FAIL'}; {card}", flush=True)
+                if not ok:
+                    fail(f"multichip (e) engine {mode} {name} disagrees on "
+                         f"rank {r}")
+                add(got["counts"])
 
     # (c): the flagship forward, the card against the CPU's plain path
     zero_counts(fa)
@@ -9736,7 +9932,7 @@ def main() -> None:
           f"drain and paged-KV probes + the control loops and their "
           f"oracle + the gang recovery arcs + the crucible's soaks + "
           f"{TRAIN_STEPS} train "
-          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the multichip phase's dryrun on {MULTICHIP_WORLD} ranks, 154M tp={MULTICHIP_TP} runs ({', '.join(MULTICHIP_VARIANTS)}), moe_heavy ep x tp run and flagship forward + the measurement probes): "
+          f"steps of each of the 154M and moe_heavy + {SP_STEPS} sp steps of the 154M on {SP_WORLD} ranks + the mesh phase's tp, ep and pp steps on {SP_WORLD} ranks + the multichip phase's dryrun on {MULTICHIP_WORLD} ranks, 154M tp={MULTICHIP_TP} runs ({', '.join(MULTICHIP_VARIANTS)}) and engine drains ({', '.join(MULTICHIP_ENGINE_MODES)}), moe_heavy ep x tp run and flagship forward + the measurement probes): "
           f"{launches}", flush=True)
 
     # device time at the main-path shape and at a long context,
@@ -9864,7 +10060,7 @@ def main() -> None:
         row = SMALL_D_ROWS.get(SMALL_D_KERNELS.get(k["name"]))
         if row is not None:
             k["small_d"] = row
-        rows = TP_RANK_ROWS.get({"paged_decode": "K2",
+        rows = TP_RANK_ROWS.get({"flash_fwd": "K1", "paged_decode": "K2",
                                  "int8_matmul": "K7a"}.get(k["name"]))
         if rows:
             k["tp_rank"] = rows

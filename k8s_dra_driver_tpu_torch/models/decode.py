@@ -52,31 +52,39 @@ correction (exact match for greedy rows, rejection sampling for
 sampled ones).  ``decode_spec_fused_rows`` runs up to k windows a
 block, on the card as a ``FusedBlockGraph`` with a ``SpecDraft``.
 
-**Tensor parallelism** (``mesh=`` on the contiguous path:
-:func:`init_cache`, :func:`forward_with_cache`, :func:`prefill`,
-:func:`decode_step`, :func:`decode_step_rows`,
-:func:`greedy_generate`; and on the paged one: :func:`init_paged_pool`,
-:func:`paged_decode_step_rows`, :func:`paged_window_rows`): over a
-``parallel.mesh.ProcessMesh`` whose tp axis is > 1, each rank holds
-its blocks of the weights (``transformer.shard_params``, int8
-``QTensor`` weights too) and a cache or block pool of its ``H_kv/tp``
-KV heads (with their int8 scales under ``kv_cache_dtype="int8"``).
-The embedding is ``transformer._embed`` (this rank's d-slice,
-all-gathered); wq/wk/wv project this rank's heads from the replicated
-input, the fresh prefill runs K1 and the paged step K2 on them, and
-wo's partial output is summed over tp (``reduce_from``); the MLP is
-``transformer._dense_mlp`` (an MoE layer's
-``transformer._moe_mlp_replicated``: this rank's ``E/ep`` experts and
-``d_ff/tp`` hidden units, summed over tp and ep) and the logits
-``transformer._unembed``, whole on every tp rank, so every rank takes
-the same argmax.  LoRA rows take this rank's cut of the adapter
+**Tensor parallelism** (``mesh=`` on every row function a serving
+engine calls: the contiguous path's :func:`init_cache`,
+:func:`forward_with_cache`, :func:`prefill`, :func:`decode_step`,
+:func:`decode_step_rows`; the paged one's :func:`init_paged_pool`,
+:func:`paged_decode_step_rows`, :func:`paged_window_rows`; the window
+and draft rows :func:`decode_window_rows`, :func:`draft_propose_rows`,
+:func:`draft_sample_rows`; the fills :func:`prefill_adopt_rows`,
+:func:`suffix_fill_adopt`; the fused blocks :func:`decode_fused_rows`,
+:func:`decode_spec_fused_rows`; and :func:`greedy_generate`,
+:func:`sample_generate`): over a ``parallel.mesh.ProcessMesh`` whose
+tp axis is > 1, each rank holds its blocks of the weights
+(``transformer.shard_params``, int8 ``QTensor`` weights too) and a
+cache or block pool of its ``H_kv/tp`` KV heads (with their int8
+scales under ``kv_cache_dtype="int8"``).  The embedding is
+``transformer._embed`` (this rank's d-slice, all-gathered); wq/wk/wv
+project this rank's heads from the replicated input, the fresh prefill
+runs K1 and the paged step K2 on them, and wo's partial output is
+summed over tp (``reduce_from``); the MLP is ``transformer._dense_mlp``
+(an MoE layer's ``transformer._moe_mlp_replicated``: this rank's
+``E/ep`` experts and ``d_ff/tp`` hidden units, summed over tp and ep)
+and the logits ``transformer._unembed``, whole on every tp rank, so
+every rank takes the same argmax and, from generators seeded alike,
+draws the same samples.  LoRA rows take this rank's cut of the adapter
 buffers (``serving_lora.pool.shard_lora_buffers``): the wq delta of
 its heads, the wo delta summed with wo's partial output.  The other
 axes replicate the batch and the cache, as GSPMD does with the JAX
-package's unsharded cache.  pp-staged params under tp > 1 raise
-``NotImplementedError`` (:func:`_refuse_tp`), and the fused block
-refuses a mesh; with ``mesh=None`` every op is the single-process
-path's.
+package's unsharded cache.  Under a mesh the fused blocks run step by
+step, the host reading ``done`` between steps (the JAX block's
+``lax.while_loop`` exit), and are never captured as a
+:class:`FusedBlockGraph`: gloo's host-staged collectives cannot be
+recorded in a CUDA graph.  pp-staged params under tp > 1 raise
+``NotImplementedError`` (:func:`_refuse_tp`); with ``mesh=None`` every
+op is the single-process path's.
 
 Parity contract (tests/test_torch_decode.py): prefill + stepwise
 decode logits equal the training forward at every position, and equal
@@ -167,8 +175,9 @@ def _device(params: Params) -> torch.device:
     return params["embed"].device
 
 
-#: ROADMAP's item that names what decode keeps on one process
-_TP_LATER = "ROADMAP Queue A, item A0"
+#: ROADMAP's item that names what decode and serving keep on one
+#: process under tensor parallelism
+_TP_LATER = "ROADMAP Queue A, item A3"
 
 
 def _tp(mesh) -> bool:
@@ -591,31 +600,34 @@ def sample_rows(logits, generators, temps, top_k: int = 0,
 @dispatch.counted("decode_window_rows")
 def decode_window_rows(params: Params, tokens: torch.Tensor,
                        cfg: TransformerConfig, cache: KVCache,
-                       pos_rows: torch.Tensor, lora=None
+                       pos_rows: torch.Tensor, lora=None, mesh=None
                        ) -> tuple[torch.Tensor, KVCache]:
     """Multi-token per-row step: tokens [B, T] appended at each row's
     own position -> (logits [B, T, vocab], cache), the target-scoring
     half of speculative continuous batching.  Rejected rows past the
     accepted prefix stay in the cache, position-masked, and the next
-    window overwrites them at the same offsets.  ``lora`` as
-    :func:`_rows_forward` takes it: drafts stay base-model, the target
-    judges with each row's adapter."""
-    return _rows_forward(params, tokens, cfg, cache, pos_rows, lora)
+    window overwrites them at the same offsets.  ``lora`` and ``mesh``
+    as :func:`_rows_forward` takes them: drafts stay base-model, the
+    target judges with each row's adapter."""
+    return _rows_forward(params, tokens, cfg, cache, pos_rows, lora, mesh)
 
 
 @dispatch.counted("draft_propose_rows")
 def draft_propose_rows(params: Params, last: torch.Tensor,
                        cfg: TransformerConfig, cache: KVCache,
-                       pos_rows: torch.Tensor, k: int
+                       pos_rows: torch.Tensor, k: int, mesh=None
                        ) -> tuple[torch.Tensor, KVCache]:
     """``k`` greedy draft proposals a row: ``last`` [B] then each
     proposal fed back, k+1 steps, so the LAST proposal's K/V row lands
     too (a full accept advances past it; a missing row would degrade
     every later draft).  Returns (proposals [B, k], cache); rows
-    pos..pos+k written."""
+    pos..pos+k written.  ``mesh`` as :func:`_rows_forward` takes it
+    (the draft's blocks and cache under the target's mesh): the logits
+    are whole on every rank, so every rank proposes the same tokens."""
     tok, pos, out = last, pos_rows, []
     for _ in range(k + 1):
-        logits, cache = _rows_forward(params, tok[:, None], cfg, cache, pos)
+        logits, cache = _rows_forward(params, tok[:, None], cfg, cache, pos,
+                                      mesh=mesh)
         tok = logits[:, 0].argmax(dim=-1)
         out.append(tok)
         pos = pos + 1
@@ -633,7 +645,7 @@ def _draw_rows(probs: torch.Tensor, generators) -> torch.Tensor:
 
 def _draft_scan(params: Params, last: torch.Tensor, cfg: TransformerConfig,
                 cache: KVCache, pos_rows: torch.Tensor, k: int, generators,
-                temps: torch.Tensor, top_k: int, top_p: float
+                temps: torch.Tensor, top_k: int, top_p: float, mesh=None
                 ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """The sampled draft's k+1-step loop, shared by
     :func:`draft_sample_rows` and the fused speculative block (plain:
@@ -642,10 +654,13 @@ def _draft_scan(params: Params, last: torch.Tensor, cfg: TransformerConfig,
     temperature (``temps`` [B] on the device), draws every row from its
     draft-side generator, and keeps the draw for sampled rows and the
     raw argmax for greedy ones (``torch.where``, no host branch).
+    ``mesh`` as :func:`draft_propose_rows` takes it: each rank draws
+    from its own generators, seeded alike, on the same whole logits.
     Returns (proposals [B, k], q_probs [B, k, V], cache)."""
     tok, pos, props, qs = last, pos_rows, [], []
     for _ in range(k + 1):
-        logits, cache = _rows_forward(params, tok[:, None], cfg, cache, pos)
+        logits, cache = _rows_forward(params, tok[:, None], cfg, cache, pos,
+                                      mesh=mesh)
         q = torch.softmax(_filter_logits(logits[:, 0], temps, top_k, top_p),
                           dim=-1)
         tok = torch.where(temps > 0, _draw_rows(q, generators),
@@ -661,16 +676,17 @@ def draft_sample_rows(params: Params, last: torch.Tensor,
                       cfg: TransformerConfig, cache: KVCache,
                       pos_rows: torch.Tensor, k: int, generators,
                       temps: torch.Tensor, top_k: int = 0,
-                      top_p: float = 0.0
+                      top_p: float = 0.0, mesh=None
                       ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Sampled draft proposals for rejection-sampling speculation:
     ``k`` tokens a row, each drawn from the draft's filtered
     distribution at the row's temperature (greedy rows take the
     argmax), plus those distributions ``q_probs`` [B, k, V], which
     :func:`spec_accept_rows` divides by.  Same k+1-step contract as
-    :func:`draft_propose_rows`.  Returns (proposals, q_probs, cache)."""
+    :func:`draft_propose_rows`, ``mesh`` as it takes it.  Returns
+    (proposals, q_probs, cache)."""
     return _draft_scan(params, last, cfg, cache, pos_rows, k, generators,
-                       temps, top_k, top_p)
+                       temps, top_k, top_p, mesh)
 
 
 def ngram_propose_rows(ctx: torch.Tensor, ctx_len: torch.Tensor,
@@ -711,6 +727,15 @@ def draft_ngram_rows(ctx: torch.Tensor, ctx_len: torch.Tensor,
     return prop, (_one_hot(prop, vocab) if want_q else None)
 
 
+def _target_probs(logits: torch.Tensor, temps: torch.Tensor, top_k: int,
+                  top_p: float) -> torch.Tensor:
+    """The target's distributions over a window that the acceptance
+    test divides by the draft's: ``logits`` [B, K+1, V] filtered at
+    each row's temperature (``temps`` [B]), then softmaxed."""
+    return torch.softmax(_filter_logits(logits, temps[:, None], top_k, top_p),
+                         dim=-1)
+
+
 def _spec_accept_body(logits: torch.Tensor, proposals: torch.Tensor,
                       q_probs: torch.Tensor, generators,
                       temps: torch.Tensor, top_k: int, top_p: float
@@ -724,8 +749,7 @@ def _spec_accept_body(logits: torch.Tensor, proposals: torch.Tensor,
     dev = logits.device
     props = proposals.long()
     greedy = logits.argmax(dim=-1)                               # [B, K+1]
-    p = torch.softmax(_filter_logits(logits, temps[:, None], top_k, top_p),
-                      dim=-1)
+    p = _target_probs(logits, temps, top_k, top_p)
     u = torch.stack([torch.rand(k, generator=g, device=dev)
                      for g in generators])
     p_x = p[:, :k].gather(-1, props[..., None])[..., 0]
@@ -852,7 +876,7 @@ class _BlockState:
 
 def _block_step(params: Params, cfg: TransformerConfig, cache: KVCache,
                 s: _BlockState, j: int, generators, top_k: int,
-                top_p: float, lora=None) -> None:
+                top_p: float, lora=None, mesh=None) -> None:
     """Step ``j`` of the block, in place on ``s`` and the cache.  A
     frozen row keeps its position, ``last`` and count; its K/V write
     lands at its frozen position, the slot just past what it emitted
@@ -861,9 +885,11 @@ def _block_step(params: Params, cfg: TransformerConfig, cache: KVCache,
     discarded, and a frozen row never runs again before its slot is
     refilled and its generator reseeded.  ``lora`` as
     :func:`_rows_forward` takes it; a frozen or free row reads the slot
-    id it was given, the null adapter once its slot was released."""
+    id it was given, the null adapter once its slot was released.
+    ``mesh`` as :func:`_rows_forward` takes it."""
     last, pos, budget, eos = s.ints
-    logits, _ = _rows_forward(params, last[:, None], cfg, cache, pos, lora)
+    logits, _ = _rows_forward(params, last[:, None], cfg, cache, pos, lora,
+                              mesh)
     nxt = sample_rows(logits[:, 0], generators, s.temps, top_k, top_p)
     alive = ~s.done
     s.packed[:, j] = torch.where(alive, nxt, 0)
@@ -893,11 +919,11 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
     :func:`sample_rows` takes them.  Returns ``(packed [B, k+1] int32,
     rows_finished [], cache)``: ``packed[:, :k]`` the tokens (0 past a
     row's count), ``packed[:, k]`` each row's emitted count; the cache
-    is written in place.  ``lora`` as :func:`_rows_forward` takes it.
-    A ``mesh`` is refused: the fused block runs on one process
-    (ROADMAP's item A0)."""
-    if mesh is not None:
-        _tp_later("the fused generation block (a mesh)")
+    is written in place.  ``lora`` and ``mesh`` as :func:`_rows_forward`
+    takes them.  Under a mesh this step-by-step form is also the card's:
+    gloo's host-staged collectives cannot be captured in a CUDA graph,
+    and every rank reads the same ``done`` (whole logits, generators
+    seeded alike), so every rank leaves after the same step."""
     s = _BlockState.empty(last.shape[0], k, cache.k[0].device)
     s.load(last, pos_rows, budget, eos, temps)
     s.begin()
@@ -905,7 +931,7 @@ def decode_fused_rows(params: Params, last: torch.Tensor,
         if bool(s.done.all()):
             break
         _block_step(params, cfg, cache, s, j, generators, top_k, top_p,
-                    lora)
+                    lora, mesh)
     s.finish()
     return s.packed, s.rows_done, cache
 
@@ -916,7 +942,8 @@ class SpecDraft:
     from the draft model (``params``, ``cfg``, its [B, S] ``cache`` and
     one draft-side generator a row), or, with ``params`` None, from the
     n-gram lookup over ``ctx`` [B, C] with valid lengths ``ctx_len``
-    [B]."""
+    [B].  Under ``mesh`` the draft model's ``params`` and ``cache`` are
+    this rank's blocks (as :func:`_draft_scan` takes them)."""
 
     length: int
     params: Params | None = None
@@ -925,6 +952,7 @@ class SpecDraft:
     generators: list | None = None
     ctx: torch.Tensor | None = None
     ctx_len: torch.Tensor | None = None
+    mesh: object = None
 
     def propose(self, last, pos, temps, top_k: int, top_p: float,
                 vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -936,14 +964,14 @@ class SpecDraft:
             return prop, _one_hot(prop, vocab)
         prop, q, _ = _draft_scan(self.params, last, self.cfg, self.cache,
                                  pos, self.length, self.generators, temps,
-                                 top_k, top_p)
+                                 top_k, top_p, self.mesh)
         return prop, q
 
 
 def _spec_block_step(params: Params, cfg: TransformerConfig,
                      cache: KVCache, s: _BlockState, generators,
                      top_k: int, top_p: float, draft: SpecDraft,
-                     lora=None) -> None:
+                     lora=None, mesh=None) -> None:
     """One speculative window of the block, in place on ``s`` and the
     caches: draft, one target window forward, verify-accept, then each
     live row appends ``min(accepts + 1, its first EOS, its remaining
@@ -955,14 +983,15 @@ def _spec_block_step(params: Params, cfg: TransformerConfig,
     speculation), which no live query reads, and its draws are
     discarded, as in :func:`_block_step`.  The draft stays base-model;
     ``lora`` (as :func:`_rows_forward` takes it) reaches the target
-    window only, so each row is judged by its adapter's model."""
+    window only, so each row is judged by its adapter's model; ``mesh``
+    reaches the target window (the draft model reads ``draft.mesh``)."""
     last, pos, budget, eos = s.ints
     kd = draft.length
     cap = s.packed.shape[1] - 3
     proposals, q_probs = draft.propose(last, pos, s.temps, top_k, top_p,
                                        cfg.vocab)
     window = torch.cat([last[:, None], proposals], dim=1)
-    logits, _ = _rows_forward(params, window, cfg, cache, pos, lora)
+    logits, _ = _rows_forward(params, window, cfg, cache, pos, lora, mesh)
     emit, a = _spec_accept_body(logits, proposals, q_probs, generators,
                                 s.temps, top_k, top_p)
     alive = ~s.done
@@ -997,7 +1026,8 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
                            draft_cfg: TransformerConfig | None,
                            draft_cache: KVCache | None,
                            draft_generators, draft_len: int,
-                           top_k: int = 0, top_p: float = 0.0, lora=None
+                           top_k: int = 0, top_p: float = 0.0, lora=None,
+                           mesh=None
                            ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Speculation inside the fused block, step by step: up to ``k``
     windows of :func:`_spec_block_step` a row, leaving as soon as every
@@ -1005,8 +1035,9 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
     model when ``draft_params`` is given, with ``draft_cache`` and one
     draft generator a row; else the n-gram lookup over ``ctx`` /
     ``ctx_len``), scores them in one target forward and accepts per row
-    on the device.  Inputs as :func:`decode_fused_rows`; ``lora`` reaches
-    the target window only.
+    on the device.  Inputs as :func:`decode_fused_rows` (``mesh`` too: the
+    card's form under a mesh); ``lora`` reaches the target window
+    only.
 
     Returns ``(packed [B, k*(draft_len+1) + 3], rows_finished, cache)``:
     the token block, then each row's emitted count, accepted drafts and
@@ -1014,7 +1045,7 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
     engine replays a :class:`FusedBlockGraph` built with a
     :class:`SpecDraft` instead."""
     draft = SpecDraft(draft_len, draft_params, draft_cfg, draft_cache,
-                      draft_generators, ctx, ctx_len)
+                      draft_generators, ctx, ctx_len, mesh)
     s = _BlockState.empty(last.shape[0], k * (draft_len + 1),
                           cache.k[0].device, spec=True)
     s.load(last, pos_rows, budget, eos, temps)
@@ -1023,7 +1054,7 @@ def decode_spec_fused_rows(params: Params, last: torch.Tensor,
         if bool(s.done.all()):
             break
         _spec_block_step(params, cfg, cache, s, generators, top_k, top_p,
-                         draft, lora)
+                         draft, lora, mesh)
     s.finish()
     return s.packed, s.rows_done, cache
 
@@ -1302,7 +1333,7 @@ def adopt_one_slot(cache: KVCache, one: KVCache, slot: int) -> KVCache:
 def prefill_adopt_rows(params: Params, prompts: torch.Tensor,
                        cfg: TransformerConfig, cache: KVCache,
                        slot_ids, generators, temps, top_k: int = 0,
-                       top_p: float = 0.0
+                       top_p: float = 0.0, mesh=None
                        ) -> tuple[torch.Tensor, KVCache]:
     """Fresh fill of ``n = len(slot_ids)`` same-length requests in one
     call: flash prefill ``prompts`` [m, L] (m >= n) on a transient
@@ -1321,11 +1352,16 @@ def prefill_adopt_rows(params: Params, prompts: torch.Tensor,
 
     Only the prompt's L rows are written into each slot; rows past L
     keep whatever an earlier occupant left there, which no query ever
-    reads (position mask) and the decode steps overwrite."""
+    reads (position mask) and the decode steps overwrite.
+
+    ``mesh`` as :func:`forward_with_cache` takes it: the transient cache
+    and the engine cache hold this rank's ``H_kv/tp`` heads, and the
+    first tokens come from the whole logits."""
     n, length = len(slot_ids), prompts.shape[1]
-    one = init_cache(cfg, prompts.shape[0], length, device=prompts.device)
+    one = init_cache(cfg, prompts.shape[0], length, device=prompts.device,
+                     mesh=mesh)
     logits, one = forward_with_cache(params, prompts, cfg, one,
-                                     first_chunk=True)
+                                     first_chunk=True, mesh=mesh)
     idx = torch.as_tensor(slot_ids, dtype=torch.long,
                           device=prompts.device)
 
@@ -1342,16 +1378,19 @@ def prefill_adopt_rows(params: Params, prompts: torch.Tensor,
 def suffix_fill_adopt(params: Params, entry: KVCache,
                       suffix: torch.Tensor, cfg: TransformerConfig,
                       cache: KVCache, slot: int, generator, temp: float,
-                      top_k: int = 0, top_p: float = 0.0
+                      top_k: int = 0, top_p: float = 0.0, mesh=None
                       ) -> tuple[torch.Tensor, KVCache, KVCache]:
     """Prefix-HIT fill: append ``suffix`` [Ls] to a prefix-cache
     ``entry`` ([1, S], ``pos`` = reused rows), copy the result into
     row ``slot`` of the engine cache, and draw the first token.  The
     entry is cloned first — later hits reuse it, and the suffix writes
     would otherwise land in it.  Returns (first token [], cache,
-    suffix-filled [1, S] cache for memoization)."""
+    suffix-filled [1, S] cache for memoization).  ``mesh`` as
+    :func:`prefill_adopt_rows` takes it (the entry holds this rank's
+    heads)."""
     one = copy_cache(entry, entry.pos)
-    logits, one = forward_with_cache(params, suffix[None, :], cfg, one)
+    logits, one = forward_with_cache(params, suffix[None, :], cfg, one,
+                                     mesh=mesh)
     cache = adopt_one_slot(cache, one, slot)
     first = select_next_tokens(logits[:, -1], [generator], [temp],
                                top_k, top_p)
@@ -1610,13 +1649,15 @@ def sample_generate(params: Params, prompt: torch.Tensor,
                     cfg: TransformerConfig, n_tokens: int,
                     generator: torch.Generator, temperature: float = 1.0,
                     top_k: int = 0, top_p: float = 0.0,
-                    max_seq: int | None = None) -> torch.Tensor:
+                    max_seq: int | None = None, mesh=None) -> torch.Tensor:
     """Temperature/top-k/top-p sampling, drawn from ``generator``;
-    same structure as ``greedy_generate``."""
+    same structure as ``greedy_generate`` (``mesh`` too: each rank
+    draws from its own generator, seeded alike, on the same whole
+    logits, so every rank returns the same tokens)."""
     if not 0.0 <= top_p <= 1.0:
         raise ValueError(f"top_p must be in [0, 1], got {top_p}")
     logits, cache = _validated_prefill(params, prompt, cfg, n_tokens,
-                                       max_seq)
+                                       max_seq, mesh)
 
     def pick(lg):
         return sample_token(lg, generator, temperature, top_k, top_p)
@@ -1625,7 +1666,7 @@ def sample_generate(params: Params, prompt: torch.Tensor,
     out = [tok]
     for _ in range(n_tokens - 1):
         logits, cache = forward_with_cache(params, tok[:, None], cfg,
-                                           cache)
+                                           cache, mesh=mesh)
         tok = pick(logits[:, 0])
         out.append(tok)
     generated = torch.stack(out, dim=1).to(prompt.dtype)

@@ -76,6 +76,24 @@ step, so token streams match the JAX engine's:
   and a crc-checked spill directory, and a hit on a demoted entry
   promotes it back into fresh blocks (serving_kv/tiers.py); a fresh
   engine over the same directory re-adopts what an earlier one spilled.
+- **Tensor parallelism** (``mesh=``, a ``parallel.mesh.ProcessMesh``):
+  ``params`` (and ``draft_params``) are this rank's
+  ``transformer.shard_params`` blocks, as the JAX engine serves
+  ``shard_params`` weights; the cache, the block pool, the draft cache
+  and every transient fill cache hold this rank's ``H_kv/tp`` KV heads
+  (``decode.init_cache`` / ``init_paged_pool`` under the mesh), every
+  row call passes the mesh (steps, windows, drafts, fills, fused
+  blocks), prefix entries hold local heads, and an adapter pool is read
+  through views of this rank's cut of its buffers
+  (``serving_lora.pool.shard_lora_buffers(..., copy=False)``, taken
+  once: the pool's loads write the buffers in place).  The logits are whole on every rank and each slot's generators
+  are seeded alike, so every rank schedules, samples and finishes the
+  same.  Fused blocks run step by step (``decode_fused_rows``) under a
+  mesh: no ``FusedBlockGraph`` is built, since gloo's host-staged
+  collectives cannot be captured.  Under tp the KV tiers and the
+  disaggregation verbs (``prefill_export``, ``adopt_block``,
+  ``export_prefix``, ``import_prefix``) raise ``NotImplementedError``
+  naming ROADMAP's item (``decode._tp_later``).
 """
 
 from __future__ import annotations
@@ -91,6 +109,7 @@ import torch
 from ..serving_kv import (NULL_BLOCK, BlocksExhausted, KVBlockManager,
                           PagedPrefixStore, PrefixListeners, TieredKVStore,
                           kv_bytes_per_token)
+from ..serving_lora.pool import shard_lora_buffers
 from ..utils import dispatch
 from ..utils.device import resolve_device
 from . import decode as _decode
@@ -352,7 +371,10 @@ class ServingEngine:
     """Continuous-batching engine over ``slots`` cache rows: greedy by
     default, per-request sampling via ``Request(temperature=...,
     seed=...)``.  ``params`` must live on ``device`` (default the
-    card)."""
+    card).  ``mesh``: serve this rank's ``shard_params`` blocks over a
+    process mesh (module docstring, "Tensor parallelism"); every mode
+    runs under it but the KV tiers and the disaggregation verbs under
+    tp."""
 
     def __init__(self, params, cfg: TransformerConfig, slots: int,
                  max_seq: int | None = None,
@@ -371,7 +393,10 @@ class ServingEngine:
                  kv_host_bytes: int | None = None,
                  kv_spill_dir=None,
                  adapter_pool=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        _decode._refuse_tp(cfg, mesh, params)
+        if _decode._tp(mesh) and (kv_host_bytes or kv_spill_dir):
+            _decode._tp_later("the KV tiers (kv_host_bytes, kv_spill_dir)")
         if "stages" in params:
             # a pp-trained checkpoint serves on one device
             params = unstage_params(params, cfg)
@@ -438,6 +463,7 @@ class ServingEngine:
                     f"runs on {self.device}")
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
         self.slots = slots
         self._prefix = (PrefixCache(prefix_cache)
                         if prefix_cache and not self._paged else None)
@@ -498,7 +524,8 @@ class ServingEngine:
             self.kv_manager = KVBlockManager(kv_blocks, kv_block_size)
             self.pool = _decode.init_paged_pool(cfg, kv_blocks,
                                                 kv_block_size,
-                                                device=self.device)
+                                                device=self.device,
+                                                mesh=mesh)
             self.cache = None        # no contiguous cache in paged mode
             self._table = np.zeros((slots, self._kv_tw), np.int32)
             # device mirror of _table, rebuilt only when a table row
@@ -530,7 +557,7 @@ class ServingEngine:
             self._kv_preemptions = 0
         else:
             self.cache = init_cache(cfg, slots, self.max_seq,
-                                    device=self.device)
+                                    device=self.device, mesh=mesh)
         self.queue: deque[Request] = deque()
         # host-side slot state; None = free
         self._req: list[Request | None] = [None] * slots
@@ -547,7 +574,7 @@ class ServingEngine:
         # a draft model's cache and its draft-side generators, one a
         # slot, apart from the target's (reseeded at each sampled fill)
         self._draft_cache = (init_cache(draft_cfg, slots, self.max_seq,
-                                        device=self.device)
+                                        device=self.device, mesh=mesh)
                              if draft_params is not None else None)
         self._draft_gens = ([torch.Generator(device=self.device)
                              for _ in range(slots)]
@@ -563,10 +590,17 @@ class ServingEngine:
         self._adapter: list[str | None] = [None] * slots
         self._adapter_slot = np.zeros(slots, np.int64)
         self._lora_dev = None
+        # the buffers the rows read: under a mesh, views of this rank's
+        # cut (the pool's loads write in place, so they show through)
+        self._lora_layers = (
+            None if adapter_pool is None
+            else adapter_pool.buffers if mesh is None
+            else shard_lora_buffers(adapter_pool.buffers, mesh, copy=False))
         # the fused block on the card: captured CUDA graphs over this
-        # engine's parameters, caches and generators
+        # engine's parameters, caches and generators (never under a
+        # mesh: the blocks run step by step there)
         self._graphs = None
-        if chain_steps > 1 and self.device.type == "cuda":
+        if chain_steps > 1 and self.device.type == "cuda" and mesh is None:
             draft = (_decode.SpecDraft(draft_len, draft_params, draft_cfg,
                                        self._draft_cache, self._draft_gens)
                      if self._spec_on else None)
@@ -726,12 +760,19 @@ class ServingEngine:
     # as _generator seeds it), so a request split across two engines
     # runs the computations one engine would have run.
 
+    def _refuse_tp_verb(self, verb: str) -> None:
+        """A disaggregation verb under tp: a block of this rank's heads
+        is no engine's whole K/V."""
+        if _decode._tp(self.mesh):
+            _decode._tp_later(f"the disaggregation verb {verb}")
+
     def prefill_export(self, req: Request) -> KVBlock:
         """Prefill ``req`` on a standalone [1, S] cache and return its
         :class:`KVBlock` without occupying a slot.  A prefix-store hit
         adopts the remembered rows and computes only the suffix (the
         ``prefill_suffix`` dispatch label).  The first token is drawn
         here and read back (one readback an export)."""
+        self._refuse_tp_verb("prefill_export")
         req = self._check_request(req)
         with torch.no_grad():
             if self._paged:
@@ -745,7 +786,7 @@ class ServingEngine:
                     one = _decode.copy_cache(hit, p)
             if start == 0:
                 one = init_cache(self.cfg, 1, self.max_seq,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
             logits, one = self._export_fill(req, one, start)
             if self._prefix is not None:
                 self._prefix.insert(req.prompt, one)
@@ -762,7 +803,7 @@ class ServingEngine:
             for off in range(start, req.prompt.size, c):
                 logits, one = fill(self.params,
                                    self._prompt(req, off, off + c)[None],
-                                   self.cfg, one, off == 0)
+                                   self.cfg, one, off == 0, mesh=self.mesh)
         return logits, one
 
     def _export_block(self, req: Request, kv, logits, start: int,
@@ -788,6 +829,7 @@ class ServingEngine:
         The slot continues from the block's first token exactly as if
         this engine had filled it; tensors on another device are copied
         to this engine's."""
+        self._refuse_tp_verb("adopt_block")
         if self.draft_params is not None:
             # the block carries target K/V only; a speculative engine
             # would propose from an empty draft cache
@@ -855,6 +897,7 @@ class ServingEngine:
         is promoted first), or None when this engine does not hold it.
         No hit is counted: reuse is counted where the tokens are
         adopted."""
+        self._refuse_tp_verb("export_prefix")
         if self._prefix is None:
             return None
         entry = self._prefix.entry(np.asarray(tokens, np.int32))
@@ -868,6 +911,7 @@ class ServingEngine:
         paged engine copies the rows into freshly allocated blocks owned
         by the store; when no blocks can be had the import is skipped
         (the fill then computes locally)."""
+        self._refuse_tp_verb("import_prefix")
         if self._prefix is None:
             raise ValueError("prefix cache is off on this engine")
         tokens = np.asarray(tokens, np.int32)
@@ -1009,23 +1053,23 @@ class ServingEngine:
                 start = p
         if start == 0:
             one = init_cache(self.cfg, 1, self.max_seq,
-                             device=self.device)
+                             device=self.device, mesh=self.mesh)
         c = self.prefill_chunk or req.prompt.size
         for off in range(start, req.prompt.size, c):
             logits, one = _decode._prefill(
                 self.params, self._prompt(req, off, off + c)[None],
-                self.cfg, one, off == 0)
+                self.cfg, one, off == 0, mesh=self.mesh)
         if self._prefix is not None:
             self._prefix.insert(req.prompt, one)
         if self.draft_params is not None:
             # the draft needs its own K/V of the prompt (prefix entries
             # hold the target's only), in the same chunks
             one_d = init_cache(self.draft_cfg, 1, self.max_seq,
-                               device=self.device)
+                               device=self.device, mesh=self.mesh)
             for off in range(0, req.prompt.size, c):
                 _, one_d = _draft_prefill(
                     self.draft_params, self._prompt(req, off, off + c)[None],
-                    self.draft_cfg, one_d, off == 0)
+                    self.draft_cfg, one_d, off == 0, mesh=self.mesh)
             self._draft_cache = _adopt_slot(self._draft_cache, one_d, slot)
             if req.temperature > 0:
                 self._draft_gens[slot].manual_seed(
@@ -1115,7 +1159,7 @@ class ServingEngine:
         if self._lora_dev is None:
             self._lora_dev = torch.as_tensor(self._adapter_slot,
                                              device=self.device)
-        return (self._lora_dev, self.adapter_pool.buffers)
+        return (self._lora_dev, self._lora_layers)
 
     def _finish_slot(self, slot: int, out: list[Finished]) -> None:
         req = self._req[slot]
@@ -1214,11 +1258,11 @@ class ServingEngine:
             logits, self.pool = _decode.paged_decode_step_rows(
                 self.params, tokens, self.cfg, self.pool,
                 self._table_dev, pos, self._kv_use_kernel,
-                self._lora_args())
+                self._lora_args(), mesh=self.mesh)
         else:
             logits, self.cache = decode_step_rows(
                 self.params, tokens, self.cfg, self.cache, pos,
-                self._lora_args())
+                self._lora_args(), mesh=self.mesh)
         if self._temps.any():
             nxt_dev = _next_tokens(logits, self._slot_gens, self._temps,
                                    self.top_k, self.top_p)
@@ -1287,21 +1331,25 @@ class ServingEngine:
                                 self._pos, self._temps, budget, eos, *ctx,
                                 lora)
         else:
+            # the step-by-step block: the CPU's, and the card's under a
+            # mesh (its inputs uploaded by _BlockState.load)
             args = (self.params, torch.as_tensor(self._last), self.cfg,
                     self.cache, torch.as_tensor(self._pos), k,
                     self._slot_gens, torch.as_tensor(self._temps),
                     torch.as_tensor(budget), torch.as_tensor(eos))
             if self._spec_on:
-                ctx = [None if c is None else torch.as_tensor(c)
-                       for c in ctx]
+                ctx = [None if c is None else
+                       torch.as_tensor(c, device=self.device) for c in ctx]
                 packed, rows_done, self.cache = \
                     _decode.decode_spec_fused_rows(
                         *args, *ctx, self.draft_params, self.draft_cfg,
                         self._draft_cache, self._draft_gens, kd,
-                        self.top_k, self.top_p, self._lora_args())
+                        self.top_k, self.top_p, self._lora_args(),
+                        mesh=self.mesh)
             else:
                 packed, rows_done, self.cache = _decode.decode_fused_rows(
-                    *args, self.top_k, self.top_p, self._lora_args())
+                    *args, self.top_k, self.top_p, self._lora_args(),
+                    mesh=self.mesh)
         self._time_decode += time.perf_counter() - t_dec
         self._refill(finished)          # overlaps the running block
         t_wait = time.perf_counter()
@@ -1309,7 +1357,7 @@ class ServingEngine:
             arr, _ = self._graphs.collect()
         else:
             int(rows_done)
-            arr = packed.numpy()
+            arr = packed.cpu().numpy()
         dispatch.record_readback("fused_spec_block" if self._spec_on
                                  else "fused_block")
         self._time_decode += time.perf_counter() - t_wait
@@ -1379,11 +1427,12 @@ class ServingEngine:
         elif sampled_mode:
             proposals, q_probs, self._draft_cache = draft_sample_rows(
                 self.draft_params, last, self.draft_cfg, self._draft_cache,
-                pos, k, self._draft_gens, temps, self.top_k, self.top_p)
+                pos, k, self._draft_gens, temps, self.top_k, self.top_p,
+                mesh=self.mesh)
         else:
             proposals, self._draft_cache = draft_propose_rows(
                 self.draft_params, last, self.draft_cfg, self._draft_cache,
-                pos, k)
+                pos, k, mesh=self.mesh)
         window = torch.cat([last[:, None], proposals], dim=1)
         if self._paged:
             if self._table_dev is None:
@@ -1391,11 +1440,11 @@ class ServingEngine:
                                                   device=self.device)
             logits, self.pool = _decode.paged_window_rows(
                 self.params, window, self.cfg, self.pool, self._table_dev,
-                pos, self._lora_args())
+                pos, self._lora_args(), mesh=self.mesh)
         else:
             logits, self.cache = decode_window_rows(
                 self.params, window, self.cfg, self.cache, pos,
-                self._lora_args())
+                self._lora_args(), mesh=self.mesh)
         if sampled_mode:
             emit, a = spec_accept_rows(logits, proposals, q_probs,
                                        self._slot_gens, temps, self.top_k,
@@ -1532,7 +1581,7 @@ class ServingEngine:
         first, self.cache, filled = _decode.suffix_fill_adopt(
             self.params, one, self._prompt(req, p), self.cfg,
             self.cache, slot, gen, req.temperature, self.top_k,
-            self.top_p)
+            self.top_p, mesh=self.mesh)
         self._prefix.insert(req.prompt, filled)
         self._occupy(slot, req)
         return first
@@ -1554,7 +1603,8 @@ class ServingEngine:
             first, self.cache = _decode.prefill_adopt_rows(
                 self.params, prompts, self.cfg, self.cache,
                 [s for s, _ in grp], gens,
-                [r.temperature for _, r in grp], self.top_k, self.top_p)
+                [r.temperature for _, r in grp], self.top_k, self.top_p,
+                mesh=self.mesh)
             for i, (slot, req) in enumerate(grp):
                 self._occupy(slot, req)
                 by_slot[slot] = first[i]
@@ -1812,13 +1862,13 @@ class ServingEngine:
                 self._kv_dense_memo = (key, _decode.copy_cache(one, p))
         else:
             one = init_cache(self.cfg, 1, self.max_seq,
-                             device=self.device)
+                             device=self.device, mesh=self.mesh)
         fill = _prefill_suffix if p > 0 else _decode._prefill
         c = self.prefill_chunk or L
         for off in range(p, L, c):
             logits, one = fill(self.params,
                                self._prompt(req, off, off + c)[None],
-                               self.cfg, one, off == 0)
+                               self.cfg, one, off == 0, mesh=self.mesh)
         if fresh:
             self.pool = _decode.paged_adopt_blocks(
                 self.pool, one, fresh, full, nb - full)
@@ -1869,7 +1919,8 @@ class ServingEngine:
         if p > 0:
             one = self._kv_entry_dense(hit, p)
         else:
-            one = init_cache(self.cfg, 1, self.max_seq, device=self.device)
+            one = init_cache(self.cfg, 1, self.max_seq, device=self.device,
+                             mesh=self.mesh)
         logits, one = self._export_fill(req, one, p)
         L = req.prompt.size
         nb = -(-L // self._kv_bs)

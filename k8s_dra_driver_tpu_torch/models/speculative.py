@@ -29,6 +29,14 @@ speculative entries is not advancing ``pos``; stale rows are invisible
 and the next write at the same offset replaces them.  The loop reads
 the batch's acceptance back to the host once an iteration: that value
 is the loop's own control (its trip count and the next offsets).
+
+Both entry points take ``mesh=`` (``decode.forward_with_cache``'s):
+the target's and the draft model's params are this rank's
+``shard_params`` blocks under the same mesh, as the JAX package's
+jitted loops run on ``shard_params`` weights, and their caches hold
+this rank's ``H_kv/tp`` heads.  The logits are whole on every rank, so
+the acceptance each rank reads back is the same and every rank runs
+the same iterations.
 """
 
 from __future__ import annotations
@@ -43,8 +51,8 @@ from .transformer import Params, TransformerConfig
 
 
 def _greedy_draft(draft_params: Params, draft_cfg: TransformerConfig,
-                  cache: KVCache, last: torch.Tensor, draft_len: int
-                  ) -> tuple[torch.Tensor, KVCache]:
+                  cache: KVCache, last: torch.Tensor, draft_len: int,
+                  mesh=None) -> tuple[torch.Tensor, KVCache]:
     """``draft_len`` greedy proposals from the draft model; ``last`` [B]
     is the most recent emitted token (the first input).  Runs
     ``draft_len + 1`` steps so the cache also holds the LAST proposal's
@@ -54,7 +62,7 @@ def _greedy_draft(draft_params: Params, draft_cfg: TransformerConfig,
     token, drafts = last, []
     for _ in range(draft_len + 1):
         logits, cache = forward_with_cache(draft_params, token[:, None],
-                                           draft_cfg, cache)
+                                           draft_cfg, cache, mesh=mesh)
         token = logits[:, 0].argmax(dim=-1)
         drafts.append(token)
     return torch.stack(drafts[:draft_len], dim=1), cache
@@ -81,17 +89,19 @@ def _check(prompt: torch.Tensor, n_tokens: int, draft_len: int,
 
 
 def _verify_loop(params: Params, cfg: TransformerConfig, prompt,
-                 n_tokens: int, draft_len: int, max_seq: int, propose):
+                 n_tokens: int, draft_len: int, max_seq: int, propose,
+                 mesh=None):
     """The lockstep-minimum verify loop both sources share: prefill the
     target, then per iteration ``propose(last, accepted)`` drafts
     [B, draft_len] (``accepted`` is the previous iteration's batch
     acceptance + 1, or None before the first), the target scores
     [last, drafts] in one call, and every row advances by the batch's
-    minimum acceptance + 1.  Returns ([B, Tp + n_tokens], iterations)."""
+    minimum acceptance + 1.  Returns ([B, Tp + n_tokens], iterations).
+    ``mesh`` as :func:`speculative_generate` takes it."""
     b, tp = prompt.shape
-    cache = init_cache(cfg, b, max_seq, device=_device(params))
+    cache = init_cache(cfg, b, max_seq, device=_device(params), mesh=mesh)
     logits, cache = forward_with_cache(params, prompt, cfg, cache,
-                                       first_chunk=True)
+                                       first_chunk=True, mesh=mesh)
     last = logits[:, -1].argmax(dim=-1)
     out = torch.zeros((b, n_tokens + draft_len + 1), dtype=torch.long,
                       device=prompt.device)
@@ -102,7 +112,8 @@ def _verify_loop(params: Params, cfg: TransformerConfig, prompt,
         # target logits at input i give its greedy choice for position
         # i + 1 of the window
         logits, cache = forward_with_cache(
-            params, torch.cat([last[:, None], drafts], dim=1), cfg, cache)
+            params, torch.cat([last[:, None], drafts], dim=1), cfg, cache,
+            mesh=mesh)
         greedy = logits.argmax(dim=-1)
         acc = int((drafts == greedy[:, :-1]).long().cumprod(dim=1)
                   .sum(dim=1).min())
@@ -125,21 +136,23 @@ def _verify_loop(params: Params, cfg: TransformerConfig, prompt,
 def speculative_generate(params: Params, draft_params: Params,
                          prompt: torch.Tensor, cfg: TransformerConfig,
                          draft_cfg: TransformerConfig, n_tokens: int,
-                         draft_len: int = 4, max_seq: int | None = None
-                         ) -> tuple[torch.Tensor, int]:
+                         draft_len: int = 4, max_seq: int | None = None,
+                         mesh=None) -> tuple[torch.Tensor, int]:
     """prompt [B, Tp] -> ([B, Tp + n_tokens] greedy continuation of the
     TARGET model, iterations used).
 
     ``params``/``cfg`` is the target, ``draft_params``/``draft_cfg``
     the proposer (same vocab).  ``iterations`` counts target forwards:
-    with a perfect draft it approaches ``n_tokens / (draft_len + 1)``."""
+    with a perfect draft it approaches ``n_tokens / (draft_len + 1)``.
+    ``mesh``: both params are this rank's blocks under it (module
+    docstring); every rank returns the same tokens and iterations."""
     max_seq = max_seq or cfg.max_seq
     _check(prompt, n_tokens, draft_len, max_seq,
            (cfg.vocab, draft_cfg.vocab))
     d_cache = init_cache(draft_cfg, prompt.shape[0], max_seq,
-                         device=_device(draft_params))
+                         device=_device(draft_params), mesh=mesh)
     _, d_cache = forward_with_cache(draft_params, prompt, draft_cfg,
-                                    d_cache, first_chunk=True)
+                                    d_cache, first_chunk=True, mesh=mesh)
     state = {"cache": d_cache}
 
     def propose(last, emitted):
@@ -150,18 +163,18 @@ def speculative_generate(params: Params, draft_params: Params,
             cache = dataclasses.replace(
                 cache, pos=cache.pos - draft_len - 1 + emitted)
         drafts, state["cache"] = _greedy_draft(draft_params, draft_cfg,
-                                               cache, last, draft_len)
+                                               cache, last, draft_len, mesh)
         return drafts
 
     return _verify_loop(params, cfg, prompt, n_tokens, draft_len, max_seq,
-                        propose)
+                        propose, mesh)
 
 
 @torch.no_grad()
 def ngram_speculative_generate(params: Params, prompt: torch.Tensor,
                                cfg: TransformerConfig, n_tokens: int,
                                draft_len: int = 4,
-                               max_seq: int | None = None
+                               max_seq: int | None = None, mesh=None
                                ) -> tuple[torch.Tensor, int]:
     """Model-free speculative generation: :func:`speculative_generate`
     with the prompt n-gram lookup in place of the draft model (no
@@ -169,7 +182,8 @@ def ngram_speculative_generate(params: Params, prompt: torch.Tensor,
     the prompt).  prompt [B, Tp] -> ([B, Tp + n_tokens] greedy
     continuation of the target, target-forward iterations), equal to
     ``greedy_generate`` whatever the lookup proposes; ``iterations``
-    degrades to ``n_tokens`` at worst (one token a target forward)."""
+    degrades to ``n_tokens`` at worst (one token a target forward).
+    ``mesh`` as :func:`speculative_generate` takes it."""
     max_seq = max_seq or cfg.max_seq
     _check(prompt, n_tokens, draft_len, max_seq)
     b, tp = prompt.shape
@@ -180,7 +194,7 @@ def ngram_speculative_generate(params: Params, prompt: torch.Tensor,
         return ngram_propose_rows(ctx, ctx_len, last, draft_len)
 
     return _verify_loop(params, cfg, prompt, n_tokens, draft_len, max_seq,
-                        propose)
+                        propose, mesh)
 
 
 __all__ = ["ngram_speculative_generate", "speculative_generate"]

@@ -376,14 +376,16 @@ class AdapterPool:
         }
 
 
-def shard_lora_buffers(buffers, mesh) -> tuple:
+def shard_lora_buffers(buffers, mesh, copy: bool = True) -> tuple:
     """This rank's blocks of an :class:`AdapterPool`'s ``buffers`` (the
     decode ``lora[1]`` tree) for decoding under ``mesh``: each leaf cut
     by ``models/layouts.py``'s ``lora_rules`` with the spec shifted one
     dim right for the slot axis, so wq's B ``[S, r, H/tp, K]`` and wo's
     A ``[S, H/tp, K, r]`` hold this rank's heads and wq's A and wo's B
     stay whole.  Fresh contiguous tensors, as ``shard_params`` cuts the
-    weights: a load into the pool after the cut needs a new cut."""
+    weights; with ``copy=False`` views of the buffers instead, through
+    which the pool's in-place loads show (what a serving engine reads:
+    the decode gathers ``[slots]`` rows, which a view serves)."""
     rules = lora_rules(None)
     sizes, coords = mesh.spec.axis_sizes(), mesh.coords
     out = []
@@ -395,7 +397,8 @@ def shard_lora_buffers(buffers, mesh) -> tuple:
             bounds = spec_block(buf.shape, P(None, *spec), sizes, coords)
             for dim, (lo, hi) in enumerate(bounds):
                 buf = buf.narrow(dim, lo, hi - lo)
-            cut.append(buf.clone(memory_format=torch.contiguous_format))
+            cut.append(buf.clone(memory_format=torch.contiguous_format)
+                       if copy else buf)
         out.append(tuple(cut))
     return tuple(out)
 

@@ -22,9 +22,10 @@ tests/test_torch_tp.py holds ``forward``.  f32, 2 layers.
   bit for bit; so do the traces of the paged steps (both reads), the
   int8 KV cache, int8 weights, LoRA rows and an MoE config (recorded on
   the tree before tp carried them).
-- Under tp > 1 pp-staged params and the fused block raise
-  ``NotImplementedError`` naming ROADMAP's item; heads that do not
-  divide by tp are refused in ``shard_params``' words.  What tp decode
+- Under tp > 1 pp-staged params raise ``NotImplementedError`` naming
+  ROADMAP's item; heads that do not divide by tp are refused in
+  ``shard_params``' words.  The fused block runs under a mesh
+  (test_torch_tp_serving.py).  What tp decode
   once refused besides (the int8 KV cache, ``QTensor`` weights, the
   paged path, LoRA, MoE) is held against JAX in
   test_torch_tp_decode_a0.py, test_torch_tp_decode_a0_lora.py,
@@ -298,7 +299,7 @@ def small(**kw):
 
 def refused(fn, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP Queue "
-                                                  f"A, item A0"):
+                                                  f"A, item A3"):
         fn()
 
 
@@ -310,17 +311,6 @@ def test_tp_refuses_moe_and_pp_staged():
     mesh = fake_mesh(tp=2)
     refused(lambda: td.init_cache(small(pp_stages=2), 1, device="cpu",
                                   mesh=mesh), "pp-staged")
-
-
-def test_fused_block_refuses_a_mesh():
-    cfg = small()
-    params = tt.init_params(cfg, device="cpu")
-    cache = td.init_cache(cfg, 1, device="cpu")
-    one = torch.zeros(1, dtype=torch.long)
-    refused(lambda: td.decode_fused_rows(
-        params, one, cfg, cache, one, 2, [torch.Generator()],
-        torch.zeros(1), one + 2, one - 1, mesh=fake_mesh(tp=2)),
-        "fused generation block")
 
 
 def test_tp_refuses_heads_that_do_not_divide_in_shard_params_words():

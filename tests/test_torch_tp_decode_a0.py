@@ -82,6 +82,6 @@ def test_paged_pool_holds_local_heads():
 
 def test_paged_pool_refuses_pp_staged_under_tp():
     with pytest.raises(NotImplementedError, match="pp-staged.*ROADMAP Queue "
-                                                  "A, item A0"):
+                                                  "A, item A3"):
         td.init_paged_pool(small(pp_stages=2), 5, 4, device="cpu",
                            mesh=fake_mesh(tp=2))

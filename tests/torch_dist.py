@@ -1,7 +1,7 @@
 """Spawned gloo process groups for the port's distributed tests
 (test_torch_ring.py, test_torch_parallel.py, test_torch_tp.py,
 test_torch_ep.py, test_torch_pipeline.py, test_torch_tp_decode.py,
-test_torch_tp_decode_a0*.py).
+test_torch_tp_decode_a0*.py, test_torch_tp_serving*.py).
 
 :func:`run_group` starts ``world`` processes (spawn), each standing up
 the default group through the port's ``rendezvous.initialize`` from the
@@ -342,6 +342,231 @@ def tp_decode_worker(rank, world, cases):
                    for k, v in layer.items() if isinstance(v, QTensor)]}
         results.append(out)
     return results
+
+
+def _tp_serving_models(c, mesh):
+    """(cfg, this rank's target blocks, draft keywords) of a serving
+    case: ``params_from_jax`` of its weights, ``quantize_params`` first
+    for int8 weights, ``shard_params`` under ``mesh`` (the whole weights
+    without one); the draft model's blocks likewise."""
+    from k8s_dra_driver_tpu_torch.models import transformer as tt
+    from k8s_dra_driver_tpu_torch.models.convert import params_from_jax
+    from k8s_dra_driver_tpu_torch.models.quant import quantize_params
+    cfg = tt.TransformerConfig(**c["cfg"])
+    whole = params_from_jax(c["weights"]["target"], device="cpu")
+    if "quant" in c["extras"]:
+        whole = quantize_params(whole, cfg)
+    def blocks(tree, cfg_):
+        return tree if mesh is None else tt.shard_params(tree, cfg_, mesh)
+
+    kw = {}
+    if "draft" in c["weights"]:
+        dcfg = tt.TransformerConfig(**c["draft_cfg"])
+        kw.update(draft_cfg=dcfg, draft_params=blocks(
+            params_from_jax(c["weights"]["draft"], device="cpu"), dcfg))
+    return cfg, blocks(whole, cfg), kw
+
+
+def tp_serving_worker(rank, world, cases):
+    """``ServingEngine(..., mesh=)`` on each case's mesh, on this rank's
+    blocks of the case's (JAX) weights (int8 weights by
+    ``shard_params(quantize_params(p))``, a draft model's blocks beside
+    them, an ``AdapterPool`` of the case's adapters whose buffers the
+    engine cuts): the case's requests drained.  Returns each request's
+    stream, the engine's stats and dispatch labels, the KV heads of its
+    cache (or pool) and of its draft cache, and whether it built a
+    ``FusedBlockGraph``."""
+    from k8s_dra_driver_tpu_torch.models.serving import (Request,
+                                                         ServingEngine)
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from k8s_dra_driver_tpu_torch.serving_lora.pool import (
+        AdapterManifest, AdapterPool, make_adapter)
+    from k8s_dra_driver_tpu_torch.utils import dispatch
+    meshes, results = {}, []
+    for c in cases:
+        spec = MeshSpec(**c["spec"])
+        if spec not in meshes:
+            meshes[spec] = make_mesh(spec, device="cpu")
+        mesh = meshes[spec]
+        cfg, params, kw = _tp_serving_models(c, mesh)
+        kw.update(c["engine"])
+        if "lora" in c["extras"]:
+            lo = c["lora"]
+            pool = AdapterPool(cfg, lo["rank"], len(lo["names"]),
+                               device="cpu")
+            for name, seed in zip(lo["names"], lo["seeds"]):
+                pool.register(AdapterManifest(name, lo["rank"],
+                                              source=make_adapter(
+                                                  cfg, lo["rank"], seed,
+                                                  lo["scale"])))
+            kw["adapter_pool"] = pool
+        eng = ServingEngine(params, cfg, slots=c["slots"], device="cpu",
+                            mesh=mesh, **kw)
+        for r in c["requests"]:
+            eng.submit(Request(**r))
+        with dispatch.track() as t:
+            done = eng.run()
+        kv = eng.pool if eng.cache is None else eng.cache
+        results.append(dict(
+            coords=mesh.coords, streams={f.uid: f.tokens for f in done},
+            stats=eng.stats(), by_label=dict(t.by_label),
+            kv_heads=kv.k[0].shape[2],
+            draft_kv_heads=(None if eng._draft_cache is None
+                            else eng._draft_cache.k[0].shape[2]),
+            graphs=eng._graphs is not None))
+    return results
+
+
+def tp_rows_worker(rank, world, cases):
+    """The row functions and entry points a tensor-parallel engine runs,
+    on each case's mesh and this rank's blocks: a fresh fill of the
+    case's prompts into slots (``prefill_adopt_rows``), a prefix-hit
+    fill of a suffix (``suffix_fill_adopt``), a window of forced tokens
+    scored (``decode_window_rows``), greedy and sampled draft proposals
+    (``draft_propose_rows``, ``draft_sample_rows``) and the target's
+    accept-side distributions over the sampled ones, a fused block
+    (``decode_fused_rows``) beside the same steps one at a time
+    (``decode_step_rows`` then ``sample_rows``), a fused speculative
+    block of each source (``decode_spec_fused_rows``), and
+    ``speculative_generate``, ``ngram_speculative_generate`` and
+    ``sample_generate`` (at ``top_k`` 1 and the case's).  Returns the
+    first tokens, the slots' filled K/V of this rank's heads, the window
+    logits, the proposals with their draft and target distributions,
+    the blocks' packed outputs and the entry points' tokens."""
+    from k8s_dra_driver_tpu_torch.models import decode as td
+    from k8s_dra_driver_tpu_torch.models import speculative as tsp
+    from k8s_dra_driver_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    meshes, results = {}, []
+    for c in cases:
+        spec = MeshSpec(**c["spec"])
+        if spec not in meshes:
+            meshes[spec] = make_mesh(spec, device="cpu")
+        mesh = meshes[spec]
+        with torch.no_grad():
+            results.append(_tp_rows(td, tsp, c, mesh))
+    return results
+
+
+def _tp_rows(td, tsp, c, mesh) -> dict:
+    cfg, params, kw = _tp_serving_models(c, mesh)
+    dcfg, draft = kw["draft_cfg"], kw["draft_params"]
+    prompts = torch.from_numpy(c["prompts"]).long()
+    b, t = prompts.shape
+    slots, s = c["slots"], cfg.max_seq
+    out = dict(coords=None if mesh is None else mesh.coords)
+
+    def gens(seed):
+        return [torch.Generator().manual_seed(seed + i) for i in range(b)]
+
+    cache = td.init_cache(cfg, slots, s, device="cpu", mesh=mesh)
+    first, cache = td.prefill_adopt_rows(
+        params, prompts, cfg, cache, c["slot_ids"], [None] * b, [0.0] * b,
+        mesh=mesh)
+    out["fill_first"] = first.numpy()
+    # copies: the prefix-hit fill below writes the same cache in place
+    out["fill_kv"] = [a[:, :t].numpy().copy() for a in cache.k + cache.v]
+    p = c["prefix_len"]
+    entry = td.init_cache(cfg, 1, s, device="cpu", mesh=mesh)
+    _, entry = td.prefill(params, prompts[:1, :p], cfg, entry, mesh=mesh)
+    tok, cache, _ = td.suffix_fill_adopt(
+        params, entry, prompts[0, p:], cfg, cache, c["hit_slot"], None, 0.0,
+        mesh=mesh)
+    out["hit_first"] = int(tok)
+    out["hit_kv"] = [a[c["hit_slot"], :t].numpy()
+                     for a in cache.k + cache.v]
+    pos = torch.full((b,), t)
+    window = torch.from_numpy(c["window"]).long()
+    wcache = td.init_cache(cfg, b, s, device="cpu", mesh=mesh)
+    _, wcache = td.prefill(params, prompts, cfg, wcache, mesh=mesh)
+    logits, _ = td.decode_window_rows(params, window, cfg, wcache, pos,
+                                      mesh=mesh)
+    out["window_logits"] = logits.numpy()
+    last = window[:, 0]
+    dcache = td.init_cache(dcfg, b, s, device="cpu", mesh=mesh)
+    td.prefill(draft, prompts, dcfg, dcache, mesh=mesh)
+    props, _ = td.draft_propose_rows(draft, last, dcfg, dcache, pos,
+                                     c["draft_len"], mesh=mesh)
+    out["draft_greedy"] = props.numpy()
+    temps = torch.tensor(c["temps"], dtype=torch.float32)
+    props, q, _ = td.draft_sample_rows(
+        draft, last, dcfg, dcache, pos, c["draft_len"], gens(7), temps,
+        c["top_k"], mesh=mesh)
+    out["draft_sampled"], out["draft_q"] = props.numpy(), q.numpy()
+    # the target's accept-side distributions over the sampled proposals
+    # (the window overwrites the forced window's rows at the same
+    # offsets)
+    logits, _ = td.decode_window_rows(
+        params, torch.cat([last[:, None], props], dim=1), cfg, wcache, pos,
+        mesh=mesh)
+    out["accept_p"] = td._target_probs(logits, temps, c["top_k"],
+                                       0.0).numpy()
+    out.update(_tp_blocks(td, c, cfg, params, dcfg, draft, prompts, mesh))
+    n = c["n_new"]
+    out["speculative"] = [x if isinstance(x, int) else x.numpy()
+                          for x in tsp.speculative_generate(
+                              params, draft, prompts, cfg, dcfg, n,
+                              draft_len=c["draft_len"], mesh=mesh)]
+    out["ngram"] = [x if isinstance(x, int) else x.numpy()
+                    for x in tsp.ngram_speculative_generate(
+                        params, prompts, cfg, n, draft_len=c["draft_len"],
+                        mesh=mesh)]
+    out["sample_top1"] = td.sample_generate(
+        params, prompts, cfg, n, torch.Generator().manual_seed(5), top_k=1,
+        mesh=mesh).numpy()
+    out["sample"] = td.sample_generate(
+        params, prompts, cfg, n, torch.Generator().manual_seed(5),
+        top_k=c["top_k"], mesh=mesh).numpy()
+    return out
+
+
+def _tp_blocks(td, c, cfg, params, dcfg, draft, prompts, mesh) -> dict:
+    """The fused block against the same steps one at a time, and the
+    fused speculative block of each source, from a fresh prefill of
+    ``prompts`` (greedy rows and the case's sampled ones)."""
+    b, t = prompts.shape
+    k, s = c["block"], cfg.max_seq
+    temps = torch.tensor(c["temps"], dtype=torch.float32)
+    budget = torch.tensor(c["budget"])
+    eos = torch.full((b,), -1)
+    out = {}
+
+    def filled(cfg_, params_):
+        cache = td.init_cache(cfg_, b, s, device="cpu", mesh=mesh)
+        logits, cache = td.prefill(params_, prompts, cfg_, cache, mesh=mesh)
+        return logits[:, -1].argmax(-1), cache
+
+    def gens(seed):
+        return [torch.Generator().manual_seed(seed + i) for i in range(b)]
+
+    last, cache = filled(cfg, params)
+    packed, done, _ = td.decode_fused_rows(
+        params, last, cfg, cache, torch.full((b,), t), k, gens(11), temps,
+        budget, eos, c["top_k"], mesh=mesh)
+    out["fused"], out["fused_done"] = packed.numpy(), int(done)
+    last, cache = filled(cfg, params)
+    g, pos, steps = gens(11), torch.full((b,), t), []
+    for _ in range(k):
+        logits, cache = td.decode_step_rows(params, last[:, None], cfg, cache,
+                                            pos, mesh=mesh)
+        last = td.sample_rows(logits, g, temps, c["top_k"])
+        steps.append(last.numpy())
+        pos = pos + 1
+    out["stepped"] = np.stack(steps, 1)
+    ctx = prompts.int()
+    ctx_len = torch.full((b,), t, dtype=torch.int32)
+    for name, dp in (("spec_ngram", None), ("spec_draft", draft)):
+        last, cache = filled(cfg, params)
+        dcache = None
+        if dp is not None:
+            _, dcache = filled(dcfg, dp)
+        packed, done, _ = td.decode_spec_fused_rows(
+            params, last, cfg, cache, torch.full((b,), t), k, gens(11),
+            temps, budget, eos, ctx, ctx_len, dp,
+            dcfg if dp is not None else None, dcache,
+            gens(21) if dp is not None else None, c["draft_len"], c["top_k"],
+            mesh=mesh)
+        out[name], out[name + "_done"] = packed.numpy(), int(done)
+    return out
 
 
 def mlp_stage(params, x):
